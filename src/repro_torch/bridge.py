@@ -1,0 +1,58 @@
+"""Weight bridge from the JAX package's parameter layout.
+
+``params_from_jax`` takes the tree ``repro.models.model.init_params``
+returns, with its leaves already turned into numpy arrays by the caller
+(the port never imports jax), and builds the port's parameters.  The JAX
+tree stacks the layers for ``lax.scan`` when the block cycle tiles the
+depth: ``params["layers"]`` is then a tuple with one entry per position in
+the cycle, each leaf carrying a leading ``n_cycles`` dimension
+(repro/models/model.py:257-261).  Layer i is entry ``i % cycle`` at index
+``i // cycle``.  Other stacks are a plain list of layers.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+
+
+def _use_scan(cfg: ModelConfig) -> bool:
+    """The JAX package's rule for scan-stacked layers (model.py:218-221)."""
+    return (cfg.n_layers % len(cfg.block_cycle) == 0
+            and cfg.shared_attn_every == 0
+            and not cfg.is_encdec)
+
+
+def params_from_jax(cfg: ModelConfig, tree: Any, device=None,
+                    dtype: torch.dtype = torch.float32) -> M.Params:
+    """JAX parameter tree (numpy leaves) -> the port's parameters on
+    ``device``.  Matrices are stored in ``dtype``, vectors stay f32 (the
+    split ``cast_params`` makes)."""
+    dev = resolve(device)
+    layers = tree["layers"]
+    if _use_scan(cfg):
+        cyc = len(cfg.block_cycle)
+        layers = [M.tree_map(lambda a, i=i: np.asarray(a)[i // cyc],
+                             layers[i % cyc]) for i in range(cfg.n_layers)]
+    elif len(layers) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {len(layers)} layers in the tree, "
+                         f"config has {cfg.n_layers}")
+    tree = dict(tree, layers=list(layers))
+
+    def leaf(a):
+        t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+        return t.to(device=dev, dtype=dtype if t.dim() >= 2 else
+                    torch.float32)
+    params = M.tree_map(leaf, tree)
+    want = M.param_shapes(cfg)
+    got = {k: tuple(v.shape) for k, v in M._flatten(params).items()}
+    if got != want:
+        raise ValueError(f"{cfg.name}: bridged parameters do not match the "
+                         f"port's layout: {sorted(set(got) ^ set(want))} "
+                         "differ in name, or shapes differ")
+    return params

@@ -1,0 +1,72 @@
+"""Wrapper of the CUDA append-mode flash attention (``csrc/flash_append.cu``).
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention_append``.  A
+CUDA tensor launches the kernel (or raises); a CPU tensor takes
+``ref.flash_attention_append_ref``.  The kernel masks its own ragged edges,
+so any chunk length and key-stream length stay on the kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+launches = 0    # kernel launches since the last reset (dispatch.reset_...)
+
+HEAD_DIMS = (64, 128)   # head dims the kernel is instantiated for
+
+
+def flash_attention_append(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, kpos: torch.Tensor, *, pos0: int,
+                           window: Optional[int] = None,
+                           kpos_linear: bool = False) -> torch.Tensor:
+    """q (B,C,Hq,D) at absolute positions pos0 + i; k,v (B,Sk,Hkv,D) the
+    key stream; kpos (B,Sk) int32 (-1 = invalid) -> (B,C,Hq,D) in q's
+    dtype.  ``kpos_linear`` asserts key row index == absolute position
+    wherever valid and enables the dead-tile skip."""
+    what = "flash_attention_append"
+    build.require(q.dim() == 4 and k.dim() == 4, what,
+                  f"want q (B,C,Hq,D) and k (B,Sk,Hkv,D), got "
+                  f"{tuple(q.shape)} / {tuple(k.shape)}")
+    b, c, hq, d = q.shape
+    _, sk, hkv, dk = k.shape
+    build.require(k.shape[0] == b and dk == d and v.shape == k.shape, what,
+                  f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
+                  f"{tuple(q.shape)}")
+    build.require(hq % hkv == 0, what,
+                  f"GQA needs q heads to be a multiple of kv heads, got "
+                  f"{hq}/{hkv}")
+    build.require(tuple(kpos.shape) == (b, sk) and kpos.dtype == torch.int32,
+                  what, f"want kpos (B,Sk) int32, got {tuple(kpos.shape)} "
+                  f"{kpos.dtype}")
+    build.require(q.dtype in build.DTYPE_CODE and k.dtype in build.DTYPE_CODE
+                  and v.dtype == k.dtype, what,
+                  f"dtypes q {q.dtype}, k {k.dtype}, v {v.dtype} (want "
+                  "float32 or bfloat16, k and v alike)")
+    build.require(pos0 >= 0 and (window is None or window > 0), what,
+                  f"pos0={pos0}, window={window}")
+    build.require(len({t.device for t in (q, k, v, kpos)}) == 1, what,
+                  "inputs on different devices")
+    if q.device.type == "cpu":
+        return ref.flash_attention_append_ref(q, k, v, kpos, pos0=pos0,
+                                              window=window)
+    build.require(q.is_cuda, what, f"unsupported device {q.device}")
+    build.require(d in HEAD_DIMS, what, f"head dim {d} not in {HEAD_DIMS}")
+    build.require(all(t.is_contiguous() for t in (q, k, v, kpos)), what,
+                  "inputs must be contiguous")
+    build.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), what,
+                  "q, k and v must start on 16-byte boundaries (the kernel "
+                  "loads 16 bytes at a time)")
+    out = torch.empty_like(q)
+    rc = build.library().rt_flash_append_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
+        out.data_ptr(), b, c, sk, hq, hkv, d, int(pos0),
+        int(window) if window is not None else 0, int(bool(kpos_linear)),
+        build.DTYPE_CODE[q.dtype], build.DTYPE_CODE[k.dtype],
+        build.stream_of(q))
+    build.check(rc, what)
+    global launches
+    launches += 1
+    return out

@@ -1,0 +1,112 @@
+"""Common building blocks: linears, embeddings, norms, rotary embeddings.
+
+Counterpart of ``repro/models/common.py``.  Parameters are plain nested
+dicts of tensors (the JAX pytree layout); every op is a function on
+tensors.  Matrix products stay ``torch.matmul`` (XLA's job in the JAX
+package); RMSNorm goes through the kernel dispatch.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import dispatch
+
+Params = dict
+
+
+def trunc_normal(shape, stddev: float, generator: torch.Generator,
+                 device, dtype=torch.float32) -> torch.Tensor:
+    """stddev * N(0, 1) truncated to [-2, 2], as ``common.trunc_normal``.
+    Drawn in f32 and cast."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.mul_(stddev).to(dtype)
+
+
+def linear_std(d_in: int) -> float:
+    """Default stddev of ``init_linear`` weights."""
+    return 1.0 / math.sqrt(d_in)
+
+
+def linear(p: Params, x: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    w = p["w"].to(dtype) if dtype is not None else p["w"]
+    y = x @ w
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"][ids.long()]
+
+
+def rmsnorm(p: Params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """Through the dispatch: the CUDA kernel on the card, the plain version
+    on the CPU."""
+    return dispatch.rmsnorm(x, p["scale"], eps=eps)
+
+
+def layernorm(p: Params, x: torch.Tensor, *,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y.to(x.dtype)
+
+
+def apply_norm(kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(p, x)
+    if kind == "layernorm":
+        return layernorm(p, x)
+    raise ValueError(f"unknown norm {kind}")
+
+
+def norm_shapes(kind: str, d: int) -> dict:
+    if kind == "rmsnorm":
+        return {"scale": (d,)}
+    if kind == "layernorm":
+        return {"scale": (d,), "bias": (d,)}
+    raise ValueError(f"unknown norm {kind}")
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies, shape (head_dim // 2,)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions (...,) int -> cos, sin of shape (..., head_dim // 2)."""
+    inv = rope_freqs(head_dim, theta, positions.device)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *,
+               rotary_dim: Optional[int] = None) -> torch.Tensor:
+    """x (B, S, H, D); cos/sin (B, S, D'/2) broadcast over heads.
+    ``rotary_dim`` < D rotates only the first rotary_dim features
+    (StableLM-2's partial rotary)."""
+    d = x.shape[-1]
+    rd = rotary_dim if rotary_dim is not None else d
+    xr, xp = x[..., :rd], x[..., rd:]
+    x1, x2 = xr[..., : rd // 2], xr[..., rd // 2:]
+    cos = cos[..., None, : rd // 2]
+    sin = sin[..., None, : rd // 2]
+    y = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if rd < d:
+        y = torch.cat([y, xp.to(y.dtype)], dim=-1)
+    return y.to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+ACTIVATIONS = {"silu": silu}

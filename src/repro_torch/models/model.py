@@ -1,0 +1,269 @@
+"""Config-driven backbone assembly for the serving path.
+
+Counterpart of ``repro/models/model.py`` for decoder stacks of ``attn`` and
+``attn_local`` blocks with a gated MLP (the dense families: yi-6b,
+stablelm-1.6b, qwen2-72b, minicpm-2b):
+
+  init_params(cfg, seed, device)               -> params (nested dicts)
+  init_cache(cfg, batch, cache_len, ...)       -> cache
+  decode_step(cfg, params, cache, batch, pos)  -> ({"logits", "value"}, cache)
+  prefill_step(cfg, params, cache, batch, pos0, true_len)
+
+Layers are a Python list walked in a loop (the JAX package stacks them for
+``lax.scan``; ``repro_torch.bridge`` unstacks its parameters).  Parameters
+are cast to the compute dtype ONCE (``cast_params``) by whoever builds them
+for serving; the JAX steps cast inside every call, which in eager PyTorch
+would copy every weight each step.  MoE, SSM, xLSTM, enc-dec and M-RoPE
+models are later slices and raise.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.device import resolve
+from repro_torch.models import attention as attn
+from repro_torch.models import common as cm
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.config import ModelConfig
+
+Params = Any
+_BLOCKS_ITEM = "see ROADMAP.md, queue 1, slice 5: the other block kinds"
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    kinds = set(cfg.layer_kinds())
+    why = None
+    if cfg.is_encdec:
+        why = "encoder-decoder models"
+    elif cfg.shared_attn_every:
+        why = "shared attention blocks (zamba2)"
+    elif cfg.mrope_sections is not None:
+        why = "M-RoPE (qwen2-vl)"
+    elif cfg.n_experts:
+        why = "MoE blocks"
+    elif not kinds <= {"attn", "attn_local"}:
+        why = f"block kinds {sorted(kinds - {'attn', 'attn_local'})}"
+    elif not cfg.d_ff:
+        why = "blocks without a gated MLP"
+    if why is not None:
+        raise NotImplementedError(f"{cfg.name}: {why} are not ported yet "
+                                  f"({_BLOCKS_ITEM})")
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        key = f"{prefix}{k}"
+        if isinstance(v, (dict, list)):
+            out.update(_flatten(v, key + "."))
+        else:
+            out[key] = v
+    return out
+
+
+def tree_map(fn, tree):
+    """fn on every leaf of nested dicts, lists and tuples (tuples come back
+    as lists, the port's layer layout)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _shape_tree(cfg: ModelConfig) -> dict:
+    """Nested dicts of shape tuples, the layout of ``init_params``."""
+    _check_supported(cfg)
+    d = cfg.d_model
+    layer = {
+        "ln1": cm.norm_shapes(cfg.norm, d),
+        "attn": attn.attention_shapes(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                      qkv_bias=cfg.qkv_bias),
+        "ln2": cm.norm_shapes(cfg.norm, d),
+        "mlp": mlp_mod.gated_mlp_shapes(d, cfg.d_ff),
+    }
+    tree = {"embed": {"table": (cfg.vocab_size, d)},
+            "final_norm": cm.norm_shapes(cfg.norm, d)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"w": (d, cfg.vocab_size)}
+    if cfg.value_head:
+        tree["value_head"] = {"w": (d, 1)}
+    tree["layers"] = [layer] * cfg.n_layers     # shared, never mutated
+    return tree
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Flat {"layers.3.attn.wq.w": shape, ...} of every parameter."""
+    return _flatten(_shape_tree(cfg))
+
+
+def _init_leaf(path: str, shape: tuple, gen: torch.Generator, device,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The distributions of ``repro/models/common.py``: embeddings
+    N(0, 0.02^2) and linears N(0, 1/d_in) truncated at 2 sigma, biases
+    zero, norm scales one, norm biases zero.  Matrices are drawn in f32 and
+    stored in ``dtype``; vectors stay f32."""
+    name = path.rsplit(".", 1)[-1]
+    if len(shape) >= 2:
+        std = 0.02 if name == "table" else cm.linear_std(shape[0])
+        return cm.trunc_normal(shape, std, gen, device, dtype)
+    fill = 1.0 if name == "scale" else 0.0
+    return torch.full(shape, fill, dtype=torch.float32, device=device)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                dtype: torch.dtype = torch.float32) -> Params:
+    """Random parameters from ``seed`` with the JAX package's distributions
+    and layout (layers unstacked).  ``dtype`` is the storage type of the
+    matrices (pass the compute dtype to build serving weights directly on
+    the card); 1-D parameters stay f32.  The draws differ from
+    ``jax.random``'s: parity tests bridge the JAX parameters instead."""
+    dev = resolve(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    flat = {path: _init_leaf(path, shape, gen, dev, dtype)
+            for path, shape in param_shapes(cfg).items()}
+    return unflatten(flat)
+
+
+def unflatten(flat: Dict[str, Any]) -> Params:
+    """Inverse of the flat-path layout: "layers.3.x" keys become list
+    entries."""
+    root: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        parts = path.split(".")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return listify(root)
+
+
+def cast_params(cfg: ModelConfig, params: Params) -> Params:
+    """Matrices to the compute dtype; vectors (norm scales, biases) stay
+    f32.  Run once when serving weights are built."""
+    dt = compute_dtype(cfg)
+    return tree_map(lambda x: x.to(dt) if x.dim() >= 2 and
+                     x.dtype == torch.float32 else x, params)
+
+
+# ---------------------------------------------------------------------------
+# cache
+# ---------------------------------------------------------------------------
+
+def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
+    return cfg.sliding_window if kind == "attn_local" else None
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    """One contiguous KV cache of ``dtype`` per layer (the JAX package's
+    ``kv_dtype``: the port has no recurrent state to keep apart).
+    Sliding-window layers keep a ring of min(cache_len, window) rows."""
+    _check_supported(cfg)
+    dev = resolve(device)
+    layers: List[dict] = []
+    for kind in cfg.layer_kinds():
+        clen = cache_len
+        if kind == "attn_local":
+            clen = min(cache_len, cfg.sliding_window or cache_len)
+        layers.append(attn.init_kv_cache(batch, clen, cfg.n_kv_heads,
+                                         cfg.hd, dtype, dev))
+    return {"layers": layers}
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
+
+def supports_chunked_prefill(cfg: ModelConfig) -> bool:
+    """Chunked prefill block-writes KV caches; recurrent states need their
+    own scans (and are not ported)."""
+    return (not cfg.is_encdec
+            and not cfg.shared_attn_every
+            and all(k in ("attn", "attn_local") for k in cfg.layer_kinds()))
+
+
+def _embed_inputs(cfg: ModelConfig, params: Params,
+                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    if "embeds" in batch:
+        x = batch["embeds"]
+    else:
+        x = cm.embed(params["embed"], batch["tokens"])
+    return x.to(compute_dtype(cfg))
+
+
+def _mlp_half(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = cm.apply_norm(cfg.norm, p["ln2"], x)
+    return x + mlp_mod.gated_mlp(p["mlp"], y, act=cfg.act)
+
+
+def _heads(cfg: ModelConfig, params: Params, x: torch.Tensor) -> dict:
+    x = cm.apply_norm(cfg.norm, params["final_norm"], x)
+    out = {}
+    if cfg.tie_embeddings:
+        out["logits"] = x @ params["embed"]["table"].T.to(x.dtype)
+    else:
+        out["logits"] = cm.linear(params["lm_head"], x, dtype=x.dtype)
+    if cfg.value_head:
+        out["value"] = cm.linear(params["value_head"], x)[..., 0].float()
+    return out
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: dict,
+                batch: Dict[str, torch.Tensor], pos: torch.Tensor):
+    """One-token decode.  batch {"tokens": (B, 1)}; pos the current absolute
+    position, a lockstep scalar or per slot (B,).  ``params`` already cast
+    (``cast_params``).  Writes the caches in place; returns (out, cache)."""
+    _check_supported(cfg)
+    x = _embed_inputs(cfg, params, batch)
+    for kind, p, c in zip(cfg.layer_kinds(), params["layers"],
+                          cache["layers"]):
+        h, _ = attn.attend_decode(
+            p["attn"], cm.apply_norm(cfg.norm, p["ln1"], x), c, pos, cfg,
+            window=_window(cfg, kind))
+        x = _mlp_half(cfg, p, x + h)
+    return _heads(cfg, params, x), cache
+
+
+def prefill_step(cfg: ModelConfig, params: Params, cache: dict,
+                 batch: Dict[str, torch.Tensor], pos0: int = 0,
+                 true_len: Optional[torch.Tensor] = None):
+    """Prefill one prompt chunk: batch {"tokens": (B, C)} covering absolute
+    positions [pos0, pos0 + C).  Every attention layer writes its cache
+    rows and runs one append-attention call.  Returns (out {"logits"
+    (B, C, V), "value" (B, C)}, cache); callers gather each row's last
+    prompt position (prompts are right-padded; ``true_len`` (B,) masks
+    ring writes past each row's real length)."""
+    if not supports_chunked_prefill(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: chunked prefill needs attention-only caches")
+    _check_supported(cfg)
+    x = _embed_inputs(cfg, params, batch)
+    for kind, p, c in zip(cfg.layer_kinds(), params["layers"],
+                          cache["layers"]):
+        h, _ = attn.attend_prefill(
+            p["attn"], cm.apply_norm(cfg.norm, p["ln1"], x), c, pos0, cfg,
+            window=_window(cfg, kind), true_len=true_len)
+        x = _mlp_half(cfg, p, x + h)
+    return _heads(cfg, params, x), cache

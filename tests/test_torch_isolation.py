@@ -1,0 +1,92 @@
+"""The port stands alone: no jax, nothing of ``repro``, no silent CPU.
+
+Every module of ``repro_torch`` imports in a fresh interpreter where
+``import jax`` fails, and leaves no ``repro`` module loaded; no source of
+the port (nor ``chip_smoke.py``) names jax or ``repro`` in an import.  An
+entry point called without ``device`` on a machine with no CUDA device
+raises and names ``device='cpu'``, and ``chip_smoke.py`` exits non-zero
+with no result there, or when run away from the repository.
+"""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro.")
+                or m == "jax" and sys.modules[m] is not None)
+print(len(names), leaked)
+"""
+
+
+def test_every_module_imports_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, leaked = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20 and leaked == "[]", out.stdout
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")] +
+    ["chip_smoke.py"]))
+def test_no_jax_or_repro_import(path):
+    roots = set(_imported_roots(ROOT / path))
+    assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("yi-6b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.init_cache(cfg, 1, 8)
+    params = M.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.ServeEngine(cfg, params, n_slots=1, cache_len=8)
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout

@@ -1,0 +1,206 @@
+"""The port's model layer against the JAX package on the CPU.
+
+Reduced configs with the JAX package's own parameters, moved over by
+``repro_torch.bridge``: chunked prefill and then per-slot and lockstep
+decode steps give the same logits, values and caches to 2e-4 (f32 on both
+sides; XLA and PyTorch sum in different orders).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jax_configs  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch import configs as torch_configs  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), **TOL)
+
+
+def _pair(arch, **changes):
+    cj = jax_configs.get_config(arch).reduced()
+    ct = torch_configs.get_config(arch).reduced()
+    if changes:
+        cj = dataclasses.replace(cj, **changes)
+        ct = dataclasses.replace(ct, **changes)
+    return cj, ct
+
+
+def _bridged(cj, ct, seed=0):
+    pj = JM.init_params(cj, jax.random.key(seed))
+    pt = bridge.params_from_jax(ct, jax.tree.map(np.asarray, pj),
+                                device="cpu")
+    return pj, pt
+
+
+def _jax_cache_layer(cache, i, cfg):
+    """Layer i of a (possibly scan-stacked) JAX cache as numpy k, v."""
+    layers = cache["layers"]
+    if isinstance(layers, tuple):
+        cyc = len(cfg.block_cycle)
+        leaf = layers[i % cyc]
+        return (np.asarray(leaf["k"][i // cyc]),
+                np.asarray(leaf["v"][i // cyc]))
+    return np.asarray(layers[i]["k"]), np.asarray(layers[i]["v"])
+
+
+# ---------------------------------------------------------------------------
+# configs and parameters
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", jax_configs.ARCH_IDS)
+def test_configs_equal_field_for_field(arch):
+    cj, ct = jax_configs.get_config(arch), torch_configs.get_config(arch)
+    assert dataclasses.asdict(ct) == dataclasses.asdict(cj)
+    assert dataclasses.asdict(ct.reduced()) == dataclasses.asdict(
+        cj.reduced())
+    assert ct.hd == cj.hd and ct.layer_kinds() == cj.layer_kinds()
+
+
+@pytest.mark.parametrize("arch,reduced", [("yi-6b", False),
+                                          ("stablelm-1.6b", False),
+                                          ("minicpm-2b", True),
+                                          ("qwen2-72b", True)])
+def test_param_count_matches_jax(arch, reduced):
+    cj, ct = jax_configs.get_config(arch), torch_configs.get_config(arch)
+    if reduced:
+        cj, ct = cj.reduced(), ct.reduced()
+    assert ct.param_count() == cj.param_count()
+
+
+def test_yi6b_is_six_billion():
+    assert torch_configs.get_config("yi-6b").param_count() == 6_061_039_616
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "granite-moe-1b-a400m",
+                                  "whisper-base", "zamba2-1.2b",
+                                  "qwen2-vl-72b"])
+def test_unported_blocks_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TM.param_shapes(torch_configs.get_config(arch).reduced())
+
+
+def test_init_params_layout_and_distributions():
+    """The port's own init: the JAX layout (bridged shapes) and the JAX
+    distributions (truncated normals of the same spread)."""
+    cj, ct = _pair("yi-6b")
+    pj, _ = _bridged(cj, ct)
+    pt = TM.init_params(ct, seed=0, device="cpu")
+    flat_t = TM._flatten(pt)
+    assert {k: tuple(v.shape) for k, v in flat_t.items()} == \
+        TM.param_shapes(ct)
+    flat_j = TM._flatten(bridge.params_from_jax(
+        ct, jax.tree.map(np.asarray, pj), device="cpu"))
+    for name in ("embed.table", "layers.0.attn.wq.w", "layers.1.mlp.down.w",
+                 "lm_head.w"):
+        sj, st = float(flat_j[name].std()), float(flat_t[name].std())
+        assert abs(st - sj) < 0.05 * sj, (name, st, sj)
+        # truncated at two nominal standard deviations, as jax's draw
+        nominal = 0.02 if name == "embed.table" else \
+            flat_t[name].shape[0] ** -0.5
+        assert float(flat_t[name].abs().max()) <= 2.0 * nominal * (1 + 1e-6)
+    assert torch.equal(flat_t["layers.0.ln1.scale"], torch.ones(ct.d_model))
+    cast = TM.cast_params(dataclasses.replace(ct, dtype="bfloat16"), pt)
+    flat_c = TM._flatten(cast)
+    assert flat_c["layers.0.attn.wq.w"].dtype == torch.bfloat16
+    assert flat_c["layers.0.ln1.scale"].dtype == torch.float32
+
+
+def test_bridge_rejects_a_mismatched_tree():
+    cj, ct = _pair("yi-6b")
+    pj = JM.init_params(cj, jax.random.key(0))
+    tree = jax.tree.map(np.asarray, pj)
+    other = dataclasses.replace(ct, d_ff=ct.d_ff * 2)
+    with pytest.raises(ValueError, match="layout"):
+        bridge.params_from_jax(other, tree, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# prefill + decode parity
+# ---------------------------------------------------------------------------
+
+_CASES = {
+    "yi-6b": ("yi-6b", {}),                     # RMSNorm, GQA
+    "stablelm-1.6b": ("stablelm-1.6b", {}),     # LayerNorm, partial rotary
+    "qwen2-72b": ("qwen2-72b", {}),             # qkv bias
+    "yi-6b-ring": ("yi-6b", dict(block_cycle=("attn_local",),
+                                 sliding_window=8)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_prefill_then_decode_matches_jax(case):
+    arch, changes = _CASES[case]
+    cj, ct = _pair(arch, **changes)
+    pj, pt = _bridged(cj, ct)
+    b, cache_len = 2, 32
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cj.vocab_size, (b, 24)).astype(np.int32)
+    true_len = np.array([24, 20], np.int32)
+
+    cache_j = JM.init_cache(cj, b, cache_len, dtype=jnp.float32)
+    cache_t = TM.init_cache(ct, b, cache_len, dtype=torch.float32,
+                            device="cpu")
+    jprefill = jax.jit(lambda p, c, t, tl, pos0: JM.prefill_step(
+        cj, p, c, {"tokens": t}, pos0, tl), static_argnums=(4,))
+    for p0, c in ((0, 16), (16, 8)):
+        oj, cache_j = jprefill(pj, cache_j, jnp.asarray(toks[:, p0:p0 + c]),
+                               jnp.asarray(true_len), p0)
+        ot, cache_t = TM.prefill_step(
+            ct, pt, cache_t, {"tokens": torch.from_numpy(toks[:, p0:p0 + c])},
+            p0, torch.from_numpy(true_len))
+        _close(ot["logits"], oj["logits"])
+        _close(ot["value"], oj["value"])
+
+    jdecode = jax.jit(lambda p, c, t, pos: JM.decode_step(
+        cj, p, c, {"tokens": t}, pos))
+    # per-slot: row 1 continues at its true length 20, below row 0's 24
+    pos = np.array([24, 20], np.int32)
+    for step in range(3):
+        nxt = rng.integers(0, cj.vocab_size, (b, 1)).astype(np.int32)
+        oj, cache_j = jdecode(pj, cache_j, jnp.asarray(nxt),
+                              jnp.asarray(pos))
+        ot, cache_t = TM.decode_step(ct, pt, cache_t,
+                                     {"tokens": torch.from_numpy(nxt)},
+                                     torch.from_numpy(pos))
+        _close(ot["logits"], oj["logits"])
+        _close(ot["value"], oj["value"])
+        pos = pos + 1
+    # lockstep: one scalar position for every row
+    nxt = rng.integers(0, cj.vocab_size, (b, 1)).astype(np.int32)
+    oj, cache_j = jdecode(pj, cache_j, jnp.asarray(nxt), jnp.asarray(27))
+    ot, cache_t = TM.decode_step(ct, pt, cache_t,
+                                 {"tokens": torch.from_numpy(nxt)},
+                                 torch.tensor(27))
+    _close(ot["logits"], oj["logits"])
+    for i in range(ct.n_layers):
+        kj, vj = _jax_cache_layer(cache_j, i, cj)
+        _close(cache_t["layers"][i]["k"], kj)
+        _close(cache_t["layers"][i]["v"], vj)
+
+
+def test_prefill_overflow_raises():
+    _, ct = _pair("yi-6b")
+    pt = TM.init_params(ct, seed=0, device="cpu")
+    cache = TM.init_cache(ct, 1, 8, dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="overflows"):
+        TM.prefill_step(ct, pt, cache,
+                        {"tokens": torch.zeros(1, 16, dtype=torch.long)}, 0)
+
+
+def test_init_cache_rejects_int8():
+    _, ct = _pair("yi-6b")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TM.init_cache(ct, 1, 8, dtype=torch.int8, device="cpu")
