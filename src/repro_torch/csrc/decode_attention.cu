@@ -7,10 +7,10 @@
 //   output is acc / max(l, 1e-30), so a slot with no valid key (an idle
 //   engine slot) gets the finite mean of v, as ref.decode_attention_ref.
 //
-// Bound on the H100: memory.  Every step streams the whole cache once, so
-// the least time is 2 * B * L * Hkv * D * kv_bytes / 3.35 TB/s; the
-// arithmetic (2 * Hq * D operations per cached row) is far below the
-// bf16 ridge.
+// Bound on the H100: memory.  A slot needs K and V of its valid cache rows
+// only, so the least time is 2 * (valid rows) * Hkv * D * kv_bytes /
+// 3.35 TB/s; the arithmetic (2 * Hq * D operations per valid row) is far
+// below the bf16 ridge.  This kernel walks every cache row, valid or not.
 //
 // Design: the TPU grid (batch, kv head, key block) becomes one block per
 // (kv head, batch row) that loops over key tiles itself.  The block loads

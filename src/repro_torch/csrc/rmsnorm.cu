@@ -7,9 +7,10 @@
 // handful of operations per element, so the least time is
 // rows * d * (in + out bytes) / 3.35 TB/s.
 //
-// Design: one block of 256 threads per row.  When the row is 16-byte
-// aligned, each thread moves 16 bytes per load and store (8 bf16 or 4 f32
-// values); otherwise it falls back to one element at a time.  The sum of
+// Design: one block of 256 threads per row; each thread moves 16 bytes per
+// load and store (8 bf16 or 4 f32 values), so rows must be whole 16-byte
+// chunks on 16-byte boundaries (every d_model the port runs is a multiple of
+// 8, and activations are fresh contiguous allocations).  The sum of
 // squares is reduced in f32 through warp shuffles and a 32-entry shared
 // array; the second pass re-reads the row, which the first pass has just
 // brought into L1/L2, so device memory still sees one read per element.
@@ -39,68 +40,57 @@ __device__ __forceinline__ float block_sum(float v) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                   T* __restrict__ y, int d, float eps, bool vec_ok) {
+                   T* __restrict__ y, int d, float eps) {
   constexpr int kVec = 16 / sizeof(T);
   const long long row = blockIdx.x;
   const T* xr = x + row * d;
   T* yr = y + row * d;
 
+  const uint4* xv = reinterpret_cast<const uint4*>(xr);
+  uint4* yv = reinterpret_cast<uint4*>(yr);
   float ss = 0.f;
-  if (vec_ok) {
-    const uint4* xv = reinterpret_cast<const uint4*>(xr);
-    for (int i = threadIdx.x; i < d / kVec; i += blockDim.x) {
-      uint4 u = xv[i];
-      const T* e = reinterpret_cast<const T*>(&u);
+  for (int i = threadIdx.x; i < d / kVec; i += blockDim.x) {
+    uint4 u = xv[i];
+    const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
-      for (int t = 0; t < kVec; ++t) {
-        float f = rt::to_f32(e[t]);
-        ss += f * f;
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      float f = rt::to_f32(xr[i]);
+    for (int t = 0; t < kVec; ++t) {
+      float f = rt::to_f32(e[t]);
       ss += f * f;
     }
   }
   // mean over the real width, as the TPU kernel's d_real
   const float rstd = rsqrtf(block_sum(ss) / (float)d + eps);
 
-  if (vec_ok) {
-    const uint4* xv = reinterpret_cast<const uint4*>(xr);
-    uint4* yv = reinterpret_cast<uint4*>(yr);
-    for (int i = threadIdx.x; i < d / kVec; i += blockDim.x) {
-      uint4 u = xv[i];
-      uint4 o;
-      const T* e = reinterpret_cast<const T*>(&u);
-      T* oe = reinterpret_cast<T*>(&o);
+  for (int i = threadIdx.x; i < d / kVec; i += blockDim.x) {
+    uint4 u = xv[i];
+    uint4 o;
+    const T* e = reinterpret_cast<const T*>(&u);
+    T* oe = reinterpret_cast<T*>(&o);
 #pragma unroll
-      for (int t = 0; t < kVec; ++t)
-        oe[t] = rt::from_f32<T>(rt::to_f32(e[t]) * rstd * scale[i * kVec + t]);
-      yv[i] = o;
-    }
-  } else {
-    for (int i = threadIdx.x; i < d; i += blockDim.x)
-      yr[i] = rt::from_f32<T>(rt::to_f32(xr[i]) * rstd * scale[i]);
+    for (int t = 0; t < kVec; ++t)
+      oe[t] = rt::from_f32<T>(rt::to_f32(e[t]) * rstd * scale[i * kVec + t]);
+    yv[i] = o;
   }
 }
 
 template <typename T>
-void launch(const void* x, const void* scale, void* y, long long rows, int d,
-            float eps, cudaStream_t stream) {
+int launch(const void* x, const void* scale, void* y, long long rows, int d,
+           float eps, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
-  const bool vec_ok = d % kVec == 0 &&
-                      (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
-                      (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+  if (d % kVec != 0 || (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(y) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
   rmsnorm_kernel<T><<<(unsigned)rows, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(scale),
-      static_cast<T*>(y), d, eps, vec_ok);
+      static_cast<T*>(y), d, eps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x (rows, d) f32 or bf16, scale (d,) f32, y (rows, d) x's dtype; all
-// contiguous.  Returns the CUDA error code of the launch (0 = success).
+// contiguous, x and y 16-byte aligned, d a multiple of 16 / sizeof(x).
+// Returns the CUDA error code of the launch (0 = success).
 extern "C" int rt_rmsnorm_fwd(const void* x, const void* scale, void* y,
                               long long rows, int d, float eps, int dtype,
                               void* stream) {
@@ -109,13 +99,9 @@ extern "C" int rt_rmsnorm_fwd(const void* x, const void* scale, void* y,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case rt::kF32:
-      launch<float>(x, scale, y, rows, d, eps, s);
-      break;
+      return launch<float>(x, scale, y, rows, d, eps, s);
     case rt::kBF16:
-      launch<__nv_bfloat16>(x, scale, y, rows, d, eps, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+      return launch<__nv_bfloat16>(x, scale, y, rows, d, eps, s);
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

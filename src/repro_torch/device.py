@@ -16,8 +16,4 @@ def resolve(device=None) -> torch.device:
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch path on the CPU")
-        # matrix products in full f32 where f32 is asked for; the bf16
-        # weights on the serving path are unaffected
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     return dev
