@@ -6,29 +6,44 @@
 Phases (any failure raises and the script exits non-zero):
 
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
-  3. hold each kernel to its plain PyTorch version on the card, at the
-     serving shapes of Yi-6B and at edge cases (ragged per-slot pos, pos 0,
-     a fully masked row, pos0 in {0, 512}, a sliding window, a ring layout,
-     ragged tiles, f32 and bf16): f32 within rtol = atol = 1e-5, bf16
-     within two bf16 ulps (rtol = 2**-6) and atol = 1e-5; the rmsnorm
-     wrapper must refuse rows it cannot move in 16-byte chunks;
+  2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+     source, all started together, sm_90a);
+  3. hold each kernel to its plain PyTorch version on the card: the
+     serving kernels at the serving shapes of Yi-6B and at edge cases
+     (ragged per-slot pos, pos 0, a fully masked row, pos0 in {0, 512}, a
+     sliding window, a ring layout, ragged tiles), the training kernels at
+     the train shape (B = 4, S = 1024, 32 q heads over 4 kv heads, D = 128,
+     x (4096, 4096), a 45M-element leaf) and at edge cases (f32, a window,
+     causal=False, a ragged S, G = 1, ragged row and element counts).
+     f32 within rtol = atol = 1e-5; bf16 within two bf16 ulps
+     (rtol = 2**-6) and atol = 1e-5; sums over rows or keys (dscale, dq,
+     dk, dv) with an added atol of 2**-14 times the same sum taken over
+     absolute values (the f32 summation-order bound, see _grad_compare);
+     the rmsnorm wrapper must refuse rows it cannot move in 16-byte chunks;
   4. time each kernel, its plain version and the nearest single PyTorch
-     call with CUDA events (median, L2 flushed before each call) beside the
-     least time the card could take for the same work;
+     call (none for rmsprop) with CUDA events (median, L2 flushed before
+     each call) beside the least time the card could take for the work;
   5. the port's model on a small input on the card against the same model
      on the CPU, then ``run_engine`` on Yi-6B at full width and depth (bf16
      weights from a seed, bf16 KV, 4 slots, cache 1024, chunk 128, 8 greedy
      requests): every request completes, all logits are finite and every
-     kernel was launched on that run;
+     serving kernel was launched on that run;
   6. a torch.profiler trace of one admission and of eight decode steps of
-     that engine: wall time, device busy share and the top kernels.
+     that engine: wall time, device busy share and the top kernels;
+  7. three train steps of reduced Yi-6B in f32 on the card against the
+     same steps on the CPU (losses to rtol 1e-4, parameters to 1e-5);
+  8. Yi-6B at full width cut to 16 of 32 layers (f32 masters, bf16
+     compute, remat, shared RMSProp, TokenPipeline batch 4 x 1024): one
+     warm-up step, three timed steps and one profiled step; every loss and
+     gradient finite, every parameter leaf changed and every training
+     kernel launched.
 
-The line before the last is a JSON object with one record per kernel; the
-last line is {"ok": true, "device": {...}}.  Without a CUDA device the
-script exits non-zero and prints no result.
+The last three lines are the card's name and power limit (nvidia-smi), a
+JSON object with one record per kernel and {"ok": true, "device": {...}}.
+Without a CUDA device the script exits non-zero and prints no result.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -45,6 +60,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # small atol keeps near-zero attention outputs held as tightly.
 F32_TOL = (1e-5, 1e-5)
 BF16_TOL = (2.0 ** -6, 1e-5)
+# An output that is a long f32 sum (dscale over 4096 rows; dq, dk, dv over
+# up to 1024 keys or 8 heads x 1024 queries, each term itself a product of
+# sums over D = 128) is summed in another order by the kernel than by its
+# plain version.  The rounding error of such a nested sum is bounded by
+# about (depth of the sums) * u * (the same sums over absolute values),
+# u = 2**-24 the f32 unit roundoff; 2**-14 = 1024 u covers the depth with
+# room to spare and is still 100x below a bf16 ulp of that magnitude.
+SUM_ABS_TOL = 2.0 ** -14
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 TRIALS = 25
@@ -55,9 +78,12 @@ def _tol(dtype):
     return F32_TOL if dtype == torch.float32 else BF16_TOL
 
 
-def _compare(what, got, want):
+def _compare(what, got, want, sum_abs=None):
     """Max abs error of got vs want; raises where any element is beyond
-    atol + rtol * |want| for the output's dtype."""
+    atol + rtol * |want| for the output's dtype.  ``sum_abs``, for an
+    output that is a sum (over rows, keys or heads), is the same sum taken
+    over the absolute values of its terms: SUM_ABS_TOL * sum_abs is added
+    to each element's tolerance (see SUM_ABS_TOL)."""
     import torch
     rtol, atol = _tol(want.dtype)
     got, want = got.float(), want.float()
@@ -65,12 +91,16 @@ def _compare(what, got, want):
         raise AssertionError(f"{what}: non-finite kernel output")
     diff = (got - want).abs()
     err = float(diff.max())
+    tol = atol + rtol * want.abs()
+    if sum_abs is not None:
+        tol = tol + SUM_ABS_TOL * sum_abs.float()
     # worst element's share of its own tolerance (<= 1 passes)
-    use = float((diff / (atol + rtol * want.abs())).max())
+    use = float((diff / tol).max())
     ok = use <= 1.0
     rms = float(want.square().mean().sqrt())
-    print(f"check {what}: max_abs_err={err:.3e} rtol={rtol:g} atol={atol:g} "
-          f"worst_err/tol={use:.3f} rms_want={rms:.3e} "
+    extra = f" +{SUM_ABS_TOL:g}*sum|terms|" if sum_abs is not None else ""
+    print(f"check {what}: max_abs_err={err:.3e} rtol={rtol:g} atol={atol:g}"
+          f"{extra} worst_err/tol={use:.3f} rms_want={rms:.3e} "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{what}: error {use:.3f}x its tolerance "
@@ -121,6 +151,18 @@ def check_rmsnorm(gen, flush):
         errs.append(_compare(f"rmsnorm rows={rows} d={d} {dt}",
                              rmsnorm_cuda.rmsnorm_fwd(x, scale),
                              ref.rmsnorm_ref(x, scale)))
+    # the rstd output of the training forward: train shape, f32, ragged
+    for rows, d, dt in ((4096, 4096, torch.bfloat16),
+                        (4096, 4096, torch.float32),
+                        (4099, 4096, torch.bfloat16), (7, 104, torch.float32)):
+        x = _randn((rows, d), gen, dt)
+        scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
+        y, rstd = rmsnorm_cuda.rmsnorm_fwd(x, scale, save_residuals=True)
+        want_y, want_rstd = ref.rmsnorm_ref(x, scale, save_residuals=True)
+        errs.append(_compare(f"rmsnorm+rstd rows={rows} d={d} {dt} y", y,
+                             want_y))
+        errs.append(_compare(f"rmsnorm+rstd rows={rows} d={d} {dt} rstd",
+                             rstd, want_rstd))
     # rows that are not whole 16-byte chunks on 16-byte boundaries are
     # refused, never launched
     base = _randn((3 * 104 + 1,), gen, torch.bfloat16)
@@ -135,6 +177,22 @@ def check_rmsnorm(gen, flush):
             raise AssertionError(f"rmsnorm accepted {label}")
         if rmsnorm_cuda.launches != before:
             raise AssertionError(f"rmsnorm counted a launch for {label}")
+    # the training forward with rstd, timed at the train shape: 4 x 1024
+    # tokens of d_model 4096
+    rows, d = 4096, 4096
+    x = _randn((rows, d), gen, torch.bfloat16)
+    scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
+    w16 = scale.to(torch.bfloat16)
+    train = {
+        "ms": _time_ms(lambda: rmsnorm_cuda.rmsnorm_fwd(
+            x, scale, save_residuals=True), flush),
+        "plain_ms": _time_ms(lambda: ref.rmsnorm_ref(
+            x, scale, save_residuals=True), flush),
+        "bound_ms": (rows * d * 2 * 2 + d * 4 + rows * 4)
+        / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": _time_ms(lambda: F.rms_norm(x, (d,), w16, 1e-6),
+                               flush),
+        "shape": f"x ({rows}, {d}) bf16, with rstd"}
     # timed at the prefill shape of Yi-6B: 4 slots x 128-token chunk
     rows, d = 512, 4096
     x = _randn((rows, d), gen, torch.bfloat16)
@@ -151,6 +209,7 @@ def check_rmsnorm(gen, flush):
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": _time_ms(lambda: F.rms_norm(x, (d,), w16, 1e-6), flush),
         "shape": f"x ({rows}, {d}) bf16",
+        "train_shape": train,
     }
 
 
@@ -323,6 +382,242 @@ def check_append(gen, flush):
     }
 
 
+def check_rmsnorm_bwd(gen, flush):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref, rmsnorm_cuda
+    errs = []
+    for rows, d, dt in ((4096, 4096, torch.bfloat16),
+                        (4096, 4096, torch.float32),
+                        (4099, 4096, torch.bfloat16), (7, 104, torch.float32),
+                        (1, 256, torch.bfloat16)):
+        x = _randn((rows, d), gen, dt)
+        dy = _randn((rows, d), gen, dt)
+        scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
+        _, rstd = ref.rmsnorm_ref(x, scale, save_residuals=True)
+        dx, dscale = rmsnorm_cuda.rmsnorm_bwd(x, scale, rstd, dy)
+        want_dx, want_ds = ref.rmsnorm_bwd_ref(x, scale, rstd, dy)
+        label = f"rmsnorm_bwd rows={rows} d={d} {dt}"
+        errs.append(_compare(label + " dx", dx, want_dx))
+        terms = (dy.float() * x.float() * rstd[:, None]).abs().sum(0)
+        errs.append(_compare(label + " dscale", dscale, want_ds,
+                             sum_abs=terms))
+
+    # timed at the train shape
+    rows, d = 4096, 4096
+    x = _randn((rows, d), gen, torch.bfloat16)
+    dy = _randn((rows, d), gen, torch.bfloat16)
+    scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
+    _, rstd = ref.rmsnorm_ref(x, scale, save_residuals=True)
+    xl = x.clone().requires_grad_(True)
+    wl = scale.to(torch.bfloat16).requires_grad_(True)
+    yl = F.rms_norm(xl, (d,), wl, 1e-6)
+    # least bytes: x, dy and rstd in, dx and dscale out
+    nbytes = 3 * rows * d * 2 + rows * 4 + 2 * d * 4
+    return {
+        "name": "rmsnorm_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/rmsnorm_bwd.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:92",
+        "max_abs_err": max(errs),
+        "ms": _time_ms(lambda: rmsnorm_cuda.rmsnorm_bwd(x, scale, rstd, dy),
+                       flush),
+        "plain_ms": _time_ms(lambda: ref.rmsnorm_bwd_ref(x, scale, rstd, dy),
+                             flush),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": _time_ms(lambda: torch.autograd.grad(
+            yl, (xl, wl), dy, retain_graph=True), flush),
+        "shape": f"x, dy ({rows}, {d}) bf16",
+    }
+
+
+# (label, B, S, Hq, Hkv, D, dtype, causal, window)
+_TRAIN_SHAPE = ("train shape", 4, 1024, 32, 4, 128, "bf16", True, None)
+_FLASH_CASES = [
+    _TRAIN_SHAPE,
+    ("f32", 2, 1024, 32, 4, 128, "f32", True, None),
+    ("window=256", 2, 1024, 32, 4, 128, "bf16", True, 256),
+    ("causal=False", 2, 512, 32, 4, 128, "bf16", False, None),
+    ("ragged S=1000 D=64", 2, 1000, 8, 2, 64, "f32", True, None),
+    ("G=1", 2, 512, 8, 8, 128, "bf16", True, None),
+]
+
+
+def _flash_inputs(gen, case):
+    import torch
+    _, b, s, hq, hkv, d, dt, causal, window = case
+    dt = torch.bfloat16 if dt == "bf16" else torch.float32
+    q = _randn((b, s, hq, d), gen, dt)
+    k = _randn((b, s, hkv, d), gen, dt)
+    v = _randn((b, s, hkv, d), gen, dt)
+    do = _randn((b, s, hq, d), gen, dt)
+    return q, k, v, do, causal, window
+
+
+def _live_pairs(b, s, hq, causal, window):
+    """(query, key) pairs the mask keeps, over batch and q heads."""
+    import torch
+    i = torch.arange(s)[:, None]
+    j = torch.arange(s)[None, :]
+    keep = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        keep &= j <= i
+    if window is not None:
+        keep &= j > i - window
+    return int(keep.sum()) * b * hq
+
+
+def check_flash_fwd(gen, flush):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_cuda, ref
+    errs = []
+    for case in _FLASH_CASES:
+        q, k, v, _, causal, window = _flash_inputs(gen, case)
+        o, lse = flash_attention_cuda.flash_attention_fwd(
+            q, k, v, causal=causal, window=window)
+        want_o, want_lse = ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window)
+        label = f"flash_fwd {case[0]} {tuple(q.shape)}/{k.shape[2]} {q.dtype}"
+        errs.append(_compare(label + " o", o, want_o))
+        errs.append(_compare(label + " lse", lse, want_lse))
+
+    q, k, v, _, causal, window = _flash_inputs(gen, _TRAIN_SHAPE)
+    b, s, hq, d = q.shape
+    live = _live_pairs(b, s, hq, causal, window)
+    flops = 4 * d * live
+    nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + b * hq * s * 4
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_FLOPS * 1e3
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:129",
+        "max_abs_err": max(errs),
+        "ms": _time_ms(lambda: flash_attention_cuda.flash_attention_fwd(
+            q, k, v), flush),
+        "plain_ms": _time_ms(lambda: ref.flash_attention_ref(q, k, v),
+                             flush),
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+        "shape": f"q ({b}, {s}, {hq}, {d}) bf16, k/v {k.shape[2]} heads, "
+                 f"causal, live pairs {live}",
+    }
+
+
+def _bwd_sum_abs(q, k, v, o, lse, do, causal, window):
+    """dq, dk, dv recomputed over absolute values (|ds| from |dp| and
+    |delta| taken as sums of |terms|): the scale of each output's f32
+    summation-order error (SUM_ABS_TOL)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    p = torch.exp(ref._train_logits(q, k, causal, window)
+                  - lse.transpose(1, 2).reshape(b, s, hkv, g, 1))
+    dog = do.reshape(b, s, hkv, g, d).float().abs()
+    delta = (dog * o.reshape(b, s, hkv, g, d).float().abs()).sum(-1, True)
+    dp = torch.einsum("bshgd,bthd->bshgt", dog, v.float().abs())
+    ds = p * (dp + delta) * d ** -0.5
+    qg = q.reshape(b, s, hkv, g, d).float().abs()
+    return (torch.einsum("bshgt,bthd->bshgd", ds,
+                         k.float().abs()).reshape(b, s, hq, d),
+            torch.einsum("bshgt,bshgd->bthd", ds, qg),
+            torch.einsum("bshgt,bshgd->bthd", p, dog))
+
+
+def check_flash_bwd(gen, flush):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_bwd_cuda, ref
+    errs = []
+    for case in _FLASH_CASES:
+        q, k, v, do, causal, window = _flash_inputs(gen, case)
+        o, lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                         window=window)
+        got = flash_attention_bwd_cuda.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal, window=window)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           causal=causal, window=window)
+        scale = _bwd_sum_abs(q, k, v, o, lse, do, causal, window)
+        label = f"flash_bwd {case[0]} {tuple(q.shape)}/{k.shape[2]} {q.dtype}"
+        for name, g_, w_, m_ in zip(("dq", "dk", "dv"), got, want, scale):
+            errs.append(_compare(f"{label} {name}", g_, w_, sum_abs=m_))
+        del scale, got, want
+
+    q, k, v, do, causal, window = _flash_inputs(gen, _TRAIN_SHAPE)
+    o, lse = ref.flash_attention_ref(q, k, v)
+    b, s, hq, d = q.shape
+    live = _live_pairs(b, s, hq, causal, window)
+    flops = 10 * d * live       # s, dp, dq, dk, dv: five products of D
+    # least bytes: q, o, do, k, v and lse in; dq, dk, dv out
+    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + b * hq * s * 4
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_FLOPS * 1e3
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention_bwd.py:142",
+        "max_abs_err": max(errs),
+        "ms": _time_ms(lambda: flash_attention_bwd_cuda.flash_attention_bwd(
+            q, k, v, o, lse, do), flush),
+        "plain_ms": _time_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o, lse, do), flush),
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+        "library_ms": _time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), flush),
+        "shape": f"q, o, do ({b}, {s}, {hq}, {d}) bf16, k/v {k.shape[2]} "
+                 f"heads, causal, live pairs {live}",
+    }
+
+
+def check_rmsprop(gen, flush):
+    import torch
+
+    from repro_torch.kernels import ref, rmsprop_cuda
+    errs = []
+    # one MLP matrix of Yi-6B (4096 x 11008), one element, a ragged count
+    for n in (4096 * 11008, 1, 4099):
+        g = _randn((n,), gen, torch.float32).abs()
+        grad = _randn((n,), gen, torch.float32, 3.0)
+        want_g, want_u = ref.rmsprop_update_ref(g, grad, lr=7e-3)
+        got_g, got_u = rmsprop_cuda.rmsprop_update(g.clone(), grad, lr=7e-3)
+        errs.append(_compare(f"rmsprop n={n} g'", got_g, want_g))
+        errs.append(_compare(f"rmsprop n={n} update", got_u, want_u))
+
+    n = 4096 * 11008
+    g = _randn((n,), gen, torch.float32).abs()
+    grad = _randn((n,), gen, torch.float32, 3.0)
+    return {
+        "name": "rmsprop_update", "route": "cuda",
+        "source": "src/repro_torch/csrc/rmsprop.cu",
+        "replaces": "src/repro/kernels/shared_rmsprop.py:34",
+        "max_abs_err": max(errs),
+        "ms": _time_ms(lambda: rmsprop_cuda.rmsprop_update(g, grad, lr=7e-3),
+                       flush),
+        "plain_ms": _time_ms(lambda: ref.rmsprop_update_ref(g, grad,
+                                                            lr=7e-3), flush),
+        "bound_ms": 16 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        # torch.optim.RMSprop puts eps outside the square root and returns
+        # no update: no single PyTorch call computes paper Eq. 8-9
+        "library_ms": None,
+        "shape": f"one f32 leaf of {n} elements (4096 x 11008)",
+    }
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the model and the engine
 # ---------------------------------------------------------------------------
@@ -368,6 +663,9 @@ def check_model_small():
           f"{err:.3e} tol=1e-4 ok")
 
 
+ENGINE_COUNTERS = ("rmsnorm", "flash_append", "decode_attention")
+
+
 def run_yi6b_engine():
     import torch
 
@@ -394,8 +692,9 @@ def run_yi6b_engine():
         raise AssertionError(f"engine: requests {unfinished} did not finish")
     if not rep["logits_finite"]:
         raise AssertionError("engine: non-finite logits")
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"engine: a kernel never launched: {counts}")
+    missing = [k for k in ENGINE_COUNTERS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"engine: kernels never launched: {missing}")
     print("engine yi-6b full width x 32 layers: " + json.dumps({
         k: rep[k] for k in ("requests", "generated_tokens", "prefill_tokens",
                             "wall_s", "tokens_per_s", "decode_tokens_per_s",
@@ -403,21 +702,25 @@ def run_yi6b_engine():
                             "warmup_s", "logits_finite")}))
     print(f"engine peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"engine kernel launches {json.dumps(counts)}")
+    print(f"engine kernel launches "
+          f"{json.dumps({k: counts[k] for k in ENGINE_COUNTERS})}")
     return counts, cfg, params
 
 
-def _profile(label, fn):
+def _profile(label, fn, wall_ms=None):
     """Device busy share of ``fn`` from a torch.profiler trace: the summed
     time of the kernels it ran (one stream, so they do not overlap) over
-    its wall time, and the kernels that took the most device time."""
+    its wall time without the profiler (``wall_ms``, or one more run of
+    ``fn``), and the kernels that took the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    plain_wall = (time.perf_counter() - t0) * 1e3
+    plain_wall = wall_ms
+    if plain_wall is None:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        plain_wall = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -429,8 +732,9 @@ def _profile(label, fn):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"profile {label}: wall_ms={plain_wall:.2f} (profiled "
           f"{wall:.2f}) device_busy_ms={busy:.2f} busy_share="
-          f"{busy / wall:.3f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+          f"{busy / plain_wall:.3f} (of the profiled wall "
+          f"{busy / wall:.3f})")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"profile {label}:   {e.self_device_time_total / 1e3:8.2f} ms"
               f" x{e.count:<5d} {e.key[:90]}")
 
@@ -457,7 +761,151 @@ def profile_engine(cfg, params):
     _profile("8 decode steps x 4 slots", decode)
 
 
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the learner
+# ---------------------------------------------------------------------------
+
+def check_train_small():
+    """Reduced Yi-6B in f32: three train steps on the card (kernels)
+    against the same steps on the CPU (plain versions), from the same
+    parameters and batches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import llm_a3c
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt_mod
+    cfg = get_config("yi-6b").reduced()
+    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=128, global_batch=2,
+                         device="cpu")
+    batches = [pipe.batch(0, i) for i in range(3)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = M.tree_map(lambda t: t.to(dev),
+                            M.init_params(cfg, 0, "cpu"))
+        opt = opt_mod.shared_rmsprop()
+        state = opt.init(params)
+        step = llm_a3c.make_train_step(cfg, opt)     # lr0 7e-4
+        losses = []
+        for i, b in enumerate(batches):
+            b = {k: v.to(dev) for k, v in b.items()}
+            params, state, met = step(params, state, b, i)
+            losses.append(float(met["loss"]))
+        runs[dev] = (losses, {k: v.detach().cpu() for k, v in
+                              M.flatten(params).items()})
+    (loss_c, par_c), (loss_g, par_g) = runs["cpu"], runs["cuda"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(loss_g, loss_c))
+    par_err = 0.0
+    for k, want in par_c.items():
+        got = par_g[k]
+        par_err = max(par_err, float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"train: {k} differs on the card by "
+                                 f"{float((got - want).abs().max())}")
+    if loss_err > 1e-4:
+        raise AssertionError(f"train: losses {loss_g} on the card vs "
+                             f"{loss_c} on the CPU")
+    print(f"check train reduced yi-6b f32 3 steps cuda vs cpu: losses "
+          f"{[round(x, 4) for x in loss_g]} rel_err={loss_err:.2e} (tol "
+          f"1e-4) params max_abs_err={par_err:.2e} (rtol=atol=1e-5) ok")
+
+
+TRAIN_COUNTERS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                  "flash_attention_bwd", "rmsprop")
+
+
+def run_yi6b_train():
+    """Yi-6B at full width, 16 of 32 layers (f32 masters, f32 gradients
+    and the f32 RMSProp accumulator of all 32 would take 14 B x 6.06e9 =
+    84.9 GB): one warm-up, three timed and one profiled train step on
+    TokenPipeline batches of 4 x 1024 tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import llm_a3c
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt_mod
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=16,
+                              dtype="bfloat16", remat=True)
+    batch_rows, seq = 4, 1024
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, "cuda")
+    opt = opt_mod.shared_rmsprop()
+    state = opt.init(params)
+    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=seq,
+                         global_batch=batch_rows, device="cuda")
+    step_fn = llm_a3c.make_train_step(cfg, opt, lr0=7e-3, total_steps=100)
+    torch.cuda.synchronize()
+    print(f"train yi-6b x16 layers: {cfg.param_count()} f32 parameters and "
+          f"their accumulator built on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    @torch.no_grad()
+    def fingerprint():
+        return [(float(t.double().sum()), float(t.double().square().sum()))
+                for t in M.flatten(params).values()]
+
+    losses = []
+    step = 0
+
+    def one_step():
+        nonlocal params, state, step
+        batch = pipe.batch(2, step)
+        params, state, met = step_fn(params, state, batch, step)
+        losses.append(met)
+        step += 1
+
+    torch.cuda.reset_peak_memory_stats()
+    one_step()                                  # warm-up
+    torch.cuda.synchronize()
+    before = fingerprint()
+    dispatch.reset_launch_counts()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = dispatch.launch_counts()
+    after = fingerprint()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    loss_vals = [float(m["loss"]) for m in losses]
+    if not all(math.isfinite(x) for x in loss_vals):
+        raise AssertionError(f"train: non-finite loss {loss_vals}")
+    # a non-finite gradient would leave a non-finite accumulator
+    bad = [k for k, g in M.flatten(state["g"]).items()
+           if not bool(torch.isfinite(g).all())]
+    bad += [k for k, p in M.flatten(params).items()
+            if not bool(torch.isfinite(p).all())]
+    if bad:
+        raise AssertionError(f"train: non-finite gradients in {bad[:5]}")
+    same = [k for k, a, b in zip(M.flatten(params), before, after) if a == b]
+    if same:
+        raise AssertionError(f"train: leaves unchanged by 3 steps: {same}")
+    missing = [k for k in TRAIN_COUNTERS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"train: kernels never launched: {missing}")
+    per_step = {k: counts[k] / 3 for k in TRAIN_COUNTERS}
+    wall = statistics.median(walls)
+    print("train yi-6b full width x 16 layers: " + json.dumps({
+        "losses": loss_vals, "step_wall_s": walls,
+        "step_wall_median_s": wall,
+        "tokens_per_s": batch_rows * seq / wall,
+        "peak_device_memory_gib": peak,
+        "launches_per_step": per_step}))
+    _profile("train step", one_step, wall_ms=wall * 1e3)
+    return counts
+
+
 def main():
+    import gc
+
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -481,28 +929,61 @@ def main():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("ptxas " + line.strip())
 
+    t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = [check_rmsnorm(gen, flush), check_append(gen, flush),
-               check_decode(gen, flush)]
+               check_decode(gen, flush), check_rmsnorm_bwd(gen, flush),
+               check_flash_fwd(gen, flush), check_flash_bwd(gen, flush),
+               check_rmsprop(gen, flush)]
+    del flush
     for r in records:
-        print(f"kernel {r['name']} [{r['shape']}]: kernel_ms={r['ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"plain_ms={r['plain_ms']:.4f} library_ms="
-              f"{r['library_ms']:.4f}")
+        for sub in (r, r.get("train_shape")):
+            if sub is None:
+                continue
+            lib = sub["library_ms"]
+            print(f"kernel {r['name']} [{sub['shape']}]: kernel_ms="
+                  f"{sub['ms']:.4f} bound_ms={sub['bound_ms']:.4f} "
+                  f"({sub['bound_by']}) plain_ms={sub['plain_ms']:.4f} "
+                  f"library_ms={'none' if lib is None else f'{lib:.4f}'}")
+    print(f"phase kernels_s {time.perf_counter() - t_phase:.1f}")
 
+    t_phase = time.perf_counter()
     check_model_small()
-    counts, cfg, params = run_yi6b_engine()
+    engine_counts, cfg, params = run_yi6b_engine()
     profile_engine(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase engine_s {time.perf_counter() - t_phase:.1f}")
+
+    t_phase = time.perf_counter()
+    check_train_small()
+    train_counts = run_yi6b_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase train_s {time.perf_counter() - t_phase:.1f}")
+
     by_op = {"rmsnorm_fwd": "rmsnorm",
              "flash_attention_append": "flash_append",
-             "decode_attention_fwd": "decode_attention"}
+             "decode_attention_fwd": "decode_attention",
+             "rmsnorm_bwd": "rmsnorm_bwd",
+             "flash_attention_fwd": "flash_attention",
+             "flash_attention_bwd": "flash_attention_bwd",
+             "rmsprop_update": "rmsprop"}
     for r in records:
-        r["launches"] = counts[by_op[r["name"]]]
+        op = by_op[r["name"]]
+        paths = {"engine": engine_counts[op], "train_3_steps": train_counts[op]}
+        r["launches_by_path"] = {k: n for k, n in paths.items() if n}
+        r["launches"] = sum(paths.values())
+        if r["launches"] <= 0:
+            raise AssertionError(f"{r['name']} never launched on a main path")
         del r["shape"]
-    print(json.dumps({"kernels": records}))
+        if "train_shape" in r:
+            del r["train_shape"]["shape"]
     print(smi)
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,9 @@
 
 ``params_from_jax`` takes the tree ``repro.models.model.init_params``
 returns, with its leaves already turned into numpy arrays by the caller
-(the port never imports jax), and builds the port's parameters.  The JAX
+(the port never imports jax), and builds the port's parameters;
+``opt_state_from_jax`` does the same for an optimizer state such as
+shared RMSProp's {"g": tree}, whose trees have the parameters' layout.  The JAX
 tree stacks the layers for ``lax.scan`` when the block cycle tiles the
 depth: ``params["layers"]`` is then a tuple with one entry per position in
 the cycle, each leaf carrying a leading ``n_cycles`` dimension
@@ -34,6 +36,32 @@ def params_from_jax(cfg: ModelConfig, tree: Any, device=None,
     ``device``.  Matrices are stored in ``dtype``, vectors stay f32 (the
     split ``cast_params`` makes)."""
     dev = resolve(device)
+    tree = _unstack(cfg, tree)
+
+    def leaf(a):
+        t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+        return t.to(device=dev, dtype=dtype if t.dim() >= 2 else
+                    torch.float32)
+    params = M.tree_map(leaf, tree)
+    want = M.param_shapes(cfg)
+    got = {k: tuple(v.shape) for k, v in M.flatten(params).items()}
+    if got != want:
+        raise ValueError(f"{cfg.name}: bridged parameters do not match the "
+                         f"port's layout: {sorted(set(got) ^ set(want))} "
+                         "differ in name, or shapes differ")
+    return params
+
+
+def opt_state_from_jax(cfg: ModelConfig, state: Any, device=None) -> dict:
+    """JAX optimizer state {name: parameter-shaped tree} (numpy leaves),
+    e.g. shared RMSProp's {"g": tree} -> the same in the port's layout on
+    ``device``, every leaf f32."""
+    return {name: params_from_jax(cfg, tree, device, torch.float32)
+            for name, tree in state.items()}
+
+
+def _unstack(cfg: ModelConfig, tree: Any) -> Any:
+    """The tree with its layers as a plain list, one entry per layer."""
     layers = tree["layers"]
     if _use_scan(cfg):
         cyc = len(cfg.block_cycle)
@@ -42,17 +70,4 @@ def params_from_jax(cfg: ModelConfig, tree: Any, device=None,
     elif len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: {len(layers)} layers in the tree, "
                          f"config has {cfg.n_layers}")
-    tree = dict(tree, layers=list(layers))
-
-    def leaf(a):
-        t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
-        return t.to(device=dev, dtype=dtype if t.dim() >= 2 else
-                    torch.float32)
-    params = M.tree_map(leaf, tree)
-    want = M.param_shapes(cfg)
-    got = {k: tuple(v.shape) for k, v in M._flatten(params).items()}
-    if got != want:
-        raise ValueError(f"{cfg.name}: bridged parameters do not match the "
-                         f"port's layout: {sorted(set(got) ^ set(want))} "
-                         "differ in name, or shapes differ")
-    return params
+    return dict(tree, layers=list(layers))

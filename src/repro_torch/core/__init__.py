@@ -1,1 +1,1 @@
-"""Core algorithms of the port (the serving side of the A3C LLM agent)."""
+"""Core algorithms of the port: the A3C LLM learner and its serving side."""

@@ -1,5 +1,12 @@
-"""The actor/serving side of ``repro/core/llm_a3c.py``: per-slot sampling,
-the one-token serve step and the chunked-prefill step.
+"""A3C at LLM scale, as ``repro/core/llm_a3c.py``: the paper's Alg. 3 loss
+on the token-level MDP and its train step (the learner), and per-slot
+sampling, the one-token serve step and the chunked-prefill step (the
+actors' serving side).
+
+The learner: state s_t = token prefix, action a_t = tokens[t+1], policy =
+the LM head's softmax, critic = the value head.  Every position gets the
+longest forward-view n-step return over the sequence axis, bootstrapped
+from the last position's value.
 
 Sampling keys.  The JAX package draws row j's token from the threefry
 stream ``fold_in(fold_in(key, sid), pos)``, which torch cannot reproduce,
@@ -11,14 +18,89 @@ counter hash of (seed, sid, pos, v) computed in integer torch ops.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core.returns import n_step_returns
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim import optimizers as opt_mod
+from repro_torch.optim import schedules
 
 _M32 = 0xFFFFFFFF
+
+
+def a3c_token_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+                   *, gamma: float = 0.99, beta: float = 0.01,
+                   value_coef: float = 0.5):
+    """batch: tokens (B, S) [or embeds], rewards (B, S), discounts (B, S) =
+    gamma * (1 - done).  Position t's reward is for the transition
+    prefix[:t] --tokens[t+1]--> prefix[:t+1].  Returns (loss, metrics), the
+    metrics as 0-d tensors (no host sync).  ``gamma`` is carried by the
+    discounts; it is in the signature for parity with the JAX package."""
+    out = M.forward(cfg, params, batch)
+    logits = out["logits"].float()                    # (B, S, V)
+    values = out["value"]                             # (B, S)
+    if "actions" in batch:
+        actions = batch["actions"]
+    else:
+        actions = torch.roll(batch["tokens"], -1, dims=1)
+    rewards, discounts = batch["rewards"], batch["discounts"]
+
+    # returns over the sequence axis (time-major for the recursion)
+    bootstrap = values[:, -1].detach()
+    rets = n_step_returns(rewards.T, discounts.T, bootstrap).T   # (B, S)
+
+    valid = torch.ones_like(rewards)
+    valid[:, -1] = 0.0                                # last pos: no action
+    nvalid = torch.clamp(valid.sum(), min=1.0)
+    adv = (rets - values).detach()
+
+    logp_all = torch.log_softmax(logits, dim=-1)
+    logp_a = torch.gather(logp_all, -1, actions[..., None].long())[..., 0]
+    entropy = -(torch.exp(logp_all) * logp_all).sum(-1)
+
+    pol_loss = -(logp_a * adv * valid).sum() / nvalid
+    v_loss = value_coef * ((rets - values) ** 2 * valid).sum() / nvalid
+    ent_loss = -beta * (entropy * valid).sum() / nvalid
+    aux = cfg.aux_loss_weight * out["aux_loss"]
+    loss = pol_loss + v_loss + ent_loss + aux
+    metrics = {"loss": loss, "pol": pol_loss, "value": v_loss,
+               "entropy": -ent_loss / max(beta, 1e-9), "aux": aux,
+               "mean_return": (rets * valid).sum() / nvalid}
+    return loss, {k: v.detach() for k, v in metrics.items()}
+
+
+def make_train_step(cfg: ModelConfig, opt, *, gamma: float = 0.99,
+                    beta: float = 0.01, lr0: float = 7e-4,
+                    total_steps: int = 100_000):
+    """Synchronous train step, the A2C limit of A3C:
+    ``train_step(params, opt_state, batch, step) -> (params, opt_state,
+    metrics)``.  ``step`` is a host int; lr = linear_anneal(lr0, step,
+    total_steps) is a host float.
+
+    Unlike the JAX step (immutable arrays), this one updates in place: the
+    f32 parameter leaves, and the optimizer state where the optimizer
+    writes it (the RMSProp accumulator), are the same tensors before and
+    after the call.  ``params`` must be f32 masters on one device; the step
+    turns on ``requires_grad`` for every leaf."""
+
+    def train_step(params, opt_state, batch, step):
+        lr = schedules.linear_anneal(lr0, step, float(total_steps))
+        leaves = list(M.flatten(params).values())
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, metrics = a3c_token_loss(cfg, params, batch, gamma=gamma,
+                                       beta=beta)
+        grads = torch.autograd.grad(loss, leaves)
+        paths = iter(grads)
+        grads = M.tree_map(lambda _: next(paths), params)
+        updates, opt_state = opt.update(grads, opt_state, lr)
+        params = opt_mod.apply_updates(params, updates)
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def _mix(x: torch.Tensor) -> torch.Tensor:

@@ -112,17 +112,19 @@ struct AccRows {
 
 // Walk key tiles [kt_begin, kt_end) of a key stream of Sk rows.  kg/vg
 // point at key row 0 of this (batch, kv head); consecutive key rows are
-// row_stride elements apart.  kposg is this batch row's kpos (Sk,).
+// row_stride elements apart.  kposg is this batch row's kpos (Sk,), or
+// null when key row j sits at position j (the training forward).
 // sm.m / sm.l / acc must hold (NEG, 0, 0) on entry; on return they hold the
-// unnormalised online-softmax state, and every thread may read sm.l.
-// window <= 0 means no sliding window.
+// unnormalised online-softmax state, and every thread may read sm.l and
+// sm.m.  window <= 0 means no sliding window; causal = false drops the
+// kpos <= qpos bound (bidirectional attention).
 template <int D, int BK, int R_MAX, typename TKV>
 __device__ __forceinline__ void attend_tiles(
     const TileSmem<D, BK, R_MAX>& sm, int R, int window,
     const TKV* __restrict__ kg, const TKV* __restrict__ vg,
     long long row_stride, const int* __restrict__ kposg, int Sk,
     int kt_begin, int kt_end, float scale,
-    float (&acc)[AccRows<D, R_MAX>::kCount]) {
+    float (&acc)[AccRows<D, R_MAX>::kCount], bool causal = true) {
   static_assert(kThreads % BK == 0 && BK % 32 == 0, "BK: warp multiple");
   static_assert(kThreads % D == 0 && D % 32 == 0, "D: warp multiple");
   constexpr int kKS = D + 1;
@@ -145,7 +147,7 @@ __device__ __forceinline__ void attend_tiles(
     }
     if (tid < BK) {
       const int row = k0 + tid;
-      sm.kp[tid] = row < Sk ? kposg[row] : kAbsent;
+      sm.kp[tid] = row >= Sk ? kAbsent : kposg != nullptr ? kposg[row] : row;
     }
     __syncthreads();
 
@@ -170,7 +172,8 @@ __device__ __forceinline__ void attend_tiles(
         const int r = r0 + i * kStepS;
         if (r < R) {
           const int qp = sm.qpos[r];
-          const bool ok = kp >= 0 && kp <= qp && (window <= 0 || kp > qp - window);
+          const bool ok = kp >= 0 && (!causal || kp <= qp) &&
+                          (window <= 0 || kp > qp - window);
           sm.s[r * BK + j] = ok ? sc[i] * scale : kNeg;
         }
       }

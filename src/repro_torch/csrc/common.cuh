@@ -1,6 +1,6 @@
 // Shared device helpers for the port's hand-written Hopper kernels:
-// dtype codes of the C interface, f32 <-> storage conversions, warp
-// reductions and the masking constants of the TPU kernels.
+// dtype codes of the C interface, f32 <-> storage conversions, warp and
+// block reductions and the masking constants of the TPU kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +43,21 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Sum of v over a block of kThreads threads; every thread gets the total.
+// `red` is 32 floats of shared memory; the trailing barrier frees it for
+// the block's next call.
+template <int kThreads>
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = lane < kThreads / 32 ? red[lane] : 0.f;
+  t = warp_sum(t);
+  __syncthreads();
+  return t;
 }
 
 }  // namespace rt

@@ -1,0 +1,160 @@
+// Flash attention forward for training on Hopper (sm_90a).
+//
+// Replaces: src/repro/kernels/flash_attention.py::flash_attention_fwd
+//   (Pallas body `_kernel`).  q (B, S, Hq, D) against k, v (B, S, Hkv, D)
+//   of the same sequence, query row i and key row j at positions i and j:
+//   key j is valid for query i iff (causal: j <= i) and (window: j >
+//   i - window).  Online softmax in f32 with the finite NEG mask; out in
+//   q's dtype and lse = m + log(max(l, 1e-30)) per row in f32, (B, Hq, S)
+//   (the TPU kernel's save_residuals, always on here: every caller trains),
+//   from which the backward rebuilds the softmax.
+//
+// Bound on the H100: operations.  At the train shape (B = 4, S = 1024,
+// 32 q heads, D = 128, causal) the products are 4 * D per live (query, key)
+// pair over B * Hq * S * (S + 1) / 2 live pairs, 34.4 GFLOP, against
+// 76 MB of q, k, v, out and lse in bf16; 0.035 ms at the 989 TFLOP/s bf16
+// peak against 0.023 ms at 3.35 TB/s.
+//
+// Design: the append kernel's function (flash_append.cu) with pos0 = 0 and
+// the key positions taken from the row index, through the same
+// rt::attend_tiles: one block per (q tile of 64 rows, q head, batch row)
+// loops over key tiles of 32 rows; the kv head is h / G, so kv heads are
+// never repeated in memory.  Key tiles past the causal bound or below the
+// window floor are skipped by the append kernel's rule; causal = false
+// visits every tile.  Products are f32 FMAs from shared memory (p stays in
+// f32; it is not rounded to the input dtype before p @ V as the TPU kernel
+// does, and the plain version does the same): simple and right first;
+// tensor cores and TMA staging are the later speed-up.  A ragged S (not a
+// multiple of the tiles) is masked here.
+#include <cmath>
+
+#include "attention_tiles.cuh"
+
+namespace {
+
+constexpr int kBQ = 64;  // query rows per block
+constexpr int kBK = 32;  // keys per tile
+
+template <int D, typename T>
+__global__ void __launch_bounds__(rt::kThreads)
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse, int S, int Hq, int Hkv,
+                     int causal, int window, float scale) {
+  using Smem = rt::TileSmem<D, kBK, kBQ>;
+  using Rows = rt::AccRows<D, kBQ>;
+  extern __shared__ float smem_raw[];
+  const Smem sm(smem_raw);
+  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int i0 = iq * kBQ;
+  const int tid = threadIdx.x;
+
+  // query rows i0 .. i0 + kBQ of head h; rows past S are zero and unused
+  {
+    float* const dst[1] = {sm.q};
+    const T* const src[1] = {q + (((long long)b * S + i0) * Hq + h) * D};
+    rt::load_rows_f32<D, kBQ, 1, T>(dst, D, src, (long long)Hq * D, S - i0);
+  }
+  for (int r = tid; r < kBQ; r += rt::kThreads) {
+    sm.m[r] = rt::kNeg;
+    sm.l[r] = 0.f;
+    sm.qpos[r] = i0 + r;
+  }
+  float acc[Rows::kCount];
+#pragma unroll
+  for (int i = 0; i < Rows::kCount; ++i) acc[i] = 0.f;
+
+  // live key tiles: none past the block's last query (causal), none whose
+  // last key is at or below the block's first query's window floor
+  int kt_begin = 0, kt_end = (S + kBK - 1) / kBK;
+  if (causal) kt_end = min(kt_end, (i0 + kBQ - 1) / kBK + 1);
+  if (window > 0) {
+    const int t = i0 - window + 1;  // live iff (kt + 1) * kBK > t
+    if (t > 0) kt_begin = t / kBK;
+  }
+  __syncthreads();
+
+  const long long kv_off = (long long)b * S * Hkv * D + (long long)hk * D;
+  rt::attend_tiles<D, kBK, kBQ, T>(
+      sm, kBQ, window, k + kv_off, v + kv_off, (long long)Hkv * D, nullptr, S,
+      kt_begin, kt_end, scale, acc, causal != 0);
+
+  const int d = tid % D, a0 = tid / D;
+#pragma unroll
+  for (int i = 0; i < Rows::kCount; ++i) {
+    const int r = a0 + i * Rows::kStep, row = i0 + r;
+    if (row < S)
+      out[(((long long)b * S + row) * Hq + h) * D + d] =
+          rt::from_f32<T>(acc[i] / fmaxf(sm.l[r], rt::kLFloor));
+  }
+  for (int r = tid; r < kBQ; r += rt::kThreads) {
+    const int row = i0 + r;
+    if (row < S)
+      lse[((long long)b * Hq + h) * S + row] =
+          sm.m[r] + logf(fmaxf(sm.l[r], rt::kLFloor));
+  }
+}
+
+template <int D, typename T>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int B, int S, int Hq, int Hkv, int causal, int window,
+           cudaStream_t stream) {
+  using Smem = rt::TileSmem<D, kBK, kBQ>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)Smem::kBytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
+  flash_fwd_kernel<D, T><<<grid, rt::kThreads, Smem::kBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<float*>(lse), S, Hq, Hkv, causal, window,
+      (float)(1.0 / sqrt((double)D)));
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_t(int dtype, const void* q, const void* k, const void* v,
+             void* out, void* lse, int B, int S, int Hq, int Hkv, int causal,
+             int window, cudaStream_t s) {
+  switch (dtype) {
+    case rt::kF32:
+      return launch<D, float>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
+                              window, s);
+    case rt::kBF16:
+      return launch<D, __nv_bfloat16>(q, k, v, out, lse, B, S, Hq, Hkv,
+                                      causal, window, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// q, out (B, S, Hq, D); k, v (B, S, Hkv, D); one dtype (f32 or bf16) for
+// all four; lse (B, Hq, S) f32.  All contiguous, q, k and v 16-byte
+// aligned.  D in {64, 128}, Hq % Hkv == 0; causal 0 or 1;
+// window <= 0 means none.  Returns the CUDA error code of the launch.
+extern "C" int rt_flash_attention_fwd(const void* q, const void* k,
+                                      const void* v, void* out, void* lse,
+                                      int B, int S, int Hq, int Hkv, int D,
+                                      int causal, int window, int dtype,
+                                      void* stream) {
+  if (B <= 0 || S <= 0 || Hq <= 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv != 0 || B > 65535 || Hq > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return launch_t<64>(dtype, q, k, v, out, lse, B, S, Hq, Hkv, causal,
+                          window, s);
+    case 128:
+      return launch_t<128>(dtype, q, k, v, out, lse, B, S, Hq, Hkv, causal,
+                           window, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}

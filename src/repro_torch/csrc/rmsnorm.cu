@@ -1,7 +1,9 @@
 // Fused RMSNorm forward for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/rmsnorm.py::rmsnorm_fwd (Pallas body `_kernel`).
-//   y = x * rsqrt(mean(x^2) + eps) * scale, f32 math, stored in x's dtype.
+//   y = x * rsqrt(mean(x^2) + eps) * scale, f32 math, stored in x's dtype;
+//   with an rstd buffer (the TPU kernel's save_residuals) also the per-row
+//   rsqrt(mean(x^2) + eps) in f32, the one statistic the backward needs.
 //
 // Bound on the H100: memory.  Each row is read and written once, with a
 // handful of operations per element, so the least time is
@@ -14,6 +16,7 @@
 // squares is reduced in f32 through warp shuffles and a 32-entry shared
 // array; the second pass re-reads the row, which the first pass has just
 // brought into L1/L2, so device memory still sees one read per element.
+// The rstd output adds 4 bytes a row.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -22,26 +25,13 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float red[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = rt::warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
-    v = rt::warp_sum(v);
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  return red[0];
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                   T* __restrict__ y, int d, float eps) {
+                   T* __restrict__ y, float* __restrict__ rstd_out, int d,
+                   float eps) {
   constexpr int kVec = 16 / sizeof(T);
+  __shared__ float red[32];
   const long long row = blockIdx.x;
   const T* xr = x + row * d;
   T* yr = y + row * d;
@@ -49,7 +39,7 @@ __global__ void __launch_bounds__(kThreads)
   const uint4* xv = reinterpret_cast<const uint4*>(xr);
   uint4* yv = reinterpret_cast<uint4*>(yr);
   float ss = 0.f;
-  for (int i = threadIdx.x; i < d / kVec; i += blockDim.x) {
+  for (int i = threadIdx.x; i < d / kVec; i += kThreads) {
     uint4 u = xv[i];
     const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
@@ -59,9 +49,10 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   // mean over the real width, as the TPU kernel's d_real
-  const float rstd = rsqrtf(block_sum(ss) / (float)d + eps);
+  const float rstd = rsqrtf(rt::block_sum<kThreads>(ss, red) / (float)d + eps);
+  if (rstd_out != nullptr && threadIdx.x == 0) rstd_out[row] = rstd;
 
-  for (int i = threadIdx.x; i < d / kVec; i += blockDim.x) {
+  for (int i = threadIdx.x; i < d / kVec; i += kThreads) {
     uint4 u = xv[i];
     uint4 o;
     const T* e = reinterpret_cast<const T*>(&u);
@@ -74,34 +65,37 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
-int launch(const void* x, const void* scale, void* y, long long rows, int d,
-           float eps, cudaStream_t stream) {
+int launch(const void* x, const void* scale, void* y, float* rstd,
+           long long rows, int d, float eps, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   if (d % kVec != 0 || (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(y) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   rmsnorm_kernel<T><<<(unsigned)rows, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(scale),
-      static_cast<T*>(y), d, eps);
+      static_cast<T*>(y), rstd, d, eps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (rows, d) f32 or bf16, scale (d,) f32, y (rows, d) x's dtype; all
-// contiguous, x and y 16-byte aligned, d a multiple of 16 / sizeof(x).
-// Returns the CUDA error code of the launch (0 = success).
+// x (rows, d) f32 or bf16, scale (d,) f32, y (rows, d) x's dtype, rstd
+// (rows,) f32 or null (not written); all contiguous, x and y 16-byte
+// aligned, d a multiple of 16 / sizeof(x).  Returns the CUDA error code of
+// the launch (0 = success).
 extern "C" int rt_rmsnorm_fwd(const void* x, const void* scale, void* y,
-                              long long rows, int d, float eps, int dtype,
-                              void* stream) {
+                              void* rstd, long long rows, int d, float eps,
+                              int dtype, void* stream) {
   if (rows <= 0) return 0;
   if (d <= 0 || rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case rt::kF32:
-      return launch<float>(x, scale, y, rows, d, eps, s);
+      return launch<float>(x, scale, y, static_cast<float*>(rstd), rows, d,
+                           eps, s);
     case rt::kBF16:
-      return launch<__nv_bfloat16>(x, scale, y, rows, d, eps, s);
+      return launch<__nv_bfloat16>(x, scale, y, static_cast<float*>(rstd),
+                                   rows, d, eps, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -29,7 +29,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("rmsnorm.cu", "decode_attention.cu", "flash_append.cu")
+SOURCES = ("rmsnorm.cu", "rmsnorm_bwd.cu", "decode_attention.cu",
+           "flash_append.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+           "rmsprop.cu")
 HEADERS = ("common.cuh", "attention_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -39,13 +41,20 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
-    "rt_rmsnorm_fwd": (_P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float,
-                       _I, _P),
+    "rt_rmsnorm_fwd": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
+    "rt_rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
     "rt_decode_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _P),
     "rt_flash_append_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _P),
+    "rt_flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P),
+    "rt_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _P),
+    "rt_rmsprop_update": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

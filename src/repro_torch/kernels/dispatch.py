@@ -1,14 +1,17 @@
 """Kernel dispatch: the model layer's single entry to the kernels.
 
 Counterpart of ``repro/kernels/dispatch.py`` for the ops on the serving
-path.  Routing is by the tensor's device: a CUDA tensor goes to the
-hand-written kernel, a CPU tensor to its plain PyTorch version (the
+and training paths.  Routing is by the tensor's device: a CUDA tensor goes
+to the hand-written kernel, a CPU tensor to its plain PyTorch version (the
 wrappers make that choice, on the device alone).  There is no alignment
 arm: the JAX dispatch's 128-multiple fallbacks exist for the TPU's tiles,
 while these kernels mask their own ragged edges, so a CUDA call never
 falls back.  What stays from the JAX layer is the per-slot normalisation
 of the decode call (scalar ``pos`` and 1-D ``kpos`` broadcast, ``pos=None``
-meaning ``max(kpos)``) and the GQA check.
+meaning ``max(kpos)``), the GQA check, and the custom gradients of
+``flash_attention`` and ``rmsnorm`` (``jax.custom_vjp`` there, a
+``torch.autograd.Function`` here, the same on both devices) whose
+backwards are kernels too.
 
 Each wrapper counts its launches; ``launch_counts`` / ``reset_launch_counts``
 read and clear them, so a run can show that its main path went through
@@ -21,20 +24,27 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import (decode_attention_cuda, flash_append_cuda,
-                                 kv_quant, rmsnorm_cuda)
+                                 flash_attention_bwd_cuda,
+                                 flash_attention_cuda, kv_quant, rmsnorm_cuda,
+                                 rmsprop_cuda)
 
-_WRAPPERS = {"rmsnorm": rmsnorm_cuda,
-             "flash_append": flash_append_cuda,
-             "decode_attention": decode_attention_cuda}
+# op -> (wrapper module, its counter)
+_COUNTERS = {"rmsnorm": (rmsnorm_cuda, "launches"),
+             "rmsnorm_bwd": (rmsnorm_cuda, "bwd_launches"),
+             "flash_append": (flash_append_cuda, "launches"),
+             "decode_attention": (decode_attention_cuda, "launches"),
+             "flash_attention": (flash_attention_cuda, "launches"),
+             "flash_attention_bwd": (flash_attention_bwd_cuda, "launches"),
+             "rmsprop": (rmsprop_cuda, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:
-    return {op: mod.launches for op, mod in _WRAPPERS.items()}
+    return {op: getattr(mod, name) for op, (mod, name) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _WRAPPERS.values():
-        mod.launches = 0
+    for mod, name in _COUNTERS.values():
+        setattr(mod, name, 0)
 
 
 def _no_quant(k_scale, op: str) -> None:
@@ -50,12 +60,79 @@ def _check_gqa(hq: int, hkv: int) -> None:
                          f"got {hq}/{hkv}")
 
 
+class _RMSNorm(torch.autograd.Function):
+    """rmsnorm with the one-pass backward: the forward saves rstd, the
+    backward kernel returns dx and dscale (JAX ``dispatch.py:980-1011``)."""
+
+    @staticmethod
+    def forward(ctx, x2, scale, eps):
+        y, rstd = rmsnorm_cuda.rmsnorm_fwd(x2, scale, eps=eps,
+                                           save_residuals=True)
+        ctx.save_for_backward(x2, scale, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, scale, rstd = ctx.saved_tensors
+        dx, dscale = rmsnorm_cuda.rmsnorm_bwd(x2, scale, rstd,
+                                              dy.contiguous())
+        return dx, dscale, None
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
-    """Fused RMSNorm over the last dim of an activation of any rank."""
+    """Fused RMSNorm over the last dim of an activation of any rank.
+    Differentiable: where a gradient is wanted the forward keeps rstd and
+    the backward runs the rmsnorm backward kernel."""
     shape = x.shape
-    y = rmsnorm_cuda.rmsnorm_fwd(x.reshape(-1, shape[-1]), scale, eps=eps)
+    x2 = x.reshape(-1, shape[-1]).contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        y = _RMSNorm.apply(x2, scale, eps)
+    else:
+        y = rmsnorm_cuda.rmsnorm_fwd(x2, scale, eps=eps)
     return y.reshape(shape)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Training attention: the forward kernel saves the per-row lse, the
+    backward kernel pair rebuilds p from it (JAX ``dispatch.py:201-228``,
+    residuals (q, k, v, o, lse))."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_attention_cuda.flash_attention_fwd(
+            q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda.flash_attention_bwd(
+            q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q (B,S,Hq,D); k,v (B,S,Hkv,D) -> (B,S,Hq,D): full-sequence causal
+    (or bidirectional, ``causal=False``) attention with an optional sliding
+    window.  Differentiable through the forward and backward kernels."""
+    _check_gqa(q.shape[2], k.shape[2])
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, window)
+
+
+def rmsprop_update(g: torch.Tensor, grad: torch.Tensor, *, lr: float,
+                   alpha: float = 0.99, eps: float = 0.1):
+    """Fused Shared-RMSProp (paper Eq. 8-9) for a parameter leaf of any
+    shape and size.  Writes the new accumulator over ``g`` (in place) and
+    returns (new_g, update); the caller subtracts update."""
+    return rmsprop_cuda.rmsprop_update(g, grad.contiguous(), lr=lr,
+                                       alpha=alpha, eps=eps)
 
 
 def flash_attention_append(q, k, v, kpos, *, pos0: int,

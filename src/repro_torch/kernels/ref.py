@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the port's kernels.
 
-Counterparts of ``repro/kernels/ref.py``'s oracles, written in PyTorch
-with the same arithmetic: f32 math, the finite ``NEG`` mask and grouped
-query heads that never repeat the kv heads.  The CPU path of every
+Counterparts of ``repro/kernels/ref.py``'s oracles (and of the backward
+formulas of ``repro/kernels/{rmsnorm,flash_attention_bwd}.py``), written
+in PyTorch with the same arithmetic: f32 math, the finite ``NEG`` mask and
+grouped query heads that never repeat the kv heads.  The CPU path of every
 kernel wrapper runs these, and ``chip_smoke.py`` holds each CUDA kernel to
 them on the card.
 """
@@ -16,11 +17,98 @@ NEG = -1e30
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *,
-                eps: float = 1e-6) -> torch.Tensor:
-    """y = x * rsqrt(mean(x^2) + eps) * scale in f32, cast to x's dtype."""
+                eps: float = 1e-6, save_residuals: bool = False):
+    """y = x * rsqrt(mean(x^2) + eps) * scale in f32, cast to x's dtype.
+    With ``save_residuals`` also the per-row rsqrt(mean(x^2) + eps), f32."""
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+    rstd = torch.rsqrt(var + eps)
+    y = (xf * rstd * scale).to(x.dtype)
+    return (y, rstd[..., 0]) if save_residuals else y
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, rstd: torch.Tensor,
+                    dy: torch.Tensor):
+    """The one-pass RMSNorm backward (``rmsnorm.py::_bwd_kernel``): x, dy
+    (rows, d); scale (d,); rstd (rows,) f32 -> (dx (rows, d) in x's dtype,
+    dscale (d,) f32)."""
+    xf, dyf = x.float(), dy.float()
+    r = rstd[:, None]
+    dys = dyf * scale
+    c = (dys * xf).sum(dim=-1, keepdim=True) / x.shape[-1]
+    dx = ((dys - xf * (r * r) * c) * r).to(x.dtype)
+    return dx, (dyf * xf * r).sum(dim=0)
+
+
+def rmsprop_update_ref(g: torch.Tensor, grad: torch.Tensor, *, lr: float,
+                       alpha: float = 0.99, eps: float = 0.1):
+    """Paper Eq. 8-9 (non-centred RMSProp with shared statistics), f32:
+    returns (new_g, update); the caller subtracts update."""
+    new_g = alpha * g + (1.0 - alpha) * grad.square()
+    return new_g, lr * grad / torch.sqrt(new_g + eps)
+
+
+def _train_mask(s: int, causal: bool, window: Optional[int], device):
+    """(S, S) validity of key t for query s, positions = row indices."""
+    qpos = torch.arange(s, device=device)[:, None]
+    kpos = torch.arange(s, device=device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _train_logits(q, k, causal: bool, window: Optional[int]):
+    """Masked, scaled f32 scores (B, S, Hkv, G, S) of the grouped heads."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, d).float()
+    logits = torch.einsum("bshgd,bthd->bshgt", qg, k.float()) * d ** -0.5
+    mask = _train_mask(s, causal, window, q.device)
+    return torch.where(mask[None, :, None, None, :], logits, NEG)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """q (B,S,Hq,D); k,v (B,S,Hkv,D) -> (out (B,S,Hq,D), lse (B,Hq,S) f32):
+    softmax in f32, and the per-row log-sum-exp of the masked scores, the
+    statistic the backward rebuilds p from."""
+    b, s, hq, d = q.shape
+    logits = _train_logits(q, k, causal, window)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bshgt,bthd->bshgd", p, v.float())
+    o = o.reshape(b, s, hq, d).to(q.dtype).contiguous()
+    lse = torch.logsumexp(logits, dim=-1).reshape(b, s, hq).transpose(1, 2)
+    return o, lse.contiguous()
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window: Optional[int] = None):
+    """FlashAttention-2 backward from the saved lse, with the formulas of
+    ``flash_attention_bwd.py``: p = exp(s - lse), delta = rowsum(do * o),
+    ds = p * (dp - delta) * scale.  p and ds stay in f32 (the TPU kernel
+    rounds them to the input dtype before its products; the CUDA kernel
+    does not).  Returns (dq, dk, dv) in the input dtypes, dk and dv summed
+    over each kv head's G query heads."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = d ** -0.5
+    logits = _train_logits(q, k, causal, window)          # (B,S,Hkv,G,S)
+    lse_g = lse.transpose(1, 2).reshape(b, s, hkv, g, 1)
+    p = torch.exp(logits - lse_g)
+    dog = do.reshape(b, s, hkv, g, d).float()
+    delta = (dog * o.reshape(b, s, hkv, g, d).float()).sum(-1, keepdim=True)
+    dp = torch.einsum("bshgd,bthd->bshgt", dog, v.float())
+    ds = p * (dp - delta) * scale
+    qg = q.reshape(b, s, hkv, g, d).float()
+    dq = torch.einsum("bshgt,bthd->bshgd", ds, k.float()).reshape(b, s, hq, d)
+    dk = torch.einsum("bshgt,bshgd->bthd", ds, qg)
+    dv = torch.einsum("bshgt,bshgd->bthd", p, dog)
+    return (dq.to(q.dtype).contiguous(), dk.to(k.dtype).contiguous(),
+            dv.to(v.dtype).contiguous())
 
 
 def decode_attention_ref(q, k_cache, v_cache, kpos, pos) -> torch.Tensor:

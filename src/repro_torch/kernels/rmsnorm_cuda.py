@@ -1,7 +1,9 @@
-"""Wrapper of the CUDA RMSNorm forward (``csrc/rmsnorm.cu``).
+"""Wrappers of the CUDA RMSNorm kernels (``csrc/rmsnorm.cu``,
+``csrc/rmsnorm_bwd.cu``).
 
-Replaces ``repro/kernels/rmsnorm.py::rmsnorm_fwd``.  A CUDA tensor launches
-the kernel (or raises); a CPU tensor takes ``ref.rmsnorm_ref``.
+Replace ``repro/kernels/rmsnorm.py::rmsnorm_fwd`` and ``rmsnorm_bwd``.  A
+CUDA tensor launches the kernel (or raises); a CPU tensor takes
+``ref.rmsnorm_ref`` / ``ref.rmsnorm_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -9,18 +11,14 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-launches = 0    # kernel launches since the last reset (dispatch.reset_...)
+launches = 0        # forward launches since the last reset (dispatch.reset_...)
+bwd_launches = 0    # backward launches since the last reset
 
 
-def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, *,
-                eps: float = 1e-6) -> torch.Tensor:
-    """x (rows, d) f32 or bf16, contiguous; scale (d,) f32 -> (rows, d) in
-    x's dtype.  On the card, rows are whole 16-byte chunks on 16-byte
-    boundaries."""
-    what = "rmsnorm_fwd"
+def _check_rows(what: str, x: torch.Tensor, scale: torch.Tensor) -> None:
     build.require(x.dim() == 2, what, f"x must be (rows, d), got "
                   f"{tuple(x.shape)}")
-    rows, d = x.shape
+    d = x.shape[1]
     build.require(tuple(scale.shape) == (d,), what,
                   f"scale {tuple(scale.shape)} does not match d={d}")
     build.require(x.dtype in build.DTYPE_CODE, what,
@@ -29,21 +27,83 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, *,
                   f"scale dtype {scale.dtype} (want float32)")
     build.require(x.device == scale.device, what,
                   f"x on {x.device}, scale on {scale.device}")
-    if x.device.type == "cpu":
-        return ref.rmsnorm_ref(x, scale, eps=eps)
+
+
+def _check_card_rows(what: str, *rows: torch.Tensor) -> None:
+    """The kernels move 16 bytes at a time: contiguous rows of whole
+    16-byte chunks on 16-byte boundaries."""
+    x = rows[0]
     build.require(x.is_cuda, what, f"unsupported device {x.device}")
-    build.require(x.is_contiguous() and scale.is_contiguous(), what,
+    build.require(all(t.is_contiguous() for t in rows), what,
                   "inputs must be contiguous")
     vec = 16 // x.element_size()
-    build.require(d % vec == 0, what, f"d={d} must be a multiple of {vec} "
-                  f"for {x.dtype} (the kernel moves 16 bytes at a time)")
-    build.require(x.data_ptr() % 16 == 0, what,
+    build.require(x.shape[1] % vec == 0, what,
+                  f"d={x.shape[1]} must be a multiple of {vec} for {x.dtype} "
+                  "(the kernel moves 16 bytes at a time)")
+    build.require(all(t.data_ptr() % 16 == 0 for t in rows), what,
                   "x must start on a 16-byte boundary")
+
+
+def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
+                save_residuals: bool = False):
+    """x (rows, d) f32 or bf16, contiguous; scale (d,) f32 -> (rows, d) in
+    x's dtype, plus the per-row rstd (rows,) f32 with ``save_residuals``.
+    On the card, rows are whole 16-byte chunks on 16-byte boundaries."""
+    what = "rmsnorm_fwd"
+    _check_rows(what, x, scale)
+    if x.device.type == "cpu":
+        return ref.rmsnorm_ref(x, scale, eps=eps,
+                               save_residuals=save_residuals)
+    _check_card_rows(what, x)
+    build.require(scale.is_contiguous(), what, "inputs must be contiguous")
+    rows, d = x.shape
     y = torch.empty_like(x)
+    rstd = (torch.empty(rows, dtype=torch.float32, device=x.device)
+            if save_residuals else None)
     rc = build.library().rt_rmsnorm_fwd(
-        x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d, float(eps),
+        x.data_ptr(), scale.data_ptr(), y.data_ptr(),
+        rstd.data_ptr() if rstd is not None else None, rows, d, float(eps),
         build.DTYPE_CODE[x.dtype], build.stream_of(x))
     build.check(rc, what)
     global launches
     launches += 1
-    return y
+    return (y, rstd) if save_residuals else y
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, rstd: torch.Tensor,
+                dy: torch.Tensor):
+    """One-pass dx / dscale from the forward's rstd.  x, dy (rows, d) in one
+    dtype; scale (d,) f32; rstd (rows,) f32 -> (dx (rows, d) in x's dtype,
+    dscale (d,) f32).  The kernel writes one dscale row per group of rows;
+    their sum is taken here, as the TPU wrapper sums its block partials."""
+    what = "rmsnorm_bwd"
+    _check_rows(what, x, scale)
+    rows, d = x.shape
+    build.require(dy.shape == x.shape and dy.dtype == x.dtype, what,
+                  f"dy {tuple(dy.shape)} {dy.dtype} does not match x "
+                  f"{tuple(x.shape)} {x.dtype}")
+    build.require(tuple(rstd.shape) == (rows,) and
+                  rstd.dtype == torch.float32, what,
+                  f"want rstd ({rows},) float32, got {tuple(rstd.shape)} "
+                  f"{rstd.dtype}")
+    build.require(len({t.device for t in (x, scale, rstd, dy)}) == 1, what,
+                  "inputs on different devices")
+    if x.device.type == "cpu":
+        return ref.rmsnorm_bwd_ref(x, scale, rstd, dy)
+    _check_card_rows(what, x, dy)
+    build.require(scale.is_contiguous() and rstd.is_contiguous(), what,
+                  "inputs must be contiguous")
+    # about four blocks per SM; each block's dscale row covers its rows
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    per_block = max(1, -(-rows // (4 * sms)))
+    n_blocks = max(1, -(-rows // per_block))
+    dx = torch.empty_like(x)
+    part = torch.empty((n_blocks, d), dtype=torch.float32, device=x.device)
+    rc = build.library().rt_rmsnorm_bwd(
+        x.data_ptr(), dy.data_ptr(), scale.data_ptr(), rstd.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), rows, d, per_block,
+        build.DTYPE_CODE[x.dtype], build.stream_of(x))
+    build.check(rc, what)
+    global bwd_launches
+    bwd_launches += 1
+    return dx, part.sum(dim=0)

@@ -1,8 +1,10 @@
 """Grouped-query attention with RoPE, sliding windows and KV caches.
 
-Counterpart of ``repro/models/attention.py`` for the serving path, on the
-contiguous cache layout:
+Counterpart of ``repro/models/attention.py`` for the training path and,
+on the contiguous cache layout, the serving path:
 
+  * ``attend_train``   — full-sequence causal (or bidirectional) attention
+    through the differentiable flash kernels;
   * ``attend_decode``  — one new token per slot against its KV cache;
   * ``attend_prefill`` — one prompt chunk, written into the cache and
     attended through the append kernel.
@@ -72,6 +74,19 @@ def _qkv(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
     q = cm.apply_rope(q, cos, sin, rotary_dim=cfg.rotary_dim)
     k = cm.apply_rope(k, cos, sin, rotary_dim=cfg.rotary_dim)
     return q, k, v
+
+
+def attend_train(params: dict, x: torch.Tensor, cfg, *,
+                 window: Optional[int] = None,
+                 bidirectional: bool = False) -> torch.Tensor:
+    """Full-sequence self attention.  x (B, S, d_model) at positions
+    0 .. S-1 -> (B, S, d_model)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None]          # (1, S)
+    q, k, v = _qkv(params, x, cfg, positions)
+    o = dispatch.flash_attention(q, k, v, causal=not bidirectional,
+                                 window=window)
+    return cm.linear(params["wo"], o.reshape(b, s, cfg.n_heads * cfg.hd))
 
 
 def attend_decode(params: dict, x: torch.Tensor, cache: dict,

@@ -1,18 +1,21 @@
-"""Config-driven backbone assembly for the serving path.
+"""Config-driven backbone assembly for the training and serving paths.
 
 Counterpart of ``repro/models/model.py`` for decoder stacks of ``attn`` and
 ``attn_local`` blocks with a gated MLP (the dense families: yi-6b,
 stablelm-1.6b, qwen2-72b, minicpm-2b):
 
   init_params(cfg, seed, device)               -> params (nested dicts)
+  forward(cfg, params, batch)                  -> {"logits", "value", ...}
   init_cache(cfg, batch, cache_len, ...)       -> cache
   decode_step(cfg, params, cache, batch, pos)  -> ({"logits", "value"}, cache)
   prefill_step(cfg, params, cache, batch, pos0, true_len)
 
 Layers are a Python list walked in a loop (the JAX package stacks them for
-``lax.scan``; ``repro_torch.bridge`` unstacks its parameters).  Parameters
-are cast to the compute dtype ONCE (``cast_params``) by whoever builds them
-for serving; the JAX steps cast inside every call, which in eager PyTorch
+``lax.scan``; ``repro_torch.bridge`` unstacks its parameters).  ``forward``
+takes the f32 masters and casts each block's matrices inside the step, as
+the JAX loss does, so gradients reach the f32 leaves.  For serving,
+parameters are cast to the compute dtype ONCE (``cast_params``) by whoever
+builds them: the JAX steps cast inside every call, which in eager PyTorch
 would copy every weight each step.  MoE, SSM, xLSTM, enc-dec and M-RoPE
 models are later slices and raise.
 """
@@ -21,6 +24,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
@@ -61,26 +65,31 @@ def _check_supported(cfg: ModelConfig) -> None:
 # parameters
 # ---------------------------------------------------------------------------
 
-def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+def flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """Flat {"layers.3.attn.wq.w": leaf, ...}, in ``tree_map`` order."""
     out: Dict[str, Any] = {}
     items = tree.items() if isinstance(tree, dict) else enumerate(tree)
     for k, v in items:
         key = f"{prefix}{k}"
         if isinstance(v, (dict, list)):
-            out.update(_flatten(v, key + "."))
+            out.update(flatten(v, key + "."))
         else:
             out[key] = v
     return out
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
     """fn on every leaf of nested dicts, lists and tuples (tuples come back
-    as lists, the port's layer layout)."""
+    as lists, the port's layer layout); with ``rest``, fn(leaf, *leaves at
+    the same place in each of the other trees)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
 
 
 def _shape_tree(cfg: ModelConfig) -> dict:
@@ -106,7 +115,7 @@ def _shape_tree(cfg: ModelConfig) -> dict:
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     """Flat {"layers.3.attn.wq.w": shape, ...} of every parameter."""
-    return _flatten(_shape_tree(cfg))
+    return flatten(_shape_tree(cfg))
 
 
 def _init_leaf(path: str, shape: tuple, gen: torch.Generator, device,
@@ -161,7 +170,8 @@ def unflatten(flat: Dict[str, Any]) -> Params:
 
 def cast_params(cfg: ModelConfig, params: Params) -> Params:
     """Matrices to the compute dtype; vectors (norm scales, biases) stay
-    f32.  Run once when serving weights are built."""
+    f32.  Run once when serving weights are built; ``forward`` runs it
+    inside the step on the f32 masters."""
     dt = compute_dtype(cfg)
     return tree_map(lambda x: x.to(dt) if x.dim() >= 2 and
                      x.dtype == torch.float32 else x, params)
@@ -227,6 +237,42 @@ def _heads(cfg: ModelConfig, params: Params, x: torch.Tensor) -> dict:
         out["logits"] = cm.linear(params["lm_head"], x, dtype=x.dtype)
     if cfg.value_head:
         out["value"] = cm.linear(params["value_head"], x)[..., 0].float()
+    return out
+
+
+def _block_train(cfg: ModelConfig, kind: str, p: Params,
+                 x: torch.Tensor) -> torch.Tensor:
+    """One residual block over the full sequence.  ``p`` holds the f32
+    masters; the cast to the compute dtype happens here, so under
+    ``cfg.remat`` it is recomputed in the backward and only one block's
+    cast copies are alive at a time."""
+    p = cast_params(cfg, p)
+    h = attn.attend_train(p["attn"], cm.apply_norm(cfg.norm, p["ln1"], x),
+                          cfg, window=_window(cfg, kind))
+    return _mlp_half(cfg, p, x + h)
+
+
+def forward(cfg: ModelConfig, params: Params,
+            batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Training (full-sequence) forward.  batch {"tokens": (B, S)} (or
+    {"embeds": (B, S, d)}); ``params`` the f32 masters.  Returns {"logits"
+    (B, S, V) in the compute dtype, "value" (B, S) f32, "aux_loss" 0 (dense
+    blocks)}.  With ``cfg.remat`` each block runs under
+    ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint``):
+    its activations are recomputed in the backward."""
+    _check_supported(cfg)
+    # gather, then cast: the values of casting the table first
+    x = _embed_inputs(cfg, params, batch)
+    for kind, p in zip(cfg.layer_kinds(), params["layers"]):
+        if cfg.remat:
+            x = checkpoint(_block_train, cfg, kind, p, x,
+                           use_reentrant=False)
+        else:
+            x = _block_train(cfg, kind, p, x)
+    top = cast_params(cfg, {k: v for k, v in params.items()
+                            if k != "layers"})
+    out = _heads(cfg, top, x)
+    out["aux_loss"] = torch.zeros((), device=x.device)
     return out
 
 

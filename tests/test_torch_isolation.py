@@ -78,6 +78,27 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
         serve.ServeEngine(cfg, params, n_slots=1, cache_len=8)
 
 
+def test_learner_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """make_train_step's inputs (parameters, batches) and the train CLI
+    resolve no device to the card, and raise without one."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("yi-6b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.init_params(cfg)
+    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pipe.batch(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--mode", "llm", "--arch", "yi-6b", "--reduced",
+                    "--steps", "1"])
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        train.main(["--mode", "rl", "--device", "cpu"])
+
+
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],

@@ -216,5 +216,7 @@ def test_launch_counters_untouched_on_cpu():
     """The CPU path runs the plain versions: no launch is counted."""
     dispatch.reset_launch_counts()
     dispatch.rmsnorm(torch.ones(2, 8), torch.ones(8))
-    assert dispatch.launch_counts() == {"rmsnorm": 0, "flash_append": 0,
-                                        "decode_attention": 0}
+    assert dispatch.launch_counts() == {
+        "rmsnorm": 0, "rmsnorm_bwd": 0, "flash_append": 0,
+        "decode_attention": 0, "flash_attention": 0,
+        "flash_attention_bwd": 0, "rmsprop": 0}

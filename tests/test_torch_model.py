@@ -98,10 +98,10 @@ def test_init_params_layout_and_distributions():
     cj, ct = _pair("yi-6b")
     pj, _ = _bridged(cj, ct)
     pt = TM.init_params(ct, seed=0, device="cpu")
-    flat_t = TM._flatten(pt)
+    flat_t = TM.flatten(pt)
     assert {k: tuple(v.shape) for k, v in flat_t.items()} == \
         TM.param_shapes(ct)
-    flat_j = TM._flatten(bridge.params_from_jax(
+    flat_j = TM.flatten(bridge.params_from_jax(
         ct, jax.tree.map(np.asarray, pj), device="cpu"))
     for name in ("embed.table", "layers.0.attn.wq.w", "layers.1.mlp.down.w",
                  "lm_head.w"):
@@ -113,7 +113,7 @@ def test_init_params_layout_and_distributions():
         assert float(flat_t[name].abs().max()) <= 2.0 * nominal * (1 + 1e-6)
     assert torch.equal(flat_t["layers.0.ln1.scale"], torch.ones(ct.d_model))
     cast = TM.cast_params(dataclasses.replace(ct, dtype="bfloat16"), pt)
-    flat_c = TM._flatten(cast)
+    flat_c = TM.flatten(cast)
     assert flat_c["layers.0.attn.wq.w"].dtype == torch.bfloat16
     assert flat_c["layers.0.ln1.scale"].dtype == torch.float32
 

@@ -153,8 +153,10 @@ def test_cli_runs_on_cpu(capsys):
                 "--prompt-range", "4,12", "--gen-range", "2,5"])
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["requests"] == 3 and rec["device"] == "cpu"
-    assert rec["kernel_launches"] == {"rmsnorm": 0, "flash_append": 0,
-                                      "decode_attention": 0}
+    assert rec["kernel_launches"] == {
+        "rmsnorm": 0, "rmsnorm_bwd": 0, "flash_append": 0,
+        "decode_attention": 0, "flash_attention": 0,
+        "flash_attention_bwd": 0, "rmsprop": 0}
 
 
 def test_prefill_step_matches_model(models):
