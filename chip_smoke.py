@@ -11,18 +11,26 @@ Phases (any failure raises and the script exits non-zero):
   3. hold each kernel to its plain PyTorch version on the card: the
      serving kernels at the serving shapes of Yi-6B and at edge cases
      (ragged per-slot pos, pos 0, a fully masked row, pos0 in {0, 512}, a
-     sliding window, a ring layout, ragged tiles), the training kernels at
-     the train shape (B = 4, S = 1024, 32 q heads over 4 kv heads, D = 128,
-     x (4096, 4096), a 45M-element leaf) and at edge cases (f32, a window,
-     causal=False, a ragged S, G = 1, ragged row and element counts).
-     f32 within rtol = atol = 1e-5; bf16 within two bf16 ulps
-     (rtol = 2**-6) and atol = 1e-5; sums over rows or keys (dscale, dq,
-     dk, dv) with an added atol of 2**-14 times the same sum taken over
-     absolute values (the f32 summation-order bound, see _grad_compare);
-     the rmsnorm wrapper must refuse rows it cannot move in 16-byte chunks;
-  4. time each kernel, its plain version and the nearest single PyTorch
-     call (none for rmsprop) with CUDA events (median, L2 flushed before
-     each call) beside the least time the card could take for the work;
+     sliding window, a ring layout, ragged tiles), with f32/bf16 and with
+     int8 caches (per-row f32 scales); the partials kernel over 1, 2 and 4
+     slices of the serving cache (B = 4, L = 1024, 32 q over 4 kv heads,
+     D = 128; bf16 and int8; a fully masked slice, an all-masked row, and
+     a ragged L = 300), each slice against the plain partials and the
+     slices combined (``ref.combine_partials``) against the decode kernel
+     and the plain decode; the training kernels at the train shape (B = 4,
+     S = 1024, 32 q heads over 4 kv heads, D = 128, x (4096, 4096), a
+     45M-element leaf) and at edge cases (f32, a window, causal=False, a
+     ragged S, G = 1, ragged row and element counts).  f32 within rtol =
+     atol = 1e-5; bf16 within two bf16 ulps (rtol = 2**-6) and atol = 1e-5;
+     sums over rows or keys (dscale, dq, dk, dv, the partials' acc) with an
+     added atol of 2**-14 times the same sum taken over absolute values
+     (the f32 summation-order bound, see SUM_ABS_TOL); the rmsnorm wrapper
+     must refuse rows it cannot move in 16-byte chunks;
+  4. time each kernel and arm, its plain version and the nearest single
+     PyTorch call (none for rmsprop, the partials kernel and the int8 arms:
+     no PyTorch call computes them) with CUDA events (median, L2 flushed
+     before each call) beside the least time the card could take for the
+     work;
   5. the port's model on a small input on the card against the same model
      on the CPU, then ``run_engine`` on Yi-6B at full width and depth (bf16
      weights from a seed, bf16 KV, 4 slots, cache 1024, chunk 128, 8 greedy
@@ -30,6 +38,13 @@ Phases (any failure raises and the script exits non-zero):
      serving kernel was launched on that run;
   6. a torch.profiler trace of one admission and of eight decode steps of
      that engine: wall time, device busy share and the top kernels;
+  6b. the context-parallel path: the same trace through ``run_engine``
+     with int8 KV and ``decode_cp[1]`` over a one-rank NCCL group (a
+     ``file://`` store): every request completes, all logits are finite,
+     the partials kernel and the int8 append kernel were launched and the
+     decode kernel was not; then its profile as in phase 6;
+  6c. reduced Yi-6B on the card, greedy: the engine under ``decode_cp[1]``
+     emits the tokens of the engine without it, with int8 and bf16 KV;
   7. three train steps of reduced Yi-6B in f32 on the card against the
      same steps on the CPU (losses to rtol 1e-4, parameters to 1e-5);
   8. Yi-6B at full width cut to 16 of 32 layers (f32 masters, bf16
@@ -38,6 +53,9 @@ Phases (any failure raises and the script exits non-zero):
      gradient finite, every parameter leaf changed and every training
      kernel launched.
 
+Every kernel and arm must have been launched on one of the main paths
+(phases 5, 6b, 6c and 8, each with the counters set to 0 just before it
+and read just after); the kernels line gives each one's launches by path.
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with one record per kernel and {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -382,6 +400,248 @@ def check_append(gen, flush):
     }
 
 
+# int8 arms and kernel 7: no single PyTorch call attends over an int8 cache
+# with per-row scales, and none returns the unnormalised (acc, m, l)
+NO_INT8_LIBRARY = ("none: no PyTorch call attends over int8 K/V with "
+                   "per-(row, kv head) scales")
+NO_PARTIALS_LIBRARY = ("none: no PyTorch call returns the unnormalised "
+                       "flash-decoding state (acc, m, l)")
+
+
+def _decode_cache(gen, b, hq, hkv, d, length, qdt, kvdt, pos, *, ring=None,
+                  masked_row=None):
+    """q, caches and per-slot kpos/pos as attend_decode builds them; kvdt
+    int8 gives quantised caches with their scales (else scales None)."""
+    import torch
+
+    from repro_torch.kernels import kv_quant
+    from repro_torch.models.attention import _cache_positions
+    q = _randn((b, hq, d), gen, qdt)
+    k = _randn((b, length, hkv, d), gen, torch.float32)
+    v = _randn((b, length, hkv, d), gen, torch.float32)
+    if kvdt == torch.int8:
+        (k, ks), (v, vs) = kv_quant.quantize(k), kv_quant.quantize(v)
+    else:
+        k, v, ks, vs = k.to(kvdt), v.to(kvdt), None, None
+    pos = torch.tensor(pos[:b], device="cuda", dtype=torch.int32)
+    kpos = _cache_positions(length, pos, ring).to(torch.int32)
+    if masked_row is not None and b > masked_row:
+        kpos[masked_row] = -1
+    return q, k, v, ks, vs, kpos.contiguous(), pos
+
+
+def _decode_bytes(q, k, ks, kpos, valid_rows, out_bytes):
+    """Least bytes of one decode call: K and V (and their scales) of the
+    valid cache rows only, q in, the outputs, kpos and pos."""
+    hkv, d = k.shape[2], k.shape[3]
+    nbytes = 2 * valid_rows * hkv * d * k.element_size()
+    if ks is not None:
+        nbytes += 2 * valid_rows * hkv * 4
+    return (nbytes + q.numel() * q.element_size() + out_bytes
+            + kpos.numel() * 4 + q.shape[0] * 4)
+
+
+def check_decode_int8(gen, flush):
+    """Kernel 6's int8 arm: caches int8 with (B, L, Hkv, 1) f32 scales."""
+    import torch
+
+    from repro_torch.kernels import decode_attention_cuda, ref
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    errs = []
+    # (b, hq, hkv, d, length, q dtype, ring window)
+    for b, hq, hkv, d, length, qdt, ring in (
+            (4, 32, 4, 128, 1024, bf, None), (4, 32, 4, 128, 1024, f32, None),
+            (2, 8, 8, 64, 300, f32, None),      # ragged tile
+            (3, 16, 1, 64, 77, bf, None),       # G = 16
+            (4, 32, 4, 128, 256, bf, 256)):     # ring
+        pos = ([5, 300, 511, 1000] if ring else
+               [0, length // 3, length - 1, length // 2])
+        q, k, v, ks, vs, kpos, pos = _decode_cache(
+            gen, b, hq, hkv, d, length, qdt, i8, pos, ring=ring,
+            masked_row=None if ring else 1)
+        errs.append(_compare(
+            f"decode int8 B={b} Hq={hq} Hkv={hkv} D={d} L={length} q={qdt}"
+            f"{' ring' if ring else ''}",
+            decode_attention_cuda.decode_attention_fwd(q, k, v, kpos, pos,
+                                                       ks, vs),
+            ref.decode_attention_quant_ref(q, k, v, ks, vs, kpos, pos)))
+
+    b, hq, hkv, d, length = 4, 32, 4, 128, 1024
+    q, k, v, ks, vs, kpos, pos = _decode_cache(
+        gen, b, hq, hkv, d, length, bf, i8, [100, 400, 700, 1000])
+    valid_rows = int(((kpos >= 0) & (kpos <= pos[:, None])).sum())
+    nbytes = _decode_bytes(q, k, ks, kpos, valid_rows, q.numel() * 2)
+    return {
+        "name": "decode_attention_fwd_int8", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:171",
+        "max_abs_err": max(errs),
+        "ms": _time_ms(lambda: decode_attention_cuda.decode_attention_fwd(
+            q, k, v, kpos, pos, ks, vs), flush),
+        "plain_ms": _time_ms(lambda: ref.decode_attention_quant_ref(
+            q, k, v, ks, vs, kpos, pos), flush),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "library_note": NO_INT8_LIBRARY,
+        "shape": f"q ({b}, {hq}, {d}) bf16, cache ({b}, {length}, {hkv}, "
+                 f"{d}) int8 + scales, pos {pos.tolist()}, valid rows "
+                 f"{valid_rows}",
+    }
+
+
+def check_append_int8(gen, flush):
+    """Kernel 4's int8 arm: the key stream int8 with (B, Sk, Hkv, 1) f32
+    scales, as attend_prefill passes an int8 cache prefix + chunk."""
+    import torch
+
+    from repro_torch.kernels import flash_append_cuda, kv_quant, ref
+    bf, f32 = torch.bfloat16, torch.float32
+    errs = []
+    cases = [
+        ("Yi pos0=0", 4, 128, 32, 4, 128, 0, bf, None, None, True, False),
+        ("Yi pos0=512", 4, 128, 32, 4, 128, 512, bf, None, None, True, False),
+        ("Yi pos0=512 f32", 4, 128, 32, 4, 128, 512, f32, None, None, True,
+         False),
+        ("window=200 linear skip", 2, 128, 32, 4, 128, 512, bf, 200, None,
+         True, False),
+        ("ring L=256 window=256", 2, 128, 32, 4, 128, 384, bf, 256, 256,
+         False, False),
+        ("fully masked row", 2, 128, 8, 4, 128, 128, f32, None, None, False,
+         True),
+        ("ragged C=100 pos0=37 D=64", 3, 100, 8, 2, 64, 37, f32, None, None,
+         True, False),
+    ]
+
+    def inputs(b, c, hq, hkv, d, pos0, dt, ring):
+        q, k, v, kpos = _append_inputs(gen, b, c, hq, hkv, d, pos0, dt,
+                                       ring=ring)
+        (k, ks), (v, vs) = kv_quant.quantize(k), kv_quant.quantize(v)
+        return q, k, v, ks, vs, kpos
+
+    for label, b, c, hq, hkv, d, pos0, dt, window, ring, linear, mrow in cases:
+        q, k, v, ks, vs, kpos = inputs(b, c, hq, hkv, d, pos0, dt, ring)
+        if mrow:
+            kpos[1] = -1
+        errs.append(_compare(
+            f"append int8 {label} B={b} C={c} Sk={k.shape[1]} Hq={hq} "
+            f"Hkv={hkv} D={d} {dt}",
+            flash_append_cuda.flash_attention_append(
+                q, k, v, kpos, pos0=pos0, window=window, kpos_linear=linear,
+                k_scale=ks, v_scale=vs),
+            ref.flash_attention_append_quant_ref(q, k, v, ks, vs, kpos,
+                                                 pos0=pos0, window=window)))
+
+    b, c, hq, hkv, d, pos0 = 4, 128, 32, 4, 128, 512
+    q, k, v, ks, vs, kpos = inputs(b, c, hq, hkv, d, pos0, bf, None)
+    sk = k.shape[1]
+    qpos = pos0 + torch.arange(c, device="cuda")
+    valid = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[None, :, None])
+    live_pairs = int(valid.sum())
+    # q in and out in bf16, K and V one byte an element, a scale per row
+    nbytes = (2 * q.numel() * 2 + 2 * k.numel() + 2 * ks.numel() * 4
+              + kpos.numel() * 4)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = 4 * hq * d * live_pairs / BF16_FLOPS * 1e3
+    return {
+        "name": "flash_attention_append_int8", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_append.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:264",
+        "max_abs_err": max(errs),
+        "ms": _time_ms(lambda: flash_append_cuda.flash_attention_append(
+            q, k, v, kpos, pos0=pos0, kpos_linear=True, k_scale=ks,
+            v_scale=vs), flush),
+        "plain_ms": _time_ms(lambda: ref.flash_attention_append_quant_ref(
+            q, k, v, ks, vs, kpos, pos0=pos0), flush),
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+        "library_ms": None, "library_note": NO_INT8_LIBRARY,
+        "shape": f"q ({b}, {c}, {hq}, {d}) bf16, k/v ({b}, {sk}, {hkv}, "
+                 f"{d}) int8 + scales, pos0={pos0}, live pairs {live_pairs}",
+    }
+
+
+def check_partials(gen, flush):
+    """Kernel 7 over 1, 2 and 4 slices of the cache, each slice against the
+    plain partials (acc, m, l in f32), the slices combined with
+    ref.combine_partials against kernel 6 on the whole cache and against
+    the plain decode; bf16 and int8 caches.  Rows: pos 100 (slices past it
+    fully masked), an all-masked row, the last slot, 700; and a ragged
+    shape (L = 300, slices of 150 and 75 rows, ragged key tiles).
+    Returns the records of the bf16 and the int8 arm."""
+    import torch
+
+    from repro_torch.kernels import decode_attention_cuda, ref
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    errs = {bf: [], i8: []}
+    for kvdt in (bf, i8):
+        for b, hq, hkv, d, length, qdt, rows in (
+                (4, 32, 4, 128, 1024, bf, [100, 400, 1023, 700]),
+                (2, 8, 2, 64, 300, f32, [100, 250])):
+            q, k, v, ks, vs, kpos, pos = _decode_cache(
+                gen, b, hq, hkv, d, length, qdt, kvdt, rows, masked_row=1)
+            whole = decode_attention_cuda.decode_attention_fwd(
+                q, k, v, kpos, pos, ks, vs)
+            plain = (ref.decode_attention_quant_ref(q, k, v, ks, vs, kpos,
+                                                    pos) if ks is not None
+                     else ref.decode_attention_ref(q, k, v, kpos, pos))
+            for n in (1, 2, 4):
+                step = length // n
+                parts = []
+                for i in range(n):
+                    s = slice(i * step, (i + 1) * step)
+                    sl = [None if t is None else t[:, s].contiguous()
+                          for t in (k, v, ks, vs, kpos)]
+                    got = decode_attention_cuda.decode_attention_partials(
+                        q, sl[0], sl[1], sl[4], pos, sl[2], sl[3])
+                    want = ref.decode_attention_partials_ref(
+                        q, sl[0], sl[1], sl[4], pos, sl[2], sl[3])
+                    # acc is a sum over up to L keys (all of them, at
+                    # weight 1, in a fully masked slice): its terms' sum
+                    # over |v| scales its f32 summation-order error
+                    acc_abs = ref.decode_attention_partials_ref(
+                        q, sl[0], sl[1].abs(), sl[4], pos, sl[2], sl[3])[0]
+                    for name, g_, w_, a_ in zip(("acc", "m", "l"), got, want,
+                                                (acc_abs, None, None)):
+                        errs[kvdt].append(_compare(
+                            f"partials {kvdt} B={b} L={length} slice {i}/{n} "
+                            f"{name}", g_, w_, sum_abs=a_))
+                    parts.append(got)
+                o = ref.combine_partials(parts).to(q.dtype)
+                label = f"partials {kvdt} B={b} L={length} {n} slices combined"
+                errs[kvdt].append(_compare(label + " vs decode kernel", o,
+                                           whole))
+                errs[kvdt].append(_compare(label + " vs plain", o, plain))
+
+    records = []
+    b, hq, hkv, d, length = 4, 32, 4, 128, 1024
+    for kvdt, suffix in ((bf, ""), (i8, "_int8")):
+        q, k, v, ks, vs, kpos, pos = _decode_cache(
+            gen, b, hq, hkv, d, length, bf, kvdt, [100, 400, 700, 1000])
+        valid_rows = int(((kpos >= 0) & (kpos <= pos[:, None])).sum())
+        # outputs: acc (B, Hkv, G, D), m and l (B, Hkv, G), f32
+        nbytes = _decode_bytes(q, k, ks, kpos, valid_rows,
+                               b * hq * (d + 2) * 4)
+        records.append({
+            "name": "decode_attention_partials" + suffix, "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:188",
+            "max_abs_err": max(errs[kvdt]),
+            "ms": _time_ms(lambda: decode_attention_cuda
+                           .decode_attention_partials(q, k, v, kpos, pos, ks,
+                                                      vs), flush),
+            "plain_ms": _time_ms(lambda: ref.decode_attention_partials_ref(
+                q, k, v, kpos, pos, ks, vs), flush),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            "library_note": NO_PARTIALS_LIBRARY + (
+                "; " + NO_INT8_LIBRARY if ks is not None else ""),
+            "shape": f"q ({b}, {hq}, {d}) bf16, one slice: cache ({b}, "
+                     f"{length}, {hkv}, {d}) "
+                     f"{'int8 + scales' if ks is not None else 'bf16'}, "
+                     f"pos {pos.tolist()}, valid rows {valid_rows}",
+        })
+    return records
+
+
 def check_rmsnorm_bwd(gen, flush):
     import torch
     import torch.nn.functional as F
@@ -711,7 +971,8 @@ def _profile(label, fn, wall_ms=None):
     """Device busy share of ``fn`` from a torch.profiler trace: the summed
     time of the kernels it ran (one stream, so they do not overlap) over
     its wall time without the profiler (``wall_ms``, or one more run of
-    ``fn``), and the kernels that took the most device time."""
+    ``fn``), the kernels that took the most device time and the host ops
+    that took the most host time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -737,20 +998,29 @@ def _profile(label, fn, wall_ms=None):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"profile {label}:   {e.self_device_time_total / 1e3:8.2f} ms"
               f" x{e.count:<5d} {e.key[:90]}")
+    # where the host spends a host-bound window (profiled: inflated by the
+    # profiler's own cost, so read the shares, not the times)
+    host = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    total = sum(e.self_cpu_time_total for e in host) / 1e3
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]:
+        print(f"profile {label}:   host {e.self_cpu_time_total / 1e3:8.2f} "
+              f"ms of {total:.2f} x{e.count:<6d} {e.key[:60]}")
 
 
-def profile_engine(cfg, params):
+def profile_engine(cfg, params, label, **engine_kw):
     """Where a full-width engine step spends its time: one admission of
-    four prompts (chunked prefill) and eight decode steps of four slots."""
+    four prompts (chunked prefill) and eight decode steps of four slots,
+    on an engine built with ``engine_kw`` (kv dtype, decode_cp)."""
     from repro_torch.launch import serve
     eng = serve.ServeEngine(cfg, params, n_slots=4, cache_len=1024,
-                            chunk=128, sample=False, kv_dtype="bf16",
-                            device="cuda")
+                            chunk=128, sample=False, device="cuda",
+                            **engine_kw)
     reqs = iter(serve.gen_trace(8, vocab=cfg.vocab_size,
                                 prompt_range=(64, 600), gen_range=(64, 64),
                                 arrival_rate=0.0, seed=1))
     # each call admits four fresh requests into the four slots
-    _profile("admission of 4 prompts", lambda: eng.admit(
+    _profile(f"{label} admission of 4 prompts", lambda: eng.admit(
         [(next(reqs), j) for j in range(4)], 0.0))
     for _ in range(2):
         eng.decode_step_all()
@@ -758,7 +1028,94 @@ def profile_engine(cfg, params):
     def decode():
         for _ in range(8):
             eng.decode_step_all()
-    _profile("8 decode steps x 4 slots", decode)
+    _profile(f"{label} 8 decode steps x 4 slots", decode)
+
+
+# the context-parallel int8 path: the partials kernel and the int8 append
+# kernel run, kernel 6 (either arm) does not
+CP_ENGINE_COUNTERS = ("rmsnorm", "flash_append_int8",
+                      "decode_attention_partials_int8")
+NOT_ON_CP_PATH = ("decode_attention", "decode_attention_int8",
+                  "flash_append")
+
+
+def run_yi6b_cp_engine(cfg, params):
+    """Phase 6b: phase 5's trace through ``run_engine`` with int8 KV and
+    ``decode_cp[1]`` over the one-rank NCCL group installed by the caller
+    (``sharding.process_group``)."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    trace = serve.gen_trace(8, vocab=cfg.vocab_size, prompt_range=(64, 600),
+                            gen_range=(16, 48), arrival_rate=0.0, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    rep = serve.run_engine(cfg, params, trace, n_slots=4, cache_len=1024,
+                           chunk=128, sample=False, seed=0, kv_dtype="int8",
+                           device="cuda", decode_cp=True)
+    counts = dispatch.launch_counts()
+    unfinished = [r.rid for r in trace if len(r.tokens) != r.max_new]
+    if rep["requests"] != len(trace) or unfinished:
+        raise AssertionError(f"cp engine: requests {unfinished} did not "
+                             "finish")
+    if not rep["logits_finite"]:
+        raise AssertionError("cp engine: non-finite logits")
+    if rep["decode_layout"] != "decode_cp[1]" or rep["kv_dtype"] != "int8":
+        raise AssertionError(f"cp engine: layout {rep['decode_layout']} "
+                             f"kv {rep['kv_dtype']}")
+    missing = [k for k in CP_ENGINE_COUNTERS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"cp engine: kernels never launched: {missing}")
+    stray = [k for k in NOT_ON_CP_PATH if counts[k] != 0]
+    if stray:
+        raise AssertionError(f"cp engine: kernels off its path launched: "
+                             f"{ {k: counts[k] for k in stray} }")
+    print("engine yi-6b full width x 32 layers decode_cp[1] int8: "
+          + json.dumps({k: rep[k] for k in (
+              "requests", "generated_tokens", "prefill_tokens", "wall_s",
+              "tokens_per_s", "decode_tokens_per_s", "prefill_wall_s",
+              "ttft_s", "latency_s", "warmup_s", "logits_finite",
+              "decode_layout", "cp_combine_bytes_per_token")}))
+    print(f"cp engine peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    shown = {k: counts[k] for k in CP_ENGINE_COUNTERS + NOT_ON_CP_PATH}
+    print(f"cp engine kernel launches {json.dumps(shown)}")
+    return counts
+
+
+def check_cp_reduced():
+    """Phase 6c: reduced Yi-6B on the card, greedy, 6 requests: the engine
+    under decode_cp[1] emits the tokens of the engine without it, with an
+    int8 and with a bf16 cache (one rank: the partials kernel and the
+    combine compute kernel 6's arithmetic)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = get_config("yi-6b").reduced()
+    params = M.init_params(cfg, 0, "cuda")
+    dispatch.reset_launch_counts()
+    for kv in ("int8", "bf16"):
+        tokens = {}
+        for cp in (False, True):
+            trace = serve.gen_trace(6, vocab=cfg.vocab_size,
+                                    prompt_range=(3, 20), gen_range=(1, 8),
+                                    arrival_rate=0.0, seed=5)
+            rep = serve.run_engine(cfg, params, trace, n_slots=2,
+                                   cache_len=32, chunk=8, sample=False,
+                                   seed=0, kv_dtype=kv, device="cuda",
+                                   decode_cp=cp)
+            if not rep["logits_finite"]:
+                raise AssertionError(f"reduced cp={cp} {kv}: non-finite")
+            tokens[cp] = {r.rid: list(r.tokens) for r in trace}
+        if tokens[True] != tokens[False]:
+            raise AssertionError(f"reduced yi-6b {kv}: decode_cp[1] tokens "
+                                 f"{tokens[True]} != {tokens[False]}")
+        print(f"check reduced yi-6b {kv} KV decode_cp[1] vs replicated: "
+              f"{sum(len(t) for t in tokens[True].values())} greedy tokens "
+              "identical ok")
+    return dispatch.launch_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -910,6 +1267,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
                  "false); nothing was run")
+    from repro_torch.distributed import sharding
     from repro_torch.kernels import build
 
     smi = subprocess.run(
@@ -934,29 +1292,40 @@ def main():
     gen.manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = [check_rmsnorm(gen, flush), check_append(gen, flush),
-               check_decode(gen, flush), check_rmsnorm_bwd(gen, flush),
-               check_flash_fwd(gen, flush), check_flash_bwd(gen, flush),
-               check_rmsprop(gen, flush)]
+               check_append_int8(gen, flush), check_decode(gen, flush),
+               check_decode_int8(gen, flush), *check_partials(gen, flush),
+               check_rmsnorm_bwd(gen, flush), check_flash_fwd(gen, flush),
+               check_flash_bwd(gen, flush), check_rmsprop(gen, flush)]
     del flush
     for r in records:
         for sub in (r, r.get("train_shape")):
             if sub is None:
                 continue
             lib = sub["library_ms"]
+            lib = sub.get("library_note", "none") if lib is None else \
+                f"{lib:.4f}"
             print(f"kernel {r['name']} [{sub['shape']}]: kernel_ms="
                   f"{sub['ms']:.4f} bound_ms={sub['bound_ms']:.4f} "
                   f"({sub['bound_by']}) plain_ms={sub['plain_ms']:.4f} "
-                  f"library_ms={'none' if lib is None else f'{lib:.4f}'}")
+                  f"library_ms={lib}")
     print(f"phase kernels_s {time.perf_counter() - t_phase:.1f}")
 
     t_phase = time.perf_counter()
     check_model_small()
     engine_counts, cfg, params = run_yi6b_engine()
-    profile_engine(cfg, params)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    profile_engine(cfg, params, "bf16", kv_dtype="bf16")
     print(f"phase engine_s {time.perf_counter() - t_phase:.1f}")
+
+    t_phase = time.perf_counter()
+    with sharding.process_group(torch.device("cuda")):
+        cp_counts = run_yi6b_cp_engine(cfg, params)
+        profile_engine(cfg, params, "decode_cp[1] int8", kv_dtype="int8",
+                       decode_cp=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        reduced_counts = check_cp_reduced()
+    print(f"phase engine_cp_s {time.perf_counter() - t_phase:.1f}")
 
     t_phase = time.perf_counter()
     check_train_small()
@@ -967,14 +1336,22 @@ def main():
 
     by_op = {"rmsnorm_fwd": "rmsnorm",
              "flash_attention_append": "flash_append",
+             "flash_attention_append_int8": "flash_append_int8",
              "decode_attention_fwd": "decode_attention",
+             "decode_attention_fwd_int8": "decode_attention_int8",
+             "decode_attention_partials": "decode_attention_partials",
+             "decode_attention_partials_int8":
+                 "decode_attention_partials_int8",
              "rmsnorm_bwd": "rmsnorm_bwd",
              "flash_attention_fwd": "flash_attention",
              "flash_attention_bwd": "flash_attention_bwd",
              "rmsprop_update": "rmsprop"}
     for r in records:
         op = by_op[r["name"]]
-        paths = {"engine": engine_counts[op], "train_3_steps": train_counts[op]}
+        paths = {"engine": engine_counts[op],
+                 "engine_cp_int8": cp_counts[op],
+                 "engine_reduced_cp": reduced_counts[op],
+                 "train_3_steps": train_counts[op]}
         r["launches_by_path"] = {k: n for k, n in paths.items() if n}
         r["launches"] = sum(paths.values())
         if r["launches"] <= 0:

@@ -8,8 +8,10 @@
 // One block of kThreads threads owns R query rows (already in shared memory
 // as f32) and walks key tiles of BK rows.  Per tile:
 //   1. K and V tiles are copied from device memory into shared memory as
-//      f32 with 16-byte loads, rows padded to D + 1 floats so that the score loop, where the
-//      32 lanes of a warp read 32 different key rows, hits 32 banks;
+//      f32 with 16-byte loads (int8 tiles dequantised with their row scales
+//      on the way), rows padded to D + 1 floats so that the score loop,
+//      where the 32 lanes of a warp read 32 different key rows, hits 32
+//      banks;
 //   2. scores: thread (j = tid % BK) computes row j of the tile against
 //      rows tid / BK + k * (kThreads / BK) of Q, reusing each K element
 //      for all its rows; the mask is applied on absolute positions;
@@ -19,6 +21,8 @@
 // Key rows at or past Sk (the ragged last tile) get weight exactly 0 and do
 // not take part in the running max; they do not exist in the reference.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -66,27 +70,35 @@ struct TileSmem {
 // f32 (row r of destination i at dst[i] + r * dst_stride); rows >=
 // valid_rows are zero.  Each thread first issues all its 16-byte loads and
 // only then converts and stores, so a block keeps kThreads * NSRC *
-// iterations loads in flight instead of one per thread.
+// iterations loads in flight instead of one per thread.  An int8 source
+// is dequantised on the way: each element times its row's f32 scale
+// (scl[i] + r * scale_stride, loaded beside the 16 bytes), so the
+// device-memory stream stays int8; float sources ignore scl.
 template <int D, int ROWS, int NSRC, typename T>
 __device__ __forceinline__ void load_rows_f32(
     float* const (&dst)[NSRC], int dst_stride, const T* const (&src)[NSRC],
-    long long stride, int valid_rows) {
+    long long stride, int valid_rows, const float* const* scl = nullptr,
+    long long scale_stride = 0) {
+  constexpr bool kQuant = std::is_same<T, int8_t>::value;
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kChunks = D / kVec;
   constexpr int kTotal = ROWS * kChunks;
   constexpr int kIters = (kTotal + kThreads - 1) / kThreads;
   static_assert(D % kVec == 0, "row must be whole 16-byte chunks");
   uint4 buf[NSRC][kIters];
+  float sc[NSRC][kQuant ? kIters : 1];
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
     const int e = threadIdx.x + it * kThreads;
     const int r = e / kChunks, c = e % kChunks;
     const bool live = e < kTotal && r < valid_rows;
 #pragma unroll
-    for (int i = 0; i < NSRC; ++i)
+    for (int i = 0; i < NSRC; ++i) {
       buf[i][it] = live ? *reinterpret_cast<const uint4*>(
                               src[i] + r * stride + c * kVec)
                         : make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (kQuant) sc[i][it] = live ? scl[i][r * scale_stride] : 0.f;
+    }
   }
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
@@ -98,7 +110,12 @@ __device__ __forceinline__ void load_rows_f32(
       const T* el = reinterpret_cast<const T*>(&buf[i][it]);
       float* d = dst[i] + r * dst_stride + c * kVec;
 #pragma unroll
-      for (int t = 0; t < kVec; ++t) d[t] = to_f32(el[t]);
+      for (int t = 0; t < kVec; ++t) {
+        if constexpr (kQuant)
+          d[t] = to_f32(el[t]) * sc[i][it];
+        else
+          d[t] = to_f32(el[t]);
+      }
     }
   }
 }
@@ -113,7 +130,10 @@ struct AccRows {
 // Walk key tiles [kt_begin, kt_end) of a key stream of Sk rows.  kg/vg
 // point at key row 0 of this (batch, kv head); consecutive key rows are
 // row_stride elements apart.  kposg is this batch row's kpos (Sk,), or
-// null when key row j sits at position j (the training forward).
+// null when key row j sits at position j (the training forward).  An int8
+// stream passes its f32 scales: ksg/vsg at key row 0 of this (batch, kv
+// head), consecutive rows scale_stride apart (the (B, Sk, Hkv, 1) layout);
+// each K/V tile is dequantised as it is staged.
 // sm.m / sm.l / acc must hold (NEG, 0, 0) on entry; on return they hold the
 // unnormalised online-softmax state, and every thread may read sm.l and
 // sm.m.  window <= 0 means no sliding window; causal = false drops the
@@ -124,7 +144,9 @@ __device__ __forceinline__ void attend_tiles(
     const TKV* __restrict__ kg, const TKV* __restrict__ vg,
     long long row_stride, const int* __restrict__ kposg, int Sk,
     int kt_begin, int kt_end, float scale,
-    float (&acc)[AccRows<D, R_MAX>::kCount], bool causal = true) {
+    float (&acc)[AccRows<D, R_MAX>::kCount], bool causal = true,
+    const float* __restrict__ ksg = nullptr,
+    const float* __restrict__ vsg = nullptr, long long scale_stride = 0) {
   static_assert(kThreads % BK == 0 && BK % 32 == 0, "BK: warp multiple");
   static_assert(kThreads % D == 0 && D % 32 == 0, "D: warp multiple");
   constexpr int kKS = D + 1;
@@ -143,7 +165,11 @@ __device__ __forceinline__ void attend_tiles(
     {
       float* const dst[2] = {sm.k, sm.v};
       const TKV* const src[2] = {kg + k0 * row_stride, vg + k0 * row_stride};
-      load_rows_f32<D, BK, 2, TKV>(dst, kKS, src, row_stride, Sk - k0);
+      const float* const scl[2] = {
+          ksg != nullptr ? ksg + k0 * scale_stride : nullptr,
+          vsg != nullptr ? vsg + k0 * scale_stride : nullptr};
+      load_rows_f32<D, BK, 2, TKV>(dst, kKS, src, row_stride, Sk - k0, scl,
+                                   scale_stride);
     }
     if (tid < BK) {
       const int row = k0 + tid;

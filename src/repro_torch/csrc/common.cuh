@@ -6,10 +6,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace rt {
 
-// dtype codes passed through the C interface (kernels/build.py mirrors them)
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// dtype codes passed through the C interface (kernels/build.py mirrors
+// them); int8 is a KV-cache type only, always with per-row f32 scales
+enum DType : int { kF32 = 0, kBF16 = 1, kInt8 = 2 };
 
 // Masking constants of the TPU kernels (decode_attention.py:40,95;
 // flash_attention.py:33,260): a finite "minus infinity", so a row with no
@@ -22,6 +25,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);

@@ -7,12 +7,16 @@
 //   kpos <= qpos and, with a window, kpos > qpos - window.  With
 //   kpos_linear (key row index == absolute position wherever valid) whole
 //   key tiles beyond the causal bound or below the window floor are skipped,
-//   as the TPU kernel's tile_live; ring layouts visit every tile.
+//   as the TPU kernel's tile_live; ring layouts visit every tile.  An int8
+//   key stream carries per-(row, kv head) f32 scales (B, Sk, Hkv, 1) and
+//   each staged K/V tile is dequantised right after its 16-byte loads, as
+//   the TPU body dequantises in VMEM: the device-memory stream stays int8.
 //
 // Bound on the H100: at the serving shapes (C = 128 rows against a prefix
 // of up to ~1k keys) the operations dominate: 4 * B * Hq * D * live_pairs
 // over 989 TFLOP/s (bf16) against the bytes of q, k, v and out over
-// 3.35 TB/s.
+// 3.35 TB/s (int8: one byte a K/V element plus 4 bytes of scale a row and
+// kv head).
 //
 // Design: the TPU grid (batch, q head, q block, k block) becomes one block
 // per (q tile of 64 rows, q head, batch row) that loops over key tiles of
@@ -34,7 +38,8 @@ constexpr int kBK = 32;  // keys per tile
 template <int D, typename TQ, typename TKV>
 __global__ void __launch_bounds__(rt::kThreads)
     append_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-                  const TKV* __restrict__ v, const int* __restrict__ kpos,
+                  const TKV* __restrict__ v, const float* __restrict__ ks,
+                  const float* __restrict__ vs, const int* __restrict__ kpos,
                   TQ* __restrict__ out, int C, int Sk, int Hq, int Hkv,
                   int pos0, int window, int kpos_linear, float scale) {
   using Smem = rt::TileSmem<D, kBK, kBQ>;
@@ -77,9 +82,12 @@ __global__ void __launch_bounds__(rt::kThreads)
   __syncthreads();
 
   const long long kv_off = (long long)b * Sk * Hkv * D + (long long)hk * D;
+  const long long sc_off = (long long)b * Sk * Hkv + hk;
   rt::attend_tiles<D, kBK, kBQ, TKV>(
       sm, kBQ, window, k + kv_off, v + kv_off, (long long)Hkv * D,
-      kpos + (long long)b * Sk, Sk, kt_begin, kt_end, scale, acc);
+      kpos + (long long)b * Sk, Sk, kt_begin, kt_end, scale, acc,
+      /*causal=*/true, ks != nullptr ? ks + sc_off : nullptr,
+      vs != nullptr ? vs + sc_off : nullptr, Hkv);
 
   const int d = tid % D, a0 = tid / D;
 #pragma unroll
@@ -92,9 +100,10 @@ __global__ void __launch_bounds__(rt::kThreads)
 }
 
 template <int D, typename TQ, typename TKV>
-int launch(const void* q, const void* k, const void* v, const void* kpos,
-           void* out, int B, int C, int Sk, int Hq, int Hkv, int pos0,
-           int window, int kpos_linear, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const float* ks,
+           const float* vs, const void* kpos, void* out, int B, int C, int Sk,
+           int Hq, int Hkv, int pos0, int window, int kpos_linear,
+           cudaStream_t stream) {
   using Smem = rt::TileSmem<D, kBK, kBQ>;
   static bool configured = false;
   if (!configured) {
@@ -107,7 +116,7 @@ int launch(const void* q, const void* k, const void* v, const void* kpos,
   dim3 grid((C + kBQ - 1) / kBQ, Hq, B);
   append_kernel<D, TQ, TKV><<<grid, rt::kThreads, Smem::kBytes, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), static_cast<const int*>(kpos),
+      static_cast<const TKV*>(v), ks, vs, static_cast<const int*>(kpos),
       static_cast<TQ*>(out), C, Sk, Hq, Hkv, pos0, window, kpos_linear,
       (float)(1.0 / sqrt((double)D)));
   return (int)cudaGetLastError();
@@ -115,32 +124,36 @@ int launch(const void* q, const void* k, const void* v, const void* kpos,
 
 template <int D, typename TQ>
 int launch_kv(int kv_dtype, const void* q, const void* k, const void* v,
-              const void* kpos, void* out, int B, int C, int Sk, int Hq,
-              int Hkv, int pos0, int window, int kpos_linear,
-              cudaStream_t s) {
+              const float* ks, const float* vs, const void* kpos, void* out,
+              int B, int C, int Sk, int Hq, int Hkv, int pos0, int window,
+              int kpos_linear, cudaStream_t s) {
   switch (kv_dtype) {
     case rt::kF32:
-      return launch<D, TQ, float>(q, k, v, kpos, out, B, C, Sk, Hq, Hkv, pos0,
-                                  window, kpos_linear, s);
+      return launch<D, TQ, float>(q, k, v, ks, vs, kpos, out, B, C, Sk, Hq,
+                                  Hkv, pos0, window, kpos_linear, s);
     case rt::kBF16:
-      return launch<D, TQ, __nv_bfloat16>(q, k, v, kpos, out, B, C, Sk, Hq,
-                                          Hkv, pos0, window, kpos_linear, s);
+      return launch<D, TQ, __nv_bfloat16>(q, k, v, ks, vs, kpos, out, B, C,
+                                          Sk, Hq, Hkv, pos0, window,
+                                          kpos_linear, s);
+    case rt::kInt8:
+      return launch<D, TQ, int8_t>(q, k, v, ks, vs, kpos, out, B, C, Sk, Hq,
+                                   Hkv, pos0, window, kpos_linear, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <int D>
 int launch_q(int q_dtype, int kv_dtype, const void* q, const void* k,
-             const void* v, const void* kpos, void* out, int B, int C, int Sk,
-             int Hq, int Hkv, int pos0, int window, int kpos_linear,
-             cudaStream_t s) {
+             const void* v, const float* ks, const float* vs,
+             const void* kpos, void* out, int B, int C, int Sk, int Hq,
+             int Hkv, int pos0, int window, int kpos_linear, cudaStream_t s) {
   switch (q_dtype) {
     case rt::kF32:
-      return launch_kv<D, float>(kv_dtype, q, k, v, kpos, out, B, C, Sk, Hq,
-                                 Hkv, pos0, window, kpos_linear, s);
+      return launch_kv<D, float>(kv_dtype, q, k, v, ks, vs, kpos, out, B, C,
+                                 Sk, Hq, Hkv, pos0, window, kpos_linear, s);
     case rt::kBF16:
-      return launch_kv<D, __nv_bfloat16>(kv_dtype, q, k, v, kpos, out, B, C,
-                                         Sk, Hq, Hkv, pos0, window,
+      return launch_kv<D, __nv_bfloat16>(kv_dtype, q, k, v, ks, vs, kpos, out,
+                                         B, C, Sk, Hq, Hkv, pos0, window,
                                          kpos_linear, s);
   }
   return (int)cudaErrorInvalidValue;
@@ -148,12 +161,14 @@ int launch_q(int q_dtype, int kv_dtype, const void* q, const void* k,
 
 }  // namespace
 
-// q (B, C, Hq, D); k, v (B, Sk, Hkv, D); kpos (B, Sk) int32; out
-// (B, C, Hq, D) in q's dtype; all contiguous, q, k and v
-// 16-byte aligned.  D in {64, 128},
-// Hq % Hkv == 0; window <= 0 means none.  Returns the CUDA error code.
+// q (B, C, Hq, D); k, v (B, Sk, Hkv, D) f32, bf16 or int8, with ks, vs
+// (B, Sk, Hkv, 1) f32 exactly when int8 (else null); kpos (B, Sk) int32;
+// out (B, C, Hq, D) in q's dtype; all contiguous, q, k and v 16-byte
+// aligned.  D in {64, 128}, Hq % Hkv == 0; window <= 0 means none.  Returns
+// the CUDA error code.
 extern "C" int rt_flash_append_fwd(const void* q, const void* k,
-                                   const void* v, const void* kpos, void* out,
+                                   const void* v, const void* ks,
+                                   const void* vs, const void* kpos, void* out,
                                    int B, int C, int Sk, int Hq, int Hkv,
                                    int D, int pos0, int window,
                                    int kpos_linear, int q_dtype, int kv_dtype,
@@ -162,14 +177,18 @@ extern "C" int rt_flash_append_fwd(const void* q, const void* k,
   if (Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || pos0 < 0 || B > 65535 ||
       Hq > 65535)
     return (int)cudaErrorInvalidValue;
+  const float* ksf = static_cast<const float*>(ks);
+  const float* vsf = static_cast<const float*>(vs);
+  if ((kv_dtype == rt::kInt8) != (ksf != nullptr && vsf != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_q<64>(q_dtype, kv_dtype, q, k, v, kpos, out, B, C, Sk, Hq,
-                          Hkv, pos0, window, kpos_linear, s);
+      return launch_q<64>(q_dtype, kv_dtype, q, k, v, ksf, vsf, kpos, out, B,
+                          C, Sk, Hq, Hkv, pos0, window, kpos_linear, s);
     case 128:
-      return launch_q<128>(q_dtype, kv_dtype, q, k, v, kpos, out, B, C, Sk,
-                           Hq, Hkv, pos0, window, kpos_linear, s);
+      return launch_q<128>(q_dtype, kv_dtype, q, k, v, ksf, vsf, kpos, out, B,
+                           C, Sk, Hq, Hkv, pos0, window, kpos_linear, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -36,8 +36,10 @@ HEADERS = ("common.cuh", "attention_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-# dtype codes of the C interface (csrc/common.cuh, rt::DType)
+# dtype codes of the C interface (csrc/common.cuh, rt::DType): activations
+# are f32 or bf16; a KV cache may also be int8 (with f32 row scales)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+KV_DTYPE_CODE = {**DTYPE_CODE, torch.int8: 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,10 +48,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "rt_rmsnorm_fwd": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
     "rt_rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
-    "rt_decode_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _I, _P),
-    "rt_flash_append_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _P),
+    "rt_decode_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _P),
+    "rt_decode_attention_partials": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _P),
+    "rt_flash_append_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _P),
     "rt_flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P),
     "rt_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

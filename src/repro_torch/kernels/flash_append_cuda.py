@@ -1,9 +1,11 @@
 """Wrapper of the CUDA append-mode flash attention (``csrc/flash_append.cu``).
 
-Replaces ``repro/kernels/flash_attention.py::flash_attention_append``.  A
-CUDA tensor launches the kernel (or raises); a CPU tensor takes
-``ref.flash_attention_append_ref``.  The kernel masks its own ragged edges,
-so any chunk length and key-stream length stay on the kernel.
+Replaces ``repro/kernels/flash_attention.py::flash_attention_append``,
+over an f32, bf16 or int8 key stream (int8 with (B, Sk, Hkv, 1) f32
+scales).  A CUDA tensor launches the kernel (or raises); a CPU tensor takes
+``ref.flash_attention_append_ref`` (or its quant version).  The kernel
+masks its own ragged edges, so any chunk length and key-stream length stay
+on the kernel.
 """
 from __future__ import annotations
 
@@ -13,7 +15,9 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-launches = 0    # kernel launches since the last reset (dispatch.reset_...)
+# kernel launches since the last reset (dispatch.reset_launch_counts), by arm
+launches = 0            # f32 / bf16 key stream
+int8_launches = 0       # int8 key stream
 
 HEAD_DIMS = (64, 128)   # head dims the kernel is instantiated for
 
@@ -21,9 +25,11 @@ HEAD_DIMS = (64, 128)   # head dims the kernel is instantiated for
 def flash_attention_append(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, kpos: torch.Tensor, *, pos0: int,
                            window: Optional[int] = None,
-                           kpos_linear: bool = False) -> torch.Tensor:
+                           kpos_linear: bool = False, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
     """q (B,C,Hq,D) at absolute positions pos0 + i; k,v (B,Sk,Hkv,D) the
-    key stream; kpos (B,Sk) int32 (-1 = invalid) -> (B,C,Hq,D) in q's
+    key stream (f32, bf16, or int8 with (B,Sk,Hkv,1) f32 ``k_scale`` /
+    ``v_scale``); kpos (B,Sk) int32 (-1 = invalid) -> (B,C,Hq,D) in q's
     dtype.  ``kpos_linear`` asserts key row index == absolute position
     wherever valid and enables the dead-tile skip."""
     what = "flash_attention_append"
@@ -41,32 +47,57 @@ def flash_attention_append(q: torch.Tensor, k: torch.Tensor,
     build.require(tuple(kpos.shape) == (b, sk) and kpos.dtype == torch.int32,
                   what, f"want kpos (B,Sk) int32, got {tuple(kpos.shape)} "
                   f"{kpos.dtype}")
-    build.require(q.dtype in build.DTYPE_CODE and k.dtype in build.DTYPE_CODE
-                  and v.dtype == k.dtype, what,
-                  f"dtypes q {q.dtype}, k {k.dtype}, v {v.dtype} (want "
-                  "float32 or bfloat16, k and v alike)")
+    build.require(q.dtype in build.DTYPE_CODE and
+                  k.dtype in build.KV_DTYPE_CODE and v.dtype == k.dtype, what,
+                  f"dtypes q {q.dtype}, k {k.dtype}, v {v.dtype} (want q "
+                  "float32 or bfloat16, k and v float32, bfloat16 or int8, "
+                  "alike)")
+    quant = k.dtype == torch.int8
+    build.require((k_scale is not None) == quant and
+                  (v_scale is not None) == quant, what,
+                  "an int8 key stream needs k_scale and v_scale, a float one "
+                  "takes none")
+    scales = ()
+    if quant:
+        build.require(k_scale.shape == (b, sk, hkv, 1) and
+                      v_scale.shape == k_scale.shape and
+                      k_scale.dtype == torch.float32 and
+                      v_scale.dtype == torch.float32, what,
+                      f"want f32 scales {(b, sk, hkv, 1)}, got "
+                      f"{tuple(k_scale.shape)} {k_scale.dtype} / "
+                      f"{tuple(v_scale.shape)} {v_scale.dtype}")
+        scales = (k_scale, v_scale)
     build.require(pos0 >= 0 and (window is None or window > 0), what,
                   f"pos0={pos0}, window={window}")
-    build.require(len({t.device for t in (q, k, v, kpos)}) == 1, what,
+    tensors = (q, k, v, kpos) + scales
+    build.require(len({t.device for t in tensors}) == 1, what,
                   "inputs on different devices")
     if q.device.type == "cpu":
+        if quant:
+            return ref.flash_attention_append_quant_ref(
+                q, k, v, k_scale, v_scale, kpos, pos0=pos0, window=window)
         return ref.flash_attention_append_ref(q, k, v, kpos, pos0=pos0,
                                               window=window)
     build.require(q.is_cuda, what, f"unsupported device {q.device}")
     build.require(d in HEAD_DIMS, what, f"head dim {d} not in {HEAD_DIMS}")
-    build.require(all(t.is_contiguous() for t in (q, k, v, kpos)), what,
+    build.require(all(t.is_contiguous() for t in tensors), what,
                   "inputs must be contiguous")
     build.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), what,
                   "q, k and v must start on 16-byte boundaries (the kernel "
                   "loads 16 bytes at a time)")
     out = torch.empty_like(q)
     rc = build.library().rt_flash_append_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if quant else None,
+        v_scale.data_ptr() if quant else None, kpos.data_ptr(),
         out.data_ptr(), b, c, sk, hq, hkv, d, int(pos0),
         int(window) if window is not None else 0, int(bool(kpos_linear)),
-        build.DTYPE_CODE[q.dtype], build.DTYPE_CODE[k.dtype],
+        build.DTYPE_CODE[q.dtype], build.KV_DTYPE_CODE[k.dtype],
         build.stream_of(q))
     build.check(rc, what)
-    global launches
-    launches += 1
+    global launches, int8_launches
+    if quant:
+        int8_launches += 1
+    else:
+        launches += 1
     return out

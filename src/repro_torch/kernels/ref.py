@@ -13,7 +13,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import kv_quant
+
 NEG = -1e30
+L_FLOOR = 1e-30     # floor on the softmax denominator (never a division by 0)
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *,
@@ -111,20 +114,25 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
             dv.to(v.dtype).contiguous())
 
 
+def _decode_logits(q, k_cache, kpos, pos):
+    """Masked, scaled f32 scores (B, Hkv, G, L) of one query token per row
+    against its cache; lockstep kpos (L,) and pos () broadcast."""
+    b, hq, d = q.shape
+    length, hkv = k_cache.shape[1], k_cache.shape[2]
+    kpos = kpos.expand(b, length)
+    pos = torch.as_tensor(pos, device=q.device).expand(b)
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    logits = torch.einsum("bhgd,blhd->bhgl", qg, k_cache.float()) * d ** -0.5
+    valid = (kpos >= 0) & (kpos <= pos[:, None])
+    return torch.where(valid[:, None, None, :], logits, NEG)
+
+
 def decode_attention_ref(q, k_cache, v_cache, kpos, pos) -> torch.Tensor:
     """q (B,Hq,D); caches (B,L,Hkv,D); kpos (B,L) absolute position per slot
     (-1 = empty); pos (B,) current position per sequence -> (B,Hq,D).
     Lockstep shapes (kpos (L,), pos ()) broadcast to every row."""
     b, hq, d = q.shape
-    length, hkv = k_cache.shape[1], k_cache.shape[2]
-    g = hq // hkv
-    kpos = kpos.expand(b, length)
-    pos = torch.as_tensor(pos, device=q.device).expand(b)
-    qg = q.reshape(b, hkv, g, d).float()
-    logits = torch.einsum("bhgd,blhd->bhgl", qg, k_cache.float()) * d ** -0.5
-    valid = (kpos >= 0) & (kpos <= pos[:, None])
-    logits = torch.where(valid[:, None, None, :], logits, NEG)
-    p = torch.softmax(logits, dim=-1)
+    p = torch.softmax(_decode_logits(q, k_cache, kpos, pos), dim=-1)
     o = torch.einsum("bhgl,blhd->bhgd", p, v_cache.float())
     return o.reshape(b, hq, d).to(q.dtype)
 
@@ -149,3 +157,65 @@ def flash_attention_append_ref(q, k, v, kpos, *, pos0: int,
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bshgt,bthd->bshgd", p, v.float())
     return o.reshape(b, c, hq, d).to(q.dtype)
+
+
+def decode_attention_partials_ref(q, k_cache, v_cache, kpos, pos,
+                                  k_scale=None, v_scale=None):
+    """Flash-decoding partials over a (local) cache slice: the arguments of
+    ``decode_attention_ref`` (int8 caches with their (B,L,Hkv,1) f32
+    scales) -> the unnormalised online-softmax state (acc (B,Hkv,G,D),
+    m (B,Hkv,G), l (B,Hkv,G)), all f32.  A masked key scores the finite
+    NEG, so a fully masked slice gives m = NEG, l = its number of keys and
+    acc = the sum of its v rows (the TPU kernel's semantics)."""
+    if k_scale is not None:
+        k_cache = dequant_ref(k_cache, k_scale)
+        v_cache = dequant_ref(v_cache, v_scale)
+    logits = _decode_logits(q, k_cache, kpos, pos)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    acc = torch.einsum("bhgl,blhd->bhgd", p, v_cache.float())
+    return acc, m, p.sum(dim=-1)
+
+
+def combine_partials(parts):
+    """Combine (acc, m, l) partials of disjoint cache slices into the
+    attention output (B, Hq, D) f32: o = sum(acc * e^(m - max m)) /
+    sum(l * e^(m - max m)), the cross-shard combine of the context-parallel
+    decode (``repro/kernels/dispatch.py::_decode_cp_call``) taken here over
+    a list.  A slice that others outweigh vanishes (its correction
+    underflows to 0); a row masked everywhere keeps the mean of v."""
+    m_max = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+    corr = [torch.exp(m - m_max) for _, m, _ in parts]
+    l_tot = sum(l * c for (_, _, l), c in zip(parts, corr))
+    acc_tot = sum(acc * c[..., None] for (acc, _, _), c in zip(parts, corr))
+    o = acc_tot / torch.clamp(l_tot, min=L_FLOOR)[..., None]
+    b, hkv, g, d = o.shape
+    return o.reshape(b, hkv * g, d)
+
+
+# ---------------------------------------------------------------------------
+# int8 KV: each quant plain version is the standalone dequantisation
+# (``kv_quant.dequantize``) composed with the float plain version, so a
+# kernel that dequantises inside its body must match dequantise-then-attend
+# ---------------------------------------------------------------------------
+
+def dequant_ref(q8, scale, dtype=torch.float32) -> torch.Tensor:
+    return kv_quant.dequantize(q8, scale, dtype)
+
+
+def decode_attention_quant_ref(q, k_cache, v_cache, k_scale, v_scale, kpos,
+                               pos) -> torch.Tensor:
+    """``decode_attention_ref`` over int8 caches with (B,L,Hkv,1) scales."""
+    return decode_attention_ref(q, dequant_ref(k_cache, k_scale),
+                                dequant_ref(v_cache, v_scale), kpos, pos)
+
+
+def flash_attention_append_quant_ref(q, k, v, k_scale, v_scale, kpos, *,
+                                     pos0: int,
+                                     window: Optional[int] = None
+                                     ) -> torch.Tensor:
+    """``flash_attention_append_ref`` over an int8 key stream with
+    (B,Sk,Hkv,1) scales."""
+    return flash_attention_append_ref(q, dequant_ref(k, k_scale),
+                                      dequant_ref(v, v_scale), kpos,
+                                      pos0=pos0, window=window)

@@ -11,16 +11,28 @@ slot table of ``n_slots`` concurrent sequences fed by a queue of requests.
     per-slot positions ``pos (B,)``; the decode-attention kernel masks each
     row at its own depth.
 
-Reports tokens/s, TTFT and end-to-end latency percentiles, slot occupancy
-and the kernel launch counts.
+KV caches are f32, bf16 or int8 (quantised on write, dequantised inside
+the kernels).  ``--decode-cp`` is context-parallel serving: every rank of
+the process group (torchrun's ``RANK``/``WORLD_SIZE``, or a group of one)
+holds its slice of each slot's cache along the sequence, decode runs the
+partials kernel over the slice and combines the ranks with all-reduces.
+Admission prefill runs on a whole group cache on every rank (replicated
+compute, as the JAX package replicates the weights) and each rank copies
+its columns into its slots.  Every rank computes the same logits and so
+samples the same tokens; the run checks that they agree.
+
+Reports tokens/s, TTFT and end-to-end latency percentiles, slot occupancy,
+the cache layout and the kernel launch counts.
 
   python -m repro_torch.launch.serve --arch yi-6b --no-reduced \\
       --slots 4 --requests 8 --prompt-range 64,600 --gen-range 16,48 \\
       --cache-len 1024 --kv-dtype bf16 --greedy
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu \\
+      --decode-cp --kv-dtype int8 --greedy
 
-``--mode lockstep`` is the wave-batched baseline.  The paged layout, int8
-caches, speculative decoding, fault plans, deadlines and retries are later
-slices (ROADMAP.md queue 1) and raise ``NotImplementedError``.
+``--mode lockstep`` is the wave-batched baseline.  The paged layout,
+speculative decoding, fault plans, deadlines and retries are later slices
+(ROADMAP.md queue 1) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,19 +40,25 @@ import argparse
 import collections
 import dataclasses
 import json
+import os
 import time
+import zlib
 from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import llm_a3c
 from repro_torch.device import resolve
+from repro_torch.distributed import ctx, sharding
 from repro_torch.kernels import dispatch, kv_quant
+from repro_torch.launch import traffic
+from repro_torch.models import attention as attn
 from repro_torch.models import model as M
 
-_LATER = ("see ROADMAP.md, queue 1, slice 3: paged KV, int8 KV and "
-          "speculative serving")
+_LATER = ("see ROADMAP.md, queue 1, slice 3b: paged KV, speculative "
+          "decoding and overload handling")
 
 
 # ---------------------------------------------------------------------------
@@ -199,12 +217,16 @@ class ServeEngine:
 
     The cache holds ``n_slots`` rows per layer; admission prefills the
     arrived group in one batch-``n_slots`` chunk chain on a persistent
-    group cache and copies each row into its freed slot."""
+    group cache and copies each row into its freed slot.  With
+    ``decode_cp`` the slot cache is laid out under ``decode_rules`` over
+    the default process group (each rank its slice of the sequence), while
+    the group cache stays whole."""
 
     def __init__(self, cfg, params, *, n_slots: int, cache_len: int,
                  chunk: int = 128, sample: bool = True, seed: int = 0,
                  paged: Optional[bool] = None, kv_dtype="f32",
-                 spec: str = "off", fault_plan=None, device=None):
+                 spec: str = "off", fault_plan=None, device=None,
+                 decode_cp: bool = False):
         if paged:
             raise NotImplementedError(f"paged KV caches are not ported yet "
                                       f"({_LATER})")
@@ -231,12 +253,31 @@ class ServeEngine:
         self.serve_step = llm_a3c.make_serve_step(cfg, sample=sample)
         self.prefill_step = llm_a3c.make_prefill_step(cfg)
         self.kv_dtype = kv_quant.resolve_kv_dtype(kv_dtype)
-        self.kv_dtype_name = {torch.float32: "f32",
-                              torch.bfloat16: "bf16"}[self.kv_dtype]
-        self.cache = self._new_cache()
-        # persistent admission-prefill cache (batch n_slots): stale rows
-        # beyond a new request's prompt are hidden by the kpos/pos
-        # invariant, so it never needs re-zeroing
+        self.kv_dtype_name = kv_quant.dtype_name(self.kv_dtype)
+        self.rules = None
+        self.decode_layout = "replicated"
+        self.cp_combine_bytes = 0
+        if decode_cp:
+            if not dist.is_initialized():
+                raise ValueError("decode_cp needs a process group: run the "
+                                 "engine inside sharding.process_group")
+            sharding.check_backend(None, self.device)
+            self.rules = sharding.decode_rules(cfg, dist.group.WORLD,
+                                               batch_size=n_slots)
+            n = self.rules["decode_cp"]["n_shards"]
+            # a length that does not divide keeps the cache whole on every
+            # rank (the JAX rule); the report says so
+            spec, _ = sharding.decode_cp_shard_spec(
+                self.rules["decode_cp"], batch=n_slots, length=cache_len)
+            if spec is not None:
+                self.decode_layout = f"decode_cp[{n}]"
+            self.cp_combine_bytes = traffic.decode_cp_combine_bytes(
+                cfg, n_slots, n)
+        with ctx.sharding_rules(self.rules):
+            self.cache = self._new_cache()
+        # persistent admission-prefill cache (batch n_slots), whole on every
+        # rank: stale rows beyond a new request's prompt are hidden by the
+        # kpos/pos invariant, so it never needs re-zeroing
         self._group_cache = self._new_cache()
         self.pos = np.zeros(n_slots, np.int32)
         self.tok = np.zeros(n_slots, np.int32)
@@ -245,6 +286,8 @@ class ServeEngine:
         self.reset()
 
     def _new_cache(self) -> dict:
+        """A cache of the engine's shape, laid out under the rules installed
+        around the call (whole outside them)."""
         return M.init_cache(self.cfg, self.n_slots, self.cache_len,
                             dtype=self.kv_dtype, device=self.device)
 
@@ -258,6 +301,18 @@ class ServeEngine:
         if self._t0 is None:
             return 0.0
         return time.perf_counter() - self._t0
+
+    def shared_now(self) -> float:
+        """``now()``, the same on every rank of a context-parallel engine
+        (the latest rank's clock): every rank then admits the same requests
+        at the same step, and their collectives stay paired."""
+        now = self.now()
+        if self.rules is None or self.rules["decode_cp"]["n_shards"] == 1:
+            return now
+        t = torch.tensor([now], dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX,
+                        group=self.rules["decode_cp"]["group"])
+        return float(t.item())
 
     # -- scheduling ---------------------------------------------------------
 
@@ -285,12 +340,19 @@ class ServeEngine:
         JAX engine finds each cache leaf's batch dimension with eval_shape
         and writes through a jitted masked take; here the batch dimension
         of every contiguous KV leaf is 0, and the rows are written in place
-        with ``index_copy_``."""
+        with ``index_copy_``.  A context-parallel slot cache takes this
+        rank's columns of the whole group cache."""
         src = torch.tensor([i for i, _ in row_to_slot], device=self.device)
         dst = torch.tensor([j for _, j in row_to_slot], device=self.device)
         for big, small in zip(self.cache["layers"], group_cache["layers"]):
-            for name, leaf in big.items():
-                leaf.index_copy_(0, dst, small[name].index_select(0, src))
+            cols = slice(None)
+            if "global_len" in big:
+                l_loc = big["k"].shape[1]
+                r0 = self.rules["decode_cp"]["rank"] * l_loc
+                cols = slice(r0, r0 + l_loc)
+            for name in attn.kv_leaves(big):
+                rows = small[name].index_select(0, src)[:, cols]
+                big[name].index_copy_(0, dst, rows)
 
     def _prefill_group(self, pairs: List[tuple]):
         """Chunked prefill of up to ``n_slots`` requests in one batched
@@ -357,12 +419,13 @@ class ServeEngine:
     def decode_step_all(self) -> List[Request]:
         """One per-slot decode step over the whole slot table."""
         now = self.now()
-        tok, _, self.cache = self.serve_step(
-            self.params, self.cache,
-            {"tokens": torch.as_tensor(self.tok[:, None],
-                                       device=self.device)},
-            torch.as_tensor(self.pos, device=self.device), self.seed,
-            self._sids(), finite=self._decode_finite)
+        with ctx.sharding_rules(self.rules):
+            tok, _, self.cache = self.serve_step(
+                self.params, self.cache,
+                {"tokens": torch.as_tensor(self.tok[:, None],
+                                           device=self.device)},
+                torch.as_tensor(self.pos, device=self.device), self.seed,
+                self._sids(), finite=self._decode_finite)
         tok = tok.cpu().numpy()
         finished = []
         for j in range(self.n_slots):
@@ -435,6 +498,27 @@ def _device_name(device: torch.device) -> str:
     return "cpu"
 
 
+def _ranks_agree(eng: ServeEngine, done: List[Request]) -> bool:
+    """Every rank of a context-parallel engine generated the same tokens
+    (a fingerprint of all of them, all-reduced MIN and MAX).  Raises if
+    not: the ranks see the same all-reduced logits, so a difference is a
+    fault, never noise."""
+    if eng.rules is None or eng.rules["decode_cp"]["n_shards"] == 1:
+        return True
+    flat = [t for r in sorted(done, key=lambda r: r.rid)
+            for t in [r.rid, len(r.tokens), *r.tokens]]
+    fp = zlib.crc32(np.asarray(flat, np.int64).tobytes())
+    lo = torch.tensor([fp], dtype=torch.int64, device=eng.device)
+    hi = lo.clone()
+    group = eng.rules["decode_cp"]["group"]
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    if int(lo.item()) != int(hi.item()):
+        raise RuntimeError("context-parallel ranks generated different "
+                           "tokens")
+    return True
+
+
 def _report(mode: str, eng: ServeEngine, done: List[Request], wall: float,
             warmup_s: float) -> dict:
     lat = [r.t_done - r.arrival for r in done]
@@ -445,6 +529,9 @@ def _report(mode: str, eng: ServeEngine, done: List[Request], wall: float,
         "device": _device_name(eng.device),
         "paged": False,
         "kv_dtype": eng.kv_dtype_name,
+        "decode_layout": eng.decode_layout,
+        "cp_combine_bytes_per_token": eng.cp_combine_bytes,
+        "ranks_agree": _ranks_agree(eng, done),
         "mode": mode, "slots": eng.n_slots, "requests": len(done),
         "warmup_s": round(warmup_s, 3),
         "wall_s": round(wall, 3),
@@ -474,7 +561,7 @@ def _drain(eng: ServeEngine, pending: List[Request], qi: int,
     the queue and the slot table are empty; returns the advanced qi."""
     while qi < len(pending) or eng.queue \
             or any(r is not None for r in eng.req_of):
-        now = eng.now()
+        now = eng.shared_now()
         while qi < len(pending) and pending[qi].arrival <= now:
             eng.enqueue(pending[qi])
             qi += 1
@@ -494,12 +581,12 @@ def _drain(eng: ServeEngine, pending: List[Request], qi: int,
 def run_engine(cfg, params, trace: List[Request], *, n_slots: int,
                cache_len: int, chunk: int, sample: bool, seed: int,
                paged: Optional[bool] = None, kv_dtype="f32",
-               device=None) -> dict:
+               device=None, decode_cp: bool = False) -> dict:
     """Continuous batching: arrivals feed the queue, freed slots admit the
     next requests, all slots decode together."""
     eng = ServeEngine(cfg, params, n_slots=n_slots, cache_len=cache_len,
                       chunk=chunk, sample=sample, seed=seed, paged=paged,
-                      kv_dtype=kv_dtype, device=device)
+                      kv_dtype=kv_dtype, device=device, decode_cp=decode_cp)
     _validate_trace(trace, cache_len)
     warmup_s = _warmup(eng, trace)
     pending = sorted(trace, key=lambda r: r.arrival)
@@ -513,13 +600,13 @@ def run_engine(cfg, params, trace: List[Request], *, n_slots: int,
 def run_lockstep(cfg, params, trace: List[Request], *, n_slots: int,
                  cache_len: int, chunk: int, sample: bool, seed: int,
                  paged: Optional[bool] = None, kv_dtype="f32",
-                 device=None) -> dict:
+                 device=None, decode_cp: bool = False) -> dict:
     """Wave-batched baseline: admit ``n_slots`` requests at once (after the
     whole wave has arrived) and decode until the wave's slowest request
     finishes, on the same engine machinery as ``run_engine``."""
     eng = ServeEngine(cfg, params, n_slots=n_slots, cache_len=cache_len,
                       chunk=chunk, sample=sample, seed=seed, paged=paged,
-                      kv_dtype=kv_dtype, device=device)
+                      kv_dtype=kv_dtype, device=device, decode_cp=decode_cp)
     _validate_trace(trace, cache_len)
     warmup_s = _warmup(eng, trace)
     pending = sorted(trace, key=lambda r: r.arrival)
@@ -572,8 +659,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="prefill chunk length (tokens per append call)")
     ap.add_argument("--cache-len", type=int, default=0,
                     help="KV cache length (0 = max prompt + max gen)")
-    ap.add_argument("--kv-dtype", default="f32", choices=("f32", "bf16"),
-                    help="KV cache storage dtype")
+    ap.add_argument("--kv-dtype", default="f32",
+                    choices=kv_quant.KV_DTYPES,
+                    help="KV cache storage dtype (int8: per-row scales, "
+                    "dequantised inside the kernels)")
+    ap.add_argument("--decode-cp", action="store_true",
+                    help="context-parallel serving: shard each slot's KV "
+                    "cache along the sequence over the ranks of the process "
+                    "group (torchrun's, or a group of one)")
     ap.add_argument("--greedy", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-seed", type=int, default=0)
@@ -589,6 +682,10 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     device = resolve(args.device)
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+        # one card per torchrun rank: NCCL refuses two ranks on one card
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
     params = M.init_params(cfg, args.seed, device, M.compute_dtype(cfg))
     cache_len = args.cache_len or (args.prompt_range[1] + args.gen_range[1])
     trace = gen_trace(args.requests, vocab=cfg.vocab_size,
@@ -597,15 +694,23 @@ def main(argv=None):
                       arrival_rate=args.arrival_rate, seed=args.trace_seed)
     dispatch.reset_launch_counts()
     run = run_engine if args.mode == "engine" else run_lockstep
-    rec = run(cfg, params, trace, n_slots=args.slots, cache_len=cache_len,
-              chunk=args.chunk, sample=not args.greedy, seed=args.seed,
+    kw = dict(n_slots=args.slots, cache_len=cache_len, chunk=args.chunk,
+              sample=not args.greedy, seed=args.seed,
               kv_dtype=args.kv_dtype, device=device)
+    if args.decode_cp:
+        with sharding.process_group(device):
+            rec = run(cfg, params, trace, decode_cp=True, **kw)
+            rank = dist.get_rank()
+    else:
+        rec = run(cfg, params, trace, **kw)
+        rank = 0
     rec.update({"arch": cfg.name,
                 "prompt_range": list(args.prompt_range),
                 "gen_range": list(args.gen_range),
                 "arrival_rate": args.arrival_rate,
                 "kernel_launches": dispatch.launch_counts()})
-    print(json.dumps(rec))
+    if rank == 0:
+        print(json.dumps(rec))
 
 
 if __name__ == "__main__":

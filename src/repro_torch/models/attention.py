@@ -11,8 +11,14 @@ on the contiguous cache layout, the serving path:
 
 Caches are updated in place (the JAX functions return new caches; here the
 same dict comes back with its tensors written), which keeps one copy of
-each cache on the card.  The paged layout and int8 caches are later
-slices and raise; the context-parallel decode comes with multi-GPU.
+each cache on the card.  An int8 cache stores int8 ``k``/``v`` rows with
+per-(row, kv head) f32 scales ``ks``/``vs`` (quantised on write,
+dequantised inside the kernels).  Under the ``decode_cp`` rules
+(``distributed/sharding.py``) a cache whose length divides over the ranks
+is laid out as this rank's slice of the sequence dim: ``init_kv_cache``
+allocates it and records the global length, ``attend_decode`` writes a new
+row only on the rank that owns its slot and attends through the
+context-parallel combine.  The paged layout is a later slice and raises.
 """
 from __future__ import annotations
 
@@ -20,11 +26,15 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import ctx
+from repro_torch.distributed.sharding import (DecodeCPSpec,
+                                              decode_cp_shard_spec,
+                                              decode_cp_spec)
 from repro_torch.kernels import dispatch, kv_quant
 from repro_torch.models import common as cm
 
-_PAGED_ITEM = ("see ROADMAP.md, queue 1, slice 3: paged KV, int8 KV and "
-               "speculative serving")
+_PAGED_ITEM = ("see ROADMAP.md, queue 1, slice 3b: paged KV, speculative "
+               "decoding and overload handling")
 
 
 def attention_shapes(d_model: int, n_heads: int, n_kv_heads: int,
@@ -49,20 +59,85 @@ def init_kv_cache(batch: int, cache_len: int, n_kv_heads: int,
                   head_dim: int, dtype=torch.bfloat16,
                   device=None) -> dict:
     """Cache for one attention layer: ``k``/``v`` (batch, cache_len, Hkv,
-    D).  The JAX cache's ``index`` leaf is written but never read there, so
-    the port keeps no counterpart."""
+    D) of ``dtype`` (f32, bf16 or int8).  An int8 cache adds zero f32
+    scales ``ks``/``vs`` (batch, cache_len, Hkv, 1), rank-matched so every
+    row copy treats them like the payload.  When the active ``decode_cp``
+    rules own a cache of ``cache_len`` rows, only this rank's slice of
+    cache_len / n_shards rows is allocated and ``global_len`` records
+    cache_len.  The JAX cache's ``index`` leaf is written but never read
+    there, so the port keeps no counterpart."""
+    dtype = kv_quant.resolve_kv_dtype(dtype)
+    cache = {}
+    rows = cache_len
+    cp = _decode_cp_rule(cache_len)
+    if cp is not None:
+        rows = cache_len // cp["n_shards"]
+        cache["global_len"] = cache_len
+    shape = (batch, rows, n_kv_heads, head_dim)
+    cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+    cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
     if kv_quant.is_quantized(dtype):
-        raise NotImplementedError(f"int8 KV caches are not ported yet "
-                                  f"({kv_quant.INT8_ITEM})")
-    shape = (batch, cache_len, n_kv_heads, head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+        for name in ("ks", "vs"):
+            cache[name] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                      device=device)
+    return cache
 
 
 def _check_layout(cache: dict) -> None:
     if "kp" in cache:
         raise NotImplementedError(f"paged KV caches are not ported yet "
                                   f"({_PAGED_ITEM})")
+
+
+def _decode_cp_rule(cache_len: int) -> Optional[dict]:
+    """The active ``decode_cp`` rule when it owns a cache of ``cache_len``
+    rows (one whole slice per shard), else None: the cache is then
+    replicated, the JAX package's choice for a length that does not
+    divide."""
+    cp = (ctx.current_rules() or {}).get("decode_cp")
+    if cp is None or decode_cp_shard_spec(cp, batch=0,
+                                          length=cache_len)[0] is None:
+        return None
+    return cp
+
+
+def _cp_layout(cache: dict, batch: int) -> Optional[DecodeCPSpec]:
+    """The context-parallel layout of a cache slice (None for a whole
+    cache).  A slice is only ever attended under the rules that laid it
+    out: alone it would attend to a fraction of the keys."""
+    if "global_len" not in cache:
+        return None
+    length = cache["global_len"]
+    cp = _decode_cp_rule(length)
+    if cp is None:
+        raise ValueError(f"a context-parallel cache slice of {length} rows "
+                         "is used outside the decode_cp rules that laid it "
+                         "out")
+    return decode_cp_spec(cp, batch=batch, length=length)
+
+
+def kv_leaves(cache: dict):
+    """The cache's row-indexed leaves: k, v and, for int8, ks, vs."""
+    return [n for n in ("k", "v", "ks", "vs") if n in cache]
+
+
+def _update_kv_cache_cp(cache: dict, new: dict, slot: torch.Tensor,
+                        cp: DecodeCPSpec) -> None:
+    """Write each row's new K/V (and, int8, its scales) on the rank that
+    owns its slot only: rank r holds global slots [r * l_loc,
+    (r + 1) * l_loc).  ``new`` maps leaf names to (B, 1, ...) rows; slot
+    (B,) is per batch row.  A predicated write (gather, select, scatter),
+    as the JAX shard_map write, with no host sync."""
+    b = slot.shape[0]
+    local = slot - cp.start
+    in_range = (local >= 0) & (local < cp.l_loc)
+    ls = local.clamp(0, cp.l_loc - 1)
+    rows = torch.arange(b, device=slot.device)
+    for name, rows_new in new.items():
+        leaf = cache[name]
+        old = leaf[rows, ls]
+        leaf[rows, ls] = torch.where(in_range[:, None, None],
+                                     rows_new[:, 0].to(leaf.dtype), old)
 
 
 def _qkv(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
@@ -97,19 +172,34 @@ def attend_decode(params: dict, x: torch.Tensor, cache: dict,
 
     Writes row ``pos % cache_len`` of each slot in place and returns
     (out (B, 1, d_model), cache).  With ``window`` the cache is a ring of
-    length == window; otherwise cache_len covers every position."""
+    length == window; otherwise cache_len covers every position.  An int8
+    cache takes the row quantised, with its scale.  A context-parallel
+    slice (``_cp_layout``) takes the row only on the rank that owns its
+    slot, and attends its own columns of the global kpos through the
+    partials kernel and the combine across ranks."""
     _check_layout(cache)
     b = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).expand(b)
     q, k, v = _qkv(params, x, cfg, pos[:, None])
-    ck, cv = cache["k"], cache["v"]
-    cache_len = ck.shape[1]
-    rows = torch.arange(b, device=x.device)
+    new = {"k": k, "v": v}
+    if "ks" in cache:
+        new["k"], new["ks"] = kv_quant.quantize(k)      # (B,1,Hkv,{D,1})
+        new["v"], new["vs"] = kv_quant.quantize(v)
+    cp = _cp_layout(cache, b)
+    cache_len = cache.get("global_len", cache["k"].shape[1])
     slot = (pos % cache_len).long()
-    ck[rows, slot] = k[:, 0].to(ck.dtype)
-    cv[rows, slot] = v[:, 0].to(cv.dtype)
+    if cp is not None:
+        _update_kv_cache_cp(cache, new, slot, cp)
+    else:
+        rows = torch.arange(b, device=x.device)
+        for name, rows_new in new.items():
+            cache[name][rows, slot] = rows_new[:, 0].to(cache[name].dtype)
     kpos = _cache_positions(cache_len, pos, window)
-    o = dispatch.decode_attention(q[:, 0], ck, cv, kpos, pos)[:, None]
+    if cp is not None:
+        kpos = kpos[:, cp.start:cp.start + cp.l_loc]
+    o = dispatch.decode_attention(q[:, 0], cache["k"], cache["v"], kpos, pos,
+                                  k_scale=cache.get("ks"),
+                                  v_scale=cache.get("vs"), cp=cp)[:, None]
     n = cfg.n_heads * cfg.hd
     return cm.linear(params["wo"], o.reshape(b, 1, n)), cache
 
@@ -142,28 +232,43 @@ def attend_prefill(params: dict, x: torch.Tensor, cache: dict, pos0: int,
     Writes the chunk's K/V into cache rows [pos0, pos0 + C) (ring wrap for
     window caches) and runs one append-attention call: the chunk's queries
     against the key stream made of the cache prefix and the chunk's own
-    K/V.  Returns (out (B, C, d_model), cache)."""
+    K/V.  Returns (out (B, C, d_model), cache).  An int8 cache quantises
+    the chunk once: the cache write and the chunk's own part of the key
+    stream use the same int8 bytes and scales, so prefill attends to what
+    decode later reads back (JAX ``attention.py::attend_prefill``)."""
     _check_layout(cache)
+    if "global_len" in cache:
+        raise ValueError("prefill writes whole caches: a context-parallel "
+                         "engine prefills its group cache and copies each "
+                         "rank's columns into its slice")
     b, c, _ = x.shape
     positions = pos0 + torch.arange(c, device=x.device)[None]   # (1, C)
     q, k, v = _qkv(params, x, cfg, positions)
-    ck, cv = cache["k"], cache["v"]
-    cache_len = ck.shape[1]
+    quant = "ks" in cache
+    new = {"k": k, "v": v}
+    if quant:
+        new["k"], new["ks"] = kv_quant.quantize(k)      # (B,C,Hkv,{D,1})
+        new["v"], new["vs"] = kv_quant.quantize(v)
+    cache_len = cache["k"].shape[1]
+
+    def stream(prefix: dict) -> dict:
+        """Cache prefix + chunk; a float cache's rows in q's dtype, an int8
+        one's as stored (the kernel dequantises)."""
+        return {n: torch.cat([t if quant else t.to(new[n].dtype), new[n]],
+                             dim=1) for n, t in prefix.items()}
 
     # key stream, taken from the cache as it was before this chunk's write
     # (a ring write below may overwrite rows the stream still needs)
     if pos0 == 0:
-        k_all, v_all = k, v
+        kv_all = new
         kpos_all = torch.arange(c, device=x.device)
         linear = True
     elif window is None:
-        k_all = torch.cat([ck[:, :pos0].to(q.dtype), k], dim=1)
-        v_all = torch.cat([cv[:, :pos0].to(q.dtype), v], dim=1)
+        kv_all = stream({n: cache[n][:, :pos0] for n in new})
         kpos_all = torch.arange(pos0 + c, device=x.device)
         linear = True
     else:
-        k_all = torch.cat([ck.to(q.dtype), k], dim=1)
-        v_all = torch.cat([cv.to(q.dtype), v], dim=1)
+        kv_all = stream({n: cache[n] for n in new})
         kpos_pre = _cache_positions(
             cache_len, torch.tensor(pos0 - 1, device=x.device), window)
         kpos_all = torch.cat([kpos_pre, positions[0]])
@@ -176,8 +281,8 @@ def attend_prefill(params: dict, x: torch.Tensor, cache: dict, pos0: int,
             raise ValueError(
                 f"prefill chunk [{pos0}, {pos0 + c}) overflows the "
                 f"{cache_len}-slot full cache; chunk the prompt to fit")
-        ck[:, pos0:pos0 + c] = k.to(ck.dtype)
-        cv[:, pos0:pos0 + c] = v.to(cv.dtype)
+        for n, t in new.items():
+            cache[n][:, pos0:pos0 + c] = t.to(cache[n].dtype)
     else:
         # ring cache: slot s ends up holding the LAST written position
         # p == s (mod cache_len) with pos0 <= p < end[row], as a per-slot
@@ -190,14 +295,16 @@ def attend_prefill(params: dict, x: torch.Tensor, cache: dict, pos0: int,
         last = end[:, None] - 1                                 # (B, 1)
         p_cand = last - ((last - idx[None, :]) % cache_len)     # (B, L)
         valid = (p_cand >= pos0)[:, :, None, None]
-        sel = (p_cand - pos0).clamp(0, c - 1)[:, :, None, None] \
-            .expand(b, cache_len, cfg.n_kv_heads, cfg.hd)
-        cache["k"] = torch.where(valid, torch.gather(k.to(ck.dtype), 1, sel),
-                                 ck)
-        cache["v"] = torch.where(valid, torch.gather(v.to(cv.dtype), 1, sel),
-                                 cv)
+        sel = (p_cand - pos0).clamp(0, c - 1)[:, :, None, None]
+        for n, t in new.items():
+            old = cache[n]
+            pick = sel.expand((b, cache_len) + old.shape[2:])
+            cache[n] = torch.where(valid, torch.gather(t.to(old.dtype), 1,
+                                                       pick), old)
 
-    o = dispatch.flash_attention_append(q, k_all, v_all, kpos_all, pos0=pos0,
-                                        window=window, kpos_linear=linear)
+    o = dispatch.flash_attention_append(
+        q, kv_all["k"], kv_all["v"], kpos_all, pos0=pos0, window=window,
+        kpos_linear=linear, k_scale=kv_all.get("ks"),
+        v_scale=kv_all.get("vs"))
     n = cfg.n_heads * cfg.hd
     return cm.linear(params["wo"], o.reshape(b, c, n)), cache

@@ -187,9 +187,12 @@ def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
-    """One contiguous KV cache of ``dtype`` per layer (the JAX package's
-    ``kv_dtype``: the port has no recurrent state to keep apart).
-    Sliding-window layers keep a ring of min(cache_len, window) rows."""
+    """One contiguous KV cache of ``dtype`` (f32, bf16, or int8 with f32
+    row scales) per layer (the JAX package's ``kv_dtype``: the port has no
+    recurrent state to keep apart).  Sliding-window layers keep a ring of
+    min(cache_len, window) rows.  Under the ``decode_cp`` rules a layer
+    whose length divides over the ranks holds only this rank's slice of
+    it (``attention.init_kv_cache``)."""
     _check_supported(cfg)
     dev = resolve(device)
     layers: List[dict] = []

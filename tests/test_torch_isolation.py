@@ -63,6 +63,31 @@ def test_no_jax_or_repro_import(path):
     assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
 
 
+_CP_MODULES = ("repro_torch.distributed", "repro_torch.distributed.ctx",
+               "repro_torch.distributed.sharding",
+               "repro_torch.launch.traffic")
+
+
+@pytest.mark.parametrize("name", _CP_MODULES)
+def test_context_parallel_modules_stand_alone(name):
+    """The context-parallel decode's modules (process groups, rules, the
+    combine's byte count) import alone with jax blocked, load nothing of
+    ``repro``, and are among the sources the import check reads."""
+    code = ("import sys; sys.modules['jax'] = None; import importlib; "
+            f"importlib.import_module({name!r}); "
+            "print(sorted(m for m in sys.modules if m == 'repro' or "
+            "m.startswith('repro.')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    path = PORT.parent / (name.replace(".", "/") + ".py")
+    if not path.exists():
+        path = path.with_suffix("") / "__init__.py"
+    assert not set(_imported_roots(path)) & {"jax", "jaxlib", "repro"}
+
+
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve

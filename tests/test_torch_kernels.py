@@ -137,14 +137,23 @@ def test_decode_fully_masked_row_is_mean_of_v():
 
 
 def test_decode_rejects_gqa_and_quant():
+    """GQA needs whole groups; quant inputs must come whole: int8 caches
+    with both (B,L,Hkv,1) f32 scales, float caches with none."""
     q, k, v = map(torch.from_numpy, _decode_inputs(1, 1, 6, 4, 8, 16))
     kpos = torch.arange(16)
     with pytest.raises(ValueError, match="GQA"):
         dispatch.decode_attention(q, k, v, kpos, 3)
     q, k, v = map(torch.from_numpy, _decode_inputs(1, 1, 8, 4, 8, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="scale"):
         dispatch.decode_attention(q, k, v, kpos, 3,
-                                  k_scale=torch.ones(1, 16, 4, 1))
+                                  k_scale=torch.ones(1, 16, 4, 1),
+                                  v_scale=torch.ones(1, 16, 4, 1))
+    (k8, ks), (v8, vs) = kv_quant.quantize(k), kv_quant.quantize(v)
+    with pytest.raises(ValueError, match="scale"):
+        dispatch.decode_attention(q, k8, v8, kpos, 3, k_scale=ks)
+    with pytest.raises(ValueError, match="scale"):
+        dispatch.decode_attention(q, k8, v8, kpos, 3, k_scale=ks[:, :8],
+                                  v_scale=vs[:, :8])
 
 
 # ---------------------------------------------------------------------------
@@ -206,8 +215,8 @@ def test_kv_dtypes():
     assert kv_quant.resolve_kv_dtype("bf16") == torch.bfloat16
     assert kv_quant.resolve_kv_dtype(torch.bfloat16) == torch.bfloat16
     assert kv_quant.is_quantized(torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kv_quant.resolve_kv_dtype("int8")
+    assert kv_quant.resolve_kv_dtype("int8") == torch.int8
+    assert kv_quant.dtype_name(torch.int8) == "int8"
     with pytest.raises(ValueError):
         kv_quant.resolve_kv_dtype("fp8")
 
@@ -218,5 +227,7 @@ def test_launch_counters_untouched_on_cpu():
     dispatch.rmsnorm(torch.ones(2, 8), torch.ones(8))
     assert dispatch.launch_counts() == {
         "rmsnorm": 0, "rmsnorm_bwd": 0, "flash_append": 0,
-        "decode_attention": 0, "flash_attention": 0,
+        "flash_append_int8": 0, "decode_attention": 0,
+        "decode_attention_int8": 0, "decode_attention_partials": 0,
+        "decode_attention_partials_int8": 0, "flash_attention": 0,
         "flash_attention_bwd": 0, "rmsprop": 0}

@@ -201,6 +201,16 @@ def test_prefill_overflow_raises():
 
 
 def test_init_cache_rejects_int8():
+    """The int8 storage check: torch.int8 makes a quantised cache (int8
+    k/v with zero f32 scales ks/vs, rank-matched to the payload, as JAX
+    ``init_kv_cache``); any other integer type is rejected."""
     _, ct = _pair("yi-6b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_cache(ct, 1, 8, dtype=torch.int8, device="cpu")
+    cache = TM.init_cache(ct, 1, 8, dtype=torch.int8, device="cpu")
+    for layer in cache["layers"]:
+        assert layer["k"].dtype == torch.int8 and layer["k"].shape == \
+            (1, 8, ct.n_kv_heads, ct.hd)
+        assert layer["ks"].dtype == torch.float32 and layer["ks"].shape == \
+            (1, 8, ct.n_kv_heads, 1) and not layer["ks"].any()
+    for bad in (torch.uint8, torch.int16):
+        with pytest.raises(ValueError, match="kv_dtype"):
+            TM.init_cache(ct, 1, 8, dtype=bad, device="cpu")

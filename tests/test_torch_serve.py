@@ -131,7 +131,7 @@ def test_engine_refuses_later_slices(models):
     _, ct, _, pt = models
     kw = dict(n_slots=2, cache_len=16, device="cpu")
     for bad in (dict(paged=True), dict(spec="ngram"),
-                dict(fault_plan=object()), dict(kv_dtype="int8")):
+                dict(fault_plan=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             serve.ServeEngine(ct, pt, **kw, **bad)
     trace = serve.gen_trace(2, vocab=ct.vocab_size, **TRACE)
@@ -155,7 +155,9 @@ def test_cli_runs_on_cpu(capsys):
     assert rec["requests"] == 3 and rec["device"] == "cpu"
     assert rec["kernel_launches"] == {
         "rmsnorm": 0, "rmsnorm_bwd": 0, "flash_append": 0,
-        "decode_attention": 0, "flash_attention": 0,
+        "flash_append_int8": 0, "decode_attention": 0,
+        "decode_attention_int8": 0, "decode_attention_partials": 0,
+        "decode_attention_partials_int8": 0, "flash_attention": 0,
         "flash_attention_bwd": 0, "rmsprop": 0}
 
 
