@@ -14,10 +14,10 @@ Phases (any failure raises and the script exits non-zero):
      sliding window, a ring layout, ragged tiles), with f32/bf16 and with
      int8 caches (per-row f32 scales); the partials kernel over 1, 2 and 4
      slices of the serving cache (B = 4, L = 1024, 32 q over 4 kv heads,
-     D = 128; bf16 and int8; a fully masked slice, an all-masked row, and
-     a ragged L = 300), each slice against the plain partials and the
-     slices combined (``ref.combine_partials``) against the decode kernel
-     and the plain decode; the training kernels at the train shape (B = 4,
+     D = 128; bf16, f32 and int8; a fully masked slice, an all-masked
+     row, and a ragged L = 300), each slice against the plain partials and
+     the slices combined (``ref.combine_partials``) against the decode
+     kernel and the plain decode; the training kernels at the train shape (B = 4,
      S = 1024, 32 q heads over 4 kv heads, D = 128, x (4096, 4096), a
      45M-element leaf) and at edge cases (f32, a window, causal=False, a
      ragged S, G = 1, ragged row and element counts).  f32 within rtol =
@@ -34,17 +34,22 @@ Phases (any failure raises and the script exits non-zero):
   5. the port's model on a small input on the card against the same model
      on the CPU, then ``run_engine`` on Yi-6B at full width and depth (bf16
      weights from a seed, bf16 KV, 4 slots, cache 1024, chunk 128, 8 greedy
-     requests): every request completes, all logits are finite and every
-     serving kernel was launched on that run;
+     requests): every request completes, all logits are finite, and the
+     run launched the rmsnorm, the append kernel's and the decode
+     kernel's bf16 arms and no other attention arm;
   6. a torch.profiler trace of one admission and of eight decode steps of
      that engine: wall time, device busy share and the top kernels;
+  6a. the same trace with int8 KV (replicated): the int8 arms of the
+     append and decode kernels, and no other attention arm;
   6b. the context-parallel path: the same trace through ``run_engine``
      with int8 KV and ``decode_cp[1]`` over a one-rank NCCL group (a
-     ``file://`` store): every request completes, all logits are finite,
-     the partials kernel and the int8 append kernel were launched and the
-     decode kernel was not; then its profile as in phase 6;
+     ``file://`` store): its report says ``decode_cp[1]``, and it launched
+     the int8 append arm and the partials kernel's int8 arm and no other
+     attention arm (kernel 6 in neither arm); then its profile as in
+     phase 6;
   6c. reduced Yi-6B on the card, greedy: the engine under ``decode_cp[1]``
      emits the tokens of the engine without it, with int8 and bf16 KV;
+     each of the four runs checked for its layout and kernels as above;
   7. three train steps of reduced Yi-6B in f32 on the card against the
      same steps on the CPU (losses to rtol 1e-4, parameters to 1e-5);
   8. Yi-6B at full width cut to 16 of 32 layers (f32 masters, bf16
@@ -54,8 +59,9 @@ Phases (any failure raises and the script exits non-zero):
      kernel launched.
 
 Every kernel and arm must have been launched on one of the main paths
-(phases 5, 6b, 6c and 8, each with the counters set to 0 just before it
-and read just after); the kernels line gives each one's launches by path.
+(phases 5, 6a, 6b, each of the four runs of 6c, and 8, each with the
+counters set to 0 just before it and read just after); the kernels line
+gives each one's launches by path.
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with one record per kernel and {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -565,16 +571,21 @@ def check_partials(gen, flush):
     ref.combine_partials against kernel 6 on the whole cache and against
     the plain decode; bf16 and int8 caches.  Rows: pos 100 (slices past it
     fully masked), an all-masked row, the last slot, 700; and a ragged
-    shape (L = 300, slices of 150 and 75 rows, ragged key tiles).
-    Returns the records of the bf16 and the int8 arm."""
+    shape (L = 300, slices of 150 and 75 rows, ragged key tiles).  The
+    acc check carries the long-sum slack (SUM_ABS_TOL), loose enough to
+    pass a sum kept in lower precision; the combined outputs do not: an
+    f32 q over an f32 cache at L = 1024 holds the combine of 1, 2 and 4
+    slices to 1e-5, which such a sum would miss.  Returns the records of
+    the float arm (bf16 and f32 caches) and the int8 arm."""
     import torch
 
     from repro_torch.kernels import decode_attention_cuda, ref
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
-    errs = {bf: [], i8: []}
-    for kvdt in (bf, i8):
+    errs = {bf: [], f32: [], i8: []}
+    for kvdt in (bf, f32, i8):
         for b, hq, hkv, d, length, qdt, rows in (
-                (4, 32, 4, 128, 1024, bf, [100, 400, 1023, 700]),
+                (4, 32, 4, 128, 1024, f32 if kvdt == f32 else bf,
+                 [100, 400, 1023, 700]),
                 (2, 8, 2, 64, 300, f32, [100, 250])):
             q, k, v, ks, vs, kpos, pos = _decode_cache(
                 gen, b, hq, hkv, d, length, qdt, kvdt, rows, masked_row=1)
@@ -624,7 +635,8 @@ def check_partials(gen, flush):
             "name": "decode_attention_partials" + suffix, "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:188",
-            "max_abs_err": max(errs[kvdt]),
+            "max_abs_err": max(errs[kvdt] + (errs[f32] if kvdt == bf
+                                             else [])),
             "ms": _time_ms(lambda: decode_attention_cuda
                            .decode_attention_partials(q, k, v, kpos, pos, ks,
                                                       vs), flush),
@@ -923,15 +935,43 @@ def check_model_small():
           f"{err:.3e} tol=1e-4 ok")
 
 
-ENGINE_COUNTERS = ("rmsnorm", "flash_append", "decode_attention")
+# the attention kernels and arms of the serving path; each serving run
+# launches exactly two of them (_serving_arms) and none of the others
+SERVING_ARMS = ("flash_append", "flash_append_int8", "decode_attention",
+                "decode_attention_int8", "decode_attention_partials",
+                "decode_attention_partials_int8")
 
 
-def run_yi6b_engine():
+def _serving_arms(kv, cp):
+    """The append arm and the decode kernel and arm that a serving run
+    with KV dtype ``kv`` launches: the partials kernel under decode_cp,
+    kernel 6 otherwise."""
+    sfx = "_int8" if kv == "int8" else ""
+    decode = "decode_attention_partials" if cp else "decode_attention"
+    return "flash_append" + sfx, decode + sfx
+
+
+def _check_serving_run(label, rep, counts, kv, cp):
+    """The run took the layout and the kernels its flags ask for: the
+    report's decode_layout and kv dtype, the rmsnorm and its two arms
+    launched, every other serving arm not launched."""
+    layout = "decode_cp[1]" if cp else "replicated"
+    if rep["decode_layout"] != layout or rep["kv_dtype"] != kv:
+        raise AssertionError(f"{label}: layout {rep['decode_layout']} kv "
+                             f"{rep['kv_dtype']}, expected {layout} {kv}")
+    want = ("rmsnorm",) + _serving_arms(kv, cp)
+    missing = [k for k in want if counts[k] <= 0]
+    stray = {k: counts[k] for k in SERVING_ARMS
+             if k not in want and counts[k] != 0}
+    if missing or stray:
+        raise AssertionError(f"{label}: kernels never launched {missing}, "
+                             f"launched off its path {stray}")
+
+
+def build_yi6b():
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import dispatch
-    from repro_torch.launch import serve
     from repro_torch.models import model as M
     cfg = get_config("yi-6b")
     t0 = time.perf_counter()
@@ -939,32 +979,43 @@ def run_yi6b_engine():
     torch.cuda.synchronize()
     print(f"yi-6b params {cfg.param_count()} built on the card in "
           f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def run_yi6b_engine(cfg, params, kv, cp):
+    """Phase 5's trace (8 greedy requests) through ``run_engine`` on Yi-6B
+    at full width and depth with KV dtype ``kv``, under decode_cp[1] over
+    the one-rank NCCL group installed by the caller when ``cp``.  Returns
+    the launch counts of that run alone."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
     trace = serve.gen_trace(8, vocab=cfg.vocab_size, prompt_range=(64, 600),
                             gen_range=(16, 48), arrival_rate=0.0, seed=0)
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
     rep = serve.run_engine(cfg, params, trace, n_slots=4, cache_len=1024,
-                           chunk=128, sample=False, seed=0, kv_dtype="bf16",
-                           device="cuda")
+                           chunk=128, sample=False, seed=0, kv_dtype=kv,
+                           device="cuda", decode_cp=cp)
     counts = dispatch.launch_counts()
+    label = f"engine yi-6b full width x 32 layers {rep['decode_layout']} {kv}"
     unfinished = [r.rid for r in trace if len(r.tokens) != r.max_new]
     if rep["requests"] != len(trace) or unfinished:
-        raise AssertionError(f"engine: requests {unfinished} did not finish")
+        raise AssertionError(f"{label}: requests {unfinished} did not finish")
     if not rep["logits_finite"]:
-        raise AssertionError("engine: non-finite logits")
-    missing = [k for k in ENGINE_COUNTERS if counts[k] <= 0]
-    if missing:
-        raise AssertionError(f"engine: kernels never launched: {missing}")
-    print("engine yi-6b full width x 32 layers: " + json.dumps({
-        k: rep[k] for k in ("requests", "generated_tokens", "prefill_tokens",
-                            "wall_s", "tokens_per_s", "decode_tokens_per_s",
-                            "prefill_wall_s", "ttft_s", "latency_s",
-                            "warmup_s", "logits_finite")}))
-    print(f"engine peak device memory "
+        raise AssertionError(f"{label}: non-finite logits")
+    _check_serving_run(label, rep, counts, kv, cp)
+    print(f"{label}: " + json.dumps({k: rep[k] for k in (
+        "requests", "generated_tokens", "prefill_tokens", "wall_s",
+        "tokens_per_s", "decode_tokens_per_s", "prefill_wall_s", "ttft_s",
+        "latency_s", "warmup_s", "logits_finite", "decode_layout",
+        "cp_combine_bytes_per_token")}))
+    print(f"{label}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"engine kernel launches "
-          f"{json.dumps({k: counts[k] for k in ENGINE_COUNTERS})}")
-    return counts, cfg, params
+    shown = {k: counts[k] for k in ("rmsnorm",) + SERVING_ARMS}
+    print(f"{label}: kernel launches {json.dumps(shown)}")
+    return counts
 
 
 def _profile(label, fn, wall_ms=None):
@@ -1031,91 +1082,44 @@ def profile_engine(cfg, params, label, **engine_kw):
     _profile(f"{label} 8 decode steps x 4 slots", decode)
 
 
-# the context-parallel int8 path: the partials kernel and the int8 append
-# kernel run, kernel 6 (either arm) does not
-CP_ENGINE_COUNTERS = ("rmsnorm", "flash_append_int8",
-                      "decode_attention_partials_int8")
-NOT_ON_CP_PATH = ("decode_attention", "decode_attention_int8",
-                  "flash_append")
-
-
-def run_yi6b_cp_engine(cfg, params):
-    """Phase 6b: phase 5's trace through ``run_engine`` with int8 KV and
-    ``decode_cp[1]`` over the one-rank NCCL group installed by the caller
-    (``sharding.process_group``)."""
-    import torch
-
-    from repro_torch.kernels import dispatch
-    from repro_torch.launch import serve
-    trace = serve.gen_trace(8, vocab=cfg.vocab_size, prompt_range=(64, 600),
-                            gen_range=(16, 48), arrival_rate=0.0, seed=0)
-    torch.cuda.reset_peak_memory_stats()
-    dispatch.reset_launch_counts()
-    rep = serve.run_engine(cfg, params, trace, n_slots=4, cache_len=1024,
-                           chunk=128, sample=False, seed=0, kv_dtype="int8",
-                           device="cuda", decode_cp=True)
-    counts = dispatch.launch_counts()
-    unfinished = [r.rid for r in trace if len(r.tokens) != r.max_new]
-    if rep["requests"] != len(trace) or unfinished:
-        raise AssertionError(f"cp engine: requests {unfinished} did not "
-                             "finish")
-    if not rep["logits_finite"]:
-        raise AssertionError("cp engine: non-finite logits")
-    if rep["decode_layout"] != "decode_cp[1]" or rep["kv_dtype"] != "int8":
-        raise AssertionError(f"cp engine: layout {rep['decode_layout']} "
-                             f"kv {rep['kv_dtype']}")
-    missing = [k for k in CP_ENGINE_COUNTERS if counts[k] <= 0]
-    if missing:
-        raise AssertionError(f"cp engine: kernels never launched: {missing}")
-    stray = [k for k in NOT_ON_CP_PATH if counts[k] != 0]
-    if stray:
-        raise AssertionError(f"cp engine: kernels off its path launched: "
-                             f"{ {k: counts[k] for k in stray} }")
-    print("engine yi-6b full width x 32 layers decode_cp[1] int8: "
-          + json.dumps({k: rep[k] for k in (
-              "requests", "generated_tokens", "prefill_tokens", "wall_s",
-              "tokens_per_s", "decode_tokens_per_s", "prefill_wall_s",
-              "ttft_s", "latency_s", "warmup_s", "logits_finite",
-              "decode_layout", "cp_combine_bytes_per_token")}))
-    print(f"cp engine peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    shown = {k: counts[k] for k in CP_ENGINE_COUNTERS + NOT_ON_CP_PATH}
-    print(f"cp engine kernel launches {json.dumps(shown)}")
-    return counts
-
-
 def check_cp_reduced():
     """Phase 6c: reduced Yi-6B on the card, greedy, 6 requests: the engine
     under decode_cp[1] emits the tokens of the engine without it, with an
     int8 and with a bf16 cache (one rank: the partials kernel and the
-    combine compute kernel 6's arithmetic)."""
+    combine compute kernel 6's arithmetic).  Each of the four runs is its
+    own path, with the counters set to 0 just before it and read just
+    after; returns {path: counts}."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import dispatch
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     cfg = get_config("yi-6b").reduced()
     params = M.init_params(cfg, 0, "cuda")
-    dispatch.reset_launch_counts()
+    counts = {}
     for kv in ("int8", "bf16"):
         tokens = {}
         for cp in (False, True):
+            path = f"reduced_{kv}" + ("_cp" if cp else "")
             trace = serve.gen_trace(6, vocab=cfg.vocab_size,
                                     prompt_range=(3, 20), gen_range=(1, 8),
                                     arrival_rate=0.0, seed=5)
+            dispatch.reset_launch_counts()
             rep = serve.run_engine(cfg, params, trace, n_slots=2,
                                    cache_len=32, chunk=8, sample=False,
                                    seed=0, kv_dtype=kv, device="cuda",
                                    decode_cp=cp)
+            counts[path] = dispatch.launch_counts()
             if not rep["logits_finite"]:
-                raise AssertionError(f"reduced cp={cp} {kv}: non-finite")
+                raise AssertionError(f"{path}: non-finite logits")
+            _check_serving_run(path, rep, counts[path], kv, cp)
             tokens[cp] = {r.rid: list(r.tokens) for r in trace}
         if tokens[True] != tokens[False]:
             raise AssertionError(f"reduced yi-6b {kv}: decode_cp[1] tokens "
                                  f"{tokens[True]} != {tokens[False]}")
         print(f"check reduced yi-6b {kv} KV decode_cp[1] vs replicated: "
               f"{sum(len(t) for t in tokens[True].values())} greedy tokens "
-              "identical ok")
-    return dispatch.launch_counts()
+              "identical, each run through its own kernels ok")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1312,24 +1316,27 @@ def main():
 
     t_phase = time.perf_counter()
     check_model_small()
-    engine_counts, cfg, params = run_yi6b_engine()
+    cfg, params = build_yi6b()
+    path_counts = {"engine": run_yi6b_engine(cfg, params, "bf16", False)}
     profile_engine(cfg, params, "bf16", kv_dtype="bf16")
+    path_counts["engine_int8"] = run_yi6b_engine(cfg, params, "int8", False)
     print(f"phase engine_s {time.perf_counter() - t_phase:.1f}")
 
     t_phase = time.perf_counter()
     with sharding.process_group(torch.device("cuda")):
-        cp_counts = run_yi6b_cp_engine(cfg, params)
+        path_counts["engine_cp_int8"] = run_yi6b_engine(cfg, params, "int8",
+                                                        True)
         profile_engine(cfg, params, "decode_cp[1] int8", kv_dtype="int8",
                        decode_cp=True)
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        reduced_counts = check_cp_reduced()
+        path_counts.update(check_cp_reduced())
     print(f"phase engine_cp_s {time.perf_counter() - t_phase:.1f}")
 
     t_phase = time.perf_counter()
     check_train_small()
-    train_counts = run_yi6b_train()
+    path_counts["train_3_steps"] = run_yi6b_train()
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase train_s {time.perf_counter() - t_phase:.1f}")
@@ -1348,10 +1355,7 @@ def main():
              "rmsprop_update": "rmsprop"}
     for r in records:
         op = by_op[r["name"]]
-        paths = {"engine": engine_counts[op],
-                 "engine_cp_int8": cp_counts[op],
-                 "engine_reduced_cp": reduced_counts[op],
-                 "train_3_steps": train_counts[op]}
+        paths = {path: c[op] for path, c in path_counts.items()}
         r["launches_by_path"] = {k: n for k, n in paths.items() if n}
         r["launches"] = sum(paths.values())
         if r["launches"] <= 0:

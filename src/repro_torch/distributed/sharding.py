@@ -41,27 +41,25 @@ class DecodeCPSpec(NamedTuple):
         return self.rank * self.l_loc
 
 
-def decode_rules(cfg, group, *, batch_size: int) -> dict:
-    """Context-parallel decode rule set over ``group`` (the JAX launcher's
-    (1, n) mesh: every rank is a sequence shard and the batch is not split,
-    so ``cfg`` and ``batch_size``, which pick the JAX rule's data axes,
-    change nothing here)."""
-    del cfg, batch_size
+def decode_rules(group) -> dict:
+    """Context-parallel decode rule set over ``group``: the JAX launcher's
+    (1, n) mesh, where every rank is a sequence shard and the batch is not
+    split (so the JAX rule's data axes, picked from the config and the
+    batch size, have no counterpart here)."""
     return {"decode_cp": {"group": group, "rank": dist.get_rank(group),
-                          "n_shards": dist.get_world_size(group),
-                          "dp_axes": ()}}
+                          "n_shards": dist.get_world_size(group)}}
 
 
-def decode_cp_spec(rule: dict, *, batch: int, length: int) -> DecodeCPSpec:
+def decode_cp_spec(rule: dict, *, length: int) -> DecodeCPSpec:
     """Layout of a cache of global ``length`` under the ``decode_cp`` rule:
-    the single source for the model layer's cache write and the dispatch
-    layer's combine, which must agree on the partitioning."""
-    del batch
+    the single source for the model layer's cache write, the engine's
+    admission copy and the dispatch layer's combine, which must agree on
+    the partitioning."""
     n = int(rule["n_shards"])
     return DecodeCPSpec(rule["group"], int(rule["rank"]), n, length // n)
 
 
-def decode_cp_shard_spec(rule: dict, *, batch: int, length: int
+def decode_cp_shard_spec(rule: dict, *, length: int
                          ) -> Tuple[Optional[DecodeCPSpec], str]:
     """(spec, "") when the rule can own a cache of global ``length``, else
     (None, reason): the length must divide into one slice per shard."""
@@ -69,7 +67,7 @@ def decode_cp_shard_spec(rule: dict, *, batch: int, length: int
     if length % n != 0 or length < n:
         return None, (f"cache length {length} does not divide over the "
                       f"{n} sequence shards")
-    return decode_cp_spec(rule, batch=batch, length=length), ""
+    return decode_cp_spec(rule, length=length), ""
 
 
 def check_backend(group, device: torch.device) -> None:

@@ -262,13 +262,12 @@ class ServeEngine:
                 raise ValueError("decode_cp needs a process group: run the "
                                  "engine inside sharding.process_group")
             sharding.check_backend(None, self.device)
-            self.rules = sharding.decode_rules(cfg, dist.group.WORLD,
-                                               batch_size=n_slots)
+            self.rules = sharding.decode_rules(dist.group.WORLD)
             n = self.rules["decode_cp"]["n_shards"]
             # a length that does not divide keeps the cache whole on every
             # rank (the JAX rule); the report says so
-            spec, _ = sharding.decode_cp_shard_spec(
-                self.rules["decode_cp"], batch=n_slots, length=cache_len)
+            spec, _ = sharding.decode_cp_shard_spec(self.rules["decode_cp"],
+                                                    length=cache_len)
             if spec is not None:
                 self.decode_layout = f"decode_cp[{n}]"
             self.cp_combine_bytes = traffic.decode_cp_combine_bytes(
@@ -344,15 +343,15 @@ class ServeEngine:
         rank's columns of the whole group cache."""
         src = torch.tensor([i for i, _ in row_to_slot], device=self.device)
         dst = torch.tensor([j for _, j in row_to_slot], device=self.device)
-        for big, small in zip(self.cache["layers"], group_cache["layers"]):
-            cols = slice(None)
-            if "global_len" in big:
-                l_loc = big["k"].shape[1]
-                r0 = self.rules["decode_cp"]["rank"] * l_loc
-                cols = slice(r0, r0 + l_loc)
-            for name in attn.kv_leaves(big):
-                rows = small[name].index_select(0, src)[:, cols]
-                big[name].index_copy_(0, dst, rows)
+        with ctx.sharding_rules(self.rules):
+            for big, small in zip(self.cache["layers"],
+                                  group_cache["layers"]):
+                cp = attn.cp_layout(big)
+                cols = slice(None) if cp is None else \
+                    slice(cp.start, cp.start + cp.l_loc)
+                for name in attn.kv_leaves(big):
+                    rows = small[name].index_select(0, src)[:, cols]
+                    big[name].index_copy_(0, dst, rows)
 
     def _prefill_group(self, pairs: List[tuple]):
         """Chunked prefill of up to ``n_slots`` requests in one batched

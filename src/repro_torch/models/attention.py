@@ -95,13 +95,12 @@ def _decode_cp_rule(cache_len: int) -> Optional[dict]:
     replicated, the JAX package's choice for a length that does not
     divide."""
     cp = (ctx.current_rules() or {}).get("decode_cp")
-    if cp is None or decode_cp_shard_spec(cp, batch=0,
-                                          length=cache_len)[0] is None:
+    if cp is None or decode_cp_shard_spec(cp, length=cache_len)[0] is None:
         return None
     return cp
 
 
-def _cp_layout(cache: dict, batch: int) -> Optional[DecodeCPSpec]:
+def cp_layout(cache: dict) -> Optional[DecodeCPSpec]:
     """The context-parallel layout of a cache slice (None for a whole
     cache).  A slice is only ever attended under the rules that laid it
     out: alone it would attend to a fraction of the keys."""
@@ -113,7 +112,7 @@ def _cp_layout(cache: dict, batch: int) -> Optional[DecodeCPSpec]:
         raise ValueError(f"a context-parallel cache slice of {length} rows "
                          "is used outside the decode_cp rules that laid it "
                          "out")
-    return decode_cp_spec(cp, batch=batch, length=length)
+    return decode_cp_spec(cp, length=length)
 
 
 def kv_leaves(cache: dict):
@@ -174,7 +173,7 @@ def attend_decode(params: dict, x: torch.Tensor, cache: dict,
     (out (B, 1, d_model), cache).  With ``window`` the cache is a ring of
     length == window; otherwise cache_len covers every position.  An int8
     cache takes the row quantised, with its scale.  A context-parallel
-    slice (``_cp_layout``) takes the row only on the rank that owns its
+    slice (``cp_layout``) takes the row only on the rank that owns its
     slot, and attends its own columns of the global kpos through the
     partials kernel and the combine across ranks."""
     _check_layout(cache)
@@ -185,7 +184,7 @@ def attend_decode(params: dict, x: torch.Tensor, cache: dict,
     if "ks" in cache:
         new["k"], new["ks"] = kv_quant.quantize(k)      # (B,1,Hkv,{D,1})
         new["v"], new["vs"] = kv_quant.quantize(v)
-    cp = _cp_layout(cache, b)
+    cp = cp_layout(cache)
     cache_len = cache.get("global_len", cache["k"].shape[1])
     slot = (pos % cache_len).long()
     if cp is not None:

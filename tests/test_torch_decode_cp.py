@@ -183,11 +183,11 @@ def test_cp_write_lands_on_the_owning_rank(n):
 
 
 def test_cp_rule_needs_divisibility_only():
-    rule = {"group": None, "rank": 1, "n_shards": 4, "dp_axes": ()}
-    spec, why = sharding.decode_cp_shard_spec(rule, batch=2, length=96)
+    rule = {"group": None, "rank": 1, "n_shards": 4}
+    spec, why = sharding.decode_cp_shard_spec(rule, length=96)
     assert why == "" and spec == sharding.DecodeCPSpec(None, 1, 4, 24)
     assert spec.start == 24        # no 128-row alignment rule
-    spec, why = sharding.decode_cp_shard_spec(rule, batch=2, length=90)
+    spec, why = sharding.decode_cp_shard_spec(rule, length=90)
     assert spec is None and "does not divide" in why
     with ctx.sharding_rules({"decode_cp": rule}):
         assert attn._decode_cp_rule(96) is rule
@@ -203,7 +203,7 @@ def test_cp_slice_outside_its_rules_raises():
     """A cache slice attended alone would see a quarter of the keys."""
     cfg = torch_config("yi-6b").reduced()
     params = TM.init_params(cfg, 0, "cpu")
-    rule = {"group": None, "rank": 0, "n_shards": 4, "dp_axes": ()}
+    rule = {"group": None, "rank": 0, "n_shards": 4}
     with ctx.sharding_rules({"decode_cp": rule}):
         cache = TM.init_cache(cfg, 1, 32, dtype=torch.float32, device="cpu")
     with pytest.raises(ValueError, match="outside the decode_cp rules"):
@@ -251,7 +251,7 @@ def _cp_logits(ct, pt, kv_dtype, rank):
                           device="cpu")
     TM.prefill_step(ct, pt, whole, {"tokens": torch.from_numpy(toks)}, 0,
                     torch.from_numpy(STEP_POS0))
-    rules = sharding.decode_rules(ct, dist.group.WORLD, batch_size=2)
+    rules = sharding.decode_rules(dist.group.WORLD)
     out = []
     with ctx.sharding_rules(rules):
         cache = TM.init_cache(ct, 2, ENGINE["cache_len"], dtype=kv_dtype,
