@@ -7,7 +7,8 @@ Phases (any failure raises and the script exits non-zero):
 
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-     source, all started together, sm_90a);
+     source, all started together, sm_90a) and print each kernel's
+     registers, spills and stack from ptxas;
   3. hold each kernel to its plain PyTorch version on the card: the
      serving kernels at the serving shapes of Yi-6B and at edge cases
      (ragged per-slot pos, pos 0, a fully masked row, pos0 in {0, 512}, a
@@ -20,17 +21,23 @@ Phases (any failure raises and the script exits non-zero):
      kernel and the plain decode; the training kernels at the train shape (B = 4,
      S = 1024, 32 q heads over 4 kv heads, D = 128, x (4096, 4096), a
      45M-element leaf) and at edge cases (f32, a window, causal=False, a
-     ragged S, G = 1, ragged row and element counts).  f32 within rtol =
+     ragged S, G = 1, ragged row and element counts; the flash kernels'
+     bf16 tensor-core arms also at a ragged S with D = 64 and at a window
+     of 16 keys).  f32 within rtol =
      atol = 1e-5; bf16 within two bf16 ulps (rtol = 2**-6) and atol = 1e-5;
      sums over rows or keys (dscale, dq, dk, dv, the partials' acc) with an
      added atol of 2**-14 times the same sum taken over absolute values
-     (the f32 summation-order bound, see SUM_ABS_TOL); the rmsnorm wrapper
+     (the f32 summation-order bound, see SUM_ABS_TOL); the bf16 flash arms,
+     which round p and ds to bf16 as the TPU kernels do, with a further
+     ref.ROUND_TOL (2**-8) times the sum over absolute terms of what they
+     round (ref.flash_round_scale), lse held to 1e-5; the rmsnorm wrapper
      must refuse rows it cannot move in 16-byte chunks;
   4. time each kernel and arm, its plain version and the nearest single
      PyTorch call (none for rmsprop, the partials kernel and the int8 arms:
      no PyTorch call computes them) with CUDA events (median, L2 flushed
      before each call) beside the least time the card could take for the
-     work;
+     work, and the ratios of the kernel's time to both (x_bound,
+     x_library);
   5. the port's model on a small input on the card against the same model
      on the CPU, then ``run_engine`` on Yi-6B at full width and depth (bf16
      weights from a seed, bf16 KV, 4 slots, cache 1024, chunk 128, 8 greedy
@@ -51,15 +58,18 @@ Phases (any failure raises and the script exits non-zero):
      emits the tokens of the engine without it, with int8 and bf16 KV;
      each of the four runs checked for its layout and kernels as above;
   7. three train steps of reduced Yi-6B in f32 on the card against the
-     same steps on the CPU (losses to rtol 1e-4, parameters to 1e-5);
+     same steps on the CPU (losses to rtol 1e-4, parameters to 1e-5),
+     through the flash kernels' f32 (SIMT) arms and never their bf16 arms;
   8. Yi-6B at full width cut to 16 of 32 layers (f32 masters, bf16
      compute, remat, shared RMSProp, TokenPipeline batch 4 x 1024): one
      warm-up step, three timed steps and one profiled step; every loss and
      gradient finite, every parameter leaf changed and every training
-     kernel launched.
+     kernel launched, the flash kernels through their bf16 (tensor-core)
+     arms only: 2 forward launches (the forward and its remat) and one
+     backward a layer and step.
 
 Every kernel and arm must have been launched on one of the main paths
-(phases 5, 6a, 6b, each of the four runs of 6c, and 8, each with the
+(phases 5, 6a, 6b, each of the four runs of 6c, 7 and 8, each with the
 counters set to 0 just before it and read just after); the kernels line
 gives each one's launches by path.
 The last three lines are the card's name and power limit (nvidia-smi), a
@@ -92,8 +102,14 @@ BF16_TOL = (2.0 ** -6, 1e-5)
 # u = 2**-24 the f32 unit roundoff; 2**-14 = 1024 u covers the depth with
 # room to spare and is still 100x below a bf16 ulp of that magnitude.
 SUM_ABS_TOL = 2.0 ** -14
+# The bf16 arms of the flash kernels round p and ds to bf16 before their
+# products, as the TPU kernels do, while the plain versions keep them in
+# f32: each such output may move by ref.ROUND_TOL (2**-8, twice the bf16
+# unit roundoff 2**-9) times the same sum over absolute terms
+# (ref.flash_round_scale), added to its tolerance.  lse is never rounded.
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 TRIALS = 25
 
 
@@ -102,13 +118,17 @@ def _tol(dtype):
     return F32_TOL if dtype == torch.float32 else BF16_TOL
 
 
-def _compare(what, got, want, sum_abs=None):
+def _compare(what, got, want, sum_abs=None, round_abs=None):
     """Max abs error of got vs want; raises where any element is beyond
     atol + rtol * |want| for the output's dtype.  ``sum_abs``, for an
     output that is a sum (over rows, keys or heads), is the same sum taken
     over the absolute values of its terms: SUM_ABS_TOL * sum_abs is added
-    to each element's tolerance (see SUM_ABS_TOL)."""
+    to each element's tolerance (see SUM_ABS_TOL).  ``round_abs``, for an
+    output of a bf16 flash arm, is the sum over absolute terms whose
+    factors that arm rounds to bf16: ROUND_TOL * round_abs is added too."""
     import torch
+
+    from repro_torch.kernels.ref import ROUND_TOL
     rtol, atol = _tol(want.dtype)
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
@@ -118,11 +138,15 @@ def _compare(what, got, want, sum_abs=None):
     tol = atol + rtol * want.abs()
     if sum_abs is not None:
         tol = tol + SUM_ABS_TOL * sum_abs.float()
+    if round_abs is not None:
+        tol = tol + ROUND_TOL * round_abs.float()
     # worst element's share of its own tolerance (<= 1 passes)
     use = float((diff / tol).max())
     ok = use <= 1.0
     rms = float(want.square().mean().sqrt())
     extra = f" +{SUM_ABS_TOL:g}*sum|terms|" if sum_abs is not None else ""
+    if round_abs is not None:
+        extra += f" +{ROUND_TOL:g}*sum|rounded terms|"
     print(f"check {what}: max_abs_err={err:.3e} rtol={rtol:g} atol={atol:g}"
           f"{extra} worst_err/tol={use:.3f} rms_want={rms:.3e} "
           f"{'ok' if ok else 'FAIL'}")
@@ -705,6 +729,8 @@ def check_rmsnorm_bwd(gen, flush):
 
 # (label, B, S, Hq, Hkv, D, dtype, causal, window)
 _TRAIN_SHAPE = ("train shape", 4, 1024, 32, 4, 128, "bf16", True, None)
+_F32_TRAIN_SHAPE = ("train shape f32", 4, 1024, 32, 4, 128, "f32", True,
+                    None)
 _FLASH_CASES = [
     _TRAIN_SHAPE,
     ("f32", 2, 1024, 32, 4, 128, "f32", True, None),
@@ -712,6 +738,11 @@ _FLASH_CASES = [
     ("causal=False", 2, 512, 32, 4, 128, "bf16", False, None),
     ("ragged S=1000 D=64", 2, 1000, 8, 2, 64, "f32", True, None),
     ("G=1", 2, 512, 8, 8, 128, "bf16", True, None),
+    # the bf16 arm's ragged edge and D = 64
+    ("ragged S=1000 D=64 bf16", 2, 1000, 8, 2, 64, "bf16", True, None),
+    # at most 16 keys a query: one key dropped or added moves an output by
+    # far more than ROUND_TOL of its sum over |terms|
+    ("window=16", 2, 1024, 32, 4, 128, "bf16", True, 16),
 ]
 
 
@@ -739,46 +770,75 @@ def _live_pairs(b, s, hq, causal, window):
     return int(keep.sum()) * b * hq
 
 
+def _flash_bound(q, k, live, ops_per_pair, n_q_like, n_kv_like):
+    """(bound_ms, bound_by) of a flash kernel: its operations over the peak
+    for its dtype (bf16 tensor cores; f32 outside them) against the bytes
+    of n_q_like (B, S, Hq, D) and n_kv_like (B, S, Hkv, D) tensors plus lse
+    moved once."""
+    import torch
+    b, s, hq, d = q.shape
+    width = q.element_size()
+    nbytes = (n_q_like * q.numel() + n_kv_like * k.numel()) * width + \
+        b * hq * s * 4
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    by_ops = ops_per_pair * d * live / peak * 1e3
+    return max(by_bytes, by_ops), ("operations" if by_ops >= by_bytes
+                                   else "bytes")
+
+
 def check_flash_fwd(gen, flush):
+    """Both arms of the forward against the plain version; records for the
+    bf16 (tensor-core) arm and the f32 (SIMT) arm, each timed at the train
+    shape in its dtype."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_cuda, ref
-    errs = []
+    errs = {torch.bfloat16: [], torch.float32: []}
     for case in _FLASH_CASES:
         q, k, v, _, causal, window = _flash_inputs(gen, case)
         o, lse = flash_attention_cuda.flash_attention_fwd(
             q, k, v, causal=causal, window=window)
         want_o, want_lse = ref.flash_attention_ref(
             q, k, v, causal=causal, window=window)
+        # the bf16 arm rounds p to bf16 before p @ V, as the TPU kernel
+        round_abs = None
+        if q.dtype == torch.bfloat16:
+            round_abs = ref.flash_round_scale(q, k, v, want_o, want_lse,
+                                              None, causal, window)[0]
         label = f"flash_fwd {case[0]} {tuple(q.shape)}/{k.shape[2]} {q.dtype}"
-        errs.append(_compare(label + " o", o, want_o))
-        errs.append(_compare(label + " lse", lse, want_lse))
+        errs[q.dtype].append(_compare(label + " o", o, want_o,
+                                      round_abs=round_abs))
+        errs[q.dtype].append(_compare(label + " lse", lse, want_lse))
+        del round_abs
 
-    q, k, v, _, causal, window = _flash_inputs(gen, _TRAIN_SHAPE)
-    b, s, hq, d = q.shape
-    live = _live_pairs(b, s, hq, causal, window)
-    flops = 4 * d * live
-    nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + b * hq * s * 4
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / BF16_FLOPS * 1e3
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    return {
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:129",
-        "max_abs_err": max(errs),
-        "ms": _time_ms(lambda: flash_attention_cuda.flash_attention_fwd(
-            q, k, v), flush),
-        "plain_ms": _time_ms(lambda: ref.flash_attention_ref(q, k, v),
-                             flush),
-        "bound_ms": max(by_bytes, by_ops),
-        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
-        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), flush),
-        "shape": f"q ({b}, {s}, {hq}, {d}) bf16, k/v {k.shape[2]} heads, "
-                 f"causal, live pairs {live}",
-    }
+    records = []
+    for case, name in ((_TRAIN_SHAPE, "flash_attention_fwd"),
+                       (_F32_TRAIN_SHAPE, "flash_attention_fwd_f32")):
+        q, k, v, _, causal, window = _flash_inputs(gen, case)
+        b, s, hq, d = q.shape
+        live = _live_pairs(b, s, hq, causal, window)
+        bound, bound_by = _flash_bound(q, k, live, 4, 2, 2)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        arm = "tensor cores" if q.dtype == torch.bfloat16 else "SIMT"
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:129",
+            "max_abs_err": max(errs[q.dtype]),
+            "ms": _time_ms(lambda: flash_attention_cuda.flash_attention_fwd(
+                q, k, v), flush),
+            "plain_ms": _time_ms(lambda: ref.flash_attention_ref(q, k, v),
+                                 flush),
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+            "shape": f"q ({b}, {s}, {hq}, {d}) {q.dtype}, k/v {k.shape[2]} "
+                     f"heads, causal, live pairs {live}, {arm}",
+        })
+        del q, k, v, qt, kt, vt
+    return records
 
 
 def _bwd_sum_abs(q, k, v, o, lse, do, causal, window):
@@ -805,11 +865,13 @@ def _bwd_sum_abs(q, k, v, o, lse, do, causal, window):
 
 
 def check_flash_bwd(gen, flush):
+    """Both arms of the backward against the plain version; records for the
+    bf16 and the f32 arm, each timed at the train shape in its dtype."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_bwd_cuda, ref
-    errs = []
+    errs = {torch.bfloat16: [], torch.float32: []}
     for case in _FLASH_CASES:
         q, k, v, do, causal, window = _flash_inputs(gen, case)
         o, lse = ref.flash_attention_ref(q, k, v, causal=causal,
@@ -819,41 +881,52 @@ def check_flash_bwd(gen, flush):
         want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                            causal=causal, window=window)
         scale = _bwd_sum_abs(q, k, v, o, lse, do, causal, window)
+        # the bf16 arm rounds ds (dq, dk) and p (dv) to bf16, as the TPU
+        # kernel
+        rounding = (None, None, None)
+        if q.dtype == torch.bfloat16:
+            rounding = ref.flash_round_scale(q, k, v, o, lse, do, causal,
+                                             window)[1:]
         label = f"flash_bwd {case[0]} {tuple(q.shape)}/{k.shape[2]} {q.dtype}"
-        for name, g_, w_, m_ in zip(("dq", "dk", "dv"), got, want, scale):
-            errs.append(_compare(f"{label} {name}", g_, w_, sum_abs=m_))
-        del scale, got, want
+        for name, g_, w_, m_, r_ in zip(("dq", "dk", "dv"), got, want, scale,
+                                        rounding):
+            errs[q.dtype].append(_compare(f"{label} {name}", g_, w_,
+                                          sum_abs=m_, round_abs=r_))
+        del scale, got, want, rounding
 
-    q, k, v, do, causal, window = _flash_inputs(gen, _TRAIN_SHAPE)
-    o, lse = ref.flash_attention_ref(q, k, v)
-    b, s, hq, d = q.shape
-    live = _live_pairs(b, s, hq, causal, window)
-    flops = 10 * d * live       # s, dp, dq, dk, dv: five products of D
-    # least bytes: q, o, do, k, v and lse in; dq, dk, dv out
-    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + b * hq * s * 4
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / BF16_FLOPS * 1e3
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                  for t in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                        enable_gqa=True)
-    dot = do.transpose(1, 2).contiguous()
-    return {
-        "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-        "replaces": "src/repro/kernels/flash_attention_bwd.py:142",
-        "max_abs_err": max(errs),
-        "ms": _time_ms(lambda: flash_attention_bwd_cuda.flash_attention_bwd(
-            q, k, v, o, lse, do), flush),
-        "plain_ms": _time_ms(lambda: ref.flash_attention_bwd_ref(
-            q, k, v, o, lse, do), flush),
-        "bound_ms": max(by_bytes, by_ops),
-        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
-        "library_ms": _time_ms(lambda: torch.autograd.grad(
-            ot, (qt, kt, vt), dot, retain_graph=True), flush),
-        "shape": f"q, o, do ({b}, {s}, {hq}, {d}) bf16, k/v {k.shape[2]} "
-                 f"heads, causal, live pairs {live}",
-    }
+    records = []
+    for case, name in ((_TRAIN_SHAPE, "flash_attention_bwd"),
+                       (_F32_TRAIN_SHAPE, "flash_attention_bwd_f32")):
+        q, k, v, do, causal, window = _flash_inputs(gen, case)
+        o, lse = ref.flash_attention_ref(q, k, v)
+        b, s, hq, d = q.shape
+        live = _live_pairs(b, s, hq, causal, window)
+        # s, dp, dq, dk, dv: five products of D; least bytes: q, o, do, k,
+        # v and lse in, dq, dk, dv out
+        bound, bound_by = _flash_bound(q, k, live, 10, 4, 4)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        arm = "tensor cores" if q.dtype == torch.bfloat16 else "SIMT"
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention_bwd.py:142",
+            "max_abs_err": max(errs[q.dtype]),
+            "ms": _time_ms(lambda: flash_attention_bwd_cuda
+                           .flash_attention_bwd(q, k, v, o, lse, do), flush),
+            "plain_ms": _time_ms(lambda: ref.flash_attention_bwd_ref(
+                q, k, v, o, lse, do), flush),
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": _time_ms(lambda: torch.autograd.grad(
+                ot, (qt, kt, vt), dot, retain_graph=True), flush),
+            "shape": f"q, o, do ({b}, {s}, {hq}, {d}) {q.dtype}, k/v "
+                     f"{k.shape[2]} heads, causal, live pairs {live}, {arm}",
+        })
+        del q, k, v, do, o, lse, qt, kt, vt, ot, dot
+    return records
 
 
 def check_rmsprop(gen, flush):
@@ -1018,12 +1091,13 @@ def run_yi6b_engine(cfg, params, kv, cp):
     return counts
 
 
-def _profile(label, fn, wall_ms=None):
+def _profile(label, fn, wall_ms=None, watch=()):
     """Device busy share of ``fn`` from a torch.profiler trace: the summed
     time of the kernels it ran (one stream, so they do not overlap) over
     its wall time without the profiler (``wall_ms``, or one more run of
-    ``fn``), the kernels that took the most device time and the host ops
-    that took the most host time."""
+    ``fn``), the kernels that took the most device time, the kernels whose
+    names hold one of ``watch`` wherever they rank, and the host ops that
+    took the most host time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1046,9 +1120,12 @@ def _profile(label, fn, wall_ms=None):
           f"{wall:.2f}) device_busy_ms={busy:.2f} busy_share="
           f"{busy / plain_wall:.3f} (of the profiled wall "
           f"{busy / wall:.3f})")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"profile {label}:   {e.self_device_time_total / 1e3:8.2f} ms"
-              f" x{e.count:<5d} {e.key[:90]}")
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for rank, e in enumerate(ranked):
+        if rank < 8 or any(w in e.key for w in watch):
+            print(f"profile {label}: #{rank + 1:<3d}"
+                  f"{e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} "
+                  f"{e.key[:90]}")
     # where the host spends a host-bound window (profiled: inflated by the
     # profiler's own cost, so read the shares, not the times)
     host = [e for e in prof.key_averages()
@@ -1129,12 +1206,15 @@ def check_cp_reduced():
 def check_train_small():
     """Reduced Yi-6B in f32: three train steps on the card (kernels)
     against the same steps on the CPU (plain versions), from the same
-    parameters and batches."""
+    parameters and batches.  The card's steps are a path of their own:
+    they launch the flash kernels' f32 arms and not their bf16 arms.
+    Returns their launch counts."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core import llm_a3c
     from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import dispatch
     from repro_torch.models import model as M
     from repro_torch.optim import optimizers as opt_mod
     cfg = get_config("yi-6b").reduced()
@@ -1149,10 +1229,12 @@ def check_train_small():
         state = opt.init(params)
         step = llm_a3c.make_train_step(cfg, opt)     # lr0 7e-4
         losses = []
+        dispatch.reset_launch_counts()
         for i, b in enumerate(batches):
             b = {k: v.to(dev) for k, v in b.items()}
             params, state, met = step(params, state, b, i)
             losses.append(float(met["loss"]))
+        counts = dispatch.launch_counts()
         runs[dev] = (losses, {k: v.detach().cpu() for k, v in
                               M.flatten(params).items()})
     (loss_c, par_c), (loss_g, par_g) = runs["cpu"], runs["cuda"]
@@ -1167,9 +1249,31 @@ def check_train_small():
     if loss_err > 1e-4:
         raise AssertionError(f"train: losses {loss_g} on the card vs "
                              f"{loss_c} on the CPU")
+    _check_flash_arms("train reduced yi-6b f32", counts, "f32")
     print(f"check train reduced yi-6b f32 3 steps cuda vs cpu: losses "
           f"{[round(x, 4) for x in loss_g]} rel_err={loss_err:.2e} (tol "
           f"1e-4) params max_abs_err={par_err:.2e} (rtol=atol=1e-5) ok")
+    return counts
+
+
+FLASH_ARMS = {"bf16": ("flash_attention", "flash_attention_bwd"),
+              "f32": ("flash_attention_f32", "flash_attention_bwd_f32")}
+
+
+def _check_flash_arms(label, counts, arm, per_step=None):
+    """A train path launched the flash kernels' ``arm`` (forward and
+    backward; exactly ``per_step`` = (forward, backward) launches when
+    given) and never the other arm."""
+    other = "f32" if arm == "bf16" else "bf16"
+    fwd, bwd = FLASH_ARMS[arm]
+    got = (counts[fwd], counts[bwd])
+    stray = {k: counts[k] for k in FLASH_ARMS[other] if counts[k] != 0}
+    if min(got) <= 0 or stray or (per_step is not None and got != per_step):
+        raise AssertionError(f"{label}: flash launches {arm} {got} (want "
+                             f"{per_step or 'some of each'}), {other} "
+                             f"{stray}")
+    print(f"check {label}: flash launches {arm} arms {fwd}={got[0]} "
+          f"{bwd}={got[1]}, {other} arms none ok")
 
 
 TRAIN_COUNTERS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
@@ -1252,6 +1356,9 @@ def run_yi6b_train():
     missing = [k for k in TRAIN_COUNTERS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"train: kernels never launched: {missing}")
+    # 3 steps of 16 layers: a forward and its remat, one backward a layer
+    _check_flash_arms("train yi-6b x16 layers 3 steps", counts, "bf16",
+                      (3 * 2 * cfg.n_layers, 3 * cfg.n_layers))
     per_step = {k: counts[k] / 3 for k in TRAIN_COUNTERS}
     wall = statistics.median(walls)
     print("train yi-6b full width x 16 layers: " + json.dumps({
@@ -1260,7 +1367,8 @@ def run_yi6b_train():
         "tokens_per_s": batch_rows * seq / wall,
         "peak_device_memory_gib": peak,
         "launches_per_step": per_step}))
-    _profile("train step", one_step, wall_ms=wall * 1e3)
+    _profile("train step", one_step, wall_ms=wall * 1e3,
+             watch=("flash_fwd", "dq_mma", "dkv_mma", "dkv_sum"))
     return counts
 
 
@@ -1287,9 +1395,10 @@ def main():
     build.library()
     print(f"build_s {time.perf_counter() - t0:.1f} (nvcc "
           f"{build.build_seconds:.1f} s)")
-    for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("ptxas " + line.strip())
+    for r in build.kernel_resources(build.build_log):
+        print(f"ptxas {r['name']}: registers={r.get('registers')} "
+              f"spill_stores={r.get('spill_stores')} "
+              f"spill_loads={r.get('spill_loads')} stack={r.get('stack')}")
 
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda")
@@ -1298,9 +1407,15 @@ def main():
     records = [check_rmsnorm(gen, flush), check_append(gen, flush),
                check_append_int8(gen, flush), check_decode(gen, flush),
                check_decode_int8(gen, flush), *check_partials(gen, flush),
-               check_rmsnorm_bwd(gen, flush), check_flash_fwd(gen, flush),
-               check_flash_bwd(gen, flush), check_rmsprop(gen, flush)]
+               check_rmsnorm_bwd(gen, flush), *check_flash_fwd(gen, flush),
+               *check_flash_bwd(gen, flush), check_rmsprop(gen, flush)]
     del flush
+    for r in records:
+        for sub in (r, r.get("train_shape")):
+            if sub is not None:
+                lib = sub["library_ms"]
+                sub["x_bound"] = sub["ms"] / sub["bound_ms"]
+                sub["x_library"] = None if lib is None else sub["ms"] / lib
     for r in records:
         for sub in (r, r.get("train_shape")):
             if sub is None:
@@ -1308,10 +1423,13 @@ def main():
             lib = sub["library_ms"]
             lib = sub.get("library_note", "none") if lib is None else \
                 f"{lib:.4f}"
+            xlib = "none" if sub["x_library"] is None else \
+                f"{sub['x_library']:.2f}"
             print(f"kernel {r['name']} [{sub['shape']}]: kernel_ms="
                   f"{sub['ms']:.4f} bound_ms={sub['bound_ms']:.4f} "
                   f"({sub['bound_by']}) plain_ms={sub['plain_ms']:.4f} "
-                  f"library_ms={lib}")
+                  f"library_ms={lib} x_bound={sub['x_bound']:.2f} "
+                  f"x_library={xlib}")
     print(f"phase kernels_s {time.perf_counter() - t_phase:.1f}")
 
     t_phase = time.perf_counter()
@@ -1335,7 +1453,7 @@ def main():
     print(f"phase engine_cp_s {time.perf_counter() - t_phase:.1f}")
 
     t_phase = time.perf_counter()
-    check_train_small()
+    path_counts["train_small_f32"] = check_train_small()
     path_counts["train_3_steps"] = run_yi6b_train()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1351,7 +1469,9 @@ def main():
                  "decode_attention_partials_int8",
              "rmsnorm_bwd": "rmsnorm_bwd",
              "flash_attention_fwd": "flash_attention",
+             "flash_attention_fwd_f32": "flash_attention_f32",
              "flash_attention_bwd": "flash_attention_bwd",
+             "flash_attention_bwd_f32": "flash_attention_bwd_f32",
              "rmsprop_update": "rmsprop"}
     for r in records:
         op = by_op[r["name"]]

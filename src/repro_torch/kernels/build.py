@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -32,7 +33,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("rmsnorm.cu", "rmsnorm_bwd.cu", "decode_attention.cu",
            "flash_append.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "rmsprop.cu")
-HEADERS = ("common.cuh", "attention_tiles.cuh")
+HEADERS = ("common.cuh", "attention_tiles.cuh", "mma_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -56,8 +57,8 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _P),
     "rt_flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P),
-    "rt_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                               _I, _I, _I, _I, _I, _I, _I, _P),
+    "rt_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "rt_rmsprop_update": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _P),
 }
 
@@ -125,6 +126,47 @@ def build() -> Path:
         os.replace(tmp_so, out)
     build_log = "\n".join(logs)
     build_seconds = time.perf_counter() - t0
+    return out
+
+
+def _kernel_name(mangled: str) -> str:
+    """The ``*_kernel`` identifier in a mangled name (a length-prefixed
+    source name; the length is the tail of a run of digits, since a
+    file-hash prefix may end in digits), with its first int template
+    argument (the head dim)."""
+    for run in re.finditer(r"\d+", mangled):
+        digits = run.group()
+        for i in range(len(digits)):
+            n, at = int(digits[i:]), run.end()
+            ident = mangled[at:at + n]
+            if len(ident) == n and ident.endswith("_kernel") and \
+                    re.fullmatch(r"[A-Za-z_]\w*", ident):
+                arg = re.match(r"ILi(\d+)E", mangled[at + n:])
+                return ident + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
+
+
+def kernel_resources(log: str) -> list:
+    """Per kernel of a ``-Xptxas=-v`` build log: its name (with the head
+    dim it was instantiated for), registers, spill stores and loads and
+    stack frame, in bytes."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"name": _kernel_name(m.group(1))}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
     return out
 
 

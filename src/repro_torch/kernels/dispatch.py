@@ -46,7 +46,9 @@ _COUNTERS = {
     "decode_attention_partials_int8": (decode_attention_cuda,
                                        "partials_int8_launches"),
     "flash_attention": (flash_attention_cuda, "launches"),
+    "flash_attention_f32": (flash_attention_cuda, "f32_launches"),
     "flash_attention_bwd": (flash_attention_bwd_cuda, "launches"),
+    "flash_attention_bwd_f32": (flash_attention_bwd_cuda, "f32_launches"),
     "rmsprop": (rmsprop_cuda, "launches")}
 
 

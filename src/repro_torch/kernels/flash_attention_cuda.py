@@ -4,7 +4,9 @@
 Replaces ``repro/kernels/flash_attention.py::flash_attention_fwd``.  A CUDA
 tensor launches the kernel (or raises); a CPU tensor takes
 ``ref.flash_attention_ref``.  The kernel masks its own ragged edges, so any
-sequence length stays on the kernel.
+sequence length stays on the kernel.  It has two arms, chosen by dtype and
+counted apart: bf16 runs on the tensor cores (``launches``), f32 on the
+exact SIMT body (``f32_launches``).
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-launches = 0    # kernel launches since the last reset (dispatch.reset_...)
+launches = 0        # bf16 (tensor-core) launches since the last reset
+f32_launches = 0    # f32 (SIMT) launches since the last reset
 
 HEAD_DIMS = (64, 128)   # head dims the kernels are instantiated for
 
@@ -72,6 +75,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         int(bool(causal)), int(window) if window is not None else 0,
         build.DTYPE_CODE[q.dtype], build.stream_of(q))
     build.check(rc, what)
-    global launches
-    launches += 1
+    global launches, f32_launches
+    if q.dtype == torch.float32:
+        f32_launches += 1
+    else:
+        launches += 1
     return out, lse

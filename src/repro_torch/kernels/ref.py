@@ -18,6 +18,16 @@ from repro_torch.kernels import kv_quant
 NEG = -1e30
 L_FLOOR = 1e-30     # floor on the softmax denominator (never a division by 0)
 
+# The rounding of the bf16 flash kernels against these f32 plain versions.
+# The TPU kernels, and the bf16 arms of the CUDA flash kernels, round p
+# (forward; dv in the backward) and ds (dq, dk) once to bf16 before a
+# product.  Each rounded factor is off by at most 2**-9 of itself (the bf16
+# unit roundoff), so an output that sums such terms is off by at most 2**-9
+# of the same sum over absolute values (``flash_round_scale``); ROUND_TOL
+# is a factor of 2 above that bound, for the f32 sums around it.  lse is
+# never rounded and keeps the f32 tolerance.
+ROUND_TOL = 2.0 ** -8
+
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *,
                 eps: float = 1e-6, save_residuals: bool = False):
@@ -91,10 +101,12 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
                             window: Optional[int] = None):
     """FlashAttention-2 backward from the saved lse, with the formulas of
     ``flash_attention_bwd.py``: p = exp(s - lse), delta = rowsum(do * o),
-    ds = p * (dp - delta) * scale.  p and ds stay in f32 (the TPU kernel
-    rounds them to the input dtype before its products; the CUDA kernel
-    does not).  Returns (dq, dk, dv) in the input dtypes, dk and dv summed
-    over each kv head's G query heads."""
+    ds = p * (dp - delta) * scale.  p and ds stay in f32: this is the exact
+    yardstick.  The TPU kernel and the CUDA kernel's bf16 arm round them to
+    bf16 before their products (the f32 arm does not); ``ROUND_TOL`` times
+    ``flash_round_scale`` bounds what that rounding moves.  Returns (dq, dk,
+    dv) in the input dtypes, dk and dv summed over each kv head's G query
+    heads."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
@@ -112,6 +124,36 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     dv = torch.einsum("bshgt,bshgd->bthd", p, dog)
     return (dq.to(q.dtype).contiguous(), dk.to(k.dtype).contiguous(),
             dv.to(v.dtype).contiguous())
+
+
+def flash_round_scale(q, k, v, o, lse, do=None, causal: bool = True,
+                      window: Optional[int] = None):
+    """The sums over absolute terms that bound the bf16 rounding of p and ds
+    (``ROUND_TOL``), from the true (f32) p and ds of the plain versions:
+    sum_j p_ij |v_j| for o, and with ``do`` also sum_j |ds_ij| |k_j| for dq,
+    sum_i |ds_ij| |q_i| for dk and sum_i p_ij |do_i| for dv (dk and dv
+    summed over each kv head's query heads).  o and lse are the plain
+    forward's.  Returns (o, dq, dk, dv) scales in f32 (the last three None
+    without ``do``)."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    logits = _train_logits(q, k, causal, window)          # (B,S,Hkv,G,S)
+    p = torch.exp(logits - lse.transpose(1, 2).reshape(b, s, hkv, g, 1))
+    o_s = torch.einsum("bshgt,bthd->bshgd", p,
+                       v.float().abs()).reshape(b, s, hq, d)
+    if do is None:
+        return o_s, None, None, None
+    dog = do.reshape(b, s, hkv, g, d).float()
+    delta = (dog * o.reshape(b, s, hkv, g, d).float()).sum(-1, keepdim=True)
+    dp = torch.einsum("bshgd,bthd->bshgt", dog, v.float())
+    ds = (p * (dp - delta) * d ** -0.5).abs()
+    qg = q.reshape(b, s, hkv, g, d).float().abs()
+    dq_s = torch.einsum("bshgt,bthd->bshgd", ds,
+                        k.float().abs()).reshape(b, s, hq, d)
+    dk_s = torch.einsum("bshgt,bshgd->bthd", ds, qg)
+    dv_s = torch.einsum("bshgt,bshgd->bthd", p, dog.abs())
+    return o_s, dq_s, dk_s, dv_s
 
 
 def _decode_logits(q, k_cache, kpos, pos):

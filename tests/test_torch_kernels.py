@@ -230,4 +230,5 @@ def test_launch_counters_untouched_on_cpu():
         "flash_append_int8": 0, "decode_attention": 0,
         "decode_attention_int8": 0, "decode_attention_partials": 0,
         "decode_attention_partials_int8": 0, "flash_attention": 0,
-        "flash_attention_bwd": 0, "rmsprop": 0}
+        "flash_attention_f32": 0, "flash_attention_bwd": 0,
+        "flash_attention_bwd_f32": 0, "rmsprop": 0}

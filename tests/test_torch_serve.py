@@ -158,7 +158,8 @@ def test_cli_runs_on_cpu(capsys):
         "flash_append_int8": 0, "decode_attention": 0,
         "decode_attention_int8": 0, "decode_attention_partials": 0,
         "decode_attention_partials_int8": 0, "flash_attention": 0,
-        "flash_attention_bwd": 0, "rmsprop": 0}
+        "flash_attention_f32": 0, "flash_attention_bwd": 0,
+        "flash_attention_bwd_f32": 0, "rmsprop": 0}
 
 
 def test_prefill_step_matches_model(models):

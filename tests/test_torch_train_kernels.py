@@ -233,4 +233,11 @@ def test_train_launch_counters_untouched_on_cpu():
     x = _leaf(np.ones((4, 64), np.float32))
     dispatch.rmsnorm(x, torch.ones(64)).sum().backward()
     dispatch.rmsprop_update(torch.zeros(5), torch.ones(5), lr=1.0)
-    assert not any(dispatch.launch_counts().values())
+    counts = dispatch.launch_counts()
+    # each flash kernel counts its two arms apart: bf16 (tensor cores) and
+    # f32 (SIMT)
+    assert {"flash_attention", "flash_attention_f32", "flash_attention_bwd",
+            "flash_attention_bwd_f32"} <= set(counts)
+    assert flash_attention_cuda.f32_launches == 0
+    assert flash_attention_bwd_cuda.f32_launches == 0
+    assert not any(counts.values())
