@@ -13,12 +13,19 @@ Phases (any failure raises and the script exits non-zero):
      serving kernels at the serving shapes of Yi-6B and at edge cases
      (ragged per-slot pos, pos 0, a fully masked row, pos0 in {0, 512}, a
      sliding window, a ring layout, ragged tiles), with f32/bf16 and with
-     int8 caches (per-row f32 scales); the partials kernel over 1, 2 and 4
+     int8 caches (per-row f32 scales); the append kernel's bf16
+     (tensor-core) arm and its f32 (SIMT) arm each over every edge case,
+     each case checked to launch its own arm; the decode kernel with its
+     key range forced into 1 and 2 splits and split_plan's, against the
+     plain decode and against the plain model of its split-and-skip
+     algorithm (``ref.decode_split_ref``), including a case whose last
+     splits lie wholly past pos; the partials kernel over 1, 2 and 4
      slices of the serving cache (B = 4, L = 1024, 32 q over 4 kv heads,
      D = 128; bf16, f32 and int8; a fully masked slice, an all-masked
-     row, and a ragged L = 300), each slice against the plain partials and
-     the slices combined (``ref.combine_partials``) against the decode
-     kernel and the plain decode; the training kernels at the train shape (B = 4,
+     row, and a ragged L = 300), each slice at the same three splits
+     against the plain partials and the slices combined
+     (``ref.combine_partials``) against the decode kernel and the plain
+     decode; the training kernels at the train shape (B = 4,
      S = 1024, 32 q heads over 4 kv heads, D = 128, x (4096, 4096), a
      45M-element leaf) and at edge cases (f32, a window, causal=False, a
      ragged S, G = 1, ragged row and element counts; the flash kernels'
@@ -30,7 +37,8 @@ Phases (any failure raises and the script exits non-zero):
      (the f32 summation-order bound, see SUM_ABS_TOL); the bf16 flash arms,
      which round p and ds to bf16 as the TPU kernels do, with a further
      ref.ROUND_TOL (2**-8) times the sum over absolute terms of what they
-     round (ref.flash_round_scale), lse held to 1e-5; the rmsnorm wrapper
+     round (ref.flash_round_scale; the append arm's ref.append_round_scale),
+     lse held to 1e-5; the rmsnorm wrapper
      must refuse rows it cannot move in 16-byte chunks;
   4. time each kernel and arm, its plain version and the nearest single
      PyTorch call (none for rmsprop, the partials kernel and the int8 arms:
@@ -38,12 +46,14 @@ Phases (any failure raises and the script exits non-zero):
      before each call) beside the least time the card could take for the
      work, and the ratios of the kernel's time to both (x_bound,
      x_library);
-  5. the port's model on a small input on the card against the same model
-     on the CPU, then ``run_engine`` on Yi-6B at full width and depth (bf16
-     weights from a seed, bf16 KV, 4 slots, cache 1024, chunk 128, 8 greedy
-     requests): every request completes, all logits are finite, and the
-     run launched the rmsnorm, the append kernel's and the decode
-     kernel's bf16 arms and no other attention arm;
+  5. the port's reduced model in f32 on the card against the same model
+     on the CPU (a counted path: the append kernel's f32 SIMT arm), then
+     ``run_engine`` on Yi-6B at full width and depth (bf16 weights from a
+     seed, bf16 KV, 4 slots, cache 1024, chunk 128, 8 greedy requests):
+     every request completes, all logits are finite, and the run launched
+     the rmsnorm, the append kernel's tensor-core arm (736 times: 23
+     chunks x 32 layers) and the decode kernel's float arm and no other
+     attention arm;
   6. a torch.profiler trace of one admission and of eight decode steps of
      that engine: wall time, device busy share and the top kernels;
   6a. the same trace with int8 KV (replicated): the int8 arms of the
@@ -56,7 +66,9 @@ Phases (any failure raises and the script exits non-zero):
      phase 6;
   6c. reduced Yi-6B on the card, greedy: the engine under ``decode_cp[1]``
      emits the tokens of the engine without it, with int8 and bf16 KV;
-     each of the four runs checked for its layout and kernels as above;
+     each of the four runs checked for its layout and kernels as above
+     (its f32 activations take the append kernel's SIMT arm over a bf16
+     cache);
   7. three train steps of reduced Yi-6B in f32 on the card against the
      same steps on the CPU (losses to rtol 1e-4, parameters to 1e-5),
      through the flash kernels' f32 (SIMT) arms and never their bf16 arms;
@@ -69,7 +81,8 @@ Phases (any failure raises and the script exits non-zero):
      backward a layer and step.
 
 Every kernel and arm must have been launched on one of the main paths
-(phases 5, 6a, 6b, each of the four runs of 6c, 7 and 8, each with the
+(phase 5's reduced model and engine, 6a, 6b, each of the four runs of 6c,
+7 and 8, each with the
 counters set to 0 just before it and read just after); the kernels line
 gives each one's launches by path.
 The last three lines are the card's name and power limit (nvidia-smi), a
@@ -261,6 +274,33 @@ def check_rmsnorm(gen, flush):
     }
 
 
+# the decode kernel's splits forced through the wrapper: one split (every
+# tile in one block), two, and split_plan's (None)
+DECODE_SPLITS = (1, 2, None)
+
+
+def _check_decode_splits(label, q, k, v, kpos, pos, ks=None, vs=None):
+    """Kernel 6 (normalised) at each of DECODE_SPLITS against the plain
+    decode and against the plain model of its split-and-skip algorithm
+    (ref.decode_split_ref) at the same split.  Returns the errors."""
+    from repro_torch.kernels import decode_attention_cuda as dec
+    from repro_torch.kernels import ref
+    b, length, hkv = k.shape[0], k.shape[1], k.shape[2]
+    plain = (ref.decode_attention_quant_ref(q, k, v, ks, vs, kpos, pos)
+             if ks is not None else ref.decode_attention_ref(q, k, v, kpos,
+                                                             pos))
+    errs = []
+    for n in DECODE_SPLITS:
+        n_used, per = (dec.split_plan(b, hkv, length, dec._sm_count(0))
+                       if n is None else dec.split_tiles(length, n))
+        got = dec.decode_attention_fwd(q, k, v, kpos, pos, ks, vs, n_split=n)
+        tag = f"{label} n_split={n_used}{' (plan)' if n is None else ''}"
+        errs.append(_compare(f"{tag} vs plain", got, plain))
+        errs.append(_compare(f"{tag} vs split model", got, ref.decode_split_ref(
+            q, k, v, kpos, pos, ks, vs, tiles_per_split=per)))
+    return errs
+
+
 def check_decode(gen, flush):
     import torch
     import torch.nn.functional as F
@@ -273,6 +313,7 @@ def check_decode(gen, flush):
         (4, 32, 4, 128, 1024, torch.bfloat16, torch.bfloat16),
         (4, 32, 4, 128, 1024, torch.bfloat16, torch.float32),
         (4, 32, 4, 128, 1024, torch.float32, torch.float32),
+        (4, 32, 4, 128, 1024, torch.float32, torch.bfloat16),
         (2, 8, 8, 64, 300, torch.float32, torch.float32),     # ragged tile
         (3, 16, 1, 64, 77, torch.bfloat16, torch.bfloat16),  # G=16
     ]
@@ -288,11 +329,9 @@ def check_decode(gen, flush):
         if b >= 2:
             kpos[1] = -1
         kpos = kpos.contiguous()
-        errs.append(_compare(
+        errs += _check_decode_splits(
             f"decode B={b} Hq={hq} Hkv={hkv} D={d} L={length} q={qdt} "
-            f"kv={kvdt}",
-            decode_attention_cuda.decode_attention_fwd(q, k, v, kpos, pos),
-            ref.decode_attention_ref(q, k, v, kpos, pos)))
+            f"kv={kvdt}", q, k, v, kpos, pos)
     # ring cache (sliding window): rotated slot order
     b, hq, hkv, d, length = 4, 32, 4, 128, 256
     q = _randn((b, hq, d), gen, torch.bfloat16)
@@ -300,10 +339,16 @@ def check_decode(gen, flush):
     v = _randn((b, length, hkv, d), gen, torch.bfloat16)
     pos = torch.tensor([5, 300, 511, 1000], device="cuda", dtype=torch.int32)
     kpos = _cache_positions(length, pos, 256).to(torch.int32).contiguous()
-    errs.append(_compare(
-        "decode ring window=256",
-        decode_attention_cuda.decode_attention_fwd(q, k, v, kpos, pos),
-        ref.decode_attention_ref(q, k, v, kpos, pos)))
+    errs += _check_decode_splits("decode ring window=256", q, k, v, kpos, pos)
+    # every slot's keys in the first 4 of 16 tiles: the plan's last splits
+    # lie wholly past pos and visit no tile
+    length = 1024
+    k = _randn((b, length, hkv, d), gen, torch.bfloat16)
+    v = _randn((b, length, hkv, d), gen, torch.bfloat16)
+    pos = torch.tensor([5, 60, 130, 200], device="cuda", dtype=torch.int32)
+    kpos = _cache_positions(length, pos, None).to(torch.int32).contiguous()
+    errs += _check_decode_splits("decode splits past pos", q, k, v, kpos,
+                                 pos)
 
     # timed at the serving shape: bf16 cache, ragged depths
     b, hq, hkv, d, length = 4, 32, 4, 128, 1024
@@ -323,6 +368,12 @@ def check_decode(gen, flush):
     valid_rows = int(valid.sum())
     nbytes = (2 * valid_rows * hkv * d * 2 + 2 * q.numel() * 2
               + kpos.numel() * 4 + b * 4)
+    n_split = decode_attention_cuda.split_plan(
+        b, hkv, length, decode_attention_cuda._sm_count(0))
+    # the same call with its key range forced into 1 to 16 splits, beside
+    # the plan's: what the split buys
+    split_ms = {n: _time_ms(lambda: decode_attention_cuda.decode_attention_fwd(
+        q, k, v, kpos, pos, n_split=n), flush) for n in (1, 2, 4, 8, 16)}
     return {
         "name": "decode_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -336,7 +387,9 @@ def check_decode(gen, flush):
         "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), flush),
         "shape": f"q ({b}, {hq}, {d}) bf16, cache ({b}, {length}, {hkv}, "
-                 f"{d}) bf16, pos {pos.tolist()}, valid rows {valid_rows}",
+                 f"{d}) bf16, pos {pos.tolist()}, valid rows {valid_rows}, "
+                 f"(n_split, tiles a split) {n_split}",
+        "split_ms": split_ms,
     }
 
 
@@ -362,59 +415,42 @@ def _append_inputs(gen, b, c, hq, hkv, d, pos0, dt, *, ring=None):
     return q, k, v, kpos
 
 
-def check_append(gen, flush):
+def _append_arm(q, k):
+    """The counter of the append arm these inputs take."""
+    import torch
+    if k.dtype == torch.int8:
+        return "int8_launches"
+    bf = torch.bfloat16
+    return "launches" if q.dtype == bf and k.dtype == bf else "f32_launches"
+
+
+def _append_record(gen, flush, dt, errs):
+    """Kernel 4's bf16 (tensor-core) or f32 (SIMT) arm timed at the serving
+    shape: the second prompt chunk at pos0 = 512."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_append_cuda, ref
-    bf, f32 = torch.bfloat16, torch.float32
-    errs = []
-    # (label, b, c, hq, hkv, d, pos0, dtype, window, ring, linear, mask_row)
-    cases = [
-        ("Yi pos0=0", 4, 128, 32, 4, 128, 0, bf, None, None, True, False),
-        ("Yi pos0=512", 4, 128, 32, 4, 128, 512, bf, None, None, True, False),
-        ("Yi pos0=512 f32", 4, 128, 32, 4, 128, 512, f32, None, None, True,
-         False),
-        ("window=200 linear skip", 2, 128, 32, 4, 128, 512, bf, 200, None,
-         True, False),
-        ("ring L=256 window=256", 2, 128, 32, 4, 128, 384, bf, 256, 256,
-         False, False),
-        ("fully masked row", 2, 128, 8, 4, 128, 128, f32, None, None, False,
-         True),
-        ("ragged C=100 pos0=37 D=64", 3, 100, 8, 2, 64, 37, f32, None, None,
-         True, False),
-    ]
-    for label, b, c, hq, hkv, d, pos0, dt, window, ring, linear, mrow in cases:
-        q, k, v, kpos = _append_inputs(gen, b, c, hq, hkv, d, pos0, dt,
-                                       ring=ring)
-        if mrow:
-            kpos[1] = -1
-        errs.append(_compare(
-            f"append {label} B={b} C={c} Sk={k.shape[1]} Hq={hq} Hkv={hkv} "
-            f"D={d} {dt}",
-            flash_append_cuda.flash_attention_append(
-                q, k, v, kpos, pos0=pos0, window=window, kpos_linear=linear),
-            ref.flash_attention_append_ref(q, k, v, kpos, pos0=pos0,
-                                           window=window)))
-
-    # timed at the serving shape: the second prompt chunk at pos0 = 512
     b, c, hq, hkv, d, pos0 = 4, 128, 32, 4, 128, 512
-    q, k, v, kpos = _append_inputs(gen, b, c, hq, hkv, d, pos0, bf)
+    q, k, v, kpos = _append_inputs(gen, b, c, hq, hkv, d, pos0, dt)
     sk = k.shape[1]
     qpos = pos0 + torch.arange(c, device="cuda")
     valid = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[None, :, None])
     live_pairs = int(valid.sum())                    # over the batch
-    nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + kpos.numel() * 4
+    width = q.element_size()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * width + kpos.numel() * 4
     flops = 4 * hq * d * live_pairs
     qt = q.transpose(1, 2).contiguous()              # (B, Hq, C, D)
     kt = k.transpose(1, 2).contiguous()              # (B, Hkv, Sk, D)
     vt = v.transpose(1, 2).contiguous()
     mask = valid[:, None]
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / BF16_FLOPS * 1e3
+    by_ops = flops / (BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS) * 1e3
+    bf16 = dt == torch.bfloat16
     return {
-        "name": "flash_attention_append", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_append.cu",
+        "name": "flash_attention_append" + ("" if bf16 else "_f32"),
+        "route": "cuda", "source": "src/repro_torch/csrc/flash_append.cu"
+        + (" + src/repro_torch/csrc/flash_mma_fwd.cuh" if bf16 else ""),
         "replaces": "src/repro/kernels/flash_attention.py:264",
         "max_abs_err": max(errs),
         "ms": _time_ms(lambda: flash_append_cuda.flash_attention_append(
@@ -425,9 +461,72 @@ def check_append(gen, flush):
         "bound_by": "operations" if by_ops >= by_bytes else "bytes",
         "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), flush),
-        "shape": f"q ({b}, {c}, {hq}, {d}) bf16, k/v ({b}, {sk}, {hkv}, "
-                 f"{d}) bf16, pos0={pos0}, live pairs {live_pairs}",
+        "shape": f"q ({b}, {c}, {hq}, {d}) {dt}, k/v ({b}, {sk}, {hkv}, "
+                 f"{d}) {dt}, pos0={pos0}, live pairs {live_pairs}, "
+                 + ("tensor cores" if bf16 else "SIMT"),
     }
+
+
+def check_append(gen, flush):
+    """Both float arms of kernel 4: bf16 q over a bf16 stream on the tensor
+    cores, held with the added ROUND_TOL * ref.append_round_scale (p is
+    rounded to bf16 before P V, as the TPU kernel does), and f32 on the
+    SIMT body at the f32 tolerance; each case must launch its own arm.
+    Returns the records of the bf16 and the f32 arm."""
+    import torch
+
+    from repro_torch.kernels import flash_append_cuda, ref
+    bf, f32 = torch.bfloat16, torch.float32
+    errs = {bf: [], f32: []}
+    # (label, b, c, hq, hkv, d, pos0, dtype, window, ring, linear, mask_row)
+    cases = [
+        ("Yi pos0=0", 4, 128, 32, 4, 128, 0, bf, None, None, True, False),
+        ("Yi pos0=512", 4, 128, 32, 4, 128, 512, bf, None, None, True, False),
+        ("Yi pos0=512 f32", 4, 128, 32, 4, 128, 512, f32, None, None, True,
+         False),
+        ("window=200 linear skip", 2, 128, 32, 4, 128, 512, bf, 200, None,
+         True, False),
+        ("window=200 linear skip f32", 2, 128, 32, 4, 128, 512, f32, 200,
+         None, True, False),
+        ("ring L=256 window=256", 2, 128, 32, 4, 128, 384, bf, 256, 256,
+         False, False),
+        ("ring L=256 window=256 f32", 2, 128, 32, 4, 128, 384, f32, 256, 256,
+         False, False),
+        ("fully masked row", 2, 128, 8, 4, 128, 128, f32, None, None, False,
+         True),
+        ("fully masked row bf16", 2, 128, 8, 4, 128, 128, bf, None, None,
+         False, True),
+        ("ragged C=100 pos0=37 D=64", 3, 100, 8, 2, 64, 37, f32, None, None,
+         True, False),
+        ("ragged C=100 pos0=37 D=64 bf16", 3, 100, 8, 2, 64, 37, bf, None,
+         None, True, False),
+        # at most 16 keys a query: a key dropped or added moves an output
+        # far beyond ROUND_TOL of its sum over |terms|
+        ("window=16", 2, 128, 32, 4, 128, 512, bf, 16, None, True, False),
+    ]
+    for label, b, c, hq, hkv, d, pos0, dt, window, ring, linear, mrow in cases:
+        q, k, v, kpos = _append_inputs(gen, b, c, hq, hkv, d, pos0, dt,
+                                       ring=ring)
+        if mrow:
+            kpos[1] = -1
+        arm = _append_arm(q, k)
+        before = getattr(flash_append_cuda, arm)
+        got = flash_append_cuda.flash_attention_append(
+            q, k, v, kpos, pos0=pos0, window=window, kpos_linear=linear)
+        if getattr(flash_append_cuda, arm) != before + 1:
+            raise AssertionError(f"append {label}: arm {arm} not launched")
+        round_abs = None
+        if dt == bf:
+            round_abs = ref.append_round_scale(q, k, v, kpos, pos0=pos0,
+                                               window=window)
+        errs[dt].append(_compare(
+            f"append {label} B={b} C={c} Sk={k.shape[1]} Hq={hq} Hkv={hkv} "
+            f"D={d} {dt} ({arm})", got,
+            ref.flash_attention_append_ref(q, k, v, kpos, pos0=pos0,
+                                           window=window),
+            round_abs=round_abs))
+    return [_append_record(gen, flush, bf, errs[bf]),
+            _append_record(gen, flush, f32, errs[f32])]
 
 
 # int8 arms and kernel 7: no single PyTorch call attends over an int8 cache
@@ -489,12 +588,9 @@ def check_decode_int8(gen, flush):
         q, k, v, ks, vs, kpos, pos = _decode_cache(
             gen, b, hq, hkv, d, length, qdt, i8, pos, ring=ring,
             masked_row=None if ring else 1)
-        errs.append(_compare(
+        errs += _check_decode_splits(
             f"decode int8 B={b} Hq={hq} Hkv={hkv} D={d} L={length} q={qdt}"
-            f"{' ring' if ring else ''}",
-            decode_attention_cuda.decode_attention_fwd(q, k, v, kpos, pos,
-                                                       ks, vs),
-            ref.decode_attention_quant_ref(q, k, v, ks, vs, kpos, pos)))
+            f"{' ring' if ring else ''}", q, k, v, kpos, pos, ks, vs)
 
     b, hq, hkv, d, length = 4, 32, 4, 128, 1024
     q, k, v, ks, vs, kpos, pos = _decode_cache(
@@ -595,7 +691,8 @@ def check_partials(gen, flush):
     ref.combine_partials against kernel 6 on the whole cache and against
     the plain decode; bf16 and int8 caches.  Rows: pos 100 (slices past it
     fully masked), an all-masked row, the last slot, 700; and a ragged
-    shape (L = 300, slices of 150 and 75 rows, ragged key tiles).  The
+    shape (L = 300, slices of 150 and 75 rows, ragged key tiles).  Each
+    slice at each of DECODE_SPLITS (one split, two, the plan).  The
     acc check carries the long-sum slack (SUM_ABS_TOL), loose enough to
     pass a sum kept in lower precision; the combined outputs do not: an
     f32 q over an f32 cache at L = 1024 holds the combine of 1, 2 and 4
@@ -625,8 +722,6 @@ def check_partials(gen, flush):
                     s = slice(i * step, (i + 1) * step)
                     sl = [None if t is None else t[:, s].contiguous()
                           for t in (k, v, ks, vs, kpos)]
-                    got = decode_attention_cuda.decode_attention_partials(
-                        q, sl[0], sl[1], sl[4], pos, sl[2], sl[3])
                     want = ref.decode_attention_partials_ref(
                         q, sl[0], sl[1], sl[4], pos, sl[2], sl[3])
                     # acc is a sum over up to L keys (all of them, at
@@ -634,11 +729,17 @@ def check_partials(gen, flush):
                     # over |v| scales its f32 summation-order error
                     acc_abs = ref.decode_attention_partials_ref(
                         q, sl[0], sl[1].abs(), sl[4], pos, sl[2], sl[3])[0]
-                    for name, g_, w_, a_ in zip(("acc", "m", "l"), got, want,
-                                                (acc_abs, None, None)):
-                        errs[kvdt].append(_compare(
-                            f"partials {kvdt} B={b} L={length} slice {i}/{n} "
-                            f"{name}", g_, w_, sum_abs=a_))
+                    for ns in DECODE_SPLITS:    # the plan (None) last
+                        got = decode_attention_cuda.decode_attention_partials(
+                            q, sl[0], sl[1], sl[4], pos, sl[2], sl[3],
+                            n_split=ns)
+                        for name, g_, w_, a_ in zip(
+                                ("acc", "m", "l"), got, want,
+                                (acc_abs, None, None)):
+                            errs[kvdt].append(_compare(
+                                f"partials {kvdt} B={b} L={length} slice "
+                                f"{i}/{n} n_split={ns or 'plan'} {name}", g_,
+                                w_, sum_abs=a_))
                     parts.append(got)
                 o = ref.combine_partials(parts).to(q.dtype)
                 label = f"partials {kvdt} B={b} L={length} {n} slices combined"
@@ -969,11 +1070,15 @@ def check_rmsprop(gen, flush):
 
 def check_model_small():
     """Reduced Yi-6B in f32: prefill + per-slot decode logits on the card
-    (kernels) against the CPU (plain versions)."""
+    (kernels) against the CPU (plain versions).  The card's run is a path
+    of its own: f32 activations over an f32 cache take the append kernel's
+    SIMT arm (flash_append_f32) and kernel 6's float arm, no other
+    attention arm.  Returns its launch counts."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
     from repro_torch.models import model as M
     cfg = get_config("yi-6b").reduced()
     outs = {}
@@ -984,6 +1089,7 @@ def check_model_small():
         rng = np.random.default_rng(0)
         toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 40)),
                                device=dev)
+        dispatch.reset_launch_counts()
         seq = []
         for p0 in (0, 32):
             out, cache = M.prefill_step(cfg, params, cache,
@@ -996,6 +1102,7 @@ def check_model_small():
                                        pos)
             seq.append(out["logits"])
             pos = pos + 1
+        counts = dispatch.launch_counts()
         outs[dev] = [t.float().cpu() for t in seq]
     err = 0.0
     for a, b in zip(outs["cuda"], outs["cpu"]):
@@ -1004,27 +1111,48 @@ def check_model_small():
         err = max(err, float((a - b).abs().max()))
         if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
             raise AssertionError(f"model: card vs CPU logits differ by {err}")
+    _check_attention_arms("model reduced yi-6b f32", counts,
+                          ("flash_append_f32", "decode_attention"))
     print(f"check model reduced yi-6b f32 cuda vs cpu: max_abs_err="
           f"{err:.3e} tol=1e-4 ok")
+    return counts
 
 
 # the attention kernels and arms of the serving path; each serving run
 # launches exactly two of them (_serving_arms) and none of the others
-SERVING_ARMS = ("flash_append", "flash_append_int8", "decode_attention",
-                "decode_attention_int8", "decode_attention_partials",
-                "decode_attention_partials_int8")
+SERVING_ARMS = ("flash_append", "flash_append_f32", "flash_append_int8",
+                "decode_attention", "decode_attention_int8",
+                "decode_attention_partials", "decode_attention_partials_int8")
+# phase 5's trace on Yi-6B: 23 prompt chunks of 128 rows, one append
+# launch each in each of the 32 layers
+PHASE5_APPENDS = 23 * 32
 
 
-def _serving_arms(kv, cp):
+def _serving_arms(kv, cp, bf16_q=True):
     """The append arm and the decode kernel and arm that a serving run
     with KV dtype ``kv`` launches: the partials kernel under decode_cp,
-    kernel 6 otherwise."""
+    kernel 6 otherwise; a float stream takes the append kernel's
+    tensor-core arm under bf16 activations (the stream is cast to q's
+    dtype), its SIMT arm under f32 ones."""
     sfx = "_int8" if kv == "int8" else ""
     decode = "decode_attention_partials" if cp else "decode_attention"
-    return "flash_append" + sfx, decode + sfx
+    append = "flash_append" + (sfx or ("" if bf16_q else "_f32"))
+    return append, decode + sfx
 
 
-def _check_serving_run(label, rep, counts, kv, cp):
+def _check_attention_arms(label, counts, want):
+    """The run launched the rmsnorm and each arm of ``want``, and no other
+    serving arm."""
+    want = ("rmsnorm",) + tuple(want)
+    missing = [k for k in want if counts[k] <= 0]
+    stray = {k: counts[k] for k in SERVING_ARMS
+             if k not in want and counts[k] != 0}
+    if missing or stray:
+        raise AssertionError(f"{label}: kernels never launched {missing}, "
+                             f"launched off its path {stray}")
+
+
+def _check_serving_run(label, rep, counts, kv, cp, bf16_q=True):
     """The run took the layout and the kernels its flags ask for: the
     report's decode_layout and kv dtype, the rmsnorm and its two arms
     launched, every other serving arm not launched."""
@@ -1032,13 +1160,7 @@ def _check_serving_run(label, rep, counts, kv, cp):
     if rep["decode_layout"] != layout or rep["kv_dtype"] != kv:
         raise AssertionError(f"{label}: layout {rep['decode_layout']} kv "
                              f"{rep['kv_dtype']}, expected {layout} {kv}")
-    want = ("rmsnorm",) + _serving_arms(kv, cp)
-    missing = [k for k in want if counts[k] <= 0]
-    stray = {k: counts[k] for k in SERVING_ARMS
-             if k not in want and counts[k] != 0}
-    if missing or stray:
-        raise AssertionError(f"{label}: kernels never launched {missing}, "
-                             f"launched off its path {stray}")
+    _check_attention_arms(label, counts, _serving_arms(kv, cp, bf16_q))
 
 
 def build_yi6b():
@@ -1079,6 +1201,10 @@ def run_yi6b_engine(cfg, params, kv, cp):
     if not rep["logits_finite"]:
         raise AssertionError(f"{label}: non-finite logits")
     _check_serving_run(label, rep, counts, kv, cp)
+    append = _serving_arms(kv, cp)[0]
+    if counts[append] != PHASE5_APPENDS:
+        raise AssertionError(f"{label}: {append} launched {counts[append]} "
+                             f"times, want {PHASE5_APPENDS}")
     print(f"{label}: " + json.dumps({k: rep[k] for k in (
         "requests", "generated_tokens", "prefill_tokens", "wall_s",
         "tokens_per_s", "decode_tokens_per_s", "prefill_wall_s", "ttft_s",
@@ -1148,15 +1274,16 @@ def profile_engine(cfg, params, label, **engine_kw):
                                 prompt_range=(64, 600), gen_range=(64, 64),
                                 arrival_rate=0.0, seed=1))
     # each call admits four fresh requests into the four slots
+    watch = ("append_", "decode_split", "decode_combine")
     _profile(f"{label} admission of 4 prompts", lambda: eng.admit(
-        [(next(reqs), j) for j in range(4)], 0.0))
+        [(next(reqs), j) for j in range(4)], 0.0), watch=watch)
     for _ in range(2):
         eng.decode_step_all()
 
     def decode():
         for _ in range(8):
             eng.decode_step_all()
-    _profile(f"{label} 8 decode steps x 4 slots", decode)
+    _profile(f"{label} 8 decode steps x 4 slots", decode, watch=watch)
 
 
 def check_cp_reduced():
@@ -1188,7 +1315,8 @@ def check_cp_reduced():
             counts[path] = dispatch.launch_counts()
             if not rep["logits_finite"]:
                 raise AssertionError(f"{path}: non-finite logits")
-            _check_serving_run(path, rep, counts[path], kv, cp)
+            _check_serving_run(path, rep, counts[path], kv, cp,
+                               bf16_q=False)
             tokens[cp] = {r.rid: list(r.tokens) for r in trace}
         if tokens[True] != tokens[False]:
             raise AssertionError(f"reduced yi-6b {kv}: decode_cp[1] tokens "
@@ -1403,8 +1531,11 @@ def main():
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    records = [check_rmsnorm(gen, flush), check_append(gen, flush),
+    # 512 MiB: larger than the 50 MB L2, and about 0.16 ms of writes, which
+    # keeps the card busy while the host enqueues a call (a decode call
+    # spends up to about 0.1 ms on the host)
+    flush = torch.empty(512 * 2**20, dtype=torch.uint8, device="cuda")
+    records = [check_rmsnorm(gen, flush), *check_append(gen, flush),
                check_append_int8(gen, flush), check_decode(gen, flush),
                check_decode_int8(gen, flush), *check_partials(gen, flush),
                check_rmsnorm_bwd(gen, flush), *check_flash_fwd(gen, flush),
@@ -1430,12 +1561,15 @@ def main():
                   f"({sub['bound_by']}) plain_ms={sub['plain_ms']:.4f} "
                   f"library_ms={lib} x_bound={sub['x_bound']:.2f} "
                   f"x_library={xlib}")
+            if "split_ms" in sub:
+                print(f"kernel {r['name']} forced n_split: " + " ".join(
+                    f"{n}={t:.4f}" for n, t in sub["split_ms"].items()))
     print(f"phase kernels_s {time.perf_counter() - t_phase:.1f}")
 
     t_phase = time.perf_counter()
-    check_model_small()
+    path_counts = {"model_small_f32": check_model_small()}
     cfg, params = build_yi6b()
-    path_counts = {"engine": run_yi6b_engine(cfg, params, "bf16", False)}
+    path_counts["engine"] = run_yi6b_engine(cfg, params, "bf16", False)
     profile_engine(cfg, params, "bf16", kv_dtype="bf16")
     path_counts["engine_int8"] = run_yi6b_engine(cfg, params, "int8", False)
     print(f"phase engine_s {time.perf_counter() - t_phase:.1f}")
@@ -1461,6 +1595,7 @@ def main():
 
     by_op = {"rmsnorm_fwd": "rmsnorm",
              "flash_attention_append": "flash_append",
+             "flash_attention_append_f32": "flash_append_f32",
              "flash_attention_append_int8": "flash_append_int8",
              "decode_attention_fwd": "decode_attention",
              "decode_attention_fwd_int8": "decode_attention_int8",

@@ -1,9 +1,10 @@
-// Block-level online-softmax attention over key tiles, shared by the decode
-// kernel (decode_attention.cu: the G query heads of one kv head at one
-// position) and the append kernel (flash_append.cu: a tile of chunk rows of
-// one query head).  Both TPU kernels run the same body: scores in f32,
+// Block-level online-softmax attention over key tiles in f32 FMAs: the
+// SIMT body of the append kernel's f32 and int8 arms (flash_append.cu: a
+// tile of chunk rows of one query head) and of the training forward's f32
+// arm (flash_attention.cu, key positions = row indices).  Scores in f32,
 // validity from a per-key absolute position map `kpos` (-1 = invalid),
-// masked scores set to the finite NEG, running (m, l, acc) in f32.
+// masked scores set to the finite NEG, running (m, l, acc) in f32, p never
+// rounded.
 //
 // One block of kThreads threads owns R query rows (already in shared memory
 // as f32) and walks key tiles of BK rows.  Per tile:

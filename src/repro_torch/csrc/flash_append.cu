@@ -12,25 +12,48 @@
 //   each staged K/V tile is dequantised right after its 16-byte loads, as
 //   the TPU body dequantises in VMEM: the device-memory stream stays int8.
 //
-// Bound on the H100: at the serving shapes (C = 128 rows against a prefix
-// of up to ~1k keys) the operations dominate: 4 * B * Hq * D * live_pairs
-// over 989 TFLOP/s (bf16) against the bytes of q, k, v and out over
-// 3.35 TB/s (int8: one byte a K/V element plus 4 bytes of scale a row and
-// kv head).
+// Bound on the H100: operations.  At the serving shape (B = 4, C = 128
+// rows at pos0 = 512 against a stream of 640 keys, 32 q heads over 4 kv
+// heads, D = 128) the products are 4 * D per live (query, key) pair and
+// head, 4.84 GFLOP over 32 x 295,168 live pairs: 0.0049 ms at the 989
+// TFLOP/s bf16 peak against 0.0041 ms for the 13.6 MB of q, k, v, kpos and
+// out at 3.35 TB/s (int8: one byte a K/V element plus 4 bytes of scale a
+// row and kv head).
 //
-// Design: the TPU grid (batch, q head, q block, k block) becomes one block
-// per (q tile of 64 rows, q head, batch row) that loops over key tiles of
-// 32 rows; the kv head is h / G, so the kv heads are never repeated in
-// memory.  Q, K and V tiles are staged in shared memory as f32 and the
-// products are plain FMAs (scores, m, l and acc in f32): simple and right
-// first; tensor cores (mma.sync / wgmma) and TMA staging are the later
-// speed-up.  The ragged edges (C or Sk not a tile multiple) are masked
-// here, so no alignment rule pushes a call off the kernel.
+// Three arms, chosen by dtype (each counted on its own by the wrapper):
+//
+// bf16 q over a bf16 key stream: the training forward's tensor-core tile
+// loop (flash_mma_fwd.cuh, fm::attend_block) under the append mask
+// (fm::AppendMask).  One block of 4 warps per (q tile of 64 rows, q head,
+// batch row), 256 blocks at the serving shape, the last q tile first; key
+// tiles of 64 rows and their 64 key positions double-buffered by
+// cp.async; S = Q K^T and acc += P V on mma.sync m16n8k16 with p rounded
+// to bf16 before P V (flash_attention.py:248) and l summing the f32 p;
+// each score element is tested against its key's position, except in a
+// tile whose 64 positions the warp has read and found valid for all its
+// rows (a linear stream may still hold unwritten rows, so the positions
+// decide, never the layout).
+//
+// f32 (q or stream in f32) and int8: the first, SIMT body, exact to 1e-5:
+// one block per (q tile of 64 rows, q head, batch row) that loops over key
+// tiles of 32 rows through rt::attend_tiles; the kv head is h / G, so the
+// kv heads are never repeated in memory.  Q, K and V tiles are staged in
+// shared memory as f32 (an int8 tile dequantised with its row scales as it
+// is staged) and the products are f32 FMAs, p unrounded.
+//
+// Every arm masks its own ragged edges (C or Sk not a tile multiple), so
+// no alignment rule pushes a call off the kernel.
 #include <cmath>
+#include <type_traits>
 
 #include "attention_tiles.cuh"
+#include "flash_mma_fwd.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32 and int8 arms: SIMT body
+// ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;  // chunk rows per block
 constexpr int kBK = 32;  // keys per tile
@@ -122,6 +145,55 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 arm: tensor cores
+// ---------------------------------------------------------------------------
+
+using mt::bf16;
+
+template <int D>
+__global__ void __launch_bounds__(fm::kThreads)
+    append_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const int* __restrict__ kpos, bf16* __restrict__ out,
+                      int C, int Sk, int Hq, int Hkv, int pos0, int window,
+                      int kpos_linear, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int iq = (int)gridDim.z - 1 - (int)blockIdx.z;  // longest first
+  const int hk = h / (Hq / Hkv);
+  const long long q_stride = (long long)Hq * D;
+  const long long kv_stride = (long long)Hkv * D;
+  const long long q_off = (long long)b * C * q_stride + (long long)h * D;
+  const long long kv_off = (long long)b * Sk * kv_stride + (long long)hk * D;
+  fm::attend_block<D>(fm::AppendMask{Sk, pos0, window, kpos_linear},
+                      smem_mma, q + q_off, q_stride, C, k + kv_off,
+                      v + kv_off, kv_stride, kpos + (long long)b * Sk,
+                      iq * fm::kBQ, scale, out + q_off, nullptr);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, const void* kpos,
+               void* out, int B, int C, int Sk, int Hq, int Hkv, int pos0,
+               int window, int kpos_linear, cudaStream_t stream) {
+  using Sm = fm::Smem<D, fm::AppendMask>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        append_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)Sm::kBytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  dim3 grid(Hq, B, (C + fm::kBQ - 1) / fm::kBQ);
+  append_mma_kernel<D><<<grid, fm::kThreads, Sm::kBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const int*>(kpos),
+      static_cast<bf16*>(out), C, Sk, Hq, Hkv, pos0, window, kpos_linear,
+      (float)(1.0 / sqrt((double)D)));
+  return (int)cudaGetLastError();
+}
+
 template <int D, typename TQ>
 int launch_kv(int kv_dtype, const void* q, const void* k, const void* v,
               const float* ks, const float* vs, const void* kpos, void* out,
@@ -132,9 +204,12 @@ int launch_kv(int kv_dtype, const void* q, const void* k, const void* v,
       return launch<D, TQ, float>(q, k, v, ks, vs, kpos, out, B, C, Sk, Hq,
                                   Hkv, pos0, window, kpos_linear, s);
     case rt::kBF16:
-      return launch<D, TQ, __nv_bfloat16>(q, k, v, ks, vs, kpos, out, B, C,
-                                          Sk, Hq, Hkv, pos0, window,
-                                          kpos_linear, s);
+      if constexpr (std::is_same<TQ, bf16>::value)  // the tensor-core arm
+        return launch_mma<D>(q, k, v, kpos, out, B, C, Sk, Hq, Hkv, pos0,
+                             window, kpos_linear, s);
+      else
+        return launch<D, TQ, bf16>(q, k, v, ks, vs, kpos, out, B, C, Sk, Hq,
+                                   Hkv, pos0, window, kpos_linear, s);
     case rt::kInt8:
       return launch<D, TQ, int8_t>(q, k, v, ks, vs, kpos, out, B, C, Sk, Hq,
                                    Hkv, pos0, window, kpos_linear, s);
@@ -175,7 +250,7 @@ extern "C" int rt_flash_append_fwd(const void* q, const void* k,
                                    void* stream) {
   if (B <= 0 || C <= 0 || Hq <= 0) return 0;
   if (Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || pos0 < 0 || B > 65535 ||
-      Hq > 65535)
+      Hq > 65535 || (C + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
   const float* ksf = static_cast<const float*>(ks);
   const float* vsf = static_cast<const float*>(vs);

@@ -1,9 +1,11 @@
 // Hopper tensor-core building blocks for the bf16 attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu), in inline PTX:
+// (flash_mma_fwd.cuh, flash_attention_bwd.cu) and the asynchronous copies
+// of the decode kernel (decode_attention.cu), in inline PTX:
 //
-//   - cp.async.cg 16-byte copies of bf16 rows from device into shared
-//     memory, zero-filled (src-size 0) for rows past the end of the
-//     sequence, with the commit / wait-group helpers;
+//   - cp.async.cg 16-byte copies of rows from device into shared memory,
+//     zero-filled (src-size 0) for rows past the end of the sequence, and
+//     cp.async.ca 4-byte copies (key positions, int8 row scales), with the
+//     commit / wait-group helpers;
 //   - a shared-memory tile layout of R rows of D bf16 with rows padded to
 //     D + 8 elements (D * 2 + 16 bytes): the 8 rows that one ldmatrix
 //     phase reads then start 4 banks apart, so ldmatrix is free of bank
@@ -55,6 +57,16 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+// 4 bytes from src into shared memory at dst (cp.async.ca: the only size
+// below 16 bytes that the .cg form lacks); zero when !valid, src mapped
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(n)
                : "memory");
 }

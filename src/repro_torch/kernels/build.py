@@ -33,7 +33,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("rmsnorm.cu", "rmsnorm_bwd.cu", "decode_attention.cu",
            "flash_append.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "rmsprop.cu")
-HEADERS = ("common.cuh", "attention_tiles.cuh", "mma_tiles.cuh")
+HEADERS = ("common.cuh", "attention_tiles.cuh", "mma_tiles.cuh",
+           "flash_mma_fwd.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -49,10 +50,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "rt_rmsnorm_fwd": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
     "rt_rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
-    "rt_decode_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _I, _P),
-    "rt_decode_attention_partials": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _I, _I, _P),
+    "rt_decode_attention_fwd": (_P,) * 11 + (_I,) * 9 + (_P,),
+    "rt_decode_attention_partials": (_P,) * 13 + (_I,) * 9 + (_P,),
     "rt_flash_append_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _P),
     "rt_flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -39,6 +39,7 @@ _COUNTERS = {
     "rmsnorm": (rmsnorm_cuda, "launches"),
     "rmsnorm_bwd": (rmsnorm_cuda, "bwd_launches"),
     "flash_append": (flash_append_cuda, "launches"),
+    "flash_append_f32": (flash_append_cuda, "f32_launches"),
     "flash_append_int8": (flash_append_cuda, "int8_launches"),
     "decode_attention": (decode_attention_cuda, "launches"),
     "decode_attention_int8": (decode_attention_cuda, "int8_launches"),

@@ -6,6 +6,12 @@ scales).  A CUDA tensor launches the kernel (or raises); a CPU tensor takes
 ``ref.flash_attention_append_ref`` (or its quant version).  The kernel
 masks its own ragged edges, so any chunk length and key-stream length stay
 on the kernel.
+
+Three arms, each counted apart: a bf16 q over a bf16 key stream runs on
+the tensor cores (``append_mma_kernel``; p rounded to bf16 before P V, as
+the TPU kernel does, so it meets its plain version within
+``ref.ROUND_TOL`` times ``ref.append_round_scale``); any f32 operand runs
+the exact SIMT body; an int8 stream the SIMT body's int8 arm.
 """
 from __future__ import annotations
 
@@ -16,8 +22,9 @@ import torch
 from repro_torch.kernels import build, ref
 
 # kernel launches since the last reset (dispatch.reset_launch_counts), by arm
-launches = 0            # f32 / bf16 key stream
-int8_launches = 0       # int8 key stream
+launches = 0            # bf16 q and key stream: tensor cores
+f32_launches = 0        # q or key stream f32: SIMT
+int8_launches = 0       # int8 key stream: SIMT
 
 HEAD_DIMS = (64, 128)   # head dims the kernel is instantiated for
 
@@ -95,9 +102,11 @@ def flash_attention_append(q: torch.Tensor, k: torch.Tensor,
         build.DTYPE_CODE[q.dtype], build.KV_DTYPE_CODE[k.dtype],
         build.stream_of(q))
     build.check(rc, what)
-    global launches, int8_launches
+    global launches, f32_launches, int8_launches
     if quant:
         int8_launches += 1
-    else:
+    elif q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16:
         launches += 1
+    else:
+        f32_launches += 1
     return out

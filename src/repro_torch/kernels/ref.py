@@ -179,6 +179,21 @@ def decode_attention_ref(q, k_cache, v_cache, kpos, pos) -> torch.Tensor:
     return o.reshape(b, hq, d).to(q.dtype)
 
 
+def _append_logits(q, k, kpos, pos0: int, window: Optional[int]):
+    """Masked, scaled f32 scores (B, C, Hkv, G, Sk) of a chunk at absolute
+    positions pos0 + i against its key stream; kpos (B,Sk) or (Sk,)."""
+    b, c, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    kpos = kpos.expand(b, sk)
+    qpos = pos0 + torch.arange(c, device=q.device)
+    qg = q.reshape(b, c, hkv, hq // hkv, d).float()
+    logits = torch.einsum("bshgd,bthd->bshgt", qg, k.float()) * d ** -0.5
+    mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[None, :, None])
+    if window is not None:
+        mask &= kpos[:, None, :] > qpos[None, :, None] - window
+    return torch.where(mask[:, :, None, None, :], logits, NEG)
+
+
 def flash_attention_append_ref(q, k, v, kpos, *, pos0: int,
                                window: Optional[int] = None) -> torch.Tensor:
     """q (B,C,Hq,D) at absolute positions pos0 + i; k,v (B,Sk,Hkv,D) the
@@ -186,19 +201,21 @@ def flash_attention_append_ref(q, k, v, kpos, *, pos0: int,
     position per key row (-1 = invalid) -> (B,C,Hq,D).  Causal (and
     windowed) on absolute positions."""
     b, c, hq, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    g = hq // hkv
-    kpos = kpos.expand(b, sk)
-    qpos = pos0 + torch.arange(c, device=q.device)
-    qg = q.reshape(b, c, hkv, g, d).float()
-    logits = torch.einsum("bshgd,bthd->bshgt", qg, k.float()) * d ** -0.5
-    mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[None, :, None])
-    if window is not None:
-        mask &= kpos[:, None, :] > qpos[None, :, None] - window
-    logits = torch.where(mask[:, :, None, None, :], logits, NEG)
-    p = torch.softmax(logits, dim=-1)
+    p = torch.softmax(_append_logits(q, k, kpos, pos0, window), dim=-1)
     o = torch.einsum("bshgt,bthd->bshgd", p, v.float())
     return o.reshape(b, c, hq, d).to(q.dtype)
+
+
+def append_round_scale(q, k, v, kpos, *, pos0: int,
+                       window: Optional[int] = None) -> torch.Tensor:
+    """The append analogue of ``flash_round_scale``: sum_j p_ij |v_j| from
+    the true (f32) p of ``flash_attention_append_ref``, (B,C,Hq,D) f32.
+    The bf16 arm rounds p to bf16 before P V (the TPU kernel's
+    p.astype(v.dtype)), which moves o by at most ``ROUND_TOL`` times it."""
+    b, c, hq, d = q.shape
+    p = torch.softmax(_append_logits(q, k, kpos, pos0, window), dim=-1)
+    o_s = torch.einsum("bshgt,bthd->bshgd", p, v.float().abs())
+    return o_s.reshape(b, c, hq, d)
 
 
 def decode_attention_partials_ref(q, k_cache, v_cache, kpos, pos,
@@ -233,6 +250,55 @@ def combine_partials(parts):
     o = acc_tot / torch.clamp(l_tot, min=L_FLOOR)[..., None]
     b, hkv, g, d = o.shape
     return o.reshape(b, hkv * g, d)
+
+
+def decode_split_ref(q, k_cache, v_cache, kpos, pos, k_scale=None,
+                     v_scale=None, *, tiles_per_split: int, tile: int = 64,
+                     partials: bool = False):
+    """A plain model of the CUDA decode kernel's algorithm, for tests and
+    ``chip_smoke.py`` only: the key range cut into splits of
+    ``tiles_per_split`` tiles of ``tile`` rows; where the row (slot or
+    slice) holds a valid key, a tile without one is skipped (its keys
+    absent); each split's (acc, m, l), m = NEG where it visits no valid
+    key; the splits combined in split order.  Arguments as
+    ``decode_attention_partials_ref``; returns its (acc, m, l) with
+    ``partials``, else the normalised (B, Hq, D) in q's dtype."""
+    if k_scale is not None:
+        k_cache = dequant_ref(k_cache, k_scale)
+        v_cache = dequant_ref(v_cache, v_scale)
+    b, hq, d = q.shape
+    length = k_cache.shape[1]
+    logits = _decode_logits(q, k_cache, kpos, pos)          # (B,Hkv,G,L)
+    kpos = kpos.expand(b, length)
+    pos = torch.as_tensor(pos, device=q.device).expand(b)
+    valid = (kpos >= 0) & (kpos <= pos[:, None])             # (B, L)
+    n_tiles = -(-length // tile)
+    pad = n_tiles * tile - length
+    tile_live = torch.nn.functional.pad(valid, (0, pad)).reshape(
+        b, n_tiles, tile).any(-1)
+    visit = tile_live | ~valid.any(-1, keepdim=True)         # (B, tiles)
+    visit = visit.repeat_interleave(tile, dim=1)[:, :length]
+    logits = torch.where(visit[:, None, None, :], logits, -torch.inf)
+    v = v_cache.float()
+    parts = []
+    span = tiles_per_split * tile
+    for s0 in range(0, length, span):
+        lg = logits[..., s0:s0 + span]
+        m = torch.clamp(lg.amax(dim=-1), min=NEG)
+        p = torch.exp(lg - m[..., None])
+        parts.append((torch.einsum("bhgl,blhd->bhgd", p, v[:, s0:s0 + span]),
+                      m, p.sum(dim=-1)))
+    m_tot = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+    l_tot = torch.zeros_like(m_tot)
+    acc_tot = torch.zeros_like(parts[0][0])
+    for acc, m, l in parts:
+        c = torch.exp(m - m_tot)
+        l_tot = l_tot + l * c
+        acc_tot = acc_tot + acc * c[..., None]
+    if partials:
+        return acc_tot, m_tot, l_tot
+    o = acc_tot / torch.clamp(l_tot, min=L_FLOOR)[..., None]
+    return o.reshape(b, hq, d).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
