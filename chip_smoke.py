@@ -40,12 +40,18 @@ Phases (any failure raises and the script exits non-zero):
      round (ref.flash_round_scale; the append arm's ref.append_round_scale),
      lse held to 1e-5; the rmsnorm wrapper
      must refuse rows it cannot move in 16-byte chunks;
+  3b. jax.random's threefry (``core/prng.py``) on the card against the
+     CPU: bits, uniform, randint and categorical identical at (4, 64000)
+     and at 4096 x 4096 (categorical where its top-2 margin exceeds 1e-5),
+     truncated_normal within 4 f32 ulps; the card's time of a 4096 x 4096
+     truncated normal draw and of one sampling call;
   4. time each kernel and arm, its plain version and the nearest single
      PyTorch call (none for rmsprop, the partials kernel and the int8 arms:
      no PyTorch call computes them) with CUDA events (median, L2 flushed
      before each call) beside the least time the card could take for the
      work, and the ratios of the kernel's time to both (x_bound,
-     x_library);
+     x_library); the rmsnorm forward at the prefill, train and decode
+     shapes;
   5. the port's reduced model in f32 on the card against the same model
      on the CPU (a counted path: the append kernel's f32 SIMT arm), then
      ``run_engine`` on Yi-6B at full width and depth (bf16 weights from a
@@ -53,7 +59,8 @@ Phases (any failure raises and the script exits non-zero):
      every request completes, all logits are finite, and the run launched
      the rmsnorm, the append kernel's tensor-core arm (736 times: 23
      chunks x 32 layers) and the decode kernel's float arm and no other
-     attention arm;
+     attention arm; then the same run sampled (seed 0's threefry streams),
+     held to the same gates;
   6. a torch.profiler trace of one admission and of eight decode steps of
      that engine: wall time, device busy share and the top kernels;
   6a. the same trace with int8 KV (replicated): the int8 arms of the
@@ -69,6 +76,9 @@ Phases (any failure raises and the script exits non-zero):
      each of the four runs checked for its layout and kernels as above
      (its f32 activations take the append kernel's SIMT arm over a bf16
      cache);
+  6d. reduced Yi-6B in f32, sampled: the engine on the card emits the
+     engine on the CPU's tokens, margin-qualified (the smallest top-2 gap
+     of logits plus Gumbel noise along the streams at least 1e-3);
   7. three train steps of reduced Yi-6B in f32 on the card against the
      same steps on the CPU (losses to rtol 1e-4, parameters to 1e-5),
      through the flash kernels' f32 (SIMT) arms and never their bf16 arms;
@@ -81,8 +91,8 @@ Phases (any failure raises and the script exits non-zero):
      backward a layer and step.
 
 Every kernel and arm must have been launched on one of the main paths
-(phase 5's reduced model and engine, 6a, 6b, each of the four runs of 6c,
-7 and 8, each with the
+(phase 5's reduced model and engines, 6a, 6b, each of the four runs of 6c,
+6d, 7 and 8, each with the
 counters set to 0 just before it and read just after); the kernels line
 gives each one's launches by path.
 The last three lines are the card's name and power limit (nvidia-smi), a
@@ -238,39 +248,35 @@ def check_rmsnorm(gen, flush):
             raise AssertionError(f"rmsnorm accepted {label}")
         if rmsnorm_cuda.launches != before:
             raise AssertionError(f"rmsnorm counted a launch for {label}")
-    # the training forward with rstd, timed at the train shape: 4 x 1024
-    # tokens of d_model 4096
-    rows, d = 4096, 4096
-    x = _randn((rows, d), gen, torch.bfloat16)
-    scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
-    w16 = scale.to(torch.bfloat16)
-    train = {
-        "ms": _time_ms(lambda: rmsnorm_cuda.rmsnorm_fwd(
-            x, scale, save_residuals=True), flush),
-        "plain_ms": _time_ms(lambda: ref.rmsnorm_ref(
-            x, scale, save_residuals=True), flush),
-        "bound_ms": (rows * d * 2 * 2 + d * 4 + rows * 4)
-        / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": _time_ms(lambda: F.rms_norm(x, (d,), w16, 1e-6),
-                               flush),
-        "shape": f"x ({rows}, {d}) bf16, with rstd"}
-    # timed at the prefill shape of Yi-6B: 4 slots x 128-token chunk
-    rows, d = 512, 4096
-    x = _randn((rows, d), gen, torch.bfloat16)
-    scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
-    w16 = scale.to(torch.bfloat16)
-    nbytes = rows * d * 2 * 2 + d * 4
+    def record(rows, rstd, what):
+        """Times at one shape, bf16, d 4096 (rstd: the training forward)."""
+        d = 4096
+        x = _randn((rows, d), gen, torch.bfloat16)
+        scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
+        w16 = scale.to(torch.bfloat16)
+        nbytes = rows * d * 2 * 2 + d * 4 + (rows * 4 if rstd else 0)
+        return {
+            "ms": _time_ms(lambda: rmsnorm_cuda.rmsnorm_fwd(
+                x, scale, save_residuals=rstd), flush),
+            "plain_ms": _time_ms(lambda: ref.rmsnorm_ref(
+                x, scale, save_residuals=rstd), flush),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": _time_ms(lambda: F.rms_norm(x, (d,), w16, 1e-6),
+                                   flush),
+            "shape": f"x ({rows}, {d}) bf16{', with rstd' if rstd else ''}"
+                     f" ({what})"}
+
+    # the prefill shape of Yi-6B (4 slots x 128-token chunk) heads the
+    # record; the training forward (4 x 1024 tokens, with rstd) and the
+    # decode step (4 slots) beside it
     return {
         "name": "rmsnorm_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:43",
         "max_abs_err": max(errs),
-        "ms": _time_ms(lambda: rmsnorm_cuda.rmsnorm_fwd(x, scale), flush),
-        "plain_ms": _time_ms(lambda: ref.rmsnorm_ref(x, scale), flush),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": _time_ms(lambda: F.rms_norm(x, (d,), w16, 1e-6), flush),
-        "shape": f"x ({rows}, {d}) bf16",
-        "train_shape": train,
+        **record(512, False, "prefill"),
+        "train_shape": record(4096, True, "train"),
+        "decode_shape": record(4, False, "decode"),
     }
 
 
@@ -283,6 +289,7 @@ def _check_decode_splits(label, q, k, v, kpos, pos, ks=None, vs=None):
     """Kernel 6 (normalised) at each of DECODE_SPLITS against the plain
     decode and against the plain model of its split-and-skip algorithm
     (ref.decode_split_ref) at the same split.  Returns the errors."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention_cuda as dec
     from repro_torch.kernels import ref
     b, length, hkv = k.shape[0], k.shape[1], k.shape[2]
@@ -291,7 +298,7 @@ def _check_decode_splits(label, q, k, v, kpos, pos, ks=None, vs=None):
                                                              pos))
     errs = []
     for n in DECODE_SPLITS:
-        n_used, per = (dec.split_plan(b, hkv, length, dec._sm_count(0))
+        n_used, per = (dec.split_plan(b, hkv, length, build.sm_count(0))
                        if n is None else dec.split_tiles(length, n))
         got = dec.decode_attention_fwd(q, k, v, kpos, pos, ks, vs, n_split=n)
         tag = f"{label} n_split={n_used}{' (plan)' if n is None else ''}"
@@ -305,7 +312,7 @@ def check_decode(gen, flush):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import decode_attention_cuda, ref
+    from repro_torch.kernels import build, decode_attention_cuda, ref
     from repro_torch.models.attention import _cache_positions
     errs = []
     cases = [
@@ -369,7 +376,7 @@ def check_decode(gen, flush):
     nbytes = (2 * valid_rows * hkv * d * 2 + 2 * q.numel() * 2
               + kpos.numel() * 4 + b * 4)
     n_split = decode_attention_cuda.split_plan(
-        b, hkv, length, decode_attention_cuda._sm_count(0))
+        b, hkv, length, build.sm_count(0))
     # the same call with its key range forced into 1 to 16 splits, beside
     # the plan's: what the split buys
     split_ms = {n: _time_ms(lambda: decode_attention_cuda.decode_attention_fwd(
@@ -1065,6 +1072,69 @@ def check_rmsprop(gen, flush):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: jax.random's threefry (core/prng.py) on the card
+# ---------------------------------------------------------------------------
+
+def check_prng(flush):
+    """``prng`` on the card against ``prng`` on the CPU: bits, uniform,
+    randint and categorical bit for bit at the sampling shape (4 rows of
+    Yi-6B's 64,000 logits) and at a leaf of 4096 x 4096; categorical where
+    its top-2 margin of gumbel + logits exceeds 1e-5 (the rows below it
+    are counted: log rounds per device).  truncated_normal, whose log1p
+    also rounds per device, within 4 f32 ulps.  Prints the card's times of
+    a 4096 x 4096 truncated normal draw and of the engine's sampling call
+    (host-bound: its time is the host's enqueue)."""
+    import torch
+
+    from repro_torch.core import llm_a3c, prng
+    key_c, key_g = prng.key(7), prng.key(7, device="cuda")
+    cpu_gen = torch.Generator().manual_seed(0)
+    for shape in ((4, 64000), (4096, 4096)):
+        label = f"prng {shape[0]}x{shape[1]}"
+        for name, fn in (
+                ("bits", lambda k: prng.bits(k, shape)),
+                ("uniform", lambda k: prng.uniform(k, shape).view(
+                    torch.int32)),
+                ("randint", lambda k: prng.randint(k, shape, 0, 64000))):
+            if not torch.equal(fn(key_g).cpu(), fn(key_c)):
+                raise AssertionError(f"{label} {name}: card != CPU")
+        logits = torch.randn(shape, generator=cpu_gen) * 3.0
+        keys = prng.fold_in(key_c, torch.arange(shape[0]))
+        got = prng.categorical(keys.cuda(), logits.cuda()).cpu()
+        want = prng.categorical(keys, logits)
+        top2 = torch.topk(prng.gumbel(keys, shape[1:]) + logits, 2).values
+        decided = (top2[:, 0] - top2[:, 1]) > 1e-5
+        if not torch.equal(got[decided], want[decided]):
+            raise AssertionError(f"{label} categorical: card != CPU")
+        print(f"check {label} bits uniform randint: card == CPU bit for "
+              f"bit; categorical: {int(decided.sum())} rows above the 1e-5 "
+              f"margin identical, {int((~decided).sum())} below ok")
+    shape = (4096, 4096)
+    tn_g = prng.truncated_normal(key_g, -2.0, 2.0, shape).cpu().double()
+    tn_c = prng.truncated_normal(key_c, -2.0, 2.0, shape).double()
+    spacing = (torch.nextafter(tn_c.float().abs(), torch.tensor(9.0))
+               - tn_c.float().abs()).double()
+    ulps = float(((tn_g - tn_c).abs() / spacing).max())
+    exact = float((tn_g == tn_c).double().mean())
+    if ulps > 4:
+        raise AssertionError(f"prng truncated_normal: card vs CPU {ulps} "
+                             "ulps")
+    print(f"check prng truncated_normal 4096x4096: card vs CPU max {ulps:g} "
+          f"f32 ulps (tol 4), {exact:.4f} of values identical ok")
+    # the engine's sampling call: 4 slots of Yi-6B's logits on the card,
+    # the key, stream ids and positions on the host
+    logits = torch.randn((4, 64000), device="cuda")
+    sids, pos = torch.tensor([3, 1, 7, 0]), torch.tensor([100, 400, 700, 900])
+    times = {"truncated_normal_4096x4096_ms": _time_ms(
+                 lambda: prng.truncated_normal(key_g, -2.0, 2.0, shape),
+                 flush),
+             "sample_slot_tokens_4x64000_ms": _time_ms(
+                 lambda: llm_a3c.sample_slot_tokens(logits, key_c, sids=sids,
+                                                    pos=pos), flush)}
+    print("prng on the card: " + json.dumps(times))
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the model and the engine
 # ---------------------------------------------------------------------------
 
@@ -1177,11 +1247,12 @@ def build_yi6b():
     return cfg, params
 
 
-def run_yi6b_engine(cfg, params, kv, cp):
-    """Phase 5's trace (8 greedy requests) through ``run_engine`` on Yi-6B
-    at full width and depth with KV dtype ``kv``, under decode_cp[1] over
-    the one-rank NCCL group installed by the caller when ``cp``.  Returns
-    the launch counts of that run alone."""
+def run_yi6b_engine(cfg, params, kv, cp, sample=False):
+    """Phase 5's trace (8 requests, greedy unless ``sample``: then the
+    threefry streams of seed 0) through ``run_engine`` on Yi-6B at full
+    width and depth with KV dtype ``kv``, under decode_cp[1] over the
+    one-rank NCCL group installed by the caller when ``cp``.  Returns the
+    launch counts of that run alone."""
     import torch
 
     from repro_torch.kernels import dispatch
@@ -1191,10 +1262,11 @@ def run_yi6b_engine(cfg, params, kv, cp):
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
     rep = serve.run_engine(cfg, params, trace, n_slots=4, cache_len=1024,
-                           chunk=128, sample=False, seed=0, kv_dtype=kv,
+                           chunk=128, sample=sample, seed=0, kv_dtype=kv,
                            device="cuda", decode_cp=cp)
     counts = dispatch.launch_counts()
-    label = f"engine yi-6b full width x 32 layers {rep['decode_layout']} {kv}"
+    label = (f"engine yi-6b full width x 32 layers {rep['decode_layout']} "
+             f"{kv}{' sampled' if sample else ''}")
     unfinished = [r.rid for r in trace if len(r.tokens) != r.max_new]
     if rep["requests"] != len(trace) or unfinished:
         raise AssertionError(f"{label}: requests {unfinished} did not finish")
@@ -1327,6 +1399,51 @@ def check_cp_reduced():
     return counts
 
 
+def check_sampled_reduced():
+    """Phase 6d: reduced Yi-6B in f32, sampled (the threefry streams of
+    seed 0), the same trace as 6c: the engine on the card emits the tokens
+    of the engine on the CPU.  Identity is margin-qualified: the smallest
+    top-2 gap of logits plus Gumbel noise along the CPU run's streams
+    (``serve.min_accept_margin``) must be at least 1e-3, far above the
+    card's and the CPU's logit difference.  The card's run is its own path
+    (the f32 append arm and kernel 6's float arm); returns its counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = get_config("yi-6b").reduced()
+    params = M.init_params(cfg, 0, "cpu")
+    engine = dict(n_slots=2, cache_len=32, chunk=8, sample=True, seed=0)
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        trace = serve.gen_trace(6, vocab=cfg.vocab_size, prompt_range=(3, 20),
+                                gen_range=(1, 8), arrival_rate=0.0, seed=5)
+        dispatch.reset_launch_counts()
+        rep = serve.run_engine(cfg, M.tree_map(lambda t: t.to(dev), params),
+                               trace, device=dev, **engine)
+        counts = dispatch.launch_counts()
+        if not rep["logits_finite"]:
+            raise AssertionError(f"sampled reduced {dev}: non-finite logits")
+        tokens[dev] = {r.rid: list(r.tokens) for r in trace}
+        if dev == "cpu":
+            margin = serve.min_accept_margin(
+                cfg, params, trace, engine["cache_len"], key=prng.key(0),
+                device="cpu")
+    _check_serving_run("sampled reduced yi-6b f32 cuda", rep, counts, "f32",
+                       False, bf16_q=False)
+    if margin < 1e-3:
+        raise AssertionError(f"sampled reduced: the trace has a near tie "
+                             f"(margin {margin}); identity is undecided")
+    if tokens["cuda"] != tokens["cpu"]:
+        raise AssertionError(f"sampled reduced: card tokens {tokens['cuda']}"
+                             f" != CPU tokens {tokens['cpu']}")
+    print(f"check sampled reduced yi-6b f32 engine cuda vs cpu: "
+          f"{sum(len(t) for t in tokens['cuda'].values())} sampled tokens "
+          f"identical, margin {margin:.4g} (>= 1e-3) ok")
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # phases 7 and 8: the learner
 # ---------------------------------------------------------------------------
@@ -1340,7 +1457,7 @@ def check_train_small():
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.core import llm_a3c
+    from repro_torch.core import llm_a3c, prng
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels import dispatch
     from repro_torch.models import model as M
@@ -1348,7 +1465,7 @@ def check_train_small():
     cfg = get_config("yi-6b").reduced()
     pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=128, global_batch=2,
                          device="cpu")
-    batches = [pipe.batch(0, i) for i in range(3)]
+    batches = [pipe.batch(prng.key(0), i) for i in range(3)]
     runs = {}
     for dev in ("cpu", "cuda"):
         params = M.tree_map(lambda t: t.to(dev),
@@ -1418,7 +1535,7 @@ def run_yi6b_train():
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.core import llm_a3c
+    from repro_torch.core import llm_a3c, prng
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels import dispatch
     from repro_torch.models import model as M
@@ -1432,6 +1549,7 @@ def run_yi6b_train():
     state = opt.init(params)
     pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=seq,
                          global_batch=batch_rows, device="cuda")
+    data_key = prng.key(2)                    # the train CLI's at seed 0
     step_fn = llm_a3c.make_train_step(cfg, opt, lr0=7e-3, total_steps=100)
     torch.cuda.synchronize()
     print(f"train yi-6b x16 layers: {cfg.param_count()} f32 parameters and "
@@ -1448,7 +1566,7 @@ def run_yi6b_train():
 
     def one_step():
         nonlocal params, state, step
-        batch = pipe.batch(2, step)
+        batch = pipe.batch(data_key, step)
         params, state, met = step_fn(params, state, batch, step)
         losses.append(met)
         step += 1
@@ -1500,6 +1618,12 @@ def run_yi6b_train():
     return counts
 
 
+def _shapes(record):
+    """A kernel record and its timings at other shapes."""
+    return [record] + [record[k] for k in ("train_shape", "decode_shape")
+                       if k in record]
+
+
 def main():
     import gc
 
@@ -1540,17 +1664,17 @@ def main():
                check_decode_int8(gen, flush), *check_partials(gen, flush),
                check_rmsnorm_bwd(gen, flush), *check_flash_fwd(gen, flush),
                *check_flash_bwd(gen, flush), check_rmsprop(gen, flush)]
+    t_prng = time.perf_counter()
+    check_prng(flush)
+    print(f"phase prng_s {time.perf_counter() - t_prng:.1f}")
     del flush
     for r in records:
-        for sub in (r, r.get("train_shape")):
-            if sub is not None:
-                lib = sub["library_ms"]
-                sub["x_bound"] = sub["ms"] / sub["bound_ms"]
-                sub["x_library"] = None if lib is None else sub["ms"] / lib
+        for sub in _shapes(r):
+            lib = sub["library_ms"]
+            sub["x_bound"] = sub["ms"] / sub["bound_ms"]
+            sub["x_library"] = None if lib is None else sub["ms"] / lib
     for r in records:
-        for sub in (r, r.get("train_shape")):
-            if sub is None:
-                continue
+        for sub in _shapes(r):
             lib = sub["library_ms"]
             lib = sub.get("library_note", "none") if lib is None else \
                 f"{lib:.4f}"
@@ -1570,6 +1694,8 @@ def main():
     path_counts = {"model_small_f32": check_model_small()}
     cfg, params = build_yi6b()
     path_counts["engine"] = run_yi6b_engine(cfg, params, "bf16", False)
+    path_counts["engine_sampled"] = run_yi6b_engine(cfg, params, "bf16",
+                                                    False, sample=True)
     profile_engine(cfg, params, "bf16", kv_dtype="bf16")
     path_counts["engine_int8"] = run_yi6b_engine(cfg, params, "int8", False)
     print(f"phase engine_s {time.perf_counter() - t_phase:.1f}")
@@ -1584,6 +1710,7 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         path_counts.update(check_cp_reduced())
+    path_counts["sampled_reduced_f32"] = check_sampled_reduced()
     print(f"phase engine_cp_s {time.perf_counter() - t_phase:.1f}")
 
     t_phase = time.perf_counter()
@@ -1615,9 +1742,8 @@ def main():
         r["launches"] = sum(paths.values())
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} never launched on a main path")
-        del r["shape"]
-        if "train_shape" in r:
-            del r["train_shape"]["shape"]
+        for sub in _shapes(r):
+            del sub["shape"]
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

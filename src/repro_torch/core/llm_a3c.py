@@ -8,13 +8,12 @@ the LM head's softmax, critic = the value head.  Every position gets the
 longest forward-view n-step return over the sequence axis, bootstrapped
 from the last position's value.
 
-Sampling keys.  The JAX package draws row j's token from the threefry
-stream ``fold_in(fold_in(key, sid), pos)``, which torch cannot reproduce,
-so cross-framework parity is greedy only.  The port keeps the invariant
-that matters: each draw depends only on (seed, stream id, absolute
-position), never on the row's slot, the batch size or the step count.  It
-samples by Gumbel-max, with the noise of vocabulary entry v taken from a
-counter hash of (seed, sid, pos, v) computed in integer torch ops.
+Sampling keys.  As in the JAX package, row j's token is
+``categorical(fold_in(fold_in(key, sid), pos), logits)`` under a threaded
+key, drawn by ``repro_torch.core.prng`` (jax.random's threefry in torch),
+so on one seed the port samples the reference's tokens.  A draw depends
+only on (key, stream id, absolute position), never on the row's slot, the
+batch size or the step count.
 """
 from __future__ import annotations
 
@@ -22,14 +21,12 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.returns import n_step_returns
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import optimizers as opt_mod
 from repro_torch.optim import schedules
-
-_M32 = 0xFFFFFFFF
-
 
 def a3c_token_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
                    *, gamma: float = 0.99, beta: float = 0.01,
@@ -103,73 +100,64 @@ def make_train_step(cfg: ModelConfig, opt, *, gamma: float = 0.99,
     return train_step
 
 
-def _mix(x: torch.Tensor) -> torch.Tensor:
-    """32-bit integer finaliser on int64 tensors holding values < 2^32.
-    The multipliers are odd and below 2^31, so no product overflows int64."""
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x2C1B3C6D) & _M32
-    return x ^ (x >> 16)
+def stream_keys(key: torch.Tensor, sids, pos, b: int) -> torch.Tensor:
+    """One key a row, from (stream id, logical position): (B, 2), on the
+    key's device."""
+    dev = key.device
+    sids = torch.as_tensor(sids, device=dev).to(torch.int64).expand(b)
+    pos = torch.as_tensor(pos, device=dev).to(torch.int64).expand(b)
+    return prng.fold_in(prng.fold_in(key, sids), pos)
 
 
-def gumbel_noise(seed: int, sids: torch.Tensor, pos: torch.Tensor,
-                 vocab: int) -> torch.Tensor:
-    """(B, vocab) f32 Gumbel(0, 1) noise; row j depends only on
-    (seed, sids[j], pos[j])."""
-    dev = sids.device
-    h = _mix(torch.full_like(sids, int(seed) & _M32))
-    h = _mix(h ^ (sids & _M32))
-    h = _mix(h ^ (pos & _M32))                                     # (B,)
-    v = torch.arange(vocab, device=dev, dtype=torch.int64)
-    u = _mix(h[:, None] ^ ((v * 0x61C88647) & _M32)[None, :])      # (B, V)
-    # 24 high bits -> uniform in (0, 1), never 0 or 1 in f32
-    unif = ((u >> 8).float() + 0.5) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(unif))
-
-
-def sample_slot_tokens(logits: torch.Tensor, seed: int = 0, *,
+def sample_slot_tokens(logits: torch.Tensor, key: torch.Tensor, *,
                        sample: bool = True,
                        sids: Optional[torch.Tensor] = None,
                        pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-slot sampling: logits (B, V) -> tokens (B,) int64.
+    """Per-slot sampling: logits (B, V) and one threaded key (2,) ->
+    tokens (B,) int64.
 
     With ``sids``/``pos`` (the serve engine's path) row j draws from the
-    (seed, sids[j], pos[j]) stream, pos being the logical position of the
-    sampled token.  Without them row j uses stream id j at position 0 and
-    the caller folds its step index into ``seed``."""
+    ``fold_in(fold_in(key, sids[j]), pos[j])`` stream, pos being the
+    logical position of the sampled token.  Without them row j draws from
+    ``fold_in(key, j)`` and the caller folds its step index into ``key``.
+    The row keys are hashed where ``sids`` lives (the engine's are host
+    data: two hashes of B counters are a few hundred tiny operations,
+    far cheaper on the host than as launches on the card), then the noise
+    where the logits live."""
     if not sample:
         return torch.argmax(logits, dim=-1)
-    b, vocab = logits.shape
-    dev = logits.device
+    b = logits.shape[0]
     if sids is None:
-        sids = torch.arange(b, device=dev)
-        pos = torch.zeros(b, dtype=torch.int64, device=dev)
-    sids = torch.as_tensor(sids, device=dev).to(torch.int64).expand(b)
-    pos = torch.as_tensor(pos, device=dev).to(torch.int64).expand(b)
-    noise = gumbel_noise(seed, sids, pos, vocab)
-    return torch.argmax(logits.float() + noise, dim=-1)
+        keys = prng.fold_in(key.to(logits.device),
+                            torch.arange(b, device=logits.device))
+    else:
+        sids = torch.as_tensor(sids)
+        keys = stream_keys(key.to(sids.device), sids, pos, b)
+    return prng.categorical(keys.to(logits.device), logits)
 
 
 def make_serve_step(cfg: ModelConfig, *, sample: bool = True):
     """One-token decode step for the serving path.
 
-    ``serve_step(params, cache, batch, pos, seed, sids=None, finite=None)
+    ``serve_step(params, cache, batch, pos, key, sids=None, finite=None)
     -> (token (B,), value (B,), cache)``; ``pos`` a lockstep scalar or per
-    slot (B,).  With ``sids`` the token at logical position pos + 1 draws
-    from the (seed, sid, pos + 1) stream.  ``finite``, a bool tensor, is
-    and-ed in place with "every logit of this step is finite" (no host
-    sync)."""
+    slot (B,), moved to the batch's device for the model; ``key`` a
+    threaded ``prng`` key.  With ``sids`` the token at logical position
+    pos + 1 draws from the (sid, pos + 1) stream of ``key``; host ``sids``
+    and ``pos`` keep that hash on the host (``sample_slot_tokens``).
+    ``finite``, a bool tensor, is and-ed in place with "every logit of
+    this step is finite" (no host sync)."""
 
-    def serve_step(params, cache, batch, pos, seed, sids=None, finite=None):
-        out, cache = M.decode_step(cfg, params, cache, batch, pos)
+    def serve_step(params, cache, batch, pos, key, sids=None, finite=None):
+        out, cache = M.decode_step(cfg, params, cache, batch,
+                                   pos.to(batch["tokens"].device))
         logits = out["logits"][:, -1].float()
         if finite is not None:
             finite.logical_and_(torch.isfinite(logits).all())
         if sids is None:
-            token = sample_slot_tokens(logits, seed, sample=sample)
+            token = sample_slot_tokens(logits, key, sample=sample)
         else:
-            token = sample_slot_tokens(logits, seed, sample=sample,
+            token = sample_slot_tokens(logits, key, sample=sample,
                                        sids=sids, pos=pos + 1)
         value = out["value"][:, -1] if "value" in out else \
             torch.zeros(logits.shape[0], device=logits.device)

@@ -6,17 +6,17 @@ rewards are informative but imperfect: a random first token, then each
 position is the successor of the first token advanced by its index, or,
 with probability 0.3, a uniformly random token.  Rewards are
 ``TokenMDP.reward_for_sequence`` of the tokens and discounts are
-gamma * (1 - done).  The random numbers are torch's own (``jax.random``'s
-cannot be reproduced); a stream is keyed by (seed, step).
+gamma * (1 - done).  The draws are ``jax.random``'s (``core.prng``), key
+for key, so a key gives the JAX package's batches exactly.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional
 
-import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.device import resolve
 from repro_torch.envs.token_mdp import TokenMDP
 
@@ -32,29 +32,23 @@ class TokenPipeline:
     episode_len: int = 0            # 0 = one episode per sequence
     device: Optional[str] = None    # None: the card
 
-    def generator(self, seed: int, step: int = 0) -> torch.Generator:
-        """The stream of batch ``step`` under ``seed``."""
-        mixed = np.random.SeedSequence([seed, step]).generate_state(
-            1, np.uint64)[0]
-        gen = torch.Generator(device=resolve(self.device))
-        gen.manual_seed(int(mixed) & 0x7FFF_FFFF_FFFF_FFFF)
-        return gen
-
-    def batch(self, gen_or_seed: Union[torch.Generator, int],
-              step: int = 0) -> dict:
+    def batch(self, key: torch.Tensor, step: int = 0) -> dict:
         """One training batch {"tokens" (B, S) int64, "rewards" (B, S) f32,
-        "discounts" (B, S) f32}.  An int seed draws from the stream of
-        (seed, step); a generator is drawn from as it stands."""
-        gen = (gen_or_seed if isinstance(gen_or_seed, torch.Generator)
-               else self.generator(gen_or_seed, step))
-        dev = gen.device
+        "discounts" (B, S) f32} on the pipeline's device from a ``prng``
+        key, drawn as ``repro/data/pipeline.py`` draws it:
+        split(fold_in(key, step)), the first tokens by randint, the noise
+        mask by bernoulli(0.3), the noise tokens by randint under
+        fold_in(k2, 1).  The draws run on the host, which hashes a few
+        thousand counters in milliseconds, where on the card each of the
+        ten hashes would be some 140 elementwise launches; the batch is
+        copied over once."""
+        dev = resolve(self.device)
         b, s = self.global_batch, self.seq_len
-        first = torch.randint(0, self.vocab, (b, 1), generator=gen,
-                              device=dev)
-        noise = torch.rand((b, s), generator=gen, device=dev) < NOISE_P
-        rand = torch.randint(0, self.vocab, (b, s), generator=gen,
-                             device=dev)
-        steps = torch.arange(s, device=dev)[None]
+        k1, k2 = prng.split(prng.fold_in(key.cpu(), step))
+        first = prng.randint(k1, (b, 1), 0, self.vocab)
+        noise = prng.bernoulli(k2, NOISE_P, (b, s))
+        rand = prng.randint(prng.fold_in(k2, 1), (b, s), 0, self.vocab)
+        steps = torch.arange(s)[None]
         succ = (first + steps) % self.vocab
         tokens = torch.where(noise, rand, succ)
 
@@ -62,4 +56,5 @@ class TokenPipeline:
         ep = self.episode_len or s
         done = ((steps + 1) % ep == 0).float().expand(b, s)
         discounts = self.gamma * (1.0 - done)
-        return {"tokens": tokens, "rewards": rewards, "discounts": discounts}
+        return {"tokens": tokens.to(dev), "rewards": rewards.to(dev),
+                "discounts": discounts.to(dev)}

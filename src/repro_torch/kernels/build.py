@@ -16,6 +16,7 @@ and ``torch.cuda.synchronize()`` would not report it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -34,7 +35,7 @@ SOURCES = ("rmsnorm.cu", "rmsnorm_bwd.cu", "decode_attention.cu",
            "flash_append.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "rmsprop.cu")
 HEADERS = ("common.cuh", "attention_tiles.cuh", "mma_tiles.cuh",
-           "flash_mma_fwd.cuh")
+           "flash_mma_fwd.cuh", "rmsnorm_rows.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -48,8 +49,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "rt_rmsnorm_fwd": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
-    "rt_rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "rt_rmsnorm_fwd": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _I, _P),
+    "rt_rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
     "rt_decode_attention_fwd": (_P,) * 11 + (_I,) * 9 + (_P,),
     "rt_decode_attention_partials": (_P,) * 13 + (_I,) * 9 + (_P,),
     "rt_flash_append_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -128,11 +129,35 @@ def build() -> Path:
     return out
 
 
+# template arguments of the kernels in a mangled name: a type, an int or a
+# bool constant
+_TEMPLATE_ARG = re.compile(r"f|13__nv_bfloat16|a|Li(\d+)E|Lb([01])E")
+_ARG_NAME = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
+
+
+def _template_args(rest: str) -> str:
+    """"<bf16,2>" for the argument list that opens ``rest`` ("I...E"), as
+    far as it is made of _TEMPLATE_ARG; "" without one."""
+    if not rest.startswith("I"):
+        return ""
+    args, at = [], 1
+    while m := _TEMPLATE_ARG.match(rest, at):
+        num, flag = m.group(1), m.group(2)
+        if num is not None:
+            args.append(num)
+        elif flag is not None:
+            args.append("true" if flag == "1" else "false")
+        else:
+            args.append(_ARG_NAME[m.group(0)])
+        at = m.end()
+    return f"<{','.join(args)}>" if args else ""
+
+
 def _kernel_name(mangled: str) -> str:
     """The ``*_kernel`` identifier in a mangled name (a length-prefixed
     source name; the length is the tail of a run of digits, since a
-    file-hash prefix may end in digits), with its first int template
-    argument (the head dim)."""
+    file-hash prefix may end in digits), with its template arguments (the
+    head dim; the dtype and chunks a thread of the RMSNorm kernels)."""
     for run in re.finditer(r"\d+", mangled):
         digits = run.group()
         for i in range(len(digits)):
@@ -140,15 +165,14 @@ def _kernel_name(mangled: str) -> str:
             ident = mangled[at:at + n]
             if len(ident) == n and ident.endswith("_kernel") and \
                     re.fullmatch(r"[A-Za-z_]\w*", ident):
-                arg = re.match(r"ILi(\d+)E", mangled[at + n:])
-                return ident + (f"<{arg.group(1)}>" if arg else "")
+                return ident + _template_args(mangled[at + n:])
     return mangled
 
 
 def kernel_resources(log: str) -> list:
-    """Per kernel of a ``-Xptxas=-v`` build log: its name (with the head
-    dim it was instantiated for), registers, spill stores and loads and
-    stack frame, in bytes."""
+    """Per kernel of a ``-Xptxas=-v`` build log: its name (with the
+    template arguments it was instantiated for), registers, spill stores
+    and loads and stack frame, in bytes."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -186,6 +210,12 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc} "
                            f"({torch.cuda.get_device_name()})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The card's streaming multiprocessors, asked once per device."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -13,7 +13,6 @@ their f32 workspace.  One call counts one launch of its arm.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -53,11 +52,6 @@ def split_plan(b: int, hkv: int, length: int,
     at most one a tile.  16 splits of one tile at Yi-6B's serving shape
     (B = 4, Hkv = 4, L = 1024) on 132 SMs."""
     return split_tiles(length, -(-BLOCKS_PER_SM * sm_count // (b * hkv)))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(what, q, k_cache, v_cache, kpos, pos, k_scale, v_scale,
@@ -133,7 +127,7 @@ def _launch(entry, q, k_cache, v_cache, kpos, pos, k_scale, v_scale,
     _, length, hkv, _ = k_cache.shape
     g = hq // hkv
     if n_split is None:
-        n, per = split_plan(b, hkv, length, _sm_count(q.device.index or 0))
+        n, per = split_plan(b, hkv, length, build.sm_count(q.device.index or 0))
     else:
         n, per = split_tiles(length, n_split)
     # acc (B, Hkv, n, G, D), then m and l (B, Hkv, n, G): one allocation

@@ -3,9 +3,12 @@
 
 Replace ``repro/kernels/rmsnorm.py::rmsnorm_fwd`` and ``rmsnorm_bwd``.  A
 CUDA tensor launches the kernel (or raises); a CPU tensor takes
-``ref.rmsnorm_ref`` / ``ref.rmsnorm_bwd_ref``.
+``ref.rmsnorm_ref`` / ``ref.rmsnorm_bwd_ref``.  Both kernels walk the rows
+with a persistent grid laid out by ``row_plan`` (csrc/rmsnorm_rows.cuh).
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -13,6 +16,26 @@ from repro_torch.kernels import build, ref
 
 launches = 0        # forward launches since the last reset (dispatch.reset_...)
 bwd_launches = 0    # backward launches since the last reset
+
+THREADS = 256                 # csrc/rmsnorm_rows.cuh rn::kThreads
+CHUNKS = (1, 2, 4, 8)         # 16-byte chunks a thread owns in a row
+BLOCKS_PER_SM = 2
+
+
+def row_plan(rows: int, d: int, itemsize: int,
+             sm_count: int) -> Tuple[int, int, int]:
+    """(n_blocks, rows_per_block, chunks) of the RMSNorm kernels: block b
+    takes rows [b * rows_per_block, (b + 1) * rows_per_block), at most
+    BLOCKS_PER_SM blocks an SM, and each of its THREADS threads owns
+    ``chunks`` 16-byte chunks of every row, the fewest that cover d.
+    A function of the shapes alone."""
+    nvec = d * itemsize // 16
+    fits = [c for c in CHUNKS if c * THREADS >= nvec]
+    if not fits:
+        raise ValueError(f"rmsnorm: d={d} is wider than the kernels' "
+                         f"{CHUNKS[-1] * THREADS} 16-byte chunks a row")
+    per = max(1, -(-rows // (BLOCKS_PER_SM * sm_count)))
+    return -(-rows // per), per, fits[0]
 
 
 def _check_rows(what: str, x: torch.Tensor, scale: torch.Tensor) -> None:
@@ -44,6 +67,15 @@ def _check_card_rows(what: str, *rows: torch.Tensor) -> None:
                   "x must start on a 16-byte boundary")
 
 
+def _plan(what: str, x: torch.Tensor) -> Tuple[int, int, int]:
+    rows, d = x.shape
+    try:
+        return row_plan(rows, d, x.element_size(),
+                        build.sm_count(x.device.index or 0))
+    except ValueError as e:
+        raise ValueError(f"{what}: {e}") from None
+
+
 def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
                 save_residuals: bool = False):
     """x (rows, d) f32 or bf16, contiguous; scale (d,) f32 -> (rows, d) in
@@ -57,13 +89,14 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
     _check_card_rows(what, x)
     build.require(scale.is_contiguous(), what, "inputs must be contiguous")
     rows, d = x.shape
+    _, per, chunks = _plan(what, x)
     y = torch.empty_like(x)
     rstd = (torch.empty(rows, dtype=torch.float32, device=x.device)
             if save_residuals else None)
     rc = build.library().rt_rmsnorm_fwd(
         x.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        rstd.data_ptr() if rstd is not None else None, rows, d, float(eps),
-        build.DTYPE_CODE[x.dtype], build.stream_of(x))
+        rstd.data_ptr() if rstd is not None else None, rows, d, per, chunks,
+        float(eps), build.DTYPE_CODE[x.dtype], build.stream_of(x))
     build.check(rc, what)
     global launches
     launches += 1
@@ -74,8 +107,9 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, rstd: torch.Tensor,
                 dy: torch.Tensor):
     """One-pass dx / dscale from the forward's rstd.  x, dy (rows, d) in one
     dtype; scale (d,) f32; rstd (rows,) f32 -> (dx (rows, d) in x's dtype,
-    dscale (d,) f32).  The kernel writes one dscale row per group of rows;
-    their sum is taken here, as the TPU wrapper sums its block partials."""
+    dscale (d,) f32).  The kernel writes one dscale row per block and a
+    second launch adds them in a fixed order, as the TPU wrapper sums its
+    block partials."""
     what = "rmsnorm_bwd"
     _check_rows(what, x, scale)
     rows, d = x.shape
@@ -93,17 +127,17 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, rstd: torch.Tensor,
     _check_card_rows(what, x, dy)
     build.require(scale.is_contiguous() and rstd.is_contiguous(), what,
                   "inputs must be contiguous")
-    # about four blocks per SM; each block's dscale row covers its rows
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    per_block = max(1, -(-rows // (4 * sms)))
-    n_blocks = max(1, -(-rows // per_block))
+    n_blocks, per, chunks = _plan(what, x)
     dx = torch.empty_like(x)
     part = torch.empty((n_blocks, d), dtype=torch.float32, device=x.device)
+    # no rows: nothing is launched, and dscale is a sum over nothing
+    dscale = (torch.empty if n_blocks else torch.zeros)(
+        d, dtype=torch.float32, device=x.device)
     rc = build.library().rt_rmsnorm_bwd(
         x.data_ptr(), dy.data_ptr(), scale.data_ptr(), rstd.data_ptr(),
-        dx.data_ptr(), part.data_ptr(), rows, d, per_block,
-        build.DTYPE_CODE[x.dtype], build.stream_of(x))
+        dx.data_ptr(), part.data_ptr(), dscale.data_ptr(), rows, d, per,
+        chunks, build.DTYPE_CODE[x.dtype], build.stream_of(x))
     build.check(rc, what)
     global bwd_launches
     bwd_launches += 1
-    return dx, part.sum(dim=0)
+    return dx, dscale

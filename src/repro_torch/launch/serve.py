@@ -49,7 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import llm_a3c
+from repro_torch.core import llm_a3c, prng
 from repro_torch.device import resolve
 from repro_torch.distributed import ctx, sharding
 from repro_torch.kernels import dispatch, kv_quant
@@ -112,6 +112,46 @@ def gen_trace(n_requests: int, *, vocab: int, prompt_range, gen_range,
             rid=i, prompt=rng.integers(0, vocab, plen).astype(np.int32),
             max_new=glen, arrival=t))
     return out
+
+
+def min_accept_margin(cfg, params, trace: List[Request], cache_len: int, *,
+                      key: Optional[torch.Tensor] = None,
+                      device=None) -> float:
+    """Smallest top-2 gap of the scores that chose completed requests'
+    tokens, replayed through single-slot decode steps with an f32 cache
+    (``repro.launch.serve.min_accept_margin``): the logits of a greedy
+    run, or with ``key`` the logits plus the Gumbel noise of each token's
+    (rid, position) stream, the scores of a sampled run.  Token identity
+    across frameworks or devices holds where this margin is far above the
+    ~1e-6 by which their logits differ.  0.0 when a recorded token is not
+    the replay's choice.  ``params`` as the engine takes them."""
+    dev = resolve(device)
+    params = M.cast_params(cfg, params)
+    worst = float("inf")
+    for r in trace:
+        if not r.tokens:
+            continue
+        seq = [int(t) for t in r.prompt] + [int(t) for t in r.tokens]
+        cache = M.init_cache(cfg, 1, cache_len, dtype=torch.float32,
+                             device=dev)
+        p0 = len(r.prompt)
+        for i, t in enumerate(seq[:-1]):
+            out, cache = M.decode_step(
+                cfg, params, cache,
+                {"tokens": torch.tensor([[t]], device=dev)},
+                torch.tensor([i], device=dev))
+            if i < p0 - 1:
+                continue
+            row = out["logits"][0, -1].float()
+            if key is not None:
+                k = llm_a3c.stream_keys(key.to(dev), r.rid, i + 1, 1)
+                row = row + prng.gumbel(k[0], row.shape)
+            top = torch.topk(row, 2)
+            if int(top.indices[0]) != seq[i + 1]:
+                return 0.0
+            worst = min(worst, float(top.values[0].double()
+                                     - top.values[1].double()))
+    return worst
 
 
 def _percentiles(xs) -> dict:
@@ -248,7 +288,10 @@ class ServeEngine:
         self.params = M.cast_params(cfg, params)
         self.n_slots, self.cache_len, self.chunk = n_slots, cache_len, chunk
         self.sample = sample
-        self.seed = seed
+        # sampling keys are (request id, logical position) streams off the
+        # session key, as the JAX engine's base_key; on the host, where the
+        # stream ids and positions are and their hashes are cheap
+        self.base_key = prng.key(seed)
         self._t0: Optional[float] = None
         self.serve_step = llm_a3c.make_serve_step(cfg, sample=sample)
         self.prefill_step = llm_a3c.make_prefill_step(cfg)
@@ -366,12 +409,15 @@ class ServeEngine:
         self._group_cache = cache
         self.prefill_finite &= bool(np.isfinite(last[:len(pairs)]).all())
         # the first token at logical position plen draws from the
-        # (rid, plen) stream, like every later decode sample
+        # (rid, plen) stream, like every later decode sample.  (The JAX
+        # engine's token-loop admission of recurrent caches keys its prompt
+        # by fold_in(base_key, 2**31 + rid); that path comes with the other
+        # block kinds, ROADMAP.md queue 1, slice 5.)
         rids = np.zeros(self.n_slots, np.int64)
         for i, (r, _) in enumerate(pairs):
             rids[i] = r.rid
         first = llm_a3c.sample_slot_tokens(
-            torch.from_numpy(last), self.seed, sample=self.sample,
+            torch.from_numpy(last), self.base_key, sample=self.sample,
             sids=torch.from_numpy(rids),
             pos=torch.as_tensor(plens, dtype=torch.int64))
         return first.numpy(), cache
@@ -411,9 +457,10 @@ class ServeEngine:
 
     def _sids(self) -> torch.Tensor:
         """Per-slot sampling stream ids (request ids; idle rows draw from a
-        stream nobody reads)."""
+        stream nobody reads), on the host like the positions: the stream
+        keys are hashed there."""
         return torch.tensor([r.rid if r is not None else 0
-                             for r in self.req_of], device=self.device)
+                             for r in self.req_of])
 
     def decode_step_all(self) -> List[Request]:
         """One per-slot decode step over the whole slot table."""
@@ -423,8 +470,8 @@ class ServeEngine:
                 self.params, self.cache,
                 {"tokens": torch.as_tensor(self.tok[:, None],
                                            device=self.device)},
-                torch.as_tensor(self.pos, device=self.device), self.seed,
-                self._sids(), finite=self._decode_finite)
+                torch.from_numpy(self.pos), self.base_key, self._sids(),
+                finite=self._decode_finite)
         tok = tok.cpu().numpy()
         finished = []
         for j in range(self.n_slots):

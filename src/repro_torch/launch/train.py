@@ -22,7 +22,7 @@ _RL_ITEM = "see ROADMAP.md, queue 1, slice 4: the paper's RL loop"
 
 def run_llm(args) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.core import llm_a3c
+    from repro_torch.core import llm_a3c, prng
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.device import resolve
     from repro_torch.models import model as M
@@ -39,10 +39,11 @@ def run_llm(args) -> dict:
                          global_batch=args.batch, device=str(dev))
     train_step = llm_a3c.make_train_step(cfg, opt, lr0=args.lr,
                                          total_steps=args.steps)
+    data_key = prng.key(args.seed + 2)      # the JAX CLI's key
     history = []
     t0 = time.time()
     for step in range(args.steps):
-        batch = pipe.batch(args.seed + 2, step)
+        batch = pipe.batch(data_key, step)
         params, opt_state, metrics = train_step(params, opt_state, batch,
                                                 step)
         if step % max(1, args.steps // 20) == 0 or step == args.steps - 1:

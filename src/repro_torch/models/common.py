@@ -17,15 +17,6 @@ from repro_torch.kernels import dispatch
 Params = dict
 
 
-def trunc_normal(shape, stddev: float, generator: torch.Generator,
-                 device, dtype=torch.float32) -> torch.Tensor:
-    """stddev * N(0, 1) truncated to [-2, 2], as ``common.trunc_normal``.
-    Drawn in f32 and cast."""
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t.mul_(stddev).to(dtype)
-
-
 def linear_std(d_in: int) -> float:
     """Default stddev of ``init_linear`` weights."""
     return 1.0 / math.sqrt(d_in)

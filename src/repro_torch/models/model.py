@@ -4,7 +4,7 @@ Counterpart of ``repro/models/model.py`` for decoder stacks of ``attn`` and
 ``attn_local`` blocks with a gated MLP (the dense families: yi-6b,
 stablelm-1.6b, qwen2-72b, minicpm-2b):
 
-  init_params(cfg, seed, device)               -> params (nested dicts)
+  init_params(cfg, seed, device, dtype)        -> params (nested dicts)
   forward(cfg, params, batch)                  -> {"logits", "value", ...}
   init_cache(cfg, batch, cache_len, ...)       -> cache
   decode_step(cfg, params, cache, batch, pos)  -> ({"logits", "value"}, cache)
@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import prng
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
@@ -118,32 +119,52 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return flatten(_shape_tree(cfg))
 
 
-def _init_leaf(path: str, shape: tuple, gen: torch.Generator, device,
-               dtype: torch.dtype) -> torch.Tensor:
-    """The distributions of ``repro/models/common.py``: embeddings
-    N(0, 0.02^2) and linears N(0, 1/d_in) truncated at 2 sigma, biases
-    zero, norm scales one, norm biases zero.  Matrices are drawn in f32 and
-    stored in ``dtype``; vectors stay f32."""
-    name = path.rsplit(".", 1)[-1]
-    if len(shape) >= 2:
-        std = 0.02 if name == "table" else cm.linear_std(shape[0])
-        return cm.trunc_normal(shape, std, gen, device, dtype)
-    fill = 1.0 if name == "scale" else 0.0
-    return torch.full(shape, fill, dtype=torch.float32, device=device)
+def _leaf_keys(cfg: ModelConfig, seed: int, partitionable: bool) -> dict:
+    """{path: key} of every random leaf, the key tree of
+    ``repro/models/model.py::init_params``: split(key(seed), n_layers + 5),
+    the last three keys for the embedding, the LM head and the value head,
+    key i for layer i, split in four there (attention, MLP), then in four
+    (wq, wk, wv, wo) and three (gate, up, down).  On the CPU: a few hundred
+    tiny hashes."""
+    def split(k, n):
+        return prng.split(k, n, partitionable=partitionable)
+    keys = split(prng.key(seed), cfg.n_layers + 5)
+    out = {"embed.table": keys[-1], "lm_head.w": keys[-2],
+           "value_head.w": keys[-3]}
+    for i in range(cfg.n_layers):
+        ks = split(keys[i], 4)
+        for name, k in zip(("wq", "wk", "wv", "wo"), split(ks[0], 4)):
+            out[f"layers.{i}.attn.{name}.w"] = k
+        for name, k in zip(("gate", "up", "down"), split(ks[1], 3)):
+            out[f"layers.{i}.mlp.{name}.w"] = k
+    return out
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
-                dtype: torch.dtype = torch.float32) -> Params:
-    """Random parameters from ``seed`` with the JAX package's distributions
-    and layout (layers unstacked).  ``dtype`` is the storage type of the
-    matrices (pass the compute dtype to build serving weights directly on
-    the card); 1-D parameters stay f32.  The draws differ from
-    ``jax.random``'s: parity tests bridge the JAX parameters instead."""
+                dtype: torch.dtype = torch.float32, *,
+                partitionable: bool = True) -> Params:
+    """The JAX package's ``init_params(cfg, jax.random.key(seed))``, layers
+    unstacked: embeddings 0.02 and linears 1/sqrt(d_in) times a normal
+    truncated at +-2, drawn by ``prng`` from the reference's key tree
+    (``partitionable``: the threefry counter layout, see ``prng``); biases
+    zero, norm scales one, norm biases zero.  Matrices are drawn in f32 and
+    stored in ``dtype`` (pass the compute dtype to build serving weights
+    directly on the card); 1-D parameters stay f32.  They agree with
+    jax's within a few f32 ulps (``prng.truncated_normal``)."""
     dev = resolve(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    flat = {path: _init_leaf(path, shape, gen, dev, dtype)
-            for path, shape in param_shapes(cfg).items()}
+    keys = _leaf_keys(cfg, seed, partitionable)
+    flat = {}
+    for path, shape in param_shapes(cfg).items():
+        name = path.rsplit(".", 1)[-1]
+        if len(shape) >= 2:
+            std = 0.02 if name == "table" else cm.linear_std(shape[0])
+            flat[path] = prng.truncated_normal(
+                keys[path].to(dev), -2.0, 2.0, shape, scale=std,
+                dtype=dtype, partitionable=partitionable)
+        else:
+            fill = 1.0 if name == "scale" else 0.0
+            flat[path] = torch.full(shape, fill, dtype=torch.float32,
+                                    device=dev)
     return unflatten(flat)
 
 

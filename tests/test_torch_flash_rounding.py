@@ -223,3 +223,17 @@ def test_flash_arm_counters_registered():
     assert arms <= set(dispatch.launch_counts())
     dispatch.reset_launch_counts()
     assert all(dispatch.launch_counts()[op] == 0 for op in arms)
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN43_GLOBAL__N__5a1b2c3d_10_rmsnorm_cu_12345678914rmsnorm_kernelI13"
+     "__nv_bfloat16Li2EEEvPKT_PKfPS1_Pfxiif", "rmsnorm_kernel<bf16,2>"),
+    ("_ZN12_GLOBAL__N_118rmsnorm_bwd_kernelIfLi8EEEvPKT_S3_PKfS5_PS1_Pfxii",
+     "rmsnorm_bwd_kernel<f32,8>"),
+    ("_ZN12_GLOBAL__N_117dscale_sum_kernelEPK6float4PS0_ii",
+     "dscale_sum_kernel"),
+    ("_ZN12_GLOBAL__N_113append_kernelIaLi64ELb1EEEvPKfPKa",
+     "append_kernel<int8,64,true>"),
+])
+def test_kernel_name_lists_template_arguments(mangled, name):
+    assert build._kernel_name(mangled) == name

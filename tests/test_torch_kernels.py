@@ -73,6 +73,46 @@ def test_rmsnorm_wrapper_rejects_bad_inputs():
         rmsnorm_cuda.rmsnorm_fwd(x, torch.ones(8, dtype=torch.bfloat16))
 
 
+@pytest.mark.parametrize("rows,d,itemsize,sms", [
+    (4096, 4096, 2, 132),      # train shape, bf16
+    (4096, 4096, 4, 132),      # train shape, f32
+    (4099, 4096, 2, 132),      # ragged rows
+    (512, 4096, 2, 132),       # prefill: 4 slots x 128
+    (4, 4096, 2, 132),         # decode: 4 slots
+    (1, 256, 2, 132),
+    (7, 104, 4, 132),
+    (100_000, 8192, 2, 114),   # another card
+    (3, 16384, 2, 132),        # the widest bf16 row
+    (5, 8192, 4, 66),          # the widest f32 row
+])
+def test_row_plan_covers_every_row_once(rows, d, itemsize, sms):
+    """The RMSNorm kernels' plan: its blocks cover every row exactly once,
+    none is empty, there are at most two an SM, and a thread's chunks are
+    the fewest that cover a row."""
+    n, per, chunks = rmsnorm_cuda.row_plan(rows, d, itemsize, sms)
+    assert 1 <= n <= 2 * sms
+    covered = np.zeros(rows, np.int64)
+    for b in range(n):
+        assert b * per < rows
+        covered[b * per:min(rows, (b + 1) * per)] += 1
+    assert (covered == 1).all()
+    nvec = d * itemsize // 16
+    assert chunks in rmsnorm_cuda.CHUNKS
+    assert chunks * rmsnorm_cuda.THREADS >= nvec
+    assert chunks == 1 or chunks // 2 * rmsnorm_cuda.THREADS < nvec
+
+
+def test_row_plan_at_the_train_shape():
+    """4096 rows on 132 SMs: 256 blocks of 16 rows, so the backward writes
+    256 dscale rows (4.2 MB), not the 512 of four blocks an SM."""
+    assert rmsnorm_cuda.row_plan(4096, 4096, 2, 132) == (256, 16, 2)
+    assert rmsnorm_cuda.row_plan(0, 4096, 2, 132) == (0, 1, 2)
+    with pytest.raises(ValueError, match="wider"):
+        rmsnorm_cuda.row_plan(4, 16384 + 8, 2, 132)
+    with pytest.raises(ValueError, match="wider"):
+        rmsnorm_cuda.row_plan(4, 8192 + 4, 4, 132)
+
+
 # ---------------------------------------------------------------------------
 # decode attention
 # ---------------------------------------------------------------------------

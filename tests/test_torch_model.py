@@ -118,6 +118,35 @@ def test_init_params_layout_and_distributions():
     assert flat_c["layers.0.ln1.scale"].dtype == torch.float32
 
 
+@pytest.mark.parametrize("arch,seed,part", [("yi-6b", 0, True),
+                                            ("yi-6b", 3, True),
+                                            ("stablelm-1.6b", 0, True),
+                                            ("stablelm-1.6b", 5, True),
+                                            ("yi-6b", 0, False)])
+def test_init_params_match_jax(arch, seed, part):
+    """The port's own init from a seed is ``JM.init_params(cfg,
+    jax.random.key(seed))`` leaf by leaf, within 4 f32 ulps (the
+    truncated normal's log1p rounds differently on some inputs), under
+    either threefry layout."""
+    cj, ct = _pair(arch)
+    old = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", part)
+    try:
+        pj = JM.init_params(cj, jax.random.key(seed))
+    finally:
+        jax.config.update("jax_threefry_partitionable", old)
+    want = TM.flatten(bridge.params_from_jax(
+        ct, jax.tree.map(np.asarray, pj), device="cpu"))
+    got = TM.flatten(TM.init_params(ct, seed, "cpu", partitionable=part))
+    assert set(got) == set(want)
+    for path, w in want.items():
+        g = got[path]
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+        w, g = w.numpy().astype(np.float64), g.numpy().astype(np.float64)
+        ulps = np.abs(g - w) / np.spacing(np.abs(w).astype(np.float32))
+        assert float(ulps.max()) <= 4, (path, float(ulps.max()))
+
+
 def test_bridge_rejects_a_mismatched_tree():
     cj, ct = _pair("yi-6b")
     pj = JM.init_params(cj, jax.random.key(0))

@@ -1,12 +1,15 @@
 """The port's serve engine against the JAX engine on the CPU.
 
-Reduced yi-6b with the JAX package's parameters (bridged), greedy decoding,
-the same ``gen_trace``: the port's ``run_engine`` and ``run_lockstep`` emit
-the same tokens as the JAX engine on its contiguous layout
-(``paged=False``).  Token identity across frameworks holds up to the
-argmax margin: the test first checks with ``serve.min_accept_margin`` that
-every greedy choice on the trace wins by at least 1e-3, far above the
-~1e-6 by which XLA and PyTorch sums differ.
+Reduced yi-6b with the JAX package's parameters (bridged), the same
+``gen_trace``: the port's ``run_engine`` and ``run_lockstep`` emit the same
+greedy tokens as the JAX engine on its contiguous layout (``paged=False``),
+and the same sampled tokens on one seed (``repro_torch.core.prng`` is
+jax.random's threefry; jax's partitionable layout, the port's default, is
+set for the JAX engine).  Token identity across frameworks holds up to the
+argmax margin: the test first checks with ``min_accept_margin`` that every
+choice on the trace wins by at least 1e-3 (for a sampled run, over logits
+plus the stream's Gumbel noise), far above the ~1e-6 by which XLA and
+PyTorch sums differ.
 """
 import json
 
@@ -22,13 +25,14 @@ from repro.launch import serve as jax_serve  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config as torch_config  # noqa: E402
-from repro_torch.core import llm_a3c  # noqa: E402
+from repro_torch.core import llm_a3c, prng  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
 TRACE = dict(prompt_range=(3, 20), gen_range=(1, 8), arrival_rate=0.0,
              seed=3)
 ENGINE = dict(n_slots=2, cache_len=32, chunk=8, sample=False, seed=0)
+SAMPLED = dict(ENGINE, sample=True)
 
 
 @pytest.fixture(scope="module")
@@ -49,6 +53,21 @@ def jax_tokens(models):
     jax_serve.run_engine(cj, pj, trace, paged=False, **ENGINE)
     margin = jax_serve.min_accept_margin(cj, pj, trace, ENGINE["cache_len"])
     return {r.rid: list(r.tokens) for r in trace}, margin
+
+
+@pytest.fixture(scope="module")
+def jax_sampled_tokens(models):
+    """Sampled tokens of the JAX engine (contiguous layout) per request,
+    under jax's partitionable threefry layout."""
+    cj, _, pj, _ = models
+    trace = jax_serve.gen_trace(6, vocab=cj.vocab_size, **TRACE)
+    old = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", True)
+    try:
+        jax_serve.run_engine(cj, pj, trace, paged=False, **SAMPLED)
+    finally:
+        jax.config.update("jax_threefry_partitionable", old)
+    return trace
 
 
 def test_gen_trace_matches_jax():
@@ -95,33 +114,69 @@ def test_lockstep_tokens_match_jax_engine(models, jax_tokens):
     assert {r.rid: r.tokens for r in trace} == want
 
 
+def test_engine_sampled_tokens_match_jax_engine(models, jax_sampled_tokens):
+    trace_j = jax_sampled_tokens
+    _, ct, _, pt = models
+    margin = serve.min_accept_margin(ct, pt, trace_j, SAMPLED["cache_len"],
+                                     key=prng.key(SAMPLED["seed"]),
+                                     device="cpu")
+    assert margin >= 1e-3, f"trace has a near-tie sampled choice ({margin})"
+    trace = serve.gen_trace(6, vocab=ct.vocab_size, **TRACE)
+    rep = serve.run_engine(ct, pt, trace, device="cpu", **SAMPLED)
+    assert rep["requests"] == len(trace) and rep["logits_finite"]
+    assert {r.rid: r.tokens for r in trace} == \
+        {r.rid: list(r.tokens) for r in trace_j}
+    # sampling changed the tokens: the run is not the greedy one
+    greedy = serve.gen_trace(6, vocab=ct.vocab_size, **TRACE)
+    serve.run_engine(ct, pt, greedy, device="cpu", **ENGINE)
+    assert [r.tokens for r in greedy] != [r.tokens for r in trace]
+
+
+def test_min_accept_margin_matches_jax(models, jax_tokens):
+    """The port's margin of a greedy run is the reference's, up to the
+    ~1e-6 by which the two frameworks' logits differ."""
+    want, margin_j = jax_tokens
+    cj, ct, _, pt = models
+    trace = serve.gen_trace(6, vocab=ct.vocab_size, **TRACE)
+    for r in trace:
+        r.tokens = list(want[r.rid])
+    margin = serve.min_accept_margin(ct, pt, trace, ENGINE["cache_len"],
+                                     device="cpu")
+    assert abs(margin - margin_j) < 1e-4
+    trace[0].tokens[-1] = (trace[0].tokens[-1] + 1) % ct.vocab_size
+    assert serve.min_accept_margin(ct, pt, trace, ENGINE["cache_len"],
+                                   device="cpu") == 0.0
+
+
 def test_sampling_is_keyed_by_stream_and_position():
-    """A draw depends only on (seed, stream id, position): not on the
+    """A draw depends only on (key, stream id, position): not on the
     row's slot, the batch size or its neighbours."""
     rng = np.random.default_rng(0)
     logits = torch.from_numpy(rng.standard_normal((5, 64)).astype(np.float32))
     sids = torch.tensor([7, 3, 11, 0, 9])
     pos = torch.tensor([4, 40, 4, 1, 17])
-    tok = llm_a3c.sample_slot_tokens(logits, 5, sids=sids, pos=pos)
+    key = prng.key(5)
+    tok = llm_a3c.sample_slot_tokens(logits, key, sids=sids, pos=pos)
     perm = torch.tensor([3, 0, 4, 2, 1])
-    tok_p = llm_a3c.sample_slot_tokens(logits[perm], 5, sids=sids[perm],
+    tok_p = llm_a3c.sample_slot_tokens(logits[perm], key, sids=sids[perm],
                                        pos=pos[perm])
     assert torch.equal(tok_p, tok[perm])
     for j in range(5):
-        one = llm_a3c.sample_slot_tokens(logits[j:j + 1], 5,
+        one = llm_a3c.sample_slot_tokens(logits[j:j + 1], key,
                                          sids=sids[j:j + 1],
                                          pos=pos[j:j + 1])
         assert int(one[0]) == int(tok[j])
-    greedy = llm_a3c.sample_slot_tokens(logits, 5, sample=False)
+    greedy = llm_a3c.sample_slot_tokens(logits, key, sample=False)
     assert torch.equal(greedy, logits.argmax(-1))
 
 
 def test_sampling_follows_the_softmax():
-    """Gumbel-max over the counter-hash noise draws from softmax(logits)."""
+    """Gumbel-max over the threefry noise draws from softmax(logits)."""
     p = np.array([0.5, 0.3, 0.2])
     n = 6000
     logits = torch.from_numpy(np.log(np.tile(p, (n, 1))).astype(np.float32))
-    tok = llm_a3c.sample_slot_tokens(logits, 1, sids=torch.zeros(n),
+    tok = llm_a3c.sample_slot_tokens(logits, prng.key(1),
+                                     sids=torch.zeros(n),
                                      pos=torch.arange(n))
     freq = np.bincount(tok.numpy(), minlength=3) / n
     np.testing.assert_allclose(freq, p, atol=0.03)
@@ -172,3 +227,30 @@ def test_prefill_step_matches_model(models):
     out, _ = TM.prefill_step(ct, pt, cache2, {"tokens": toks})
     assert logits.dtype == torch.float32
     torch.testing.assert_close(logits, out["logits"].float())
+
+
+@pytest.mark.parametrize("seed", (0, 3))
+def test_slot_sampling_matches_jax(seed):
+    """``sample_slot_tokens`` against the reference's on the same logits
+    and key: the engine's (sid, pos) streams and the per-row fold."""
+    from repro.core import llm_a3c as jax_a3c
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal((4, 512)) * 2).astype(np.float32)
+    sids = np.array([0, 5, 2, 9], np.int32)
+    pos = np.array([3, 17, 30, 1], np.int32)
+    old = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", True)
+    try:
+        kj = jax.random.key(seed)
+        want = np.asarray(jax_a3c.sample_slot_tokens(logits, kj, sids=sids,
+                                                     pos=pos))
+        want_rows = np.asarray(jax_a3c.sample_slot_tokens(logits, kj))
+    finally:
+        jax.config.update("jax_threefry_partitionable", old)
+    lt = torch.from_numpy(logits)
+    got = llm_a3c.sample_slot_tokens(lt, prng.key(seed),
+                                     sids=torch.from_numpy(sids),
+                                     pos=torch.from_numpy(pos))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        llm_a3c.sample_slot_tokens(lt, prng.key(seed)).numpy(), want_rows)

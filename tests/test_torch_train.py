@@ -10,8 +10,12 @@ the parameters after three ``shared_rmsprop`` steps at the learner's
 default lr0 against the JAX train step with both its unfused and its
 Pallas optimizer (rtol 1e-5, atol 1e-6).
 Then the pieces around the step: returns, the token MDP, the data
-pipeline, checkpoints and the train CLI.
+pipeline (its batches equal ``repro.data.pipeline``'s on one key),
+checkpoints and the train CLI (its first loss from ``--seed`` equals the
+JAX CLI's: the same initial weights and batches, drawn by
+``repro_torch.core.prng``).
 """
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -29,13 +33,14 @@ import jax.numpy as jnp  # noqa: E402
 from repro import configs as jax_configs  # noqa: E402
 from repro.core import llm_a3c as jax_a3c  # noqa: E402
 from repro.core import returns as jax_returns  # noqa: E402
+from repro.data import pipeline as jax_pipeline  # noqa: E402
 from repro.envs import token_mdp as jax_mdp  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.optim import optimizers as jax_opt  # noqa: E402
 from repro.optim import schedules as jax_sched  # noqa: E402
 from repro_torch import bridge, checkpoint  # noqa: E402
 from repro_torch import configs as torch_configs  # noqa: E402
-from repro_torch.core import llm_a3c, returns  # noqa: E402
+from repro_torch.core import llm_a3c, prng, returns  # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.envs.token_mdp import TokenMDP, TokenMDPState  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
@@ -77,6 +82,17 @@ def _torch_batch(b):
 
 def _to_np(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+@contextlib.contextmanager
+def _partitionable():
+    """jax's threefry layout of jax 0.5 on, the port's default."""
+    old = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_threefry_partitionable", old)
 
 
 @pytest.fixture(scope="module")
@@ -295,7 +311,8 @@ def test_token_mdp_matches_jax():
 
 def test_pipeline_batches():
     pipe = TokenPipeline(vocab=97, seq_len=64, global_batch=8, device="cpu")
-    b = pipe.batch(3, step=0)
+    key = prng.key(3)
+    b = pipe.batch(key, step=0)
     assert b["tokens"].shape == (8, 64) and b["tokens"].dtype == torch.int64
     assert b["rewards"].dtype == b["discounts"].dtype == torch.float32
     assert int(b["tokens"].min()) >= 0 and int(b["tokens"].max()) < 97
@@ -306,14 +323,26 @@ def test_pipeline_batches():
     assert torch.equal(b["discounts"], want_disc)
     # the successor policy with 30 % noise: most rewards are earned
     assert 0.3 < float(b["rewards"][:, :-1].mean()) < 0.7
-    # a stream per (seed, step)
-    assert torch.equal(pipe.batch(3, step=0)["tokens"], b["tokens"])
-    assert not torch.equal(pipe.batch(3, step=1)["tokens"], b["tokens"])
-    eps = dataclasses.replace(pipe, episode_len=16).batch(3)
+    # a stream per (key, step)
+    assert torch.equal(pipe.batch(key, step=0)["tokens"], b["tokens"])
+    assert not torch.equal(pipe.batch(key, step=1)["tokens"], b["tokens"])
+    assert not torch.equal(pipe.batch(prng.key(4))["tokens"], b["tokens"])
+    eps = dataclasses.replace(pipe, episode_len=16).batch(key)
     assert float((eps["discounts"] == 0).sum()) == 8 * 4
-    # a generator is drawn from as it stands: the (seed, step) stream
-    assert torch.equal(pipe.batch(pipe.generator(3, 1))["tokens"],
-                       pipe.batch(3, step=1)["tokens"])
+
+
+@pytest.mark.parametrize("seed,step", [(0, 0), (0, 1), (5, 0), (5, 7)])
+def test_pipeline_batches_match_jax(seed, step):
+    """The train CLI's batches, key(seed + 2) folded with the step, equal
+    the JAX pipeline's exactly."""
+    kw = dict(vocab=512, seq_len=128, global_batch=4)
+    with _partitionable():
+        want = jax_pipeline.TokenPipeline(**kw).batch(
+            jax.random.key(seed + 2), step)
+        want = {k: np.asarray(v) for k, v in want.items()}
+    got = TokenPipeline(**kw, device="cpu").batch(prng.key(seed + 2), step)
+    for k in ("tokens", "rewards", "discounts"):
+        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
 
 
 def test_checkpoint_round_trip(tmp_path, setup):
@@ -347,3 +376,21 @@ def test_train_cli_on_cpu():
             if line.startswith("{")]
     assert [r["step"] for r in recs] == [0, 1, 2]
     assert all(np.isfinite(r["loss"]) for r in recs)
+
+
+def test_train_cli_first_loss_matches_jax_cli(capsys, monkeypatch):
+    """``--seed 3``, nothing bridged: the port draws the JAX CLI's initial
+    weights (within a few f32 ulps) and batches, so its first loss equals
+    the JAX CLI's within 1e-5 relative."""
+    from repro.launch import train as jax_train
+    from repro_torch.launch import train as torch_train
+    argv = ["--mode", "llm", "--arch", "yi-6b", "--reduced", "--steps", "1",
+            "--seq", "64", "--batch", "2", "--seed", "3"]
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
+    with _partitionable():
+        jax_train.main()                     # parses sys.argv, prints
+    import json
+    want = json.loads(capsys.readouterr().out.splitlines()[0])["loss"]
+    got = torch_train.main(argv + ["--device", "cpu"])["history"][0]["loss"]
+    capsys.readouterr()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
