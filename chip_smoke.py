@@ -41,8 +41,9 @@ Phases (any failure raises and the script exits non-zero):
      lse held to 1e-5; the rmsnorm wrapper
      must refuse rows it cannot move in 16-byte chunks;
   3b. jax.random's threefry (``core/prng.py``) on the card against the
-     CPU: bits, uniform, randint and categorical identical at (4, 64000)
-     and at 4096 x 4096 (categorical where its top-2 margin exceeds 1e-5),
+     CPU: bits, uniform, randint and categorical identical at (4, 64000),
+     at 4096 x 4096 and at (16, 3), whose hash replays a CUDA graph
+     (categorical where its top-2 margin exceeds 1e-5),
      truncated_normal within 4 f32 ulps; the card's time of a 4096 x 4096
      truncated normal draw and of one sampling call;
   4. time each kernel and arm, its plain version and the nearest single
@@ -51,7 +52,8 @@ Phases (any failure raises and the script exits non-zero):
      before each call) beside the least time the card could take for the
      work, and the ratios of the kernel's time to both (x_bound,
      x_library); the rmsnorm forward at the prefill, train and decode
-     shapes;
+     shapes; rmsprop also at the RL path's leaves (the paper net's FC,
+     2592 x 256, and a 256 x 3 policy matrix);
   5. the port's reduced model in f32 on the card against the same model
      on the CPU (a counted path: the append kernel's f32 SIMT arm), then
      ``run_engine`` on Yi-6B at full width and depth (bf16 weights from a
@@ -88,11 +90,38 @@ Phases (any failure raises and the script exits non-zero):
      gradient finite, every parameter leaf changed and every training
      kernel launched, the flash kernels through their bf16 (tensor-core)
      arms only: 2 forward launches (the forward and its remat) and one
-     backward a layer and step.
+     backward a layer and step;
+  9. the paper's asynchronous RL loop (``core/async_runner.py`` and its
+     environments, networks and algorithms), each run on the card against
+     the same run on the CPU: actions identical where every decision
+     margin exceeds 1e-5 (continuous actions within 1e-5), losses within
+     rtol 1e-4, parameters within rtol = atol = 1e-5, and Shared RMSProp
+     (``rmsprop_update``, one launch a leaf and worker update) launched
+     exactly rounds x workers x leaves times on a Hogwild path and
+     rounds x leaves on a sync path, and no other kernel:
+     9a. the train CLI's ``--mode rl`` runs (8 workers, the MLP agent at
+     hidden 64, 3 rounds): the four algorithms in Hogwild with shared
+     statistics, A3C in sync mode, with per-worker statistics, on
+     Pendulum and on GridMaze; DQN with replay (40 frames: 17 updates)
+     and replay-async (8 rounds of 4 workers) at the sizes of their JAX
+     tests; then ``train.main`` itself, its records and checkpointed
+     parameters;
+     9b. the paper's conv + LSTM network at full width (1,199,412
+     parameters in 13 leaves) on 84 x 84 Catch frames, 16 workers, t_max 5,
+     Hogwild with Shared RMSProp: 3 rounds against the CPU, then 20 timed
+     rounds (round wall, frames/s, peak memory, 208 rmsprop launches a
+     round) and one profiled round; and one A3C segment loss with its
+     gradients at 84 x 84 x 4 on 16 workers' random frames (losses rtol
+     1e-4, gradients within 1e-4 of each leaf's largest);
+     9c. ``examples.quickstart``'s run (4001 rounds) on the card: its final
+     average return must beat 0.5; then one profiled round;
+     9d. T3 delayed sync, 2 groups merged every 3 steps, 3 steps of reduced
+     Yi-6B in f32 against the CPU: the groups drift, then agree at the
+     merge.
 
 Every kernel and arm must have been launched on one of the main paths
 (phase 5's reduced model and engines, 6a, 6b, each of the four runs of 6c,
-6d, 7 and 8, each with the
+6d, 7, 8 and each run of 9, each with the
 counters set to 0 just before it and read just after); the kernels line
 gives each one's launches by path.
 The last three lines are the card's name and power limit (nvidia-smi), a
@@ -134,6 +163,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 TRIALS = 25
+RL_LEAF_SIZES = (2592 * 256, 1024, 256 * 3, 3)
 
 
 def _tol(dtype):
@@ -1042,8 +1072,10 @@ def check_rmsprop(gen, flush):
 
     from repro_torch.kernels import ref, rmsprop_cuda
     errs = []
-    # one MLP matrix of Yi-6B (4096 x 11008), one element, a ragged count
-    for n in (4096 * 11008, 1, 4099):
+    # one MLP matrix of Yi-6B (4096 x 11008), one element, a ragged count;
+    # the RL path's leaves: the paper net's FC (2592 x 256), its LSTM
+    # input bias (1024), a policy matrix (256 x 3) and bias (3)
+    for n in (4096 * 11008, 1, 4099) + RL_LEAF_SIZES:
         g = _randn((n,), gen, torch.float32).abs()
         grad = _randn((n,), gen, torch.float32, 3.0)
         want_g, want_u = ref.rmsprop_update_ref(g, grad, lr=7e-3)
@@ -1051,23 +1083,30 @@ def check_rmsprop(gen, flush):
         errs.append(_compare(f"rmsprop n={n} g'", got_g, want_g))
         errs.append(_compare(f"rmsprop n={n} update", got_u, want_u))
 
-    n = 4096 * 11008
-    g = _randn((n,), gen, torch.float32).abs()
-    grad = _randn((n,), gen, torch.float32, 3.0)
+    def timed(shape, label):
+        n = math.prod(shape)
+        g = _randn(shape, gen, torch.float32).abs()
+        grad = _randn(shape, gen, torch.float32, 3.0)
+        return {
+            "ms": _time_ms(lambda: rmsprop_cuda.rmsprop_update(
+                g, grad, lr=7e-3), flush),
+            "plain_ms": _time_ms(lambda: ref.rmsprop_update_ref(
+                g, grad, lr=7e-3), flush),
+            # g and grad read, g' and the update written, 4 bytes each
+            "bound_ms": 16 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            # torch.optim.RMSprop puts eps outside the square root and
+            # returns no update: no single PyTorch call computes Eq. 8-9
+            "library_ms": None,
+            "shape": f"one f32 leaf of {n} elements ({label})"}
+
     return {
         "name": "rmsprop_update", "route": "cuda",
         "source": "src/repro_torch/csrc/rmsprop.cu",
         "replaces": "src/repro/kernels/shared_rmsprop.py:34",
         "max_abs_err": max(errs),
-        "ms": _time_ms(lambda: rmsprop_cuda.rmsprop_update(g, grad, lr=7e-3),
-                       flush),
-        "plain_ms": _time_ms(lambda: ref.rmsprop_update_ref(g, grad,
-                                                            lr=7e-3), flush),
-        "bound_ms": 16 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        # torch.optim.RMSprop puts eps outside the square root and returns
-        # no update: no single PyTorch call computes paper Eq. 8-9
-        "library_ms": None,
-        "shape": f"one f32 leaf of {n} elements (4096 x 11008)",
+        **timed((4096, 11008), "4096 x 11008"),
+        "rl_fc_shape": timed((2592, 256), "the paper net's FC, 2592 x 256"),
+        "rl_small_shape": timed((256, 3), "a policy matrix, 256 x 3"),
     }
 
 
@@ -1078,7 +1117,8 @@ def check_rmsprop(gen, flush):
 def check_prng(flush):
     """``prng`` on the card against ``prng`` on the CPU: bits, uniform,
     randint and categorical bit for bit at the sampling shape (4 rows of
-    Yi-6B's 64,000 logits) and at a leaf of 4096 x 4096; categorical where
+    Yi-6B's 64,000 logits), at a leaf of 4096 x 4096 and at a draw of the
+    RL loop (16 x 3, hashed by a CUDA graph); categorical where
     its top-2 margin of gumbel + logits exceeds 1e-5 (the rows below it
     are counted: log rounds per device).  truncated_normal, whose log1p
     also rounds per device, within 4 f32 ulps.  Prints the card's times of
@@ -1089,7 +1129,8 @@ def check_prng(flush):
     from repro_torch.core import llm_a3c, prng
     key_c, key_g = prng.key(7), prng.key(7, device="cuda")
     cpu_gen = torch.Generator().manual_seed(0)
-    for shape in ((4, 64000), (4096, 4096)):
+    # (16, 3): a draw of the RL loop, whose hash replays a CUDA graph
+    for shape in ((4, 64000), (4096, 4096), (16, 3)):
         label = f"prng {shape[0]}x{shape[1]}"
         for name, fn in (
                 ("bits", lambda k: prng.bits(k, shape)),
@@ -1618,9 +1659,493 @@ def run_yi6b_train():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the paper's asynchronous RL loop
+# ---------------------------------------------------------------------------
+
+# a discrete draw (an action, a maze cell) repeats across devices where its
+# decision margin (prng.margins) is far above the ~1e-6 by which the Gumbel
+# noise of the two devices differs
+RL_MARGIN = 1e-5
+RL_ROUNDS = 3
+# the paper's net at full width: conv 16x8x8/4, conv 32x4x4/2, FC 256,
+# LSTM 256, on 84 x 84 frames; 16 workers (the paper's thread count)
+PAPER_WORKERS = 16
+PAPER_TIMED_ROUNDS = 20
+
+
+def _recording(algo, actions):
+    """``algo`` whose act also keeps each step's actions (on the host)."""
+    import dataclasses
+
+    def act(params, obs, net_state, keys, eps):
+        a, net_state = algo.act(params, obs, net_state, keys, eps)
+        actions.append(a.detach().cpu())
+        return a, net_state
+    return dataclasses.replace(algo, act=act)
+
+
+def _rl_leaves(params):
+    from repro_torch.models import model as M
+    return len(M.flatten(params))
+
+
+def _rl_run(make, dev, steps):
+    """Builds a run on ``dev`` with ``make(dev, actions) -> (state, advance,
+    leaves)`` and takes ``steps`` calls of ``advance(state) -> (state,
+    loss or None)``; on the card the launch counters are set to 0 just
+    before the steps and read just after.  Returns the losses, the final
+    parameters on the host, the actions, the smallest decision margin, the
+    counts and the leaf count."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
+    actions = []
+    with prng.margins() as log:
+        state, advance, leaves = make(dev, actions)
+        losses = []
+        dispatch.reset_launch_counts()
+        for _ in range(steps):
+            state, loss = advance(state)
+            if loss is not None:
+                losses.append(loss)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        counts = dispatch.launch_counts()
+        margin = log.smallest()
+    losses = [float(x) for x in losses]
+    params = {k: v.detach().cpu() for k, v in
+              M.flatten(state["params"]).items()}
+    return losses, params, actions, margin, counts, leaves
+
+
+def _rl_check(label, make, steps, launches, continuous=False):
+    """A path of the RL loop on the card against the same path on the
+    CPU: actions identical (within 1e-5 for continuous actions) where
+    every decision margin of both runs exceeds RL_MARGIN, losses within
+    rtol 1e-4 (atol 1e-6), parameters within rtol = atol = 1e-5, and the
+    card's run launched ``rmsprop_update`` exactly ``launches(leaves)``
+    times and no other kernel.  Returns the card's launch counts."""
+    import torch
+    cpu = _rl_run(make, "cpu", steps)
+    gpu = _rl_run(make, "cuda", steps)
+    margin = min(cpu[3], gpu[3])
+    if not margin > RL_MARGIN:
+        raise AssertionError(f"rl {label}: an undecided draw (margin "
+                             f"{margin} <= {RL_MARGIN})")
+    if len(cpu[2]) != len(gpu[2]) or not cpu[2]:
+        raise AssertionError(f"rl {label}: {len(gpu[2])} action steps on "
+                             f"the card, {len(cpu[2])} on the CPU")
+    for t, (a, b) in enumerate(zip(gpu[2], cpu[2])):
+        same = torch.allclose(a, b, rtol=1e-5, atol=1e-5) if continuous \
+            else torch.equal(a, b)
+        if not same:
+            raise AssertionError(f"rl {label}: actions differ at step {t}: "
+                                 f"{a.tolist()} vs {b.tolist()}")
+    loss_err = 0.0
+    for a, b in zip(gpu[0], cpu[0]):
+        if abs(a - b) > 1e-6 + 1e-4 * abs(b):
+            raise AssertionError(f"rl {label}: losses {gpu[0]} on the card "
+                                 f"vs {cpu[0]} on the CPU")
+        loss_err = max(loss_err, abs(a - b) / max(abs(b), 1e-12))
+    par_err = 0.0
+    for k, want in cpu[1].items():
+        got = gpu[1][k]
+        par_err = max(par_err, float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"rl {label}: {k} differs on the card by "
+                                 f"{float((got - want).abs().max())}")
+    counts, leaves = gpu[4], gpu[5]
+    want = launches(leaves)
+    stray = {k: n for k, n in counts.items() if k != "rmsprop" and n}
+    if counts["rmsprop"] != want or stray:
+        raise AssertionError(f"rl {label}: rmsprop launched "
+                             f"{counts['rmsprop']} times (want {want}), "
+                             f"other kernels {stray}")
+    print(f"check rl {label} cuda vs cpu: {len(gpu[2])} action steps "
+          f"identical (margin {margin:.2e} > {RL_MARGIN:g}), losses "
+          f"rel_err={loss_err:.2e} (tol 1e-4), params max_abs_err="
+          f"{par_err:.2e} (rtol=atol=1e-5), rmsprop launches "
+          f"{counts['rmsprop']} = {want} ({leaves} leaves) ok")
+    return counts
+
+
+def _cli_make(argv):
+    """A path through the train CLI's ``build_rl`` and the runner, its
+    actions recorded."""
+    def make(dev, actions):
+        from repro_torch.core import async_runner, prng
+        from repro_torch.launch import train
+        args = train.parse_args(argv + ["--device", dev])
+        algo, env, params, cfg = train.build_rl(args)
+        init_state, round_fn = async_runner.make_runner(
+            _recording(algo, actions), env, params, cfg)
+
+        def advance(st):
+            st, m = round_fn(st)
+            return st, m["loss"]
+        return init_state(prng.key(args.seed + 1)), advance, \
+            _rl_leaves(params)
+    return make
+
+
+# 3 rounds of the CLI's 8 workers x t_max 5
+_RL_FRAMES = ["--frames", str(RL_ROUNDS * 8 * 5)]
+RL_CLI_PATHS = {
+    # label: (CLI arguments, rmsprop launches a round per leaf)
+    "a3c": (["--algo", "a3c"], 8),
+    "one_step_q": (["--algo", "one_step_q"], 8),
+    "one_step_sarsa": (["--algo", "one_step_sarsa"], 8),
+    "n_step_q": (["--algo", "n_step_q"], 8),
+    "a3c_sync": (["--algo", "a3c", "--runner-mode", "sync"], 1),
+    "a3c_per_worker": (["--algo", "a3c", "--per-worker-stats",
+                        "--optimizer", "rmsprop"], 8),
+    "a3c_pendulum": (["--algo", "a3c", "--env", "pendulum"], 8),
+    "a3c_gridmaze": (["--algo", "a3c", "--env", "gridmaze"], 8),
+}
+
+
+def _dqn_make(dev, actions):
+    """DQN with replay at the sizes of its JAX test; each frame's action
+    read back from the buffer slot it was written to."""
+    from repro_torch.core import dqn_replay, prng
+    from repro_torch.envs import make
+    from repro_torch.envs.api import flatten_obs
+    from repro_torch.models import atari as nets
+    env = flatten_obs(make("catch"))
+    params = nets.init_mlp_agent_params(prng.key(0), env.obs_shape[0],
+                                        env.n_actions, hidden=16, device=dev)
+    cfg = dqn_replay.DQNConfig(buffer_size=64, batch_size=8, warmup=8,
+                               train_every=2, target_interval=16)
+    init_state, step_fn = dqn_replay.make_dqn(env, params, cfg)
+
+    def advance(st):
+        st = step_fn(st)
+        slot = (st["ptr"] - 1) % cfg.buffer_size
+        actions.append(st["buffer"]["actions"][slot].cpu())
+        return st, None
+    return init_state(prng.key(1)), advance, _rl_leaves(params)
+
+
+def _replay_async_make(dev, actions):
+    """Replay inside the Hogwild runner at the sizes of its JAX test."""
+    from repro_torch.core import agents, prng, replay_async
+    from repro_torch.envs import make
+    from repro_torch.envs.api import flatten_obs
+    from repro_torch.models import atari as nets
+    env = flatten_obs(make("catch"))
+    params = nets.init_mlp_agent_params(prng.key(0), env.obs_shape[0],
+                                        env.n_actions, hidden=32, device=dev)
+    cfg = replay_async.ReplayAsyncConfig(n_workers=4, t_max=5,
+                                         buffer_size=64, replay_batch=8,
+                                         warmup=16)
+    init_state, round_fn = replay_async.make_replay_runner(
+        _recording(agents.make_n_step_q(), actions), env, params, cfg)
+
+    def advance(st):
+        st, m = round_fn(st)
+        return st, m["loss"]
+    return init_state(prng.key(1)), advance, _rl_leaves(params)
+
+
+def check_rl_paths():
+    """9a: the CLI's configurations and the two replay modules, 3 rounds
+    (DQN 40 frames, replay-async 8 rounds) on the card against the CPU;
+    then the CLI itself (``train.main``) on the card, its records and
+    parameters against the CLI on the CPU.  Returns each path's counts."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import checkpoint
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    paths = {}
+    for label, (argv, per_leaf) in RL_CLI_PATHS.items():
+        paths[f"rl_{label}"] = _rl_check(
+            label, _cli_make(["--mode", "rl"] + argv + _RL_FRAMES),
+            RL_ROUNDS, lambda leaves, n=per_leaf: RL_ROUNDS * n * leaves,
+            continuous=label == "a3c_pendulum")
+    # DQN trains on frames 8, 10, ..., 40: 17 updates
+    paths["rl_dqn"] = _rl_check("dqn_replay 40 frames", _dqn_make, 40,
+                                lambda leaves: 17 * leaves)
+    paths["rl_replay_async"] = _rl_check(
+        "replay_async 8 rounds", _replay_async_make, 8,
+        lambda leaves: 8 * 4 * leaves)
+
+    argv = ["--mode", "rl"] + _RL_FRAMES
+    runs = {}
+    out_dir = os.path.join(ROOT, "build")       # gitignored
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        for dev in ("cpu", "cuda"):
+            path = os.path.join(tmp, f"{dev}.npz")
+            dispatch.reset_launch_counts()
+            out = train.main(argv + ["--device", dev, "--checkpoint", path])
+            counts = dispatch.launch_counts()
+            like = train.build_rl(train.parse_args(argv + ["--device",
+                                                            "cpu"]))[2]
+            runs[dev] = (out["history"], M.flatten(
+                checkpoint.restore(path, like)), counts)
+    (hc, pc, _), (hg, pg, counts) = runs["cpu"], runs["cuda"]
+    for a, b in zip(hg, hc):
+        if (a["round"], a["frames"], a["ep_ret"]) != \
+                (b["round"], b["frames"], b["ep_ret"]) or \
+                abs(a["loss"] - b["loss"]) > 1e-6 + 1e-4 * abs(b["loss"]):
+            raise AssertionError(f"rl cli: record {a} on the card vs {b}")
+    for k, want in pc.items():
+        if not torch.allclose(pg[k], want, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"rl cli: {k} differs on the card")
+    want = RL_ROUNDS * 8 * len(pc)
+    if counts["rmsprop"] != want:
+        raise AssertionError(f"rl cli: rmsprop launched {counts['rmsprop']}"
+                             f" times (want {want})")
+    print(f"check rl cli (train.main --mode rl, 3 rounds) cuda vs cpu: "
+          f"{len(hg)} records identical (loss rtol 1e-4), params rtol=atol="
+          f"1e-5, rmsprop launches {counts['rmsprop']} ok")
+    paths["rl_cli"] = counts
+    return paths
+
+
+def _paper_make(workers):
+    """The paper's conv + LSTM net (84 x 84 x 1 Catch frames), A3C, Hogwild
+    with Shared RMSProp, t_max 5."""
+    def make(dev, acts):
+        from repro_torch.core import agents, async_runner, prng
+        from repro_torch.envs import catch
+        from repro_torch.models import atari as nets
+        env = catch.make(84, 84)
+        params = nets.init_atari_params(prng.key(0), env.n_actions,
+                                        input_hw=84, in_channels=1,
+                                        lstm=True, device=dev)
+        cfg = async_runner.RunnerConfig(n_workers=workers, t_max=5,
+                                        lr0=7e-4, total_frames=10**9)
+        algo = agents.make_a3c()
+        init_state, round_fn = async_runner.make_runner(
+            _recording(algo, acts) if acts is not None else algo, env,
+            params, cfg, net_state0=nets.init_lstm_state(1, 256, dev))
+
+        def advance(st):
+            st, m = round_fn(st)
+            return st, m["loss"]
+        return init_state(prng.key(1)), advance, _rl_leaves(params)
+    return make
+
+
+def check_paper_loss():
+    """One A3C segment loss and its gradients at the paper's input, 84 x 84
+    x 4 frames (conv + LSTM), over 16 workers' trajectories of random
+    frames from a seed (one vmap of grad), card against CPU: each worker's
+    loss within rtol 1e-4 and each leaf's gradient within 1e-4 of its
+    largest |g| on the CPU (the card sums in another order)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import agents, async_runner, prng
+    from repro_torch.models import atari as nets
+    from repro_torch.models import model as M
+    rng = np.random.default_rng(0)
+    w, t = PAPER_WORKERS, 5
+    traj = {"obs": rng.random((w, t + 1, 84, 84, 4), dtype=np.float32),
+            "actions": rng.integers(0, 6, (w, t)),
+            "rewards": rng.standard_normal((w, t)).astype(np.float32),
+            "dones": rng.random((w, t)) < 0.1,
+            "net_state": tuple(0.1 * rng.standard_normal((w, 1, 256))
+                               .astype(np.float32) for _ in range(2))}
+    algo = agents.make_a3c()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = nets.init_atari_params(prng.key(0), 6, input_hw=84,
+                                        in_channels=4, lstm=True, device=dev)
+        tr = {k: tuple(torch.from_numpy(x).to(dev) for x in v)
+              if isinstance(v, tuple) else torch.from_numpy(v).to(dev)
+              for k, v in traj.items()}
+        grads, metrics = async_runner.worker_grads(
+            lambda p, x: algo.segment_loss(p, None, x), params, tr)
+        out[dev] = (metrics["loss"].cpu(),
+                    {k: g.cpu() for k, g in M.flatten(grads).items()})
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    if not torch.allclose(lg, lc, rtol=1e-4, atol=1e-6):
+        raise AssertionError(f"rl paper loss: {lg} on the card vs {lc}")
+    worst = 0.0
+    for k, want in gc.items():
+        err = float((gg[k] - want).abs().max())
+        scale = float(want.abs().max())
+        worst = max(worst, err / max(scale, 1e-30))
+        if err > 1e-4 * scale:
+            raise AssertionError(f"rl paper loss: grad {k} off by {err} "
+                                 f"(largest |g| {scale})")
+    print(f"check rl a3c segment loss 16 workers x 84x84x4 conv+lstm cuda vs "
+          f"cpu: losses rel_err {float(((lg - lc) / lc).abs().max()):.2e} "
+          f"(tol 1e-4), grads worst err/max|g| {worst:.2e} (tol 1e-4) ok")
+
+
+def run_paper_net():
+    """9b: the paper's net at full width on 16 workers: 3 rounds on the
+    card against the CPU, then 20 timed rounds and one profiled round."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
+    counts = _rl_check("paper conv+lstm 84x84 16 workers", _paper_make(
+        PAPER_WORKERS), RL_ROUNDS,
+        lambda leaves: RL_ROUNDS * PAPER_WORKERS * leaves)
+    check_paper_loss()
+    state, advance, leaves = _paper_make(PAPER_WORKERS)("cuda", None)
+    n = sum(t.numel() for t in M.flatten(state["params"]).values())
+    for _ in range(2):
+        state, _ = advance(state)                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    dispatch.reset_launch_counts()
+    for _ in range(PAPER_TIMED_ROUNDS):
+        t0 = time.perf_counter()
+        state, loss = advance(state)
+        float(loss)
+        walls.append(time.perf_counter() - t0)
+    timed = dispatch.launch_counts()
+    if timed["rmsprop"] != PAPER_TIMED_ROUNDS * PAPER_WORKERS * leaves:
+        raise AssertionError(f"rl paper net: {timed['rmsprop']} rmsprop "
+                             "launches in the timed rounds")
+    wall = statistics.median(walls)
+    frames = PAPER_WORKERS * 5
+    print("rl paper net (conv+lstm, 84x84x1 catch, 16 workers, t_max 5, "
+          "hogwild, shared rmsprop): " + json.dumps({
+              "parameters": n, "leaves": leaves,
+              "round_wall_s": walls, "round_wall_median_s": wall,
+              "round_wall_min_s": min(walls), "round_wall_max_s": max(walls),
+              "frames_per_s": frames / wall,
+              "peak_device_memory_gib":
+                  torch.cuda.max_memory_allocated() / 2**30,
+              "rmsprop_launches_per_round": timed["rmsprop"]
+              / PAPER_TIMED_ROUNDS}))
+
+    def one_round():
+        nonlocal state
+        state, loss = advance(state)
+        float(loss)
+    _profile("rl paper net round", one_round, wall_ms=wall * 1e3,
+             watch=("rmsprop",))
+    return counts
+
+
+def run_quickstart():
+    """9c: ``repro_torch.examples.quickstart``'s configuration (A3C, 8
+    workers, MLP hidden 64, lr 1e-2, 4001 rounds, Catch) on the card; its
+    final average return must beat 0.5, the bar of the example.  Then one
+    profiled round (its busy share against the mean round wall)."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.examples import quickstart
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    final, _, state = quickstart.train("cuda", log_every=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dispatch.launch_counts()
+    leaves = _rl_leaves(state["params"])
+    want = quickstart.ROUNDS * 8 * leaves
+    if counts["rmsprop"] != want:
+        raise AssertionError(f"rl quickstart: rmsprop launched "
+                             f"{counts['rmsprop']} times (want {want})")
+    print("rl quickstart on the card: " + json.dumps({
+        "rounds": quickstart.ROUNDS, "frames": state["frames"],
+        "wall_s": wall, "frames_per_s": state["frames"] / wall,
+        "round_ms": wall / quickstart.ROUNDS * 1e3,
+        "final_avg_return": final, "rmsprop_launches": counts["rmsprop"]}))
+    if not final > quickstart.PASS:
+        raise AssertionError(f"rl quickstart: final average return {final} "
+                             f"(must beat {quickstart.PASS})")
+    print(f"check rl quickstart learns: final average return {final:+.2f} > "
+          f"{quickstart.PASS} ok")
+    # where a round of the configuration goes: one profiled round of a
+    # fresh run, after two
+    from repro_torch.core import prng
+    init_state, round_fn = quickstart.build("cuda")
+    st = init_state(prng.key(1))
+
+    def one_round():
+        nonlocal st
+        st, m = round_fn(st)
+        float(m["loss"])
+    for _ in range(2):
+        one_round()
+    _profile("rl quickstart round", one_round,
+             wall_ms=wall / quickstart.ROUNDS * 1e3, watch=("rmsprop",))
+    return counts
+
+
+def check_delayed_sync():
+    """9d: T3 delayed sync, 2 groups, merge interval 3, 3 steps of reduced
+    Yi-6B in f32 on the card against the CPU (losses rtol 1e-4,
+    parameters rtol = atol = 1e-5); on the card the groups drift apart
+    before the merge and are identical at it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import delayed_sync, prng
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt_mod
+    cfg = get_config("yi-6b").reduced()
+    groups, h = 2, 3
+    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=128, global_batch=2,
+                         device="cpu")
+    batches = [[pipe.batch(k, i) for k in prng.split(prng.key(i), groups)]
+               for i in range(h)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = M.tree_map(lambda t: t.to(dev),
+                            M.init_params(cfg, 0, "cpu"))
+        opt = opt_mod.shared_rmsprop()
+        params_g = delayed_sync.replicate(params, groups)
+        state_g = [opt.init(p) for p in params_g]
+        step = delayed_sync.make_delayed_train_step(
+            cfg, opt, n_groups=groups, merge_interval=h, lr=1e-3)
+        losses, spreads = [], []
+        dispatch.reset_launch_counts()
+        for i in range(h):
+            b = [{k: v.to(dev) for k, v in bb.items()} for bb in batches[i]]
+            params_g, state_g, met = step(params_g, state_g, b, i)
+            losses.append(float(met["loss"]))
+            spreads.append(max(float((a - c).detach().abs().max())
+                               for a, c in zip(
+                                   M.flatten(params_g[0]).values(),
+                                   M.flatten(params_g[1]).values())))
+        counts = dispatch.launch_counts()
+        runs[dev] = (losses, spreads, [{k: v.detach().cpu() for k, v in
+                                        M.flatten(p).items()}
+                                       for p in params_g])
+    (lc, _, pc), (lg, sg, pg) = runs["cpu"], runs["cuda"]
+    if not (sg[0] > 0 and sg[1] > 0 and sg[2] == 0):
+        raise AssertionError(f"rl delayed_sync: group spreads {sg} (want > 0"
+                             ", > 0, == 0)")
+    for a, b in zip(lg, lc):
+        if abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError(f"rl delayed_sync: losses {lg} vs {lc}")
+    for g in range(groups):
+        for k, want in pc[g].items():
+            if not torch.allclose(pg[g][k], want, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"rl delayed_sync: group {g} {k} "
+                                     "differs on the card")
+    if counts["rmsprop"] <= 0:
+        raise AssertionError("rl delayed_sync: no rmsprop launch")
+    print(f"check rl delayed_sync reduced yi-6b f32 2 groups merge every 3, "
+          f"cuda vs cpu: losses {[round(x, 4) for x in lg]} (rtol 1e-4), "
+          f"params rtol=atol=1e-5, group spreads {sg} ok")
+    return counts
+
+
 def _shapes(record):
     """A kernel record and its timings at other shapes."""
-    return [record] + [record[k] for k in ("train_shape", "decode_shape")
+    return [record] + [record[k] for k in ("train_shape", "decode_shape",
+                                           "rl_fc_shape", "rl_small_shape")
                        if k in record]
 
 
@@ -1719,6 +2244,19 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase train_s {time.perf_counter() - t_phase:.1f}")
+
+    t_phase = time.perf_counter()
+    path_counts.update(check_rl_paths())
+    print(f"phase rl_paths_s {time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
+    path_counts["rl_paper_net"] = run_paper_net()
+    print(f"phase rl_paper_net_s {time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
+    path_counts["rl_quickstart"] = run_quickstart()
+    print(f"phase rl_quickstart_s {time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
+    path_counts["rl_delayed_sync"] = check_delayed_sync()
+    print(f"phase rl_delayed_sync_s {time.perf_counter() - t_phase:.1f}")
 
     by_op = {"rmsnorm_fwd": "rmsnorm",
              "flash_attention_append": "flash_append",

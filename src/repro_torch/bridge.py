@@ -4,7 +4,10 @@
 returns, with its leaves already turned into numpy arrays by the caller
 (the port never imports jax), and builds the port's parameters;
 ``opt_state_from_jax`` does the same for an optimizer state such as
-shared RMSProp's {"g": tree}, whose trees have the parameters' layout.  The JAX
+shared RMSProp's {"g": tree}, whose trees have the parameters' layout.
+``agent_params_from_jax`` and ``agent_opt_state_from_jax`` do it for the
+RL agents of ``repro.models.atari`` (nested dicts, conv weights HWIO, the
+layout the port keeps).  The JAX
 tree stacks the layers for ``lax.scan`` when the block cycle tiles the
 depth: ``params["layers"]`` is then a tuple with one entry per position in
 the cycle, each leaf carrying a leading ``n_cycles`` dimension
@@ -71,3 +74,27 @@ def _unstack(cfg: ModelConfig, tree: Any) -> Any:
         raise ValueError(f"{cfg.name}: {len(layers)} layers in the tree, "
                          f"config has {cfg.n_layers}")
     return dict(tree, layers=list(layers))
+
+
+def agent_params_from_jax(tree: Any, device=None) -> dict:
+    """A JAX agent's parameters (``init_atari_params`` or
+    ``init_mlp_agent_params``, numpy leaves) -> the port's, f32 on
+    ``device``.  Both keep conv weights HWIO and linear weights
+    (d_in, d_out), so no leaf is permuted."""
+    dev = resolve(device)
+    return M.tree_map(lambda a: torch.from_numpy(
+        np.array(a, dtype=np.float32, copy=True)).to(dev), dict(tree))
+
+
+def agent_opt_state_from_jax(state: Any, device=None, *,
+                             n_workers: int = 0):
+    """A JAX optimizer state of an agent ({"g": tree} or {"m": tree}) -> the
+    port's.  ``n_workers`` > 0 takes the runner's per-worker statistics,
+    stacked on a leading worker axis by its vmap, and returns one state a
+    worker, as the port's runner keeps them."""
+    if n_workers:
+        return [agent_opt_state_from_jax(M.tree_map(
+            lambda a, i=i: np.asarray(a)[i], dict(state)), device)
+            for i in range(n_workers)]
+    return {name: agent_params_from_jax(tree, device)
+            for name, tree in state.items()}

@@ -8,7 +8,9 @@ reference's tokens, batches and weights.
 A key is an int64 tensor of shape (..., 2) holding the two uint32 words of
 ``jax.random.key_data``, and ``bits`` returns uint32 values the same way;
 the hash itself runs on int32 bit patterns.  Everything is plain
-elementwise torch and runs on the device of the key tensor.
+elementwise torch and runs on the device of the key tensor; on the card
+a small draw's hash (the RL loop's per-step splits and draws) replays a
+CUDA graph of those ops.
 
 The counter layout of ``split`` and ``bits`` depends on jax's
 ``jax_threefry_partitionable`` flag (True from jax 0.5 on, False before).
@@ -47,6 +49,9 @@ _KS_PARITY = 0x1BD11BDA
 CHUNK = 1 << 24
 # draws of at most this many elements run on one CPU thread (see _serial)
 SERIAL_MAX = 1 << 20
+# hashes of at most this many elements run on the card as a CUDA graph
+# (see _hash)
+GRAPH_MAX = 1 << 16
 _F32 = torch.float32
 
 Shape = Union[int, Sequence[int]]
@@ -74,6 +79,54 @@ def _serial(t: torch.Tensor, numel: int):
         torch.set_num_threads(n)
 
 
+class MarginLog:
+    """The decision margins of the discrete draws made while it is open
+    (``margins()``): for each ``categorical`` the smallest top-2 gap of
+    noise plus logits, for each ``choice`` without replacement the gap
+    between the last chosen and the first unchosen score, and whatever a
+    caller adds with ``record_margin`` (the runners' greedy actions).  A
+    draw repeats on another device or framework wherever its margin is
+    far above the ~1e-6 by which the Gumbel noise differs (module
+    docstring), so identity checks are qualified by ``smallest``."""
+
+    def __init__(self):
+        self.gaps = []
+
+    def add(self, gap: torch.Tensor) -> None:
+        if gap.numel():
+            self.gaps.append(gap.detach().float().min().reshape(1))
+
+    def smallest(self) -> float:
+        if not self.gaps:
+            return math.inf
+        return float(torch.cat([g.cpu() for g in self.gaps]).min())
+
+
+_LOG = []
+
+
+@contextlib.contextmanager
+def margins():
+    """Collect the margins of the draws inside the block into a
+    ``MarginLog`` (nothing is collected, and nothing costs, outside)."""
+    log = MarginLog()
+    _LOG.append(log)
+    try:
+        yield log
+    finally:
+        _LOG.remove(log)
+
+
+def logging_margins() -> bool:
+    """True inside a ``margins()`` block."""
+    return bool(_LOG)
+
+
+def record_margin(gap: torch.Tensor) -> None:
+    for log in _LOG:
+        log.add(gap)
+
+
 def _i32(t: torch.Tensor) -> torch.Tensor:
     """The int32 bit pattern of uint32 values held in int64."""
     return (t & M32).to(torch.int32)
@@ -85,6 +138,50 @@ def _u32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _hash(k0, k1, x0, x1):
+    """Threefry-2x32 on int32 bit patterns that broadcast together.  A
+    small draw on the card replays a CUDA graph of ``_hash_ops`` captured
+    once for its shapes: the ~140 elementwise kernels of a hash become one
+    launch, where each would cost the host more than the card (the RL
+    loop splits and draws a few keys a worker every step)."""
+    shape = torch.broadcast_shapes(k0.shape, k1.shape, x0.shape, x1.shape)
+    if x0.is_cuda and math.prod(shape) <= GRAPH_MAX:
+        return _graphed_hash(k0, k1, x0, x1)
+    return _hash_ops(k0, k1, x0, x1)
+
+
+_GRAPHS = {}
+
+
+def _graphed_hash(*inputs):
+    """``_hash_ops`` by replaying the CUDA graph captured for these input
+    shapes on this device (captured at the first call, after one eager
+    warm-up on a side stream):
+    the inputs are copied into the graph's own buffers, and the outputs
+    copied out of them, since the next replay overwrites them."""
+    sig = (inputs[0].device,) + tuple(tuple(t.shape) for t in inputs)
+    entry = _GRAPHS.get(sig)
+    if entry is None:
+        static = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in inputs]
+        for dst, src in zip(static, inputs):
+            dst.copy_(src)
+        side = torch.cuda.Stream(device=static[0].device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _hash_ops(*static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = _hash_ops(*static)
+        entry = _GRAPHS[sig] = (graph, static, outs)
+    graph, static, outs = entry
+    for dst, src in zip(static, inputs):
+        dst.copy_(src)
+    graph.replay()
+    return outs[0].clone(), outs[1].clone()
+
+
+def _hash_ops(k0, k1, x0, x1):
     """Threefry-2x32 on int32 bit patterns that broadcast together: adds
     wrap at 2^32 and the right shift of each rotation is masked to a
     logical one.  Half the bytes and fewer operations than int64 words,
@@ -142,13 +239,15 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 
 def split(key: torch.Tensor, num: int = 2, *,
           partitionable: bool = True) -> torch.Tensor:
-    """``jax.random.split`` of one key (2,) into (num, 2)."""
+    """``jax.random.split`` of a key (2,) into (num, 2), or of a batch of
+    keys (..., 2) into (..., num, 2), as ``vmap(split)`` does."""
     i = torch.arange(num, dtype=torch.int64, device=key.device)
+    k0, k1 = key[..., 0, None], key[..., 1, None]
     if partitionable:
-        y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(i), i)
+        y0, y1 = threefry2x32(k0, k1, torch.zeros_like(i), i)
         return torch.stack([y0, y1], dim=-1)
-    y0, y1 = threefry2x32(key[0], key[1], i, i + num)
-    return torch.cat([y0, y1]).reshape(num, 2)
+    y0, y1 = threefry2x32(k0, k1, i, i + num)
+    return torch.cat([y0, y1], dim=-1).reshape(*key.shape[:-1], num, 2)
 
 
 def _bits32_at(key: torch.Tensor, idx: torch.Tensor, size: int,
@@ -179,7 +278,7 @@ def _bits32(key: torch.Tensor, shape: tuple,
     size = math.prod(shape)
     idx = torch.arange(size, dtype=torch.int64, device=key.device)
     return _bits32_at(key, idx, size, partitionable).reshape(
-        *key.shape[:-1], *shape)
+        tuple(key.shape[:-1]) + shape)
 
 
 def bits(key: torch.Tensor, shape: Shape, *,
@@ -255,23 +354,28 @@ def bernoulli(key: torch.Tensor, p: float, shape: Shape, *,
     return u < _f32(p).to(u.device)
 
 
-def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int, *,
+def randint(key: torch.Tensor, shape: Shape, minval, maxval, *,
             partitionable: bool = True) -> torch.Tensor:
     """``jax.random.randint`` for int32 bounds (jax's default int): two
     words a value from the keys of ``split(key)``, reduced into the span
-    as jax does.  int64 values in [minval, maxval)."""
+    as jax does.  int64 values in [minval, maxval): (key batch, *shape).
+    The bounds are ints, or integer tensors that broadcast against the
+    result (one bound a key: shape (K, 1, ...) for keys (K, 2)), as
+    ``vmap(randint)`` over traced bounds."""
     for v in (minval, maxval):
-        if not -2**31 <= int(v) < 2**31:
+        if isinstance(v, int) and not -2**31 <= v < 2**31:
             raise ValueError(f"randint bound {v} is not an int32")
-    k1, k2 = split(key, 2, partitionable=partitionable)
-    hi = bits(k1, shape, partitionable=partitionable)
-    lo = bits(k2, shape, partitionable=partitionable)
-    span = (maxval - minval) & M32 if maxval > minval else 1
+    lo = torch.as_tensor(minval, dtype=torch.int64, device=key.device)
+    hi_b = torch.as_tensor(maxval, dtype=torch.int64, device=key.device)
+    k = split(key, 2, partitionable=partitionable)
+    hi = bits(k[..., 0, :], shape, partitionable=partitionable)
+    lo_bits = bits(k[..., 1, :], shape, partitionable=partitionable)
+    span = torch.where(hi_b > lo, (hi_b - lo) & M32, torch.ones_like(hi_b))
     # uint32 arithmetic: the squares, the product and the sum wrap at 2^32
     mult = ((((1 << 16) % span) ** 2) & M32) % span
     off = ((hi % span) * mult) & M32
-    off = ((off + lo % span) & M32) % span
-    return off + minval
+    off = ((off + lo_bits % span) & M32) % span
+    return off + lo
 
 
 def gumbel(key: torch.Tensor, shape: Shape, *,
@@ -291,8 +395,48 @@ def categorical(key: torch.Tensor, logits: torch.Tensor, *,
     (B, V), as ``vmap(categorical)`` does."""
     logits = logits.float()
     shape = logits.shape if key.dim() == 1 else logits.shape[key.dim() - 1:]
-    noise = gumbel(key, shape, partitionable=partitionable)
-    return torch.argmax(noise + logits, dim=-1)
+    scores = gumbel(key, shape, partitionable=partitionable) + logits
+    if _LOG and scores.shape[-1] > 1:
+        top = torch.topk(scores, 2, dim=-1).values
+        record_margin(top[..., 0] - top[..., 1])
+    return torch.argmax(scores, dim=-1)
+
+
+def normal(key: torch.Tensor, shape: Shape, *,
+           partitionable: bool = True) -> torch.Tensor:
+    """``jax.random.normal`` in f32 (``_normal_real``): sqrt(2) *
+    erfinv(uniform(nextafter(-1, 0), 1)), (key batch, *shape).  Within the
+    few ulps of ``erfinv``."""
+    u = uniform(key, shape, float(_nextafter(-1.0, 0.0)), 1.0,
+                partitionable=partitionable)
+    return _f32(math.sqrt(2.0)).to(u.device) * erfinv(u)
+
+
+def choice(key: torch.Tensor, n: int, shape: Shape, *, replace: bool = True,
+           p: torch.Tensor, partitionable: bool = True) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace, p)`` with probabilities
+    ``p`` (n,) (f32), the two arms of jax's: with replacement, the
+    searchsorted (side left) of cumsum(p)[-1] * (1 - uniform) in cumsum(p);
+    without, the top ``prod(shape)`` of gumbel(key, (n,)) + log p (lax's
+    top_k: ties go to the lower index, and log 0 = -inf sorts last).
+    A batch of keys (K, 2) with ``p`` (K, n) draws one row per key, as
+    ``vmap(choice)``.  int64 indices, (key batch, *shape)."""
+    shape = _shape(shape)
+    p = p.float()
+    batch = key.shape[:-1]
+    if replace:
+        cum = torch.cumsum(p, dim=-1)
+        u = uniform(key, shape, partitionable=partitionable)
+        r = cum[..., -1:] * (1.0 - u.reshape(*batch, -1))
+        return torch.searchsorted(cum.expand(*batch, n).contiguous(),
+                                  r.contiguous()).reshape(tuple(batch)
+                                                          + shape)
+    k = math.prod(shape)
+    g = gumbel(key, (n,), partitionable=partitionable) + torch.log(p)
+    srt = torch.sort(g, dim=-1, descending=True, stable=True)
+    if _LOG and k < n:
+        record_margin(srt.values[..., k - 1] - srt.values[..., k])
+    return srt.indices[..., :k].reshape(tuple(batch) + shape)
 
 
 def _nextafter(x: float, toward: float) -> torch.Tensor:

@@ -1,13 +1,18 @@
 """Training entry point of the port, as ``repro/launch/train.py``.
 
+  * ``--mode rl``  — the paper's experiments: asynchronous
+    actor-learners (T1 Hogwild or T2 sync) with one of the four
+    algorithms on a batched environment and the MLP agent; on one
+    ``--seed`` the same environments, actions and initial weights as the
+    JAX CLI.
   * ``--mode llm`` — A3C token-level training of a (reduced or full)
     backbone on the synthetic TokenMDP pipeline, on one device.
-  * ``--mode rl``  — the paper's asynchronous actor-learners; not ported
-    yet (ROADMAP.md, queue 1, slice 4) and raises.
 
 ``--device`` defaults to the card (``cuda``); ``--device cpu`` runs the
 kernels' plain versions on the CPU.
 
+  PYTHONPATH=src python -m repro_torch.launch.train --mode rl --env catch \\
+      --algo a3c --workers 8 --frames 200000
   PYTHONPATH=src python -m repro_torch.launch.train --mode llm \\
       --arch yi-6b --reduced --steps 3 --seq 128 --batch 2 --device cpu
 """
@@ -17,7 +22,55 @@ import argparse
 import json
 import time
 
-_RL_ITEM = "see ROADMAP.md, queue 1, slice 4: the paper's RL loop"
+
+def build_rl(args):
+    """The CLI's RL run from its arguments: (algo, env, initial parameters
+    on ``args.device``, RunnerConfig), as the JAX CLI builds them."""
+    from repro_torch.core import agents, async_runner, prng
+    from repro_torch.device import resolve
+    from repro_torch.envs import make
+    from repro_torch.envs.api import flatten_obs
+    from repro_torch.models import atari as nets
+
+    env = make(args.env)
+    if len(env.obs_shape) > 1:
+        env = flatten_obs(env)
+    algo = agents.ALGORITHMS[args.algo](
+        **({"continuous": True} if env.continuous else {}))
+    params = nets.init_mlp_agent_params(
+        prng.key(args.seed), env.obs_shape[0], env.n_actions,
+        hidden=args.hidden, continuous=env.continuous,
+        device=resolve(args.device))
+    cfg = async_runner.RunnerConfig(
+        n_workers=args.workers, t_max=args.t_max, lr0=args.lr,
+        total_frames=args.frames, mode=args.runner_mode,
+        optimizer=args.optimizer, shared_stats=not args.per_worker_stats,
+        target_interval=args.target_interval)
+    return algo, env, params, cfg
+
+
+def run_rl(args) -> dict:
+    from repro_torch.core import async_runner, prng
+
+    algo, env, params, cfg = build_rl(args)
+    init_state, round_fn = async_runner.make_runner(algo, env, params, cfg)
+    st = init_state(prng.key(args.seed + 1))
+    history = []
+    t0 = time.time()
+    rounds = args.frames // (cfg.n_workers * cfg.t_max)
+    for i in range(rounds):
+        st, m = round_fn(st)
+        if i % max(1, rounds // 20) == 0 or i == rounds - 1:
+            rec = {"round": i, "frames": st["frames"],
+                   "ep_ret": float(m["ep_ret"]), "loss": float(m["loss"]),
+                   "wall_s": round(time.time() - t0, 1)}
+            history.append(rec)
+            print(json.dumps(rec), flush=True)
+    if args.checkpoint:
+        from repro_torch import checkpoint
+        checkpoint.save(args.checkpoint, st["params"])
+        print(f"saved params to {args.checkpoint}")
+    return {"history": history, "final_ep_ret": history[-1]["ep_ret"]}
 
 
 def run_llm(args) -> dict:
@@ -61,7 +114,7 @@ def run_llm(args) -> dict:
     return {"history": history}
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["rl", "llm"], default="rl")
     ap.add_argument("--seed", type=int, default=0)
@@ -71,15 +124,32 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=7e-3)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card, default) or cpu (plain versions)")
+    # rl
+    ap.add_argument("--env", default="catch")
+    ap.add_argument("--algo", default="a3c",
+                    choices=["a3c", "one_step_q", "one_step_sarsa",
+                             "n_step_q"])
+    ap.add_argument("--workers", type=int, default=8)
+    ap.add_argument("--t-max", type=int, default=5)
+    ap.add_argument("--frames", type=int, default=100_000)
+    ap.add_argument("--hidden", type=int, default=64)
+    ap.add_argument("--runner-mode", default="hogwild",
+                    choices=["hogwild", "sync"])
+    ap.add_argument("--per-worker-stats", action="store_true")
+    ap.add_argument("--target-interval", type=int, default=2_000)
     # llm
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if args.mode == "rl":
-        raise NotImplementedError(f"--mode rl is not ported yet ({_RL_ITEM})")
+        return run_rl(args)
     return run_llm(args)
 
 

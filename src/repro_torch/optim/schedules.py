@@ -15,6 +15,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core import prng
+
 _F = np.float32
 
 
@@ -23,11 +25,15 @@ def linear_anneal(lr0: float, step, total_steps) -> float:
     return float(_F(lr0) * frac)
 
 
-def log_uniform(gen: torch.Generator, lo: float = 1e-4, hi: float = 1e-2,
-                shape=()) -> torch.Tensor:
-    """exp(U(log lo, log hi)), drawn from ``gen`` on its device."""
-    u = torch.rand(shape, generator=gen, device=gen.device)
-    return torch.exp(math.log(lo) + u * (math.log(hi) - math.log(lo)))
+def log_uniform(key: torch.Tensor, lo: float = 1e-4, hi: float = 1e-2,
+                shape=(), *, partitionable: bool = True) -> torch.Tensor:
+    """exp(log lo + u * (log hi - log lo)) in f32, u = ``prng.uniform(key,
+    shape)``: the JAX package's draw from ``jax.random.uniform(key)``, on
+    the key's device."""
+    u = prng.uniform(key, shape, partitionable=partitionable)
+    log_lo = torch.tensor(_F(math.log(lo)), device=u.device)
+    log_hi = torch.tensor(_F(math.log(hi)), device=u.device)
+    return torch.exp(log_lo + u * (log_hi - log_lo))
 
 
 def wsd(lr0: float, step, total_steps, *, warmup_frac: float = 0.01,

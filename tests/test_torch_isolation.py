@@ -104,8 +104,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_learner_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
-    """make_train_step's inputs (parameters, batches) and the train CLI
-    resolve no device to the card, and raise without one."""
+    """make_train_step's inputs (parameters, batches) and the train CLI,
+    in both its modes, resolve no device to the card, and raise without
+    one."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.launch import train
@@ -120,8 +121,8 @@ def test_learner_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--mode", "llm", "--arch", "yi-6b", "--reduced",
                     "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        train.main(["--mode", "rl", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--mode", "rl", "--frames", "40"])
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

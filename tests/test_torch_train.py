@@ -249,10 +249,30 @@ def test_schedules_match_jax():
         np.testing.assert_allclose(
             schedules.wsd(1e-2, step, 100),
             float(jax_sched.wsd(1e-2, jnp.float32(step), 100)), rtol=1e-6)
-    gen = torch.Generator().manual_seed(0)
-    lrs = schedules.log_uniform(gen, shape=(1000,))
-    assert float(lrs.min()) >= 1e-4 and float(lrs.max()) <= 1e-2
+    _assert_log_uniform_matches_jax(0)
     assert set(schedules.SCHEDULES) == set(jax_sched.SCHEDULES)
+
+
+def _assert_log_uniform_matches_jax(seed):
+    """The per-experiment lr draw (paper §5.1) from one key: within 1 f32
+    ulp of jax's (the uniform is exact; torch's exp and XLA's differ in
+    the last place on about a tenth of the values), and inside
+    [1e-4, 1e-2]."""
+    got = schedules.log_uniform(prng.key(seed), shape=(1000,)).numpy()
+    want = np.asarray(jax_sched.log_uniform(jax.random.key(seed),
+                                            shape=(1000,)))
+    ulps = np.abs(got.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 1, ulps.max()
+    assert got.min() >= 1e-4 and got.max() <= 1e-2
+    one = schedules.log_uniform(prng.key(seed))
+    assert one.shape == () and abs(float(one) - float(
+        jax_sched.log_uniform(jax.random.key(seed)))) <= 1e-9
+
+
+@pytest.mark.parametrize("seed", (1, 7, 2**31 - 1))
+def test_log_uniform_matches_jax(seed):
+    _assert_log_uniform_matches_jax(seed)
 
 
 # ---------------------------------------------------------------------------
