@@ -15,7 +15,9 @@ Phases (any failure raises and the script exits non-zero):
      sliding window, a ring layout, ragged tiles), with f32/bf16 and with
      int8 caches (per-row f32 scales); the append kernel's bf16
      (tensor-core) arm and its f32 (SIMT) arm each over every edge case,
-     each case checked to launch its own arm; the decode kernel with its
+     and its int8 arms (bf16 q on the tensor cores, f32 q on the SIMT
+     body) over the int8 cases, each case checked to launch its own arm;
+     the decode kernel with its
      key range forced into 1 and 2 splits and split_plan's, against the
      plain decode and against the plain model of its split-and-skip
      algorithm (``ref.decode_split_ref``), including a case whose last
@@ -30,14 +32,19 @@ Phases (any failure raises and the script exits non-zero):
      45M-element leaf) and at edge cases (f32, a window, causal=False, a
      ragged S, G = 1, ragged row and element counts; the flash kernels'
      bf16 tensor-core arms also at a ragged S with D = 64 and at a window
-     of 16 keys).  f32 within rtol =
-     atol = 1e-5; bf16 within two bf16 ulps (rtol = 2**-6) and atol = 1e-5;
-     sums over rows or keys (dscale, dq, dk, dv, the partials' acc) with an
-     added atol of 2**-14 times the same sum taken over absolute values
+     of 16 keys); the RMSProp kernel's one-leaf update, and its multi-leaf
+     update and apply modes over the paper net's 13 leaves and a 148-leaf
+     table of the train step's leaves, against the plain version and bit
+     for bit against the one-leaf kernel followed by p.sub_(update).
+     f32 within rtol = atol = 1e-5; bf16 within two bf16 ulps (rtol = 2**-6)
+     and atol = 1e-5; sums over rows or keys (dscale, dq, dk, dv, the
+     partials' acc) with an added atol of 2**-14 times the same sum taken
+     over absolute values
      (the f32 summation-order bound, see SUM_ABS_TOL); the bf16 flash arms,
      which round p and ds to bf16 as the TPU kernels do, with a further
      ref.ROUND_TOL (2**-8) times the sum over absolute terms of what they
-     round (ref.flash_round_scale; the append arm's ref.append_round_scale),
+     round (ref.flash_round_scale; the append arm's ref.append_round_scale;
+     not the int8 arms, which keep p in f32 as the reference does),
      lse held to 1e-5; the rmsnorm wrapper
      must refuse rows it cannot move in 16-byte chunks;
   3b. jax.random's threefry (``core/prng.py``) on the card against the
@@ -52,8 +59,12 @@ Phases (any failure raises and the script exits non-zero):
      before each call) beside the least time the card could take for the
      work, and the ratios of the kernel's time to both (x_bound,
      x_library); the rmsnorm forward at the prefill, train and decode
-     shapes; rmsprop also at the RL path's leaves (the paper net's FC,
-     2592 x 256, and a 256 x 3 policy matrix);
+     shapes; the decode and partials kernels' f32 arms beside their bf16
+     ones; rmsprop's apply mode over the paper net's 13 leaves (one
+     worker update) and the train step's 148 leaves at full size, its
+     one-leaf update at the MLP matrix (beside the apply mode and the
+     update followed by p.sub_ there) and at the RL path's leaves (the
+     paper net's FC, 2592 x 256, and a 256 x 3 policy matrix);
   5. the port's reduced model in f32 on the card against the same model
      on the CPU (a counted path: the append kernel's f32 SIMT arm), then
      ``run_engine`` on Yi-6B at full width and depth (bf16 weights from a
@@ -66,7 +77,8 @@ Phases (any failure raises and the script exits non-zero):
   6. a torch.profiler trace of one admission and of eight decode steps of
      that engine: wall time, device busy share and the top kernels;
   6a. the same trace with int8 KV (replicated): the int8 arms of the
-     append and decode kernels, and no other attention arm;
+     append (on the tensor cores, 736 launches) and decode kernels, and no
+     other attention arm;
   6b. the context-parallel path: the same trace through ``run_engine``
      with int8 KV and ``decode_cp[1]`` over a one-rank NCCL group (a
      ``file://`` store): its report says ``decode_cp[1]``, and it launched
@@ -76,8 +88,9 @@ Phases (any failure raises and the script exits non-zero):
   6c. reduced Yi-6B on the card, greedy: the engine under ``decode_cp[1]``
      emits the tokens of the engine without it, with int8 and bf16 KV;
      each of the four runs checked for its layout and kernels as above
-     (its f32 activations take the append kernel's SIMT arm over a bf16
-     cache);
+     (its f32 activations take the append kernel's SIMT arms: the float
+     arm over a bf16 cache, the int8 arm counted as
+     ``flash_append_int8_f32`` over an int8 one);
   6d. reduced Yi-6B in f32, sampled: the engine on the card emits the
      engine on the CPU's tokens, margin-qualified (the smallest top-2 gap
      of logits plus Gumbel noise along the streams at least 1e-3);
@@ -90,15 +103,17 @@ Phases (any failure raises and the script exits non-zero):
      gradient finite, every parameter leaf changed and every training
      kernel launched, the flash kernels through their bf16 (tensor-core)
      arms only: 2 forward launches (the forward and its remat) and one
-     backward a layer and step;
+     backward a layer and step; the optimizer's apply mode 3 times a step
+     (148 leaves, 64 a launch) and its other entries never;
   9. the paper's asynchronous RL loop (``core/async_runner.py`` and its
      environments, networks and algorithms), each run on the card against
      the same run on the CPU: actions identical where every decision
      margin exceeds 1e-5 (continuous actions within 1e-5), losses within
      rtol 1e-4, parameters within rtol = atol = 1e-5, and Shared RMSProp
-     (``rmsprop_update``, one launch a leaf and worker update) launched
-     exactly rounds x workers x leaves times on a Hogwild path and
-     rounds x leaves on a sync path, and no other kernel:
+     (``rmsprop_apply_multi``, one launch an update over all its leaves,
+     the subtraction fused) launched exactly rounds x workers times on a
+     Hogwild path and once a round on a sync path, the one-leaf and
+     update-mode entries never, and no other kernel:
      9a. the train CLI's ``--mode rl`` runs (8 workers, the MLP agent at
      hidden 64, 3 rounds): the four algorithms in Hogwild with shared
      statistics, A3C in sync mode, with per-worker statistics, on
@@ -109,7 +124,7 @@ Phases (any failure raises and the script exits non-zero):
      9b. the paper's conv + LSTM network at full width (1,199,412
      parameters in 13 leaves) on 84 x 84 Catch frames, 16 workers, t_max 5,
      Hogwild with Shared RMSProp: 3 rounds against the CPU, then 20 timed
-     rounds (round wall, frames/s, peak memory, 208 rmsprop launches a
+     rounds (round wall, frames/s, peak memory, 16 rmsprop launches a
      round) and one profiled round; and one A3C segment loss with its
      gradients at 84 x 84 x 4 on 16 workers' random frames (losses rtol
      1e-4, gradients within 1e-4 of each leaf's largest);
@@ -117,7 +132,7 @@ Phases (any failure raises and the script exits non-zero):
      average return must beat 0.5; then one profiled round;
      9d. T3 delayed sync, 2 groups merged every 3 steps, 3 steps of reduced
      Yi-6B in f32 against the CPU: the groups drift, then agree at the
-     merge.
+     merge; one rmsprop launch a group and step.
 
 Every kernel and arm must have been launched on one of the main paths
 (phase 5's reduced model and engines, 6a, 6b, each of the four runs of 6c,
@@ -171,14 +186,15 @@ def _tol(dtype):
     return F32_TOL if dtype == torch.float32 else BF16_TOL
 
 
-def _compare(what, got, want, sum_abs=None, round_abs=None):
+def _compare(what, got, want, sum_abs=None, round_abs=None, echo=True):
     """Max abs error of got vs want; raises where any element is beyond
     atol + rtol * |want| for the output's dtype.  ``sum_abs``, for an
     output that is a sum (over rows, keys or heads), is the same sum taken
     over the absolute values of its terms: SUM_ABS_TOL * sum_abs is added
     to each element's tolerance (see SUM_ABS_TOL).  ``round_abs``, for an
     output of a bf16 flash arm, is the sum over absolute terms whose
-    factors that arm rounds to bf16: ROUND_TOL * round_abs is added too."""
+    factors that arm rounds to bf16: ROUND_TOL * round_abs is added too.
+    ``echo=False`` prints a line only where the check fails."""
     import torch
 
     from repro_torch.kernels.ref import ROUND_TOL
@@ -196,13 +212,14 @@ def _compare(what, got, want, sum_abs=None, round_abs=None):
     # worst element's share of its own tolerance (<= 1 passes)
     use = float((diff / tol).max())
     ok = use <= 1.0
-    rms = float(want.square().mean().sqrt())
-    extra = f" +{SUM_ABS_TOL:g}*sum|terms|" if sum_abs is not None else ""
-    if round_abs is not None:
-        extra += f" +{ROUND_TOL:g}*sum|rounded terms|"
-    print(f"check {what}: max_abs_err={err:.3e} rtol={rtol:g} atol={atol:g}"
-          f"{extra} worst_err/tol={use:.3f} rms_want={rms:.3e} "
-          f"{'ok' if ok else 'FAIL'}")
+    if echo or not ok:
+        rms = float(want.square().mean().sqrt())
+        extra = f" +{SUM_ABS_TOL:g}*sum|terms|" if sum_abs is not None else ""
+        if round_abs is not None:
+            extra += f" +{ROUND_TOL:g}*sum|rounded terms|"
+        print(f"check {what}: max_abs_err={err:.3e} rtol={rtol:g} "
+              f"atol={atol:g}{extra} worst_err/tol={use:.3f} "
+              f"rms_want={rms:.3e} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{what}: error {use:.3f}x its tolerance "
                              f"(max abs error {err})")
@@ -411,6 +428,21 @@ def check_decode(gen, flush):
     # the plan's: what the split buys
     split_ms = {n: _time_ms(lambda: decode_attention_cuda.decode_attention_fwd(
         q, k, v, kpos, pos, n_split=n), flush) for n in (1, 2, 4, 8, 16)}
+    # the f32 arm (f32 q over an f32 cache: the reduced f32 model's path)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    f32_bytes = (2 * valid_rows * hkv * d * 4 + 2 * qf.numel() * 4
+                 + kpos.numel() * 4 + b * 4)
+    f32_shape = {
+        "ms": _time_ms(lambda: decode_attention_cuda.decode_attention_fwd(
+            qf, kf, vf, kpos, pos), flush),
+        "plain_ms": _time_ms(lambda: ref.decode_attention_ref(
+            qf, kf, vf, kpos, pos), flush),
+        "bound_ms": f32_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            qt.float(), kt.float(), vt.float(), attn_mask=mask,
+            enable_gqa=True), flush),
+        "shape": f"q ({b}, {hq}, {d}) f32, cache ({b}, {length}, {hkv}, "
+                 f"{d}) f32, pos {pos.tolist()}, valid rows {valid_rows}"}
     return {
         "name": "decode_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -426,7 +458,7 @@ def check_decode(gen, flush):
         "shape": f"q ({b}, {hq}, {d}) bf16, cache ({b}, {length}, {hkv}, "
                  f"{d}) bf16, pos {pos.tolist()}, valid rows {valid_rows}, "
                  f"(n_split, tiles a split) {n_split}",
-        "split_ms": split_ms,
+        "split_ms": split_ms, "f32_shape": f32_shape,
     }
 
 
@@ -455,9 +487,9 @@ def _append_inputs(gen, b, c, hq, hkv, d, pos0, dt, *, ring=None):
 def _append_arm(q, k):
     """The counter of the append arm these inputs take."""
     import torch
-    if k.dtype == torch.int8:
-        return "int8_launches"
     bf = torch.bfloat16
+    if k.dtype == torch.int8:
+        return "int8_launches" if q.dtype == bf else "int8_f32_launches"
     return "launches" if q.dtype == bf and k.dtype == bf else "f32_launches"
 
 
@@ -652,13 +684,17 @@ def check_decode_int8(gen, flush):
 
 
 def check_append_int8(gen, flush):
-    """Kernel 4's int8 arm: the key stream int8 with (B, Sk, Hkv, 1) f32
-    scales, as attend_prefill passes an int8 cache prefix + chunk."""
+    """Kernel 4's two int8 arms, the key stream int8 with (B, Sk, Hkv, 1)
+    f32 scales as attend_prefill passes an int8 cache prefix + chunk: a
+    bf16 q on the tensor cores (p times the v scales as bf16 hi + lo) and
+    an f32 q on the SIMT body, both at the int8 tolerance (the output
+    dtype's, no rounding term); each case must launch its own arm.
+    Returns the records of the tensor-core and the SIMT arm."""
     import torch
 
     from repro_torch.kernels import flash_append_cuda, kv_quant, ref
     bf, f32 = torch.bfloat16, torch.float32
-    errs = []
+    errs = {bf: [], f32: []}
     cases = [
         ("Yi pos0=0", 4, 128, 32, 4, 128, 0, bf, None, None, True, False),
         ("Yi pos0=512", 4, 128, 32, 4, 128, 512, bf, None, None, True, False),
@@ -672,6 +708,13 @@ def check_append_int8(gen, flush):
          True),
         ("ragged C=100 pos0=37 D=64", 3, 100, 8, 2, 64, 37, f32, None, None,
          True, False),
+        ("fully masked row bf16", 2, 128, 8, 4, 128, 128, bf, None, None,
+         False, True),
+        ("ragged C=100 pos0=37 D=64 bf16", 3, 100, 8, 2, 64, 37, bf, None,
+         None, True, False),
+        # at most 16 keys a query: a key dropped or added, or p times the v
+        # scale rounded once to bf16, moves outputs beyond the tolerance
+        ("window=16", 2, 128, 32, 4, 128, 512, bf, 16, None, True, False),
     ]
 
     def inputs(b, c, hq, hkv, d, pos0, dt, ring):
@@ -684,42 +727,58 @@ def check_append_int8(gen, flush):
         q, k, v, ks, vs, kpos = inputs(b, c, hq, hkv, d, pos0, dt, ring)
         if mrow:
             kpos[1] = -1
-        errs.append(_compare(
+        arm = _append_arm(q, k)
+        before = getattr(flash_append_cuda, arm)
+        got = flash_append_cuda.flash_attention_append(
+            q, k, v, kpos, pos0=pos0, window=window, kpos_linear=linear,
+            k_scale=ks, v_scale=vs)
+        if getattr(flash_append_cuda, arm) != before + 1:
+            raise AssertionError(f"append int8 {label}: arm {arm} not "
+                                 "launched")
+        errs[dt].append(_compare(
             f"append int8 {label} B={b} C={c} Sk={k.shape[1]} Hq={hq} "
-            f"Hkv={hkv} D={d} {dt}",
-            flash_append_cuda.flash_attention_append(
-                q, k, v, kpos, pos0=pos0, window=window, kpos_linear=linear,
-                k_scale=ks, v_scale=vs),
+            f"Hkv={hkv} D={d} {dt} ({arm})", got,
             ref.flash_attention_append_quant_ref(q, k, v, ks, vs, kpos,
                                                  pos0=pos0, window=window)))
 
-    b, c, hq, hkv, d, pos0 = 4, 128, 32, 4, 128, 512
-    q, k, v, ks, vs, kpos = inputs(b, c, hq, hkv, d, pos0, bf, None)
-    sk = k.shape[1]
-    qpos = pos0 + torch.arange(c, device="cuda")
-    valid = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[None, :, None])
-    live_pairs = int(valid.sum())
-    # q in and out in bf16, K and V one byte an element, a scale per row
-    nbytes = (2 * q.numel() * 2 + 2 * k.numel() + 2 * ks.numel() * 4
-              + kpos.numel() * 4)
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = 4 * hq * d * live_pairs / BF16_FLOPS * 1e3
-    return {
-        "name": "flash_attention_append_int8", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_append.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:264",
-        "max_abs_err": max(errs),
-        "ms": _time_ms(lambda: flash_append_cuda.flash_attention_append(
-            q, k, v, kpos, pos0=pos0, kpos_linear=True, k_scale=ks,
-            v_scale=vs), flush),
-        "plain_ms": _time_ms(lambda: ref.flash_attention_append_quant_ref(
-            q, k, v, ks, vs, kpos, pos0=pos0), flush),
-        "bound_ms": max(by_bytes, by_ops),
-        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
-        "library_ms": None, "library_note": NO_INT8_LIBRARY,
-        "shape": f"q ({b}, {c}, {hq}, {d}) bf16, k/v ({b}, {sk}, {hkv}, "
-                 f"{d}) int8 + scales, pos0={pos0}, live pairs {live_pairs}",
-    }
+    def record(dt):
+        b, c, hq, hkv, d, pos0 = 4, 128, 32, 4, 128, 512
+        q, k, v, ks, vs, kpos = inputs(b, c, hq, hkv, d, pos0, dt, None)
+        sk = k.shape[1]
+        qpos = pos0 + torch.arange(c, device="cuda")
+        valid = (kpos[:, None, :] >= 0) & \
+            (kpos[:, None, :] <= qpos[None, :, None])
+        live_pairs = int(valid.sum())
+        # q in and out, K and V one byte an element, a scale per row
+        nbytes = (2 * q.numel() * q.element_size() + 2 * k.numel()
+                  + 2 * ks.numel() * 4 + kpos.numel() * 4)
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = 4 * hq * d * live_pairs / (
+            BF16_FLOPS if dt == bf else F32_FLOPS) * 1e3
+        return {
+            "name": "flash_attention_append_int8" + (
+                "" if dt == bf else "_f32"), "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_append.cu" + (
+                " + src/repro_torch/csrc/flash_mma_fwd.cuh" if dt == bf
+                else ""),
+            "replaces": "src/repro/kernels/flash_attention.py:264",
+            "max_abs_err": max(errs[dt]),
+            "ms": _time_ms(lambda: flash_append_cuda.flash_attention_append(
+                q, k, v, kpos, pos0=pos0, kpos_linear=True, k_scale=ks,
+                v_scale=vs), flush),
+            "plain_ms": _time_ms(
+                lambda: ref.flash_attention_append_quant_ref(
+                    q, k, v, ks, vs, kpos, pos0=pos0), flush),
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "library_ms": None, "library_note": NO_INT8_LIBRARY,
+            "shape": f"q ({b}, {c}, {hq}, {d}) {dt}, k/v ({b}, {sk}, {hkv}, "
+                     f"{d}) int8 + scales, pos0={pos0}, live pairs "
+                     f"{live_pairs}, "
+                     + ("tensor cores" if dt == bf else "SIMT"),
+        }
+
+    return [record(bf), record(f32)]
 
 
 def check_partials(gen, flush):
@@ -813,6 +872,21 @@ def check_partials(gen, flush):
                      f"{'int8 + scales' if ks is not None else 'bf16'}, "
                      f"pos {pos.tolist()}, valid rows {valid_rows}",
         })
+    # the float record's f32 arm (f32 q over an f32 cache)
+    q, k, v, _, _, kpos, pos = _decode_cache(
+        gen, b, hq, hkv, d, length, f32, f32, [100, 400, 700, 1000])
+    valid_rows = int(((kpos >= 0) & (kpos <= pos[:, None])).sum())
+    nbytes = _decode_bytes(q, k, None, kpos, valid_rows, b * hq * (d + 2) * 4)
+    records[0]["f32_shape"] = {
+        "ms": _time_ms(lambda: decode_attention_cuda
+                       .decode_attention_partials(q, k, v, kpos, pos), flush),
+        "plain_ms": _time_ms(lambda: ref.decode_attention_partials_ref(
+            q, k, v, kpos, pos), flush),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "library_note": NO_PARTIALS_LIBRARY,
+        "shape": f"q ({b}, {hq}, {d}) f32, one slice: cache ({b}, {length}, "
+                 f"{hkv}, {d}) f32, pos {pos.tolist()}, valid rows "
+                 f"{valid_rows}"}
     return records
 
 
@@ -1067,10 +1141,56 @@ def check_flash_bwd(gen, flush):
     return records
 
 
+def _train_table_sizes(cut=1):
+    """The 148 leaves of phase 8's train step (Yi-6B at full width x 16
+    layers, 3,292,667,904 parameters), each cut to n // cut elements plus a
+    ragged 0..6."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=16)
+    return [math.prod(shape) // cut + (i % 7 if cut > 1 else 0)
+            for i, shape in enumerate(M.flatten(M._shape_tree(cfg)).values())]
+
+
+def _rl_table_sizes():
+    """The 13 leaves of the paper's conv + LSTM net at 84 x 84 (phase 9b)."""
+    from repro_torch.core import prng
+    from repro_torch.models import atari as nets
+    from repro_torch.models import model as M
+    params = nets.init_atari_params(prng.key(0), 3, input_hw=84,
+                                    in_channels=1, lstm=True, device="cpu")
+    return [t.numel() for t in M.flatten(params).values()]
+
+
+def _rmsprop_apply_plain(ps, gs, grads, lr):
+    """The plain version of the apply mode: Eq. 8-9 and p - update, leaf by
+    leaf, in place."""
+    from repro_torch.kernels import ref
+    for p, g, d in zip(ps, gs, grads):
+        new_g, upd = ref.rmsprop_update_ref(g, d, lr=lr)
+        g.copy_(new_g)
+        p.sub_(upd)
+
+
 def check_rmsprop(gen, flush):
+    """Kernel 8 in its two modes.  One leaf (update mode) against the plain
+    version at the train shape's MLP matrix, ragged counts and the RL
+    leaves; the multi-leaf update and apply modes against the plain
+    version over the paper net's 13 leaves and a 148-leaf table of the
+    train step's leaves (each cut 256-fold, plus 0..6), and bit for bit
+    (torch.equal) against the one-leaf kernel followed by a separate
+    p.sub_(update); the launches each call counts.  Then the apply mode
+    at the MLP matrix, over the paper net's leaves (the RL path's update)
+    and over the train step's 148 leaves at full size: one call each held
+    leaf by leaf against the plain version and its launches counted, then
+    timed; the one-leaf update timed at the MLP matrix and the RL leaves,
+    and the update and its subtraction at the MLP matrix."""
     import torch
 
     from repro_torch.kernels import ref, rmsprop_cuda
+    lr = 7e-3
     errs = []
     # one MLP matrix of Yi-6B (4096 x 11008), one element, a ragged count;
     # the RL path's leaves: the paper net's FC (2592 x 256), its LSTM
@@ -1078,36 +1198,153 @@ def check_rmsprop(gen, flush):
     for n in (4096 * 11008, 1, 4099) + RL_LEAF_SIZES:
         g = _randn((n,), gen, torch.float32).abs()
         grad = _randn((n,), gen, torch.float32, 3.0)
-        want_g, want_u = ref.rmsprop_update_ref(g, grad, lr=7e-3)
-        got_g, got_u = rmsprop_cuda.rmsprop_update(g.clone(), grad, lr=7e-3)
+        want_g, want_u = ref.rmsprop_update_ref(g, grad, lr=lr)
+        got_g, got_u = rmsprop_cuda.rmsprop_update(g.clone(), grad, lr=lr)
         errs.append(_compare(f"rmsprop n={n} g'", got_g, want_g))
         errs.append(_compare(f"rmsprop n={n} update", got_u, want_u))
 
-    def timed(shape, label):
+    def table(sizes):
+        g = [_randn((n,), gen, torch.float32).abs() for n in sizes]
+        grad = [_randn((n,), gen, torch.float32, 3.0) for n in sizes]
+        p = [_randn((n,), gen, torch.float32) for n in sizes]
+        return g, grad, p
+
+    def clone(ts):
+        return [t.clone() for t in ts]
+
+    for label, sizes in (("paper net 13 leaves", _rl_table_sizes()),
+                         ("train table 148 leaves cut 256x",
+                          _train_table_sizes(256))):
+        g, grad, p = table(sizes)
+        want = [ref.rmsprop_update_ref(a, d, lr=lr) for a, d in zip(g, grad)]
+        launches = -(-len(sizes) // rmsprop_cuda.MAX_LEAVES)
+        # update mode, many leaves
+        got_g = clone(g)
+        before = rmsprop_cuda.multi_launches
+        got_u = rmsprop_cuda.rmsprop_update_multi(got_g, grad, lr=lr)
+        if rmsprop_cuda.multi_launches - before != launches:
+            raise AssertionError(f"rmsprop update multi {label}: "
+                                 f"{rmsprop_cuda.multi_launches - before} "
+                                 f"launches (want {launches})")
+        errs.append(_compare(f"rmsprop update multi {label} g'",
+                             torch.cat(got_g),
+                             torch.cat([w[0] for w in want])))
+        errs.append(_compare(f"rmsprop update multi {label} update",
+                             torch.cat(got_u),
+                             torch.cat([w[1] for w in want])))
+        # apply mode, many leaves
+        app_g, app_p = clone(g), clone(p)
+        before = rmsprop_cuda.apply_launches
+        rmsprop_cuda.rmsprop_apply_multi(app_p, app_g, grad, lr=lr)
+        if rmsprop_cuda.apply_launches - before != launches:
+            raise AssertionError(f"rmsprop apply multi {label}: "
+                                 f"{rmsprop_cuda.apply_launches - before} "
+                                 f"launches (want {launches})")
+        plain_g, plain_p = clone(g), clone(p)
+        _rmsprop_apply_plain(plain_p, plain_g, grad, lr)
+        errs.append(_compare(f"rmsprop apply multi {label} g'",
+                             torch.cat(app_g), torch.cat(plain_g)))
+        errs.append(_compare(f"rmsprop apply multi {label} p",
+                             torch.cat(app_p), torch.cat(plain_p)))
+        # bit for bit: the one-leaf kernel and a separate subtraction
+        one_g, one_p, one_u = clone(g), clone(p), []
+        for a, d, q in zip(one_g, grad, one_p):
+            one_u.append(rmsprop_cuda.rmsprop_update(a, d, lr=lr)[1])
+            q.sub_(one_u[-1])
+        same = all(torch.equal(x, y) for x, y in zip(
+            app_g + app_p + got_g + got_u, one_g + one_p + one_g + one_u))
+        if not same:
+            raise AssertionError(f"rmsprop multi {label}: not the bits of "
+                                 "the one-leaf kernel and p.sub_(update)")
+        print(f"check rmsprop multi {label}: update and apply modes in "
+              f"{launches} launch(es) each equal the one-leaf kernel + "
+              "p.sub_ bit for bit ok")
+        del g, grad, p, got_g, got_u, app_g, app_p, one_g, one_p, one_u
+
+    def apply_timed(sizes, label):
+        """One apply-mode call over ``sizes`` held leaf by leaf against the
+        plain version on copies of g and p (each copy freed once held), its
+        launches counted, then both timed."""
+        g, grad, p = table(sizes)
+        plain_g, plain_p = clone(g), clone(p)
+        before = rmsprop_cuda.apply_launches
+        rmsprop_cuda.rmsprop_apply_multi(p, g, grad, lr=lr)
+        launches = rmsprop_cuda.apply_launches - before
+        if launches != -(-len(sizes) // rmsprop_cuda.MAX_LEAVES):
+            raise AssertionError(f"rmsprop apply multi {label}: {launches} "
+                                 "launches")
+        leaf_errs = []
+        for i in range(len(sizes)):
+            _rmsprop_apply_plain(plain_p[i:i + 1], plain_g[i:i + 1],
+                                 grad[i:i + 1], lr)
+            leaf_errs += [
+                _compare(f"rmsprop apply multi {label} leaf {i} g'", g[i],
+                         plain_g[i], echo=False),
+                _compare(f"rmsprop apply multi {label} leaf {i} p", p[i],
+                         plain_p[i], echo=False)]
+            plain_g[i] = plain_p[i] = None
+        del plain_g, plain_p
+        errs.extend(leaf_errs)
+        print(f"check rmsprop apply multi {label}: {len(sizes)} leaves of "
+              f"{sum(sizes)} elements in {launches} launch(es), g' and p "
+              f"leaf by leaf max_abs_err={max(leaf_errs):.3e} "
+              f"rtol, atol={F32_TOL} ok")
+        out = {
+            "ms": _time_ms(lambda: rmsprop_cuda.rmsprop_apply_multi(
+                p, g, grad, lr=lr), flush),
+            "plain_ms": _time_ms(lambda: _rmsprop_apply_plain(
+                p, g, grad, lr), flush),
+            # g, grad and p read, g' and p written, 4 bytes each
+            "bound_ms": 20 * sum(sizes) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            # torch.optim.RMSprop puts eps outside the square root: no
+            # single PyTorch call computes Eq. 8-9
+            "library_ms": None,
+            "launches_per_call": launches,
+            "shape": f"apply mode, {len(sizes)} f32 leaves of {sum(sizes)} "
+                     f"elements ({label})"}
+        del g, grad, p
+        torch.cuda.empty_cache()
+        return out
+
+    def update_timed(shape, label):
         n = math.prod(shape)
         g = _randn(shape, gen, torch.float32).abs()
         grad = _randn(shape, gen, torch.float32, 3.0)
         return {
             "ms": _time_ms(lambda: rmsprop_cuda.rmsprop_update(
-                g, grad, lr=7e-3), flush),
+                g, grad, lr=lr), flush),
             "plain_ms": _time_ms(lambda: ref.rmsprop_update_ref(
-                g, grad, lr=7e-3), flush),
+                g, grad, lr=lr), flush),
             # g and grad read, g' and the update written, 4 bytes each
             "bound_ms": 16 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            # torch.optim.RMSprop puts eps outside the square root and
-            # returns no update: no single PyTorch call computes Eq. 8-9
             "library_ms": None,
-            "shape": f"one f32 leaf of {n} elements ({label})"}
+            "shape": f"update mode, one f32 leaf of {n} elements ({label})"}
 
+    # the 40 GB train table last, after the leaves of a few MB
+    shapes = {
+        "llm_leaf_shape": update_timed((4096, 11008), "4096 x 11008"),
+        "rl_fc_shape": update_timed((2592, 256),
+                                    "the paper net's FC, 2592 x 256"),
+        "rl_small_shape": update_timed((256, 3), "a policy matrix, 256 x 3")}
+    # the apply mode at the MLP matrix, and the step it replaces there:
+    # the one-leaf update, then p.sub_
+    leaf = apply_timed([4096 * 11008], "4096 x 11008")
+    g, grad, p = table([4096 * 11008])
+    leaf["unfused_ms"] = _time_ms(lambda: p[0].sub_(
+        rmsprop_cuda.rmsprop_update(g[0], grad[0], lr=lr)[1]), flush)
+    del g, grad, p
+    shapes["llm_leaf_apply_shape"] = leaf
+    rl_table = apply_timed(_rl_table_sizes(), "the paper net's 13 leaves, "
+                           "one worker update")
+    # 60 GB: the table and the plain version's copies of g and p
+    shapes["train_table_shape"] = apply_timed(
+        _train_table_sizes(), "Yi-6B x 16 layers, one train step")
     return {
         "name": "rmsprop_update", "route": "cuda",
         "source": "src/repro_torch/csrc/rmsprop.cu",
         "replaces": "src/repro/kernels/shared_rmsprop.py:34",
-        "max_abs_err": max(errs),
-        **timed((4096, 11008), "4096 x 11008"),
-        "rl_fc_shape": timed((2592, 256), "the paper net's FC, 2592 x 256"),
-        "rl_small_shape": timed((256, 3), "a policy matrix, 256 x 3"),
-    }
+        "max_abs_err": max(errs), **rl_table, **shapes}
 
 
 # ---------------------------------------------------------------------------
@@ -1232,7 +1469,8 @@ def check_model_small():
 # the attention kernels and arms of the serving path; each serving run
 # launches exactly two of them (_serving_arms) and none of the others
 SERVING_ARMS = ("flash_append", "flash_append_f32", "flash_append_int8",
-                "decode_attention", "decode_attention_int8",
+                "flash_append_int8_f32", "decode_attention",
+                "decode_attention_int8",
                 "decode_attention_partials", "decode_attention_partials_int8")
 # phase 5's trace on Yi-6B: 23 prompt chunks of 128 rows, one append
 # launch each in each of the 32 layers
@@ -1242,12 +1480,12 @@ PHASE5_APPENDS = 23 * 32
 def _serving_arms(kv, cp, bf16_q=True):
     """The append arm and the decode kernel and arm that a serving run
     with KV dtype ``kv`` launches: the partials kernel under decode_cp,
-    kernel 6 otherwise; a float stream takes the append kernel's
-    tensor-core arm under bf16 activations (the stream is cast to q's
-    dtype), its SIMT arm under f32 ones."""
+    kernel 6 otherwise; the append kernel's tensor-core arms (bf16 or int8
+    stream) under bf16 activations (a float stream is cast to q's dtype),
+    its SIMT arms under f32 ones."""
     sfx = "_int8" if kv == "int8" else ""
     decode = "decode_attention_partials" if cp else "decode_attention"
-    append = "flash_append" + (sfx or ("" if bf16_q else "_f32"))
+    append = "flash_append" + sfx + ("" if bf16_q else "_f32")
     return append, decode + sfx
 
 
@@ -1563,7 +1801,43 @@ def _check_flash_arms(label, counts, arm, per_step=None):
 
 
 TRAIN_COUNTERS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
-                  "flash_attention_bwd", "rmsprop")
+                  "flash_attention_bwd", "rmsprop_apply_multi")
+
+
+TRAIN_ROWS, TRAIN_SEQ = 4, 1024
+
+
+def _train_make():
+    """Phase 8's train step: Yi-6B at full width x 16 layers (bf16
+    compute, remat), f32 parameters and Shared RMSProp accumulator made on
+    the card from seed 0, TokenPipeline batches of TRAIN_ROWS x TRAIN_SEQ
+    tokens from the train CLI's key at seed 0.  Returns (cfg, run,
+    one_step): ``run`` holds the current "params" and "state" and each
+    step's "metrics"; ``one_step()`` takes the next step.  Also what
+    chip_rl_rounds.py times."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import llm_a3c, prng
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt_mod
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=16,
+                              dtype="bfloat16", remat=True)
+    params = M.init_params(cfg, 0, "cuda")
+    opt = opt_mod.shared_rmsprop()
+    run = {"params": params, "state": opt.init(params), "metrics": []}
+    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_ROWS, device="cuda")
+    data_key = prng.key(2)                    # the train CLI's at seed 0
+    step_fn = llm_a3c.make_train_step(cfg, opt, lr0=7e-3, total_steps=100)
+
+    def one_step():
+        step = len(run["metrics"])
+        run["params"], run["state"], met = step_fn(
+            run["params"], run["state"], pipe.batch(data_key, step), step)
+        run["metrics"].append(met)
+    return cfg, run, one_step
 
 
 def run_yi6b_train():
@@ -1571,27 +1845,12 @@ def run_yi6b_train():
     and the f32 RMSProp accumulator of all 32 would take 14 B x 6.06e9 =
     84.9 GB): one warm-up, three timed and one profiled train step on
     TokenPipeline batches of 4 x 1024 tokens."""
-    import dataclasses
-
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.core import llm_a3c, prng
-    from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels import dispatch
     from repro_torch.models import model as M
-    from repro_torch.optim import optimizers as opt_mod
-    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=16,
-                              dtype="bfloat16", remat=True)
-    batch_rows, seq = 4, 1024
     t0 = time.perf_counter()
-    params = M.init_params(cfg, 0, "cuda")
-    opt = opt_mod.shared_rmsprop()
-    state = opt.init(params)
-    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=seq,
-                         global_batch=batch_rows, device="cuda")
-    data_key = prng.key(2)                    # the train CLI's at seed 0
-    step_fn = llm_a3c.make_train_step(cfg, opt, lr0=7e-3, total_steps=100)
+    cfg, run, one_step = _train_make()
     torch.cuda.synchronize()
     print(f"train yi-6b x16 layers: {cfg.param_count()} f32 parameters and "
           f"their accumulator built on the card in "
@@ -1600,17 +1859,7 @@ def run_yi6b_train():
     @torch.no_grad()
     def fingerprint():
         return [(float(t.double().sum()), float(t.double().square().sum()))
-                for t in M.flatten(params).values()]
-
-    losses = []
-    step = 0
-
-    def one_step():
-        nonlocal params, state, step
-        batch = pipe.batch(data_key, step)
-        params, state, met = step_fn(params, state, batch, step)
-        losses.append(met)
-        step += 1
+                for t in M.flatten(run["params"]).values()]
 
     torch.cuda.reset_peak_memory_stats()
     one_step()                                  # warm-up
@@ -1627,17 +1876,18 @@ def run_yi6b_train():
     after = fingerprint()
     peak = torch.cuda.max_memory_allocated() / 2**30
 
-    loss_vals = [float(m["loss"]) for m in losses]
+    loss_vals = [float(m["loss"]) for m in run["metrics"]]
     if not all(math.isfinite(x) for x in loss_vals):
         raise AssertionError(f"train: non-finite loss {loss_vals}")
     # a non-finite gradient would leave a non-finite accumulator
-    bad = [k for k, g in M.flatten(state["g"]).items()
+    bad = [k for k, g in M.flatten(run["state"]["g"]).items()
            if not bool(torch.isfinite(g).all())]
-    bad += [k for k, p in M.flatten(params).items()
+    bad += [k for k, p in M.flatten(run["params"]).items()
             if not bool(torch.isfinite(p).all())]
     if bad:
         raise AssertionError(f"train: non-finite gradients in {bad[:5]}")
-    same = [k for k, a, b in zip(M.flatten(params), before, after) if a == b]
+    same = [k for k, a, b in zip(M.flatten(run["params"]), before, after)
+            if a == b]
     if same:
         raise AssertionError(f"train: leaves unchanged by 3 steps: {same}")
     missing = [k for k in TRAIN_COUNTERS if counts[k] <= 0]
@@ -1646,12 +1896,17 @@ def run_yi6b_train():
     # 3 steps of 16 layers: a forward and its remat, one backward a layer
     _check_flash_arms("train yi-6b x16 layers 3 steps", counts, "bf16",
                       (3 * 2 * cfg.n_layers, 3 * cfg.n_layers))
+    # the optimizer: ceil(148 / 64) = 3 apply launches a step
+    _check_rmsprop_launches(
+        "train yi-6b x16 layers 3 steps", counts,
+        3 * _per_update(len(M.flatten(run["params"]))),
+        others=TRAIN_COUNTERS)
     per_step = {k: counts[k] / 3 for k in TRAIN_COUNTERS}
     wall = statistics.median(walls)
     print("train yi-6b full width x 16 layers: " + json.dumps({
         "losses": loss_vals, "step_wall_s": walls,
         "step_wall_median_s": wall,
-        "tokens_per_s": batch_rows * seq / wall,
+        "tokens_per_s": TRAIN_ROWS * TRAIN_SEQ / wall,
         "peak_device_memory_gib": peak,
         "launches_per_step": per_step}))
     _profile("train step", one_step, wall_ms=wall * 1e3,
@@ -1721,13 +1976,32 @@ def _rl_run(make, dev, steps):
     return losses, params, actions, margin, counts, leaves
 
 
-def _rl_check(label, make, steps, launches, continuous=False):
+def _per_update(leaves):
+    """Launches of the RMSProp kernel an update of ``leaves`` leaves."""
+    from repro_torch.kernels import rmsprop_cuda
+    return -(-leaves // rmsprop_cuda.MAX_LEAVES)
+
+
+def _check_rmsprop_launches(label, counts, want, others=()):
+    """The run launched the RMSProp kernel's apply mode exactly ``want``
+    times, its one-leaf and multi-leaf update entries never, and no kernel
+    but those and ``others``."""
+    stray = {k: n for k, n in counts.items()
+             if k not in ("rmsprop_apply_multi",) + tuple(others) and n}
+    if counts["rmsprop_apply_multi"] != want or stray:
+        raise AssertionError(f"{label}: rmsprop_apply_multi launched "
+                             f"{counts['rmsprop_apply_multi']} times (want "
+                             f"{want}), other kernels and entries {stray}")
+
+
+def _rl_check(label, make, steps, updates, continuous=False):
     """A path of the RL loop on the card against the same path on the
     CPU: actions identical (within 1e-5 for continuous actions) where
     every decision margin of both runs exceeds RL_MARGIN, losses within
     rtol 1e-4 (atol 1e-6), parameters within rtol = atol = 1e-5, and the
-    card's run launched ``rmsprop_update`` exactly ``launches(leaves)``
-    times and no other kernel.  Returns the card's launch counts."""
+    card's run launched the RMSProp kernel's apply mode exactly
+    ``updates * _per_update(leaves)`` times and no other kernel or entry
+    (no one-leaf launch).  Returns the card's launch counts."""
     import torch
     cpu = _rl_run(make, "cpu", steps)
     gpu = _rl_run(make, "cuda", steps)
@@ -1758,17 +2032,14 @@ def _rl_check(label, make, steps, launches, continuous=False):
             raise AssertionError(f"rl {label}: {k} differs on the card by "
                                  f"{float((got - want).abs().max())}")
     counts, leaves = gpu[4], gpu[5]
-    want = launches(leaves)
-    stray = {k: n for k, n in counts.items() if k != "rmsprop" and n}
-    if counts["rmsprop"] != want or stray:
-        raise AssertionError(f"rl {label}: rmsprop launched "
-                             f"{counts['rmsprop']} times (want {want}), "
-                             f"other kernels {stray}")
+    _check_rmsprop_launches(f"rl {label}", counts, updates * _per_update(
+        leaves))
     print(f"check rl {label} cuda vs cpu: {len(gpu[2])} action steps "
           f"identical (margin {margin:.2e} > {RL_MARGIN:g}), losses "
           f"rel_err={loss_err:.2e} (tol 1e-4), params max_abs_err="
-          f"{par_err:.2e} (rtol=atol=1e-5), rmsprop launches "
-          f"{counts['rmsprop']} = {want} ({leaves} leaves) ok")
+          f"{par_err:.2e} (rtol=atol=1e-5), rmsprop_apply_multi launches "
+          f"{counts['rmsprop_apply_multi']} = {updates} updates of {leaves} "
+          "leaves ok")
     return counts
 
 
@@ -1794,7 +2065,7 @@ def _cli_make(argv):
 # 3 rounds of the CLI's 8 workers x t_max 5
 _RL_FRAMES = ["--frames", str(RL_ROUNDS * 8 * 5)]
 RL_CLI_PATHS = {
-    # label: (CLI arguments, rmsprop launches a round per leaf)
+    # label: (CLI arguments, updates a round)
     "a3c": (["--algo", "a3c"], 8),
     "one_step_q": (["--algo", "one_step_q"], 8),
     "one_step_sarsa": (["--algo", "one_step_sarsa"], 8),
@@ -1864,17 +2135,15 @@ def check_rl_paths():
     from repro_torch.launch import train
     from repro_torch.models import model as M
     paths = {}
-    for label, (argv, per_leaf) in RL_CLI_PATHS.items():
+    for label, (argv, per_round) in RL_CLI_PATHS.items():
         paths[f"rl_{label}"] = _rl_check(
             label, _cli_make(["--mode", "rl"] + argv + _RL_FRAMES),
-            RL_ROUNDS, lambda leaves, n=per_leaf: RL_ROUNDS * n * leaves,
+            RL_ROUNDS, RL_ROUNDS * per_round,
             continuous=label == "a3c_pendulum")
     # DQN trains on frames 8, 10, ..., 40: 17 updates
-    paths["rl_dqn"] = _rl_check("dqn_replay 40 frames", _dqn_make, 40,
-                                lambda leaves: 17 * leaves)
+    paths["rl_dqn"] = _rl_check("dqn_replay 40 frames", _dqn_make, 40, 17)
     paths["rl_replay_async"] = _rl_check(
-        "replay_async 8 rounds", _replay_async_make, 8,
-        lambda leaves: 8 * 4 * leaves)
+        "replay_async 8 rounds", _replay_async_make, 8, 8 * 4)
 
     argv = ["--mode", "rl"] + _RL_FRAMES
     runs = {}
@@ -1899,13 +2168,12 @@ def check_rl_paths():
     for k, want in pc.items():
         if not torch.allclose(pg[k], want, rtol=1e-5, atol=1e-5):
             raise AssertionError(f"rl cli: {k} differs on the card")
-    want = RL_ROUNDS * 8 * len(pc)
-    if counts["rmsprop"] != want:
-        raise AssertionError(f"rl cli: rmsprop launched {counts['rmsprop']}"
-                             f" times (want {want})")
+    _check_rmsprop_launches("rl cli", counts,
+                            RL_ROUNDS * 8 * _per_update(len(pc)))
     print(f"check rl cli (train.main --mode rl, 3 rounds) cuda vs cpu: "
           f"{len(hg)} records identical (loss rtol 1e-4), params rtol=atol="
-          f"1e-5, rmsprop launches {counts['rmsprop']} ok")
+          f"1e-5, rmsprop_apply_multi launches "
+          f"{counts['rmsprop_apply_multi']} ok")
     paths["rl_cli"] = counts
     return paths
 
@@ -1991,8 +2259,7 @@ def run_paper_net():
     from repro_torch.kernels import dispatch
     from repro_torch.models import model as M
     counts = _rl_check("paper conv+lstm 84x84 16 workers", _paper_make(
-        PAPER_WORKERS), RL_ROUNDS,
-        lambda leaves: RL_ROUNDS * PAPER_WORKERS * leaves)
+        PAPER_WORKERS), RL_ROUNDS, RL_ROUNDS * PAPER_WORKERS)
     check_paper_loss()
     state, advance, leaves = _paper_make(PAPER_WORKERS)("cuda", None)
     n = sum(t.numel() for t in M.flatten(state["params"]).values())
@@ -2008,9 +2275,9 @@ def run_paper_net():
         float(loss)
         walls.append(time.perf_counter() - t0)
     timed = dispatch.launch_counts()
-    if timed["rmsprop"] != PAPER_TIMED_ROUNDS * PAPER_WORKERS * leaves:
-        raise AssertionError(f"rl paper net: {timed['rmsprop']} rmsprop "
-                             "launches in the timed rounds")
+    _check_rmsprop_launches("rl paper net timed rounds", timed,
+                            PAPER_TIMED_ROUNDS * PAPER_WORKERS
+                            * _per_update(leaves))
     wall = statistics.median(walls)
     frames = PAPER_WORKERS * 5
     print("rl paper net (conv+lstm, 84x84x1 catch, 16 workers, t_max 5, "
@@ -2021,7 +2288,7 @@ def run_paper_net():
               "frames_per_s": frames / wall,
               "peak_device_memory_gib":
                   torch.cuda.max_memory_allocated() / 2**30,
-              "rmsprop_launches_per_round": timed["rmsprop"]
+              "rmsprop_launches_per_round": timed["rmsprop_apply_multi"]
               / PAPER_TIMED_ROUNDS}))
 
     def one_round():
@@ -2049,15 +2316,14 @@ def run_quickstart():
     wall = time.perf_counter() - t0
     counts = dispatch.launch_counts()
     leaves = _rl_leaves(state["params"])
-    want = quickstart.ROUNDS * 8 * leaves
-    if counts["rmsprop"] != want:
-        raise AssertionError(f"rl quickstart: rmsprop launched "
-                             f"{counts['rmsprop']} times (want {want})")
+    _check_rmsprop_launches("rl quickstart", counts,
+                            quickstart.ROUNDS * 8 * _per_update(leaves))
     print("rl quickstart on the card: " + json.dumps({
         "rounds": quickstart.ROUNDS, "frames": state["frames"],
         "wall_s": wall, "frames_per_s": state["frames"] / wall,
         "round_ms": wall / quickstart.ROUNDS * 1e3,
-        "final_avg_return": final, "rmsprop_launches": counts["rmsprop"]}))
+        "final_avg_return": final,
+        "rmsprop_launches": counts["rmsprop_apply_multi"]}))
     if not final > quickstart.PASS:
         raise AssertionError(f"rl quickstart: final average return {final} "
                              f"(must beat {quickstart.PASS})")
@@ -2134,8 +2400,13 @@ def check_delayed_sync():
             if not torch.allclose(pg[g][k], want, rtol=1e-5, atol=1e-5):
                 raise AssertionError(f"rl delayed_sync: group {g} {k} "
                                      "differs on the card")
-    if counts["rmsprop"] <= 0:
-        raise AssertionError("rl delayed_sync: no rmsprop launch")
+    # one apply launch a group and step; the flash and RMSNorm kernels of
+    # the f32 model besides
+    _check_rmsprop_launches(
+        "rl delayed_sync", counts,
+        h * groups * _per_update(len(M.flatten(params_g[0]))),
+        others=("rmsnorm", "rmsnorm_bwd", "flash_attention_f32",
+                "flash_attention_bwd_f32"))
     print(f"check rl delayed_sync reduced yi-6b f32 2 groups merge every 3, "
           f"cuda vs cpu: losses {[round(x, 4) for x in lg]} (rtol 1e-4), "
           f"params rtol=atol=1e-5, group spreads {sg} ok")
@@ -2144,9 +2415,10 @@ def check_delayed_sync():
 
 def _shapes(record):
     """A kernel record and its timings at other shapes."""
-    return [record] + [record[k] for k in ("train_shape", "decode_shape",
-                                           "rl_fc_shape", "rl_small_shape")
-                       if k in record]
+    return [record] + [record[k] for k in (
+        "train_shape", "decode_shape", "f32_shape", "train_table_shape",
+        "llm_leaf_shape", "llm_leaf_apply_shape", "rl_fc_shape",
+        "rl_small_shape") if k in record]
 
 
 def main():
@@ -2185,7 +2457,7 @@ def main():
     # spends up to about 0.1 ms on the host)
     flush = torch.empty(512 * 2**20, dtype=torch.uint8, device="cuda")
     records = [check_rmsnorm(gen, flush), *check_append(gen, flush),
-               check_append_int8(gen, flush), check_decode(gen, flush),
+               *check_append_int8(gen, flush), check_decode(gen, flush),
                check_decode_int8(gen, flush), *check_partials(gen, flush),
                check_rmsnorm_bwd(gen, flush), *check_flash_fwd(gen, flush),
                *check_flash_bwd(gen, flush), check_rmsprop(gen, flush)]
@@ -2262,6 +2534,7 @@ def main():
              "flash_attention_append": "flash_append",
              "flash_attention_append_f32": "flash_append_f32",
              "flash_attention_append_int8": "flash_append_int8",
+             "flash_attention_append_int8_f32": "flash_append_int8_f32",
              "decode_attention_fwd": "decode_attention",
              "decode_attention_fwd_int8": "decode_attention_int8",
              "decode_attention_partials": "decode_attention_partials",
@@ -2272,10 +2545,15 @@ def main():
              "flash_attention_fwd_f32": "flash_attention_f32",
              "flash_attention_bwd": "flash_attention_bwd",
              "flash_attention_bwd_f32": "flash_attention_bwd_f32",
-             "rmsprop_update": "rmsprop"}
+             # kernel 8 through its three entries (the main paths take
+             # the apply mode only)
+             "rmsprop_update": ("rmsprop", "rmsprop_update_multi",
+                                "rmsprop_apply_multi")}
     for r in records:
-        op = by_op[r["name"]]
-        paths = {path: c[op] for path, c in path_counts.items()}
+        ops = by_op[r["name"]]
+        ops = (ops,) if isinstance(ops, str) else ops
+        paths = {path: sum(c[op] for op in ops)
+                 for path, c in path_counts.items()}
         r["launches_by_path"] = {k: n for k, n in paths.items() if n}
         r["launches"] = sum(paths.values())
         if r["launches"] <= 0:

@@ -20,9 +20,10 @@ together along the worker axis, the K gradients come from one
 ``torch.func.vmap`` of ``torch.func.grad`` over the workers' segments,
 all taken from the round's snapshot before the first update, each
 clipped by its own norm.  Updates then run in place through the
-optimizer (``dispatch.rmsprop_update`` for each leaf: the CUDA kernel on
-the card).  ``frames``, the lr and the swap test stay on the host, and
-the target network is a copy, moved only at a swap.
+optimizer (``optimizers.update_and_apply``: on the card, one launch of
+the RMSProp kernel a worker update, over every leaf).  ``frames``, the lr
+and the swap test stay on the host, and the target network is a copy,
+moved only at a swap.
 """
 from __future__ import annotations
 
@@ -147,16 +148,14 @@ def make_runner(algo: Algorithm, env: Env, net_params, cfg: RunnerConfig,
         if cfg.mode == "sync":
             g_mean = tree_map(lambda g: g.mean(0), grads)
             ost = opt_state if cfg.shared_stats else opt_state[0]
-            updates, ost = opt.update(g_mean, ost, lr)
-            opt_mod.apply_updates(params, updates)
+            ost = opt_mod.update_and_apply(opt, params, g_mean, ost, lr)
             if not cfg.shared_stats:
                 for other in opt_state[1:]:
                     tree_map(lambda a, b: a.copy_(b), other, ost)
         elif cfg.mode == "hogwild":
             for i, g_w in enumerate(rows):
                 ost = opt_state if cfg.shared_stats else opt_state[i]
-                updates, _ = opt.update(g_w, ost, lr)
-                opt_mod.apply_updates(params, updates)
+                opt_mod.update_and_apply(opt, params, g_w, ost, lr)
         else:
             raise ValueError(cfg.mode)
 

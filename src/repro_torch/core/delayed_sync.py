@@ -59,8 +59,9 @@ def make_delayed_train_step(cfg, opt, *, n_groups: int, merge_interval: int,
                                        beta=beta)
         grads = iter(torch.autograd.grad(loss, leaves))
         grads = tree_map(lambda _: next(grads), params)
-        updates, opt_state = opt.update(grads, opt_state, lr)
-        return opt_mod.apply_updates(params, updates), opt_state, metrics
+        opt_state = opt_mod.update_and_apply(opt, params, grads, opt_state,
+                                             lr)
+        return params, opt_state, metrics
 
     def train_step(params_g, opt_state_g, batch_g, step: int):
         if len(params_g) != n_groups:

@@ -98,8 +98,7 @@ def make_dqn(env: Env, params, cfg: DQNConfig):
             mb = {name: v[idx] for name, v in buf.items()}
             g = grad(q_target_loss)(p, state["target_params"], mb,
                                     cfg.gamma)
-            updates, _ = opt.update(g, state["opt_state"], cfg.lr)
-            opt_mod.apply_updates(p, updates)
+            opt_mod.update_and_apply(opt, p, g, state["opt_state"], cfg.lr)
         if frames % cfg.target_interval == 0:
             tree_map(lambda t, s: t.copy_(s), state["target_params"], p)
         ep_ret = state["ep_ret"] + reward

@@ -93,8 +93,8 @@ def make_train_step(cfg: ModelConfig, opt, *, gamma: float = 0.99,
         grads = torch.autograd.grad(loss, leaves)
         paths = iter(grads)
         grads = M.tree_map(lambda _: next(paths), params)
-        updates, opt_state = opt.update(grads, opt_state, lr)
-        params = opt_mod.apply_updates(params, updates)
+        opt_state = opt_mod.update_and_apply(opt, params, grads, opt_state,
+                                             lr)
         return params, opt_state, metrics
 
     return train_step

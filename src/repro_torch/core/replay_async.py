@@ -106,8 +106,8 @@ def make_replay_runner(algo: Algorithm, env: Env, net_params,
         _, rows, _ = clip_per_worker(grads, cfg.max_grad_norm)
         metrics = dict(metrics, ep_ret=workers["last_ep_ret"])
         for g_w in rows:
-            updates, _ = opt.update(g_w, state["opt_state"], lr)
-            opt_mod.apply_updates(params, updates)
+            opt_mod.update_and_apply(opt, params, g_w, state["opt_state"],
+                                     lr)
 
         frames += cfg.n_workers * t
         last = state["last_target_sync"]

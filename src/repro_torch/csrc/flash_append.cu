@@ -8,9 +8,9 @@
 //   kpos_linear (key row index == absolute position wherever valid) whole
 //   key tiles beyond the causal bound or below the window floor are skipped,
 //   as the TPU kernel's tile_live; ring layouts visit every tile.  An int8
-//   key stream carries per-(row, kv head) f32 scales (B, Sk, Hkv, 1) and
-//   each staged K/V tile is dequantised right after its 16-byte loads, as
-//   the TPU body dequantises in VMEM: the device-memory stream stays int8.
+//   key stream carries per-(row, kv head) f32 scales (B, Sk, Hkv, 1); its
+//   tiles are dequantised in shared memory, as the TPU body dequantises in
+//   VMEM: the device-memory stream stays int8.
 //
 // Bound on the H100: operations.  At the serving shape (B = 4, C = 128
 // rows at pos0 = 512 against a stream of 640 keys, 32 q heads over 4 kv
@@ -20,7 +20,7 @@
 // out at 3.35 TB/s (int8: one byte a K/V element plus 4 bytes of scale a
 // row and kv head).
 //
-// Three arms, chosen by dtype (each counted on its own by the wrapper):
+// Four arms, chosen by dtype (each counted on its own by the wrapper):
 //
 // bf16 q over a bf16 key stream: the training forward's tensor-core tile
 // loop (flash_mma_fwd.cuh, fm::attend_block) under the append mask
@@ -34,10 +34,21 @@
 // rows (a linear stream may still hold unwritten rows, so the positions
 // decide, never the layout).
 //
-// f32 (q or stream in f32) and int8: the first, SIMT body, exact to 1e-5:
-// one block per (q tile of 64 rows, q head, batch row) that loops over key
-// tiles of 32 rows through rt::attend_tiles; the kv head is h / G, so the
-// kv heads are never repeated in memory.  Q, K and V tiles are staged in
+// bf16 q over an int8 key stream: the same tile loop under the int8
+// key-stream policy (fm::Int8Stream, flash_mma_fwd.cuh): the raw int8 K
+// and V tiles and their scales double-buffered by cp.async and widened to
+// bf16 in shared memory (exact), each score column times its key's k
+// scale, and p times each key's v scale kept in f32 as a bf16 hi + lo
+// pair, two products into acc: the reference's f32 semantics (K and V
+// dequantised to f32, p unrounded, flash_attention.py:220-224, 248-251)
+// to about 2**-18 a term, so the arm is held to the int8 tolerance with no
+// rounding term.  84.5 KB of shared memory a block at D = 128.
+//
+// f32 q (over an f32, bf16 or int8 stream) or an f32 stream: the first,
+// SIMT body, exact to 1e-5: one block per (q tile of 64 rows, q head,
+// batch row) that loops over key tiles of 32 rows through
+// rt::attend_tiles; the kv head is h / G, so the kv heads are never
+// repeated in memory.  Q, K and V tiles are staged in
 // shared memory as f32 (an int8 tile dequantised with its row scales as it
 // is staged) and the products are f32 FMAs, p unrounded.
 //
@@ -151,10 +162,13 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
 
 using mt::bf16;
 
-template <int D>
+template <int D, class Stream>
 __global__ void __launch_bounds__(fm::kThreads)
-    append_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
+    append_mma_kernel(const bf16* __restrict__ q,
+                      const typename Stream::T* __restrict__ k,
+                      const typename Stream::T* __restrict__ v,
+                      const float* __restrict__ ks,
+                      const float* __restrict__ vs,
                       const int* __restrict__ kpos, bf16* __restrict__ out,
                       int C, int Sk, int Hq, int Hkv, int pos0, int window,
                       int kpos_linear, float scale) {
@@ -166,29 +180,34 @@ __global__ void __launch_bounds__(fm::kThreads)
   const long long kv_stride = (long long)Hkv * D;
   const long long q_off = (long long)b * C * q_stride + (long long)h * D;
   const long long kv_off = (long long)b * Sk * kv_stride + (long long)hk * D;
-  fm::attend_block<D>(fm::AppendMask{Sk, pos0, window, kpos_linear},
-                      smem_mma, q + q_off, q_stride, C, k + kv_off,
-                      v + kv_off, kv_stride, kpos + (long long)b * Sk,
-                      iq * fm::kBQ, scale, out + q_off, nullptr);
+  const long long sc_off = (long long)b * Sk * Hkv + hk;  // int8 scales
+  fm::attend_block<D, Stream>(
+      fm::AppendMask{Sk, pos0, window, kpos_linear}, smem_mma, q + q_off,
+      q_stride, C, k + kv_off, v + kv_off, kv_stride,
+      kpos + (long long)b * Sk, iq * fm::kBQ, scale, out + q_off, nullptr,
+      Stream::kQuant ? ks + sc_off : nullptr,
+      Stream::kQuant ? vs + sc_off : nullptr, Hkv);
 }
 
-template <int D>
-int launch_mma(const void* q, const void* k, const void* v, const void* kpos,
-               void* out, int B, int C, int Sk, int Hq, int Hkv, int pos0,
-               int window, int kpos_linear, cudaStream_t stream) {
-  using Sm = fm::Smem<D, fm::AppendMask>;
+template <int D, class Stream>
+int launch_mma(const void* q, const void* k, const void* v, const float* ks,
+               const float* vs, const void* kpos, void* out, int B, int C,
+               int Sk, int Hq, int Hkv, int pos0, int window, int kpos_linear,
+               cudaStream_t stream) {
+  using Sm = fm::Smem<D, fm::AppendMask, Stream>;
+  using T = typename Stream::T;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        append_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)Sm::kBytes);
+        append_mma_kernel<D, Stream>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sm::kBytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   dim3 grid(Hq, B, (C + fm::kBQ - 1) / fm::kBQ);
-  append_mma_kernel<D><<<grid, fm::kThreads, Sm::kBytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int*>(kpos),
+  append_mma_kernel<D, Stream><<<grid, fm::kThreads, Sm::kBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), ks, vs, static_cast<const int*>(kpos),
       static_cast<bf16*>(out), C, Sk, Hq, Hkv, pos0, window, kpos_linear,
       (float)(1.0 / sqrt((double)D)));
   return (int)cudaGetLastError();
@@ -205,14 +224,20 @@ int launch_kv(int kv_dtype, const void* q, const void* k, const void* v,
                                   Hkv, pos0, window, kpos_linear, s);
     case rt::kBF16:
       if constexpr (std::is_same<TQ, bf16>::value)  // the tensor-core arm
-        return launch_mma<D>(q, k, v, kpos, out, B, C, Sk, Hq, Hkv, pos0,
-                             window, kpos_linear, s);
+        return launch_mma<D, fm::Bf16Stream>(q, k, v, nullptr, nullptr, kpos,
+                                             out, B, C, Sk, Hq, Hkv, pos0,
+                                             window, kpos_linear, s);
       else
         return launch<D, TQ, bf16>(q, k, v, ks, vs, kpos, out, B, C, Sk, Hq,
                                    Hkv, pos0, window, kpos_linear, s);
     case rt::kInt8:
-      return launch<D, TQ, int8_t>(q, k, v, ks, vs, kpos, out, B, C, Sk, Hq,
-                                   Hkv, pos0, window, kpos_linear, s);
+      if constexpr (std::is_same<TQ, bf16>::value)  // tensor cores, int8
+        return launch_mma<D, fm::Int8Stream>(q, k, v, ks, vs, kpos, out, B,
+                                             C, Sk, Hq, Hkv, pos0, window,
+                                             kpos_linear, s);
+      else
+        return launch<D, TQ, int8_t>(q, k, v, ks, vs, kpos, out, B, C, Sk,
+                                     Hq, Hkv, pos0, window, kpos_linear, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -3,7 +3,10 @@
 // append kernel (flash_append.cu, append_mma_kernel).  The two differ only
 // in where a key's position comes from, which keys a query may see, which
 // key tiles can hold a live key and whether lse is kept; a mask policy
-// (TrainMask, AppendMask) says each, and attend_block does the rest.
+// (TrainMask, AppendMask) says each, and attend_block does the rest.  A
+// key-stream policy (Bf16Stream, Int8Stream) says what the K and V rows
+// hold; the bf16 stream is the loop described here, the int8 stream's
+// changes follow below.
 //
 // One block of 4 warps owns 64 query rows of one (batch row, q head); each
 // warp a 16-row slab whose Q fragments are loaded once (ldmatrix) and kept
@@ -25,6 +28,21 @@
 // stream's end score -inf, get weight exactly 0 and never set the running
 // max.  Registers per thread at D = 128: 64 f32 of acc, 32 of scores, 32
 // of Q fragments.
+//
+// An int8 key stream (the append kernel's int8 arm; (B, Sk, Hkv, 1) f32
+// scales a row and kv head) keeps the reference's f32 arithmetic
+// (flash_attention.py:220-224, 248-251: K and V dequantised to f32, p
+// unrounded).  cp.async double-buffers the raw int8 K and V tiles (64 x D
+// bytes each) and their 64 k and v scales; after the wait one pass widens
+// the int8 tiles into a single pair of bf16 tiles in the layout above
+// (exact).  S = Q K^T is the same product, exact in f32 for integer K, and
+// each score column is multiplied by its key's k scale before the scaling
+// and the mask.  For P V, w = p * (the key's v scale) stays in f32 and is
+// split into hi = bf16(w) and lo = bf16(w - hi): two products into acc
+// with V's integers as bf16, so each term is off by at most 2**-18 of
+// itself instead of 2**-9.  l sums the unscaled f32 p, as for bf16.
+// Shared memory at D = 128: 84.5 KB a block (q, one bf16 K/V pair, two
+// raw int8 pairs, scales, positions), two blocks an SM.
 #pragma once
 
 #include <cmath>
@@ -38,6 +56,18 @@ using mt::bf16;
 constexpr int kThreads = 128;  // 4 warps, one 16-row slab each
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per tile
+
+// What the key stream's rows hold.  bf16: K and V tiles go straight to
+// the products.  int8: each K and V row has an f32 scale, the raw tiles
+// are widened to bf16 in shared memory and the scales applied in f32.
+struct Bf16Stream {
+  using T = bf16;
+  static constexpr bool kQuant = false;
+};
+struct Int8Stream {
+  using T = int8_t;
+  static constexpr bool kQuant = true;
+};
 
 // Training: query row i and key row j of one sequence sit at positions i
 // and j; key j is valid for query i iff (causal: j <= i) and (window: j >
@@ -122,36 +152,52 @@ struct AppendMask {
   }
 };
 
-template <int D, class Mask>
+template <int D, class Mask, class Stream = Bf16Stream>
 struct Smem {
   static constexpr int kRow = mt::row_stride<D>();
   static constexpr int kTile = kBK * kRow;  // one K or V tile, elements
-  // q tile, two buffers of (K tile, V tile), then (append) two buffers of
-  // the tiles' key positions
+  // bf16 (K tile, V tile) pairs: two buffers for a bf16 stream, one that
+  // the int8 stream's raw tiles are widened into
+  static constexpr int kPairs = Stream::kQuant ? 1 : 2;
+  // int8: two buffers of raw (K tile, V tile), then two of their scales
+  static constexpr size_t kRaw =
+      Stream::kQuant ? 2 * 2 * (size_t)kBK * D : 0;
+  static constexpr size_t kScales =
+      Stream::kQuant ? 2 * 2 * kBK * sizeof(float) : 0;
+  // q tile, the bf16 pairs, [raw tiles, scales], then (append) two
+  // buffers of the tiles' key positions
   static constexpr size_t kBytes =
-      sizeof(bf16) * ((size_t)kBQ * kRow + 4 * (size_t)kTile) +
-      (Mask::kKeyPos ? 2 * kBK * sizeof(int) : 0);
+      sizeof(bf16) * ((size_t)kBQ * kRow + 2 * kPairs * (size_t)kTile) +
+      kRaw + kScales + (Mask::kKeyPos ? 2 * kBK * sizeof(int) : 0);
 };
 
 // The block's 64 query rows from i0 against its live key tiles.  qg, og:
 // row 0 of this (batch row, q head) in q and out, rows q_stride apart, n_q
 // rows in all; kg, vg: key row 0 of this (batch row, kv head), rows
 // kv_stride apart; kposg: this batch row's key positions (append) or
-// null; lseg: row 0 of this (batch row, q head) in lse, or null.
-template <int D, class Mask>
+// null; lseg: row 0 of this (batch row, q head) in lse, or null; ksg, vsg
+// (int8 stream): the scales of key row 0, rows sc_stride apart.
+template <int D, class Stream = Bf16Stream, class Mask>
 __device__ __forceinline__ void attend_block(
     const Mask& mk, unsigned char* smem, const bf16* __restrict__ qg,
-    long long q_stride, int n_q, const bf16* __restrict__ kg,
-    const bf16* __restrict__ vg, long long kv_stride,
+    long long q_stride, int n_q, const typename Stream::T* __restrict__ kg,
+    const typename Stream::T* __restrict__ vg, long long kv_stride,
     const int* __restrict__ kposg, int i0, float scale,
-    bf16* __restrict__ og, float* __restrict__ lseg) {
-  using Sm = Smem<D, Mask>;
+    bf16* __restrict__ og, float* __restrict__ lseg,
+    const float* __restrict__ ksg = nullptr,
+    const float* __restrict__ vsg = nullptr, long long sc_stride = 0) {
+  using Sm = Smem<D, Mask, Stream>;
+  constexpr bool kQuant = Stream::kQuant;
   constexpr int kKD = D / 16;   // k16 slices of a q / k row
   constexpr int kNK = kBK / 8;  // n8 tiles of a score row
   constexpr int kND = D / 8;    // n8 tiles of an output row
   bf16* sq = reinterpret_cast<bf16*>(smem);
   bf16* skv = sq + kBQ * Sm::kRow;  // [buffer][K, V][kBK rows]
-  int* skp = reinterpret_cast<int*>(skv + 4 * Sm::kTile);  // [buffer][kBK]
+  unsigned char* rest =
+      reinterpret_cast<unsigned char*>(skv + 2 * Sm::kPairs * Sm::kTile);
+  int8_t* sraw = reinterpret_cast<int8_t*>(rest);  // [buffer][K, V][kBK][D]
+  float* ssc = reinterpret_cast<float*>(rest + Sm::kRaw);  // [buf][K, V][kBK]
+  int* skp = reinterpret_cast<int*>(rest + Sm::kRaw + Sm::kScales);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_k = mk.keys();
 
@@ -160,12 +206,27 @@ __device__ __forceinline__ void attend_block(
 
   auto load_kv = [&](int kt, int buf) {
     const int k0 = kt * kBK;
-    bf16* dst = skv + buf * 2 * Sm::kTile;
-    mt::load_tile_async<kBK, D, kThreads>(dst, kg + k0 * kv_stride,
-                                          kv_stride, n_k - k0);
-    mt::load_tile_async<kBK, D, kThreads>(dst + Sm::kTile,
-                                          vg + k0 * kv_stride, kv_stride,
-                                          n_k - k0);
+    if constexpr (kQuant) {
+      int8_t* dst = sraw + buf * 2 * kBK * D;
+      mt::load_raw_async<kBK, D, kThreads>(dst, kg + k0 * kv_stride,
+                                           kv_stride, n_k - k0);
+      mt::load_raw_async<kBK, D, kThreads>(dst + kBK * D, vg + k0 * kv_stride,
+                                           kv_stride, n_k - k0);
+      // the k scales (threads 0..63) and v scales (64..127) of the tile
+      static_assert(kThreads == 2 * kBK, "one scale a thread");
+      const int j = tid % kBK;
+      const bool ok = k0 + j < n_k;
+      const float* src =
+          (tid < kBK ? ksg : vsg) + (ok ? k0 + j : 0) * sc_stride;
+      mt::cp_async4(mt::smem_u32(ssc + buf * 2 * kBK + tid), src, ok);
+    } else {
+      bf16* dst = skv + buf * 2 * Sm::kTile;
+      mt::load_tile_async<kBK, D, kThreads>(dst, kg + k0 * kv_stride,
+                                            kv_stride, n_k - k0);
+      mt::load_tile_async<kBK, D, kThreads>(dst + Sm::kTile,
+                                            vg + k0 * kv_stride, kv_stride,
+                                            n_k - k0);
+    }
     if constexpr (Mask::kKeyPos) {
       // a kpos row need not start on 16 bytes: 4-byte copies
       if (tid < kBK) {
@@ -205,7 +266,16 @@ __device__ __forceinline__ void attend_block(
     const int buf = (kt - kt_begin) & 1;
     if (kt + 1 < kt_end) load_kv(kt + 1, buf ^ 1);
     mt::cp_async_commit();
-    const uint32_t sk = mt::smem_u32(skv + buf * 2 * Sm::kTile);
+    const float* sks = ssc + buf * 2 * kBK;  // int8: k, then v scales
+    if constexpr (kQuant) {
+      // widen this tile's raw K and V into the one bf16 pair
+      const int8_t* raw = sraw + buf * 2 * kBK * D;
+      mt::widen_tile<kBK, D, kThreads>(skv, raw);
+      mt::widen_tile<kBK, D, kThreads>(skv + Sm::kTile, raw + kBK * D);
+      __syncthreads();
+    }
+    const uint32_t sk =
+        mt::smem_u32(skv + (kQuant ? 0 : buf) * 2 * Sm::kTile);
     const uint32_t sv = sk + Sm::kTile * (uint32_t)sizeof(bf16);
     const int* kp = skp + buf * kBK;
     const int k0 = kt * kBK;
@@ -232,11 +302,11 @@ __device__ __forceinline__ void attend_block(
     for (int nt = 0; nt < kNK; ++nt) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        float x = s[nt][c] * sl2;
-        if (!full) {
-          const int jl = nt * 8 + col0 + (c & 1);
-          x = mk.mask(x, k0 + jl, jl, row0 + (c >> 1) * 8, kp);
-        }
+        const int jl = nt * 8 + col0 + (c & 1);
+        float x = s[nt][c];
+        if constexpr (kQuant) x *= sks[jl];
+        x *= sl2;
+        if (!full) x = mk.mask(x, k0 + jl, jl, row0 + (c >> 1) * 8, kp);
         s[nt][c] = x;
       }
     }
@@ -268,17 +338,33 @@ __device__ __forceinline__ void attend_block(
       }
     }
 
-    // acc += P V, P rounded to bf16 from the score registers
+    // acc += P V, P rounded to bf16 from the score registers (int8: p
+    // times the v scales, as hi + lo)
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      mt::c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+      uint32_t pa[4], pl[4];
+      if constexpr (kQuant) {
+        const float* svs = sks + kBK + kk * 16 + col0;
+        float w0[4], w1[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          w0[c] = s[2 * kk][c] * svs[c & 1];
+          w1[c] = s[2 * kk + 1][c] * svs[8 + (c & 1)];
+        }
+        mt::c_to_a_split(pa, pl, w0, w1);
+      } else {
+        mt::c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+      }
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t bfr[4];
         mt::ldsm_x4_trans(bfr, mt::bt_addr<D>(sv, kk * 16, dp * 16, lane));
         mt::mma_bf16(acc[2 * dp], pa, bfr[0], bfr[1]);
         mt::mma_bf16(acc[2 * dp + 1], pa, bfr[2], bfr[3]);
+        if constexpr (kQuant) {
+          mt::mma_bf16(acc[2 * dp], pl, bfr[0], bfr[1]);
+          mt::mma_bf16(acc[2 * dp + 1], pl, bfr[2], bfr[3]);
+        }
       }
     }
     mt::cp_async_wait<0>();

@@ -18,7 +18,12 @@
 //   - the packing of two f32 accumulator fragments (a 16 x 16 block of C)
 //     into one bf16 A fragment: the one place where the kernels round p
 //     and ds to bf16, as the TPU kernels' p.astype(v.dtype) and
-//     ds.astype(k.dtype) do before the MXU products.
+//     ds.astype(k.dtype) do before the MXU products; and its split into
+//     two bf16 fragments, hi + lo, for an f32 factor that must not be
+//     rounded (the int8 append arm's p times v's scale);
+//   - cp.async copies of raw int8 tiles (rows of D bytes) and their
+//     widening into the padded bf16 layout, exact (|x| <= 128 has 8
+//     significant bits).
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16): a0 (row g, cols 2t, 2t+1), a1 (row g+8, same cols),
@@ -103,6 +108,69 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
   }
 }
 
+// Issue the copies of rows [0, ROWS) of an int8 source (row r at src + r *
+// stride, D bytes) into an unpadded shared tile of D-byte rows; rows >=
+// valid_rows are zero.  valid_rows >= 1.  NT threads share the ROWS * D /
+// 16 chunks.
+template <int ROWS, int D, int NT>
+__device__ __forceinline__ void load_raw_async(int8_t* dst, const int8_t* src,
+                                               long long stride,
+                                               int valid_rows) {
+  constexpr int kChunks = D / 16;
+  constexpr int kTotal = ROWS * kChunks;
+  static_assert(kTotal % NT == 0, "tile must split evenly over the block");
+  const uint32_t base = smem_u32(dst);
+#pragma unroll
+  for (int it = 0; it < kTotal / NT; ++it) {
+    const int e = threadIdx.x + it * NT;
+    const int r = e / kChunks, c = e % kChunks;
+    const bool ok = r < valid_rows;
+    const int8_t* s = src + (ok ? (long long)r * stride : 0LL) + c * 16;
+    cp_async16(base + (uint32_t)(r * D + c * 16), s, ok);
+  }
+}
+
+// Four int8 (one word) as four exact bf16 (two words, lo element first):
+// the byte with its sign bit flipped, u = x + 128, goes into the mantissa
+// of the f32 2^23 + u (a byte permute), and subtracting 2^23 + 128 leaves
+// x exactly; the bf16 of an integer |x| <= 128 is exact too.
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u + i)) -
+           8388736.0f;
+  __nv_bfloat162 a = __floats2bfloat162_rn(f[0], f[1]);
+  __nv_bfloat162 b = __floats2bfloat162_rn(f[2], f[3]);
+  lo = *reinterpret_cast<uint32_t*>(&a);
+  hi = *reinterpret_cast<uint32_t*>(&b);
+}
+
+// The raw int8 tile (ROWS x D bytes, unpadded) as bf16 in the padded tile
+// layout that ldmatrix reads.  NT threads share the 16-byte chunks.
+template <int ROWS, int D, int NT>
+__device__ __forceinline__ void widen_tile(bf16* dst, const int8_t* src) {
+  constexpr int kChunks = D / 16;
+  constexpr int kTotal = ROWS * kChunks;
+  static_assert(kTotal % NT == 0, "tile must split evenly over the block");
+#pragma unroll
+  for (int it = 0; it < kTotal / NT; ++it) {
+    const int e = threadIdx.x + it * NT;
+    const int r = e / kChunks, c = e % kChunks;
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * D + c * 16);
+    uint4 out0, out1;
+    widen4(raw.x, out0.x, out0.y);
+    widen4(raw.y, out0.z, out0.w);
+    widen4(raw.z, out1.x, out1.y);
+    widen4(raw.w, out1.z, out1.w);
+    uint4* d = reinterpret_cast<uint4*>(dst + r * row_stride<D>() + c * 16);
+    d[0] = out0;
+    d[1] = out1;
+  }
+}
+
 // lane addresses for ldmatrix.x4 on a padded tile of D-wide rows at `base`
 // (a shared address):
 //   A operand, 16 x 16 block at (row r0, col c0): regs = a0..a3
@@ -175,6 +243,29 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[1] = pack_bf16(c0[2], c0[3]);
   a[2] = pack_bf16(c1[0], c1[1]);
   a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Two f32 as bf16 hi + lo words: hi = bf16(a), lo = bf16(a - hi).  a - hi
+// is exact in f32 (hi is within a factor of 2 of a), so hi + lo is a to
+// 2**-18 of |a| (each rounding to nearest is off by at most 2**-9).
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+// c_to_a without the rounding: the A fragments hi and lo of the k16 slice
+// of C fragments c0, c1, whose sum is c0, c1 to 2**-18
+__device__ __forceinline__ void c_to_a_split(uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4],
+                                             const float (&c0)[4],
+                                             const float (&c1)[4]) {
+  split_bf16(c0[0], c0[1], hi[0], lo[0]);
+  split_bf16(c0[2], c0[3], hi[1], lo[1]);
+  split_bf16(c1[0], c1[1], hi[2], lo[2]);
+  split_bf16(c1[2], c1[3], hi[3], lo[3]);
 }
 
 // max / sum over the 4 lanes of a quad (the lanes holding one C row)

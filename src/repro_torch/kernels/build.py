@@ -59,7 +59,7 @@ _SIGNATURES = {
                                _I, _I, _P),
     "rt_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "rt_rmsprop_update": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _P),
+    "rt_rmsprop_multi": (_P, _I, _I, _I, _F, _F, _F, _F, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -129,10 +129,12 @@ def build() -> Path:
     return out
 
 
-# template arguments of the kernels in a mangled name: a type, an int or a
-# bool constant
-_TEMPLATE_ARG = re.compile(r"f|13__nv_bfloat16|a|Li(\d+)E|Lb([01])E")
-_ARG_NAME = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
+# template arguments of the kernels in a mangled name: a type, an int, a
+# bool constant or a key-stream policy of the tile loop (fm::*Stream)
+_TEMPLATE_ARG = re.compile(r"f|13__nv_bfloat16|a|Li(\d+)E|Lb([01])E|"
+                           r"N2fm10Bf16StreamE|N2fm10Int8StreamE")
+_ARG_NAME = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8",
+             "N2fm10Bf16StreamE": "bf16", "N2fm10Int8StreamE": "int8"}
 
 
 def _template_args(rest: str) -> str:

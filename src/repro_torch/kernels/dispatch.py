@@ -41,6 +41,7 @@ _COUNTERS = {
     "flash_append": (flash_append_cuda, "launches"),
     "flash_append_f32": (flash_append_cuda, "f32_launches"),
     "flash_append_int8": (flash_append_cuda, "int8_launches"),
+    "flash_append_int8_f32": (flash_append_cuda, "int8_f32_launches"),
     "decode_attention": (decode_attention_cuda, "launches"),
     "decode_attention_int8": (decode_attention_cuda, "int8_launches"),
     "decode_attention_partials": (decode_attention_cuda, "partials_launches"),
@@ -50,7 +51,9 @@ _COUNTERS = {
     "flash_attention_f32": (flash_attention_cuda, "f32_launches"),
     "flash_attention_bwd": (flash_attention_bwd_cuda, "launches"),
     "flash_attention_bwd_f32": (flash_attention_bwd_cuda, "f32_launches"),
-    "rmsprop": (rmsprop_cuda, "launches")}
+    "rmsprop": (rmsprop_cuda, "launches"),
+    "rmsprop_update_multi": (rmsprop_cuda, "multi_launches"),
+    "rmsprop_apply_multi": (rmsprop_cuda, "apply_launches")}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -141,6 +144,26 @@ def rmsprop_update(g: torch.Tensor, grad: torch.Tensor, *, lr: float,
     returns (new_g, update); the caller subtracts update."""
     return rmsprop_cuda.rmsprop_update(g, grad.contiguous(), lr=lr,
                                        alpha=alpha, eps=eps)
+
+
+def rmsprop_update_multi(gs, grads, *, lr: float, alpha: float = 0.99,
+                         eps: float = 0.1):
+    """``rmsprop_update`` over lists of leaves, one launch for up to
+    ``rmsprop_cuda.MAX_LEAVES`` of them: g' over each ``gs`` leaf; returns
+    the updates."""
+    return rmsprop_cuda.rmsprop_update_multi(
+        gs, [d.contiguous() for d in grads], lr=lr, alpha=alpha, eps=eps)
+
+
+def rmsprop_apply_multi(params, gs, grads, *, lr: float, alpha: float = 0.99,
+                        eps: float = 0.1) -> None:
+    """One Shared-RMSProp step over lists of f32 leaves, in place: g' over
+    ``gs`` and p - update over ``params``, the subtraction fused into the
+    update kernel (one launch for up to ``rmsprop_cuda.MAX_LEAVES``
+    leaves)."""
+    rmsprop_cuda.rmsprop_apply_multi(
+        params, gs, [d.contiguous() for d in grads], lr=lr, alpha=alpha,
+        eps=eps)
 
 
 def flash_attention_append(q, k, v, kpos, *, pos0: int,

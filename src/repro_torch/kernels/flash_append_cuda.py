@@ -7,11 +7,18 @@ scales).  A CUDA tensor launches the kernel (or raises); a CPU tensor takes
 masks its own ragged edges, so any chunk length and key-stream length stay
 on the kernel.
 
-Three arms, each counted apart: a bf16 q over a bf16 key stream runs on
-the tensor cores (``append_mma_kernel``; p rounded to bf16 before P V, as
-the TPU kernel does, so it meets its plain version within
-``ref.ROUND_TOL`` times ``ref.append_round_scale``); any f32 operand runs
-the exact SIMT body; an int8 stream the SIMT body's int8 arm.
+Four arms, each counted apart.  A bf16 q over a bf16 key stream runs on
+the tensor cores (``append_mma_kernel<D, Bf16Stream>``; p rounded to bf16
+before P V, as the TPU kernel does, so it meets its plain version within
+``ref.ROUND_TOL`` times ``ref.append_round_scale``).  A bf16 q over an
+int8 stream runs the same tile loop (``append_mma_kernel<D,
+Int8Stream>``): the int8 tiles are widened to bf16 in shared memory
+(exact), the scores scaled by each key's k scale, and p times each key's
+v scale split into two bf16 terms for two P V products, so it keeps the
+reference's unrounded f32 p to about 2**-17 (``ref.append_int8_mma_ref``
+models it) and meets the plain version at the int8 tolerance.  Any f32
+operand over a float stream runs the exact SIMT body, and an f32 q over
+an int8 stream its int8 arm.
 """
 from __future__ import annotations
 
@@ -24,7 +31,8 @@ from repro_torch.kernels import build, ref
 # kernel launches since the last reset (dispatch.reset_launch_counts), by arm
 launches = 0            # bf16 q and key stream: tensor cores
 f32_launches = 0        # q or key stream f32: SIMT
-int8_launches = 0       # int8 key stream: SIMT
+int8_launches = 0       # bf16 q, int8 key stream: tensor cores
+int8_f32_launches = 0   # f32 q, int8 key stream: SIMT
 
 HEAD_DIMS = (64, 128)   # head dims the kernel is instantiated for
 
@@ -102,9 +110,11 @@ def flash_attention_append(q: torch.Tensor, k: torch.Tensor,
         build.DTYPE_CODE[q.dtype], build.KV_DTYPE_CODE[k.dtype],
         build.stream_of(q))
     build.check(rc, what)
-    global launches, f32_launches, int8_launches
-    if quant:
+    global launches, f32_launches, int8_launches, int8_f32_launches
+    if quant and q.dtype == torch.bfloat16:
         int8_launches += 1
+    elif quant:
+        int8_f32_launches += 1
     elif q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16:
         launches += 1
     else:

@@ -179,19 +179,26 @@ def decode_attention_ref(q, k_cache, v_cache, kpos, pos) -> torch.Tensor:
     return o.reshape(b, hq, d).to(q.dtype)
 
 
+def _append_mask(q, kpos, pos0: int, window: Optional[int]):
+    """(B, C, 1, 1, Sk) validity of key row j for chunk row i at absolute
+    position pos0 + i; kpos (B,Sk) or (Sk,)."""
+    b, c = q.shape[:2]
+    kpos = kpos.expand(b, kpos.shape[-1])
+    qpos = pos0 + torch.arange(c, device=q.device)
+    mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[None, :, None])
+    if window is not None:
+        mask &= kpos[:, None, :] > qpos[None, :, None] - window
+    return mask[:, :, None, None, :]
+
+
 def _append_logits(q, k, kpos, pos0: int, window: Optional[int]):
     """Masked, scaled f32 scores (B, C, Hkv, G, Sk) of a chunk at absolute
     positions pos0 + i against its key stream; kpos (B,Sk) or (Sk,)."""
     b, c, hq, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    kpos = kpos.expand(b, sk)
-    qpos = pos0 + torch.arange(c, device=q.device)
+    hkv = k.shape[2]
     qg = q.reshape(b, c, hkv, hq // hkv, d).float()
     logits = torch.einsum("bshgd,bthd->bshgt", qg, k.float()) * d ** -0.5
-    mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[None, :, None])
-    if window is not None:
-        mask &= kpos[:, None, :] > qpos[None, :, None] - window
-    return torch.where(mask[:, :, None, None, :], logits, NEG)
+    return torch.where(_append_mask(q, kpos, pos0, window), logits, NEG)
 
 
 def flash_attention_append_ref(q, k, v, kpos, *, pos0: int,
@@ -299,6 +306,37 @@ def decode_split_ref(q, k_cache, v_cache, kpos, pos, k_scale=None,
         return acc_tot, m_tot, l_tot
     o = acc_tot / torch.clamp(l_tot, min=L_FLOOR)[..., None]
     return o.reshape(b, hq, d).to(q.dtype)
+
+
+def append_int8_mma_ref(q, k, v, k_scale, v_scale, kpos, *, pos0: int,
+                        window: Optional[int] = None,
+                        split: bool = True) -> torch.Tensor:
+    """A plain model of the arithmetic of the append kernel's int8
+    tensor-core arm, for tests only: K and V taken as their integers (exact
+    in bf16), each score q . k_int times its key's k scale after the
+    product, p in f32 (l sums it), w = p * the key's v scale split into
+    hi = bf16(w) and lo = bf16(w - hi), and acc = sum (hi + lo) v_int in
+    f32.  ``split=False`` keeps only hi (p * v scale rounded once to bf16,
+    as a bf16 P V product would): the model the kernel must not be.
+    Arguments as ``flash_attention_append_quant_ref``; returns (B,C,Hq,D)
+    in q's dtype."""
+    b, c, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, c, hkv, hq // hkv, d).float()
+    raw = torch.einsum("bshgd,bthd->bshgt", qg, k.float())
+    ks = k_scale[..., 0].transpose(1, 2)[:, None, :, None, :]
+    vs = v_scale[..., 0].transpose(1, 2)[:, None, :, None, :]
+    logits = torch.where(_append_mask(q, kpos, pos0, window),
+                         raw * ks * d ** -0.5, NEG)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    w = p * vs
+    hi = w.to(torch.bfloat16).float()
+    acc = torch.einsum("bshgt,bthd->bshgd", hi, v.float())
+    if split:
+        lo = (w - hi).to(torch.bfloat16).float()
+        acc = acc + torch.einsum("bshgt,bthd->bshgd", lo, v.float())
+    o = acc / torch.clamp(p.sum(dim=-1), min=L_FLOOR)[..., None]
+    return o.reshape(b, c, hq, d).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -11,12 +11,17 @@ updates.  ``lr`` is a host float.  Unlike the JAX package, state and
 parameters are updated in place: the RMSProp accumulator is written by
 the update kernel over itself, and ``apply_updates`` subtracts into the
 parameter leaves, so a full-size learner holds one copy of each.
+``update_and_apply(opt, params, grads, state, lr)`` does both, in one
+pass where the optimizer can (``opt.apply``), and is what the runners and
+train steps call.
 
-Both RMSProp flavours route every leaf through ``dispatch.rmsprop_update``
-(the kernel on the card, the plain version on the CPU); the JAX package's
-``fused`` switch has no counterpart: its unfused path (lr * grad /
-sqrt(g + eps)) and its Pallas path (lr * grad * rsqrt(g + eps)) differ by
-f32 rounding only.
+Both RMSProp flavours send all leaves of an update to one kernel launch
+(``dispatch.rmsprop_update_multi``; with ``update_and_apply``,
+``dispatch.rmsprop_apply_multi``, which also subtracts: the kernel on the
+card, the plain version leaf by leaf on the CPU, the same bits as
+``update`` + ``apply_updates``); the JAX package's ``fused`` switch has no
+counterpart: its unfused path (lr * grad / sqrt(g + eps)) and its Pallas
+path (lr * grad * rsqrt(g + eps)) differ by f32 rounding only.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from typing import Any, Callable, Tuple
 import torch
 
 from repro_torch.kernels import dispatch
-from repro_torch.models.model import tree_map
+from repro_torch.models.model import flatten, tree_map
 
 Params = Any
 
@@ -36,6 +41,14 @@ class Optimizer:
     name: str
     init: Callable[[Params], Any]
     update: Callable[..., Tuple[Params, Any]]  # (grads, state, lr) -> ...
+    # (params, grads, state, lr) -> state: the update subtracted from the
+    # parameters, in place
+    apply: Callable[..., Any]
+
+
+def leaves(tree) -> list:
+    """The leaves of a tree, in ``tree_map`` order."""
+    return list(flatten(tree).values())
 
 
 def shared_rmsprop(*, alpha: float = 0.99, eps: float = 0.1) -> Optimizer:
@@ -43,13 +56,18 @@ def shared_rmsprop(*, alpha: float = 0.99, eps: float = 0.1) -> Optimizer:
         return {"g": tree_map(torch.zeros_like, params)}
 
     def update(grads, state, lr):
-        out = tree_map(lambda g, dg: dispatch.rmsprop_update(
-            g, dg, lr=lr, alpha=alpha, eps=eps), state["g"], grads)
-        new_g = tree_map(lambda g, o: o[0], state["g"], out)
-        updates = tree_map(lambda g, o: o[1], state["g"], out)
-        return updates, {"g": new_g}
+        upds = iter(dispatch.rmsprop_update_multi(
+            leaves(state["g"]), leaves(grads), lr=lr, alpha=alpha, eps=eps))
+        return tree_map(lambda _: next(upds), grads), state
 
-    return Optimizer("shared_rmsprop", init, update)
+    def apply(params, grads, state, lr):
+        with torch.no_grad():
+            dispatch.rmsprop_apply_multi(
+                leaves(params), leaves(state["g"]), leaves(grads), lr=lr,
+                alpha=alpha, eps=eps)
+        return state
+
+    return Optimizer("shared_rmsprop", init, update, apply)
 
 
 def rmsprop(**kw) -> Optimizer:
@@ -67,7 +85,12 @@ def momentum_sgd(*, alpha: float = 0.9) -> Optimizer:
                          state["m"], grads)
         return tree_map(lambda m: lr * m, new_m), {"m": new_m}
 
-    return Optimizer("momentum_sgd", init, update)
+    def apply(params, grads, state, lr):
+        updates, state = update(grads, state, lr)
+        apply_updates(params, updates)
+        return state
+
+    return Optimizer("momentum_sgd", init, update, apply)
 
 
 def apply_updates(params: Params, updates: Params) -> Params:
@@ -76,6 +99,15 @@ def apply_updates(params: Params, updates: Params) -> Params:
     with torch.no_grad():
         tree_map(lambda p, u: p.sub_(u.to(p.dtype)), params, updates)
     return params
+
+
+def update_and_apply(opt: Optimizer, params: Params, grads: Params, state,
+                     lr: float):
+    """``opt.update`` then ``apply_updates``, with the same bits: RMSProp in
+    one pass (one kernel launch for up to 64 leaves, the subtraction
+    fused), ``momentum_sgd`` as the two calls.  Parameters and state
+    change in place.  Returns the new state."""
+    return opt.apply(params, grads, state, lr)
 
 
 OPTIMIZERS = {

@@ -134,7 +134,8 @@ def test_faithful_mask_passes_the_same_check():
 
 
 def test_append_arm_counters_registered():
-    arms = {"flash_append", "flash_append_f32", "flash_append_int8"}
+    arms = {"flash_append", "flash_append_f32", "flash_append_int8",
+            "flash_append_int8_f32"}
     assert arms <= set(dispatch.launch_counts())
     q, k, v, kpos = _window16()
     dispatch.reset_launch_counts()

@@ -234,6 +234,11 @@ def test_flash_arm_counters_registered():
      "dscale_sum_kernel"),
     ("_ZN12_GLOBAL__N_113append_kernelIaLi64ELb1EEEvPKfPKa",
      "append_kernel<int8,64,true>"),
+    ("_ZN12_GLOBAL__N_117append_mma_kernelILi128EN2fm10Int8StreamEEEvPK13"
+     "__nv_bfloat16PKNT0_1TES9_PKfSB_PKiPS2_iiiiiiif",
+     "append_mma_kernel<128,int8>"),
+    ("_ZN12_GLOBAL__N_114rmsprop_kernelILb1EEEv9LeafTablefff",
+     "rmsprop_kernel<true>"),
 ])
 def test_kernel_name_lists_template_arguments(mangled, name):
     assert build._kernel_name(mangled) == name

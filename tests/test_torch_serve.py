@@ -210,11 +210,13 @@ def test_cli_runs_on_cpu(capsys):
     assert rec["requests"] == 3 and rec["device"] == "cpu"
     assert rec["kernel_launches"] == {
         "rmsnorm": 0, "rmsnorm_bwd": 0, "flash_append": 0,
-        "flash_append_f32": 0, "flash_append_int8": 0, "decode_attention": 0,
+        "flash_append_f32": 0, "flash_append_int8": 0,
+        "flash_append_int8_f32": 0, "decode_attention": 0,
         "decode_attention_int8": 0, "decode_attention_partials": 0,
         "decode_attention_partials_int8": 0, "flash_attention": 0,
         "flash_attention_f32": 0, "flash_attention_bwd": 0,
-        "flash_attention_bwd_f32": 0, "rmsprop": 0}
+        "flash_attention_bwd_f32": 0, "rmsprop": 0,
+        "rmsprop_update_multi": 0, "rmsprop_apply_multi": 0}
 
 
 def test_prefill_step_matches_model(models):
