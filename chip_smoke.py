@@ -67,18 +67,38 @@ Phases (any failure raises and the script exits non-zero):
      paper net's FC, 2592 x 256, and a 256 x 3 policy matrix);
   5. the port's reduced model in f32 on the card against the same model
      on the CPU (a counted path: the append kernel's f32 SIMT arm), then
-     ``run_engine`` on Yi-6B at full width and depth (bf16 weights from a
-     seed, bf16 KV, 4 slots, cache 1024, chunk 128, 8 greedy requests):
-     every request completes, all logits are finite, and the run launched
-     the rmsnorm, the append kernel's tensor-core arm (736 times: 23
-     chunks x 32 layers) and the decode kernel's float arm and no other
-     attention arm; then the same run sampled (seed 0's threefry streams),
-     held to the same gates;
-  6. a torch.profiler trace of one admission and of eight decode steps of
-     that engine: wall time, device busy share and the top kernels;
-  6a. the same trace with int8 KV (replicated): the int8 arms of the
-     append (on the tensor cores, 736 launches) and decode kernels, and no
-     other attention arm;
+     the engine on Yi-6B at full width and depth (bf16 weights from a
+     seed, bf16 KV, 4 slots, cache 1024, chunk 128, 8 greedy requests) on
+     its default paged layout (page 128, 33 pages, 264 MiB of pool): the
+     report says paged, every request completes, all logits are finite,
+     and the run launched the rmsnorm, the append kernel's tensor-core arm
+     (736 times: 23 chunks x 32 layers) and the decode kernel's float arm
+     and no other attention arm; the same run on the contiguous layout,
+     held to the same gates, emits the same tokens exactly; then the paged
+     run sampled (seed 0's threefry streams);
+  5p. prefix sharing: Yi-6B, 8 slots, 65 pages, 16 greedy requests on one
+     512-token prefix with distinct tails of 16-100 tokens (two pairs of
+     identical prompts), generations 32-64, with the prefix cache on and
+     off: the same tokens, chunks skipped, copy-on-write forks and fewer
+     pages with it on; TTFT and admission wall of both;
+  5o. overload: phase 5's trace on an 11-page pool (two of its largest
+     requests' worst case): under reservation admission every request
+     completes with phase 5's tokens, none is preempted and requests queue
+     while a slot stands free; under optimistic admission decode runs out
+     of pages and preempts; both end with balanced books (no reservation,
+     every refcount 0); then reduced Yi-6B in f32 on a 5-page pool of 64
+     rows, optimistic, and again under ``FaultPlan.random(0)`` on a
+     virtual clock: the card's engine emits the CPU engine's tokens
+     (margin >= 1e-3) with its preemption, requeue, shed, retry, COW and
+     page counters and virtual clock;
+  6. torch.profiler traces of one admission and of eight decode steps,
+     paged and contiguous in turns (paged, contiguous, contiguous, paged):
+     wall time, device busy share, kernels a step, the top kernels, and
+     the kernels whose launches a step differ between the layouts (the
+     gathers among them);
+  6a. phase 5's run with int8 KV (paged): the int8 arms of the append (on
+     the tensor cores, 736 launches) and decode kernels, and no other
+     attention arm;
   6b. the context-parallel path: the same trace through ``run_engine``
      with int8 KV and ``decode_cp[1]`` over a one-rank NCCL group (a
      ``file://`` store): its report says ``decode_cp[1]``, and it launched
@@ -135,8 +155,8 @@ Phases (any failure raises and the script exits non-zero):
      merge; one rmsprop launch a group and step.
 
 Every kernel and arm must have been launched on one of the main paths
-(phase 5's reduced model and engines, 6a, 6b, each of the four runs of 6c,
-6d, 7, 8 and each run of 9, each with the
+(phase 5's reduced model and engines, each run of 5p and 5o, 6a, 6b, each
+of the four runs of 6c, 6d, 7, 8 and each run of 9, each with the
 counters set to 0 just before it and read just after); the kernels line
 gives each one's launches by path.
 The last three lines are the card's name and power limit (nvidia-smi), a
@@ -1501,15 +1521,35 @@ def _check_attention_arms(label, counts, want):
                              f"launched off its path {stray}")
 
 
-def _check_serving_run(label, rep, counts, kv, cp, bf16_q=True):
+def _check_serving_run(label, rep, counts, kv, cp, bf16_q=True,
+                       paged=False):
     """The run took the layout and the kernels its flags ask for: the
-    report's decode_layout and kv dtype, the rmsnorm and its two arms
-    launched, every other serving arm not launched."""
+    report's decode_layout, paged flag and kv dtype, the rmsnorm and its
+    two arms launched, every other serving arm not launched."""
     layout = "decode_cp[1]" if cp else "replicated"
-    if rep["decode_layout"] != layout or rep["kv_dtype"] != kv:
+    if rep["decode_layout"] != layout or rep["kv_dtype"] != kv \
+            or rep["paged"] != paged:
         raise AssertionError(f"{label}: layout {rep['decode_layout']} kv "
-                             f"{rep['kv_dtype']}, expected {layout} {kv}")
+                             f"{rep['kv_dtype']} paged {rep['paged']}, "
+                             f"expected {layout} {kv} paged {paged}")
     _check_attention_arms(label, counts, _serving_arms(kv, cp, bf16_q))
+
+
+def _check_books(label, eng):
+    """A drained paged engine's books balance: no reservation left, every
+    page back on the free list once but those a fault plan holds, every
+    other refcount 0."""
+    al, held = eng.alloc, set(eng._fault_held)
+    ok = (al.reserved == 0 and int(eng.resv_of.sum()) == 0
+          and al.used_pages == len(held)
+          and len(set(al.free)) == len(al.free) and 0 not in al.free
+          and not set(al.free) & held
+          and all(int(al.ref[p]) == (p in held)
+                  for p in range(1, al.n_pages)))
+    if not ok:
+        raise AssertionError(f"{label}: books do not balance (reserved "
+                             f"{al.reserved}, used {al.used_pages}, held "
+                             f"{sorted(held)})")
 
 
 def build_yi6b():
@@ -1526,55 +1566,249 @@ def build_yi6b():
     return cfg, params
 
 
-def run_yi6b_engine(cfg, params, kv, cp, sample=False):
-    """Phase 5's trace (8 requests, greedy unless ``sample``: then the
-    threefry streams of seed 0) through ``run_engine`` on Yi-6B at full
-    width and depth with KV dtype ``kv``, under decode_cp[1] over the
-    one-rank NCCL group installed by the caller when ``cp``.  Returns the
-    launch counts of that run alone."""
+def _phase5_trace(cfg):
+    from repro_torch.launch import serve
+    return serve.gen_trace(8, vocab=cfg.vocab_size, prompt_range=(64, 600),
+                           gen_range=(16, 48), arrival_rate=0.0, seed=0)
+
+
+def _serve(label, cfg, params, trace, kv, cp=False, device="cuda",
+           **engine_kw):
+    """``trace`` through ``serve.serve_trace`` on a new engine (4 slots,
+    cache 1024, chunk 128, greedy unless ``engine_kw`` says otherwise),
+    counters set to 0 just before and read just after.  Every request
+    completes with finite logits.  Returns (report, launch counts, engine,
+    {rid: tokens})."""
     import torch
 
     from repro_torch.kernels import dispatch
-    from repro_torch.launch import serve
-    trace = serve.gen_trace(8, vocab=cfg.vocab_size, prompt_range=(64, 600),
-                            gen_range=(16, 48), arrival_rate=0.0, seed=0)
-    torch.cuda.reset_peak_memory_stats()
+    from repro_torch.launch import serve, traffic
+    kw = dict(n_slots=4, cache_len=1024, chunk=128, sample=False, seed=0,
+              kv_dtype=kv, device=device, decode_cp=cp)
+    kw.update(engine_kw)
+    eng = serve.ServeEngine(cfg, params, **kw)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
-    rep = serve.run_engine(cfg, params, trace, n_slots=4, cache_len=1024,
-                           chunk=128, sample=sample, seed=0, kv_dtype=kv,
-                           device="cuda", decode_cp=cp)
+    rep = serve.serve_trace(eng, trace)
     counts = dispatch.launch_counts()
-    label = (f"engine yi-6b full width x 32 layers {rep['decode_layout']} "
-             f"{kv}{' sampled' if sample else ''}")
+    if eng.paged:
+        rep["pool_mib"] = traffic.page_pool_bytes(
+            cfg, eng.n_pages, eng.page_size, kv_dtype=kv) / 2**20
     unfinished = [r.rid for r in trace if len(r.tokens) != r.max_new]
     if rep["requests"] != len(trace) or unfinished:
         raise AssertionError(f"{label}: requests {unfinished} did not finish")
     if not rep["logits_finite"]:
         raise AssertionError(f"{label}: non-finite logits")
-    _check_serving_run(label, rep, counts, kv, cp)
-    append = _serving_arms(kv, cp)[0]
-    if counts[append] != PHASE5_APPENDS:
-        raise AssertionError(f"{label}: {append} launched {counts[append]} "
-                             f"times, want {PHASE5_APPENDS}")
+    return rep, counts, eng, {r.rid: list(r.tokens) for r in trace}
+
+
+def _print_run(label, rep, counts, keys=()):
+    import torch
     print(f"{label}: " + json.dumps({k: rep[k] for k in (
         "requests", "generated_tokens", "prefill_tokens", "wall_s",
         "tokens_per_s", "decode_tokens_per_s", "prefill_wall_s", "ttft_s",
-        "latency_s", "warmup_s", "logits_finite", "decode_layout",
-        "cp_combine_bytes_per_token")}))
+        "latency_s", "warmup_s", "logits_finite", "paged", "decode_layout",
+        "cp_combine_bytes_per_token") + tuple(keys)}))
     print(f"{label}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     shown = {k: counts[k] for k in ("rmsnorm",) + SERVING_ARMS}
     print(f"{label}: kernel launches {json.dumps(shown)}")
-    return counts
 
 
-def _profile(label, fn, wall_ms=None, watch=()):
+PAGE_KEYS = ("page_size", "n_pages", "pool_mib", "usable_pages",
+             "pages_requested", "pages_alloced", "dedup_ratio", "cow_events",
+             "prefill_chunks_skipped", "pool_high_water", "robustness")
+
+
+def run_yi6b_engine(cfg, params, kv, cp, sample=False, paged=None):
+    """Phase 5's trace (8 requests, greedy unless ``sample``: then the
+    threefry streams of seed 0) through the engine on Yi-6B at full
+    width and depth with KV dtype ``kv``, under decode_cp[1] over the
+    one-rank NCCL group installed by the caller when ``cp``; the paged
+    layout by default (page 128: 33 pages), ``paged=False`` contiguous.
+    Returns (the launch counts of that run alone, its tokens)."""
+    trace = _phase5_trace(cfg)
+    want_paged = not cp and paged is not False
+    label = (f"engine yi-6b full width x 32 layers "
+             f"{'paged' if want_paged else 'contiguous'} "
+             f"{'decode_cp[1] ' if cp else ''}{kv}"
+             f"{' sampled' if sample else ''}")
+    rep, counts, _, tokens = _serve(label, cfg, params, trace, kv, cp,
+                                    sample=sample, paged=paged)
+    _check_serving_run(label, rep, counts, kv, cp, paged=want_paged)
+    append = _serving_arms(kv, cp)[0]
+    if counts[append] != PHASE5_APPENDS:
+        raise AssertionError(f"{label}: {append} launched {counts[append]} "
+                             f"times, want {PHASE5_APPENDS}")
+    _print_run(label, rep, counts, PAGE_KEYS if want_paged else ())
+    return counts, tokens
+
+
+def _prefix_trace(vocab):
+    """Phase 5p's trace: 16 requests on one 512-token prefix (4 pages of
+    128) with distinct tails of 16-100 tokens, except two pairs (rids 3, 4
+    and 10, 11) whose whole prompts are identical; generations 32-64."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+    rng = np.random.default_rng(19)
+    shared = rng.integers(0, vocab, 512).astype(np.int32)
+    tails = [rng.integers(0, vocab, int(rng.integers(16, 101)))
+             .astype(np.int32) for _ in range(16)]
+    tails[4], tails[11] = tails[3], tails[10]
+    return [serve.Request(rid=i, prompt=np.concatenate([shared, tails[i]]),
+                          max_new=int(rng.integers(32, 65)), arrival=0.0)
+            for i in range(16)]
+
+
+def check_prefix_sharing(cfg, params, device="cuda"):
+    """Phase 5p: Yi-6B, 8 slots, cache 1024 (65 pages), bf16, greedy, the
+    prefix trace with the prefix cache on and off: the same tokens, chunks
+    skipped, copy-on-write forks, fewer pages.  Each run is its own path;
+    returns {path: counts}."""
+    out, recs, toks = {}, {}, {}
+    for share in (True, False):
+        path = "prefix_shared" if share else "prefix_private"
+        rep, out[path], _, toks[share] = _serve(
+            f"engine yi-6b {path}", cfg, params, _prefix_trace(cfg.vocab_size),
+            "bf16", device=device, n_slots=8, prefix_cache=share)
+        _check_serving_run(path, rep, out[path], "bf16", False, paged=True)
+        recs[share] = rep
+        if device == "cuda":
+            _print_run(f"engine yi-6b {path}", rep, out[path], PAGE_KEYS)
+    on, off = recs[True], recs[False]
+    if toks[True] != toks[False]:
+        raise AssertionError("prefix sharing changed the tokens")
+    if not (on["prefill_chunks_skipped"] > 0 and on["cow_events"] > 0
+            and on["pages_alloced"] < off["pages_alloced"]):
+        raise AssertionError(
+            f"prefix sharing: skipped {on['prefill_chunks_skipped']}, cow "
+            f"{on['cow_events']}, pages {on['pages_alloced']} vs "
+            f"{off['pages_alloced']}")
+    print(f"check prefix sharing yi-6b 16 requests: tokens identical, "
+          f"skipped chunks {on['prefill_chunks_skipped']}, cow "
+          f"{on['cow_events']}, pages {on['pages_alloced']} vs "
+          f"{off['pages_alloced']}, dedup {on['dedup_ratio']}; ttft p50/p90 "
+          f"{on['ttft_s'].get('p50')}/{on['ttft_s'].get('p90')} vs "
+          f"{off['ttft_s'].get('p50')}/{off['ttft_s'].get('p90')} s, "
+          f"admission wall {on['prefill_wall_s']} vs "
+          f"{off['prefill_wall_s']} s ok")
+    return out
+
+
+# phase 5o's cut of phase 5's pool: 10 usable pages, two of its largest
+# requests' worst case (5 pages each)
+OVERLOAD_PAGES = 11
+
+
+def check_overload(cfg, params, want_tokens, device="cuda"):
+    """Phase 5o at full width, bf16: phase 5's trace on an 11-page pool.
+    ``reserve``: every request completes with phase 5's tokens and no
+    preemption while requests queued behind a free slot; ``optimistic``:
+    decode runs into pages that are gone and preempts.  Both end with
+    balanced books.  Returns {path: counts}."""
+    out = {}
+    for adm in ("reserve", "optimistic"):
+        path = f"overload_{adm}"
+        rep, out[path], eng, toks = _serve(
+            f"engine yi-6b {path}", cfg, params, _phase5_trace(cfg), "bf16",
+            device=device, n_pages=OVERLOAD_PAGES, admission=adm)
+        _check_serving_run(path, rep, out[path], "bf16", False, paged=True)
+        _check_books(path, eng)
+        same = sum(toks[r] == want_tokens[r] for r in toks)
+        if adm == "reserve":
+            if not (eng.preemptions == 0 and max(eng.queue_depths) > 0
+                    and max(eng.occupancy) < 1.0 and toks == want_tokens):
+                raise AssertionError(
+                    f"{path}: preemptions {eng.preemptions}, queue "
+                    f"{max(eng.queue_depths)}, occupancy "
+                    f"{max(eng.occupancy)}, tokens as phase 5 {same}/8")
+        elif eng.preemptions <= 0:
+            raise AssertionError(f"{path}: no preemption")
+        if device == "cuda":
+            _print_run(f"engine yi-6b {path}", rep, out[path], PAGE_KEYS)
+        print(f"check overload {adm} yi-6b {OVERLOAD_PAGES} pages: "
+              f"preemptions {eng.preemptions}, largest queue "
+              f"{max(eng.queue_depths)}, most slots busy "
+              f"{max(eng.occupancy)}, requests with phase 5's tokens "
+              f"{same}/8, books balanced ok")
+    return out
+
+
+def check_overload_reduced(devices=("cpu", "cuda")):
+    """Phase 5o, reduced Yi-6B in f32: the JAX package's pressure trace
+    (a shared 64-token prefix, identical prompts for rids 1 and 2,
+    generations into a third page of 64) on 2 slots and a 5-page pool
+    under optimistic admission, and again under ``FaultPlan.random(0)``,
+    on a virtual clock: the card's engine emits the CPU engine's tokens
+    (margin-qualified) with its counters.  Returns the card runs' counts
+    by path."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = get_config("yi-6b").reduced()
+    params = M.init_params(cfg, 0, "cpu")
+    ps = 64
+    # trace seed 3: every greedy choice wins by >= 1e-3 on these weights
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, cfg.vocab_size, ps).astype(np.int32)
+    dup = rng.integers(0, cfg.vocab_size, 9).astype(np.int32)
+    tails = [dup if i in (1, 2) else rng.integers(
+        0, cfg.vocab_size, 5 + (i % 3) * 6).astype(np.int32)
+        for i in range(4)]
+    keys = ("preemptions", "requeues", "sheds_admission", "sheds_decode",
+            "retries", "injected_alloc_failures", "forced_preemptions",
+            "cow_events", "pages_requested", "pages_alloced",
+            "prefill_chunks_skipped", "step_count")
+    out = {}
+    for path, plan in (("overload_reduced_f32", None),
+                       ("fault_plan_reduced_f32", serve.FaultPlan.random(0))):
+        runs = {}
+        for dev in devices:
+            trace = [serve.Request(rid=i, prompt=np.concatenate(
+                [shared, tails[i]]), max_new=ps, arrival=0.0)
+                for i in range(4)]
+            eng = serve.ServeEngine(
+                cfg, M.tree_map(lambda t: t.to(dev), params), n_slots=2,
+                cache_len=3 * ps, chunk=ps, sample=False, seed=0,
+                page_size=ps, n_pages=5, admission="optimistic",
+                fault_plan=plan, clock=lambda: 0.0, device=dev)
+            dispatch.reset_launch_counts()
+            rep = serve.serve_trace(eng, trace)
+            counts = dispatch.launch_counts()
+            _check_books(f"{path} {dev}", eng)
+            runs[dev] = ({r.rid: list(r.tokens) for r in trace},
+                         {k: int(getattr(eng, k)) for k in keys}, eng.now())
+            if dev == devices[0]:
+                margin = serve.min_accept_margin(cfg, params, trace, 3 * ps,
+                                                 device="cpu")
+        _check_serving_run(path, rep, counts, "f32", False, bf16_q=False,
+                           paged=True)
+        if margin < 1e-3:
+            raise AssertionError(f"{path}: near tie (margin {margin})")
+        card, cpu = (runs[d] for d in devices[::-1])
+        if card != cpu or cpu[1]["preemptions"] <= 0:
+            raise AssertionError(f"{path}: card {card} != CPU {cpu}")
+        out[path] = counts
+        print(f"check {path} cuda vs cpu: tokens, counters "
+              f"{json.dumps(cpu[1])} and virtual clock {cpu[2]:.6f} s "
+              f"identical, margin {margin:.4g} (>= 1e-3), books balanced ok")
+    return out
+
+
+def _profile(label, fn, wall_ms=None, watch=(), steps=None, gather=()):
     """Device busy share of ``fn`` from a torch.profiler trace: the summed
     time of the kernels it ran (one stream, so they do not overlap) over
     its wall time without the profiler (``wall_ms``, or one more run of
     ``fn``), the kernels that took the most device time, the kernels whose
     names hold one of ``watch`` wherever they rank, and the host ops that
-    took the most host time."""
+    took the most host time.  With ``steps``, the kernels launched a step
+    and the device time of those whose names hold one of ``gather``.
+    Returns {kernel name: (launches, device ms)}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1597,9 +1831,15 @@ def _profile(label, fn, wall_ms=None, watch=()):
           f"{wall:.2f}) device_busy_ms={busy:.2f} busy_share="
           f"{busy / plain_wall:.3f} (of the profiled wall "
           f"{busy / wall:.3f})")
+    if steps:
+        n = sum(e.count for e in kernels)
+        g = [e for e in kernels if any(w in e.key for w in gather)]
+        print(f"profile {label}: kernels_per_step={n / steps:.1f} "
+              f"gather_ms={sum(e.self_device_time_total for e in g) / 1e3:.3f}"
+              f" ({sum(e.count for e in g)} launches)")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     for rank, e in enumerate(ranked):
-        if rank < 8 or any(w in e.key for w in watch):
+        if rank < 8 or any(w in e.key for w in watch + tuple(gather)):
             print(f"profile {label}: #{rank + 1:<3d}"
                   f"{e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} "
                   f"{e.key[:90]}")
@@ -1611,12 +1851,29 @@ def _profile(label, fn, wall_ms=None, watch=()):
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]:
         print(f"profile {label}:   host {e.self_cpu_time_total / 1e3:8.2f} "
               f"ms of {total:.2f} x{e.count:<6d} {e.key[:60]}")
+    return {e.key: (e.count, e.self_device_time_total / 1e3)
+            for e in kernels}
+
+
+def _profile_diff(label, a, b, steps):
+    """The kernels whose launches differ between two profiles of
+    ``steps`` steps (what one layout adds to the other's step): launches
+    and device ms a step of each."""
+    for key in sorted(set(a) | set(b),
+                      key=lambda k: -abs(a.get(k, (0, 0))[1]
+                                         - b.get(k, (0, 0))[1])):
+        (na, ta), (nb, tb) = a.get(key, (0, 0.0)), b.get(key, (0, 0.0))
+        if na != nb:
+            print(f"profile {label}: x{na / steps:<6.1f} {ta / steps:.4f} "
+                  f"ms vs x{nb / steps:<6.1f} {tb / steps:.4f} ms a step "
+                  f"{key[:80]}")
 
 
 def profile_engine(cfg, params, label, **engine_kw):
     """Where a full-width engine step spends its time: one admission of
     four prompts (chunked prefill) and eight decode steps of four slots,
-    on an engine built with ``engine_kw`` (kv dtype, decode_cp)."""
+    on an engine built with ``engine_kw`` (kv dtype, decode_cp, paged).
+    Returns the decode window's kernels (``_profile``)."""
     from repro_torch.launch import serve
     eng = serve.ServeEngine(cfg, params, n_slots=4, cache_len=1024,
                             chunk=128, sample=False, device="cuda",
@@ -1624,17 +1881,27 @@ def profile_engine(cfg, params, label, **engine_kw):
     reqs = iter(serve.gen_trace(8, vocab=cfg.vocab_size,
                                 prompt_range=(64, 600), gen_range=(64, 64),
                                 arrival_rate=0.0, seed=1))
-    # each call admits four fresh requests into the four slots
+    # each call admits four fresh requests into the four slots, emptied
+    # first, through the scheduler (which reserves a paged engine's pages)
     watch = ("append_", "decode_split", "decode_combine")
-    _profile(f"{label} admission of 4 prompts", lambda: eng.admit(
-        [(next(reqs), j) for j in range(4)], 0.0), watch=watch)
+    # the paged arms' page gathers (index_select's CUDA kernels)
+    gather = ("vectorized_gather_kernel", "indexSelect")
+
+    def admit():
+        for j in range(4):
+            if eng.req_of[j] is not None:
+                eng._vacate(j)
+            eng.enqueue(next(reqs))
+        eng.admit(eng.schedule_admissions(0.0), 0.0)
+    _profile(f"{label} admission of 4 prompts", admit, watch=watch)
     for _ in range(2):
         eng.decode_step_all()
 
     def decode():
         for _ in range(8):
             eng.decode_step_all()
-    _profile(f"{label} 8 decode steps x 4 slots", decode, watch=watch)
+    return _profile(f"{label} 8 decode steps x 4 slots", decode,
+                    watch=watch, steps=8, gather=gather)
 
 
 def check_cp_reduced():
@@ -2490,17 +2757,38 @@ def main():
     t_phase = time.perf_counter()
     path_counts = {"model_small_f32": check_model_small()}
     cfg, params = build_yi6b()
-    path_counts["engine"] = run_yi6b_engine(cfg, params, "bf16", False)
+    path_counts["engine"], tokens = run_yi6b_engine(cfg, params, "bf16",
+                                                    False)
+    path_counts["engine_contiguous"], tokens_c = run_yi6b_engine(
+        cfg, params, "bf16", False, paged=False)
+    if tokens != tokens_c:
+        raise AssertionError("phase 5: paged tokens differ from contiguous")
+    print("check phase 5 paged vs contiguous: greedy tokens identical ok")
     path_counts["engine_sampled"] = run_yi6b_engine(cfg, params, "bf16",
-                                                    False, sample=True)
-    profile_engine(cfg, params, "bf16", kv_dtype="bf16")
-    path_counts["engine_int8"] = run_yi6b_engine(cfg, params, "int8", False)
+                                                    False, sample=True)[0]
+    # paged and contiguous in turns: paged, contiguous, contiguous, paged
+    steps = {}
+    for paged in (True, False, False, True):
+        name = "paged" if paged else "contiguous"
+        steps[name] = profile_engine(cfg, params, f"bf16 {name}",
+                                     kv_dtype="bf16", paged=paged)
+    _profile_diff("bf16 decode step, paged vs contiguous", steps["paged"],
+                  steps["contiguous"], 8)
+    path_counts["engine_int8"] = run_yi6b_engine(cfg, params, "int8",
+                                                 False)[0]
     print(f"phase engine_s {time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
+    path_counts.update(check_prefix_sharing(cfg, params))
+    print(f"phase prefix_sharing_s {time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
+    path_counts.update(check_overload(cfg, params, tokens))
+    path_counts.update(check_overload_reduced())
+    print(f"phase overload_s {time.perf_counter() - t_phase:.1f}")
 
     t_phase = time.perf_counter()
     with sharding.process_group(torch.device("cuda")):
         path_counts["engine_cp_int8"] = run_yi6b_engine(cfg, params, "int8",
-                                                        True)
+                                                        True)[0]
         profile_engine(cfg, params, "decode_cp[1] int8", kv_dtype="int8",
                        decode_cp=True)
         del params

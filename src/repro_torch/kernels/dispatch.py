@@ -15,7 +15,10 @@ here), and the custom gradients of ``flash_attention`` and ``rmsnorm``
 (``jax.custom_vjp`` there, a ``torch.autograd.Function`` here, the same on
 both devices) whose backwards are kernels too.  Int8 KV caches pass their
 (..., Hkv, 1) f32 scales to the decode and append kernels, which
-dequantise inside.
+dequantise inside.  The paged arms (``decode_attention_paged``,
+``flash_attention_append_paged``) gather a page pool into the dense view
+through its page table, as the JAX arms do, and delegate to the decode
+and append kernels.
 
 Each wrapper counts its launches, by kernel and arm; ``launch_counts`` /
 ``reset_launch_counts`` read and clear them, so a run can show that its
@@ -220,6 +223,65 @@ def decode_attention(q, k_cache, v_cache, kpos, pos=None, *,
     acc, m, l = decode_attention_cuda.decode_attention_partials(
         q, k_cache, v_cache, kpos, pos, k_scale, v_scale)
     return _combine_partials(acc, m, l, cp.group).to(q.dtype)
+
+
+def decode_attention_paged(q, k_pool, v_pool, page_table, pos, *,
+                           length: Optional[int] = None, k_scale=None,
+                           v_scale=None, kpos=None, rows=None
+                           ) -> torch.Tensor:
+    """Paged-layout decode: q (B,Hq,D); pools (P,page_size,Hkv,D) (int8
+    with (P,page_size,Hkv,1) f32 scale pools, gathered through the same
+    table); page_table (B,M) int32 (-1 = unmapped, page 0 the sink); pos
+    (B,) or scalar -> (B,Hq,D).
+
+    Gathers the dense view, statically cut to ``length`` rows (M *
+    page_size by default), and delegates to ``decode_attention``: with the
+    contiguous layout's cache_len the kernel sees that layout's shapes, so
+    its split plan and reduction order, and its result bit for bit, are
+    the contiguous layout's.  ``kpos`` (the view's (B, length) positions,
+    ``ref.paged_kpos_ref``) and ``rows`` (the gather's pool rows,
+    ``ref.paged_rows``) may come precomputed: every layer of a step shares
+    one page table."""
+    length = page_table.shape[1] * k_pool.shape[1] if length is None \
+        else length
+    if kpos is None:
+        kpos = ref.paged_kpos_ref(page_table, k_pool.shape[1])[:, :length]
+    if rows is None:
+        rows = ref.paged_rows(page_table)
+    view = [None if t is None else ref.paged_view(t, page_table, length,
+                                                  rows)
+            for t in (k_pool, v_pool, k_scale, v_scale)]
+    return decode_attention(q, view[0], view[1], kpos, pos,
+                            k_scale=view[2], v_scale=view[3])
+
+
+def flash_attention_append_paged(q, k_pool, v_pool, page_table, k_chunk,
+                                 v_chunk, *, pos0: int, k_scale=None,
+                                 v_scale=None, ks_chunk=None, vs_chunk=None,
+                                 kpos=None, rows=None) -> torch.Tensor:
+    """Paged-layout append for chunked prefill: q (B,C,Hq,D) at absolute
+    positions pos0 + i; the pools hold the prefix [0, pos0) behind
+    page_table (B,M); k_chunk/v_chunk (B,C,Hkv,D) the chunk's own K/V (an
+    int8 pool takes them quantised, with ``ks_chunk``/``vs_chunk``, and
+    its scale pools as ``k_scale``/``v_scale``).  At pos0 == 0 the pool is
+    not read.  Linear layouts only: the gathered prefix keeps key row ==
+    absolute position wherever mapped, so the delegated call runs with
+    ``kpos_linear=True``; a float prefix is cast to q's dtype, as the
+    contiguous layout's stream is.  ``kpos`` (the stream's,
+    ``ref.append_paged_kpos``) and ``rows`` (``ref.paged_rows`` of the
+    prefix's table) may come precomputed for all layers."""
+    quant = k_scale is not None
+    ps = k_pool.shape[1]
+    pools = (k_pool, v_pool) + ((k_scale, v_scale) if quant else ())
+    chunks = (k_chunk, v_chunk) + ((ks_chunk, vs_chunk) if quant else ())
+    stream = ref.append_paged_stream(pools, page_table, chunks, pos0, ps,
+                                     cast=not quant, rows=rows)
+    if kpos is None:
+        kpos = ref.append_paged_kpos(page_table, ps, pos0, q.shape[1])
+    scales = stream[2:] if quant else (None, None)
+    return flash_attention_append(q, stream[0], stream[1], kpos, pos0=pos0,
+                                  kpos_linear=True, k_scale=scales[0],
+                                  v_scale=scales[1])
 
 
 def _combine_partials(acc, m, l, group) -> torch.Tensor:

@@ -365,3 +365,126 @@ def flash_attention_append_quant_ref(q, k, v, k_scale, v_scale, kpos, *,
     return flash_attention_append_ref(q, dequant_ref(k, k_scale),
                                       dequant_ref(v, v_scale), kpos,
                                       pos0=pos0, window=window)
+
+
+# ---------------------------------------------------------------------------
+# paged KV: a shared page pool (P, page_size, Hkv, D) behind per-slot page
+# tables (B, M) int32, -1 = unmapped; page 0 is the garbage sink.  The paged
+# plain versions gather the dense view and run the contiguous ones.
+# ---------------------------------------------------------------------------
+
+def paged_rows(page_table) -> torch.Tensor:
+    """The pool rows a gather through ``page_table`` (B, M) reads: the
+    table flattened to (B * M,) int64, unmapped entries on the sink."""
+    return page_table.clamp(min=0).reshape(-1).long()
+
+
+def paged_gather_ref(pool, page_table, rows=None) -> torch.Tensor:
+    """(B, M * page_size, Hkv, D) dense view of ``pool`` through
+    ``page_table``; unmapped rows gather page 0 (callers mask them through
+    kpos).  ``rows``: ``paged_rows(page_table)``, if already computed."""
+    b, m = page_table.shape
+    rows = paged_rows(page_table) if rows is None else rows
+    dense = pool.index_select(0, rows)              # (B * M, ps, Hkv, D)
+    return dense.reshape(b, m * pool.shape[1], *pool.shape[2:])
+
+
+def paged_kpos_ref(page_table, page_size: int) -> torch.Tensor:
+    """kpos of a page-gathered view: row i holds absolute position i iff
+    its page is mapped, else -1.  (B, M) -> (B, M * page_size) int32."""
+    b, m = page_table.shape
+    mapped = (page_table >= 0).repeat_interleave(page_size, dim=1)
+    idx = torch.arange(m * page_size, dtype=torch.int32,
+                       device=page_table.device)
+    return torch.where(mapped, idx, -1)
+
+
+def paged_view(pool, page_table, length, rows=None):
+    """``paged_gather_ref`` cut to the first ``length`` rows."""
+    return paged_gather_ref(pool, page_table, rows)[:, :length]
+
+
+def decode_attention_paged_ref(q, k_pool, v_pool, page_table, pos, *,
+                               length: Optional[int] = None) -> torch.Tensor:
+    """The gathered view statically cut to ``length`` rows, then
+    ``decode_attention_ref``."""
+    kpos = paged_kpos_ref(page_table, k_pool.shape[1])[:, :length]
+    return decode_attention_ref(q, paged_view(k_pool, page_table, length),
+                                paged_view(v_pool, page_table, length),
+                                kpos, pos)
+
+
+def decode_attention_paged_quant_ref(q, k_pool, v_pool, k_scale, v_scale,
+                                     page_table, pos, *,
+                                     length: Optional[int] = None
+                                     ) -> torch.Tensor:
+    """int8 pools with (P, page_size, Hkv, 1) f32 scale pools, gathered
+    through the same table."""
+    kpos = paged_kpos_ref(page_table, k_pool.shape[1])[:, :length]
+    return decode_attention_quant_ref(
+        q, paged_view(k_pool, page_table, length),
+        paged_view(v_pool, page_table, length),
+        paged_view(k_scale, page_table, length),
+        paged_view(v_scale, page_table, length), kpos, pos)
+
+
+def prefix_table(page_table, page_size: int, pos0: int):
+    """The table's entries for the pages that cover [0, pos0)."""
+    return page_table[:, :-(-pos0 // page_size)]
+
+
+def append_paged_kpos(page_table, page_size: int, pos0: int,
+                      c: int) -> torch.Tensor:
+    """kpos (B, pos0 + C) int32 of a paged append's key stream: the
+    gathered prefix [0, pos0), then the chunk at pos0 + i."""
+    b = page_table.shape[0]
+    chunk = (pos0 + torch.arange(c, dtype=torch.int32,
+                                 device=page_table.device)).expand(b, c)
+    if pos0 == 0:
+        return chunk
+    pre = paged_kpos_ref(prefix_table(page_table, page_size, pos0),
+                         page_size)[:, :pos0]
+    return torch.cat([pre, chunk], dim=1)
+
+
+def append_paged_stream(pools, page_table, chunks, pos0: int,
+                        page_size: int, cast: bool = False, rows=None):
+    """Key stream of a paged append: each pool's gathered prefix [0, pos0)
+    (with ``cast``, in its chunk's dtype) followed by its chunk.
+    ``rows``: ``paged_rows`` of the prefix's table, if already computed."""
+    if pos0 == 0:
+        return list(chunks)
+    pt = prefix_table(page_table, page_size, pos0)
+    out = []
+    for pool, chunk in zip(pools, chunks):
+        pre = paged_view(pool, pt, pos0, rows)
+        out.append(torch.cat([pre.to(chunk.dtype) if cast else pre,
+                              chunk], dim=1))
+    return out
+
+
+def flash_attention_append_paged_ref(q, k_pool, v_pool, page_table,
+                                     k_chunk, v_chunk, *,
+                                     pos0: int) -> torch.Tensor:
+    """The gathered prefix [0, pos0) in q's dtype plus the chunk's own K/V,
+    then ``flash_attention_append_ref`` (no window: ring layers stay
+    contiguous)."""
+    ps = k_pool.shape[1]
+    k, v = append_paged_stream((k_pool, v_pool), page_table,
+                               (k_chunk, v_chunk), pos0, ps, cast=True)
+    kpos = append_paged_kpos(page_table, ps, pos0, q.shape[1])
+    return flash_attention_append_ref(q, k, v, kpos, pos0=pos0)
+
+
+def flash_attention_append_paged_quant_ref(q, k_pool, v_pool, k_scale,
+                                           v_scale, page_table, k_chunk,
+                                           v_chunk, ks_chunk, vs_chunk, *,
+                                           pos0: int) -> torch.Tensor:
+    """int8 pools and scale pools hold the prefix; the chunk comes already
+    quantised (the bytes its cache write lands)."""
+    ps = k_pool.shape[1]
+    k, v, ks, vs = append_paged_stream(
+        (k_pool, v_pool, k_scale, v_scale), page_table,
+        (k_chunk, v_chunk, ks_chunk, vs_chunk), pos0, ps)
+    kpos = append_paged_kpos(page_table, ps, pos0, q.shape[1])
+    return flash_attention_append_quant_ref(q, k, v, ks, vs, kpos, pos0=pos0)

@@ -1,19 +1,39 @@
-"""Continuous-batching serve engine (the actor/serving path), contiguous core.
+"""Continuous-batching serve engine (the actor/serving path).
 
-Counterpart of ``repro/launch/serve.py`` on the contiguous KV layout: a
-slot table of ``n_slots`` concurrent sequences fed by a queue of requests.
+Counterpart of ``repro/launch/serve.py``: a slot table of ``n_slots``
+concurrent sequences fed by a queue of requests.
 
   * **admission** — freed slots take the oldest arrived requests; their
     prompts run together through chunked flash prefill (``n_slots`` rows,
     right-padded to one chunk grid, one append-attention call per layer
-    per chunk) and each row is copied into its slot's cache rows;
+    per chunk);
   * **decode** — every slot steps together through one ``serve_step`` with
     per-slot positions ``pos (B,)``; the decode-attention kernel masks each
     row at its own depth.
 
+The KV layout is paged by default, as in the JAX engine: where the model
+has global-attention layers and ``cache_len`` is whole pages of
+``page_size`` rows, those layers keep their rows in a shared page pool
+behind one page table (``models/attention.py``).  A host ``PageAllocator``
+hands out refcounted pages (page 0 the sink); a ``PrefixIndex`` maps pages
+of a prompt prefix that an earlier request wrote into a new request's
+table, whose admission then skips the chunks those pages cover, and a
+shared page is copied at its first divergent decode write (copy-on-write).
+Admission reserves each request's worst-case pages (``admission=
+"reserve"``: decode never exhausts the pool) or its prompt's only
+(``"optimistic"``: a decode step that finds the pool empty preempts a slot
+and requeues its request, whose tokens so far fold into its next
+prefill).  Requests may carry a TTFT deadline (shed at admission, retried
+with backoff) and a total deadline (shed mid-decode); a ``FaultPlan``
+replays injected allocation failures, forced preemptions, step latencies
+and held pages on a virtual clock.  ``paged=False`` keeps the contiguous
+layout: one cache row per slot and position, admission rows copied into
+their slots.
+
 KV caches are f32, bf16 or int8 (quantised on write, dequantised inside
-the kernels).  ``--decode-cp`` is context-parallel serving: every rank of
-the process group (torchrun's ``RANK``/``WORLD_SIZE``, or a group of one)
+the kernels).  ``--decode-cp`` is context-parallel serving on the
+contiguous layout (a page pool has no sequence slice): every rank of the
+process group (torchrun's ``RANK``/``WORLD_SIZE``, or a group of one)
 holds its slice of each slot's cache along the sequence, decode runs the
 partials kernel over the slice and combines the ranks with all-reduces.
 Admission prefill runs on a whole group cache on every rank (replicated
@@ -21,25 +41,30 @@ compute, as the JAX package replicates the weights) and each rank copies
 its columns into its slots.  Every rank computes the same logits and so
 samples the same tokens; the run checks that they agree.
 
-Reports tokens/s, TTFT and end-to-end latency percentiles, slot occupancy,
-the cache layout and the kernel launch counts.
+Reports tokens/s, TTFT and end-to-end latency percentiles, slot and page
+occupancy, prefix sharing, preemptions, sheds and retries, the cache
+layout and the kernel launch counts.
 
   python -m repro_torch.launch.serve --arch yi-6b --no-reduced \\
       --slots 4 --requests 8 --prompt-range 64,600 --gen-range 16,48 \\
       --cache-len 1024 --kv-dtype bf16 --greedy
+  python -m repro_torch.launch.serve --device cpu --greedy \\
+      --cache-len 256 --admission optimistic --pages 5
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu \\
       --decode-cp --kv-dtype int8 --greedy
 
-``--mode lockstep`` is the wave-batched baseline.  The paged layout,
-speculative decoding, fault plans, deadlines and retries are later slices
-(ROADMAP.md queue 1) and raise ``NotImplementedError``.
+``--mode lockstep`` is the wave-batched baseline.  Speculative decoding is
+a later slice (ROADMAP.md queue 1, item 4b) and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import dataclasses
 import json
+import logging
 import os
 import time
 import zlib
@@ -57,8 +82,7 @@ from repro_torch.launch import traffic
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
 
-_LATER = ("see ROADMAP.md, queue 1, slice 3b: paged KV, speculative "
-          "decoding and overload handling")
+_SPEC_ITEM = "see ROADMAP.md, queue 1, item 4b: speculative decoding"
 
 
 # ---------------------------------------------------------------------------
@@ -71,21 +95,28 @@ class Request:
     prompt: np.ndarray            # (P,) int32
     max_new: int
     arrival: float                # seconds after engine start
-    # robustness knobs of the JAX engine; the port raises if any is set
-    deadline_ttft: Optional[float] = None
-    deadline_total: Optional[float] = None
-    max_retries: int = 0
+    # robustness knobs (None = unbounded):
+    deadline_ttft: Optional[float] = None   # wait for the first token, from
+    #                                         the current (retried) arrival
+    deadline_total: Optional[float] = None  # end to end, from the original
+    #                                         arrival
+    max_retries: int = 0          # re-enqueues after an admission shed (the
+    #                               TTFT clock restarts at each)
     # filled by the engine:
     tokens: list = dataclasses.field(default_factory=list)
+    t_admit: float = -1.0
     t_first: float = -1.0
     t_done: float = -1.0
-    eff_arrival: float = -1.0
+    eff_arrival: float = -1.0     # current arrival (moved by retries)
+    preemptions: int = 0
+    retry_count: int = 0
+    shed_reason: Optional[str] = None
 
 
 def _eff_prompt(req: Request) -> np.ndarray:
-    """The prompt an admission must prefill: generated-so-far tokens fold
-    into it (a requeued request resumes with the logits the uncontended run
-    saw)."""
+    """The prompt an admission must prefill: a preempted request's
+    generated-so-far tokens fold into it, so it resumes with the logits the
+    uncontended run saw."""
     if req.tokens:
         return np.concatenate([np.asarray(req.prompt, np.int32),
                                np.asarray(req.tokens, np.int32)])
@@ -161,19 +192,15 @@ def _percentiles(xs) -> dict:
             for p, q in (("p50", 50), ("p90", 90), ("p99", 99))}
 
 
-def _check_request(r: Request) -> None:
-    if r.deadline_ttft is not None or r.deadline_total is not None \
-            or r.max_retries:
-        raise NotImplementedError(
-            f"request {r.rid}: deadlines and retries are not ported yet "
-            f"({_LATER})")
-
-
-def _validate_trace(trace: List[Request], cache_len: int) -> None:
+def _validate_trace(trace: List[Request], cache_len: int, *,
+                    page_size: Optional[int] = None,
+                    usable_pages: Optional[int] = None) -> None:
     """A full KV cache has no wrap: reject requests whose decode would run
-    past its end (decode writes up to position prompt + max_new - 2)."""
+    past its end (decode writes up to position prompt + max_new - 2).  A
+    paged engine also rejects a request whose worst-case page demand
+    exceeds the pool: it could never be served even alone, and
+    preempt-and-requeue would cycle forever."""
     for r in trace:
-        _check_request(r)
         if len(r.prompt) < 1:
             raise ValueError(f"request {r.rid}: empty prompt")
         if len(r.prompt) + r.max_new - 1 > cache_len:
@@ -182,6 +209,92 @@ def _validate_trace(trace: List[Request], cache_len: int) -> None:
                 f"{r.max_new} overruns cache_len {cache_len}; raise "
                 "--cache-len (a full cache would wrap and clobber "
                 "prompt rows silently)")
+        if page_size:
+            need = -(-min(len(r.prompt) + r.max_new, cache_len) // page_size)
+            if need > usable_pages:
+                raise ValueError(
+                    f"request {r.rid}: worst-case page demand {need} "
+                    f"(ceil((prompt {len(r.prompt)} + max_new {r.max_new})"
+                    f" / page_size {page_size})) exceeds the pool's "
+                    f"{usable_pages} usable pages — it can never be "
+                    "served even alone; raise --pages or shorten the "
+                    "request")
+
+
+# ---------------------------------------------------------------------------
+# deterministic fault injection
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FaultPlan:
+    """A seeded, replayable overload scenario for the serve engine.
+
+    Every field indexes deterministic engine counters, the global
+    ``_try_alloc`` call number and the decode step number, so the same plan
+    against the same trace replays the same faults:
+
+      * ``fail_alloc_at`` — allocation calls that return None whatever the
+                            pool holds (the allocator is untouched, so
+                            reservations survive an injected failure);
+      * ``preempt_at``    — decode steps that first preempt the victim
+                            policy's choice (a repeated index preempts
+                            several slots);
+      * ``latency_at``    — (step, seconds) added to the engine's virtual
+                            clock: with ``clock=lambda: 0.0`` time is wholly
+                            virtual and deadlines are deterministic;
+      * ``hold_pages``    — pages seized from the pool at init and reset
+                            (standing pressure).
+    """
+
+    fail_alloc_at: frozenset = frozenset()
+    preempt_at: tuple = ()
+    latency_at: tuple = ()
+    hold_pages: int = 0
+
+    def alloc_fails(self, call: int) -> bool:
+        return call in self.fail_alloc_at
+
+    def forced_preempts(self, step: int) -> int:
+        return sum(1 for s in self.preempt_at if s == step)
+
+    def step_latency(self, step: int) -> float:
+        return sum(lat for s, lat in self.latency_at if s == step)
+
+    @classmethod
+    def random(cls, seed: int, *, n_steps: int = 64,
+               n_alloc_calls: int = 64, alloc_fail_p: float = 0.1,
+               preempt_p: float = 0.05, latency_p: float = 0.1,
+               max_latency: float = 0.01,
+               hold_pages: int = 0) -> "FaultPlan":
+        """The JAX package's draws from ``np.random.default_rng(seed)``: the
+        same seed gives the same plan there and here."""
+        rng = np.random.default_rng(seed)
+        return cls(
+            fail_alloc_at=frozenset(
+                int(i) for i in range(n_alloc_calls)
+                if rng.random() < alloc_fail_p),
+            preempt_at=tuple(int(s) for s in range(n_steps)
+                             if rng.random() < preempt_p),
+            latency_at=tuple(
+                (int(s), float(round(rng.uniform(0.0, max_latency), 6)))
+                for s in range(n_steps) if rng.random() < latency_p),
+            hold_pages=hold_pages)
+
+    def to_json(self) -> str:
+        return json.dumps({
+            "fail_alloc_at": sorted(self.fail_alloc_at),
+            "preempt_at": list(self.preempt_at),
+            "latency_at": [list(x) for x in self.latency_at],
+            "hold_pages": self.hold_pages})
+
+    @classmethod
+    def from_json(cls, s: str) -> "FaultPlan":
+        d = json.loads(s)
+        return cls(fail_alloc_at=frozenset(d.get("fail_alloc_at", ())),
+                   preempt_at=tuple(d.get("preempt_at", ())),
+                   latency_at=tuple((int(a), float(b))
+                                    for a, b in d.get("latency_at", ())),
+                   hold_pages=int(d.get("hold_pages", 0)))
 
 
 # ---------------------------------------------------------------------------
@@ -221,17 +334,20 @@ def _pad_group(prompts: List[np.ndarray], n_rows: int, chunk: int,
 
 
 def _chunked_prefill(prefill_step, params, cache, toks, plens, grid,
-                     device) -> tuple:
+                     device, skip=()) -> tuple:
     """Run a right-padded (B, padded) token block through the chunk chain.
     Returns (last_logits (B, V) np.float32, each row's logits at its last
     prompt position, and the cache).  The gather happens on the device, so
     only the (B, V) block crosses to the host; rows with plen 0 keep
-    zeros."""
+    zeros.  Chunk offsets in ``skip`` (covered for every row by shared
+    prefix pages, and holding no row's last prompt token) are not run."""
     last = None
     plens = np.asarray(plens)
     true_len = torch.as_tensor(plens, dtype=torch.int32, device=device)
     toks_d = torch.as_tensor(toks, device=device)
     for p0, c in grid:
+        if p0 in skip:
+            continue
         logits, cache = prefill_step(params, cache,
                                      {"tokens": toks_d[:, p0:p0 + c]},
                                      pos0=p0, true_len=true_len)
@@ -249,33 +365,267 @@ def _chunked_prefill(prefill_step, params, cache, toks, plens, grid,
 
 
 # ---------------------------------------------------------------------------
+# page allocator and prefix index (paged KV layout, host side)
+# ---------------------------------------------------------------------------
+
+class PageAllocator:
+    """Host free-list allocator over the shared page pool.
+
+    Page 0 is the garbage sink (writes through unmapped table entries land
+    there; reads mask it through kpos) and is never handed out.  Pages are
+    refcounted (prefix sharing maps one page into many slots' tables), and
+    ``version`` bumps whenever a page's count returns to 0, so a
+    ``PrefixIndex`` entry naming a freed and reissued page fails
+    validation instead of aliasing it.
+
+    Exhaustion is a scheduling event: ``try_alloc`` returns None and the
+    engine recovers (admission backpressure, preempt-and-requeue).
+    ``reserve``/``unreserve`` hold back admitted requests' worst-case
+    demand from unreserved allocations, so a reserved allocation never
+    fails while ``reserved <= len(free)``."""
+
+    def __init__(self, n_pages: int):
+        if n_pages < 2:
+            raise ValueError(f"need >= 2 pages (sink + 1), got {n_pages}")
+        self.n_pages = n_pages
+        self.free = list(range(n_pages - 1, 0, -1))      # LIFO, 0 reserved
+        self.ref = np.zeros(n_pages, np.int32)
+        self.version = np.zeros(n_pages, np.int64)
+        self.reserved = 0        # admission units not yet materialised
+        self.high_water = 0      # most pages ever in use
+
+    def try_alloc(self, *, reserved: bool = False) -> Optional[int]:
+        """A page, or None when the pool cannot serve the call.
+        ``reserved=True`` consumes one reservation unit; an unreserved call
+        fails once the free list is down to the reserved units."""
+        if reserved:
+            if self.reserved <= 0:
+                raise RuntimeError(
+                    "reserved alloc without an outstanding reservation "
+                    "(engine reservation accounting is out of sync)")
+            if not self.free:
+                return None
+            self.reserved -= 1
+        elif len(self.free) <= self.reserved:
+            return None
+        p = self.free.pop()
+        self.ref[p] = 1
+        if self.used_pages > self.high_water:
+            self.high_water = self.used_pages
+        return p
+
+    def alloc(self) -> int:
+        p = self.try_alloc()
+        if p is None:
+            raise RuntimeError("page pool exhausted; raise --pages")
+        return p
+
+    def reserve(self, n: int) -> bool:
+        """Set ``n`` pages of future demand aside; False (and no change)
+        when the unreserved pool cannot cover them."""
+        if n < 0:
+            raise ValueError(f"reserve({n})")
+        if len(self.free) - self.reserved < n:
+            return False
+        self.reserved += n
+        return True
+
+    def unreserve(self, n: int) -> None:
+        if n > self.reserved:
+            raise RuntimeError(
+                f"unreserve({n}) exceeds outstanding {self.reserved}")
+        self.reserved -= n
+
+    def incref(self, p: int) -> None:
+        self.ref[p] += 1
+
+    def decref(self, p: int) -> None:
+        self.ref[p] -= 1
+        if self.ref[p] == 0:
+            self.version[p] += 1
+            self.free.append(p)
+
+    @property
+    def used_pages(self) -> int:
+        return (self.n_pages - 1) - len(self.free)
+
+    @property
+    def free_unreserved(self) -> int:
+        return len(self.free) - self.reserved
+
+
+class PrefixIndex:
+    """Prompt-prefix sharing: hash chains over page-sized token blocks.
+
+    Block i keys on ``hash((key_{i-1}, block tokens))``, so a match at
+    block i implies the whole prefix matched; lookup stops at the first
+    miss.  An entry holds the page, the allocator's version at
+    registration and the block's tokens: a hit needs refcount > 0, the same
+    version and the same tokens, so recycled pages and hash collisions
+    never alias (stale entries are dropped when found).  The final partial
+    block registers too and matches only an identical prompt; the two
+    copies fork at their first decode write (copy-on-write)."""
+
+    def __init__(self, page_size: int):
+        self.ps = page_size
+        self.entries: dict = {}          # chain hash -> (page, ver, toks)
+
+    def _blocks(self, prompt):
+        h = 0x9E3779B9
+        for i in range(0, len(prompt), self.ps):
+            blk = tuple(int(t) for t in prompt[i:i + self.ps])
+            h = hash((h, blk))
+            yield h, blk
+
+    def lookup(self, prompt, alloc: PageAllocator) -> List[tuple]:
+        """The longest valid chain of shared pages over the prompt's leading
+        blocks: [(page, n_tokens), ...]."""
+        out = []
+        for h, blk in self._blocks(prompt):
+            e = self.entries.get(h)
+            if e is None:
+                break
+            page, ver, toks = e
+            if alloc.ref[page] <= 0 or alloc.version[page] != ver \
+                    or toks != blk:
+                del self.entries[h]      # page recycled since registration
+                break
+            out.append((page, len(blk)))
+        return out
+
+    def register(self, prompt, pages, alloc: PageAllocator) -> None:
+        """Record block -> page for every block of the prompt (the first
+        writer wins)."""
+        for (h, blk), page in zip(self._blocks(prompt), pages):
+            if h not in self.entries:
+                self.entries[h] = (int(page), int(alloc.version[page]), blk)
+
+    def clear(self) -> None:
+        self.entries.clear()
+
+
+class AllocatorModel:
+    """The engine's allocator discipline as a transition system, for the
+    small-scope interleaving check of ``tools/audit/alloc_model.explore``,
+    which drives real ``PageAllocator``s through every op sequence up to a
+    depth.  Each op is one of the engine's allocator interactions:
+
+      * ``alloc``      — unreserved allocation (optimistic admission, decode
+                         growth past a consumed reservation), enabled while
+                         ``free > reserved``;
+      * ``reserve``    — admission sets one page of worst-case demand aside;
+      * ``alloc_r``    — a reserved allocation consuming one unit;
+      * ``unreserve``  — a finishing, unwinding or preempted slot releases an
+                         unmaterialised unit;
+      * ``incref(h)``  — a prefix hit maps a held page into another table;
+      * ``release(h)`` — a finished slot drops one reference
+                         (``ServeEngine._free_slot_pages``);
+      * ``cow(h)``     — the first divergent write to a shared page: a
+                         private copy, then the shared reference dropped
+                         (``ServeEngine._cow_into``);
+      * ``preempt(h)`` — preempt-and-requeue: hold ``h`` and every
+                         outstanding reservation unit dropped at once.
+
+    (The JAX package's model adds speculative decoding's spec, rewind and
+    commit ops; they come with that slice, ROADMAP.md queue 1, item 4b.)
+    State is ``(allocator, holds)``, ``holds`` the outstanding table
+    references as ``(page, version at acquire, "c")`` triples."""
+
+    def __init__(self, n_pages: int = 4, allocator_cls=None):
+        self.n_pages = n_pages
+        self.allocator_cls = allocator_cls or PageAllocator
+
+    def initial(self):
+        return self.allocator_cls(self.n_pages), ()
+
+    def enabled_ops(self, alloc, holds):
+        """Op labels legal in this state (the engine only ever decrefs
+        pages it holds)."""
+        ops = []
+        reserved = int(getattr(alloc, "reserved", 0))
+        if len(alloc.free) > reserved:
+            ops.append(("alloc",))
+        # a refused reserve is backpressure: a no-op state
+        ops.append(("reserve",))
+        if reserved > 0:
+            ops.append(("alloc_r",))
+            ops.append(("unreserve",))
+        for i, h in enumerate(holds):
+            ops.append(("incref", i))
+            ops.append(("release", i))
+            ops.append(("preempt", i))
+            if alloc.ref[h[0]] > 1 and len(alloc.free) > reserved:
+                ops.append(("cow", i))
+        return ops
+
+    def apply(self, alloc, holds, op):
+        """Apply ``op`` to copies of (alloc, holds); returns the new pair."""
+        alloc = copy.deepcopy(alloc)
+        holds = list(holds)
+        kind = op[0]
+        if kind in ("alloc", "alloc_r"):
+            p = alloc.try_alloc(reserved=kind == "alloc_r")
+            if p is None:
+                raise RuntimeError(f"enabled {kind} failed")
+            holds.append((p, int(alloc.version[p]), "c"))
+        elif kind == "reserve":
+            alloc.reserve(1)
+        elif kind == "unreserve":
+            alloc.unreserve(1)
+        elif kind == "incref":
+            p = holds[op[1]][0]
+            alloc.incref(p)
+            holds.append((p, int(alloc.version[p]), "c"))
+        elif kind == "release":
+            alloc.decref(holds.pop(op[1])[0])
+        elif kind == "cow":
+            src = holds[op[1]][0]
+            dst = alloc.try_alloc()             # copy rows, then drop the
+            if dst is None:                     # shared reference
+                raise RuntimeError("enabled cow failed")
+            alloc.decref(src)
+            holds[op[1]] = (dst, int(alloc.version[dst]), "c")
+        elif kind == "preempt":
+            alloc.decref(holds.pop(op[1])[0])
+            reserved = int(getattr(alloc, "reserved", 0))
+            if reserved:
+                alloc.unreserve(reserved)
+        else:
+            raise ValueError(f"unknown op {op!r}")
+        return alloc, tuple(sorted(holds))
+
+
+# ---------------------------------------------------------------------------
 # engine
 # ---------------------------------------------------------------------------
 
 class ServeEngine:
     """Slot table + scheduler around one per-slot ``serve_step``.
 
-    The cache holds ``n_slots`` rows per layer; admission prefills the
-    arrived group in one batch-``n_slots`` chunk chain on a persistent
-    group cache and copies each row into its freed slot.  With
+    The cache holds ``n_slots`` rows per layer (paged: a page table row per
+    slot into the shared pools).  Admission prefills the arrived group in
+    one batch-``n_slots`` chunk chain on a group cache: on the paged layout
+    its paged layers are the engine's own pools behind the group's page
+    table rows, so the prefill writes land in place; contiguous leaves are
+    the group's own, and each row is copied into its freed slot.  With
     ``decode_cp`` the slot cache is laid out under ``decode_rules`` over
     the default process group (each rank its slice of the sequence), while
     the group cache stays whole."""
 
     def __init__(self, cfg, params, *, n_slots: int, cache_len: int,
                  chunk: int = 128, sample: bool = True, seed: int = 0,
-                 paged: Optional[bool] = None, kv_dtype="f32",
-                 spec: str = "off", fault_plan=None, device=None,
-                 decode_cp: bool = False):
-        if paged:
-            raise NotImplementedError(f"paged KV caches are not ported yet "
-                                      f"({_LATER})")
+                 page_size: int = 128, n_pages: int = 0,
+                 prefix_cache: bool = True, paged: Optional[bool] = None,
+                 kv_dtype="f32", admission: str = "reserve",
+                 fault_plan: Optional[FaultPlan] = None, clock=None,
+                 retry_backoff: float = 0.05, spec: str = "off",
+                 device=None, decode_cp: bool = False):
+        if admission not in ("reserve", "optimistic"):
+            raise ValueError(f"admission policy {admission!r} (want "
+                             "'reserve' or 'optimistic')")
         if spec != "off":
             raise NotImplementedError(f"speculative decoding is not ported "
-                                      f"yet ({_LATER})")
-        if fault_plan is not None:
-            raise NotImplementedError(f"fault plans are not ported yet "
-                                      f"({_LATER})")
+                                      f"yet ({_SPEC_ITEM})")
         if not M.supports_chunked_prefill(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: recurrent caches have no chunked prefill; "
@@ -288,15 +638,46 @@ class ServeEngine:
         self.params = M.cast_params(cfg, params)
         self.n_slots, self.cache_len, self.chunk = n_slots, cache_len, chunk
         self.sample = sample
+        self.admission = admission
+        self.fault_plan = fault_plan
+        # time: a custom clock makes time (and so deadlines) virtual, the
+        # fault plan's latencies advance it deterministically
+        self.clock = clock if clock is not None else time.perf_counter
+        self.virtual_time = clock is not None
+        self.retry_backoff = retry_backoff
         # sampling keys are (request id, logical position) streams off the
         # session key, as the JAX engine's base_key; on the host, where the
         # stream ids and positions are and their hashes are cheap
         self.base_key = prng.key(seed)
-        self._t0: Optional[float] = None
         self.serve_step = llm_a3c.make_serve_step(cfg, sample=sample)
         self.prefill_step = llm_a3c.make_prefill_step(cfg)
         self.kv_dtype = kv_quant.resolve_kv_dtype(kv_dtype)
         self.kv_dtype_name = kv_quant.dtype_name(self.kv_dtype)
+        # the JAX engine's default layout (its serve.py:939-943): paged
+        # wherever there are global-attention layers and whole pages;
+        # context-parallel decode splits contiguous caches only
+        kinds = cfg.layer_kinds()
+        if paged is None:
+            paged = ("attn" in kinds and cache_len % page_size == 0
+                     and not decode_cp)
+        elif paged and decode_cp:
+            raise ValueError("decode_cp splits each slot's cache along the "
+                             "sequence and a page pool has no sequence "
+                             "slice: serve decode_cp with paged=False")
+        elif paged and "attn" not in kinds:
+            raise ValueError(f"{cfg.name} has no global-attention layer to "
+                             "page")
+        self.paged = bool(paged)
+        self.page_size = page_size
+        self.max_pages = cache_len // page_size if self.paged else 0
+        # by default the worst case without sharing: every slot fills its
+        # table, and the sink
+        self.n_pages = (n_pages or n_slots * self.max_pages + 1) \
+            if self.paged else 0
+        self.prefix_cache = self.paged and bool(prefix_cache)
+        if self.paged:
+            self.prefix_index = PrefixIndex(page_size)
+            self.pt_host = np.full((n_slots, self.max_pages), -1, np.int32)
         self.rules = None
         self.decode_layout = "replicated"
         self.cp_combine_bytes = 0
@@ -309,40 +690,94 @@ class ServeEngine:
             n = self.rules["decode_cp"]["n_shards"]
             # a length that does not divide keeps the cache whole on every
             # rank (the JAX rule); the report says so
-            spec, _ = sharding.decode_cp_shard_spec(self.rules["decode_cp"],
-                                                    length=cache_len)
-            if spec is not None:
+            spec_, _ = sharding.decode_cp_shard_spec(self.rules["decode_cp"],
+                                                     length=cache_len)
+            if spec_ is not None:
                 self.decode_layout = f"decode_cp[{n}]"
             self.cp_combine_bytes = traffic.decode_cp_combine_bytes(
                 cfg, n_slots, n)
         with ctx.sharding_rules(self.rules):
-            self.cache = self._new_cache()
-        # persistent admission-prefill cache (batch n_slots), whole on every
-        # rank: stale rows beyond a new request's prompt are hidden by the
-        # kpos/pos invariant, so it never needs re-zeroing
-        self._group_cache = self._new_cache()
+            self.cache = M.init_cache(
+                cfg, n_slots, cache_len, dtype=self.kv_dtype,
+                device=self.device,
+                paged=attn.PagedLayout(page_size, self.n_pages)
+                if self.paged else None)
+        self._group_cache = self._new_group_cache()
+        self._staging: dict = {}
         self.pos = np.zeros(n_slots, np.int32)
         self.tok = np.zeros(n_slots, np.int32)
+        self.resv_of = np.zeros(n_slots, np.int32)
         self.req_of: List[Optional[Request]] = [None] * n_slots
         self.queue: collections.deque = collections.deque()
         self.reset()
 
-    def _new_cache(self) -> dict:
-        """A cache of the engine's shape, laid out under the rules installed
-        around the call (whole outside them)."""
-        return M.init_cache(self.cfg, self.n_slots, self.cache_len,
-                            dtype=self.kv_dtype, device=self.device)
+    def _new_group_cache(self) -> dict:
+        """The persistent admission-prefill cache (batch n_slots), whole on
+        every rank: stale rows beyond a new request's prompt are hidden by
+        the kpos/pos invariant, so it never needs re-zeroing.  Its paged
+        layers hold the engine's pools (never copies) behind its own page
+        table."""
+        if not self.paged:
+            return M.init_cache(self.cfg, self.n_slots, self.cache_len,
+                                dtype=self.kv_dtype, device=self.device)
+        pt = torch.full_like(self.cache["pt"], -1)
+        layers = []
+        for big in self.cache["layers"]:
+            if "kp" in big:
+                layers.append({**{n: big[n] for n in attn.pool_leaves(big)},
+                               "pt": pt})
+            else:
+                layers.append(attn.init_kv_cache(
+                    self.n_slots, big["k"].shape[1], self.cfg.n_kv_heads,
+                    self.cfg.hd, self.kv_dtype, self.device))
+        return {"pt": pt, "layers": layers}
 
-    # -- clock --------------------------------------------------------------
+    def _upload(self, dst: torch.Tensor, table: np.ndarray) -> None:
+        """Host page table -> device table.  On the card through a pinned
+        buffer, asynchronously: no host sync, and the buffer is rewritten
+        only after its previous copy ran (an event)."""
+        if dst.device.type != "cuda":
+            dst.copy_(torch.from_numpy(table))
+            return
+        if id(dst) not in self._staging:
+            self._staging[id(dst)] = (
+                torch.empty(table.shape, dtype=torch.int32, pin_memory=True),
+                torch.cuda.Event())
+        buf, done = self._staging[id(dst)]
+        done.synchronize()
+        buf.numpy()[:] = table
+        dst.copy_(buf, non_blocking=True)
+        done.record()
+
+    def _push_pt(self) -> None:
+        self._upload(self.cache["pt"], self.pt_host)
+
+    # -- clock and fault plumbing --------------------------------------------
+
+    def _apply_fault_pressure(self) -> None:
+        """Seize the fault plan's ``hold_pages`` (never the last
+        allocatable page)."""
+        self._fault_held = []
+        if self.paged and self.fault_plan and self.fault_plan.hold_pages:
+            n = min(self.fault_plan.hold_pages, len(self.alloc.free) - 1)
+            self._fault_held = [self.alloc.alloc() for _ in range(n)]
+
+    @property
+    def usable_pages(self) -> int:
+        """Pages a request can get: the pool less the sink and the fault
+        plan's held pages."""
+        return self.n_pages - 1 - len(self._fault_held)
 
     def start_clock(self) -> None:
-        self._t0 = time.perf_counter()
+        self._t0 = self.clock()
+        self._virtual = 0.0
 
     def now(self) -> float:
-        """Seconds since ``start_clock`` (0 before it starts)."""
+        """Seconds since ``start_clock`` plus injected virtual latency (the
+        virtual offset alone before the clock starts)."""
         if self._t0 is None:
-            return 0.0
-        return time.perf_counter() - self._t0
+            return self._virtual
+        return self.clock() - self._t0 + self._virtual
 
     def shared_now(self) -> float:
         """``now()``, the same on every rank of a context-parallel engine
@@ -356,39 +791,174 @@ class ServeEngine:
                         group=self.rules["decode_cp"]["group"])
         return float(t.item())
 
-    # -- scheduling ---------------------------------------------------------
+    def advance(self, dt: float) -> None:
+        """Wait ``dt`` seconds: a sleep on the real clock, a jump on a
+        virtual one."""
+        if dt <= 0:
+            return
+        if self.virtual_time:
+            self._virtual += dt
+        else:
+            time.sleep(dt)
+
+    def _try_alloc(self, *, reserved: bool = False) -> Optional[int]:
+        """Every page allocation of the engine: numbers the calls so a
+        ``FaultPlan`` can fail chosen ones (the allocator untouched)."""
+        i = self._alloc_calls
+        self._alloc_calls += 1
+        if self.fault_plan is not None and self.fault_plan.alloc_fails(i):
+            self.injected_alloc_failures += 1
+            return None
+        return self.alloc.try_alloc(reserved=reserved)
+
+    # -- scheduling: backpressure, deadlines, preemption ---------------------
+
+    def _need_pages(self, req: Request) -> int:
+        """Pages to reserve at admission: the worst case,
+        ceil((prompt + max_new) / page_size) within the cache, under
+        ``reserve``; the effective prompt's under ``optimistic``."""
+        if not self.paged:
+            return 0
+        total = len(req.prompt) + len(req.tokens) \
+            if self.admission == "optimistic" \
+            else len(req.prompt) + req.max_new
+        return -(-min(total, self.cache_len) // self.page_size)
 
     def enqueue(self, req: Request) -> None:
-        _check_request(req)
         if req.eff_arrival < 0:
             req.eff_arrival = req.arrival
         self.queue.append(req)
 
+    def _shed_admission(self, req: Request, now: float) -> None:
+        """TTFT deadline missed while queued: requeue with exponential
+        backoff while retries are left (its TTFT clock restarts at the new
+        arrival), else drop."""
+        self.sheds_admission += 1
+        if req.retry_count < req.max_retries:
+            req.retry_count += 1
+            self.retries += 1
+            req.eff_arrival = now + \
+                self.retry_backoff * (2 ** (req.retry_count - 1))
+            self.queue.append(req)
+        else:
+            req.shed_reason = "ttft-deadline"
+            req.t_done = now
+            self.shed_requests.append(req)
+
     def schedule_admissions(self, now: float) -> List[tuple]:
-        """Pair queued, arrived requests with free slots, FIFO."""
+        """Pair queued requests with free slots, FIFO.  A paged admission
+        first reserves its pages; a head that does not fit blocks the line
+        (the pool drains to it).  Entries in retry backoff are skipped;
+        TTFT misses shed here, before a prefill is spent on them."""
         self.queue_depths.append(len(self.queue))
         pairs: List[tuple] = []
         free_slots = [j for j in range(self.n_slots)
                       if self.req_of[j] is None]
-        while self.queue and free_slots \
-                and self.queue[0].eff_arrival <= now:
-            pairs.append((self.queue.popleft(), free_slots.pop(0)))
+        i = 0
+        while i < len(self.queue) and free_slots:
+            req = self.queue[i]
+            if req.eff_arrival > now:
+                i += 1
+                continue
+            if req.deadline_ttft is not None and req.t_first < 0 \
+                    and now - req.eff_arrival > req.deadline_ttft:
+                del self.queue[i]
+                self._shed_admission(req, now)
+                continue
+            need = self._need_pages(req)
+            if self.paged and not self.alloc.reserve(need):
+                break
+            j = free_slots.pop(0)
+            self.resv_of[j] = need
+            del self.queue[i]
+            pairs.append((req, j))
         return pairs
+
+    def _release_reservation(self, j: int) -> None:
+        if self.paged and self.resv_of[j]:
+            self.alloc.unreserve(int(self.resv_of[j]))
+            self.resv_of[j] = 0
+
+    def _slot_alloc(self, j: int) -> Optional[int]:
+        """One page for slot ``j``: from its reservation while any is left
+        (an injected failure leaves the unit), then unreserved."""
+        if self.resv_of[j] > 0:
+            p = self._try_alloc(reserved=True)
+            if p is not None:
+                self.resv_of[j] -= 1
+            return p
+        return self._try_alloc()
+
+    def _choose_victim(self) -> Optional[int]:
+        """Least decode progress first (cheapest re-prefill), then most
+        private pages, then the youngest request: the oldest request
+        furthest along is never the victim, which keeps the run moving."""
+        best, best_key = None, None
+        for v in range(self.n_slots):
+            req = self.req_of[v]
+            if req is None:
+                continue
+            private = sum(1 for p in self.pt_host[v]
+                          if p >= 0 and self.alloc.ref[int(p)] == 1) \
+                if self.paged else 0
+            k = (len(req.tokens), -private, -req.rid)
+            if best_key is None or k < best_key:
+                best, best_key = v, k
+        return best
+
+    def _vacate(self, j: int) -> None:
+        """Slot ``j`` holds no request: its position, token and (paged) its
+        pages and reservation go."""
+        self.req_of[j] = None
+        self.pos[j] = 0
+        self.tok[j] = 0
+        if self.paged:
+            self._free_slot_pages(j)
+
+    def _preempt(self, v: int) -> None:
+        """Evict slot ``v`` and requeue its request at the front.  Private
+        pages free; shared prefix pages keep their other references and
+        their index entries, so the re-admission maps them again and skips
+        their chunks; the tokens so far fold into its prefill."""
+        req = self.req_of[v]
+        self._vacate(v)
+        req.preemptions += 1
+        self.preemptions += 1
+        self.requeues += 1
+        self.queue.appendleft(req)
+
+    def _alloc_with_preemption(self, j: int) -> Optional[int]:
+        """A decode-time page for slot ``j``: on exhaustion preempt victims
+        until the allocation succeeds or ``j`` itself is preempted (None).
+        Each failed attempt evicts an active slot, and ``j`` is one."""
+        while True:
+            p = self._slot_alloc(j)
+            if p is not None:
+                return p
+            v = self._choose_victim()
+            if v is None:       # unreachable: j itself is active
+                raise RuntimeError(
+                    "page pool exhausted with no preemptible slot")
+            self._preempt(v)
+            if v == j:
+                return None
 
     # -- admission ----------------------------------------------------------
 
     def _write_rows(self, group_cache: dict, row_to_slot) -> None:
-        """Copy rows of the admission-prefill cache into their slots.  The
-        JAX engine finds each cache leaf's batch dimension with eval_shape
-        and writes through a jitted masked take; here the batch dimension
-        of every contiguous KV leaf is 0, and the rows are written in place
-        with ``index_copy_``.  A context-parallel slot cache takes this
-        rank's columns of the whole group cache."""
+        """Copy rows of the admission-prefill cache into their slots (the
+        JAX engine's jitted masked take): the batch dimension of every
+        contiguous KV leaf is 0, and the rows are written in place with
+        ``index_copy_``.  Paged layers are skipped: the group's writes
+        landed in the engine's pools.  A context-parallel slot cache takes
+        this rank's columns of the whole group cache."""
         src = torch.tensor([i for i, _ in row_to_slot], device=self.device)
         dst = torch.tensor([j for _, j in row_to_slot], device=self.device)
         with ctx.sharding_rules(self.rules):
             for big, small in zip(self.cache["layers"],
                                   group_cache["layers"]):
+                if "kp" in big:
+                    continue
                 cp = attn.cp_layout(big)
                 cols = slice(None) if cp is None else \
                     slice(cp.start, cp.start + cp.l_loc)
@@ -396,16 +966,75 @@ class ServeEngine:
                     rows = small[name].index_select(0, src)[:, cols]
                     big[name].index_copy_(0, dst, rows)
 
-    def _prefill_group(self, pairs: List[tuple]):
+    def _map_prompt_pages(self, req: Request, j: int) -> Optional[int]:
+        """Build an admitted request's page table row: shared prefix pages
+        mapped (incref), fresh pages for the rest, and the prompt's blocks
+        registered for later admissions, this group's included.  Returns
+        the shared coverage in tokens (for chunk skipping), or None when
+        the pool ran out part way: every page placed is then unwound, so
+        refcounts and ``used_pages`` are as before.  A prefix hit consumes
+        a reservation unit too: the page is part of the request's demand.
+        Rows of one group that share a page write identical values there;
+        the first divergent decode write forks it."""
+        prompt = _eff_prompt(req)
+        n_p = -(-len(prompt) // self.page_size)
+        self.pages_requested += n_p
+        row = np.full(self.max_pages, -1, np.int32)
+        matched = self.prefix_index.lookup(prompt, self.alloc) \
+            if self.prefix_cache else []
+        placed: List[int] = []
+        cov = 0
+        for idx, (page, ntok) in enumerate(matched):
+            self.alloc.incref(page)
+            if self.resv_of[j] > 0:
+                self.alloc.unreserve(1)
+                self.resv_of[j] -= 1
+            row[idx] = page
+            placed.append(page)
+            cov += ntok
+        for idx in range(len(matched), n_p):
+            p = self._slot_alloc(j)
+            if p is None:
+                for q in placed:
+                    self.alloc.decref(int(q))
+                self._release_reservation(j)
+                self.pages_requested -= n_p
+                return None
+            row[idx] = p
+            placed.append(p)
+            self.pages_alloced += 1
+        if self.prefix_cache:
+            self.prefix_index.register(prompt, row[:n_p], self.alloc)
+        self.pt_host[j] = row
+        return cov
+
+    def _prefill_group(self, pairs: List[tuple], shared=None):
         """Chunked prefill of up to ``n_slots`` requests in one batched
-        chunk chain (rows beyond len(pairs) are dummies).  Returns
-        (first_tokens (n_slots,), cache)."""
+        chunk chain (rows beyond len(pairs) are dummies).  On the paged
+        layout the group's page table takes the admitted slots' rows, and a
+        chunk that every row's shared prefix covers, holding no row's last
+        prompt token, is skipped: its K/V are in the shared pages.
+        Returns (first_tokens (n_slots,), cache)."""
         prompts = [_eff_prompt(r) for r, _ in pairs]
         toks, plens, grid = _pad_group(prompts, self.n_slots, self.chunk,
                                        self.cache_len)
+        skip: set = set()
+        if self.paged:
+            rows = np.full((self.n_slots, self.max_pages), -1, np.int32)
+            for i, (_, j) in enumerate(pairs):
+                rows[i] = self.pt_host[j]
+            self._upload(self._group_cache["pt"], rows)
+            # ring layers keep contiguous caches that need every chunk
+            if self.prefix_cache and all(
+                    k == "attn" for k in self.cfg.layer_kinds()):
+                for p0, c in grid:
+                    if all(pl <= p0 or (sh >= p0 + c and pl - 1 >= p0 + c)
+                           for pl, sh in zip(plens[:len(pairs)], shared)):
+                        skip.add(p0)
+                self.prefill_chunks_skipped += len(skip)
         last, cache = _chunked_prefill(self.prefill_step, self.params,
                                        self._group_cache, toks, plens, grid,
-                                       self.device)
+                                       self.device, skip=skip)
         self._group_cache = cache
         self.prefill_finite &= bool(np.isfinite(last[:len(pairs)]).all())
         # the first token at logical position plen draws from the
@@ -425,7 +1054,9 @@ class ServeEngine:
     def admit(self, pairs: List[tuple], now: float) -> List[Request]:
         """Admit (request, free slot) pairs with one batched prefill.
         Returns the requests their prefill token already satisfies
-        (max_new == 1), which never occupy a slot."""
+        (max_new == 1), which never occupy a slot.  A paged request whose
+        page mapping runs out of pool is unwound and requeued at the
+        front."""
         t0 = self.now()
         try:
             return self._admit(pairs, now)
@@ -435,25 +1066,99 @@ class ServeEngine:
     def _admit(self, pairs: List[tuple], now: float) -> List[Request]:
         if not pairs:
             return []
-        first, cache = self._prefill_group(pairs)
+        shared = None
+        if self.paged:
+            kept, shared = [], []
+            for req, j in pairs:
+                cov = self._map_prompt_pages(req, j)
+                if cov is None:
+                    self.admission_alloc_failures += 1
+                    self.requeues += 1
+                    req.eff_arrival = min(req.eff_arrival, now) \
+                        if req.eff_arrival >= 0 else now
+                    self.queue.appendleft(req)
+                else:
+                    kept.append((req, j))
+                    shared.append(cov)
+            pairs = kept
+            if not pairs:
+                return []
+        first, cache = self._prefill_group(pairs, shared)
         self._write_rows(cache, [(i, j) for i, (_, j) in enumerate(pairs)])
         finished = []
         for i, (req, j) in enumerate(pairs):
             plen_eff = len(req.prompt) + len(req.tokens)
             self.prefill_tokens += plen_eff
-            if req.t_first < 0:
-                req.t_first = now
+            req.t_admit = now
+            if req.t_first < 0:     # TTFT is the first token ever: a
+                req.t_first = now   # preempted request keeps its own
             req.tokens.append(int(first[i]))
             if len(req.tokens) >= req.max_new:
                 req.t_done = now
                 finished.append(req)
+                if self.paged:
+                    self._free_slot_pages(j)
                 continue
             self.pos[j] = plen_eff
             self.tok[j] = int(first[i])
             self.req_of[j] = req
+        if self.paged:
+            self._push_pt()
         return finished
 
     # -- decode -------------------------------------------------------------
+
+    def _free_slot_pages(self, j: int) -> None:
+        """Drop slot ``j``'s page references and its unmaterialised
+        reservation (that headroom goes back to the queue)."""
+        for p in self.pt_host[j]:
+            if p >= 0:
+                self.alloc.decref(int(p))
+        self.pt_host[j] = -1
+        self._release_reservation(j)
+
+    def _cow_into(self, src: int, dst: int) -> int:
+        """Fork a shared page before its first divergent write: its rows
+        in every paged layer's pools copied into the private page ``dst``,
+        our reference to ``src`` dropped."""
+        for layer in self.cache["layers"]:
+            for name in attn.pool_leaves(layer):
+                layer[name][dst].copy_(layer[name][src])
+        self.alloc.decref(src)
+        self.cow_events += 1
+        self.pages_alloced += 1
+        return dst
+
+    def _grow_pages(self) -> None:
+        """Before a step writes row pos[j] of each active slot: map a page
+        where it has none, fork (copy-on-write) a page it shares.  Pool
+        exhaustion preempts (``_alloc_with_preemption``)."""
+        dirty = False
+        for j in range(self.n_slots):
+            if self.req_of[j] is None:
+                continue
+            idx = int(self.pos[j]) // self.page_size
+            page = int(self.pt_host[j, idx])
+            if page >= 0 and self.alloc.ref[page] <= 1:
+                continue
+            p = self._alloc_with_preemption(j)
+            dirty = True
+            if p is None:                   # j preempted itself
+                continue
+            if page < 0:
+                self.pt_host[j, idx] = p
+                self.pages_requested += 1
+                self.pages_alloced += 1
+                continue
+            # re-read: a preemption inside the allocation may have dropped
+            # the other references and un-shared the page
+            page = int(self.pt_host[j, idx])
+            if page >= 0 and self.alloc.ref[page] > 1:
+                self.pt_host[j, idx] = self._cow_into(page, p)
+            else:
+                self.alloc.decref(p)        # no fork needed any more
+        if dirty:
+            self._push_pt()
 
     def _sids(self) -> torch.Tensor:
         """Per-slot sampling stream ids (request ids; idle rows draw from a
@@ -463,8 +1168,32 @@ class ServeEngine:
                              for r in self.req_of])
 
     def decode_step_all(self) -> List[Request]:
-        """One per-slot decode step over the whole slot table."""
+        """One per-slot decode step over the whole slot table.  The fault
+        plan's hooks run first (latency on the virtual clock, forced
+        preemptions); paged growth and forks may preempt; a request past
+        its total deadline sheds after the token in flight lands."""
+        step = self.step_count
         now = self.now()
+        if self.fault_plan is not None:
+            lat = self.fault_plan.step_latency(step)
+            if lat:
+                self._virtual += lat
+                now = self.now()
+            forced = False
+            for _ in range(self.fault_plan.forced_preempts(step)):
+                v = self._choose_victim()
+                if v is None:
+                    break
+                self._preempt(v)
+                self.forced_preemptions += 1
+                forced = True
+            if forced and self.paged:
+                self._push_pt()
+        if any(r is not None and r.deadline_total is not None
+               for r in self.req_of):
+            now = self.shared_now()         # sheds agree across ranks
+        if self.paged:
+            self._grow_pages()
         with ctx.sharding_rules(self.rules):
             tok, _, self.cache = self.serve_step(
                 self.params, self.cache,
@@ -472,8 +1201,10 @@ class ServeEngine:
                                            device=self.device)},
                 torch.from_numpy(self.pos), self.base_key, self._sids(),
                 finite=self._decode_finite)
+        self.step_count += 1
         tok = tok.cpu().numpy()
         finished = []
+        freed = False
         for j in range(self.n_slots):
             req = self.req_of[j]
             if req is None:
@@ -484,10 +1215,24 @@ class ServeEngine:
             self.tok[j] = int(tok[j])
             if len(req.tokens) >= req.max_new:
                 req.t_done = now
-                self.req_of[j] = None
-                self.pos[j] = 0
-                self.tok[j] = 0
                 finished.append(req)
+            elif req.deadline_total is not None \
+                    and now - req.arrival > req.deadline_total:
+                req.t_done = now
+                req.shed_reason = "total-deadline"
+                self.sheds_decode += 1
+                self.shed_requests.append(req)
+            else:
+                continue
+            # free before the next step: a stale table row would let the
+            # idle slot's write land in a page handed to someone else
+            self._vacate(j)
+            freed = True
+        if self.paged:
+            if freed:
+                self._push_pt()
+            self.page_occupancy.append(
+                self.alloc.used_pages / max(self.n_pages - 1, 1))
         self.occupancy.append(float(np.mean([r is not None
                                              for r in self.req_of])))
         return finished
@@ -499,19 +1244,40 @@ class ServeEngine:
         return self.prefill_finite and bool(self._decode_finite.item())
 
     def reset(self) -> None:
-        """Clear slot state and counters (caches and built kernels stay)."""
+        """Clear slot state, queue and counters (caches and built kernels
+        stay).  Paged: a fresh allocator, an empty prefix index, unmapped
+        tables (stale pool rows are unreachable once no table names them)
+        and the fault plan's held pages seized again."""
         self.pos[:] = 0
         self.tok[:] = 0
+        self.resv_of[:] = 0
         self.req_of = [None] * self.n_slots
         self.queue.clear()
+        self.shed_requests: List[Request] = []
         self.queue_depths: List[int] = []
+        self.step_count = 0
         self.prefill_tokens = self.decode_tokens = 0
         self.prefill_wall = 0.0
         self.occupancy: List[float] = []
+        self.page_occupancy: List[float] = []
+        self.pages_requested = self.pages_alloced = 0
+        self.cow_events = self.prefill_chunks_skipped = 0
+        self.preemptions = self.requeues = 0
+        self.sheds_admission = self.sheds_decode = self.retries = 0
+        self.admission_alloc_failures = 0
+        self.injected_alloc_failures = self.forced_preemptions = 0
+        self._alloc_calls = 0
         self.prefill_finite = True
         self._decode_finite = torch.ones((), dtype=torch.bool,
                                          device=self.device)
-        self._t0 = None
+        self._t0: Optional[float] = None
+        self._virtual = 0.0
+        if self.paged:
+            self.alloc = PageAllocator(self.n_pages)
+            self.prefix_index.clear()
+            self.pt_host[:] = -1
+            self._push_pt()
+        self._apply_fault_pressure()
 
 
 def _sync(device: torch.device) -> None:
@@ -521,19 +1287,34 @@ def _sync(device: torch.device) -> None:
 
 def _warmup(eng: ServeEngine, trace: List[Request]) -> float:
     """Run, outside the timed region, every prefill chunk offset the trace
-    can reach (on a scratch cache), one admission and one decode step:
-    builds the kernels at first use and warms the library handles."""
+    can reach (on the group cache with every page unmapped: writes go to
+    the sink, reads are masked), one admission and one decode step: builds
+    the kernels at first use and warms the library handles.  Where
+    preemption is possible a re-prefill folds generated tokens in, so the
+    offsets reach prompt + max_new - 1.  The fault plan sleeps meanwhile;
+    ``reset`` then leaves the allocator, the prefix index and the fault
+    plan's held pages as a fresh engine's."""
     t0 = time.perf_counter()
+    plan, eng.fault_plan = eng.fault_plan, None
     pmax = max((len(r.prompt) for r in trace), default=1)
+    if eng.paged and (plan is not None or eng.admission == "optimistic"
+                      or eng.usable_pages < eng.n_slots * eng.max_pages):
+        pmax = min(eng.cache_len,
+                   max((len(r.prompt) + r.max_new - 1 for r in trace),
+                       default=1))
     toks, plens, grid = _pad_group([np.zeros(pmax, np.int32)], eng.n_slots,
                                    eng.chunk, eng.cache_len)
-    _chunked_prefill(eng.prefill_step, eng.params, eng._new_cache(), toks,
+    if eng.paged:
+        eng._upload(eng._group_cache["pt"],
+                    np.full((eng.n_slots, eng.max_pages), -1, np.int32))
+    _chunked_prefill(eng.prefill_step, eng.params, eng._group_cache, toks,
                      plens, grid, eng.device)
     warm = Request(rid=-1, prompt=np.zeros(min(8, eng.cache_len - 1),
                                            np.int32), max_new=2, arrival=0.0)
     eng.admit([(warm, 0)], 0.0)
     eng.decode_step_all()
     _sync(eng.device)
+    eng.fault_plan = plan      # before reset: it seizes hold_pages again
     eng.reset()
     return time.perf_counter() - t0
 
@@ -571,9 +1352,41 @@ def _report(mode: str, eng: ServeEngine, done: List[Request], wall: float,
     ttft = [r.t_first - r.arrival for r in done]
     total_new = sum(len(r.tokens) for r in done)
     first_req = min(done, key=lambda r: r.rid) if done else None
+    paged = {}
+    if eng.paged:
+        paged = {
+            "page_size": eng.page_size,
+            "n_pages": eng.n_pages,
+            "usable_pages": eng.usable_pages,
+            "page_occupancy": round(float(np.mean(eng.page_occupancy)), 3)
+            if eng.page_occupancy else 0.0,
+            "pages_requested": eng.pages_requested,
+            "pages_alloced": eng.pages_alloced,
+            "dedup_ratio": round(
+                eng.pages_requested / max(eng.pages_alloced, 1), 3),
+            "cow_events": eng.cow_events,
+            "prefill_chunks_skipped": eng.prefill_chunks_skipped,
+            "prefix_cache": eng.prefix_cache,
+            "pool_high_water": int(eng.alloc.high_water),
+        }
+    robustness = {
+        "admission_policy": eng.admission,
+        "preemptions": eng.preemptions,
+        "requeues": eng.requeues,
+        "sheds": eng.sheds_admission + eng.sheds_decode,
+        "sheds_admission": eng.sheds_admission,
+        "sheds_decode": eng.sheds_decode,
+        "shed_requests": len(eng.shed_requests),
+        "retries": eng.retries,
+        "admission_alloc_failures": eng.admission_alloc_failures,
+        "queue_depth": _percentiles(eng.queue_depths),
+        "fault_plan": eng.fault_plan is not None,
+        "injected_alloc_failures": eng.injected_alloc_failures,
+        "forced_preemptions": eng.forced_preemptions,
+    }
     return {
         "device": _device_name(eng.device),
-        "paged": False,
+        "paged": eng.paged, **paged,
         "kv_dtype": eng.kv_dtype_name,
         "decode_layout": eng.decode_layout,
         "cp_combine_bytes_per_token": eng.cp_combine_bytes,
@@ -592,8 +1405,8 @@ def _report(mode: str, eng: ServeEngine, done: List[Request], wall: float,
         "ttft_s": _percentiles(ttft),
         "occupancy": round(float(np.mean(eng.occupancy)), 3)
         if eng.occupancy else 0.0,
-        "queue_depth": _percentiles(eng.queue_depths),
         "chunked_prefill": True,
+        "robustness": robustness,
         "speculative": {"spec": "off"},
         "logits_finite": eng.logits_finite,
         "sample_tokens": first_req.tokens[:4] if first_req else [],
@@ -602,9 +1415,11 @@ def _report(mode: str, eng: ServeEngine, done: List[Request], wall: float,
 
 def _drain(eng: ServeEngine, pending: List[Request], qi: int,
            done: List[Request]) -> int:
-    """The serve loop: feed arrivals into the queue, admit, decode; when the
-    engine idles, sleep until the next arrival.  Runs until ``pending[qi:]``,
-    the queue and the slot table are empty; returns the advanced qi."""
+    """The serve loop: feed arrivals into the queue, let the scheduler
+    admit (backpressure, deadlines, retries), decode; when the engine
+    idles, move to the next arrival or backoff expiry.  Runs until
+    ``pending[qi:]``, the queue and the slot table are empty; returns the
+    advanced qi."""
     while qi < len(pending) or eng.queue \
             or any(r is not None for r in eng.req_of):
         now = eng.shared_now()
@@ -618,59 +1433,64 @@ def _drain(eng: ServeEngine, pending: List[Request], qi: int,
                 nxt.append(pending[qi].arrival)
             if not nxt:
                 break
-            time.sleep(max(min(nxt) - eng.now(), 0.0))
+            eng.advance(min(nxt) - eng.now())
             continue
         done.extend(eng.decode_step_all())
     return qi
 
 
-def run_engine(cfg, params, trace: List[Request], *, n_slots: int,
-               cache_len: int, chunk: int, sample: bool, seed: int,
-               paged: Optional[bool] = None, kv_dtype="f32",
-               device=None, decode_cp: bool = False) -> dict:
-    """Continuous batching: arrivals feed the queue, freed slots admit the
-    next requests, all slots decode together."""
-    eng = ServeEngine(cfg, params, n_slots=n_slots, cache_len=cache_len,
-                      chunk=chunk, sample=sample, seed=seed, paged=paged,
-                      kv_dtype=kv_dtype, device=device, decode_cp=decode_cp)
-    _validate_trace(trace, cache_len)
-    warmup_s = _warmup(eng, trace)
+def _prepare(eng: ServeEngine, trace: List[Request]) -> float:
+    """Check the trace against the engine's layout and warm the engine up;
+    returns the warm-up's seconds."""
+    _validate_trace(trace, eng.cache_len,
+                    page_size=eng.page_size if eng.paged else None,
+                    usable_pages=eng.usable_pages if eng.paged else None)
+    return _warmup(eng, trace)
+
+
+def serve_trace(eng: ServeEngine, trace: List[Request]) -> dict:
+    """Continuous batching on ``eng``: arrivals feed the queue, the
+    scheduler admits under reservation backpressure into freed slots, all
+    slots decode together (preempt-and-requeue on pool exhaustion).
+    Returns the report; the engine keeps its books for inspection."""
+    warmup_s = _prepare(eng, trace)
     pending = sorted(trace, key=lambda r: r.arrival)
     done: List[Request] = []
     eng.start_clock()
     _drain(eng, pending, 0, done)
-    wall = eng.now()
-    return _report("engine", eng, done, wall, warmup_s)
+    return _report("engine", eng, done, eng.now(), warmup_s)
 
 
-def run_lockstep(cfg, params, trace: List[Request], *, n_slots: int,
-                 cache_len: int, chunk: int, sample: bool, seed: int,
-                 paged: Optional[bool] = None, kv_dtype="f32",
-                 device=None, decode_cp: bool = False) -> dict:
+def run_engine(cfg, params, trace: List[Request], **kw) -> dict:
+    """``serve_trace`` on a new engine; ``kw`` are ``ServeEngine``'s
+    arguments."""
+    return serve_trace(ServeEngine(cfg, params, **kw), trace)
+
+
+def run_lockstep(cfg, params, trace: List[Request], **kw) -> dict:
     """Wave-batched baseline: admit ``n_slots`` requests at once (after the
     whole wave has arrived) and decode until the wave's slowest request
     finishes, on the same engine machinery as ``run_engine``."""
-    eng = ServeEngine(cfg, params, n_slots=n_slots, cache_len=cache_len,
-                      chunk=chunk, sample=sample, seed=seed, paged=paged,
-                      kv_dtype=kv_dtype, device=device, decode_cp=decode_cp)
-    _validate_trace(trace, cache_len)
-    warmup_s = _warmup(eng, trace)
+    eng = ServeEngine(cfg, params, **kw)
+    warmup_s = _prepare(eng, trace)
     pending = sorted(trace, key=lambda r: r.arrival)
-    waves = [pending[i:i + n_slots]
-             for i in range(0, len(pending), n_slots)]
+    n = eng.n_slots
     done: List[Request] = []
     eng.start_clock()
-    for wave in waves:
+    for wave in [pending[i:i + n] for i in range(0, len(pending), n)]:
         # the whole wave must have arrived
-        time.sleep(max(max(r.arrival for r in wave) - eng.now(), 0.0))
+        eng.advance(max(r.arrival for r in wave) - eng.now())
         done.extend(eng.admit(list(zip(wave, range(len(wave)))),
                               eng.now()))
         # finished slots keep burning their decode step until the whole
         # wave drains: the cost the continuous engine removes
         while any(r is not None for r in eng.req_of):
             done.extend(eng.decode_step_all())
-    wall = eng.now()
-    return _report("lockstep", eng, done, wall, warmup_s)
+        # an undersized pool may have preempted wave members into the
+        # queue: drain them before the next wave
+        if eng.queue:
+            _drain(eng, [], 0, done)
+    return _report("lockstep", eng, done, eng.now(), warmup_s)
 
 
 # ---------------------------------------------------------------------------
@@ -705,14 +1525,45 @@ def build_parser() -> argparse.ArgumentParser:
                     help="prefill chunk length (tokens per append call)")
     ap.add_argument("--cache-len", type=int, default=0,
                     help="KV cache length (0 = max prompt + max gen)")
+    ap.add_argument("--page-size", type=int, default=128,
+                    help="paged-KV page size in tokens, rounded to the "
+                    "nearest 128 multiple as the JAX CLI rounds it (the "
+                    "cache is paged when --cache-len is whole pages)")
+    ap.add_argument("--pages", type=int, default=0,
+                    help="page-pool size (0 = worst case: slots x "
+                    "pages a slot + 1 sink page)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="no shared-prefix page reuse (pages stay private "
+                    "to their slot)")
     ap.add_argument("--kv-dtype", default="f32",
                     choices=kv_quant.KV_DTYPES,
                     help="KV cache storage dtype (int8: per-row scales, "
                     "dequantised inside the kernels)")
+    ap.add_argument("--admission", choices=("reserve", "optimistic"),
+                    default="reserve",
+                    help="paged admission: 'reserve' holds back each "
+                    "request's worst-case pages (decode never exhausts the "
+                    "pool); 'optimistic' reserves its prompt's pages only, "
+                    "and decode-time exhaustion preempts and requeues")
+    ap.add_argument("--deadline-ttft", type=float, default=0.0,
+                    help="TTFT deadline in seconds (0 = none): a request "
+                    "still queued past it is shed (re-enqueued with "
+                    "backoff while --max-retries allows)")
+    ap.add_argument("--deadline-total", type=float, default=0.0,
+                    help="end-to-end deadline in seconds (0 = none): "
+                    "decode past it sheds the request")
+    ap.add_argument("--max-retries", type=int, default=0,
+                    help="re-enqueues (exponential backoff) of a request "
+                    "shed at admission")
+    ap.add_argument("--fault-plan", default="",
+                    help="fault-injection plan, a JSON string or a path to "
+                    "one (FaultPlan: fail_alloc_at, preempt_at, "
+                    "latency_at, hold_pages)")
     ap.add_argument("--decode-cp", action="store_true",
                     help="context-parallel serving: shard each slot's KV "
                     "cache along the sequence over the ranks of the process "
-                    "group (torchrun's, or a group of one)")
+                    "group (torchrun's, or a group of one); contiguous "
+                    "layout")
     ap.add_argument("--greedy", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-seed", type=int, default=0)
@@ -721,6 +1572,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.page_size % 128 != 0:
+        rounded = max(128, round(args.page_size / 128) * 128)
+        logging.warning("--page-size %d is not a 128 multiple; rounding to "
+                        "%d, as the JAX CLI does", args.page_size, rounded)
+        args.page_size = rounded
 
     from repro_torch.configs import get_config
 
@@ -738,11 +1594,26 @@ def main(argv=None):
                       prompt_range=args.prompt_range,
                       gen_range=args.gen_range,
                       arrival_rate=args.arrival_rate, seed=args.trace_seed)
+    for r in trace:
+        r.deadline_ttft = args.deadline_ttft or None
+        r.deadline_total = args.deadline_total or None
+        r.max_retries = args.max_retries
+    fault_plan = None
+    if args.fault_plan:
+        s = args.fault_plan
+        if not s.lstrip().startswith("{"):
+            with open(s) as f:
+                s = f.read()
+        fault_plan = FaultPlan.from_json(s)
     dispatch.reset_launch_counts()
     run = run_engine if args.mode == "engine" else run_lockstep
     kw = dict(n_slots=args.slots, cache_len=cache_len, chunk=args.chunk,
               sample=not args.greedy, seed=args.seed,
+              page_size=args.page_size, n_pages=args.pages,
+              prefix_cache=not args.no_prefix_cache,
               kv_dtype=args.kv_dtype, device=device)
+    if args.mode == "engine":
+        kw.update(admission=args.admission, fault_plan=fault_plan)
     if args.decode_cp:
         with sharding.process_group(device):
             rec = run(cfg, params, trace, decode_cp=True, **kw)

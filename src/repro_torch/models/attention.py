@@ -18,11 +18,21 @@ dequantised inside the kernels).  Under the ``decode_cp`` rules
 is laid out as this rank's slice of the sequence dim: ``init_kv_cache``
 allocates it and records the global length, ``attend_decode`` writes a new
 row only on the rank that owns its slot and attends through the
-context-parallel combine.  The paged layout is a later slice and raises.
+context-parallel combine.
+
+A paged cache (``init_paged_kv_cache``) keeps a layer's rows in a shared
+page pool ``kp``/``vp`` (n_pages, page_size, Hkv, D) (int8: scale pools
+``kps``/``vps``) behind a page table ``pt`` (batch, cache_len / page_size)
+int32, -1 unmapped; page 0 is the garbage sink that writes through
+unmapped entries land in.  Every layer of a model references one ``pt``
+tensor.  Writes go through the table; reads gather the dense view and run
+the contiguous kernels (``dispatch.decode_attention_paged``,
+``dispatch.flash_attention_append_paged``).  Ring (windowed) layers stay
+contiguous inside a paged model cache.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,12 +40,8 @@ from repro_torch.distributed import ctx
 from repro_torch.distributed.sharding import (DecodeCPSpec,
                                               decode_cp_shard_spec,
                                               decode_cp_spec)
-from repro_torch.kernels import dispatch, kv_quant
+from repro_torch.kernels import dispatch, kv_quant, ref
 from repro_torch.models import common as cm
-
-_PAGED_ITEM = ("see ROADMAP.md, queue 1, slice 3b: paged KV, speculative "
-               "decoding and overload handling")
-
 
 def attention_shapes(d_model: int, n_heads: int, n_kv_heads: int,
                      head_dim: int, *, qkv_bias: bool = False) -> dict:
@@ -83,10 +89,113 @@ def init_kv_cache(batch: int, cache_len: int, n_kv_heads: int,
     return cache
 
 
-def _check_layout(cache: dict) -> None:
-    if "kp" in cache:
-        raise NotImplementedError(f"paged KV caches are not ported yet "
-                                  f"({_PAGED_ITEM})")
+class PagedLayout(NamedTuple):
+    """A paged cache's static shape: pages of ``page_size`` rows in a pool
+    of ``n_pages`` (page 0 the sink, never handed out)."""
+    page_size: int
+    n_pages: int
+
+
+def init_paged_kv_cache(batch: int, cache_len: int, n_kv_heads: int,
+                        head_dim: int, *, page_size: int, n_pages: int,
+                        dtype=torch.bfloat16, device=None,
+                        pt: Optional[torch.Tensor] = None) -> dict:
+    """Paged cache for one attention layer: pools ``kp``/``vp`` (n_pages,
+    page_size, Hkv, D) of ``dtype`` (int8: zero f32 scale pools
+    ``kps``/``vps`` (n_pages, page_size, Hkv, 1)) and the page table
+    ``pt`` (batch, cache_len // page_size) int32, all -1, or ``pt`` itself
+    when given (the table the model's layers share).  ``cache_len`` must be
+    whole pages: the gathered view then has the contiguous layout's shape
+    exactly."""
+    if cache_len % page_size:
+        raise ValueError(f"cache_len {cache_len} must be a multiple of "
+                         f"page_size {page_size} (whole-page slots)")
+    dtype = kv_quant.resolve_kv_dtype(dtype)
+    if pt is None:
+        pt = torch.full((batch, cache_len // page_size), -1,
+                        dtype=torch.int32, device=device)
+    shape = (n_pages, page_size, n_kv_heads, head_dim)
+    cache = {"kp": torch.zeros(shape, dtype=dtype, device=device),
+             "vp": torch.zeros(shape, dtype=dtype, device=device), "pt": pt}
+    if kv_quant.is_quantized(dtype):
+        for name in ("kps", "vps"):
+            cache[name] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                      device=device)
+    return cache
+
+
+def pool_leaves(cache: dict):
+    """A paged cache's page-indexed leaves: kp, vp and, for int8, kps,
+    vps."""
+    return [n for n in ("kp", "vp", "kps", "vps") if n in cache]
+
+
+class PagedIndex(NamedTuple):
+    """A page table read for one decode step or prefill chunk, the same
+    for every layer that shares the table: computed once, not once a
+    layer.  ``rows`` are the gather's pool rows (``ref.paged_rows``),
+    ``kpos`` the key stream's positions; the new rows land in pages
+    ``page`` at rows ``off`` ((B,) a step, (B, C) a chunk; the sink where
+    unmapped or masked)."""
+    rows: torch.Tensor
+    kpos: torch.Tensor
+    page: torch.Tensor
+    off: torch.Tensor
+
+
+def decode_index(pt: torch.Tensor, page_size: int,
+                 pos: torch.Tensor) -> PagedIndex:
+    """The ``PagedIndex`` of a decode step at per-slot positions pos (B,)."""
+    slots = torch.arange(pt.shape[0], device=pt.device)
+    page = pt[slots, (pos // page_size).long()].clamp(min=0).long()
+    return PagedIndex(ref.paged_rows(pt), ref.paged_kpos_ref(pt, page_size),
+                      page, (pos % page_size).long())
+
+
+def prefill_index(pt: torch.Tensor, page_size: int, pos0: int, c: int,
+                  true_len: Optional[torch.Tensor] = None) -> PagedIndex:
+    """The ``PagedIndex`` of a prefill chunk [pos0, pos0 + C): writes of
+    unmapped pages and of positions >= ``true_len`` go to the sink (a
+    right-padded row must not clobber a page another slot shares)."""
+    b = pt.shape[0]
+    positions = pos0 + torch.arange(c, device=pt.device)
+    pages = pt[:, positions // page_size].long()            # (B, C)
+    end = torch.full((b,), pos0 + c, device=pt.device)
+    if true_len is not None:
+        end = torch.minimum(end, true_len.to(end.device, end.dtype))
+    valid = (positions[None, :] < end[:, None]) & (pages > 0)
+    return PagedIndex(
+        ref.paged_rows(ref.prefix_table(pt, page_size, pos0)),
+        ref.append_paged_kpos(pt, page_size, pos0, c),
+        torch.where(valid, pages, 0),
+        (positions % page_size)[None, :].expand(b, c))
+
+
+def model_paged_index(model_cache: dict, *, pos=None, pos0: int = 0,
+                      c: int = 0, true_len=None) -> Optional[PagedIndex]:
+    """The ``PagedIndex`` of a model cache's shared page table for a decode
+    step at ``pos``, or else a prefill chunk (None without a table)."""
+    if "pt" not in model_cache:
+        return None
+    ps = next(layer["kp"].shape[1] for layer in model_cache["layers"]
+              if "kp" in layer)
+    if pos is not None:
+        return decode_index(model_cache["pt"], ps, pos)
+    return prefill_index(model_cache["pt"], ps, pos0, c, true_len)
+
+
+def _new_pool_rows(k, v, quant: bool) -> dict:
+    """New K/V rows under the pool leaves' names, quantised for int8."""
+    if not quant:
+        return {"kp": k, "vp": v}
+    (kq, ks), (vq, vs) = kv_quant.quantize(k), kv_quant.quantize(v)
+    return {"kp": kq, "vp": vq, "kps": ks, "vps": vs}
+
+
+def _check_no_window(window: Optional[int]) -> None:
+    if window is not None:
+        raise ValueError("paged KV caches do not support sliding windows; "
+                         "keep ring layers contiguous")
 
 
 def _decode_cp_rule(cache_len: int) -> Optional[dict]:
@@ -164,7 +273,8 @@ def attend_train(params: dict, x: torch.Tensor, cfg, *,
 
 
 def attend_decode(params: dict, x: torch.Tensor, cache: dict,
-                  pos: torch.Tensor, cfg, *, window: Optional[int] = None):
+                  pos: torch.Tensor, cfg, *, window: Optional[int] = None,
+                  paged: Optional[PagedIndex] = None):
     """One-token decode.  x (B, 1, d_model); pos the absolute position, a
     lockstep scalar () or per slot (B,) (every row decodes at its own
     depth: writes, RoPE and the validity mask are per row).
@@ -175,11 +285,26 @@ def attend_decode(params: dict, x: torch.Tensor, cache: dict,
     cache takes the row quantised, with its scale.  A context-parallel
     slice (``cp_layout``) takes the row only on the rank that owns its
     slot, and attends its own columns of the global kpos through the
-    partials kernel and the combine across ranks."""
-    _check_layout(cache)
+    partials kernel and the combine across ranks.  A paged cache takes the
+    row in page pt[pos // page_size] (the sink where unmapped) and attends
+    its gathered view; ``paged`` is the step's ``decode_index``, which
+    every layer sharing the table may share."""
     b = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).expand(b)
     q, k, v = _qkv(params, x, cfg, pos[:, None])
+    if "kp" in cache:
+        _check_no_window(window)
+        ps = cache["kp"].shape[1]
+        pt = cache["pt"]
+        idx = paged if paged is not None else decode_index(pt, ps, pos)
+        for name, new in _new_pool_rows(k, v, "kps" in cache).items():
+            cache[name][idx.page, idx.off] = new[:, 0].to(cache[name].dtype)
+        o = dispatch.decode_attention_paged(
+            q[:, 0], cache["kp"], cache["vp"], pt, pos,
+            length=pt.shape[1] * ps, k_scale=cache.get("kps"),
+            v_scale=cache.get("vps"), kpos=idx.kpos, rows=idx.rows)[:, None]
+        n = cfg.n_heads * cfg.hd
+        return cm.linear(params["wo"], o.reshape(b, 1, n)), cache
     new = {"k": k, "v": v}
     if "ks" in cache:
         new["k"], new["ks"] = kv_quant.quantize(k)      # (B,1,Hkv,{D,1})
@@ -222,7 +347,8 @@ def _cache_positions(cache_len: int, pos: torch.Tensor,
 
 def attend_prefill(params: dict, x: torch.Tensor, cache: dict, pos0: int,
                    cfg, *, window: Optional[int] = None,
-                   true_len: Optional[torch.Tensor] = None):
+                   true_len: Optional[torch.Tensor] = None,
+                   paged: Optional[PagedIndex] = None):
     """Prefill one prompt chunk.  x (B, C, d_model) covers absolute
     positions [pos0, pos0 + C), the same for every row (prompts are
     right-padded; ``true_len`` (B,) carries each row's real length so ring
@@ -235,7 +361,9 @@ def attend_prefill(params: dict, x: torch.Tensor, cache: dict, pos0: int,
     the chunk once: the cache write and the chunk's own part of the key
     stream use the same int8 bytes and scales, so prefill attends to what
     decode later reads back (JAX ``attention.py::attend_prefill``)."""
-    _check_layout(cache)
+    if "kp" in cache:
+        return _attend_prefill_paged(params, x, cache, pos0, cfg, window,
+                                     true_len, paged)
     if "global_len" in cache:
         raise ValueError("prefill writes whole caches: a context-parallel "
                          "engine prefills its group cache and copies each "
@@ -305,5 +433,39 @@ def attend_prefill(params: dict, x: torch.Tensor, cache: dict, pos0: int,
         q, kv_all["k"], kv_all["v"], kpos_all, pos0=pos0, window=window,
         kpos_linear=linear, k_scale=kv_all.get("ks"),
         v_scale=kv_all.get("vs"))
+    n = cfg.n_heads * cfg.hd
+    return cm.linear(params["wo"], o.reshape(b, c, n)), cache
+
+
+def _attend_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
+                          pos0: int, cfg, window: Optional[int],
+                          true_len: Optional[torch.Tensor],
+                          paged: Optional[PagedIndex]):
+    """``attend_prefill`` on a paged cache: the key stream is the prefix
+    [0, pos0) gathered from the pools before this chunk's write, plus the
+    chunk's own K/V (int8: quantised once, the bytes the write lands).
+    The writes go where ``prefill_index`` says (``paged``, the chunk's, or
+    computed here); rows of one batch that share a page write identical
+    values there."""
+    _check_no_window(window)
+    b, c, _ = x.shape
+    ps = cache["kp"].shape[1]
+    pt = cache["pt"]
+    if pos0 + c > pt.shape[1] * ps:
+        raise ValueError(
+            f"prefill chunk [{pos0}, {pos0 + c}) overflows the "
+            f"{pt.shape[1] * ps}-slot paged cache; chunk the prompt to fit")
+    idx = paged if paged is not None else \
+        prefill_index(pt, ps, pos0, c, true_len)
+    positions = pos0 + torch.arange(c, device=x.device)
+    q, k, v = _qkv(params, x, cfg, positions[None])
+    new = _new_pool_rows(k, v, "kps" in cache)
+    o = dispatch.flash_attention_append_paged(
+        q, cache["kp"], cache["vp"], pt, new["kp"], new["vp"], pos0=pos0,
+        k_scale=cache.get("kps"), v_scale=cache.get("vps"),
+        ks_chunk=new.get("kps"), vs_chunk=new.get("vps"), kpos=idx.kpos,
+        rows=idx.rows)
+    for name, t in new.items():
+        cache[name][idx.page, idx.off] = t.to(cache[name].dtype)
     n = cfg.n_heads * cfg.hd
     return cm.linear(params["wo"], o.reshape(b, c, n)), cache

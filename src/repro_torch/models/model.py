@@ -6,7 +6,7 @@ stablelm-1.6b, qwen2-72b, minicpm-2b):
 
   init_params(cfg, seed, device, dtype)        -> params (nested dicts)
   forward(cfg, params, batch)                  -> {"logits", "value", ...}
-  init_cache(cfg, batch, cache_len, ...)       -> cache
+  init_cache(cfg, batch, cache_len, ..., paged) -> cache
   decode_step(cfg, params, cache, batch, pos)  -> ({"logits", "value"}, cache)
   prefill_step(cfg, params, cache, batch, pos0, true_len)
 
@@ -207,23 +207,38 @@ def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
-    """One contiguous KV cache of ``dtype`` (f32, bf16, or int8 with f32
-    row scales) per layer (the JAX package's ``kv_dtype``: the port has no
-    recurrent state to keep apart).  Sliding-window layers keep a ring of
+               dtype: torch.dtype = torch.bfloat16, device=None,
+               paged: Optional[attn.PagedLayout] = None) -> dict:
+    """One KV cache of ``dtype`` (f32, bf16, or int8 with f32 row scales)
+    per layer (the JAX package's ``kv_dtype``: the port has no recurrent
+    state to keep apart).  Sliding-window layers keep a ring of
     min(cache_len, window) rows.  Under the ``decode_cp`` rules a layer
     whose length divides over the ranks holds only this rank's slice of
-    it (``attention.init_kv_cache``)."""
+    it (``attention.init_kv_cache``).  With ``paged`` every global
+    (``attn``) layer takes the page-pool layout, all of them behind one
+    page table, which the cache also holds as ``pt``; ring layers stay
+    contiguous."""
     _check_supported(cfg)
     dev = resolve(device)
+    cache: Dict[str, Any] = {}
+    if paged is not None and "attn" in cfg.layer_kinds():
+        cache["pt"] = torch.full((batch, cache_len // paged.page_size), -1,
+                                 dtype=torch.int32, device=dev)
     layers: List[dict] = []
     for kind in cfg.layer_kinds():
+        if kind == "attn" and "pt" in cache:
+            layers.append(attn.init_paged_kv_cache(
+                batch, cache_len, cfg.n_kv_heads, cfg.hd,
+                page_size=paged.page_size, n_pages=paged.n_pages,
+                dtype=dtype, device=dev, pt=cache["pt"]))
+            continue
         clen = cache_len
         if kind == "attn_local":
             clen = min(cache_len, cfg.sliding_window or cache_len)
         layers.append(attn.init_kv_cache(batch, clen, cfg.n_kv_heads,
                                          cfg.hd, dtype, dev))
-    return {"layers": layers}
+    cache["layers"] = layers
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -307,11 +322,13 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
     (``cast_params``).  Writes the caches in place; returns (out, cache)."""
     _check_supported(cfg)
     x = _embed_inputs(cfg, params, batch)
+    pos = torch.as_tensor(pos, device=x.device).expand(x.shape[0])
+    paged = attn.model_paged_index(cache, pos=pos)
     for kind, p, c in zip(cfg.layer_kinds(), params["layers"],
                           cache["layers"]):
         h, _ = attn.attend_decode(
             p["attn"], cm.apply_norm(cfg.norm, p["ln1"], x), c, pos, cfg,
-            window=_window(cfg, kind))
+            window=_window(cfg, kind), paged=paged)
         x = _mlp_half(cfg, p, x + h)
     return _heads(cfg, params, x), cache
 
@@ -330,10 +347,12 @@ def prefill_step(cfg: ModelConfig, params: Params, cache: dict,
             f"{cfg.name}: chunked prefill needs attention-only caches")
     _check_supported(cfg)
     x = _embed_inputs(cfg, params, batch)
+    paged = attn.model_paged_index(cache, pos0=pos0, c=x.shape[1],
+                                   true_len=true_len)
     for kind, p, c in zip(cfg.layer_kinds(), params["layers"],
                           cache["layers"]):
         h, _ = attn.attend_prefill(
             p["attn"], cm.apply_norm(cfg.norm, p["ln1"], x), c, pos0, cfg,
-            window=_window(cfg, kind), true_len=true_len)
+            window=_window(cfg, kind), true_len=true_len, paged=paged)
         x = _mlp_half(cfg, p, x + h)
     return _heads(cfg, params, x), cache

@@ -33,6 +33,17 @@ TRACE = dict(prompt_range=(3, 20), gen_range=(1, 8), arrival_rate=0.0,
              seed=3)
 ENGINE = dict(n_slots=2, cache_len=32, chunk=8, sample=False, seed=0)
 SAMPLED = dict(ENGINE, sample=True)
+PAGE = 8                  # pages a 32-row cache: the paged twins' layout
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The engines run thousands of small ops, which intra-op threads only
+    slow (several test processes share the cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -68,6 +79,25 @@ def jax_sampled_tokens(models):
     finally:
         jax.config.update("jax_threefry_partitionable", old)
     return trace
+
+
+@pytest.fixture(scope="module")
+def jax_paged_runs(models):
+    """The paged twins of ``jax_tokens`` and ``jax_sampled_tokens``: the
+    JAX engine's default layout, which pages a 32-row cache at page 8."""
+    cj, _, pj, _ = models
+    out = {}
+    old = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", True)
+    try:
+        for kw in (ENGINE, SAMPLED):
+            trace = jax_serve.gen_trace(6, vocab=cj.vocab_size, **TRACE)
+            rep = jax_serve.run_engine(cj, pj, trace, page_size=PAGE, **kw)
+            assert rep["paged"]
+            out[kw["sample"]] = ({r.rid: list(r.tokens) for r in trace}, rep)
+    finally:
+        jax.config.update("jax_threefry_partitionable", old)
+    return out
 
 
 def test_gen_trace_matches_jax():
@@ -132,6 +162,38 @@ def test_engine_sampled_tokens_match_jax_engine(models, jax_sampled_tokens):
     assert [r.tokens for r in greedy] != [r.tokens for r in trace]
 
 
+@pytest.mark.parametrize("sample", [False, True], ids=["greedy", "sampled"])
+def test_paged_engine_tokens_match_jax_paged_engine(models, jax_tokens,
+                                                    jax_sampled_tokens,
+                                                    jax_paged_runs, sample):
+    """The paged twin of the two parity tests above: both engines on their
+    default layout, which pages this cache; the same tokens as the
+    contiguous runs, and the JAX engine's page counters."""
+    want, rep_j = jax_paged_runs[sample]
+    contiguous = {r.rid: list(r.tokens) for r in jax_sampled_tokens} \
+        if sample else jax_tokens[0]
+    assert want == contiguous
+    _, ct, _, pt = models
+    trace = serve.gen_trace(6, vocab=ct.vocab_size, **TRACE)
+    rep = serve.run_engine(ct, pt, trace, device="cpu", page_size=PAGE,
+                           **(SAMPLED if sample else ENGINE))
+    assert rep["paged"] and rep["logits_finite"]
+    assert {r.rid: r.tokens for r in trace} == want
+    for k in ("n_pages", "pages_requested", "pages_alloced", "cow_events",
+              "prefill_chunks_skipped", "dedup_ratio", "pool_high_water"):
+        assert rep[k] == rep_j[k], k
+
+
+def test_paged_lockstep_tokens_match_jax_engine(models, jax_tokens):
+    want, _ = jax_tokens
+    _, ct, _, pt = models
+    trace = serve.gen_trace(6, vocab=ct.vocab_size, **TRACE)
+    rep = serve.run_lockstep(ct, pt, trace, device="cpu", page_size=PAGE,
+                             **ENGINE)
+    assert rep["mode"] == "lockstep" and rep["paged"]
+    assert {r.rid: r.tokens for r in trace} == want
+
+
 def test_min_accept_margin_matches_jax(models, jax_tokens):
     """The port's margin of a greedy run is the reference's, up to the
     ~1e-6 by which the two frameworks' logits differ."""
@@ -183,16 +245,21 @@ def test_sampling_follows_the_softmax():
 
 
 def test_engine_refuses_later_slices(models):
+    """Speculative decoding is the one later slice left in the engine; the
+    paged layout, fault plans and deadlines run (``test_torch_paged_kv.py``,
+    ``test_torch_serve_robustness.py`` and the paged twins below)."""
     _, ct, _, pt = models
     kw = dict(n_slots=2, cache_len=16, device="cpu")
-    for bad in (dict(paged=True), dict(spec="ngram"),
-                dict(fault_plan=object())):
+    for spec in ("ngram", "draft"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve.ServeEngine(ct, pt, **kw, **bad)
+            serve.ServeEngine(ct, pt, spec=spec, **kw)
+    eng = serve.ServeEngine(ct, pt, paged=True, page_size=8,
+                            fault_plan=serve.FaultPlan(hold_pages=1), **kw)
+    assert eng.paged and eng.usable_pages == 2 * 2 - 1
     trace = serve.gen_trace(2, vocab=ct.vocab_size, **TRACE)
     trace[0].deadline_ttft = 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.run_engine(ct, pt, trace, **ENGINE, device="cpu")
+    rep = serve.run_engine(ct, pt, trace, **ENGINE, device="cpu")
+    assert rep["requests"] == 2 and not rep["paged"]
 
 
 def test_validate_trace_rejects_cache_overrun():
