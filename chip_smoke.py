@@ -17,7 +17,12 @@ Phases (any failure raises and the script exits non-zero):
      (tensor-core) arm and its f32 (SIMT) arm each over every edge case,
      and its int8 arms (bf16 q on the tensor cores, f32 q on the SIMT
      body) over the int8 cases, each case checked to launch its own arm;
-     the decode kernel with its
+     the append kernel at the speculative verify shape (B = 4, K in
+     {4, 6}, 32 q over 4 kv heads, D = 128, a 1024-row cache at ragged
+     pos {17, 300, 640, 1019}, re-based to shift 1024, kpos_linear=False)
+     through ``dispatch.flash_attention_verify`` in each of its four arms
+     (bf16, f32, int8 under a bf16 q and under an f32 q), and the paged
+     verify over a permuted table; the decode kernel with its
      key range forced into 1 and 2 splits and split_plan's, against the
      plain decode and against the plain model of its split-and-skip
      algorithm (``ref.decode_split_ref``), including a case whose last
@@ -64,7 +69,9 @@ Phases (any failure raises and the script exits non-zero):
      worker update) and the train step's 148 leaves at full size, its
      one-leaf update at the MLP matrix (beside the apply mode and the
      update followed by p.sub_ there) and at the RL path's leaves (the
-     paper net's FC, 2592 x 256, and a 256 x 3 policy matrix);
+     paper net's FC, 2592 x 256, and a 256 x 3 policy matrix); the append
+     kernel's four arms at the verify shape (K = 4; the bf16 arm also at
+     K = 6) beside masked SDPA with ``enable_gqa``;
   5. the port's reduced model in f32 on the card against the same model
      on the CPU (a counted path: the append kernel's f32 SIMT arm), then
      the engine on Yi-6B at full width and depth (bf16 weights from a
@@ -91,6 +98,26 @@ Phases (any failure raises and the script exits non-zero):
      virtual clock: the card's engine emits the CPU engine's tokens
      (margin >= 1e-3) with its preemption, requeue, shed, retry, COW and
      page counters and virtual clock;
+  5s. speculative decoding: (a) phase 5's trace with n-gram drafts
+     (spec_k 4) on the paged layout: every request completes, logits are
+     finite, only the append kernel's tensor-core arm runs (exactly 32
+     launches a prefill chunk and a verify round, every round through the
+     verify routes) and kernel 6 never; a request that leaves phase 5's
+     tokens must do so at a near tie (the two tokens' logits, from one
+     prefill of the shared prefix, within NEAR_TIE_ULPS bf16 ulps);
+     (b) a probed high-acceptance trace (``bench_serve.spec_trace``'s
+     method: 24 candidate prompts on a 16-token prefix, fold 8, 4
+     requests on the chosen prompt, max_new 48, spec_k 6) off and n-gram
+     in turns (off, ngram, ngram, off): tokens/s, TTFT, accept rate,
+     rounds, tokens held to the first off run's; (c) that trace with the
+     draft model (its f32 decode through kernel 6's float arm, its
+     admissions through the append kernel's SIMT arm); (d) reduced Yi-6B
+     in f32, card against CPU: n-gram paged, int8 contiguous, the draft
+     model, sampled, and always-wrong drafts under optimistic admission
+     (pages rewound): tokens and speculative counters identical (margin
+     >= 1e-3), books balanced; (e) a profile of 8 verify rounds beside
+     phase 6's 8 decode steps, with the device time of the verify's
+     cache concatenation and page gathers a round;
   6. torch.profiler traces of one admission and of eight decode steps,
      paged and contiguous in turns (paged, contiguous, contiguous, paged):
      wall time, device busy share, kernels a step, the top kernels, and
@@ -155,7 +182,7 @@ Phases (any failure raises and the script exits non-zero):
      merge; one rmsprop launch a group and step.
 
 Every kernel and arm must have been launched on one of the main paths
-(phase 5's reduced model and engines, each run of 5p and 5o, 6a, 6b, each
+(phase 5's reduced model and engines, each run of 5p, 5o and 5s, 6a, 6b, each
 of the four runs of 6c, 6d, 7, 8 and each run of 9, each with the
 counters set to 0 just before it and read just after); the kernels line
 gives each one's launches by path.
@@ -799,6 +826,187 @@ def check_append_int8(gen, flush):
         }
 
     return [record(bf), record(f32)]
+
+
+# the verify shape: 4 slots of Yi-6B at ragged depths in a 1024-row cache,
+# each scoring a draft chunk of K rows at re-based positions (shift 1024)
+VERIFY_POS = (17, 300, 640, 1019)
+VERIFY_LEN = 1024
+
+
+def _verify_inputs(gen, kq, qdt, kvdt):
+    """q, the key stream (the cache, rows at or past each slot's pos masked,
+    then the chunk's own K/V; int8 with its scales) and the absolute kpos,
+    as ``attend_verify`` builds them; pos (B,) on the card."""
+    import torch
+
+    from repro_torch.kernels import kv_quant
+    b, hq, hkv, d, length = 4, 32, 4, 128, VERIFY_LEN
+    pos = torch.tensor(VERIFY_POS, dtype=torch.int32, device="cuda")
+    q = _randn((b, kq, hq, d), gen, qdt)
+    k = _randn((b, length + kq, hkv, d), gen, torch.float32)
+    v = _randn((b, length + kq, hkv, d), gen, torch.float32)
+    ks = vs = None
+    if kvdt == torch.int8:
+        (k, ks), (v, vs) = kv_quant.quantize(k), kv_quant.quantize(v)
+    else:
+        k, v = k.to(kvdt), v.to(kvdt)
+    idx = torch.arange(length, device="cuda", dtype=torch.int32)
+    kpos = torch.cat([torch.where(idx[None] < pos[:, None], idx, -1),
+                      pos[:, None] + torch.arange(kq, device="cuda",
+                                                  dtype=torch.int32)], 1)
+    return q, k, v, ks, vs, kpos, pos
+
+
+def _rebased(kpos, pos):
+    """The kpos the verify arm hands kernel 4: row j shifted by
+    VERIFY_LEN - pos[j], -1 kept."""
+    import torch
+    return torch.where(kpos >= 0, kpos - pos[:, None] + VERIFY_LEN,
+                       -1).to(torch.int32).contiguous()
+
+
+def _verify_plain(q, k, v, ks, vs, kpos):
+    from repro_torch.kernels import ref
+    if ks is not None:
+        return ref.flash_attention_append_quant_ref(q, k, v, ks, vs, kpos,
+                                                    pos0=VERIFY_LEN)
+    return ref.flash_attention_append_ref(q, k, v, kpos, pos0=VERIFY_LEN)
+
+
+def _verify_record(gen, flush, kq, qdt, kvdt, errs):
+    """Kernel 4 timed at the verify shape (kpos_linear=False: every tile of
+    the 1024 + K keys visited) beside its bound (the valid key rows read
+    once, q in and out; the live pairs' products) and masked SDPA with
+    ``enable_gqa`` (none for an int8 stream)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_append_cuda
+    q, k, v, ks, vs, kpos, pos = _verify_inputs(gen, kq, qdt, kvdt)
+    kp = _rebased(kpos, pos)
+    b, _, hq, d = q.shape
+    hkv = k.shape[2]
+    qpos = VERIFY_LEN + torch.arange(kq, device="cuda")
+    valid = (kp[:, None, :] >= 0) & (kp[:, None, :] <= qpos[None, :, None])
+    live_pairs = int(valid.sum())
+    valid_rows = int((kp >= 0).sum())
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * valid_rows * hkv * d * k.element_size()
+              + (2 * valid_rows * hkv * 4 if ks is not None else 0)
+              + kp.numel() * 4)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = 4 * hq * d * live_pairs / (
+        BF16_FLOPS if qdt == torch.bfloat16 else F32_FLOPS) * 1e3
+    rec = {
+        "max_abs_err": max(errs),
+        "ms": _time_ms(lambda: flash_append_cuda.flash_attention_append(
+            q, k, v, kp, pos0=VERIFY_LEN, kpos_linear=False, k_scale=ks,
+            v_scale=vs), flush),
+        "plain_ms": _time_ms(lambda: _verify_plain(q, k, v, ks, vs, kp),
+                             flush),
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+        "library_ms": None,
+        "shape": f"verify q ({b}, {kq}, {hq}, {d}) {qdt}, stream ({b}, "
+                 f"{k.shape[1]}, {hkv}, {d}) {kvdt}, pos {list(VERIFY_POS)}"
+                 f", shift {VERIFY_LEN}, kpos_linear=False, live pairs "
+                 f"{live_pairs}",
+    }
+    if ks is None:
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.transpose(1, 2).contiguous()
+        vt = v.transpose(1, 2).contiguous()
+        rec["library_ms"] = _time_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=valid[:, None], enable_gqa=True),
+            flush)
+    else:
+        rec["library_note"] = NO_INT8_LIBRARY
+    return rec
+
+
+def check_verify(gen, flush):
+    """Kernel 4 at the speculative verify shape (B = 4, K in {4, 6}, 32 q
+    over 4 kv heads, D = 128, a 1024-row cache at ragged pos
+    {17, 300, 640, 1019}, re-based to shift 1024): each of its four arms
+    (bf16, f32, int8 under a bf16 q, int8 under an f32 q) through
+    ``dispatch.flash_attention_verify``, each call checked to launch its
+    own arm, against the plain append at the re-based positions; then the
+    paged verify (a bf16 pool of 128-row pages behind a permuted table,
+    pages past each slot's pos mapped and holding garbage) against the
+    plain gather-and-append.  Tolerances as ``check_append``'s.  Returns
+    kernel 4's timings at the verify shape, {record name: {key: sub}}."""
+    import torch
+
+    from repro_torch.kernels import dispatch, flash_append_cuda, ref
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    arms = (("bf16", bf, bf), ("f32", f32, f32), ("int8 bf16 q", bf, i8),
+            ("int8 f32 q", f32, i8))
+    errs = {}
+    for kq in (4, 6):
+        for label, qdt, kvdt in arms:
+            q, k, v, ks, vs, kpos, pos = _verify_inputs(gen, kq, qdt, kvdt)
+            arm = _append_arm(q, k)
+            before = getattr(flash_append_cuda, arm)
+            got = dispatch.flash_attention_verify(
+                q, k, v, kpos, pos=pos, shift=VERIFY_LEN, k_scale=ks,
+                v_scale=vs)
+            if getattr(flash_append_cuda, arm) != before + 1:
+                raise AssertionError(f"verify {label} K={kq}: arm {arm} not "
+                                     "launched")
+            kp = _rebased(kpos, pos)
+            round_abs = None
+            if qdt == bf and kvdt == bf:
+                round_abs = ref.append_round_scale(q, k, v, kp,
+                                                   pos0=VERIFY_LEN)
+            errs.setdefault((kq, label), []).append(_compare(
+                f"verify {label} B=4 K={kq} Sk={k.shape[1]} pos "
+                f"{list(VERIFY_POS)} shift={VERIFY_LEN} ({arm})", got,
+                _verify_plain(q, k, v, ks, vs, kp), round_abs=round_abs))
+    # the paged arm: a bf16 pool, 8 pages a slot, every page mapped
+    b, hq, hkv, d, ps, m = 4, 32, 4, 128, 128, VERIFY_LEN // 128
+    kq = 4
+    pos = torch.tensor(VERIFY_POS, dtype=torch.int32, device="cuda")
+    kp_pool = _randn((b * m + 1, ps, hkv, d), gen, bf)
+    vp_pool = _randn((b * m + 1, ps, hkv, d), gen, bf)
+    pt = (1 + torch.randperm(b * m, generator=gen, device="cuda")).reshape(
+        b, m).to(torch.int32)
+    q = _randn((b, kq, hq, d), gen, bf)
+    kc = _randn((b, kq, hkv, d), gen, bf)
+    vc = _randn((b, kq, hkv, d), gen, bf)
+    before = flash_append_cuda.launches
+    got = dispatch.flash_attention_verify_paged(q, kp_pool, vp_pool, pt, kc,
+                                                vc, pos=pos,
+                                                length=VERIFY_LEN)
+    if flash_append_cuda.launches != before + 1:
+        raise AssertionError("verify paged: flash_append not launched")
+    stream_k = torch.cat([ref.paged_view(kp_pool, pt, VERIFY_LEN), kc], 1)
+    stream_v = torch.cat([ref.paged_view(vp_pool, pt, VERIFY_LEN), vc], 1)
+    kp = _rebased(ref.verify_paged_kpos(pt, ps, pos, VERIFY_LEN, kq), pos)
+    errs[(kq, "bf16")].append(_compare(
+        f"verify paged B=4 K={kq} pages {m} x {ps} pos {list(VERIFY_POS)} "
+        "bf16 (launches)", got,
+        ref.flash_attention_append_ref(q, stream_k, stream_v, kp,
+                                       pos0=VERIFY_LEN),
+        round_abs=ref.append_round_scale(q, stream_k, stream_v, kp,
+                                         pos0=VERIFY_LEN)))
+    return {
+        "flash_attention_append": {
+            "verify_shape": _verify_record(gen, flush, 4, bf, bf,
+                                           errs[(4, "bf16")]),
+            "verify_k6_shape": _verify_record(gen, flush, 6, bf, bf,
+                                              errs[(6, "bf16")])},
+        "flash_attention_append_f32": {
+            "verify_shape": _verify_record(gen, flush, 4, f32, f32,
+                                           errs[(4, "f32")])},
+        "flash_attention_append_int8": {
+            "verify_shape": _verify_record(gen, flush, 4, bf, i8,
+                                           errs[(4, "int8 bf16 q")])},
+        "flash_attention_append_int8_f32": {
+            "verify_shape": _verify_record(gen, flush, 4, f32, i8,
+                                           errs[(4, "int8 f32 q")])},
+    }
 
 
 def check_partials(gen, flush):
@@ -1578,7 +1786,8 @@ def _serve(label, cfg, params, trace, kv, cp=False, device="cuda",
     cache 1024, chunk 128, greedy unless ``engine_kw`` says otherwise),
     counters set to 0 just before and read just after.  Every request
     completes with finite logits.  Returns (report, launch counts, engine,
-    {rid: tokens})."""
+    {rid: tokens}); ``engine.step_calls`` counts its prefill-chunk and
+    verify calls, warm-up included."""
     import torch
 
     from repro_torch.kernels import dispatch
@@ -1587,11 +1796,12 @@ def _serve(label, cfg, params, trace, kv, cp=False, device="cuda",
               kv_dtype=kv, device=device, decode_cp=cp)
     kw.update(engine_kw)
     eng = serve.ServeEngine(cfg, params, **kw)
+    _count_steps(eng)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
     rep = serve.serve_trace(eng, trace)
-    counts = dispatch.launch_counts()
+    counts = {**dispatch.launch_counts(), **dispatch.route_counts()}
     if eng.paged:
         rep["pool_mib"] = traffic.page_pool_bytes(
             cfg, eng.n_pages, eng.page_size, kv_dtype=kv) / 2**20
@@ -1601,6 +1811,21 @@ def _serve(label, cfg, params, trace, kv, cp=False, device="cuda",
     if not rep["logits_finite"]:
         raise AssertionError(f"{label}: non-finite logits")
     return rep, counts, eng, {r.rid: list(r.tokens) for r in trace}
+
+
+def _count_steps(eng):
+    """Wrap the engine's prefill and verify steps to count their calls in
+    ``eng.step_calls``."""
+    eng.step_calls = {"prefill": 0, "verify": 0}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            eng.step_calls[name] += 1
+            return fn(*args, **kw)
+        return call
+    eng.prefill_step = counted("prefill", eng.prefill_step)
+    if eng.spec != "off":
+        eng.verify_step = counted("verify", eng.verify_step)
 
 
 def _print_run(label, rep, counts, keys=()):
@@ -1797,6 +2022,332 @@ def check_overload_reduced(devices=("cpu", "cuda")):
         print(f"check {path} cuda vs cpu: tokens, counters "
               f"{json.dumps(cpu[1])} and virtual clock {cpu[2]:.6f} s "
               f"identical, margin {margin:.4g} (>= 1e-3), books balanced ok")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5s: speculative decoding
+# ---------------------------------------------------------------------------
+
+# a token that a speculative run chooses apart from plain decode is a near
+# tie when a third computation (one prefill of the shared prefix) puts the
+# two tokens' bf16 logits within this many bf16 ulps of the larger: the
+# verify's K-row append and (B*K)-row GEMMs round apart from the decode
+# step's one-row kernel and B-row GEMMs through 32 layers
+NEAR_TIE_ULPS = 4
+SPEC_KEYS = ("spec_rounds", "spec_drafted", "spec_drafts_accepted",
+             "spec_wasted_tokens", "spec_pages_rewound", "accepted_k")
+
+
+def _bf16_ulp(x):
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def _near_tie_check(label, cfg, params, trace, got, want):
+    """``got`` against ``want`` ({rid: tokens}, both greedy bf16 runs of
+    ``trace``): each request identical, or its first divergent token a near
+    tie (``NEAR_TIE_ULPS``), read from one prefill of the prompt and the
+    tokens both runs share.  Returns (identical requests, the divergences
+    as (rid, index, gap, bound))."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import llm_a3c
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    prefill = llm_a3c.make_prefill_step(cfg)
+    cast = M.cast_params(cfg, params)
+    same, ties = 0, []
+    for r in trace:
+        a, b = want[r.rid], got[r.rid]
+        if a == b:
+            same += 1
+            continue
+        t = next(i for i in range(min(len(a), len(b))) if a[i] != b[i])
+        seq = np.concatenate([np.asarray(r.prompt, np.int32),
+                              np.asarray(a[:t], np.int32)])
+        toks, plens, grid = serve._pad_group([seq], 1, 128, 1024)
+        cache = M.init_cache(cfg, 1, 1024, dtype=torch.bfloat16,
+                             device="cuda")
+        last, _ = serve._chunked_prefill(prefill, cast, cache, toks, plens,
+                                         grid, torch.device("cuda"))
+        la, lb = float(last[0, a[t]]), float(last[0, b[t]])
+        gap = abs(la - lb)
+        bound = NEAR_TIE_ULPS * _bf16_ulp(max(abs(la), abs(lb)))
+        ties.append((r.rid, t, gap, bound))
+        if gap > bound:
+            raise AssertionError(
+                f"{label}: request {r.rid} left plain decode at token {t} "
+                f"({a[t]} -> {b[t]}) with a logit gap {gap:.4g} above the "
+                f"near-tie bound {bound:.4g}")
+    print(f"check {label}: {same}/{len(trace)} requests with plain "
+          f"decode's tokens exactly; divergences (rid, token, gap, bound) "
+          f"{[(i, t, round(g, 5), round(bd, 5)) for i, t, g, bd in ties]}, "
+          f"each a near tie (<= {NEAR_TIE_ULPS} bf16 ulps) ok")
+    return same, ties
+
+
+def _check_spec_launches(label, eng, counts, arms):
+    """A speculative run launched ``arms`` and no other serving arm, the
+    target's append exactly 32 times each prefill chunk and verify round
+    (warm-up included), and every verify through the verify routes."""
+    _check_attention_arms(label, counts, arms)
+    calls = eng.step_calls
+    n = eng.cfg.n_layers
+    want = n * (calls["prefill"] + calls["verify"])
+    route = counts["verify_paged" if eng.paged else "flash_verify"]
+    if counts["flash_append"] != want or counts["flash_verify"] != \
+            n * calls["verify"] or route != n * calls["verify"]:
+        raise AssertionError(
+            f"{label}: flash_append {counts['flash_append']} (want {n} x "
+            f"({calls['prefill']} chunks + {calls['verify']} rounds) = "
+            f"{want}), flash_verify {counts['flash_verify']}, "
+            f"verify_paged {counts['verify_paged']}")
+    print(f"check {label}: flash_append {counts['flash_append']} = {n} x "
+          f"({calls['prefill']} prefill chunks + {calls['verify']} verify "
+          f"rounds), flash_verify {counts['flash_verify']}, verify_paged "
+          f"{counts['verify_paged']}, decode_attention "
+          f"{counts['decode_attention']} ok")
+
+
+def _sim_ngram_rounds(prompt, stream, kmax):
+    """The engine's accept rule replayed on a recorded greedy stream with
+    ``NgramDraft`` (no model calls): (accept rate, rounds, tokens a
+    round)."""
+    from repro_torch.launch import serve
+    d = serve.NgramDraft()
+    hist = list(prompt) + [int(stream[0])]
+    i, acc, drafted, rounds = 1, 0, 0, 0
+    while i < len(stream):
+        props = d.propose_one(hist, kmax)
+        ke = min(kmax, 1 + len(props))
+        a = 0
+        while a < ke - 1 and i + a < len(stream) \
+                and props[a] == stream[i + a]:
+            a += 1
+        na = min(a + 1, len(stream) - i)
+        drafted += ke - 1
+        acc += na - 1
+        hist.extend(stream[i:i + na])
+        i += na
+        rounds += 1
+    return (acc / max(drafted, 1), rounds,
+            (len(stream) - 1) / max(rounds, 1))
+
+
+def _spec_probe_trace(cfg, params, *, shared_len=16, n_cand=24,
+                      n_requests=4, max_new=48, fold=8, spec_k=6, seed=7):
+    """Phase 5s (b)'s trace, by the method of ``bench_serve.spec_trace``:
+    ``n_cand`` prompts on one shared prefix run ``fold + max_new`` greedy
+    tokens through the plain engine; the one whose stream the n-gram
+    replay covers in the fewest rounds wins, its first ``fold`` tokens
+    folded into the prompt, which ``n_requests`` requests share with
+    generations ``max_new - 4 * (i % 3)``.  Returns (make_trace, info)."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab_size, shared_len).astype(np.int32)
+    cands = [np.concatenate([shared, rng.integers(
+        0, cfg.vocab_size, 8 + i % 7).astype(np.int32)])
+        for i in range(n_cand)]
+    probe = [serve.Request(rid=i, prompt=c, max_new=fold + max_new,
+                           arrival=0.0) for i, c in enumerate(cands)]
+    serve.run_engine(cfg, params, probe, n_slots=8, cache_len=1024,
+                     chunk=128, sample=False, seed=0, kv_dtype="bf16",
+                     device="cuda")
+    best, best_sim = 0, (0.0, 10 ** 9, 0.0)
+    for r in probe:
+        t = [int(x) for x in r.tokens]
+        sim = _sim_ngram_rounds([int(x) for x in cands[r.rid]] + t[:fold],
+                                t[fold:fold + max_new], spec_k)
+        if sim[2] > best_sim[2]:
+            best, best_sim = r.rid, sim
+    base = np.concatenate([cands[best],
+                           np.asarray(probe[best].tokens[:fold], np.int32)])
+
+    def make_trace():
+        return [serve.Request(rid=i, prompt=base.copy(),
+                              max_new=max_new - 4 * (i % 3), arrival=0.0)
+                for i in range(n_requests)]
+    info = {"n_candidates": n_cand, "fold": fold, "best": best,
+            "sim_accept": round(best_sim[0], 3),
+            "sim_tokens_per_round": round(best_sim[2], 2),
+            "prompt_len": len(base), "max_new": max_new, "spec_k": spec_k}
+    return make_trace, info
+
+
+SPEC_REPORT_KEYS = ("requests", "generated_tokens", "wall_s",
+                    "tokens_per_s", "decode_tokens_per_s", "prefill_wall_s",
+                    "ttft_s", "latency_s", "warmup_s", "cow_events",
+                    "pages_alloced", "speculative")
+
+
+def check_spec(cfg, params, want_tokens):
+    """Phase 5s at full width (Yi-6B, bf16 weights from seed 0, bf16 KV, 4
+    slots, cache 1024, chunk 128, the default paged layout): (a) phase 5's
+    trace with n-gram drafts, spec_k 4; (b) the probed high-acceptance
+    trace, off and n-gram in turns (off, ngram, ngram, off), spec_k 6;
+    (c) that trace with the draft model.  Each run is its own path, held
+    to its launch gates and, margin-qualified, to plain decode's tokens.
+    Returns {path: counts}."""
+    out = {}
+    label = "spec yi-6b ngram (phase 5 trace)"
+    rep, out["spec_ngram"], eng, toks = _serve(
+        label, cfg, params, _phase5_trace(cfg), "bf16", spec="ngram",
+        spec_k=4)
+    if not rep["paged"]:
+        raise AssertionError(f"{label}: not paged")
+    _check_spec_launches(label, eng, out["spec_ngram"], ("flash_append",))
+    _print_run(label, rep, out["spec_ngram"], ("speculative",))
+    _near_tie_check(label, cfg, params, _phase5_trace(cfg), toks,
+                    want_tokens)
+
+    t0 = time.perf_counter()
+    make_trace, info = _spec_probe_trace(cfg, params)
+    print(f"spec probe: {json.dumps(info)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    recs, toks = {}, {}
+    for turn, spec in enumerate(("off", "ngram", "ngram", "off")):
+        label = f"spec yi-6b probed trace {spec} turn {turn}"
+        kw = {} if spec == "off" else dict(spec=spec, spec_k=6)
+        rep, counts, eng, toks[turn] = _serve(label, cfg, params,
+                                              make_trace(), "bf16", **kw)
+        if spec == "off":
+            _check_serving_run(label, rep, counts, "bf16", False,
+                               paged=True)
+        else:
+            _check_spec_launches(label, eng, counts, ("flash_append",))
+            out[f"spec_probe_ngram_{turn}"] = counts
+        recs[turn] = rep
+        print(f"{label}: " + json.dumps(
+            {k: rep[k] for k in SPEC_REPORT_KEYS if k in rep}))
+    for turn in (1, 2, 3):
+        _near_tie_check(f"spec probed trace turn {turn} vs turn 0", cfg,
+                        params, make_trace(), toks[turn], toks[0])
+    ratios = [recs[t]["decode_tokens_per_s"] /
+              recs[o]["decode_tokens_per_s"] for t, o in ((1, 0), (2, 3))]
+    print(f"spec probed trace: decode tokens/s ngram / off "
+          f"{ratios[0]:.3f} (turns 1/0), {ratios[1]:.3f} (turns 2/3); "
+          f"mean accepted k {recs[1]['speculative']['mean_accepted_k']}, "
+          f"{recs[2]['speculative']['mean_accepted_k']}")
+
+    label = "spec yi-6b probed trace draft"
+    rep, out["spec_draft"], eng, toks_d = _serve(
+        label, cfg, params, make_trace(), "bf16", spec="draft", spec_k=6)
+    _check_spec_launches(label, eng, out["spec_draft"],
+                         ("flash_append", "flash_append_f32",
+                          "decode_attention"))
+    print(f"{label}: " + json.dumps(
+        {k: rep[k] for k in SPEC_REPORT_KEYS if k in rep}))
+    _near_tie_check(label, cfg, params, make_trace(), toks_d, toks[0])
+    return out
+
+
+class _WrongDraft:
+    """Drafts that are always wrong: every round rejects its whole tail."""
+
+    kind = "wrong"
+
+    def __init__(self, vocab):
+        self.vocab = vocab
+
+    def propose_one(self, history, k):
+        last = int(history[-1])
+        return [(last + 7 * (i + 1)) % self.vocab for i in range(k - 1)]
+
+    def admit(self, req, j):
+        pass
+
+    def reset(self):
+        pass
+
+
+def check_spec_reduced(devices=("cpu", "cuda")):
+    """Phase 5s (d): reduced Yi-6B in f32 on the card against the CPU, each
+    a path of its own: n-gram drafts on the paged layout (a shared
+    prefix), on an int8 contiguous cache, the draft model, sampled n-gram,
+    and always-wrong drafts under optimistic admission on 16-row pages
+    (rejected pages rewound).  Tokens, speculative and page counters
+    identical, margin-qualified (>= 1e-3 along the CPU's tokens), and a
+    paged run's books balanced.  Returns the card runs' counts by path."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = get_config("yi-6b").reduced()
+    params = M.init_params(cfg, 0, "cpu")
+
+    def trace(seed, shared=0):
+        rng = np.random.default_rng(seed)
+        pre = rng.integers(0, cfg.vocab_size, shared).astype(np.int32)
+        return [serve.Request(rid=i, prompt=np.concatenate([pre, rng.integers(
+            0, cfg.vocab_size, int(rng.integers(8, 20))).astype(np.int32)]),
+            max_new=16 - 2 * (i % 3), arrival=0.0) for i in range(4)]
+    # (path, trace seed, shared prefix, engine, the card run's arms)
+    cases = (
+        ("spec_reduced_ngram_paged", 3, 32,
+         dict(spec="ngram", cache_len=128, chunk=32, page_size=32),
+         ("flash_append_f32",)),
+        ("spec_reduced_ngram_int8", 3, 0,
+         dict(spec="ngram", cache_len=64, chunk=16, kv_dtype="int8"),
+         ("flash_append_int8_f32",)),
+        ("spec_reduced_draft", 3, 0,
+         dict(spec="draft", spec_k=3, cache_len=64, chunk=16),
+         ("flash_append_f32", "decode_attention")),
+        ("spec_reduced_sampled", 3, 0,
+         dict(spec="ngram", cache_len=64, chunk=16, sample=True),
+         ("flash_append_f32",)),
+        ("spec_reduced_wrong_optimistic", 3, 0,
+         dict(spec="ngram", spec_k=6, cache_len=64, chunk=16, page_size=16,
+              admission="optimistic"), ("flash_append_f32",)),
+    )
+    keys = SPEC_KEYS + ("pages_requested", "pages_alloced", "cow_events",
+                        "preemptions", "step_count")
+    out = {}
+    for path, seed, shared, kw, arms in cases:
+        runs = {}
+        for dev in devices:
+            tr = trace(seed, shared)
+            eng = serve.ServeEngine(
+                cfg, M.tree_map(lambda t: t.to(dev), params), n_slots=2,
+                seed=0, device=dev, **{"sample": False, **kw})
+            if path.endswith("wrong_optimistic"):
+                eng.draft_src = _WrongDraft(cfg.vocab_size)
+            dispatch.reset_launch_counts()
+            rep = serve.serve_trace(eng, tr)
+            counts = dispatch.launch_counts()
+            if not rep["logits_finite"] or rep["requests"] != len(tr):
+                raise AssertionError(f"{path} {dev}: unfinished or "
+                                     "non-finite")
+            if eng.paged:
+                _check_books(f"{path} {dev}", eng)
+            runs[dev] = ({r.rid: list(r.tokens) for r in tr},
+                         {k: getattr(eng, k) for k in keys})
+            if dev == devices[0]:
+                key = prng.key(0) if kw.get("sample") else None
+                margin = serve.min_accept_margin(cfg, params, tr,
+                                                 kw["cache_len"], key=key,
+                                                 device="cpu")
+        if margin < 1e-3:
+            raise AssertionError(f"{path}: near tie (margin {margin})")
+        card, cpu = (runs[d] for d in devices[::-1])
+        if card != cpu:
+            raise AssertionError(f"{path}: card {card} != CPU {cpu}")
+        if path.endswith("wrong_optimistic") and \
+                cpu[1]["spec_pages_rewound"] <= 0:
+            raise AssertionError(f"{path}: no page rewound")
+        _check_attention_arms(path, counts, arms)
+        out[path] = counts
+        c = cpu[1]
+        print(f"check {path} cuda vs cpu: tokens and counters identical "
+              f"(rounds {c['spec_rounds']}, drafted {c['spec_drafted']}, "
+              f"accepted {c['spec_drafts_accepted']}, pages rewound "
+              f"{c['spec_pages_rewound']}), margin {margin:.4g} (>= 1e-3)"
+              f"{', paged, books balanced' if eng.paged else ''} ok")
     return out
 
 
@@ -2685,7 +3236,7 @@ def _shapes(record):
     return [record] + [record[k] for k in (
         "train_shape", "decode_shape", "f32_shape", "train_table_shape",
         "llm_leaf_shape", "llm_leaf_apply_shape", "rl_fc_shape",
-        "rl_small_shape") if k in record]
+        "rl_small_shape", "verify_shape", "verify_k6_shape") if k in record]
 
 
 def main():
@@ -2728,6 +3279,8 @@ def main():
                check_decode_int8(gen, flush), *check_partials(gen, flush),
                check_rmsnorm_bwd(gen, flush), *check_flash_fwd(gen, flush),
                *check_flash_bwd(gen, flush), check_rmsprop(gen, flush)]
+    for name, subs in check_verify(gen, flush).items():
+        next(r for r in records if r["name"] == name).update(subs)
     t_prng = time.perf_counter()
     check_prng(flush)
     print(f"phase prng_s {time.perf_counter() - t_prng:.1f}")
@@ -2784,6 +3337,22 @@ def main():
     path_counts.update(check_overload(cfg, params, tokens))
     path_counts.update(check_overload_reduced())
     print(f"phase overload_s {time.perf_counter() - t_phase:.1f}")
+
+    t_phase = time.perf_counter()
+    path_counts.update(check_spec(cfg, params, tokens))
+    path_counts.update(check_spec_reduced())
+    spec_steps = profile_engine(cfg, params, "bf16 paged ngram",
+                                kv_dtype="bf16", spec="ngram", spec_k=4)
+    _profile_diff("8 verify rounds (ngram) vs 8 decode steps, paged",
+                  spec_steps, steps["paged"], 8)
+    for what, names in (("cache concatenation", ("CatArrayBatchedCopy",)),
+                        ("page gathers", ("vectorized_gather_kernel",
+                                          "indexSelect"))):
+        ms = sum(t for k, (_, t) in spec_steps.items()
+                 if any(n in k for n in names))
+        print(f"profile verify round's {what}: {ms / 8:.4f} device ms a "
+              f"round (8 rounds, {ms:.4f} ms)")
+    print(f"phase spec_s {time.perf_counter() - t_phase:.1f}")
 
     t_phase = time.perf_counter()
     with sharding.process_group(torch.device("cuda")):

@@ -1,7 +1,7 @@
 """A3C at LLM scale, as ``repro/core/llm_a3c.py``: the paper's Alg. 3 loss
 on the token-level MDP and its train step (the learner), and per-slot
-sampling, the one-token serve step and the chunked-prefill step (the
-actors' serving side).
+sampling, the one-token serve step, the fused speculative verify step and
+the chunked-prefill step (the actors' serving side).
 
 The learner: state s_t = token prefix, action a_t = tokens[t+1], policy =
 the LM head's softmax, critic = the value head.  Every position gets the
@@ -164,6 +164,55 @@ def make_serve_step(cfg: ModelConfig, *, sample: bool = True):
         return token, value, cache
 
     return serve_step
+
+
+def make_verify_step(cfg: ModelConfig, shift: int, *, sample: bool = True):
+    """The fused speculative round of the serve engine (JAX
+    ``llm_a3c.py::make_verify_step``): score a (B, K) batch of draft chunks
+    (row j's current token and drafts at positions pos[j] + i), decide
+    acceptance and commit exactly the accepted rows' KV, with no host sync.
+
+    ``verify_step(params, cache, batch, pos, key, sids, k_eff, remaining,
+    finite=None) -> (targets (B, K), n_acc (B,), cache)``; ``pos``, ``sids``,
+    ``k_eff`` and ``remaining`` host tensors (B,).  ``targets[j, i]`` is
+    the token the model emits after position pos[j] + i: the argmax, or
+    the draw of the (sid, pos + i + 1) stream, the one ``make_serve_step``
+    draws that token from, so accepted sampled tokens are those of plain
+    decode bit for bit.  The accept rule: the leading run of drafts that
+    match the targets within row j's effective k, plus the target after
+    it, clamped to ``remaining[j]`` (0 marks an idle row, which commits
+    nothing).  ``shift``: the engine's logical cache length.  ``finite``,
+    a bool tensor, is and-ed in place with "every logit is finite"."""
+
+    def verify_step(params, cache, batch, pos, key, sids, k_eff, remaining,
+                    finite=None):
+        dev = batch["tokens"].device
+        out, pendings = M.verify_step(cfg, params, cache, batch,
+                                      pos.to(dev), shift)
+        logits = out["logits"].float()                  # (B, K, V)
+        b, kq, v = logits.shape
+        if finite is not None:
+            finite.logical_and_(torch.isfinite(logits).all())
+        if not sample:
+            targets = torch.argmax(logits, dim=-1)
+        else:
+            # the row keys hashed on the host, where sids and pos are
+            tpos = pos[:, None].to(torch.int64) + 1 + torch.arange(kq)
+            skeys = prng.fold_in(key.to(sids.device),
+                                 torch.as_tensor(sids).to(torch.int64))
+            keys = prng.fold_in(skeys[:, None, :], tpos)     # (B, K, 2)
+            targets = prng.categorical(keys.reshape(b * kq, 2).to(dev),
+                                       logits.reshape(b * kq, v))
+            targets = targets.reshape(b, kq)
+        match = batch["tokens"][:, 1:] == targets[:, :-1]    # (B, K-1)
+        in_k = torch.arange(kq - 1, device=dev)[None, :] < \
+            (k_eff.to(dev)[:, None] - 1)
+        run = torch.cumprod((match & in_k).to(torch.int32), dim=1)
+        n_acc = torch.minimum(run.sum(dim=1) + 1, remaining.to(dev))
+        cache = M.commit_step(cfg, cache, pendings, pos.to(dev), n_acc)
+        return targets, n_acc, cache
+
+    return verify_step
 
 
 def make_prefill_step(cfg: ModelConfig):

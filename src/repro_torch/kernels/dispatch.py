@@ -18,11 +18,16 @@ both devices) whose backwards are kernels too.  Int8 KV caches pass their
 dequantise inside.  The paged arms (``decode_attention_paged``,
 ``flash_attention_append_paged``) gather a page pool into the dense view
 through its page table, as the JAX arms do, and delegate to the decode
-and append kernels.
+and append kernels.  The speculative verify arms (``flash_attention_verify``
+and its paged form) re-base each row's key positions so that a ragged
+batch of draft chunks is one append call at a static ``pos0``.
 
 Each wrapper counts its launches, by kernel and arm; ``launch_counts`` /
 ``reset_launch_counts`` read and clear them, so a run can show that its
-main path went through the kernels.
+main path went through the kernels.  The verify arms keep route counts
+beside them (``route_counts``: ``flash_verify``, ``verify_paged``), the
+calls that reached the append kernel through them, which the kernel
+counts again as its own; ``reset_launch_counts`` clears both.
 """
 from __future__ import annotations
 
@@ -57,15 +62,24 @@ _COUNTERS = {
     "rmsprop": (rmsprop_cuda, "launches"),
     "rmsprop_update_multi": (rmsprop_cuda, "multi_launches"),
     "rmsprop_apply_multi": (rmsprop_cuda, "apply_launches")}
+# route -> calls since the last reset (not kernels: each call is counted
+# again by the append kernel's arm that it launches)
+_ROUTES = {"flash_verify": 0, "verify_paged": 0}
 
 
 def launch_counts() -> Dict[str, int]:
     return {op: getattr(mod, name) for op, (mod, name) in _COUNTERS.items()}
 
 
+def route_counts() -> Dict[str, int]:
+    return dict(_ROUTES)
+
+
 def reset_launch_counts() -> None:
     for mod, name in _COUNTERS.values():
         setattr(mod, name, 0)
+    for route in _ROUTES:
+        _ROUTES[route] = 0
 
 
 def _check_gqa(hq: int, hkv: int) -> None:
@@ -281,6 +295,71 @@ def flash_attention_append_paged(q, k_pool, v_pool, page_table, k_chunk,
     scales = stream[2:] if quant else (None, None)
     return flash_attention_append(q, stream[0], stream[1], kpos, pos0=pos0,
                                   kpos_linear=True, k_scale=scales[0],
+                                  v_scale=scales[1])
+
+
+# Speculative verify: K drafted tokens of a slot are a K-row append chunk,
+# except that each row sits at its own depth pos[j] while the append kernel
+# takes one static pos0.  Its masks are relative (causal kpos <= qpos, the
+# window kpos > qpos - window), so adding one constant to every key and
+# query position of a row changes nothing: re-basing row j by
+# shift - pos[j] (``shift`` a static bound on pos, the cache length) makes
+# the batch one append call at pos0 = shift.  Key row index then no longer
+# equals position, so the call runs with kpos_linear=False and visits every
+# tile.  RoPE stays the model layer's, at the true positions.
+
+def flash_attention_verify(q, k, v, kpos, *, pos, shift: int,
+                           window: Optional[int] = None, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
+    """Speculative-verify attention (JAX ``dispatch.py:869``): q (B,K,Hq,D)
+    row j's draft chunk at positions pos[j] + i; k,v (B,Sk,Hkv,D) the key
+    stream (cache prefix + the chunk's own K/V; int8 with (B,Sk,Hkv,1) f32
+    scales, which pass through untouched); kpos (B,Sk) [or (Sk,)] absolute
+    positions (-1 invalid); pos (B,); ``shift`` >= every pos ->
+    (B,K,Hq,D), through one ``flash_attention_append`` call."""
+    b, sk = q.shape[0], k.shape[1]
+    kpos = kpos.to(torch.int32).expand(b, sk)
+    pos = torch.as_tensor(pos, device=q.device).to(torch.int32).expand(b)
+    kpos = torch.where(kpos >= 0, kpos - pos[:, None] + shift, -1)
+    _ROUTES["flash_verify"] += 1
+    return flash_attention_append(q, k, v, kpos, pos0=shift, window=window,
+                                  kpos_linear=False, k_scale=k_scale,
+                                  v_scale=v_scale)
+
+
+def flash_attention_verify_paged(q, k_pool, v_pool, page_table, k_chunk,
+                                 v_chunk, *, pos, length: int, k_scale=None,
+                                 v_scale=None, ks_chunk=None, vs_chunk=None,
+                                 kpos=None, rows=None) -> torch.Tensor:
+    """Paged-layout verify (JAX ``dispatch.py:910``): q (B,K,Hq,D) at
+    positions pos[j] + i; the pools hold the committed prefix behind
+    page_table (B,M); k_chunk/v_chunk (B,K,Hkv,D) the chunk's own K/V, not
+    in the pool (the commit comes after the accept decision; an int8 pool
+    takes them quantised, with ``ks_chunk``/``vs_chunk``, and its scale
+    pools as ``k_scale``/``v_scale``).  The view is cut to ``length`` rows
+    and its kpos clamped below each row's pos: pages mapped ahead of the
+    verify hold rows no commit wrote.  ``kpos`` (the stream's,
+    ``ref.verify_paged_kpos``) and ``rows`` (``ref.paged_rows``) may come
+    precomputed for all layers."""
+    quant = k_scale is not None
+    b, kq = q.shape[0], q.shape[1]
+    pos = torch.as_tensor(pos, device=q.device).to(torch.int32).expand(b)
+    if kpos is None:
+        kpos = ref.verify_paged_kpos(page_table, k_pool.shape[1], pos,
+                                     length, kq)
+    if rows is None:
+        rows = ref.paged_rows(page_table)
+    pools = (k_pool, v_pool) + ((k_scale, v_scale) if quant else ())
+    chunks = (k_chunk, v_chunk) + ((ks_chunk, vs_chunk) if quant else ())
+    stream = []
+    for pool, chunk in zip(pools, chunks):
+        pre = ref.paged_view(pool, page_table, length, rows)
+        stream.append(torch.cat([pre if quant else pre.to(q.dtype),
+                                 chunk], dim=1))
+    scales = stream[2:] if quant else (None, None)
+    _ROUTES["verify_paged"] += 1
+    return flash_attention_verify(q, stream[0], stream[1], kpos, pos=pos,
+                                  shift=length, k_scale=scales[0],
                                   v_scale=scales[1])
 
 

@@ -447,6 +447,20 @@ def append_paged_kpos(page_table, page_size: int, pos0: int,
     return torch.cat([pre, chunk], dim=1)
 
 
+def verify_paged_kpos(page_table, page_size: int, pos, length: int,
+                      k: int) -> torch.Tensor:
+    """kpos (B, length + K) int32 of a paged verify's key stream: the
+    gathered view cut to ``length`` rows with every row at or past the
+    slot's ``pos`` masked (pages mapped ahead of a verify hold rows no
+    commit wrote), then the chunk at pos + i."""
+    pre = paged_kpos_ref(page_table, page_size)[:, :length]
+    pos = pos.to(torch.int32)[:, None]
+    pre = torch.where(pre <= pos - 1, pre, -1)
+    chunk = pos + torch.arange(k, dtype=torch.int32,
+                               device=page_table.device)
+    return torch.cat([pre, chunk], dim=1)
+
+
 def append_paged_stream(pools, page_table, chunks, pos0: int,
                         page_size: int, cast: bool = False, rows=None):
     """Key stream of a paged append: each pool's gathered prefix [0, pos0)

@@ -53,9 +53,21 @@ layout and the kernel launch counts.
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu \\
       --decode-cp --kv-dtype int8 --greedy
 
-``--mode lockstep`` is the wave-batched baseline.  Speculative decoding is
-a later slice (ROADMAP.md queue 1, item 4b) and raises
-``NotImplementedError``.
+``--spec ngram|draft`` is speculative decoding: every decode step becomes
+a round that drafts up to ``--spec-k - 1`` tokens a slot (``NgramDraft``
+looks them up in the request's own history, ``DraftModel`` runs a small
+greedy model), scores each slot's chunk through one fused verify step (the
+append kernel at re-based positions, nothing written), accepts the longest
+matching draft prefix plus the model's next token, and commits exactly the
+accepted rows' KV.  Accepted tokens are plain decode's, sampled ones
+included (a token's stream is keyed by its request and position).  Paged
+caches map the pages a round may touch before its verify and, under
+optimistic admission, unmap those it wholly rejected.  Speculation is not
+served with ``--decode-cp`` (ROADMAP.md queue 3).
+
+  python -m repro_torch.launch.serve --device cpu --greedy --spec ngram
+
+``--mode lockstep`` is the wave-batched baseline.
 """
 from __future__ import annotations
 
@@ -82,7 +94,7 @@ from repro_torch.launch import traffic
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
 
-_SPEC_ITEM = "see ROADMAP.md, queue 1, item 4b: speculative decoding"
+SPEC_MODES = ("off", "ngram", "draft")
 
 
 # ---------------------------------------------------------------------------
@@ -194,12 +206,15 @@ def _percentiles(xs) -> dict:
 
 def _validate_trace(trace: List[Request], cache_len: int, *,
                     page_size: Optional[int] = None,
-                    usable_pages: Optional[int] = None) -> None:
+                    usable_pages: Optional[int] = None,
+                    spec_k: int = 1) -> None:
     """A full KV cache has no wrap: reject requests whose decode would run
     past its end (decode writes up to position prompt + max_new - 2).  A
     paged engine also rejects a request whose worst-case page demand
     exceeds the pool: it could never be served even alone, and
-    preempt-and-requeue would cycle forever."""
+    preempt-and-requeue would cycle forever.  ``spec_k`` > 1 widens that
+    demand by the speculative tail: a verify round maps pages up to
+    ``spec_k - 1`` positions past the committed frontier."""
     for r in trace:
         if len(r.prompt) < 1:
             raise ValueError(f"request {r.rid}: empty prompt")
@@ -210,12 +225,14 @@ def _validate_trace(trace: List[Request], cache_len: int, *,
                 "--cache-len (a full cache would wrap and clobber "
                 "prompt rows silently)")
         if page_size:
-            need = -(-min(len(r.prompt) + r.max_new, cache_len) // page_size)
+            need = -(-min(len(r.prompt) + r.max_new + spec_k - 1,
+                          cache_len) // page_size)
             if need > usable_pages:
                 raise ValueError(
                     f"request {r.rid}: worst-case page demand {need} "
-                    f"(ceil((prompt {len(r.prompt)} + max_new {r.max_new})"
-                    f" / page_size {page_size})) exceeds the pool's "
+                    f"(ceil((prompt {len(r.prompt)} + max_new {r.max_new}"
+                    f" + spec_k {spec_k} - 1) / page_size {page_size})) "
+                    f"exceeds the pool's "
                     f"{usable_pages} usable pages — it can never be "
                     "served even alone; raise --pages or shorten the "
                     "request")
@@ -524,12 +541,18 @@ class AllocatorModel:
                          private copy, then the shared reference dropped
                          (``ServeEngine._cow_into``);
       * ``preempt(h)`` — preempt-and-requeue: hold ``h`` and every
-                         outstanding reservation unit dropped at once.
+                         outstanding reservation unit dropped at once;
+      * ``spec``       — a verify round maps a page for drafted, not yet
+                         verified positions before the accept decision
+                         (``ServeEngine._spec_step_all``);
+      * ``rewind(h)``  — a speculative page wholly rejected: decref and
+                         unmap (optimistic admission's rollback);
+      * ``commit(h)``  — an accepted token lands in a speculative page: it
+                         becomes an ordinary hold.
 
-    (The JAX package's model adds speculative decoding's spec, rewind and
-    commit ops; they come with that slice, ROADMAP.md queue 1, item 4b.)
     State is ``(allocator, holds)``, ``holds`` the outstanding table
-    references as ``(page, version at acquire, "c")`` triples."""
+    references as ``(page, version at acquire, kind)`` triples, kind
+    ``"c"`` committed or ``"s"`` speculative and awaiting its verdict."""
 
     def __init__(self, n_pages: int = 4, allocator_cls=None):
         self.n_pages = n_pages
@@ -545,6 +568,7 @@ class AllocatorModel:
         reserved = int(getattr(alloc, "reserved", 0))
         if len(alloc.free) > reserved:
             ops.append(("alloc",))
+            ops.append(("spec",))
         # a refused reserve is backpressure: a no-op state
         ops.append(("reserve",))
         if reserved > 0:
@@ -554,6 +578,11 @@ class AllocatorModel:
             ops.append(("incref", i))
             ops.append(("release", i))
             ops.append(("preempt", i))
+            if h[2] == "s":
+                # a speculative hold resolves one way a round: wholly
+                # rejected (rewind) or touched by an accepted token
+                ops.append(("rewind", i))
+                ops.append(("commit", i))
             if alloc.ref[h[0]] > 1 and len(alloc.free) > reserved:
                 ops.append(("cow", i))
         return ops
@@ -563,11 +592,12 @@ class AllocatorModel:
         alloc = copy.deepcopy(alloc)
         holds = list(holds)
         kind = op[0]
-        if kind in ("alloc", "alloc_r"):
+        if kind in ("alloc", "alloc_r", "spec"):
             p = alloc.try_alloc(reserved=kind == "alloc_r")
             if p is None:
                 raise RuntimeError(f"enabled {kind} failed")
-            holds.append((p, int(alloc.version[p]), "c"))
+            holds.append((p, int(alloc.version[p]),
+                          "s" if kind == "spec" else "c"))
         elif kind == "reserve":
             alloc.reserve(1)
         elif kind == "unreserve":
@@ -578,13 +608,21 @@ class AllocatorModel:
             holds.append((p, int(alloc.version[p]), "c"))
         elif kind == "release":
             alloc.decref(holds.pop(op[1])[0])
+        elif kind in ("rewind", "commit"):
+            p, ver, hk = holds[op[1]]
+            if hk != "s":
+                raise ValueError(f"{kind} of a non-speculative hold")
+            if kind == "rewind":
+                alloc.decref(holds.pop(op[1])[0])
+            else:
+                holds[op[1]] = (p, ver, "c")
         elif kind == "cow":
-            src = holds[op[1]][0]
+            src, _, hk = holds[op[1]]
             dst = alloc.try_alloc()             # copy rows, then drop the
             if dst is None:                     # shared reference
                 raise RuntimeError("enabled cow failed")
             alloc.decref(src)
-            holds[op[1]] = (dst, int(alloc.version[dst]), "c")
+            holds[op[1]] = (dst, int(alloc.version[dst]), hk)
         elif kind == "preempt":
             alloc.decref(holds.pop(op[1])[0])
             reserved = int(getattr(alloc, "reserved", 0))
@@ -593,6 +631,168 @@ class AllocatorModel:
         else:
             raise ValueError(f"unknown op {op!r}")
         return alloc, tuple(sorted(holds))
+
+
+# ---------------------------------------------------------------------------
+# speculative draft sources
+# ---------------------------------------------------------------------------
+
+class NgramDraft:
+    """Self-drafting by n-gram lookup over a slot's prompt and generated
+    tokens ("prompt lookup": no model cost).  ``propose_one(history, k)``
+    matches the longest suffix of up to ``n`` tokens against an earlier
+    occurrence and proposes the up to ``k - 1`` tokens that followed the
+    most recent match with a full continuation (else the most recent
+    partial one).  No match, no drafts: the slot rides the verify batch at
+    an effective k of 1, one plain decode step."""
+
+    kind = "ngram"
+
+    def __init__(self, n: int = 3):
+        self.n = n
+
+    def propose_one(self, hist: List[int], k: int) -> List[int]:
+        m = len(hist)
+        for n in range(min(self.n, m - 1), 0, -1):
+            pat = hist[m - n:]
+            best: List[int] = []
+            for s in range(m - n - 1, -1, -1):
+                if hist[s:s + n] == pat:
+                    cont = hist[s + n:s + n + k - 1]
+                    if len(cont) == k - 1:
+                        return [int(t) for t in cont]
+                    if cont and not best:
+                        best = [int(t) for t in cont]
+            if best:
+                return best
+        return []
+
+    def admit(self, req: Request, j: int) -> None:
+        pass
+
+    def observe(self, js, new_pos) -> None:
+        pass
+
+    def reset(self) -> None:
+        pass
+
+
+class DraftModel:
+    """A small greedy draft model: ``get_config(arch).reduced()``
+    (stablelm-1.6b by default) with the target's vocabulary, so its tokens
+    index the logits the verify scores; weights ``init_params(cfg, seed +
+    9173)``, the JAX engine's.  It keeps its own f32 contiguous cache, one
+    row a slot, and ``dpos[j]``: the cache holds slot j's accepted tokens
+    at positions [0, dpos[j]).  ``propose`` first replays accepted tokens
+    the cache lacks (at most one in steady state, the bonus token of a
+    full accept), then takes ``k - 1`` greedy steps for every slot at
+    once; ``observe`` moves dpos to the committed frontier (rows written
+    for rejected drafts lie past it, hidden by the decode mask, and are
+    overwritten later)."""
+
+    kind = "draft"
+
+    def __init__(self, target_cfg, n_slots: int, cache_len: int,
+                 chunk: int, *, arch: Optional[str] = None, seed: int = 0,
+                 device=None):
+        from repro_torch.configs import get_config
+
+        dcfg = get_config(arch or "stablelm-1.6b").reduced()
+        dcfg = dataclasses.replace(dcfg, vocab_size=target_cfg.vocab_size)
+        if not M.supports_chunked_prefill(dcfg):
+            raise ValueError(f"draft arch {dcfg.name}: no chunked-prefill "
+                             "path to admit prompts in blocks")
+        self.cfg = dcfg
+        self.device = resolve(device)
+        self.n_slots, self.cache_len, self.chunk = n_slots, cache_len, chunk
+        self.params = M.cast_params(
+            dcfg, M.init_params(dcfg, seed + 9173, self.device))
+        self.step = llm_a3c.make_serve_step(dcfg, sample=False)
+        self.prefill = llm_a3c.make_prefill_step(dcfg)
+        self.key = prng.key(seed)                  # greedy: never drawn
+        self.cache = self._new_cache(n_slots)
+        self.dpos = np.zeros(n_slots, np.int32)
+        self._drafted = 0
+
+    def _new_cache(self, batch: int) -> dict:
+        return M.init_cache(self.cfg, batch, self.cache_len,
+                            dtype=torch.float32, device=self.device)
+
+    def _prefill_row(self, prompt: np.ndarray) -> dict:
+        toks, plens, grid = _pad_group([prompt], 1, self.chunk,
+                                       self.cache_len)
+        return _chunked_prefill(self.prefill, self.params,
+                                self._new_cache(1), toks, plens, grid,
+                                self.device)[1]
+
+    def warm_prefill(self, plen: int) -> None:
+        """Run every chunk offset a ``plen``-token admission reaches (the
+        engine's warm-up, outside the timed region)."""
+        self._prefill_row(np.zeros(plen, np.int32))
+
+    def admit(self, req: Request, j: int) -> None:
+        """Prefill the slot's effective prompt (a preempted request's
+        tokens folded in) into draft row ``j``."""
+        prompt = _eff_prompt(req)
+        small = self._prefill_row(prompt)
+        for big, one in zip(self.cache["layers"], small["layers"]):
+            for name in attn.kv_leaves(big):
+                big[name][j] = one[name][0]
+        self.dpos[j] = len(prompt)
+
+    def _step(self, toks: torch.Tensor, pos: np.ndarray) -> torch.Tensor:
+        tok, _, self.cache = self.step(self.params, self.cache,
+                                       {"tokens": toks},
+                                       torch.from_numpy(pos), self.key)
+        return tok
+
+    def propose(self, active: np.ndarray, hist, pos: np.ndarray,
+                tok: np.ndarray, kmax: int) -> np.ndarray:
+        """An (n_slots, kmax - 1) int32 draft matrix.  Rows already in
+        step re-feed their last token during catch-up (the same K/V at the
+        same position); slots speculating at a smaller k ignore the tail
+        columns.  The drafted tokens stay on the device until the last
+        step."""
+        n = self.n_slots
+        while True:
+            gap = np.where(active, pos - self.dpos, 0)
+            if gap.max() <= 0:
+                break
+            feed_pos = np.where(gap > 0, self.dpos,
+                                np.maximum(self.dpos - 1, 0)).astype(np.int32)
+            feed_tok = np.array([hist[j][feed_pos[j]] if active[j] else 0
+                                 for j in range(n)], np.int32)
+            self._step(torch.as_tensor(feed_tok[:, None], device=self.device),
+                       feed_pos)
+            self.dpos = np.where(gap > 0, self.dpos + 1,
+                                 self.dpos).astype(np.int32)
+        drafts = np.zeros((n, max(kmax - 1, 1)), np.int32)
+        cur = torch.as_tensor(np.where(active, tok, 0).astype(np.int32)[:, None],
+                              device=self.device)
+        dp = np.where(active, pos, 0).astype(np.int32)
+        cols = []
+        for _ in range(kmax - 1):
+            cur = self._step(cur, dp)[:, None]
+            cols.append(cur)
+            dp = dp + 1
+        if cols:
+            drafts[:, :len(cols)] = torch.cat(cols, dim=1).cpu().numpy()
+        self._drafted = kmax - 1
+        return drafts
+
+    def observe(self, js, new_pos) -> None:
+        """The accept verdict: slot ``j``'s committed frontier moved to
+        ``new_pos``.  The drafted rows match the accepted stream as far as
+        it reaches, so the draft frontier is min(new_pos, dpos + drafted):
+        a full accept leaves the bonus token to the next catch-up."""
+        for j, p in zip(js, new_pos):
+            self.dpos[j] = min(int(p), int(self.dpos[j]) + self._drafted)
+
+    def reset(self) -> None:
+        self.dpos[:] = 0
+        for layer in self.cache["layers"]:
+            for name in attn.kv_leaves(layer):
+                layer[name].zero_()
 
 
 # ---------------------------------------------------------------------------
@@ -610,7 +810,10 @@ class ServeEngine:
     the group's own, and each row is copied into its freed slot.  With
     ``decode_cp`` the slot cache is laid out under ``decode_rules`` over
     the default process group (each rank its slice of the sequence), while
-    the group cache stays whole."""
+    the group cache stays whole.  With ``spec`` every decode step is a
+    speculative round (``_spec_step_all``) of up to ``spec_k`` tokens a
+    slot, drafted by ``NgramDraft(draft_ngram)`` or
+    ``DraftModel(draft_arch)``."""
 
     def __init__(self, cfg, params, *, n_slots: int, cache_len: int,
                  chunk: int = 128, sample: bool = True, seed: int = 0,
@@ -619,13 +822,21 @@ class ServeEngine:
                  kv_dtype="f32", admission: str = "reserve",
                  fault_plan: Optional[FaultPlan] = None, clock=None,
                  retry_backoff: float = 0.05, spec: str = "off",
-                 device=None, decode_cp: bool = False):
+                 spec_k: int = 4, draft_arch: Optional[str] = None,
+                 draft_ngram: int = 3, device=None,
+                 decode_cp: bool = False):
         if admission not in ("reserve", "optimistic"):
             raise ValueError(f"admission policy {admission!r} (want "
                              "'reserve' or 'optimistic')")
-        if spec != "off":
-            raise NotImplementedError(f"speculative decoding is not ported "
-                                      f"yet ({_SPEC_ITEM})")
+        if spec not in SPEC_MODES:
+            raise ValueError(f"spec mode {spec!r} (want 'off', 'ngram' or "
+                             "'draft')")
+        if spec != "off" and decode_cp:
+            raise ValueError("speculative decoding is not served with "
+                             "decode_cp: a verify over a sequence-split "
+                             "cache needs a partials arm of the append "
+                             "kernel, which the JAX package lacks too (see "
+                             "ROADMAP.md, queue 3)")
         if not M.supports_chunked_prefill(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: recurrent caches have no chunked prefill; "
@@ -651,6 +862,22 @@ class ServeEngine:
         self.base_key = prng.key(seed)
         self.serve_step = llm_a3c.make_serve_step(cfg, sample=sample)
         self.prefill_step = llm_a3c.make_prefill_step(cfg)
+        # speculative decoding: a draft source, the fused verify + accept +
+        # commit step, per-slot adaptive k
+        self.spec = spec
+        self.spec_k = max(2, int(spec_k)) if spec != "off" else 1
+        self.draft_src = None
+        if spec == "ngram":
+            self.draft_src = NgramDraft(n=draft_ngram)
+        elif spec == "draft":
+            self.draft_src = DraftModel(cfg, n_slots, cache_len, chunk,
+                                        arch=draft_arch, seed=seed,
+                                        device=self.device)
+        if spec != "off":
+            self.verify_step = llm_a3c.make_verify_step(cfg, cache_len,
+                                                        sample=sample)
+        self.k_of = np.full(n_slots, self.spec_k, np.int32)
+        self.accept_ema = np.full(n_slots, 1.0)
         self.kv_dtype = kv_quant.resolve_kv_dtype(kv_dtype)
         self.kv_dtype_name = kv_quant.dtype_name(self.kv_dtype)
         # the JAX engine's default layout (its serve.py:939-943): paged
@@ -815,13 +1042,16 @@ class ServeEngine:
 
     def _need_pages(self, req: Request) -> int:
         """Pages to reserve at admission: the worst case,
-        ceil((prompt + max_new) / page_size) within the cache, under
-        ``reserve``; the effective prompt's under ``optimistic``."""
+        ceil((prompt + max_new + spec_k - 1) / page_size) within the cache,
+        under ``reserve`` (a verify round maps pages up to spec_k - 1
+        positions past the committed frontier, and under ``reserve`` they
+        stay mapped through a rejection); the effective prompt's under
+        ``optimistic``."""
         if not self.paged:
             return 0
         total = len(req.prompt) + len(req.tokens) \
             if self.admission == "optimistic" \
-            else len(req.prompt) + req.max_new
+            else len(req.prompt) + req.max_new + self.spec_k - 1
         return -(-min(total, self.cache_len) // self.page_size)
 
     def enqueue(self, req: Request) -> None:
@@ -1102,6 +1332,10 @@ class ServeEngine:
             self.pos[j] = plen_eff
             self.tok[j] = int(first[i])
             self.req_of[j] = req
+            if self.draft_src is not None:
+                # the draft's frontier to the committed stream (a
+                # preempted request's tokens are folded in)
+                self.draft_src.admit(req, j)
         if self.paged:
             self._push_pt()
         return finished
@@ -1129,37 +1363,6 @@ class ServeEngine:
         self.pages_alloced += 1
         return dst
 
-    def _grow_pages(self) -> None:
-        """Before a step writes row pos[j] of each active slot: map a page
-        where it has none, fork (copy-on-write) a page it shares.  Pool
-        exhaustion preempts (``_alloc_with_preemption``)."""
-        dirty = False
-        for j in range(self.n_slots):
-            if self.req_of[j] is None:
-                continue
-            idx = int(self.pos[j]) // self.page_size
-            page = int(self.pt_host[j, idx])
-            if page >= 0 and self.alloc.ref[page] <= 1:
-                continue
-            p = self._alloc_with_preemption(j)
-            dirty = True
-            if p is None:                   # j preempted itself
-                continue
-            if page < 0:
-                self.pt_host[j, idx] = p
-                self.pages_requested += 1
-                self.pages_alloced += 1
-                continue
-            # re-read: a preemption inside the allocation may have dropped
-            # the other references and un-shared the page
-            page = int(self.pt_host[j, idx])
-            if page >= 0 and self.alloc.ref[page] > 1:
-                self.pt_host[j, idx] = self._cow_into(page, p)
-            else:
-                self.alloc.decref(p)        # no fork needed any more
-        if dirty:
-            self._push_pt()
-
     def _sids(self) -> torch.Tensor:
         """Per-slot sampling stream ids (request ids; idle rows draw from a
         stream nobody reads), on the host like the positions: the stream
@@ -1167,33 +1370,222 @@ class ServeEngine:
         return torch.tensor([r.rid if r is not None else 0
                              for r in self.req_of])
 
-    def decode_step_all(self) -> List[Request]:
-        """One per-slot decode step over the whole slot table.  The fault
-        plan's hooks run first (latency on the virtual clock, forced
-        preemptions); paged growth and forks may preempt; a request past
-        its total deadline sheds after the token in flight lands."""
+    def _fault_hooks(self) -> float:
+        """The fault plan's hooks of this step: its latency on the virtual
+        clock, then its forced preemptions.  Returns the step's now()."""
         step = self.step_count
         now = self.now()
-        if self.fault_plan is not None:
-            lat = self.fault_plan.step_latency(step)
-            if lat:
-                self._virtual += lat
-                now = self.now()
-            forced = False
-            for _ in range(self.fault_plan.forced_preempts(step)):
-                v = self._choose_victim()
-                if v is None:
+        if self.fault_plan is None:
+            return now
+        lat = self.fault_plan.step_latency(step)
+        if lat:
+            self._virtual += lat
+            now = self.now()
+        forced = False
+        for _ in range(self.fault_plan.forced_preempts(step)):
+            v = self._choose_victim()
+            if v is None:
+                break
+            self._preempt(v)
+            self.forced_preemptions += 1
+            forced = True
+        if forced and self.paged:
+            self._push_pt()
+        return now
+
+    def _map_pages(self, span: np.ndarray) -> dict:
+        """Before a step writes rows [pos, pos + span[j]) of each active
+        slot (a decode step 1, a verify round its k_eff): map a page where
+        it has none and fork (copy-on-write) a page it shares (only the
+        first can be: shared pages hold prompt prefix), through
+        ``_alloc_with_preemption``, the slot's reservation first; pool
+        exhaustion preempts.  Returns {slot: page indices mapped here},
+        what a verify round may roll back."""
+        ps = self.page_size
+        new_idx: dict = {}
+        dirty = False
+        for j in range(self.n_slots):
+            if self.req_of[j] is None:
+                continue
+            lo = int(self.pos[j]) // ps
+            hi = (int(self.pos[j]) + int(span[j]) - 1) // ps
+            for idx in range(lo, hi + 1):
+                if self.req_of[j] is None:
+                    break                   # evicted as a victim
+                page = int(self.pt_host[j, idx])
+                if page >= 0 and self.alloc.ref[page] <= 1:
+                    continue
+                p = self._alloc_with_preemption(j)
+                dirty = True
+                if p is None:               # j preempted itself
                     break
-                self._preempt(v)
-                self.forced_preemptions += 1
-                forced = True
-            if forced and self.paged:
+                if page < 0:
+                    self.pt_host[j, idx] = p
+                    self.pages_requested += 1
+                    self.pages_alloced += 1
+                    new_idx.setdefault(j, []).append(idx)
+                    continue
+                # re-read: a preemption inside the allocation may have
+                # un-shared the page
+                page = int(self.pt_host[j, idx])
+                if page >= 0 and self.alloc.ref[page] > 1:
+                    self.pt_host[j, idx] = self._cow_into(page, p)
+                else:
+                    self.alloc.decref(p)    # no fork needed any more
+        if dirty:
+            self._push_pt()
+        return new_idx
+
+    def _spec_step_all(self) -> List[Request]:
+        """One speculative round over the slot table (JAX
+        ``serve.py::_spec_step_all``): draft up to k_j - 1 tokens a slot,
+        score the (n_slots, spec_k) chunk, accept each slot's longest
+        matching draft prefix plus the model's next token and commit
+        exactly those rows' KV in one fused step, then roll back the host
+        state of what was rejected.
+
+          * contiguous and ring caches: verify writes nothing, so a
+            rejection needs no KV rollback; pos advances by the accepted
+            rows only and the mask hides the rest;
+          * paged: the pages covering [pos, pos + k_j) are mapped before
+            the verify (``_map_pages``); a page whose every position was
+            rejected is unmapped under ``optimistic`` admission and kept
+            under ``reserve`` (its reservation paid for it, and its rows
+            stay masked until decode reaches them).  A fork is never
+            undone: at least one token commits, the write it was for.
+
+        Adaptive k: a per-slot EMA of the draft accept rate raises k_j
+        toward ``spec_k`` on full accepts and lowers it toward 2 on misses.
+        Slots without drafts ride the batch at an effective k of 1 (the
+        batch is always (n_slots, spec_k))."""
+        now = self._fault_hooks()
+        kk, n = self.spec_k, self.n_slots
+        # -- draft chunks: row j = [tok_j, d_1 .. d_{k-1}] ------------------
+        k_eff = np.ones(n, np.int32)
+        toks = np.zeros((n, kk), np.int32)
+        hist: List[Optional[List[int]]] = [None] * n
+        active = np.array([r is not None for r in self.req_of])
+        for j in np.flatnonzero(active):
+            req = self.req_of[j]
+            toks[j, 0] = self.tok[j]
+            # k_j clamps to the cache end only, never to the request's
+            # budget: verify may range past it (the accept rule clamps),
+            # the tail _need_pages and _validate_trace charge for
+            k_eff[j] = max(1, min(int(self.k_of[j]),
+                                  self.cache_len - int(self.pos[j])))
+            hist[j] = [int(t) for t in req.prompt] + req.tokens
+        if self.spec == "draft":
+            drafts = self.draft_src.propose(active, hist, self.pos,
+                                            self.tok, kk)
+            toks[:, 1:] = drafts[:, :kk - 1]
+        else:
+            for j in np.flatnonzero(active):
+                if k_eff[j] >= 2:
+                    props = self.draft_src.propose_one(hist[j],
+                                                       int(k_eff[j]))
+                    k_eff[j] = min(int(k_eff[j]), 1 + len(props))
+                    toks[j, 1:k_eff[j]] = props[:int(k_eff[j]) - 1]
+        new_idx = self._map_pages(k_eff) if self.paged else {}
+        # preemptions while mapping may have evicted drafted slots
+        active &= np.array([r is not None for r in self.req_of])
+        remaining = np.zeros(n, np.int32)
+        for j in np.flatnonzero(active):
+            req = self.req_of[j]
+            remaining[j] = req.max_new - len(req.tokens)
+        # -- one fused verify + accept + commit -----------------------------
+        # host arrays go in as copies, and targets/n_acc come back (a sync)
+        # before the bookkeeping below advances pos in place
+        targets, n_acc, self.cache = self.verify_step(
+            self.params, self.cache,
+            {"tokens": torch.as_tensor(toks, device=self.device)},
+            torch.from_numpy(self.pos.copy()), self.base_key, self._sids(),
+            torch.from_numpy(k_eff), torch.from_numpy(remaining),
+            finite=self._decode_finite)
+        targets = targets.cpu().numpy()
+        n_acc = n_acc.cpu().numpy()
+        for j in np.flatnonzero(active):
+            kj, na = int(k_eff[j]), int(n_acc[j])
+            self.spec_drafted += kj - 1
+            self.spec_drafts_accepted += na - 1
+            self.spec_wasted_tokens += kj - na
+            self.accepted_k.append(na)
+        self.spec_rounds += 1
+        # -- paged rollback: unmap wholly rejected pages ---------------------
+        if self.paged and self.admission == "optimistic":
+            dirty = False
+            for j, idxs in new_idx.items():
+                if not active[j]:
+                    continue
+                pos_new = int(self.pos[j]) + int(n_acc[j])
+                for idx in idxs:
+                    if idx * self.page_size >= pos_new:
+                        self.alloc.decref(int(self.pt_host[j, idx]))
+                        self.pt_host[j, idx] = -1
+                        self.spec_pages_rewound += 1
+                        dirty = True
+            if dirty:
                 self._push_pt()
+        # -- tokens, positions, adaptive k, finish and shed -----------------
+        finished: List[Request] = []
+        freed = False
+        obs_j, obs_pos = [], []
+        for j in np.flatnonzero(active):
+            req = self.req_of[j]
+            na = int(n_acc[j])
+            req.tokens.extend(int(t) for t in targets[j, :na])
+            self.decode_tokens += na
+            self.pos[j] += na
+            self.tok[j] = int(targets[j, na - 1])
+            obs_j.append(j)
+            obs_pos.append(int(self.pos[j]))
+            if k_eff[j] > 1:
+                rate = (na - 1) / (int(k_eff[j]) - 1)
+                self.accept_ema[j] = 0.7 * self.accept_ema[j] + 0.3 * rate
+                if self.accept_ema[j] > 0.75:
+                    self.k_of[j] = min(int(self.k_of[j]) + 1, self.spec_k)
+                elif self.accept_ema[j] < 0.35:
+                    self.k_of[j] = max(int(self.k_of[j]) - 1, 2)
+            if len(req.tokens) >= req.max_new:
+                req.t_done = now
+                finished.append(req)
+            elif req.deadline_total is not None \
+                    and now - req.arrival > req.deadline_total:
+                req.t_done = now
+                req.shed_reason = "total-deadline"
+                self.sheds_decode += 1
+                self.shed_requests.append(req)
+            else:
+                continue
+            self._vacate(j)
+            self.k_of[j] = self.spec_k
+            self.accept_ema[j] = 1.0
+            freed = True
+        if self.spec == "draft":
+            self.draft_src.observe(obs_j, obs_pos)
+        self.step_count += 1
+        if self.paged:
+            if freed:
+                self._push_pt()
+            self.page_occupancy.append(
+                self.alloc.used_pages / max(self.n_pages - 1, 1))
+        self.occupancy.append(float(np.mean([r is not None
+                                             for r in self.req_of])))
+        return finished
+
+    def decode_step_all(self) -> List[Request]:
+        """One per-slot decode step over the whole slot table (with
+        ``spec``, a speculative round).  The fault plan's hooks run first
+        (latency on the virtual clock, forced preemptions); paged growth
+        and forks may preempt; a request past its total deadline sheds
+        after the token in flight lands."""
+        if self.spec != "off":
+            return self._spec_step_all()
+        now = self._fault_hooks()
         if any(r is not None and r.deadline_total is not None
                for r in self.req_of):
             now = self.shared_now()         # sheds agree across ranks
         if self.paged:
-            self._grow_pages()
+            self._map_pages(np.ones(self.n_slots, np.int32))
         with ctx.sharding_rules(self.rules):
             tok, _, self.cache = self.serve_step(
                 self.params, self.cache,
@@ -1277,6 +1669,16 @@ class ServeEngine:
             self.prefix_index.clear()
             self.pt_host[:] = -1
             self._push_pt()
+        # speculative state: k back to its ceiling, the EMA optimistic,
+        # the draft source re-synced to an empty slot table
+        self.k_of[:] = self.spec_k
+        self.accept_ema[:] = 1.0
+        self.spec_rounds = self.spec_drafted = 0
+        self.spec_drafts_accepted = self.spec_wasted_tokens = 0
+        self.spec_pages_rewound = 0
+        self.accepted_k: List[int] = []
+        if self.draft_src is not None:
+            self.draft_src.reset()
         self._apply_fault_pressure()
 
 
@@ -1309,6 +1711,9 @@ def _warmup(eng: ServeEngine, trace: List[Request]) -> float:
                     np.full((eng.n_slots, eng.max_pages), -1, np.int32))
     _chunked_prefill(eng.prefill_step, eng.params, eng._group_cache, toks,
                      plens, grid, eng.device)
+    if eng.spec == "draft":
+        # the draft's admissions: single-row prefills over the same grid
+        eng.draft_src.warm_prefill(pmax)
     warm = Request(rid=-1, prompt=np.zeros(min(8, eng.cache_len - 1),
                                            np.int32), max_new=2, arrival=0.0)
     eng.admit([(warm, 0)], 0.0)
@@ -1384,6 +1789,24 @@ def _report(mode: str, eng: ServeEngine, done: List[Request], wall: float,
         "injected_alloc_failures": eng.injected_alloc_failures,
         "forced_preemptions": eng.forced_preemptions,
     }
+    speculative = {"spec": eng.spec}
+    if eng.spec != "off":
+        drafted = eng.spec_drafted
+        speculative.update({
+            "spec_k": eng.spec_k,
+            "draft_source": eng.draft_src.kind,
+            "rounds": eng.spec_rounds,
+            "drafted_tokens": drafted,
+            "accepted_draft_tokens": eng.spec_drafts_accepted,
+            "accept_rate": round(eng.spec_drafts_accepted / drafted, 3)
+            if drafted else 0.0,
+            "mean_accepted_k": round(float(np.mean(eng.accepted_k)), 3)
+            if eng.accepted_k else 0.0,
+            "wasted_tokens": eng.spec_wasted_tokens,
+            "wasted_bytes": traffic.spec_wasted_bytes(
+                eng.cfg, eng.spec_wasted_tokens),
+            "pages_rewound": eng.spec_pages_rewound,
+        })
     return {
         "device": _device_name(eng.device),
         "paged": eng.paged, **paged,
@@ -1407,7 +1830,7 @@ def _report(mode: str, eng: ServeEngine, done: List[Request], wall: float,
         if eng.occupancy else 0.0,
         "chunked_prefill": True,
         "robustness": robustness,
-        "speculative": {"spec": "off"},
+        "speculative": speculative,
         "logits_finite": eng.logits_finite,
         "sample_tokens": first_req.tokens[:4] if first_req else [],
     }
@@ -1444,7 +1867,8 @@ def _prepare(eng: ServeEngine, trace: List[Request]) -> float:
     returns the warm-up's seconds."""
     _validate_trace(trace, eng.cache_len,
                     page_size=eng.page_size if eng.paged else None,
-                    usable_pages=eng.usable_pages if eng.paged else None)
+                    usable_pages=eng.usable_pages if eng.paged else None,
+                    spec_k=eng.spec_k)
     return _warmup(eng, trace)
 
 
@@ -1564,6 +1988,19 @@ def build_parser() -> argparse.ArgumentParser:
                     "cache along the sequence over the ranks of the process "
                     "group (torchrun's, or a group of one); contiguous "
                     "layout")
+    ap.add_argument("--spec", choices=SPEC_MODES, default="off",
+                    help="speculative decoding: 'ngram' drafts from each "
+                    "request's own history (prompt lookup), 'draft' from a "
+                    "small reduced-config draft model; accepted tokens are "
+                    "those of --spec off")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="longest verify chunk a slot (the current token "
+                    "and up to k-1 drafts); adaptive k lowers it a slot on "
+                    "low acceptance")
+    ap.add_argument("--draft-arch", default=None,
+                    help="--spec draft: the architecture of the reduced "
+                    "draft config (default stablelm-1.6b, with the "
+                    "target's vocabulary)")
     ap.add_argument("--greedy", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-seed", type=int, default=0)
@@ -1605,6 +2042,9 @@ def main(argv=None):
             with open(s) as f:
                 s = f.read()
         fault_plan = FaultPlan.from_json(s)
+    if args.spec != "off" and args.mode != "engine":
+        raise SystemExit("--spec needs --mode engine (lockstep is the "
+                         "non-speculative baseline)")
     dispatch.reset_launch_counts()
     run = run_engine if args.mode == "engine" else run_lockstep
     kw = dict(n_slots=args.slots, cache_len=cache_len, chunk=args.chunk,
@@ -1613,7 +2053,9 @@ def main(argv=None):
               prefix_cache=not args.no_prefix_cache,
               kv_dtype=args.kv_dtype, device=device)
     if args.mode == "engine":
-        kw.update(admission=args.admission, fault_plan=fault_plan)
+        kw.update(admission=args.admission, fault_plan=fault_plan,
+                  spec=args.spec, spec_k=args.spec_k,
+                  draft_arch=args.draft_arch)
     if args.decode_cp:
         with sharding.process_group(device):
             rec = run(cfg, params, trace, decode_cp=True, **kw)
@@ -1625,7 +2067,8 @@ def main(argv=None):
                 "prompt_range": list(args.prompt_range),
                 "gen_range": list(args.gen_range),
                 "arrival_rate": args.arrival_rate,
-                "kernel_launches": dispatch.launch_counts()})
+                "kernel_launches": dispatch.launch_counts(),
+                "verify_routes": dispatch.route_counts()})
     if rank == 0:
         print(json.dumps(rec))
 

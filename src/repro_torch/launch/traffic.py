@@ -8,7 +8,8 @@ context-parallel decode.  Cache bytes come from the port's own
 place: every tensor counted once (the page table all paged layers share
 is one tensor).  The JAX cache also carries an int32 ``index`` per layer
 and a page table per paged layer; the port's has neither, so its cache
-byte counts are below the JAX package's by those few bytes.
+byte counts are below the JAX package's by those few bytes.  The marginal
+bytes of a speculative verify position give the report's wasted bytes.
 """
 from __future__ import annotations
 
@@ -189,3 +190,20 @@ def prefill_chunk_bytes(cfg, batch: int, prompt_len: int,
         total += (2 * p + 4 * l * batch * c * d + row * c + row * p0
                   + 4 * batch * c * v)
     return total
+
+
+def spec_verify_bytes_per_token(cfg) -> int:
+    """Marginal bytes that one verify position adds to a speculative round:
+    its block in/out activations, its q and o through the append kernel
+    and its logits row.  The parameter sweep and the prefix read are paid
+    once a round, so a rejected position wastes only this."""
+    n_attn = sum(1 for k in cfg.layer_kinds() if k in ("attn", "attn_local"))
+    acts = 4 * cfg.n_layers * cfg.d_model
+    qo = n_attn * 2 * cfg.n_heads * cfg.hd * 4
+    return acts + qo + 4 * cfg.vocab_size
+
+
+def spec_wasted_bytes(cfg, wasted_tokens: int) -> int:
+    """Marginal bytes of a run's rejected and over-drafted verify
+    positions: ``wasted_tokens * spec_verify_bytes_per_token``."""
+    return wasted_tokens * spec_verify_bytes_per_token(cfg)

@@ -7,7 +7,10 @@ on the contiguous cache layout, the serving path:
     through the differentiable flash kernels;
   * ``attend_decode``  — one new token per slot against its KV cache;
   * ``attend_prefill`` — one prompt chunk, written into the cache and
-    attended through the append kernel.
+    attended through the append kernel;
+  * ``attend_verify``  — a speculative draft chunk a slot, scored through
+    the append kernel without writing anything; ``commit_kv`` then writes
+    the accepted rows.
 
 Caches are updated in place (the JAX functions return new caches; here the
 same dict comes back with its tensors written), which keeps one copy of
@@ -171,15 +174,35 @@ def prefill_index(pt: torch.Tensor, page_size: int, pos0: int, c: int,
         (positions % page_size)[None, :].expand(b, c))
 
 
+def verify_index(pt: torch.Tensor, page_size: int, pos: torch.Tensor,
+                 k: int) -> PagedIndex:
+    """The ``PagedIndex`` of a verify chunk of K rows at per-slot positions
+    pos (B,) + i: the key stream's kpos (the whole view, rows at or past
+    pos masked, then the chunk) and the commit's targets (B, K), the sink
+    where unmapped."""
+    m = pt.shape[1]
+    positions = pos[:, None].long() + torch.arange(k, device=pt.device)
+    pidx = (positions // page_size).clamp(max=m - 1)
+    page = torch.gather(pt, 1, pidx).clamp(min=0).long()
+    return PagedIndex(ref.paged_rows(pt),
+                      ref.verify_paged_kpos(pt, page_size, pos,
+                                            m * page_size, k),
+                      page, positions % page_size)
+
+
 def model_paged_index(model_cache: dict, *, pos=None, pos0: int = 0,
-                      c: int = 0, true_len=None) -> Optional[PagedIndex]:
+                      c: int = 0, true_len=None,
+                      verify: bool = False) -> Optional[PagedIndex]:
     """The ``PagedIndex`` of a model cache's shared page table for a decode
-    step at ``pos``, or else a prefill chunk (None without a table)."""
+    step at ``pos`` (with ``verify``, a verify chunk of ``c`` rows there),
+    or else a prefill chunk (None without a table)."""
     if "pt" not in model_cache:
         return None
     ps = next(layer["kp"].shape[1] for layer in model_cache["layers"]
               if "kp" in layer)
     if pos is not None:
+        if verify:
+            return verify_index(model_cache["pt"], ps, pos, c)
         return decode_index(model_cache["pt"], ps, pos)
     return prefill_index(model_cache["pt"], ps, pos0, c, true_len)
 
@@ -469,3 +492,98 @@ def _attend_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
         cache[name][idx.page, idx.off] = t.to(cache[name].dtype)
     n = cfg.n_heads * cfg.hd
     return cm.linear(params["wo"], o.reshape(b, c, n)), cache
+
+
+def attend_verify(params: dict, x: torch.Tensor, cache: dict,
+                  pos: torch.Tensor, cfg, *, shift: int,
+                  window: Optional[int] = None,
+                  paged: Optional[PagedIndex] = None):
+    """Score a K-token draft chunk a slot without touching the cache (JAX
+    ``attention.py::attend_verify``).  x (B, K, d_model): row j's tokens
+    at positions pos[j] + i (rows with a shorter draft carry pad tokens,
+    whose keys sit where the causal mask hides them from every valid query
+    and whose outputs the caller drops); ``shift`` a static bound on pos
+    (the logical cache length).
+
+    The key stream is built as a copy, never in the cache: the cast cache
+    (or, paged, its gathered view) followed by the chunk's own K/V, with
+    every cache row at or past the slot's pos masked (verify never wrote
+    those).  Returns (out (B, K, d_model), pending): ``pending`` holds the
+    chunk's K/V rows, an int8 cache's quantised once (the same bytes feed
+    this attention and ``commit_kv``), so rejecting a draft needs no KV
+    rollback.  ``paged``: the chunk's ``verify_index``."""
+    b, kq, _ = x.shape
+    positions = pos[:, None] + torch.arange(kq, device=x.device)[None]
+    q, k, v = _qkv(params, x, cfg, positions)
+    quant = "ks" in cache or "kps" in cache
+    pending = {"k": k, "v": v}
+    if quant:
+        pending["k"], pending["ks"] = kv_quant.quantize(k)  # (B,K,Hkv,{D,1})
+        pending["v"], pending["vs"] = kv_quant.quantize(v)
+    if "kp" in cache:
+        _check_no_window(window)
+        pt = cache["pt"]
+        idx = paged if paged is not None else \
+            verify_index(pt, cache["kp"].shape[1], pos, kq)
+        o = dispatch.flash_attention_verify_paged(
+            q, cache["kp"], cache["vp"], pt, pending["k"], pending["v"],
+            pos=pos, length=pt.shape[1] * cache["kp"].shape[1],
+            k_scale=cache.get("kps"), v_scale=cache.get("vps"),
+            ks_chunk=pending.get("ks"), vs_chunk=pending.get("vs"),
+            kpos=idx.kpos, rows=idx.rows)
+    else:
+        if "global_len" in cache:
+            raise ValueError("speculative verify reads whole caches, not a "
+                             "context-parallel slice (see ROADMAP.md, "
+                             "queue 3)")
+        cache_len = cache["k"].shape[1]
+        stream = {n: torch.cat([cache[n] if quant else cache[n].to(q.dtype),
+                                pending[n]], dim=1) for n in pending}
+        kpos = torch.cat([_cache_positions(cache_len, pos - 1, window),
+                          positions], dim=1)
+        o = dispatch.flash_attention_verify(
+            q, stream["k"], stream["v"], kpos, pos=pos, shift=shift,
+            window=window, k_scale=stream.get("ks"),
+            v_scale=stream.get("vs"))
+    n = cfg.n_heads * cfg.hd
+    return cm.linear(params["wo"], o.reshape(b, kq, n)), pending
+
+
+def commit_kv(cache: dict, pending: dict, pos: torch.Tensor,
+              n_acc: torch.Tensor, *, window: Optional[int] = None,
+              paged: Optional[PagedIndex] = None) -> dict:
+    """Write the accepted prefix of a verify chunk into the cache, in place
+    (JAX ``attention.py::commit_kv``): row j writes pending rows
+    i < n_acc[j] at positions pos[j] + i (ring: slot p % cache_len; paged:
+    through the table, ``paged`` the chunk's ``verify_index``).  One
+    scatter a leaf, with no host sync: a paged cache sends rejected and pad
+    rows to the page-0 sink; a contiguous one rewrites their slot's current
+    value (slot p % cache_len, distinct for the K rows of a slot while
+    K <= cache_len; a longer chunk takes one scatter a row)."""
+    b, kq = pending["k"].shape[:2]
+    dev = pending["k"].device
+    positions = pos[:, None].long() + torch.arange(kq, device=dev)
+    sel = torch.arange(kq, device=dev)[None, :] < n_acc[:, None]  # (B, K)
+    if "kp" in cache:
+        idx = paged if paged is not None else verify_index(
+            cache["pt"], cache["kp"].shape[1], pos, kq)
+        # rejected rows all land on the sink page: duplicate indices in one
+        # index_put_ are safe only because the sink is never read
+        page = torch.where(sel & (idx.page > 0), idx.page, 0)
+        for name, leaf in zip(("kp", "vp", "kps", "vps"),
+                              ("k", "v", "ks", "vs")):
+            if name in cache:
+                cache[name][page, idx.off] =                     pending[leaf].to(cache[name].dtype)
+        return cache
+    cache_len = cache["k"].shape[1]
+    slots = positions % cache_len
+    rows = torch.arange(b, device=dev)[:, None].expand(b, kq)
+    groups = [slice(None)] if kq <= cache_len else         [slice(i, i + 1) for i in range(kq)]
+    for g in groups:
+        r, s_, keep = rows[:, g], slots[:, g], sel[:, g]
+        for name in kv_leaves(cache):
+            leaf = cache[name]
+            new = pending[name][:, g].to(leaf.dtype)
+            mask = keep.reshape(keep.shape + (1,) * (new.dim() - 2))
+            leaf[r, s_] = torch.where(mask, new, leaf[r, s_])
+    return cache

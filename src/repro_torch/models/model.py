@@ -9,6 +9,8 @@ stablelm-1.6b, qwen2-72b, minicpm-2b):
   init_cache(cfg, batch, cache_len, ..., paged) -> cache
   decode_step(cfg, params, cache, batch, pos)  -> ({"logits", "value"}, cache)
   prefill_step(cfg, params, cache, batch, pos0, true_len)
+  verify_step(cfg, params, cache, batch, pos, shift) -> ({"logits"}, pendings)
+  commit_step(cfg, cache, pendings, pos, n_acc)       -> cache
 
 Layers are a Python list walked in a loop (the JAX package stacks them for
 ``lax.scan``; ``repro_torch.bridge`` unstacks its parameters).  ``forward``
@@ -356,3 +358,46 @@ def prefill_step(cfg: ModelConfig, params: Params, cache: dict,
             window=_window(cfg, kind), true_len=true_len, paged=paged)
         x = _mlp_half(cfg, p, x + h)
     return _heads(cfg, params, x), cache
+
+
+def verify_step(cfg: ModelConfig, params: Params, cache: dict,
+                batch: Dict[str, torch.Tensor], pos: torch.Tensor,
+                shift: int):
+    """Speculative verify: batch {"tokens": (B, K)}, row j's current token
+    and drafts at positions pos[j] + i; pos (B,); ``shift`` a static bound
+    on pos (the logical cache length).  ``params`` already cast.  Writes
+    nothing: returns (out {"logits" (B, K, V)}, pendings), ``pendings``
+    one dict of the chunk's K/V a layer, which ``commit_step`` writes for
+    the accepted rows after the accept decision."""
+    if not supports_chunked_prefill(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: speculative verify needs attention-only caches")
+    _check_supported(cfg)
+    x = _embed_inputs(cfg, params, batch)
+    pos = torch.as_tensor(pos, device=x.device).expand(x.shape[0])
+    paged = attn.model_paged_index(cache, pos=pos, c=x.shape[1], verify=True)
+    pendings = []
+    for kind, p, c in zip(cfg.layer_kinds(), params["layers"],
+                          cache["layers"]):
+        h, pend = attn.attend_verify(
+            p["attn"], cm.apply_norm(cfg.norm, p["ln1"], x), c, pos, cfg,
+            shift=shift, window=_window(cfg, kind), paged=paged)
+        pendings.append(pend)
+        x = _mlp_half(cfg, p, x + h)
+    out = _heads(cfg, params, x)
+    return {"logits": out["logits"]}, pendings
+
+
+def commit_step(cfg: ModelConfig, cache: dict, pendings, pos: torch.Tensor,
+                n_acc: torch.Tensor) -> dict:
+    """Commit the accepted prefix of a verify chunk: row j writes pending
+    rows i < n_acc[j] at positions pos[j] + i into every layer's cache, in
+    place (n_acc[j] == 0 writes nothing for that row)."""
+    kq = pendings[0]["k"].shape[1]
+    dev = pendings[0]["k"].device
+    pos = torch.as_tensor(pos, device=dev).expand(n_acc.shape[0])
+    paged = attn.model_paged_index(cache, pos=pos, c=kq, verify=True)
+    for kind, c, pend in zip(cfg.layer_kinds(), cache["layers"], pendings):
+        attn.commit_kv(c, pend, pos, n_acc.to(dev), window=_window(cfg, kind),
+                       paged=paged)
+    return cache

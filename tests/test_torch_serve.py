@@ -11,6 +11,7 @@ choice on the trace wins by at least 1e-3 (for a sampled run, over logits
 plus the stream's Gumbel noise), far above the ~1e-6 by which XLA and
 PyTorch sums differ.
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -245,14 +246,17 @@ def test_sampling_follows_the_softmax():
 
 
 def test_engine_refuses_later_slices(models):
-    """Speculative decoding is the one later slice left in the engine; the
-    paged layout, fault plans and deadlines run (``test_torch_paged_kv.py``,
+    """Recurrent caches are the one later slice left in the engine;
+    speculative decoding (``test_torch_spec_engine.py``), the paged
+    layout, fault plans and deadlines run (``test_torch_paged_kv.py``,
     ``test_torch_serve_robustness.py`` and the paged twins below)."""
     _, ct, _, pt = models
     kw = dict(n_slots=2, cache_len=16, device="cpu")
     for spec in ("ngram", "draft"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve.ServeEngine(ct, pt, spec=spec, **kw)
+        assert serve.ServeEngine(ct, pt, spec=spec, **kw).spec == spec
+    recurrent = dataclasses.replace(ct, block_cycle=("mamba2",))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.ServeEngine(recurrent, pt, **kw)
     eng = serve.ServeEngine(ct, pt, paged=True, page_size=8,
                             fault_plan=serve.FaultPlan(hold_pages=1), **kw)
     assert eng.paged and eng.usable_pages == 2 * 2 - 1
