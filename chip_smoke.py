@@ -36,8 +36,13 @@ Phases (any failure raises and the script exits non-zero):
      S = 1024, 32 q heads over 4 kv heads, D = 128, x (4096, 4096), a
      45M-element leaf) and at edge cases (f32, a window, causal=False, a
      ragged S, G = 1, ragged row and element counts; the flash kernels'
-     bf16 tensor-core arms also at a ragged S with D = 64 and at a window
-     of 16 keys); the RMSProp kernel's one-leaf update, and its multi-leaf
+     bf16 tensor-core arms also at a ragged S with D = 64, at a window
+     of 16 keys and at Granite-MoE's train shape, B = 4, S = 1024, 16 q
+     over 8 kv heads, D = 64); the append and decode kernels also at
+     Granite-MoE's serving shapes (16 q over 8 kv heads, G = 2, D = 64)
+     and Llama-4-Scout's (40 q over 8 kv heads, G = 5, D = 128; its
+     sliding-window layers a 1024-row ring under an 8192-key window), bf16
+     and f32; the RMSProp kernel's one-leaf update, and its multi-leaf
      update and apply modes over the paper net's 13 leaves and a 148-leaf
      table of the train step's leaves, against the plain version and bit
      for bit against the one-leaf kernel followed by p.sub_(update).
@@ -71,7 +76,10 @@ Phases (any failure raises and the script exits non-zero):
      update followed by p.sub_ there) and at the RL path's leaves (the
      paper net's FC, 2592 x 256, and a 256 x 3 policy matrix); the append
      kernel's four arms at the verify shape (K = 4; the bf16 arm also at
-     K = 6) beside masked SDPA with ``enable_gqa``;
+     K = 6) beside masked SDPA with ``enable_gqa``; the append and decode
+     kernels' bf16 arms at Granite-MoE's and Llama-4-Scout's serving
+     shapes and the flash forward and backward at Granite-MoE's train
+     shape;
   5. the port's reduced model in f32 on the card against the same model
      on the CPU (a counted path: the append kernel's f32 SIMT arm), then
      the engine on Yi-6B at full width and depth (bf16 weights from a
@@ -179,12 +187,46 @@ Phases (any failure raises and the script exits non-zero):
      average return must beat 0.5; then one profiled round;
      9d. T3 delayed sync, 2 groups merged every 3 steps, 3 steps of reduced
      Yi-6B in f32 against the CPU: the groups drift, then agree at the
-     merge; one rmsprop launch a group and step.
+     merge; one rmsprop launch a group and step;
+  10. MoE blocks and M-RoPE (``models/moe.py``, ``common.mrope_cos_sin``):
+     10a. reduced models in f32, card against CPU: Granite-MoE at its
+     reduced capacity factor (8.0, nothing drops) and at 1.25 (forward
+     logits, value and aux_loss within rtol = atol = 1e-5, prefill then
+     decode, three train steps as phase 7, aux included); the engines of
+     Granite-MoE and Llama-4-Scout at 1.25, greedy, 4 slots on 6 requests
+     (idle slots and padding rows compete for expert capacity): tokens
+     identical where every choice wins by >= 1e-3 and every routing
+     choice by >= 1e-5; Qwen2-VL's forward on embeds with distinct
+     temporal / height / width positions;
+     10b. Granite-MoE at full width and depth (24 layers, d 1024, 16 / 8
+     heads, D = 64, 32 experts, top-8, bf16 weights from seed 0) through
+     phase 5's engine and trace, paged then contiguous, each run held to
+     phase 5's gates (the append kernel's tensor-core arm once a prefill
+     chunk and layer); paged tokens equal contiguous ones, or where they
+     differ both runs are repeated watching the MoE calls and every
+     difference must come with a padding row or an idle slot holding an
+     expert slot a real token lost (the reference's semantics: those rows
+     hold other contents in the two layouts); then both layouts at
+     capacity factor n_experts / top_k, where nothing drops, must emit
+     the same tokens outright; the paged engine's profile (one admission,
+     8 decode steps) and the device time of the decode step's MoE halves
+     against its attention calls;
+     10c. Granite-MoE training at full width and depth (f32 masters, bf16
+     compute, remat, shared RMSProp, batches of 4 x 1024): phase 8's gates
+     (aux > 0 among them), the flash kernels' bf16 arms 2 forward and 1
+     backward launches a layer and step, the RMSProp apply mode
+     ceil(243 / 64) = 4 times a step;
+     10d. Llama-4-Scout at full width cut to 4 of 48 layers (one block
+     cycle: three sliding-window layers and a global one; top-1 of 16
+     experts, so two decode slots on one expert drop one) served as 10b;
+     10e. Qwen2-VL-72B at full width cut to 2 of 80 layers: one bf16
+     forward on embeds (B 2, S 1024) with distinct positions, finite, the
+     flash forward's bf16 arm once a layer.
 
 Every kernel and arm must have been launched on one of the main paths
 (phase 5's reduced model and engines, each run of 5p, 5o and 5s, 6a, 6b, each
-of the four runs of 6c, 6d, 7, 8 and each run of 9, each with the
-counters set to 0 just before it and read just after); the kernels line
+of the four runs of 6c, 6d, 7, 8, each run of 9 and of 10a-10e, each with
+the counters set to 0 just before it and read just after); the kernels line
 gives each one's launches by path.
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with one record per kernel and {"ok": true, "device": {...}}.
@@ -417,6 +459,12 @@ def check_decode(gen, flush):
         (4, 32, 4, 128, 1024, torch.float32, torch.bfloat16),
         (2, 8, 8, 64, 300, torch.float32, torch.float32),     # ragged tile
         (3, 16, 1, 64, 77, torch.bfloat16, torch.bfloat16),  # G=16
+        # Granite-MoE's serving shape: 16 q over 8 kv heads (G = 2), D = 64
+        (4, 16, 8, 64, 1024, torch.bfloat16, torch.bfloat16),
+        (4, 16, 8, 64, 1024, torch.float32, torch.float32),
+        # Llama-4-Scout's: 40 q over 8 kv heads (G = 5, no power of two)
+        (4, 40, 8, 128, 1024, torch.bfloat16, torch.bfloat16),
+        (4, 40, 8, 128, 1024, torch.float32, torch.float32),
     ]
     for b, hq, hkv, d, length, qdt, kvdt in cases:
         q = _randn((b, hq, d), gen, qdt)
@@ -506,7 +554,47 @@ def check_decode(gen, flush):
                  f"{d}) bf16, pos {pos.tolist()}, valid rows {valid_rows}, "
                  f"(n_split, tiles a split) {n_split}",
         "split_ms": split_ms, "f32_shape": f32_shape,
+        "granite_shape": _decode_shape_record(gen, flush, "Granite-MoE",
+                                              16, 8, 64),
+        "scout_shape": _decode_shape_record(gen, flush, "Llama-4-Scout",
+                                            40, 8, 128),
     }
+
+
+def _decode_shape_record(gen, flush, model, hq, hkv, d, b=4, length=1024):
+    """Kernel 6's bf16 arm timed at a model's serving shape (4 slots, a
+    1024-row bf16 cache, ragged depths), beside its plain version, its
+    least bytes and masked SDPA with ``enable_gqa``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention_cuda, ref
+    from repro_torch.models.attention import _cache_positions
+    q = _randn((b, hq, d), gen, torch.bfloat16)
+    k = _randn((b, length, hkv, d), gen, torch.bfloat16)
+    v = _randn((b, length, hkv, d), gen, torch.bfloat16)
+    pos = torch.tensor([100, 400, 700, 1000][:b], device="cuda",
+                       dtype=torch.int32)
+    kpos = _cache_positions(length, pos, None).to(torch.int32).contiguous()
+    valid = (kpos >= 0) & (kpos <= pos[:, None])
+    valid_rows = int(valid.sum())
+    nbytes = (2 * valid_rows * hkv * d * 2 + 2 * q.numel() * 2
+              + kpos.numel() * 4 + b * 4)
+    qt = q[:, :, None]
+    kt = k.transpose(1, 2).contiguous()
+    vt = v.transpose(1, 2).contiguous()
+    return {
+        "ms": _time_ms(lambda: decode_attention_cuda.decode_attention_fwd(
+            q, k, v, kpos, pos), flush),
+        "plain_ms": _time_ms(lambda: ref.decode_attention_ref(
+            q, k, v, kpos, pos), flush),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=valid[:, None, None, :], enable_gqa=True),
+            flush),
+        "shape": f"{model}: q ({b}, {hq}, {d}) bf16, cache ({b}, {length}, "
+                 f"{hkv}, {d}) bf16, G {hq // hkv}, pos {pos.tolist()}, "
+                 f"valid rows {valid_rows}"}
 
 
 def _append_inputs(gen, b, c, hq, hkv, d, pos0, dt, *, ring=None):
@@ -540,14 +628,16 @@ def _append_arm(q, k):
     return "launches" if q.dtype == bf and k.dtype == bf else "f32_launches"
 
 
-def _append_record(gen, flush, dt, errs):
-    """Kernel 4's bf16 (tensor-core) or f32 (SIMT) arm timed at the serving
-    shape: the second prompt chunk at pos0 = 512."""
+def _append_record(gen, flush, dt, errs, model="Yi-6B", hq=32, hkv=4,
+                   d=128):
+    """Kernel 4's bf16 (tensor-core) or f32 (SIMT) arm timed at a model's
+    serving shape (Yi-6B's unless given): the second prompt chunk of 4
+    slots at pos0 = 512."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_append_cuda, ref
-    b, c, hq, hkv, d, pos0 = 4, 128, 32, 4, 128, 512
+    b, c, pos0 = 4, 128, 512
     q, k, v, kpos = _append_inputs(gen, b, c, hq, hkv, d, pos0, dt)
     sk = k.shape[1]
     qpos = pos0 + torch.arange(c, device="cuda")
@@ -577,8 +667,8 @@ def _append_record(gen, flush, dt, errs):
         "bound_by": "operations" if by_ops >= by_bytes else "bytes",
         "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), flush),
-        "shape": f"q ({b}, {c}, {hq}, {d}) {dt}, k/v ({b}, {sk}, {hkv}, "
-                 f"{d}) {dt}, pos0={pos0}, live pairs {live_pairs}, "
+        "shape": f"{model}: q ({b}, {c}, {hq}, {d}) {dt}, k/v ({b}, {sk}, "
+                 f"{hkv}, {d}) {dt}, pos0={pos0}, live pairs {live_pairs}, "
                  + ("tensor cores" if bf16 else "SIMT"),
     }
 
@@ -619,6 +709,23 @@ def check_append(gen, flush):
         # at most 16 keys a query: a key dropped or added moves an output
         # far beyond ROUND_TOL of its sum over |terms|
         ("window=16", 2, 128, 32, 4, 128, 512, bf, 16, None, True, False),
+        # Granite-MoE's prefill chunks: 16 q over 8 kv heads (G = 2), D = 64
+        ("Granite pos0=0", 4, 128, 16, 8, 64, 0, bf, None, None, True,
+         False),
+        ("Granite pos0=512", 4, 128, 16, 8, 64, 512, bf, None, None, True,
+         False),
+        ("Granite pos0=512 f32", 4, 128, 16, 8, 64, 512, f32, None, None,
+         True, False),
+        # Llama-4-Scout's: 40 q over 8 kv heads (G = 5), D = 128; its
+        # attn_local layers a ring of 1024 rows under the 8192-key window
+        ("Scout pos0=512", 4, 128, 40, 8, 128, 512, bf, None, None, True,
+         False),
+        ("Scout pos0=512 f32", 4, 128, 40, 8, 128, 512, f32, None, None,
+         True, False),
+        ("Scout ring L=1024 window=8192", 4, 128, 40, 8, 128, 896, bf,
+         8192, 1024, False, False),
+        ("Scout ring L=1024 window=8192 f32", 4, 128, 40, 8, 128, 896, f32,
+         8192, 1024, False, False),
     ]
     for label, b, c, hq, hkv, d, pos0, dt, window, ring, linear, mrow in cases:
         q, k, v, kpos = _append_inputs(gen, b, c, hq, hkv, d, pos0, dt,
@@ -641,8 +748,12 @@ def check_append(gen, flush):
             ref.flash_attention_append_ref(q, k, v, kpos, pos0=pos0,
                                            window=window),
             round_abs=round_abs))
-    return [_append_record(gen, flush, bf, errs[bf]),
-            _append_record(gen, flush, f32, errs[f32])]
+    bf16_rec = _append_record(gen, flush, bf, errs[bf])
+    bf16_rec["granite_shape"] = _append_record(
+        gen, flush, bf, errs[bf], "Granite-MoE", 16, 8, 64)
+    bf16_rec["scout_shape"] = _append_record(
+        gen, flush, bf, errs[bf], "Llama-4-Scout", 40, 8, 128)
+    return [bf16_rec, _append_record(gen, flush, f32, errs[f32])]
 
 
 # int8 arms and kernel 7: no single PyTorch call attends over an int8 cache
@@ -1183,7 +1294,10 @@ _FLASH_CASES = [
     # at most 16 keys a query: one key dropped or added moves an output by
     # far more than ROUND_TOL of its sum over |terms|
     ("window=16", 2, 1024, 32, 4, 128, "bf16", True, 16),
+    # Granite-MoE's train shape: 16 q over 8 kv heads (G = 2), D = 64
+    ("Granite train shape", 4, 1024, 16, 8, 64, "bf16", True, None),
 ]
+_GRANITE_TRAIN_SHAPE = _FLASH_CASES[-1]
 
 
 def _flash_inputs(gen, case):
@@ -1232,7 +1346,6 @@ def check_flash_fwd(gen, flush):
     bf16 (tensor-core) arm and the f32 (SIMT) arm, each timed at the train
     shape in its dtype."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_cuda, ref
     errs = {torch.bfloat16: [], torch.float32: []}
@@ -1256,29 +1369,45 @@ def check_flash_fwd(gen, flush):
     records = []
     for case, name in ((_TRAIN_SHAPE, "flash_attention_fwd"),
                        (_F32_TRAIN_SHAPE, "flash_attention_fwd_f32")):
-        q, k, v, _, causal, window = _flash_inputs(gen, case)
-        b, s, hq, d = q.shape
-        live = _live_pairs(b, s, hq, causal, window)
-        bound, bound_by = _flash_bound(q, k, live, 4, 2, 2)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        arm = "tensor cores" if q.dtype == torch.bfloat16 else "SIMT"
         records.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:129",
-            "max_abs_err": max(errs[q.dtype]),
-            "ms": _time_ms(lambda: flash_attention_cuda.flash_attention_fwd(
-                q, k, v), flush),
-            "plain_ms": _time_ms(lambda: ref.flash_attention_ref(q, k, v),
-                                 flush),
-            "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), flush),
-            "shape": f"q ({b}, {s}, {hq}, {d}) {q.dtype}, k/v {k.shape[2]} "
-                     f"heads, causal, live pairs {live}, {arm}",
-        })
-        del q, k, v, qt, kt, vt
+            "max_abs_err": max(errs[_flash_dtype(case)]),
+            **_flash_fwd_timing(gen, flush, case)})
+    records[0]["granite_train_shape"] = _flash_fwd_timing(
+        gen, flush, _GRANITE_TRAIN_SHAPE)
     return records
+
+
+def _flash_dtype(case):
+    import torch
+    return torch.bfloat16 if case[6] == "bf16" else torch.float32
+
+
+def _flash_fwd_timing(gen, flush, case):
+    """The flash forward timed at a train shape (causal), beside its plain
+    version, its bound and SDPA with ``enable_gqa``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_cuda, ref
+    q, k, v, _, causal, window = _flash_inputs(gen, case)
+    b, s, hq, d = q.shape
+    live = _live_pairs(b, s, hq, causal, window)
+    bound, bound_by = _flash_bound(q, k, live, 4, 2, 2)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    arm = "tensor cores" if q.dtype == torch.bfloat16 else "SIMT"
+    return {
+        "ms": _time_ms(lambda: flash_attention_cuda.flash_attention_fwd(
+            q, k, v), flush),
+        "plain_ms": _time_ms(lambda: ref.flash_attention_ref(q, k, v),
+                             flush),
+        "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+        "shape": f"{case[0]}: q ({b}, {s}, {hq}, {d}) {q.dtype}, k/v "
+                 f"{k.shape[2]} heads, causal, live pairs {live}, {arm}"}
 
 
 def _bwd_sum_abs(q, k, v, o, lse, do, causal, window):
@@ -1308,7 +1437,6 @@ def check_flash_bwd(gen, flush):
     """Both arms of the backward against the plain version; records for the
     bf16 and the f32 arm, each timed at the train shape in its dtype."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_bwd_cuda, ref
     errs = {torch.bfloat16: [], torch.float32: []}
@@ -1337,36 +1465,47 @@ def check_flash_bwd(gen, flush):
     records = []
     for case, name in ((_TRAIN_SHAPE, "flash_attention_bwd"),
                        (_F32_TRAIN_SHAPE, "flash_attention_bwd_f32")):
-        q, k, v, do, causal, window = _flash_inputs(gen, case)
-        o, lse = ref.flash_attention_ref(q, k, v)
-        b, s, hq, d = q.shape
-        live = _live_pairs(b, s, hq, causal, window)
-        # s, dp, dq, dk, dv: five products of D; least bytes: q, o, do, k,
-        # v and lse in, dq, dk, dv out
-        bound, bound_by = _flash_bound(q, k, live, 10, 4, 4)
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                      for t in (q, k, v))
-        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                            enable_gqa=True)
-        dot = do.transpose(1, 2).contiguous()
-        arm = "tensor cores" if q.dtype == torch.bfloat16 else "SIMT"
         records.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention_bwd.py:142",
-            "max_abs_err": max(errs[q.dtype]),
-            "ms": _time_ms(lambda: flash_attention_bwd_cuda
-                           .flash_attention_bwd(q, k, v, o, lse, do), flush),
-            "plain_ms": _time_ms(lambda: ref.flash_attention_bwd_ref(
-                q, k, v, o, lse, do), flush),
-            "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": _time_ms(lambda: torch.autograd.grad(
-                ot, (qt, kt, vt), dot, retain_graph=True), flush),
-            "shape": f"q, o, do ({b}, {s}, {hq}, {d}) {q.dtype}, k/v "
-                     f"{k.shape[2]} heads, causal, live pairs {live}, {arm}",
-        })
-        del q, k, v, do, o, lse, qt, kt, vt, ot, dot
+            "max_abs_err": max(errs[_flash_dtype(case)]),
+            **_flash_bwd_timing(gen, flush, case)})
+    records[0]["granite_train_shape"] = _flash_bwd_timing(
+        gen, flush, _GRANITE_TRAIN_SHAPE)
     return records
+
+
+def _flash_bwd_timing(gen, flush, case):
+    """The flash backward timed at a train shape (causal), beside its plain
+    version, its bound and the SDPA backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_bwd_cuda, ref
+    q, k, v, do, causal, window = _flash_inputs(gen, case)
+    o, lse = ref.flash_attention_ref(q, k, v)
+    b, s, hq, d = q.shape
+    live = _live_pairs(b, s, hq, causal, window)
+    # s, dp, dq, dk, dv: five products of D; least bytes: q, o, do, k, v
+    # and lse in, dq, dk, dv out
+    bound, bound_by = _flash_bound(q, k, live, 10, 4, 4)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    arm = "tensor cores" if q.dtype == torch.bfloat16 else "SIMT"
+    return {
+        "ms": _time_ms(lambda: flash_attention_bwd_cuda.flash_attention_bwd(
+            q, k, v, o, lse, do), flush),
+        "plain_ms": _time_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o, lse, do), flush),
+        "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": _time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), flush),
+        "shape": f"{case[0]}: q, o, do ({b}, {s}, {hq}, {d}) {q.dtype}, "
+                 f"k/v {k.shape[2]} heads, causal, live pairs {live}, {arm}"}
 
 
 def _train_table_sizes(cut=1):
@@ -1644,19 +1783,19 @@ def check_prng(flush):
 # phase 5: the model and the engine
 # ---------------------------------------------------------------------------
 
-def check_model_small():
-    """Reduced Yi-6B in f32: prefill + per-slot decode logits on the card
-    (kernels) against the CPU (plain versions).  The card's run is a path
-    of its own: f32 activations over an f32 cache take the append kernel's
-    SIMT arm (flash_append_f32) and kernel 6's float arm, no other
-    attention arm.  Returns its launch counts."""
+def check_model_small(cfg=None, label="model reduced yi-6b f32"):
+    """A reduced model in f32 (Yi-6B's unless ``cfg``): prefill + per-slot
+    decode logits on the card (kernels) against the CPU (plain versions).
+    The card's run is a path of its own: f32 activations over an f32 cache
+    take the append kernel's SIMT arm (flash_append_f32) and kernel 6's
+    float arm, no other attention arm.  Returns its launch counts."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import dispatch
     from repro_torch.models import model as M
-    cfg = get_config("yi-6b").reduced()
+    cfg = cfg or get_config("yi-6b").reduced()
     outs = {}
     for dev in ("cpu", "cuda"):
         params = M.init_params(cfg, 0, "cpu")
@@ -1686,10 +1825,11 @@ def check_model_small():
             raise AssertionError("model: non-finite logits on the card")
         err = max(err, float((a - b).abs().max()))
         if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
-            raise AssertionError(f"model: card vs CPU logits differ by {err}")
-    _check_attention_arms("model reduced yi-6b f32", counts,
+            raise AssertionError(f"{label}: card vs CPU logits differ by "
+                                 f"{err}")
+    _check_attention_arms(label, counts,
                           ("flash_append_f32", "decode_attention"))
-    print(f"check model reduced yi-6b f32 cuda vs cpu: max_abs_err="
+    print(f"check {label} prefill + decode cuda vs cpu: max_abs_err="
           f"{err:.3e} tol=1e-4 ok")
     return counts
 
@@ -2545,12 +2685,12 @@ def check_sampled_reduced():
 # phases 7 and 8: the learner
 # ---------------------------------------------------------------------------
 
-def check_train_small():
-    """Reduced Yi-6B in f32: three train steps on the card (kernels)
-    against the same steps on the CPU (plain versions), from the same
-    parameters and batches.  The card's steps are a path of their own:
-    they launch the flash kernels' f32 arms and not their bf16 arms.
-    Returns their launch counts."""
+def check_train_small(cfg=None, label="train reduced yi-6b f32"):
+    """A reduced model in f32 (Yi-6B's unless ``cfg``): three train steps
+    on the card (kernels) against the same steps on the CPU (plain
+    versions), from the same parameters and batches.  The card's steps are
+    a path of their own: they launch the flash kernels' f32 arms and not
+    their bf16 arms.  Returns their launch counts."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2559,7 +2699,7 @@ def check_train_small():
     from repro_torch.kernels import dispatch
     from repro_torch.models import model as M
     from repro_torch.optim import optimizers as opt_mod
-    cfg = get_config("yi-6b").reduced()
+    cfg = cfg or get_config("yi-6b").reduced()
     pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=128, global_batch=2,
                          device="cpu")
     batches = [pipe.batch(prng.key(0), i) for i in range(3)]
@@ -2570,31 +2710,39 @@ def check_train_small():
         opt = opt_mod.shared_rmsprop()
         state = opt.init(params)
         step = llm_a3c.make_train_step(cfg, opt)     # lr0 7e-4
-        losses = []
+        losses, auxes = [], []
         dispatch.reset_launch_counts()
         for i, b in enumerate(batches):
             b = {k: v.to(dev) for k, v in b.items()}
             params, state, met = step(params, state, b, i)
             losses.append(float(met["loss"]))
+            auxes.append(float(met["aux"]))
         counts = dispatch.launch_counts()
         runs[dev] = (losses, {k: v.detach().cpu() for k, v in
-                              M.flatten(params).items()})
-    (loss_c, par_c), (loss_g, par_g) = runs["cpu"], runs["cuda"]
+                              M.flatten(params).items()}, auxes)
+    (loss_c, par_c, aux_c), (loss_g, par_g, aux_g) = runs["cpu"], runs["cuda"]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(loss_g, loss_c))
     par_err = 0.0
     for k, want in par_c.items():
         got = par_g[k]
         par_err = max(par_err, float((got - want).abs().max()))
         if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
-            raise AssertionError(f"train: {k} differs on the card by "
+            raise AssertionError(f"{label}: {k} differs on the card by "
                                  f"{float((got - want).abs().max())}")
     if loss_err > 1e-4:
-        raise AssertionError(f"train: losses {loss_g} on the card vs "
+        raise AssertionError(f"{label}: losses {loss_g} on the card vs "
                              f"{loss_c} on the CPU")
-    _check_flash_arms("train reduced yi-6b f32", counts, "f32")
-    print(f"check train reduced yi-6b f32 3 steps cuda vs cpu: losses "
+    aux_err = max(abs(a - b) / max(abs(b), 1e-30)
+                  for a, b in zip(aux_g, aux_c))
+    if aux_err > 1e-4:
+        raise AssertionError(f"{label}: aux {aux_g} on the card vs {aux_c} "
+                             "on the CPU")
+    _check_flash_arms(label, counts, "f32")
+    print(f"check {label} 3 steps cuda vs cpu: losses "
           f"{[round(x, 4) for x in loss_g]} rel_err={loss_err:.2e} (tol "
-          f"1e-4) params max_abs_err={par_err:.2e} (rtol=atol=1e-5) ok")
+          f"1e-4) aux {[round(x, 6) for x in aux_g]} rel_err="
+          f"{aux_err:.2e} params max_abs_err={par_err:.2e} "
+          f"(rtol=atol=1e-5) ok")
     return counts
 
 
@@ -2664,15 +2812,29 @@ def run_yi6b_train():
     84.9 GB): one warm-up, three timed and one profiled train step on
     TokenPipeline batches of 4 x 1024 tokens."""
     import torch
-
-    from repro_torch.kernels import dispatch
-    from repro_torch.models import model as M
     t0 = time.perf_counter()
     cfg, run, one_step = _train_make()
     torch.cuda.synchronize()
     print(f"train yi-6b x16 layers: {cfg.param_count()} f32 parameters and "
           f"their accumulator built on the card in "
           f"{time.perf_counter() - t0:.1f} s")
+    return _run_train("train yi-6b x16 layers 3 steps",
+                      "train yi-6b full width x 16 layers", cfg, run,
+                      one_step)
+
+
+def _run_train(label, title, cfg, run, one_step):
+    """One warm-up, three timed steps (their launches counted) and one
+    profiled step of a full-width train step.  Gates: every loss and the
+    experts' aux finite (aux > 0 where the model has experts), every
+    gradient finite, every leaf changed, the flash kernels through their
+    bf16 arms only (a forward and its remat, one backward a layer and
+    step), the optimizer's apply mode ceil(leaves / 64) times a step and
+    its other entries never.  Returns the three steps' counts."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
 
     @torch.no_grad()
     def fingerprint():
@@ -2695,39 +2857,43 @@ def run_yi6b_train():
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     loss_vals = [float(m["loss"]) for m in run["metrics"]]
-    if not all(math.isfinite(x) for x in loss_vals):
-        raise AssertionError(f"train: non-finite loss {loss_vals}")
+    aux_vals = [float(m["aux"]) for m in run["metrics"]]
+    if not all(math.isfinite(x) for x in loss_vals + aux_vals):
+        raise AssertionError(f"{label}: non-finite loss {loss_vals} or aux "
+                             f"{aux_vals}")
+    if cfg.n_experts and min(aux_vals) <= 0:
+        raise AssertionError(f"{label}: aux {aux_vals}, want > 0")
     # a non-finite gradient would leave a non-finite accumulator
     bad = [k for k, g in M.flatten(run["state"]["g"]).items()
            if not bool(torch.isfinite(g).all())]
     bad += [k for k, p in M.flatten(run["params"]).items()
             if not bool(torch.isfinite(p).all())]
     if bad:
-        raise AssertionError(f"train: non-finite gradients in {bad[:5]}")
+        raise AssertionError(f"{label}: non-finite gradients in {bad[:5]}")
     same = [k for k, a, b in zip(M.flatten(run["params"]), before, after)
             if a == b]
     if same:
-        raise AssertionError(f"train: leaves unchanged by 3 steps: {same}")
+        raise AssertionError(f"{label}: leaves unchanged by 3 steps: "
+                             f"{same}")
     missing = [k for k in TRAIN_COUNTERS if counts[k] <= 0]
     if missing:
-        raise AssertionError(f"train: kernels never launched: {missing}")
-    # 3 steps of 16 layers: a forward and its remat, one backward a layer
-    _check_flash_arms("train yi-6b x16 layers 3 steps", counts, "bf16",
+        raise AssertionError(f"{label}: kernels never launched: {missing}")
+    # 3 steps: a forward and its remat, one backward a layer
+    _check_flash_arms(label, counts, "bf16",
                       (3 * 2 * cfg.n_layers, 3 * cfg.n_layers))
-    # the optimizer: ceil(148 / 64) = 3 apply launches a step
+    # the optimizer: ceil(leaves / 64) apply launches a step
     _check_rmsprop_launches(
-        "train yi-6b x16 layers 3 steps", counts,
-        3 * _per_update(len(M.flatten(run["params"]))),
+        label, counts, 3 * _per_update(len(M.flatten(run["params"]))),
         others=TRAIN_COUNTERS)
     per_step = {k: counts[k] / 3 for k in TRAIN_COUNTERS}
     wall = statistics.median(walls)
-    print("train yi-6b full width x 16 layers: " + json.dumps({
-        "losses": loss_vals, "step_wall_s": walls,
+    print(f"{title}: " + json.dumps({
+        "losses": loss_vals, "aux": aux_vals, "step_wall_s": walls,
         "step_wall_median_s": wall,
         "tokens_per_s": TRAIN_ROWS * TRAIN_SEQ / wall,
         "peak_device_memory_gib": peak,
         "launches_per_step": per_step}))
-    _profile("train step", one_step, wall_ms=wall * 1e3,
+    _profile(f"{title} train step", one_step, wall_ms=wall * 1e3,
              watch=("flash_fwd", "dq_mma", "dkv_mma", "dkv_sum"))
     return counts
 
@@ -3231,12 +3397,611 @@ def check_delayed_sync():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: MoE blocks and M-RoPE (Granite-MoE, Llama-4-Scout, Qwen2-VL)
+# ---------------------------------------------------------------------------
+
+GRANITE = "granite-moe-1b-a400m"
+SCOUT = "llama4-scout-17b-a16e"
+QWEN2VL = "qwen2-vl-72b"
+# the reduced engines' trace: 6 requests on 4 slots, so slots stand idle
+# while others decode; at seed 3 every greedy choice of the CPU run wins by
+# >= 1e-3 and every routing choice by >= 1e-5 (at seed 2 Llama-4-Scout's
+# routing gap falls to 3.2e-6)
+MOE_TRACE = dict(prompt_range=(3, 20), gen_range=(2, 9), arrival_rate=0.0,
+                 seed=3)
+MOE_ENGINE = dict(n_slots=4, cache_len=32, chunk=8, sample=False, seed=0)
+
+
+def _reduced(arch, cf=None):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    return cfg if cf is None else dataclasses.replace(cfg,
+                                                      capacity_factor=cf)
+
+
+class _Margins:
+    """While an engine serves: the smallest top-2 gap of the logits rows
+    its tokens came from (each row's last prompt position in a prefill
+    chunk, each occupied slot's row of a decode step) and the smallest gap
+    between the k-th and (k+1)-th router probability over every row of
+    every MoE call (a routing choice, and so every capacity drop, depends
+    on it).  Token identity across devices holds where both are far above
+    the ~1e-6 by which the card's and the CPU's values differ."""
+
+    def __init__(self, eng):
+        self.eng, self.logit, self.route = eng, math.inf, math.inf
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import model as M
+        from repro_torch.models import moe
+        self.saved = M.prefill_step, M.decode_step, moe.route
+        prefill, decode, route = self.saved
+
+        def gap(row):
+            top = torch.topk(row.float(), 2).values.double()
+            self.logit = min(self.logit, float(top[0] - top[1]))
+
+        def prefill_w(cfg, params, cache, batch, pos0=0, true_len=None):
+            out, cache = prefill(cfg, params, cache, batch, pos0, true_len)
+            c = batch["tokens"].shape[1]
+            for r, n in enumerate(true_len.tolist()):
+                if pos0 <= n - 1 < pos0 + c:
+                    gap(out["logits"][r, n - 1 - pos0])
+            return out, cache
+
+        def decode_w(cfg, params, cache, batch, pos):
+            out, cache = decode(cfg, params, cache, batch, pos)
+            for j, r in enumerate(self.eng.req_of):
+                if r is not None:
+                    gap(out["logits"][j, -1])
+            return out, cache
+
+        def route_w(probs, k):
+            srt = torch.sort(probs, dim=-1, descending=True).values
+            if k < probs.shape[1]:
+                self.route = min(self.route,
+                                 float((srt[:, k - 1] - srt[:, k]).min()))
+            return route(probs, k)
+
+        M.prefill_step, M.decode_step, moe.route = prefill_w, decode_w, \
+            route_w
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as M
+        from repro_torch.models import moe
+        M.prefill_step, M.decode_step, moe.route = self.saved
+
+
+def check_moe_engine_reduced(arch, cf=1.25):
+    """Phase 10a's engines: a reduced MoE model in f32 at capacity factor
+    ``cf``, greedy, 4 slots on MOE_TRACE (idle slots, padding rows and
+    drops compete for expert capacity), on the CPU and on the card: the
+    card's tokens are the CPU's, qualified by the CPU run's margins (top-2
+    logit gap >= 1e-3, routing gap >= 1e-5).  Returns the card run's
+    counts."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = _reduced(arch, cf)
+    params = M.init_params(cfg, 0, "cpu")
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        trace = serve.gen_trace(6, vocab=cfg.vocab_size, **MOE_TRACE)
+        eng = serve.ServeEngine(cfg, M.tree_map(lambda t: t.to(dev), params),
+                                device=dev, **MOE_ENGINE)
+        serve._prepare(eng, trace)
+        dispatch.reset_launch_counts()
+        done = []
+        eng.start_clock()
+        if dev == "cpu":
+            with _Margins(eng) as margins:
+                serve._drain(eng, sorted(trace, key=lambda r: r.arrival), 0,
+                             done)
+        else:
+            serve._drain(eng, sorted(trace, key=lambda r: r.arrival), 0,
+                         done)
+        counts = dispatch.launch_counts()
+        if len(done) != len(trace) or not eng.logits_finite:
+            raise AssertionError(f"engine reduced {arch} {dev}: requests "
+                                 "unfinished or logits non-finite")
+        if min(eng.occupancy) >= 1.0:
+            raise AssertionError(f"engine reduced {arch}: no slot was idle")
+        tokens[dev] = {r.rid: list(r.tokens) for r in trace}
+    label = f"engine reduced {arch} f32 capacity {cf}"
+    _check_attention_arms(label, counts,
+                          ("flash_append_f32", "decode_attention"))
+    if margins.logit < 1e-3 or margins.route < 1e-5:
+        raise AssertionError(f"{label}: a near tie along the tokens (logit "
+                             f"margin {margins.logit}, routing margin "
+                             f"{margins.route}); identity is undecided")
+    card, cpu = tokens["cuda"], tokens["cpu"]
+    if card != cpu:
+        raise AssertionError(f"{label}: card tokens {card} != CPU tokens "
+                             f"{cpu}")
+    print(f"check {label} cuda vs cpu: "
+          f"{sum(len(t) for t in card.values())} greedy tokens "
+          f"identical (4 slots, idle ones among them), logit margin "
+          f"{margins.logit:.4g} (>= 1e-3), routing margin "
+          f"{margins.route:.4g} (>= 1e-5) ok")
+    return counts
+
+
+def check_moe_forward_reduced(arch, cf=None, positions=False):
+    """Phase 10a's forward: a reduced model in f32 (tokens, or embeds with
+    distinct temporal / height / width positions for M-RoPE), the card's
+    logits, value and aux_loss against the CPU's (rtol = atol = 1e-5).
+    Returns the card's counts (the flash forward's f32 arm)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
+    cfg = _reduced(arch, cf)
+    params = M.init_params(cfg, 0, "cpu")
+    rng = np.random.default_rng(3)
+    b, s = 2, 64
+    if positions:
+        pos = rng.integers(0, 64, (3, b, s))
+        pos[1] = (pos[0] + 1 + rng.integers(0, 32, (b, s))) % 64
+        pos[2] = (pos[1] + 1 + rng.integers(0, 16, (b, s))) % 64
+        batch = {"embeds": torch.from_numpy((0.02 * rng.standard_normal(
+            (b, s, cfg.d_model))).astype(np.float32)),
+            "positions": torch.from_numpy(pos)}
+    else:
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (b, s)))}
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = M.tree_map(lambda t: t.to(dev), params)
+        dispatch.reset_launch_counts()
+        with torch.no_grad():
+            out = M.forward(cfg, p, {k: v.to(dev) for k, v in batch.items()})
+        counts = dispatch.launch_counts()
+        outs[dev] = {k: v.float().cpu() for k, v in out.items()}
+    label = f"forward reduced {arch} f32" + \
+        (f" capacity {cfg.capacity_factor}" if cfg.n_experts else "") + \
+        (" M-RoPE positions" if positions else "")
+    errs = {}
+    for k in ("logits", "value", "aux_loss"):
+        got, want = outs["cuda"][k], outs["cpu"][k]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label}: non-finite {k} on the card")
+        errs[k] = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"{label}: {k} differs on the card by "
+                                 f"{errs[k]}")
+    aux = float(outs["cuda"]["aux_loss"])
+    if cfg.n_experts and aux < cfg.n_layers:
+        raise AssertionError(f"{label}: aux_loss {aux}, want >= 1 a layer")
+    _check_flash_fwd_only(label, counts, cfg.n_layers, "f32")
+    print(f"check {label} cuda vs cpu: max_abs_err " + " ".join(
+        f"{k}={v:.3e}" for k, v in errs.items()) + " (rtol=atol=1e-5), "
+        f"aux_loss {aux:.6f} ok")
+    return counts
+
+
+def check_moe_reduced():
+    """Phase 10a: reduced models in f32, card against CPU.  Granite-MoE at
+    its reduced capacity factor (8.0, nothing drops) and at 1.25: forward,
+    prefill then decode, three train steps; the engines of Granite-MoE and
+    Llama-4-Scout at 1.25; Qwen2-VL's forward with M-RoPE positions.
+    Returns {path: counts}."""
+    counts = {}
+    for cf in (None, 1.25):
+        tag = "reduced_cf" if cf is None else f"cf{cf}"
+        cfg = _reduced(GRANITE, cf)
+        counts[f"moe_forward_{tag}"] = check_moe_forward_reduced(GRANITE, cf)
+        counts[f"moe_model_{tag}"] = check_model_small(
+            cfg, f"model reduced {GRANITE} f32 capacity "
+            f"{cfg.capacity_factor}")
+        counts[f"moe_train_{tag}"] = check_train_small(
+            cfg, f"train reduced {GRANITE} f32 capacity "
+            f"{cfg.capacity_factor}")
+    for arch in (GRANITE, SCOUT):
+        counts[f"moe_engine_{arch.split('-')[0]}"] = \
+            check_moe_engine_reduced(arch)
+    counts["mrope_forward"] = check_moe_forward_reduced(QWEN2VL,
+                                                        positions=True)
+    return counts
+
+
+class _Interference:
+    """While an engine serves: counts MoE calls in which a real token lost
+    an assignment to capacity while a padding row or an idle slot held a
+    slot of the same expert (the only way those rows, whose contents
+    differ between the paged and the contiguous layout, reach a real
+    token), and the drops of real assignments.  Recomputes each call's
+    routing; for diagnosis only (it syncs the host every layer)."""
+
+    def __init__(self, eng):
+        self.eng, self.events, self.real_drops, self.calls = eng, 0, 0, 0
+        self.mask = None
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import model as M
+        from repro_torch.models import moe
+        self.saved = M.prefill_step, M.decode_step, M.moe_mod.moe_apply
+        prefill, decode, apply = self.saved
+
+        def prefill_w(cfg, params, cache, batch, pos0=0, true_len=None):
+            c = batch["tokens"].shape[1]
+            posn = pos0 + torch.arange(c, device=true_len.device)
+            self.mask = posn[None, :] < true_len[:, None]
+            return prefill(cfg, params, cache, batch, pos0, true_len)
+
+        def decode_w(cfg, params, cache, batch, pos):
+            self.mask = torch.tensor([[r is not None]
+                                      for r in self.eng.req_of],
+                                     device=batch["tokens"].device)
+            return decode(cfg, params, cache, batch, pos)
+
+        def apply_w(p, x, *, top_k, capacity_factor=1.25, act="silu"):
+            if self.mask is not None:
+                self._watch(p, x, top_k, capacity_factor)
+            return apply(p, x, top_k=top_k, capacity_factor=capacity_factor,
+                         act=act)
+
+        M.prefill_step, M.decode_step = prefill_w, decode_w
+        M.moe_mod.moe_apply = apply_w
+        self.moe = moe
+        return self
+
+    def _watch(self, p, x, top_k, cf):
+        import torch
+        t, e = x.shape[0] * x.shape[1], p["router"].shape[1]
+        probs = torch.softmax(x.reshape(t, -1).float()
+                              @ p["router"].float(), -1)
+        _, eidx = self.moe.route(probs, top_k)
+        cap = self.moe.capacity(t, top_k, e, cf)
+        e_flat = eidx.reshape(-1)
+        pos = self.moe.slot_positions(e_flat, e)
+        real = self.mask.reshape(-1).repeat_interleave(top_k)
+        keep = pos < cap
+        lost = torch.zeros(e, dtype=torch.bool, device=x.device)
+        lost[e_flat[real & ~keep]] = True
+        held = torch.zeros(e, dtype=torch.bool, device=x.device)
+        held[e_flat[~real & keep]] = True
+        self.calls += 1
+        self.real_drops += int((real & ~keep).sum())
+        self.events += int((lost & held).any())
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as M
+        M.prefill_step, M.decode_step, M.moe_mod.moe_apply = self.saved
+
+
+def _serve_watched(label, cfg, params, trace, **engine_kw):
+    """``trace`` through a new engine with ``_Interference`` on; returns
+    (tokens, the watch)."""
+    from repro_torch.launch import serve
+    eng = serve.ServeEngine(cfg, params, n_slots=4, cache_len=1024,
+                            chunk=128, sample=False, seed=0, kv_dtype="bf16",
+                            device="cuda", **engine_kw)
+    serve._prepare(eng, trace)
+    done = []
+    eng.start_clock()
+    with _Interference(eng) as watch:
+        serve._drain(eng, sorted(trace, key=lambda r: r.arrival), 0, done)
+    if len(done) != len(trace):
+        raise AssertionError(f"{label}: requests unfinished")
+    return {r.rid: list(r.tokens) for r in trace}, watch
+
+
+def run_moe_engine(name, cfg, params):
+    """Phases 10b and 10d: phase 5's trace (8 greedy requests; 4 slots,
+    cache 1024, chunk 128, bf16 KV) through the engine at full width, on
+    the default paged layout and then contiguous, each run held to its
+    gates (requests complete, logits finite, the rmsnorm, the append
+    kernel's tensor-core arm once a prefill chunk and layer, kernel 6's
+    float arm, no other attention arm).  Paged tokens must equal
+    contiguous ones wherever the reference's semantics make them equal:
+    at the config's capacity factor, a padding row or an idle slot (whose
+    contents differ between the layouts) takes expert capacity ahead of
+    later rows, so where the tokens differ both runs are repeated under
+    ``_Interference`` and a difference must come with such an event.
+    Then both layouts again at capacity factor n_experts / top_k, where no
+    assignment drops: the tokens must be equal outright.  Returns
+    ({path: counts}, paged run's report)."""
+    import dataclasses
+
+    import torch
+    counts, tokens = {}, {}
+    for paged in (None, False):
+        lay = "paged" if paged is None else "contiguous"
+        label = f"engine {name} {lay} bf16"
+        trace = _phase5_trace(cfg)
+        rep, c, eng, tokens[lay] = _serve(label, cfg, params, trace, "bf16",
+                                          paged=paged)
+        _check_serving_run(label, rep, c, "bf16", False,
+                           paged=paged is None)
+        _check_appends(label, c, eng, cfg)
+        _print_run(label, rep, c, PAGE_KEYS if paged is None else ())
+        counts[f"engine_{name}_{lay}"] = c
+        if paged is None:
+            report = rep
+        torch.cuda.empty_cache()
+    same = tokens["paged"] == tokens["contiguous"]
+    if same:
+        print(f"check {name} paged vs contiguous at capacity "
+              f"{cfg.capacity_factor}: greedy tokens identical ok")
+    else:
+        diff = [rid for rid in tokens["paged"]
+                if tokens["paged"][rid] != tokens["contiguous"][rid]]
+        watches = {}
+        for paged in (None, False):
+            lay = "paged" if paged is None else "contiguous"
+            _, watches[lay] = _serve_watched(f"{name} {lay} watched", cfg,
+                                             params, _phase5_trace(cfg),
+                                             paged=paged)
+        events = {k: (w.events, w.real_drops, w.calls)
+                  for k, w in watches.items()}
+        if not any(w.events for w in watches.values()):
+            raise AssertionError(f"{name}: paged tokens differ from "
+                                 f"contiguous in requests {diff} with no "
+                                 f"padding or idle row taking capacity "
+                                 f"from a real one: {events}")
+        print(f"check {name} paged vs contiguous at capacity "
+              f"{cfg.capacity_factor}: requests {diff} differ, each run "
+              f"with padding or idle rows holding expert slots that real "
+              f"tokens lost (events, real drops, MoE calls: {events}), as "
+              f"in the reference ok")
+    free = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                               / cfg.top_k)
+    nodrop = {}
+    for paged in (None, False):
+        lay = "paged" if paged is None else "contiguous"
+        label = f"engine {name} {lay} bf16 capacity {free.capacity_factor}"
+        rep, c, _, nodrop[lay] = _serve(label, free, params,
+                                        _phase5_trace(cfg), "bf16",
+                                        paged=paged)
+        _check_serving_run(label, rep, c, "bf16", False,
+                           paged=paged is None)
+        counts[f"engine_{name}_{lay}_nodrop"] = c
+    if nodrop["paged"] != nodrop["contiguous"]:
+        raise AssertionError(f"{name}: with no capacity drop paged tokens "
+                             f"{nodrop['paged']} != contiguous "
+                             f"{nodrop['contiguous']}")
+    print(f"check {name} paged vs contiguous at capacity "
+          f"{free.capacity_factor} (no drops): greedy tokens identical ok")
+    return counts, report
+
+
+def _check_appends(label, counts, eng, cfg):
+    """The append kernel's tensor-core arm ran once a prefill chunk (the
+    warm-up's included) and layer."""
+    chunks = eng.step_calls["prefill"]
+    if counts["flash_append"] != chunks * cfg.n_layers:
+        raise AssertionError(f"{label}: flash_append launched "
+                             f"{counts['flash_append']} times, want {chunks} "
+                             f"chunks x {cfg.n_layers} layers")
+    print(f"check {label}: flash_append {chunks} prefill chunks x "
+          f"{cfg.n_layers} layers = {counts['flash_append']} launches ok")
+
+
+def profile_moe_split(cfg, params, label):
+    """Device time of a decode step's MoE halves (router, top-k, dispatch,
+    the three expert products, combine) against its attention calls
+    (projections, RoPE, cache writes, kernel 6), over 8 decode steps of 4
+    slots: the kernels under each call, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    eng = serve.ServeEngine(cfg, params, n_slots=4, cache_len=1024,
+                            chunk=128, sample=False, device="cuda",
+                            kv_dtype="bf16")
+    for r in serve.gen_trace(4, vocab=cfg.vocab_size, prompt_range=(64, 600),
+                             gen_range=(64, 64), arrival_rate=0.0, seed=1):
+        eng.enqueue(r)
+    eng.admit(eng.schedule_admissions(0.0), 0.0)
+    for _ in range(2):
+        eng.decode_step_all()
+    apply, attend = M.moe_mod.moe_apply, M.attn.attend_decode
+
+    def moe_w(*a, **k):
+        with record_function("moe_half"):
+            return apply(*a, **k)
+
+    def attn_w(*a, **k):
+        with record_function("attention"):
+            return attend(*a, **k)
+    M.moe_mod.moe_apply, M.attn.attend_decode = moe_w, attn_w
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                eng.decode_step_all()
+            torch.cuda.synchronize()
+    finally:
+        M.moe_mod.moe_apply, M.attn.attend_decode = apply, attend
+    ev = {e.key: e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CPU}
+    # the kernels, without the two ranges' own spans on the device
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in ("moe_half", "attention")]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    moe_ms = ev["moe_half"].device_time_total / 1e3
+    attn_ms = ev["attention"].device_time_total / 1e3
+    print(f"profile {label} 8 decode steps: moe_half {moe_ms / 8:.4f} device "
+          f"ms a step ({ev['moe_half'].count} calls), attention "
+          f"{attn_ms / 8:.4f} device ms a step ({ev['attention'].count} "
+          f"calls), all kernels {busy / 8:.4f} ms a step; moe share of busy "
+          f"{moe_ms / busy:.3f}, attention share {attn_ms / busy:.3f}")
+    return moe_ms / 8, attn_ms / 8
+
+
+def build_full(arch, **cut):
+    """A config at full width (depth cut by ``cut``), bf16 weights from
+    seed 0 made on the card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"{cfg.name} x{cfg.n_layers} layers: {cfg.param_count()} params "
+          f"built on the card in {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def _granite_train_make():
+    """Phase 10c's train step: Granite-MoE at full width and depth (bf16
+    compute, remat), f32 parameters and Shared RMSProp accumulator made on
+    the card from seed 0, TokenPipeline batches of TRAIN_ROWS x TRAIN_SEQ
+    from the train CLI's key at seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import llm_a3c, prng
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt_mod
+    cfg = get_config(GRANITE)
+    assert cfg.dtype == "bfloat16" and cfg.remat
+    params = M.init_params(cfg, 0, "cuda")
+    opt = opt_mod.shared_rmsprop()
+    run = {"params": params, "state": opt.init(params), "metrics": []}
+    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_ROWS, device="cuda")
+    data_key = prng.key(2)
+    step_fn = llm_a3c.make_train_step(cfg, opt, lr0=7e-3, total_steps=100)
+
+    def one_step():
+        step = len(run["metrics"])
+        run["params"], run["state"], met = step_fn(
+            run["params"], run["state"], pipe.batch(data_key, step), step)
+        run["metrics"].append(met)
+    return cfg, run, one_step
+
+
+def run_granite_train():
+    """Phase 10c: Granite-MoE at full width and depth (1,334,629,376
+    parameters: f32 masters, gradients and accumulator about 16 GB), one
+    warm-up, three timed and one profiled step."""
+    import torch
+    t0 = time.perf_counter()
+    cfg, run, one_step = _granite_train_make()
+    torch.cuda.synchronize()
+    print(f"train {GRANITE}: {cfg.param_count()} f32 parameters and their "
+          f"accumulator built on the card in {time.perf_counter() - t0:.1f} "
+          "s")
+    return _run_train(f"train {GRANITE} 3 steps",
+                      f"train {GRANITE} full width x 24 layers", cfg, run,
+                      one_step)
+
+
+def run_qwen2vl_forward():
+    """Phase 10e: Qwen2-VL-72B at full width cut to 2 of 80 layers, bf16
+    weights from seed 0: one forward on embeds (B 2, S 1024) with distinct
+    temporal / height / width positions.  Gates: finite logits and value,
+    the flash forward's bf16 arm once a layer and no other flash arm.
+    Returns its counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
+    cfg, params = build_full(QWEN2VL, n_layers=2)
+    b, s = 2, 1024
+    rng = np.random.default_rng(0)
+    pos = rng.integers(0, 4096, (3, b, s))
+    pos[1] = (pos[0] + 1 + rng.integers(0, 2048, (b, s))) % 4096
+    pos[2] = (pos[1] + 1 + rng.integers(0, 1024, (b, s))) % 4096
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    batch = {"embeds": _randn((b, s, cfg.d_model), gen, torch.bfloat16,
+                              0.02),
+             "positions": torch.from_numpy(pos).to("cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = M.forward(cfg, params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dispatch.launch_counts()
+    label = f"forward {cfg.name} x2 layers M-RoPE"
+    for k in ("logits", "value"):
+        if not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError(f"{label}: non-finite {k}")
+    if out["logits"].shape != (b, s, cfg.vocab_size):
+        raise AssertionError(f"{label}: logits {tuple(out['logits'].shape)}")
+    _check_flash_fwd_only(label, counts, cfg.n_layers)
+    print(f"{label}: " + json.dumps({
+        "batch": [b, s], "wall_s": wall,
+        "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "flash_attention": counts["flash_attention"]}))
+    del params, out
+    return counts
+
+
+def _check_flash_fwd_only(label, counts, n, arm="bf16"):
+    """A forward without gradients: the flash forward's ``arm`` (bf16: the
+    tensor cores, f32: SIMT) exactly ``n`` times, one a layer, and no
+    other flash arm, forward or backward."""
+    want = {k: 0 for k in ("flash_attention", "flash_attention_f32",
+                           "flash_attention_bwd", "flash_attention_bwd_f32")}
+    name = FLASH_ARMS[arm][0]
+    want[name] = n
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: flash launches {got}, want {name} "
+                             f"{n} only")
+    print(f"check {label}: {name} ({arm} arm) {n} launches, one a layer, no "
+          "other flash arm ok")
+
+
+def run_phase10():
+    """Phase 10 (10a-10e); returns {path: counts}."""
+    import gc
+
+    import torch
+    counts = check_moe_reduced()
+    cfg, params = build_full(GRANITE)
+    c, _ = run_moe_engine("granite-moe", cfg, params)
+    counts.update(c)
+    profile_engine(cfg, params, "granite-moe bf16 paged", kv_dtype="bf16")
+    profile_moe_split(cfg, params, "granite-moe bf16 paged")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["train_granite_3_steps"] = run_granite_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params = build_full(SCOUT, n_layers=4)
+    c, _ = run_moe_engine("llama4-scout x4", cfg, params)
+    counts.update(c)
+    profile_moe_split(cfg, params, "llama4-scout x4 bf16 paged")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["forward_qwen2vl_x2"] = run_qwen2vl_forward()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _shapes(record):
     """A kernel record and its timings at other shapes."""
     return [record] + [record[k] for k in (
         "train_shape", "decode_shape", "f32_shape", "train_table_shape",
         "llm_leaf_shape", "llm_leaf_apply_shape", "rl_fc_shape",
-        "rl_small_shape", "verify_shape", "verify_k6_shape") if k in record]
+        "rl_small_shape", "verify_shape", "verify_k6_shape",
+        "granite_shape", "scout_shape", "granite_train_shape")
+        if k in record]
 
 
 def main():
@@ -3386,6 +4151,11 @@ def main():
     t_phase = time.perf_counter()
     path_counts["rl_delayed_sync"] = check_delayed_sync()
     print(f"phase rl_delayed_sync_s {time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    path_counts.update(run_phase10())
+    print(f"phase moe_mrope_s {time.perf_counter() - t_phase:.1f}")
 
     by_op = {"rmsnorm_fwd": "rmsnorm",
              "flash_attention_append": "flash_append",

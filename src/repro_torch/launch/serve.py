@@ -1689,9 +1689,12 @@ def _sync(device: torch.device) -> None:
 
 def _warmup(eng: ServeEngine, trace: List[Request]) -> float:
     """Run, outside the timed region, every prefill chunk offset the trace
-    can reach (on the group cache with every page unmapped: writes go to
-    the sink, reads are masked), one admission and one decode step: builds
-    the kernels at first use and warms the library handles.  Where
+    can reach, one admission and one decode step: builds the kernels at
+    first use and warms the library handles.  The chunks run on a cache of
+    their own (a pool of the sink page alone), as the JAX engine's
+    warm-up: the engine's pools and group cache keep a fresh engine's
+    contents, which idle slots and padding rows read, and under MoE
+    capacity those rows take expert slots from the others.  Where
     preemption is possible a re-prefill folds generated tokens in, so the
     offsets reach prompt + max_new - 1.  The fault plan sleeps meanwhile;
     ``reset`` then leaves the allocator, the prefix index and the fault
@@ -1706,11 +1709,13 @@ def _warmup(eng: ServeEngine, trace: List[Request]) -> float:
                        default=1))
     toks, plens, grid = _pad_group([np.zeros(pmax, np.int32)], eng.n_slots,
                                    eng.chunk, eng.cache_len)
-    if eng.paged:
-        eng._upload(eng._group_cache["pt"],
-                    np.full((eng.n_slots, eng.max_pages), -1, np.int32))
-    _chunked_prefill(eng.prefill_step, eng.params, eng._group_cache, toks,
-                     plens, grid, eng.device)
+    warm_cache = M.init_cache(
+        eng.cfg, eng.n_slots, eng.cache_len, dtype=eng.kv_dtype,
+        device=eng.device,
+        paged=attn.PagedLayout(eng.page_size, 1) if eng.paged else None)
+    _chunked_prefill(eng.prefill_step, eng.params, warm_cache, toks, plens,
+                     grid, eng.device)
+    del warm_cache
     if eng.spec == "draft":
         # the draft's admissions: single-row prefills over the same grid
         eng.draft_src.warm_prefill(pmax)
@@ -2020,6 +2025,12 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family == "vlm" or cfg.is_encdec:
+        # the JAX CLI's refusal, word for word
+        raise SystemExit(
+            f"{cfg.name}: the serve engine drives token-in/token-out LMs; "
+            "VLM embeds / encoder-decoder memories have no request-queue "
+            "source here (the decode dry-run still lowers those shapes)")
     device = resolve(args.device)
     if device.type == "cuda" and "LOCAL_RANK" in os.environ:
         # one card per torchrun rank: NCCL refuses two ranks on one card

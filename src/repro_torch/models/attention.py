@@ -271,25 +271,31 @@ def _update_kv_cache_cp(cache: dict, new: dict, slot: torch.Tensor,
                                      rows_new[:, 0].to(leaf.dtype), old)
 
 
-def _qkv(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
+def _rope(cfg, positions: torch.Tensor):
+    """Plain RoPE tables (cos, sin) at ``positions``."""
+    return cm.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+
+
+def _qkv(params: dict, x: torch.Tensor, cfg, cos: torch.Tensor,
+         sin: torch.Tensor):
+    """q, k, v, the rotary tables (cos, sin) applied to q and k."""
     n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = _split_heads(cm.linear(params["wq"], x), n_h, hd)
     k = _split_heads(cm.linear(params["wk"], x), n_kv, hd)
     v = _split_heads(cm.linear(params["wv"], x), n_kv, hd)
-    cos, sin = cm.rope_cos_sin(positions, hd, cfg.rope_theta)
     q = cm.apply_rope(q, cos, sin, rotary_dim=cfg.rotary_dim)
     k = cm.apply_rope(k, cos, sin, rotary_dim=cfg.rotary_dim)
     return q, k, v
 
 
-def attend_train(params: dict, x: torch.Tensor, cfg, *,
-                 window: Optional[int] = None,
+def attend_train(params: dict, x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor, cfg, *, window: Optional[int] = None,
                  bidirectional: bool = False) -> torch.Tensor:
-    """Full-sequence self attention.  x (B, S, d_model) at positions
-    0 .. S-1 -> (B, S, d_model)."""
+    """Full-sequence self attention.  x (B, S, d_model); cos, sin the
+    caller's rotary tables ((1 or B, S, D/2): plain RoPE at 0 .. S-1 or
+    M-RoPE, ``model._rope_tables``) -> (B, S, d_model)."""
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None]          # (1, S)
-    q, k, v = _qkv(params, x, cfg, positions)
+    q, k, v = _qkv(params, x, cfg, cos, sin)
     o = dispatch.flash_attention(q, k, v, causal=not bidirectional,
                                  window=window)
     return cm.linear(params["wo"], o.reshape(b, s, cfg.n_heads * cfg.hd))
@@ -314,7 +320,7 @@ def attend_decode(params: dict, x: torch.Tensor, cache: dict,
     every layer sharing the table may share."""
     b = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).expand(b)
-    q, k, v = _qkv(params, x, cfg, pos[:, None])
+    q, k, v = _qkv(params, x, cfg, *_rope(cfg, pos[:, None]))
     if "kp" in cache:
         _check_no_window(window)
         ps = cache["kp"].shape[1]
@@ -393,7 +399,7 @@ def attend_prefill(params: dict, x: torch.Tensor, cache: dict, pos0: int,
                          "rank's columns into its slice")
     b, c, _ = x.shape
     positions = pos0 + torch.arange(c, device=x.device)[None]   # (1, C)
-    q, k, v = _qkv(params, x, cfg, positions)
+    q, k, v = _qkv(params, x, cfg, *_rope(cfg, positions))
     quant = "ks" in cache
     new = {"k": k, "v": v}
     if quant:
@@ -481,7 +487,7 @@ def _attend_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
     idx = paged if paged is not None else \
         prefill_index(pt, ps, pos0, c, true_len)
     positions = pos0 + torch.arange(c, device=x.device)
-    q, k, v = _qkv(params, x, cfg, positions[None])
+    q, k, v = _qkv(params, x, cfg, *_rope(cfg, positions[None]))
     new = _new_pool_rows(k, v, "kps" in cache)
     o = dispatch.flash_attention_append_paged(
         q, cache["kp"], cache["vp"], pt, new["kp"], new["vp"], pos0=pos0,
@@ -514,7 +520,7 @@ def attend_verify(params: dict, x: torch.Tensor, cache: dict,
     rollback.  ``paged``: the chunk's ``verify_index``."""
     b, kq, _ = x.shape
     positions = pos[:, None] + torch.arange(kq, device=x.device)[None]
-    q, k, v = _qkv(params, x, cfg, positions)
+    q, k, v = _qkv(params, x, cfg, *_rope(cfg, positions))
     quant = "ks" in cache or "kps" in cache
     pending = {"k": k, "v": v}
     if quant:

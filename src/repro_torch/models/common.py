@@ -8,7 +8,7 @@ package); RMSNorm goes through the kernel dispatch.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -77,6 +77,26 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     inv = rope_freqs(head_dim, theta, positions.device)
     ang = positions.float()[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                  sections: Sequence[int]):
+    """Multimodal RoPE (Qwen2-VL).  positions (3, B, S) int: temporal,
+    height and width position ids; ``sections`` the half-dims each axis
+    owns, in order (sum = head_dim / 2).  Frequency slot j takes its angle
+    from the axis ``sections`` assigns it, picked exactly (the JAX package
+    mixes the axes with a one-hot einsum, whose products by 0 and 1 are
+    exact too).  Returns cos, sin of shape (B, S, head_dim // 2)."""
+    if positions.shape[0] != 3:
+        raise ValueError(f"M-RoPE positions are (3, B, S), got "
+                         f"{tuple(positions.shape)}")
+    inv = rope_freqs(head_dim, theta, positions.device)
+    ang = positions.float()[..., None] * inv                # (3, B, S, D/2)
+    axis = torch.cat([torch.full((n,), i, dtype=torch.int64,
+                                 device=positions.device)
+                      for i, n in enumerate(sections)])     # (D/2,)
+    mixed = ang.gather(0, axis.expand(1, *ang.shape[1:]))[0]
+    return torch.cos(mixed), torch.sin(mixed)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *,

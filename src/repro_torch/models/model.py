@@ -1,8 +1,10 @@
 """Config-driven backbone assembly for the training and serving paths.
 
 Counterpart of ``repro/models/model.py`` for decoder stacks of ``attn`` and
-``attn_local`` blocks with a gated MLP (the dense families: yi-6b,
-stablelm-1.6b, qwen2-72b, minicpm-2b):
+``attn_local`` blocks with a gated MLP or a Mixture-of-Experts layer (the
+dense families yi-6b, stablelm-1.6b, qwen2-72b and minicpm-2b; the MoE
+families granite-moe-1b-a400m and llama4-scout-17b-a16e; qwen2-vl-72b,
+whose training forward takes M-RoPE positions):
 
   init_params(cfg, seed, device, dtype)        -> params (nested dicts)
   forward(cfg, params, batch)                  -> {"logits", "value", ...}
@@ -18,8 +20,8 @@ takes the f32 masters and casts each block's matrices inside the step, as
 the JAX loss does, so gradients reach the f32 leaves.  For serving,
 parameters are cast to the compute dtype ONCE (``cast_params``) by whoever
 builds them: the JAX steps cast inside every call, which in eager PyTorch
-would copy every weight each step.  MoE, SSM, xLSTM, enc-dec and M-RoPE
-models are later slices and raise.
+would copy every weight each step.  SSM, xLSTM, shared-attention and
+enc-dec models are later slices and raise.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 
 Params = Any
@@ -51,14 +54,10 @@ def _check_supported(cfg: ModelConfig) -> None:
         why = "encoder-decoder models"
     elif cfg.shared_attn_every:
         why = "shared attention blocks (zamba2)"
-    elif cfg.mrope_sections is not None:
-        why = "M-RoPE (qwen2-vl)"
-    elif cfg.n_experts:
-        why = "MoE blocks"
     elif not kinds <= {"attn", "attn_local"}:
         why = f"block kinds {sorted(kinds - {'attn', 'attn_local'})}"
-    elif not cfg.d_ff:
-        why = "blocks without a gated MLP"
+    elif not cfg.d_ff and not cfg.n_experts:
+        why = "blocks with neither a gated MLP nor experts"
     if why is not None:
         raise NotImplementedError(f"{cfg.name}: {why} are not ported yet "
                                   f"({_BLOCKS_ITEM})")
@@ -104,8 +103,11 @@ def _shape_tree(cfg: ModelConfig) -> dict:
         "attn": attn.attention_shapes(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                                       qkv_bias=cfg.qkv_bias),
         "ln2": cm.norm_shapes(cfg.norm, d),
-        "mlp": mlp_mod.gated_mlp_shapes(d, cfg.d_ff),
     }
+    if cfg.n_experts:
+        layer["moe"] = moe_mod.moe_shapes(d, cfg.d_ff_expert, cfg.n_experts)
+    else:
+        layer["mlp"] = mlp_mod.gated_mlp_shapes(d, cfg.d_ff)
     tree = {"embed": {"table": (cfg.vocab_size, d)},
             "final_norm": cm.norm_shapes(cfg.norm, d)}
     if not cfg.tie_embeddings:
@@ -125,9 +127,10 @@ def _leaf_keys(cfg: ModelConfig, seed: int, partitionable: bool) -> dict:
     """{path: key} of every random leaf, the key tree of
     ``repro/models/model.py::init_params``: split(key(seed), n_layers + 5),
     the last three keys for the embedding, the LM head and the value head,
-    key i for layer i, split in four there (attention, MLP), then in four
-    (wq, wk, wv, wo) and three (gate, up, down).  On the CPU: a few hundred
-    tiny hashes."""
+    key i for layer i, split in four there (attention, then the MLP or the
+    experts), then in four (wq, wk, wv, wo) and three (gate, up, down), or
+    four (router, w_gate, w_up, w_down: ``init_moe``'s split).  On the
+    CPU: a few hundred tiny hashes."""
     def split(k, n):
         return prng.split(k, n, partitionable=partitionable)
     keys = split(prng.key(seed), cfg.n_layers + 5)
@@ -137,17 +140,33 @@ def _leaf_keys(cfg: ModelConfig, seed: int, partitionable: bool) -> dict:
         ks = split(keys[i], 4)
         for name, k in zip(("wq", "wk", "wv", "wo"), split(ks[0], 4)):
             out[f"layers.{i}.attn.{name}.w"] = k
+        if cfg.n_experts:
+            for name, k in zip(moe_mod.LEAVES, split(ks[1], 4)):
+                out[f"layers.{i}.moe.{name}"] = k
+            continue
         for name, k in zip(("gate", "up", "down"), split(ks[1], 3)):
             out[f"layers.{i}.mlp.{name}.w"] = k
     return out
+
+
+def _init_std(cfg: ModelConfig, path: str, shape: tuple) -> float:
+    """Spread of a random leaf: embeddings 0.02, the experts'
+    ``init_moe`` spreads (router 0.02, w_gate and w_up 1/sqrt(d_model),
+    w_down 1/sqrt(d_ff_expert)), linears 1/sqrt(d_in)."""
+    parts = path.split(".")
+    if parts[-1] == "table":
+        return 0.02
+    if len(parts) >= 2 and parts[-2] == "moe":
+        return moe_mod.init_std(parts[-1], cfg.d_model, cfg.d_ff_expert)
+    return cm.linear_std(shape[0])
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 dtype: torch.dtype = torch.float32, *,
                 partitionable: bool = True) -> Params:
     """The JAX package's ``init_params(cfg, jax.random.key(seed))``, layers
-    unstacked: embeddings 0.02 and linears 1/sqrt(d_in) times a normal
-    truncated at +-2, drawn by ``prng`` from the reference's key tree
+    unstacked: a normal truncated at +-2 times each leaf's spread
+    (``_init_std``), drawn by ``prng`` from the reference's key tree
     (``partitionable``: the threefry counter layout, see ``prng``); biases
     zero, norm scales one, norm biases zero.  Matrices are drawn in f32 and
     stored in ``dtype`` (pass the compute dtype to build serving weights
@@ -159,7 +178,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     for path, shape in param_shapes(cfg).items():
         name = path.rsplit(".", 1)[-1]
         if len(shape) >= 2:
-            std = 0.02 if name == "table" else cm.linear_std(shape[0])
+            std = _init_std(cfg, path, shape)
             flat[path] = prng.truncated_normal(
                 keys[path].to(dev), -2.0, 2.0, shape, scale=std,
                 dtype=dtype, partitionable=partitionable)
@@ -264,9 +283,36 @@ def _embed_inputs(cfg: ModelConfig, params: Params,
     return x.to(compute_dtype(cfg))
 
 
-def _mlp_half(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def _ffn_half(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """The block's second residual half: (x + FFN(norm(x)), the experts'
+    load-balance loss or None).  The FFN is the experts where the config
+    has them (their capacity is per call: every row of the call, padding
+    and idle slots included, competes for it, as in the JAX steps), the
+    gated MLP otherwise."""
     y = cm.apply_norm(cfg.norm, p["ln2"], x)
-    return x + mlp_mod.gated_mlp(p["mlp"], y, act=cfg.act)
+    if cfg.n_experts:
+        y, lb = moe_mod.moe_apply(p["moe"], y, top_k=cfg.top_k,
+                                  capacity_factor=cfg.capacity_factor,
+                                  act=cfg.act)
+        return x + y, lb
+    return x + mlp_mod.gated_mlp(p["mlp"], y, act=cfg.act), None
+
+
+def _rope_tables(cfg: ModelConfig, batch: Dict[str, torch.Tensor], s: int,
+                device) -> tuple:
+    """(cos, sin) of the training forward, as the JAX ``_rope_tables``:
+    M-RoPE from batch["positions"] (3, B, S) where the config has
+    sections (``arange(S)`` on all three axes without them), plain RoPE
+    at 0 .. S-1 otherwise."""
+    if cfg.mrope_sections is not None:
+        pos = batch.get("positions")
+        if pos is None:
+            b = batch.get("tokens", batch.get("embeds")).shape[0]
+            pos = torch.arange(s, device=device)[None, None].expand(3, b, s)
+        return cm.mrope_cos_sin(pos.to(device), cfg.hd, cfg.rope_theta,
+                                cfg.mrope_sections)
+    return cm.rope_cos_sin(torch.arange(s, device=device)[None], cfg.hd,
+                           cfg.rope_theta)
 
 
 def _heads(cfg: ModelConfig, params: Params, x: torch.Tensor) -> dict:
@@ -281,39 +327,46 @@ def _heads(cfg: ModelConfig, params: Params, x: torch.Tensor) -> dict:
     return out
 
 
-def _block_train(cfg: ModelConfig, kind: str, p: Params,
-                 x: torch.Tensor) -> torch.Tensor:
-    """One residual block over the full sequence.  ``p`` holds the f32
-    masters; the cast to the compute dtype happens here, so under
-    ``cfg.remat`` it is recomputed in the backward and only one block's
-    cast copies are alive at a time."""
+def _block_train(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+                 aux: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """One residual block over the full sequence -> (x, aux plus the
+    block's load-balance loss).  ``p`` holds the f32 masters; the cast to
+    the compute dtype happens here, so under ``cfg.remat`` it is
+    recomputed in the backward and only one block's cast copies are alive
+    at a time.  The recomputation routes the tokens as the forward did:
+    top-k is a stable sort."""
     p = cast_params(cfg, p)
     h = attn.attend_train(p["attn"], cm.apply_norm(cfg.norm, p["ln1"], x),
-                          cfg, window=_window(cfg, kind))
-    return _mlp_half(cfg, p, x + h)
+                          cos, sin, cfg, window=_window(cfg, kind))
+    x, lb = _ffn_half(cfg, p, x + h)
+    return x, (aux if lb is None else aux + lb)
 
 
 def forward(cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Training (full-sequence) forward.  batch {"tokens": (B, S)} (or
-    {"embeds": (B, S, d)}); ``params`` the f32 masters.  Returns {"logits"
-    (B, S, V) in the compute dtype, "value" (B, S) f32, "aux_loss" 0 (dense
-    blocks)}.  With ``cfg.remat`` each block runs under
-    ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint``):
-    its activations are recomputed in the backward."""
+    {"embeds": (B, S, d)}), with {"positions": (3, B, S)} for M-RoPE;
+    ``params`` the f32 masters.  Returns {"logits" (B, S, V) in the
+    compute dtype, "value" (B, S) f32, "aux_loss" () f32: the experts'
+    load-balance losses summed over the layers, 0 without experts}.
+    With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
+    (the counterpart of ``jax.checkpoint``): its activations are
+    recomputed in the backward."""
     _check_supported(cfg)
     # gather, then cast: the values of casting the table first
     x = _embed_inputs(cfg, params, batch)
+    cos, sin = _rope_tables(cfg, batch, x.shape[1], x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p in zip(cfg.layer_kinds(), params["layers"]):
         if cfg.remat:
-            x = checkpoint(_block_train, cfg, kind, p, x,
-                           use_reentrant=False)
+            x, aux = checkpoint(_block_train, cfg, kind, p, x, aux, cos, sin,
+                                use_reentrant=False)
         else:
-            x = _block_train(cfg, kind, p, x)
+            x, aux = _block_train(cfg, kind, p, x, aux, cos, sin)
     top = cast_params(cfg, {k: v for k, v in params.items()
                             if k != "layers"})
     out = _heads(cfg, top, x)
-    out["aux_loss"] = torch.zeros((), device=x.device)
+    out["aux_loss"] = aux
     return out
 
 
@@ -331,7 +384,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
         h, _ = attn.attend_decode(
             p["attn"], cm.apply_norm(cfg.norm, p["ln1"], x), c, pos, cfg,
             window=_window(cfg, kind), paged=paged)
-        x = _mlp_half(cfg, p, x + h)
+        x = _ffn_half(cfg, p, x + h)[0]
     return _heads(cfg, params, x), cache
 
 
@@ -356,7 +409,7 @@ def prefill_step(cfg: ModelConfig, params: Params, cache: dict,
         h, _ = attn.attend_prefill(
             p["attn"], cm.apply_norm(cfg.norm, p["ln1"], x), c, pos0, cfg,
             window=_window(cfg, kind), true_len=true_len, paged=paged)
-        x = _mlp_half(cfg, p, x + h)
+        x = _ffn_half(cfg, p, x + h)[0]
     return _heads(cfg, params, x), cache
 
 
@@ -383,7 +436,7 @@ def verify_step(cfg: ModelConfig, params: Params, cache: dict,
             p["attn"], cm.apply_norm(cfg.norm, p["ln1"], x), c, pos, cfg,
             shift=shift, window=_window(cfg, kind), paged=paged)
         pendings.append(pend)
-        x = _mlp_half(cfg, p, x + h)
+        x = _ffn_half(cfg, p, x + h)[0]
     out = _heads(cfg, params, x)
     return {"logits": out["logits"]}, pendings
 

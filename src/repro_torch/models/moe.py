@@ -1,0 +1,139 @@
+"""Mixture-of-Experts layer: top-k router and capacity-based dispatch, as
+``repro/models/moe.py``.
+
+Tokens are written into a fixed-capacity buffer of E experts x C slots,
+the experts run as three batched products over the stacked expert weights
+(``torch.bmm``: the JAX package's three ``einsum``s, which it computes
+outside any Pallas kernel), and each token's k outputs are read back and
+summed with its gates.  The layer also returns the Switch load-balance
+loss, E * sum_e f_e * P_e, which the training loss adds times
+``aux_loss_weight``.
+
+The semantics are the reference's, so tokens and gradients compare:
+
+  * the router runs in f32 (a bf16 model casts the router matrix to bf16
+    with every other matrix; it is cast back up here, as jax promotes it);
+  * top-k takes a stable descending sort, so on tied probabilities the
+    lower expert index comes first, as ``jax.lax.top_k`` does (a zero
+    input row ties every expert);
+  * the capacity is the reference's own Python expression;
+  * a slot's position is the running count of its expert's assignments
+    over the token-major (token, then rank) order: earlier tokens win
+    capacity over later ones, whatever their rank;
+  * a dropped assignment contributes nothing and reads back nothing (the
+    reference writes a zero into slot 0 and reads slot 0 with gate 0).
+
+Differences of arithmetic, not of result: the dispatch writes each kept
+row once (kept (expert, slot) pairs are unique; dropped rows go to a
+spare slot past the capacity that is never read) where the reference
+scatter-adds; and the combine sums each token's k gathered rows over k in
+one reduction (accumulated in f32, rounded once) where the reference
+scatter-adds them one by one in the compute dtype.  In f32 the two agree
+to summation order; in bf16 the port's sum may differ from a sequential
+bf16 scatter by up to (k - 1) / 2 bf16 ulps of the summed magnitude.  No
+atomics: the results repeat bit for bit.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.models import common as cm
+
+ROUTER_STD = 0.02
+
+
+def moe_shapes(d_model: int, d_ff: int, n_experts: int) -> dict:
+    return {"router": (d_model, n_experts),
+            "w_gate": (n_experts, d_model, d_ff),
+            "w_up": (n_experts, d_model, d_ff),
+            "w_down": (n_experts, d_ff, d_model)}
+
+
+# leaf order of ``init_moe``'s split of its key in four
+LEAVES = ("router", "w_gate", "w_up", "w_down")
+
+
+def init_std(name: str, d_model: int, d_ff: int) -> float:
+    """Spread of ``init_moe``'s truncated normal for leaf ``name``."""
+    if name == "router":
+        return ROUTER_STD
+    if name in ("w_gate", "w_up"):
+        return 1.0 / math.sqrt(d_model)
+    if name == "w_down":
+        return 1.0 / math.sqrt(d_ff)
+    raise ValueError(f"unknown MoE leaf {name}")
+
+
+def capacity(t: int, top_k: int, n_experts: int,
+             capacity_factor: float) -> int:
+    """Slots an expert holds for ``t`` tokens: the reference's expression
+    in Python floats, never more than the tokens."""
+    cap = int(max(top_k, capacity_factor * t * top_k / n_experts))
+    return min(cap, t)
+
+
+def slot_positions(e_flat: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Each assignment's place among its expert's assignments, in the
+    order given: the running count the reference takes down a (T*k, E)
+    one-hot.  The one-hot is laid out (E, T*k) so the count runs along the
+    contiguous axis (down the other axis a GPU scans E long columns with
+    little parallelism)."""
+    experts = torch.arange(n_experts, device=e_flat.device)[:, None]
+    hits = (experts == e_flat[None, :]).to(torch.int32)          # (E, T*k)
+    return torch.cumsum(hits, dim=1).gather(0, e_flat[None, :])[0] - 1
+
+
+def route(probs: torch.Tensor, top_k: int):
+    """(gates, expert indices) of the top k probabilities a row, the
+    highest first and the lower index first on ties."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :top_k], idx[:, :top_k]
+
+
+def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float = 1.25,
+              act: str = "silu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (y (B, S, d) in x's dtype, load-balance loss () f32)."""
+    if act not in cm.ACTIVATIONS:
+        raise NotImplementedError(
+            f"activation {act!r} is not ported yet (see ROADMAP.md, "
+            "queue 1, slice 5: the other block kinds)")
+    b, s, d = x.shape
+    e = p["router"].shape[1]
+    t = b * s
+    xf = x.reshape(t, d)
+
+    probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)  # (T, E)
+    gates, eidx = route(probs, top_k)                                # (T, k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balance loss on the full probabilities; f_e carries no gradient
+    f_e = torch.nn.functional.one_hot(eidx[:, 0], e).float().mean(0)
+    lb_loss = e * torch.sum(f_e * probs.mean(0))
+
+    # capacity-based dispatch, token-major priority
+    cap = capacity(t, top_k, e, capacity_factor)
+    e_flat = eidx.reshape(-1)                                        # (T*k,)
+    pos = slot_positions(e_flat, e)
+    keep = pos < cap
+    # each token's row k times, token-major (an expand: its gradient sums
+    # over k); kept rows land in distinct slots, dropped ones in slot `cap`
+    # of their expert, which is cut off below
+    rows = xf[:, None, :].expand(t, top_k, d).reshape(t * top_k, d)
+    slot = e_flat * (cap + 1) + torch.where(keep, pos, cap)
+    buf = x.new_zeros((e * (cap + 1), d)).index_put(
+        (slot,), rows).reshape(e, cap + 1, d)[:, :cap]
+
+    # the experts: a gated MLP over each expert's slots
+    f = cm.ACTIVATIONS[act]
+    h = f(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+    out = torch.bmm(h, p["w_down"]).reshape(e * cap, d)             # (E*C, d)
+
+    # combine: each token's k rows, gated (0 where dropped), summed over k
+    read = e_flat * cap + torch.where(keep, pos, 0)
+    g = gates.reshape(-1).to(x.dtype) * keep.to(x.dtype)
+    y = (out[read] * g[:, None]).reshape(t, top_k, d).sum(1)
+    return y.reshape(b, s, d), lb_loss

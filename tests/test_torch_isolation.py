@@ -137,3 +137,32 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.moe",
+                                    "repro_torch.examples.llm_policy_a3c"])
+def test_moe_modules_are_among_the_checked_sources(module):
+    """The MoE layer and the LLM example are walked by the import check
+    (``pkgutil``), read by the source check, and import alone with jax
+    blocked."""
+    code = ("import sys, pkgutil; sys.modules['jax'] = None; "
+            "import importlib, repro_torch; "
+            "names = [m.name for m in pkgutil.walk_packages("
+            "repro_torch.__path__, 'repro_torch.')]; "
+            f"assert {module!r} in names, names; "
+            f"importlib.import_module({module!r}); print('ok')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert str(path.relative_to(ROOT)) in [
+        str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    assert not set(_imported_roots(path)) & {"jax", "jaxlib", "repro"}
+
+
+def test_examples_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    from repro_torch.examples import llm_policy_a3c
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        llm_policy_a3c.main(["--steps", "1"])

@@ -72,7 +72,9 @@ def test_configs_equal_field_for_field(arch):
 @pytest.mark.parametrize("arch,reduced", [("yi-6b", False),
                                           ("stablelm-1.6b", False),
                                           ("minicpm-2b", True),
-                                          ("qwen2-72b", True)])
+                                          ("qwen2-72b", True),
+                                          ("granite-moe-1b-a400m", False),
+                                          ("granite-moe-1b-a400m", True)])
 def test_param_count_matches_jax(arch, reduced):
     cj, ct = jax_configs.get_config(arch), torch_configs.get_config(arch)
     if reduced:
@@ -84,12 +86,50 @@ def test_yi6b_is_six_billion():
     assert torch_configs.get_config("yi-6b").param_count() == 6_061_039_616
 
 
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "granite-moe-1b-a400m",
-                                  "whisper-base", "zamba2-1.2b",
-                                  "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "whisper-base",
+                                  "zamba2-1.2b"])
 def test_unported_blocks_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.param_shapes(torch_configs.get_config(arch).reduced())
+
+
+def _jax_flat_shapes(cfg):
+    """{path: shape} of ``JM.init_params(cfg, ...)`` in the port's layout
+    (scan-stacked layers unstacked), from ``jax.eval_shape``: nothing is
+    drawn, so full-size configs cost nothing."""
+    tree = jax.eval_shape(lambda k: JM.init_params(cfg, k),
+                          jax.random.key(0))
+    layers = tree["layers"]
+    out = {}
+    for name, leaf in TM.flatten({k: v for k, v in tree.items()
+                                  if k != "layers"}).items():
+        out[name] = tuple(leaf.shape)
+    cyc = len(cfg.block_cycle)
+    for i in range(cfg.n_layers):
+        if isinstance(layers, tuple):
+            flat = {k: tuple(v.shape[1:]) for k, v in
+                    TM.flatten(dict(layers[i % cyc])).items()}
+        else:
+            flat = {k: tuple(v.shape) for k, v in
+                    TM.flatten(dict(layers[i])).items()}
+        out.update({f"layers.{i}.{k}": v for k, v in flat.items()})
+    return out
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "llama4-scout-17b-a16e", "qwen2-vl-72b"])
+def test_ported_families_build(arch):
+    """The MoE and M-RoPE families build at full size: every parameter's
+    path and shape is the JAX package's, and ``param_count`` is the JAX
+    config's."""
+    cj, ct = jax_configs.get_config(arch), torch_configs.get_config(arch)
+    assert TM.param_shapes(ct) == _jax_flat_shapes(cj)
+    assert ct.param_count() == cj.param_count()
+    if ct.n_experts:
+        e, d, f = ct.n_experts, ct.d_model, ct.d_ff_expert
+        shapes = TM.param_shapes(ct)
+        assert shapes["layers.0.moe.w_down"] == (e, f, d)
+        assert not any(".mlp." in k for k in shapes)
 
 
 def test_init_params_layout_and_distributions():
@@ -122,7 +162,11 @@ def test_init_params_layout_and_distributions():
                                             ("yi-6b", 3, True),
                                             ("stablelm-1.6b", 0, True),
                                             ("stablelm-1.6b", 5, True),
-                                            ("yi-6b", 0, False)])
+                                            ("yi-6b", 0, False),
+                                            ("granite-moe-1b-a400m", 0,
+                                             True),
+                                            ("granite-moe-1b-a400m", 2,
+                                             False)])
 def test_init_params_match_jax(arch, seed, part):
     """The port's own init from a seed is ``JM.init_params(cfg,
     jax.random.key(seed))`` leaf by leaf, within 4 f32 ulps (the

@@ -246,9 +246,12 @@ def test_sampling_follows_the_softmax():
 
 
 def test_engine_refuses_later_slices(models):
-    """Recurrent caches are the one later slice left in the engine;
+    """The engine still refuses recurrent caches (mamba2, mLSTM/sLSTM and
+    zamba2's shared attention: slice 5c, whose token-loop admission is not
+    ported); encoder-decoder models (slice 5d) fail earlier, in the
+    model.  MoE models serve (``test_torch_moe_engine.py``), and so do
     speculative decoding (``test_torch_spec_engine.py``), the paged
-    layout, fault plans and deadlines run (``test_torch_paged_kv.py``,
+    layout, fault plans and deadlines (``test_torch_paged_kv.py``,
     ``test_torch_serve_robustness.py`` and the paged twins below)."""
     _, ct, _, pt = models
     kw = dict(n_slots=2, cache_len=16, device="cpu")
