@@ -38,7 +38,14 @@ Phases (any failure raises and the script exits non-zero):
      ragged S, G = 1, ragged row and element counts; the flash kernels'
      bf16 tensor-core arms also at a ragged S with D = 64, at a window
      of 16 keys and at Granite-MoE's train shape, B = 4, S = 1024, 16 q
-     over 8 kv heads, D = 64); the append and decode kernels also at
+     over 8 kv heads, D = 64; both arms of the flash forward and backward
+     at Whisper's encoder, B = 4, S = 1500 (ragged), 8 / 8 heads, D = 64,
+     bidirectional, and zamba2's train shape, B = 4, S = 1024, 32 / 32
+     heads, D = 64, causal); the decode kernel also at zamba2's shared
+     block (32 / 32 heads, D = 64, G = 1; B = 4 and the token loop's
+     single row) and Whisper's decoder (8 / 8, D = 64, a 448-row cache),
+     and the rmsnorm at width 2048 (zamba2's and xlstm's d_model, with
+     and without rstd); the append and decode kernels also at
      Granite-MoE's serving shapes (16 q over 8 kv heads, G = 2, D = 64)
      and Llama-4-Scout's (40 q over 8 kv heads, G = 5, D = 128; its
      sliding-window layers a 1024-row ring under an 8192-key window), bf16
@@ -79,7 +86,9 @@ Phases (any failure raises and the script exits non-zero):
      K = 6) beside masked SDPA with ``enable_gqa``; the append and decode
      kernels' bf16 arms at Granite-MoE's and Llama-4-Scout's serving
      shapes and the flash forward and backward at Granite-MoE's train
-     shape;
+     shape; the flash forward and backward, each arm, at Whisper's encoder
+     and zamba2's train shape; the decode kernel at zamba2's and Whisper's
+     decode shapes; the rmsnorm forward with rstd at 4096 x 2048;
   5. the port's reduced model in f32 on the card against the same model
      on the CPU (a counted path: the append kernel's f32 SIMT arm), then
      the engine on Yi-6B at full width and depth (bf16 weights from a
@@ -221,11 +230,44 @@ Phases (any failure raises and the script exits non-zero):
      experts, so two decode slots on one expert drop one) served as 10b;
      10e. Qwen2-VL-72B at full width cut to 2 of 80 layers: one bf16
      forward on embeds (B 2, S 1024) with distinct positions, finite, the
-     flash forward's bf16 arm once a layer.
+     flash forward's bf16 arm once a layer;
+  11. mamba2 with zamba2's shared block, mLSTM/sLSTM and Whisper
+     (``models/ssm.py``, ``xlstm.py``, ``encdec.py``; the engine's token
+     loop, ``ServeEngine._prefill_loop``):
+     11a. reduced zamba2, xlstm, xlstm with the ("mlstm", "slstm") cycle
+     and Whisper in f32, card against CPU: forward logits and values and
+     16 decode steps (Whisper after ``prefill_cross``) within rtol = atol
+     = 1e-4, three train steps as phase 7, and (but for Whisper, which
+     the engine does not serve) the token-loop engine's greedy tokens, 4
+     requests on 2 slots, identical (margin >= 1e-3); each path launching
+     kernel 1 (not Whisper's LayerNorms), the flash kernels' f32 arms and
+     kernel 6's float arm where the model has attention, and no other
+     attention arm;
+     11b. zamba2-1.2b at full width and depth (f32 masters from seed 0,
+     served cast to bf16): phase 5's 8 requests with prompts cut to 16-64
+     tokens (the token loop runs a decode step a prompt token), 4 slots,
+     cache 1024, bf16 KV: every request completes, logits finite,
+     contiguous, kernel 1 and kernel 6's float arm and no other attention
+     arm; one decode step launches kernel 1 2 x 38 + 2 x 6 + 1 = 89 times
+     and kernel 6 6 times; the profile of 8 decode steps; then three
+     train steps (4 x 1024, remat) with phase 8's gates, the flash
+     kernels 2 x 6 forward and 6 backward launches a step (the shared
+     block's applications);
+     11c. xlstm-1.3b at full width and depth: the same engine run (kernel
+     1, 97 launches a decode step, and no attention kernel at all) and
+     three train steps (no flash launch), without a profiled step;
+     11d. Whisper-base at full size: stub frames (4, 1500, 512),
+     ``prefill_cross`` (kernel 3's bidirectional arm once an encoder
+     layer) and 32 greedy decode steps on 4 rows (kernel 6 once a layer
+     and step), a teacher-forced forward at S = 448 (kernel 3 twelve
+     times: six bidirectional, then six causal), three train steps at B
+     4, S 448 (12 forward and 12 backward flash launches a step, no
+     remat; kernel 8).
 
 Every kernel and arm must have been launched on one of the main paths
 (phase 5's reduced model and engines, each run of 5p, 5o and 5s, 6a, 6b, each
-of the four runs of 6c, 6d, 7, 8, each run of 9 and of 10a-10e, each with
+of the four runs of 6c, 6d, 7, 8, each run of 9, of 10a-10e and of
+11a-11d, each with
 the counters set to 0 just before it and read just after); the kernels line
 gives each one's launches by path.
 The last three lines are the card's name and power limit (nvidia-smi), a
@@ -352,7 +394,12 @@ def check_rmsnorm(gen, flush):
     errs = []
     for rows, d, dt in ((512, 4096, torch.bfloat16), (4, 4096, torch.bfloat16),
                         (512, 4096, torch.float32), (7, 104, torch.bfloat16),
-                        (3, 100, torch.float32)):
+                        (3, 100, torch.float32),
+                        # zamba2's and xlstm's d_model (their gated norms
+                        # are 4096 wide, as above); the token loop's
+                        # single row at both widths
+                        (4, 2048, torch.bfloat16), (1, 2048, torch.float32),
+                        (1, 2048, torch.bfloat16), (1, 4096, torch.bfloat16)):
         x = _randn((rows, d), gen, dt)
         scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
         errs.append(_compare(f"rmsnorm rows={rows} d={d} {dt}",
@@ -361,7 +408,8 @@ def check_rmsnorm(gen, flush):
     # the rstd output of the training forward: train shape, f32, ragged
     for rows, d, dt in ((4096, 4096, torch.bfloat16),
                         (4096, 4096, torch.float32),
-                        (4099, 4096, torch.bfloat16), (7, 104, torch.float32)):
+                        (4099, 4096, torch.bfloat16), (7, 104, torch.float32),
+                        (4096, 2048, torch.bfloat16)):
         x = _randn((rows, d), gen, dt)
         scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
         y, rstd = rmsnorm_cuda.rmsnorm_fwd(x, scale, save_residuals=True)
@@ -384,9 +432,9 @@ def check_rmsnorm(gen, flush):
             raise AssertionError(f"rmsnorm accepted {label}")
         if rmsnorm_cuda.launches != before:
             raise AssertionError(f"rmsnorm counted a launch for {label}")
-    def record(rows, rstd, what):
-        """Times at one shape, bf16, d 4096 (rstd: the training forward)."""
-        d = 4096
+    def record(rows, rstd, what, d=4096):
+        """Times at one shape, bf16, d 4096 unless ``d`` (rstd: the
+        training forward)."""
         x = _randn((rows, d), gen, torch.bfloat16)
         scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
         w16 = scale.to(torch.bfloat16)
@@ -413,6 +461,7 @@ def check_rmsnorm(gen, flush):
         **record(512, False, "prefill"),
         "train_shape": record(4096, True, "train"),
         "decode_shape": record(4, False, "decode"),
+        "width_2048_shape": record(4096, True, "zamba2 / xlstm train", 2048),
     }
 
 
@@ -465,6 +514,14 @@ def check_decode(gen, flush):
         # Llama-4-Scout's: 40 q over 8 kv heads (G = 5, no power of two)
         (4, 40, 8, 128, 1024, torch.bfloat16, torch.bfloat16),
         (4, 40, 8, 128, 1024, torch.float32, torch.float32),
+        # zamba2's shared block: 32 q over 32 kv heads (G = 1), D = 64;
+        # the token loop's single row; whisper's decoder (8 / 8, D = 64)
+        # over a 448-row cache
+        (4, 32, 32, 64, 1024, torch.bfloat16, torch.bfloat16),
+        (4, 32, 32, 64, 1024, torch.float32, torch.float32),
+        (1, 32, 32, 64, 1024, torch.bfloat16, torch.bfloat16),
+        (4, 8, 8, 64, 448, torch.bfloat16, torch.bfloat16),
+        (4, 8, 8, 64, 448, torch.float32, torch.float32),
     ]
     for b, hq, hkv, d, length, qdt, kvdt in cases:
         q = _randn((b, hq, d), gen, qdt)
@@ -558,13 +615,19 @@ def check_decode(gen, flush):
                                               16, 8, 64),
         "scout_shape": _decode_shape_record(gen, flush, "Llama-4-Scout",
                                             40, 8, 128),
+        "zamba2_shape": _decode_shape_record(gen, flush, "Zamba2 shared",
+                                             32, 32, 64),
+        "whisper_shape": _decode_shape_record(gen, flush, "Whisper decoder",
+                                              8, 8, 64, length=448,
+                                              pos=(40, 100, 250, 440)),
     }
 
 
-def _decode_shape_record(gen, flush, model, hq, hkv, d, b=4, length=1024):
+def _decode_shape_record(gen, flush, model, hq, hkv, d, b=4, length=1024,
+                         pos=(100, 400, 700, 1000)):
     """Kernel 6's bf16 arm timed at a model's serving shape (4 slots, a
-    1024-row bf16 cache, ragged depths), beside its plain version, its
-    least bytes and masked SDPA with ``enable_gqa``."""
+    bf16 cache of ``length`` rows, ragged depths ``pos``), beside its plain
+    version, its least bytes and masked SDPA with ``enable_gqa``."""
     import torch
     import torch.nn.functional as F
 
@@ -573,8 +636,7 @@ def _decode_shape_record(gen, flush, model, hq, hkv, d, b=4, length=1024):
     q = _randn((b, hq, d), gen, torch.bfloat16)
     k = _randn((b, length, hkv, d), gen, torch.bfloat16)
     v = _randn((b, length, hkv, d), gen, torch.bfloat16)
-    pos = torch.tensor([100, 400, 700, 1000][:b], device="cuda",
-                       dtype=torch.int32)
+    pos = torch.tensor(pos[:b], device="cuda", dtype=torch.int32)
     kpos = _cache_positions(length, pos, None).to(torch.int32).contiguous()
     valid = (kpos >= 0) & (kpos <= pos[:, None])
     valid_rows = int(valid.sum())
@@ -1238,7 +1300,12 @@ def check_rmsnorm_bwd(gen, flush):
     for rows, d, dt in ((4096, 4096, torch.bfloat16),
                         (4096, 4096, torch.float32),
                         (4099, 4096, torch.bfloat16), (7, 104, torch.float32),
-                        (1, 256, torch.bfloat16)):
+                        (1, 256, torch.bfloat16),
+                        # zamba2's and xlstm's d_model (ln1, the shared
+                        # block's norms, the sLSTM norm) at their train
+                        # shape, and a single row
+                        (4096, 2048, torch.bfloat16),
+                        (1, 2048, torch.bfloat16)):
         x = _randn((rows, d), gen, dt)
         dy = _randn((rows, d), gen, dt)
         scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
@@ -1298,6 +1365,26 @@ _FLASH_CASES = [
     ("Granite train shape", 4, 1024, 16, 8, 64, "bf16", True, None),
 ]
 _GRANITE_TRAIN_SHAPE = _FLASH_CASES[-1]
+# Whisper's encoder (1500 frames: ragged tiles, bidirectional, 8 / 8
+# heads, D = 64), its decoder (448 tokens: ragged tiles, causal) and
+# zamba2's shared block in training (32 / 32, D = 64, causal), each in both
+# arms
+_WHISPER_ENC = {dt: (f"Whisper encoder {dt}", 4, 1500, 8, 8, 64, dt, False,
+                     None) for dt in ("bf16", "f32")}
+_WHISPER_DEC = {dt: (f"Whisper decoder {dt}", 4, 448, 8, 8, 64, dt, True,
+                     None) for dt in ("bf16", "f32")}
+_ZAMBA2_TRAIN = {dt: (f"Zamba2 train shape {dt}", 4, 1024, 32, 32, 64, dt,
+                      True, None) for dt in ("bf16", "f32")}
+_FLASH_CASES += [*_WHISPER_ENC.values(), *_WHISPER_DEC.values(),
+                 *_ZAMBA2_TRAIN.values()]
+
+
+def _new_shape_records(timing, gen, flush, dt):
+    """A flash kernel's timings at Whisper's encoder and decoder shapes
+    and zamba2's train shape in the arm of ``dt``."""
+    return {"whisper_encoder_shape": timing(gen, flush, _WHISPER_ENC[dt]),
+            "whisper_decoder_shape": timing(gen, flush, _WHISPER_DEC[dt]),
+            "zamba2_train_shape": timing(gen, flush, _ZAMBA2_TRAIN[dt])}
 
 
 def _flash_inputs(gen, case):
@@ -1377,6 +1464,8 @@ def check_flash_fwd(gen, flush):
             **_flash_fwd_timing(gen, flush, case)})
     records[0]["granite_train_shape"] = _flash_fwd_timing(
         gen, flush, _GRANITE_TRAIN_SHAPE)
+    for r, dt in zip(records, ("bf16", "f32")):
+        r.update(_new_shape_records(_flash_fwd_timing, gen, flush, dt))
     return records
 
 
@@ -1386,8 +1475,9 @@ def _flash_dtype(case):
 
 
 def _flash_fwd_timing(gen, flush, case):
-    """The flash forward timed at a train shape (causal), beside its plain
-    version, its bound and SDPA with ``enable_gqa``."""
+    """The flash forward timed at a train shape (causal or not, as the
+    case), beside its plain version, its bound and SDPA with
+    ``enable_gqa``."""
     import torch
     import torch.nn.functional as F
 
@@ -1400,14 +1490,15 @@ def _flash_fwd_timing(gen, flush, case):
     arm = "tensor cores" if q.dtype == torch.bfloat16 else "SIMT"
     return {
         "ms": _time_ms(lambda: flash_attention_cuda.flash_attention_fwd(
-            q, k, v), flush),
-        "plain_ms": _time_ms(lambda: ref.flash_attention_ref(q, k, v),
-                             flush),
+            q, k, v, causal=causal), flush),
+        "plain_ms": _time_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal), flush),
         "bound_ms": bound, "bound_by": bound_by,
         "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+            qt, kt, vt, is_causal=causal, enable_gqa=True), flush),
         "shape": f"{case[0]}: q ({b}, {s}, {hq}, {d}) {q.dtype}, k/v "
-                 f"{k.shape[2]} heads, causal, live pairs {live}, {arm}"}
+                 f"{k.shape[2]} heads, {'causal' if causal else 'bidirectional'}"
+                 f", live pairs {live}, {arm}"}
 
 
 def _bwd_sum_abs(q, k, v, o, lse, do, causal, window):
@@ -1473,18 +1564,20 @@ def check_flash_bwd(gen, flush):
             **_flash_bwd_timing(gen, flush, case)})
     records[0]["granite_train_shape"] = _flash_bwd_timing(
         gen, flush, _GRANITE_TRAIN_SHAPE)
+    for r, dt in zip(records, ("bf16", "f32")):
+        r.update(_new_shape_records(_flash_bwd_timing, gen, flush, dt))
     return records
 
 
 def _flash_bwd_timing(gen, flush, case):
-    """The flash backward timed at a train shape (causal), beside its plain
-    version, its bound and the SDPA backward."""
+    """The flash backward timed at a train shape (causal or not, as the
+    case), beside its plain version, its bound and the SDPA backward."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_bwd_cuda, ref
     q, k, v, do, causal, window = _flash_inputs(gen, case)
-    o, lse = ref.flash_attention_ref(q, k, v)
+    o, lse = ref.flash_attention_ref(q, k, v, causal=causal)
     b, s, hq, d = q.shape
     live = _live_pairs(b, s, hq, causal, window)
     # s, dp, dq, dk, dv: five products of D; least bytes: q, o, do, k, v
@@ -1492,20 +1585,22 @@ def _flash_bwd_timing(gen, flush, case):
     bound, bound_by = _flash_bound(q, k, live, 10, 4, 4)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                         enable_gqa=True)
     dot = do.transpose(1, 2).contiguous()
     arm = "tensor cores" if q.dtype == torch.bfloat16 else "SIMT"
     return {
         "ms": _time_ms(lambda: flash_attention_bwd_cuda.flash_attention_bwd(
-            q, k, v, o, lse, do), flush),
+            q, k, v, o, lse, do, causal=causal), flush),
         "plain_ms": _time_ms(lambda: ref.flash_attention_bwd_ref(
-            q, k, v, o, lse, do), flush),
+            q, k, v, o, lse, do, causal=causal), flush),
         "bound_ms": bound, "bound_by": bound_by,
         "library_ms": _time_ms(lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True), flush),
         "shape": f"{case[0]}: q, o, do ({b}, {s}, {hq}, {d}) {q.dtype}, "
-                 f"k/v {k.shape[2]} heads, causal, live pairs {live}, {arm}"}
+                 f"k/v {k.shape[2]} heads, "
+                 f"{'causal' if causal else 'bidirectional'}, live pairs "
+                 f"{live}, {arm}"}
 
 
 def _train_table_sizes(cut=1):
@@ -1860,10 +1955,13 @@ def _serving_arms(kv, cp, bf16_q=True):
 def _check_attention_arms(label, counts, want):
     """The run launched the rmsnorm and each arm of ``want``, and no other
     serving arm."""
-    want = ("rmsnorm",) + tuple(want)
+    _check_launched(label, counts, ("rmsnorm",) + tuple(want), SERVING_ARMS)
+
+
+def _check_launched(label, counts, want, never):
+    """Every counter of ``want`` launched, none of ``never``."""
     missing = [k for k in want if counts[k] <= 0]
-    stray = {k: counts[k] for k in SERVING_ARMS
-             if k not in want and counts[k] != 0}
+    stray = {k: counts[k] for k in never if k not in want and counts[k]}
     if missing or stray:
         raise AssertionError(f"{label}: kernels never launched {missing}, "
                              f"launched off its path {stray}")
@@ -1963,7 +2061,8 @@ def _count_steps(eng):
             eng.step_calls[name] += 1
             return fn(*args, **kw)
         return call
-    eng.prefill_step = counted("prefill", eng.prefill_step)
+    if eng.prefill_step is not None:
+        eng.prefill_step = counted("prefill", eng.prefill_step)
     if eng.spec != "off":
         eng.verify_step = counted("verify", eng.verify_step)
 
@@ -2688,9 +2787,11 @@ def check_sampled_reduced():
 def check_train_small(cfg=None, label="train reduced yi-6b f32"):
     """A reduced model in f32 (Yi-6B's unless ``cfg``): three train steps
     on the card (kernels) against the same steps on the CPU (plain
-    versions), from the same parameters and batches.  The card's steps are
-    a path of their own: they launch the flash kernels' f32 arms and not
-    their bf16 arms.  Returns their launch counts."""
+    versions), from the same parameters and batches (an encoder-decoder's
+    with ``enc_frames`` from a seed).  The card's steps are a path of
+    their own: they launch the flash kernels' f32 arms and not their bf16
+    arms (a model without attention, neither).  Returns their launch
+    counts."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2703,6 +2804,11 @@ def check_train_small(cfg=None, label="train reduced yi-6b f32"):
     pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=128, global_batch=2,
                          device="cpu")
     batches = [pipe.batch(prng.key(0), i) for i in range(3)]
+    if cfg.is_encdec:
+        gen = torch.Generator().manual_seed(0)
+        for b in batches:
+            b["enc_frames"] = 0.5 * torch.randn(
+                (2, cfg.encoder_seq, cfg.d_model), generator=gen)
     runs = {}
     for dev in ("cpu", "cuda"):
         params = M.tree_map(lambda t: t.to(dev),
@@ -2737,7 +2843,11 @@ def check_train_small(cfg=None, label="train reduced yi-6b f32"):
     if aux_err > 1e-4:
         raise AssertionError(f"{label}: aux {aux_g} on the card vs {aux_c} "
                              "on the CPU")
-    _check_flash_arms(label, counts, "f32")
+    if _has_attention(cfg):
+        _check_flash_arms(label, counts, "f32")
+    else:
+        _check_launched(label, counts, ("rmsnorm", "rmsnorm_bwd"),
+                        ATTENTION_ARMS)
     print(f"check {label} 3 steps cuda vs cpu: losses "
           f"{[round(x, 4) for x in loss_g]} rel_err={loss_err:.2e} (tol "
           f"1e-4) aux {[round(x, 6) for x in aux_g]} rel_err="
@@ -2773,37 +2883,45 @@ TRAIN_COUNTERS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
 TRAIN_ROWS, TRAIN_SEQ = 4, 1024
 
 
-def _train_make():
-    """Phase 8's train step: Yi-6B at full width x 16 layers (bf16
-    compute, remat), f32 parameters and Shared RMSProp accumulator made on
-    the card from seed 0, TokenPipeline batches of TRAIN_ROWS x TRAIN_SEQ
-    tokens from the train CLI's key at seed 0.  Returns (cfg, run,
-    one_step): ``run`` holds the current "params" and "state" and each
-    step's "metrics"; ``one_step()`` takes the next step.  Also what
-    chip_rl_rounds.py times."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
+def _train_loop(cfg, params, rows=TRAIN_ROWS, seq=TRAIN_SEQ, extra=None):
+    """A full-width train step on the card: Shared RMSProp over
+    ``params`` (f32 masters), ``make_train_step`` at lr0 7e-3 over 100
+    steps, TokenPipeline batches of rows x seq tokens from the train CLI's
+    key at seed 0, each with ``extra``'s entries (an encoder-decoder's
+    frames).  Returns (run, one_step): ``run`` holds the current "params"
+    and "state" and each step's "metrics"; ``one_step()`` takes the next
+    step."""
     from repro_torch.core import llm_a3c, prng
     from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.models import model as M
     from repro_torch.optim import optimizers as opt_mod
-    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=16,
-                              dtype="bfloat16", remat=True)
-    params = M.init_params(cfg, 0, "cuda")
     opt = opt_mod.shared_rmsprop()
     run = {"params": params, "state": opt.init(params), "metrics": []}
-    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                         global_batch=TRAIN_ROWS, device="cuda")
+    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=seq,
+                         global_batch=rows, device="cuda")
     data_key = prng.key(2)                    # the train CLI's at seed 0
     step_fn = llm_a3c.make_train_step(cfg, opt, lr0=7e-3, total_steps=100)
 
     def one_step():
         step = len(run["metrics"])
+        batch = dict(pipe.batch(data_key, step), **(extra or {}))
         run["params"], run["state"], met = step_fn(
-            run["params"], run["state"], pipe.batch(data_key, step), step)
+            run["params"], run["state"], batch, step)
         run["metrics"].append(met)
-    return cfg, run, one_step
+    return run, one_step
+
+
+def _train_make():
+    """Phase 8's train step: Yi-6B at full width x 16 layers (bf16
+    compute, remat), f32 parameters and Shared RMSProp accumulator made on
+    the card from seed 0 (``_train_loop``).  Returns (cfg, run, one_step).
+    Also what chip_rl_rounds.py times."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=16,
+                              dtype="bfloat16", remat=True)
+    return (cfg, *_train_loop(cfg, M.init_params(cfg, 0, "cuda")))
 
 
 def run_yi6b_train():
@@ -2823,14 +2941,19 @@ def run_yi6b_train():
                       one_step)
 
 
-def _run_train(label, title, cfg, run, one_step):
+def _run_train(label, title, cfg, run, one_step, *,
+               counters=TRAIN_COUNTERS, flash_per_step=None,
+               tokens=TRAIN_ROWS * TRAIN_SEQ, profile=True):
     """One warm-up, three timed steps (their launches counted) and one
-    profiled step of a full-width train step.  Gates: every loss and the
-    experts' aux finite (aux > 0 where the model has experts), every
-    gradient finite, every leaf changed, the flash kernels through their
-    bf16 arms only (a forward and its remat, one backward a layer and
-    step), the optimizer's apply mode ceil(leaves / 64) times a step and
-    its other entries never.  Returns the three steps' counts."""
+    profiled step (unless ``profile`` is False) of a full-width train step
+    of ``tokens`` tokens.  Gates: every loss and the experts' aux finite
+    (aux > 0 where the model has experts), every gradient finite, every
+    leaf changed, every kernel of ``counters`` launched, the flash kernels
+    through their bf16 arms only, ``flash_per_step`` = (forward, backward)
+    launches a step (by default a forward and its remat, one backward a
+    layer; (0, 0): none at all), the optimizer's apply mode
+    ceil(leaves / 64) times a step and its other entries never.  Returns
+    the three steps' counts."""
     import torch
 
     from repro_torch.kernels import dispatch
@@ -2875,26 +2998,29 @@ def _run_train(label, title, cfg, run, one_step):
     if same:
         raise AssertionError(f"{label}: leaves unchanged by 3 steps: "
                              f"{same}")
-    missing = [k for k in TRAIN_COUNTERS if counts[k] <= 0]
-    if missing:
-        raise AssertionError(f"{label}: kernels never launched: {missing}")
-    # 3 steps: a forward and its remat, one backward a layer
-    _check_flash_arms(label, counts, "bf16",
-                      (3 * 2 * cfg.n_layers, 3 * cfg.n_layers))
+    _check_launched(label, counts, counters, ())
+    fwd, bwd = flash_per_step or (2 * cfg.n_layers, cfg.n_layers)
+    if fwd:
+        _check_flash_arms(label, counts, "bf16", (3 * fwd, 3 * bwd))
+    else:
+        _check_launched(label, counts, (), FLASH_ARMS["bf16"]
+                        + FLASH_ARMS["f32"])
     # the optimizer: ceil(leaves / 64) apply launches a step
     _check_rmsprop_launches(
         label, counts, 3 * _per_update(len(M.flatten(run["params"]))),
-        others=TRAIN_COUNTERS)
-    per_step = {k: counts[k] / 3 for k in TRAIN_COUNTERS}
+        others=tuple(counters) + FLASH_ARMS["bf16"] * bool(fwd))
+    shown = tuple(counters) + FLASH_ARMS["bf16"] * bool(fwd)
+    per_step = {k: counts[k] / 3 for k in dict.fromkeys(shown)}
     wall = statistics.median(walls)
     print(f"{title}: " + json.dumps({
         "losses": loss_vals, "aux": aux_vals, "step_wall_s": walls,
         "step_wall_median_s": wall,
-        "tokens_per_s": TRAIN_ROWS * TRAIN_SEQ / wall,
+        "tokens_per_s": tokens / wall,
         "peak_device_memory_gib": peak,
         "launches_per_step": per_step}))
-    _profile(f"{title} train step", one_step, wall_ms=wall * 1e3,
-             watch=("flash_fwd", "dq_mma", "dkv_mma", "dkv_sum"))
+    if profile:
+        _profile(f"{title} train step", one_step, wall_ms=wall * 1e3,
+                 watch=("flash_fwd", "dq_mma", "dkv_mma", "dkv_sum"))
     return counts
 
 
@@ -3413,11 +3539,13 @@ MOE_TRACE = dict(prompt_range=(3, 20), gen_range=(2, 9), arrival_rate=0.0,
 MOE_ENGINE = dict(n_slots=4, cache_len=32, chunk=8, sample=False, seed=0)
 
 
-def _reduced(arch, cf=None):
+def _reduced(arch, cf=None, **changes):
+    """``get_config(arch).reduced()`` with ``changes``, at capacity factor
+    ``cf`` when given."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
     return cfg if cf is None else dataclasses.replace(cfg,
                                                       capacity_factor=cf)
 
@@ -3841,9 +3969,11 @@ def profile_moe_split(cfg, params, label):
     return moe_ms / 8, attn_ms / 8
 
 
-def build_full(arch, **cut):
-    """A config at full width (depth cut by ``cut``), bf16 weights from
-    seed 0 made on the card."""
+def build_full(arch, dtype="bfloat16", **cut):
+    """A config at full width (depth cut by ``cut``) and its weights from
+    seed 0 made on the card, bf16 (f32 masters with ``dtype="float32"``,
+    which serving casts: ``cast_params`` gives the values of bf16 weights
+    drawn from the same seed)."""
     import dataclasses
 
     import torch
@@ -3852,39 +3982,22 @@ def build_full(arch, **cut):
     from repro_torch.models import model as M
     cfg = dataclasses.replace(get_config(arch), **cut)
     t0 = time.perf_counter()
-    params = M.init_params(cfg, 0, "cuda", torch.bfloat16)
+    params = M.init_params(cfg, 0, "cuda", getattr(torch, dtype))
     torch.cuda.synchronize()
-    print(f"{cfg.name} x{cfg.n_layers} layers: {cfg.param_count()} params "
-          f"built on the card in {time.perf_counter() - t0:.1f} s")
+    print(f"{cfg.name} x{cfg.n_layers} layers: {cfg.param_count()} {dtype} "
+          f"params built on the card in {time.perf_counter() - t0:.1f} s")
     return cfg, params
 
 
 def _granite_train_make():
     """Phase 10c's train step: Granite-MoE at full width and depth (bf16
     compute, remat), f32 parameters and Shared RMSProp accumulator made on
-    the card from seed 0, TokenPipeline batches of TRAIN_ROWS x TRAIN_SEQ
-    from the train CLI's key at seed 0."""
+    the card from seed 0 (``_train_loop``)."""
     from repro_torch.configs import get_config
-    from repro_torch.core import llm_a3c, prng
-    from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.models import model as M
-    from repro_torch.optim import optimizers as opt_mod
     cfg = get_config(GRANITE)
     assert cfg.dtype == "bfloat16" and cfg.remat
-    params = M.init_params(cfg, 0, "cuda")
-    opt = opt_mod.shared_rmsprop()
-    run = {"params": params, "state": opt.init(params), "metrics": []}
-    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                         global_batch=TRAIN_ROWS, device="cuda")
-    data_key = prng.key(2)
-    step_fn = llm_a3c.make_train_step(cfg, opt, lr0=7e-3, total_steps=100)
-
-    def one_step():
-        step = len(run["metrics"])
-        run["params"], run["state"], met = step_fn(
-            run["params"], run["state"], pipe.batch(data_key, step), step)
-        run["metrics"].append(met)
-    return cfg, run, one_step
+    return (cfg, *_train_loop(cfg, M.init_params(cfg, 0, "cuda")))
 
 
 def run_granite_train():
@@ -3994,13 +4107,402 @@ def run_phase10():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: mamba2 with zamba2's shared block, mLSTM/sLSTM, Whisper
+# ---------------------------------------------------------------------------
+
+ZAMBA2, XLSTM, WHISPER = "zamba2-1.2b", "xlstm-1.3b", "whisper-base"
+# every attention arm, serving and training
+ATTENTION_ARMS = SERVING_ARMS + FLASH_ARMS["bf16"] + FLASH_ARMS["f32"]
+# the reduced token-loop engines' trace: 4 requests on 2 slots; at trace
+# seed 7 every greedy choice of the CPU runs wins by >= 1e-3
+TOKEN_LOOP_TRACE = dict(prompt_range=(3, 6), gen_range=(2, 4),
+                        arrival_rate=0.0, seed=7)
+TOKEN_LOOP_ENGINE = dict(n_slots=2, cache_len=16, chunk=8, sample=False,
+                         seed=0)
+
+
+def _has_attention(cfg):
+    return (cfg.is_encdec or cfg.shared_attn_every
+            or any(k in ("attn", "attn_local") for k in cfg.layer_kinds()))
+
+
+def _check_exact(label, counts, want):
+    """The counters of ``want`` launched exactly as many times."""
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+
+
+def _frames(cfg, b, gen, dtype, device):
+    """Stub encoder frames (B, encoder_seq, d_model) from a generator."""
+    import torch
+    x = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                    device=gen.device)
+    return (0.5 * x).to(device=device, dtype=dtype)
+
+
+def check_recurrent_model_small(cfg, label):
+    """Phase 11a's model check: a reduced model in f32, the card's forward
+    logits and values and 16 decode steps' logits (per-slot positions; an
+    encoder-decoder after ``prefill_cross``) against the CPU's (rtol = atol
+    = 1e-4).  The card's run launches kernel 1 (but for Whisper, whose
+    norms are LayerNorms), the flash forward's f32 arm where the model has
+    attention (zamba2's shared block, Whisper's encoder and decoder) and
+    kernel 6's float arm where it decodes against a KV cache, and no other
+    attention arm.  Returns its counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import encdec
+    from repro_torch.models import model as M
+    params = M.init_params(cfg, 0, "cpu")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)))
+    frames = _frames(cfg, 2, torch.Generator().manual_seed(0),
+                     torch.float32, "cpu") if cfg.is_encdec else None
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = M.tree_map(lambda t: t.to(dev), params)
+        batch = {"tokens": toks.to(dev)}
+        if frames is not None:
+            batch["enc_frames"] = frames.to(dev)
+        dispatch.reset_launch_counts()
+        with torch.no_grad():
+            out = M.forward(cfg, p, batch)
+            seq = [out["logits"], out["value"]]
+            cache = M.init_cache(cfg, 2, 48, dtype=torch.float32, device=dev)
+            if frames is not None:
+                encdec.prefill_cross(cfg, p, cache, batch["enc_frames"])
+            for i in range(16):
+                pos = torch.tensor([i, i], device=dev)
+                out, cache = M.decode_step(
+                    cfg, p, cache, {"tokens": batch["tokens"][:, i:i + 1]},
+                    pos)
+                seq.append(out["logits"])
+        counts = dispatch.launch_counts()
+        outs[dev] = [t.float().cpu() for t in seq]
+    err = 0.0
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: non-finite logits on the card")
+        err = max(err, float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"{label}: card vs CPU logits differ by "
+                                 f"{err}")
+    want = () if cfg.is_encdec else ("rmsnorm",)
+    if _has_attention(cfg):
+        want += ("flash_attention_f32", "decode_attention")
+    _check_launched(label, counts, want, ATTENTION_ARMS)
+    print(f"check {label} forward + 16 decode steps cuda vs cpu: "
+          f"max_abs_err={err:.3e} tol=1e-4, launches "
+          f"{ {k: counts[k] for k in want} } ok")
+    return counts
+
+
+def check_recurrent_engine_reduced(cfg, label):
+    """Phase 11a's engines: a reduced recurrent model in f32, greedy, 4
+    requests on 2 slots admitted through the token loop, on the CPU and on
+    the card: the card's tokens are the CPU's, qualified by the CPU run's
+    top-2 margin (>= 1e-3).  Returns the card run's counts."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    params = M.init_params(cfg, 0, "cpu")
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        trace = serve.gen_trace(4, vocab=cfg.vocab_size, **TOKEN_LOOP_TRACE)
+        p = M.tree_map(lambda t: t.to(dev), params)
+        eng = serve.ServeEngine(cfg, p, device=dev, **TOKEN_LOOP_ENGINE)
+        serve._prepare(eng, trace)
+        dispatch.reset_launch_counts()
+        done = []
+        eng.start_clock()
+        serve._drain(eng, sorted(trace, key=lambda r: r.arrival), 0, done)
+        counts = dispatch.launch_counts()
+        if len(done) != len(trace) or not eng.logits_finite or eng.paged \
+                or eng.prefill_step is not None:
+            raise AssertionError(f"{label} {dev}: requests unfinished, "
+                                 "logits non-finite, or not the token loop")
+        tokens[dev] = {r.rid: list(r.tokens) for r in trace}
+        if dev == "cpu":
+            margin = serve.min_accept_margin(
+                cfg, params, trace, TOKEN_LOOP_ENGINE["cache_len"],
+                device="cpu")
+    if margin < 1e-3:
+        raise AssertionError(f"{label}: a near tie along the tokens (margin "
+                             f"{margin}); identity is undecided")
+    if tokens["cuda"] != tokens["cpu"]:
+        raise AssertionError(f"{label}: card tokens {tokens['cuda']} != CPU "
+                             f"tokens {tokens['cpu']}")
+    want = ("rmsnorm",) + (("decode_attention",) if _has_attention(cfg)
+                           else ())
+    _check_launched(label, counts, want, ATTENTION_ARMS)
+    print(f"check {label} cuda vs cpu: "
+          f"{sum(len(t) for t in tokens['cuda'].values())} greedy tokens "
+          f"identical through the token loop, margin {margin:.4g} (>= 1e-3)"
+          f", launches { {k: counts[k] for k in want} } ok")
+    return counts
+
+
+def check_recurrent_reduced():
+    """Phase 11a: reduced zamba2, xlstm, xlstm with the ("mlstm",
+    "slstm") cycle and Whisper in f32, card against CPU: forward and
+    decode, three train steps, and the token-loop engine (not Whisper, which
+    the engine does not serve).  Returns {path: counts}."""
+    counts = {}
+    for tag, cfg, cyc in (("zamba2", _reduced(ZAMBA2), ""),
+                          ("xlstm", _reduced(XLSTM), ""),
+                          ("xlstm_mixed", _reduced(
+                              XLSTM, block_cycle=("mlstm", "slstm")),
+                           " (mlstm, slstm) cycle"),
+                          ("whisper", _reduced(WHISPER), "")):
+        label = f"reduced {cfg.name}{cyc} f32"
+        counts[f"rec_model_{tag}"] = check_recurrent_model_small(
+            cfg, f"model {label}")
+        counts[f"rec_train_{tag}"] = check_train_small(cfg, f"train {label}")
+        if not cfg.is_encdec:
+            counts[f"rec_engine_{tag}"] = check_recurrent_engine_reduced(
+                cfg, f"engine {label}")
+    return counts
+
+
+def _recurrent_trace(cfg):
+    """Phase 5's 8 requests and generations (16-48 tokens) with prompts cut
+    from 64-600 to 16-64 tokens: the token loop runs a decode step a prompt
+    token."""
+    from repro_torch.launch import serve
+    return serve.gen_trace(8, vocab=cfg.vocab_size, prompt_range=(16, 64),
+                           gen_range=(16, 48), arrival_rate=0.0, seed=0)
+
+
+def run_recurrent_engine(name, cfg, masters):
+    """Phases 11b and 11c's serving: ``_recurrent_trace`` through the
+    engine at full width (4 slots, cache 1024, bf16 weights and KV), every
+    request admitted through the token loop.  Gates: every request
+    completes, logits finite, contiguous, kernel 1 launched, kernel 6's
+    float arm where the model has attention (zamba2's shared block) and no
+    other attention arm.  Then one decode step's launches and the profile
+    of 8 decode steps (``_profile_decode_step``).  Returns the run's
+    counts."""
+    import torch
+
+    from repro_torch.models import model as M
+    params = M.cast_params(cfg, masters)
+    label = f"engine {name} bf16 token loop"
+    rep, counts, eng, _ = _serve(label, cfg, params, _recurrent_trace(cfg),
+                                 "bf16")
+    if rep["paged"] or rep["chunked_prefill"] or \
+            rep["decode_layout"] != "replicated" or rep["kv_dtype"] != "bf16":
+        raise AssertionError(f"{label}: paged {rep['paged']}, chunked "
+                             f"{rep['chunked_prefill']}, layout "
+                             f"{rep['decode_layout']}, kv {rep['kv_dtype']}")
+    want = ("rmsnorm",) + (("decode_attention",) if _has_attention(cfg)
+                           else ())
+    _check_launched(label, counts, want, ATTENTION_ARMS)
+    _print_run(label, rep, counts)
+    print(f"{label}: prompts 16-64 tokens (phase 5's 64-600 cut: the token "
+          f"loop runs one decode step a prompt token)")
+    del eng
+    torch.cuda.empty_cache()
+    _profile_decode_step(name, cfg, params)
+    return counts
+
+
+def _profile_decode_step(name, cfg, params):
+    """One decode step of 4 slots (2-token prompts admitted through the
+    token loop): kernel 1's launches, two a recurrent block (its ln1 and
+    its gated norm), two a shared-block application (ln1, ln2) and the
+    final norm, and kernel 6's, one a shared application; then the
+    profile of 8 decode steps (``_profile``)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    eng = serve.ServeEngine(cfg, params, n_slots=4, cache_len=1024,
+                            sample=False, device="cuda", kv_dtype="bf16")
+    for r in serve.gen_trace(4, vocab=cfg.vocab_size, prompt_range=(2, 2),
+                             gen_range=(64, 64), arrival_rate=0.0, seed=1):
+        eng.enqueue(r)
+    eng.admit(eng.schedule_admissions(0.0), 0.0)
+    dispatch.reset_launch_counts()
+    eng.decode_step_all()
+    got = dispatch.launch_counts()
+    apps = cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every \
+        else 0
+    want = {"rmsnorm": 2 * cfg.n_layers + 2 * apps + 1,
+            "decode_attention": apps}
+    _check_exact(f"engine {name} one decode step", got, want)
+    print(f"check engine {name} one decode step: rmsnorm {want['rmsnorm']} "
+          f"launches (2 x {cfg.n_layers} blocks + 2 x {apps} shared + 1), "
+          f"decode_attention {apps} ok")
+
+    def decode():
+        for _ in range(8):
+            eng.decode_step_all()
+    _profile(f"{name} bf16 8 decode steps x 4 slots", decode,
+             watch=("decode_split", "rmsnorm"), steps=8)
+
+
+def run_recurrent_train(name, cfg, params, profile=True):
+    """Phases 11b and 11c's training: f32 masters, bf16 compute, remat,
+    Shared RMSProp, TokenPipeline batches of 4 x 1024 from the train CLI's
+    key; one warm-up, three timed steps (and one profiled); phase 8's
+    gates with the model's attention count: zamba2's shared block 2 x 6
+    forward (a forward and its remat) and 6 backward launches a step,
+    xlstm none."""
+    run, one_step = _train_loop(cfg, params)
+    apps = cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every \
+        else 0
+    counters = ("rmsnorm", "rmsnorm_bwd", "rmsprop_apply_multi")
+    return _run_train(f"train {name} 3 steps",
+                      f"train {name} full width x {cfg.n_layers} layers",
+                      cfg, run, one_step, counters=counters,
+                      flash_per_step=(2 * apps, apps), profile=profile)
+
+
+def run_whisper():
+    """Phase 11d: Whisper-base at full size (f32 masters from seed 0,
+    bf16 compute), stub frames (4, 1500, 512) from a seed.
+    ``prefill_cross`` (the encoder: kernel 3's bidirectional arm at
+    S = 1500, once a layer) and 32 greedy decode steps on 4 rows against a
+    448-row cache (kernel 6, once a layer and step); one teacher-forced
+    forward at S = 448 (kernel 3 12 times: 6 bidirectional in the encoder,
+    6 causal in the decoder); three train steps at B 4, S 448 with the
+    frames (kernels 3 and 5, no remat: 12 forward and 12 backward launches
+    a step; kernel 8).  Returns {path: counts}."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import encdec
+    from repro_torch.models import model as M
+    cfg, masters = build_full(WHISPER, "float32")
+    params = M.cast_params(cfg, masters)
+    b, s_dec = 4, 448
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    frames = _frames(cfg, b, gen, torch.bfloat16, "cuda")
+    counts = {}
+    causal_flags = []
+    flash = dispatch.flash_attention
+
+    def watched(*a, **k):
+        causal_flags.append(k.get("causal", True))
+        return flash(*a, **k)
+    label = "whisper-base prefill_cross + 32 decode steps"
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    dispatch.flash_attention = watched
+    try:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            cache = M.init_cache(cfg, b, s_dec, dtype=torch.bfloat16,
+                                 device="cuda")
+            encdec.prefill_cross(cfg, params, cache, frames)
+            torch.cuda.synchronize()
+            t_enc = time.perf_counter() - t0
+            tok = torch.zeros((b, 1), dtype=torch.long, device="cuda")
+            finite = torch.ones((), dtype=torch.bool, device="cuda")
+            for i in range(32):
+                out, cache = M.decode_step(cfg, params, cache,
+                                           {"tokens": tok},
+                                           torch.full((b,), i, device="cuda"))
+                finite &= torch.isfinite(out["logits"]).all()
+                tok = out["logits"][:, -1:].argmax(-1)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = dispatch.launch_counts()
+        enc_flags = list(causal_flags)
+        causal_flags.clear()
+        with torch.no_grad():
+            batch = {"tokens": torch.zeros((b, s_dec), dtype=torch.long,
+                                           device="cuda"),
+                     "enc_frames": frames}
+            out = M.forward(cfg, params, batch)
+            torch.cuda.synchronize()
+        fwd_flags = list(causal_flags)
+    finally:
+        dispatch.flash_attention = flash
+    n = cfg.n_layers
+    if not bool(finite) or not bool(torch.isfinite(out["logits"]).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    if enc_flags != [False] * cfg.encoder_layers:
+        raise AssertionError(f"{label}: flash calls {enc_flags}, want "
+                             f"{cfg.encoder_layers} bidirectional")
+    _check_exact(label, c, {"flash_attention": cfg.encoder_layers,
+                            "decode_attention": 32 * n})
+    if fwd_flags != [False] * cfg.encoder_layers + [True] * n:
+        raise AssertionError(f"whisper-base forward: flash calls "
+                             f"{fwd_flags}, want {cfg.encoder_layers} "
+                             f"bidirectional then {n} causal")
+    _check_launched(label, c, ("flash_attention", "decode_attention"),
+                    ATTENTION_ARMS)
+    print(f"{label}: " + json.dumps({
+        "prefill_cross_s": t_enc, "decode_steps": 32, "wall_s": wall,
+        "decode_tokens_per_s": 32 * b / (wall - t_enc),
+        "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "flash_attention": c["flash_attention"],
+        "decode_attention": c["decode_attention"]}))
+    print(f"check whisper-base forward ({b} x {s_dec} tokens, "
+          f"{cfg.encoder_seq} frames): flash forward {len(fwd_flags)} calls, "
+          f"{cfg.encoder_layers} bidirectional (encoder) then {n} causal "
+          f"(decoder), logits finite ok")
+    counts["whisper_decode"] = c
+    del cache, out, params
+    gc.collect()
+    run, one_step = _train_loop(cfg, masters, b, s_dec,
+                                {"enc_frames": frames})
+    apps = cfg.encoder_layers + n
+    counts["train_whisper_3_steps"] = _run_train(
+        "train whisper-base 3 steps", "train whisper-base full size",
+        cfg, run, one_step,
+        counters=("flash_attention", "flash_attention_bwd",
+                  "rmsprop_apply_multi"),
+        flash_per_step=(apps, apps), tokens=b * s_dec)
+    return counts
+
+
+def run_phase11():
+    """Phase 11 (11a-11d); returns {path: counts}."""
+    import gc
+
+    import torch
+    t0 = time.perf_counter()
+    counts = check_recurrent_reduced()
+    print(f"phase rec_reduced_s {time.perf_counter() - t0:.1f}")
+    for name, arch, profile in (("zamba2-1.2b", ZAMBA2, True),
+                                ("xlstm-1.3b", XLSTM, False)):
+        t0 = time.perf_counter()
+        cfg, masters = build_full(arch, "float32")
+        counts[f"engine_{name}"] = run_recurrent_engine(name, cfg, masters)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase {name}_serve_s {time.perf_counter() - t0:.1f}")
+        t0 = time.perf_counter()
+        counts[f"train_{name}_3_steps"] = run_recurrent_train(
+            name, cfg, masters, profile=profile)
+        del masters
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase {name}_train_s {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    counts.update(run_whisper())
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase whisper_s {time.perf_counter() - t0:.1f}")
+    return counts
+
+
 def _shapes(record):
     """A kernel record and its timings at other shapes."""
     return [record] + [record[k] for k in (
         "train_shape", "decode_shape", "f32_shape", "train_table_shape",
         "llm_leaf_shape", "llm_leaf_apply_shape", "rl_fc_shape",
         "rl_small_shape", "verify_shape", "verify_k6_shape",
-        "granite_shape", "scout_shape", "granite_train_shape")
+        "granite_shape", "scout_shape", "granite_train_shape",
+        "width_2048_shape", "zamba2_shape", "whisper_shape",
+        "whisper_encoder_shape", "whisper_decoder_shape",
+        "zamba2_train_shape")
         if k in record]
 
 
@@ -4156,6 +4658,9 @@ def main():
     t_phase = time.perf_counter()
     path_counts.update(run_phase10())
     print(f"phase moe_mrope_s {time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
+    path_counts.update(run_phase11())
+    print(f"phase recurrent_encdec_s {time.perf_counter() - t_phase:.1f}")
 
     by_op = {"rmsnorm_fwd": "rmsnorm",
              "flash_attention_append": "flash_append",

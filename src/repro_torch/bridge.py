@@ -12,7 +12,11 @@ tree stacks the layers for ``lax.scan`` when the block cycle tiles the
 depth: ``params["layers"]`` is then a tuple with one entry per position in
 the cycle, each leaf carrying a leading ``n_cycles`` dimension
 (repro/models/model.py:257-261).  Layer i is entry ``i % cycle`` at index
-``i // cycle``.  Other stacks are a plain list of layers.
+``i // cycle``, for every leaf of every block kind in the cycle (xlstm's
+seven mLSTM blocks and one sLSTM block each have their own dict).  Other
+stacks (zamba2's, whose shared block forbids the scan) are a plain list of
+layers; an encoder-decoder keeps its ``enc_layers`` and ``dec_layers``
+lists.
 """
 from __future__ import annotations
 
@@ -64,7 +68,11 @@ def opt_state_from_jax(cfg: ModelConfig, state: Any, device=None) -> dict:
 
 
 def _unstack(cfg: ModelConfig, tree: Any) -> Any:
-    """The tree with its layers as a plain list, one entry per layer."""
+    """The tree with its layers as a plain list, one entry per layer (an
+    encoder-decoder's ``enc_layers`` and ``dec_layers`` are lists
+    already; zamba2's ``shared_attn`` is one block beside its list)."""
+    if cfg.is_encdec:
+        return dict(tree)
     layers = tree["layers"]
     if _use_scan(cfg):
         cyc = len(cfg.block_cycle)

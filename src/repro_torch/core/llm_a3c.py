@@ -31,8 +31,9 @@ from repro_torch.optim import schedules
 def a3c_token_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
                    *, gamma: float = 0.99, beta: float = 0.01,
                    value_coef: float = 0.5):
-    """batch: tokens (B, S) [or embeds], rewards (B, S), discounts (B, S) =
-    gamma * (1 - done).  Position t's reward is for the transition
+    """batch: tokens (B, S) [or embeds; an encoder-decoder's also carries
+    enc_frames (B, F, d_model), which ``forward`` encodes], rewards
+    (B, S), discounts (B, S) = gamma * (1 - done).  Position t's reward is for the transition
     prefix[:t] --tokens[t+1]--> prefix[:t+1].  Returns (loss, metrics), the
     metrics as 0-d tensors (no host sync).  ``gamma`` is carried by the
     discounts; it is in the signature for parity with the JAX package."""
@@ -219,7 +220,8 @@ def make_prefill_step(cfg: ModelConfig):
     """Chunked prefill for the serve engine:
     ``prefill_step(params, cache, batch, pos0=0, true_len=None) ->
     (logits (B, C, V) f32, cache)``.  None when the architecture's caches
-    cannot be block-written."""
+    cannot be block-written (recurrent states, zamba2's shared block, the
+    encoder-decoder): the engine then admits through its token loop."""
     if not M.supports_chunked_prefill(cfg):
         return None
 

@@ -6,7 +6,9 @@ concurrent sequences fed by a queue of requests.
   * **admission** — freed slots take the oldest arrived requests; their
     prompts run together through chunked flash prefill (``n_slots`` rows,
     right-padded to one chunk grid, one append-attention call per layer
-    per chunk);
+    per chunk); a model whose caches cannot be block-written (recurrent
+    states, zamba2's shared block) admits each request through the token
+    loop instead, one decode step a prompt token on a single-row cache;
   * **decode** — every slot steps together through one ``serve_step`` with
     per-slot positions ``pos (B,)``; the decode-attention kernel masks each
     row at its own depth.
@@ -824,7 +826,7 @@ class ServeEngine:
                  retry_backoff: float = 0.05, spec: str = "off",
                  spec_k: int = 4, draft_arch: Optional[str] = None,
                  draft_ngram: int = 3, device=None,
-                 decode_cp: bool = False):
+                 decode_cp: bool = False, chunked_prefill: bool = True):
         if admission not in ("reserve", "optimistic"):
             raise ValueError(f"admission policy {admission!r} (want "
                              "'reserve' or 'optimistic')")
@@ -837,11 +839,6 @@ class ServeEngine:
                              "cache needs a partials arm of the append "
                              "kernel, which the JAX package lacks too (see "
                              "ROADMAP.md, queue 3)")
-        if not M.supports_chunked_prefill(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: recurrent caches have no chunked prefill; "
-                "their token-loop admission is not ported yet (see "
-                "ROADMAP.md, queue 1, slice 5)")
         self.device = resolve(device)
         self.cfg = cfg
         # cast once: the JAX steps cast inside every call, which in eager
@@ -861,7 +858,16 @@ class ServeEngine:
         # stream ids and positions are and their hashes are cheap
         self.base_key = prng.key(seed)
         self.serve_step = llm_a3c.make_serve_step(cfg, sample=sample)
-        self.prefill_step = llm_a3c.make_prefill_step(cfg)
+        # None for recurrent, shared-attention and encoder-decoder caches,
+        # or when the caller asks for it: those admit through the token
+        # loop (_prefill_loop)
+        self.prefill_step = llm_a3c.make_prefill_step(cfg) \
+            if chunked_prefill else None
+        if spec != "off" and self.prefill_step is None:
+            raise ValueError(
+                f"--spec {spec}: {cfg.name} has no chunked-append path — "
+                "recurrent caches can't score a k-token chunk in one "
+                "call, so speculation has nothing to verify against")
         # speculative decoding: a draft source, the fused verify + accept +
         # commit step, per-slot adaptive k
         self.spec = spec
@@ -878,15 +884,25 @@ class ServeEngine:
                                                         sample=sample)
         self.k_of = np.full(n_slots, self.spec_k, np.int32)
         self.accept_ema = np.full(n_slots, 1.0)
+        kinds = cfg.layer_kinds()
         self.kv_dtype = kv_quant.resolve_kv_dtype(kv_dtype)
+        if kv_quant.is_quantized(self.kv_dtype) and \
+                not any(k in M.ATTN_KINDS for k in kinds):
+            # the JAX engine's fallback and warning: int8 applies to
+            # attention rows only (zamba2's shared block is not a layer
+            # kind, so it falls back too)
+            logging.warning(
+                "--kv-dtype int8 requested but arch %s has no attention "
+                "layers (kinds=%s); recurrent state does not quantize — "
+                "falling back to f32 cache storage", cfg.name, kinds)
+            self.kv_dtype = torch.float32
         self.kv_dtype_name = kv_quant.dtype_name(self.kv_dtype)
         # the JAX engine's default layout (its serve.py:939-943): paged
-        # wherever there are global-attention layers and whole pages;
-        # context-parallel decode splits contiguous caches only
-        kinds = cfg.layer_kinds()
+        # wherever there is a chunked prefill, global-attention layers and
+        # whole pages; context-parallel decode splits contiguous caches only
         if paged is None:
-            paged = ("attn" in kinds and cache_len % page_size == 0
-                     and not decode_cp)
+            paged = (self.prefill_step is not None and "attn" in kinds
+                     and cache_len % page_size == 0 and not decode_cp)
         elif paged and decode_cp:
             raise ValueError("decode_cp splits each slot's cache along the "
                              "sequence and a page pool has no sequence "
@@ -894,6 +910,9 @@ class ServeEngine:
         elif paged and "attn" not in kinds:
             raise ValueError(f"{cfg.name} has no global-attention layer to "
                              "page")
+        elif paged and self.prefill_step is None:
+            raise ValueError("the token-loop admission writes contiguous "
+                             "caches: serve it with paged=False")
         self.paged = bool(paged)
         self.page_size = page_size
         self.max_pages = cache_len // page_size if self.paged else 0
@@ -929,7 +948,9 @@ class ServeEngine:
                 device=self.device,
                 paged=attn.PagedLayout(page_size, self.n_pages)
                 if self.paged else None)
-        self._group_cache = self._new_group_cache()
+        # the token loop admits into a cache of its own
+        self._group_cache = self._new_group_cache() \
+            if self.prefill_step is not None else None
         self._staging: dict = {}
         self.pos = np.zeros(n_slots, np.int32)
         self.tok = np.zeros(n_slots, np.int32)
@@ -1176,24 +1197,24 @@ class ServeEngine:
     # -- admission ----------------------------------------------------------
 
     def _write_rows(self, group_cache: dict, row_to_slot) -> None:
-        """Copy rows of the admission-prefill cache into their slots (the
-        JAX engine's jitted masked take): the batch dimension of every
-        contiguous KV leaf is 0, and the rows are written in place with
-        ``index_copy_``.  Paged layers are skipped: the group's writes
+        """Copy rows of an admission cache (the group's, or the token
+        loop's single row) into their slots (the JAX engine's jitted
+        masked take): the batch dimension of every contiguous KV leaf and
+        every recurrent state leaf is 0, and the rows are written in place
+        with ``index_copy_``.  Paged layers are skipped: the group's writes
         landed in the engine's pools.  A context-parallel slot cache takes
-        this rank's columns of the whole group cache."""
+        this rank's columns of the whole admission cache."""
         src = torch.tensor([i for i, _ in row_to_slot], device=self.device)
         dst = torch.tensor([j for _, j in row_to_slot], device=self.device)
         with ctx.sharding_rules(self.rules):
-            for big, small in zip(self.cache["layers"],
-                                  group_cache["layers"]):
-                if "kp" in big:
-                    continue
+            for big, small in zip(M.slot_layers(self.cache),
+                                  M.slot_layers(group_cache)):
                 cp = attn.cp_layout(big)
-                cols = slice(None) if cp is None else \
-                    slice(cp.start, cp.start + cp.l_loc)
-                for name in attn.kv_leaves(big):
-                    rows = small[name].index_select(0, src)[:, cols]
+                cp_leaves = attn.kv_leaves(big) if cp is not None else ()
+                for name in M.state_leaves(big):
+                    rows = small[name].index_select(0, src)
+                    if name in cp_leaves:
+                        rows = rows[:, cp.start:cp.start + cp.l_loc]
                     big[name].index_copy_(0, dst, rows)
 
     def _map_prompt_pages(self, req: Request, j: int) -> Optional[int]:
@@ -1268,10 +1289,9 @@ class ServeEngine:
         self._group_cache = cache
         self.prefill_finite &= bool(np.isfinite(last[:len(pairs)]).all())
         # the first token at logical position plen draws from the
-        # (rid, plen) stream, like every later decode sample.  (The JAX
-        # engine's token-loop admission of recurrent caches keys its prompt
-        # by fold_in(base_key, 2**31 + rid); that path comes with the other
-        # block kinds, ROADMAP.md queue 1, slice 5.)
+        # (rid, plen) stream, like every later decode sample (the token
+        # loop, _prefill_loop, keys its prompt otherwise, as the JAX
+        # engine's)
         rids = np.zeros(self.n_slots, np.int64)
         for i, (r, _) in enumerate(pairs):
             rids[i] = r.rid
@@ -1280,6 +1300,27 @@ class ServeEngine:
             sids=torch.from_numpy(rids),
             pos=torch.as_tensor(plens, dtype=torch.int64))
         return first.numpy(), cache
+
+    def _prefill_loop(self, req: Request, key: torch.Tensor):
+        """Admission of a cache that cannot be block-written (recurrent
+        states, zamba2's shared block): one decode step a prompt token on
+        a single-row cache of the engine's dtypes, whole on every rank,
+        the JAX engine's ``_prefill_loop``.  Token i draws as a lockstep
+        step at position i under ``fold_in(key, i)`` (row 0's fold of it),
+        ``key`` being fold_in(base_key, 2**31 + rid): not the (rid, pos)
+        stream of the chunked admission.  Returns (the first token, the
+        cache)."""
+        cache = M.init_cache(self.cfg, 1, self.cache_len,
+                             dtype=self.kv_dtype, device=self.device)
+        prompt = _eff_prompt(req)
+        finite = torch.ones((), dtype=torch.bool, device=self.device)
+        toks = torch.as_tensor(prompt, device=self.device)
+        for i in range(len(prompt)):
+            tok, _, cache = self.serve_step(
+                self.params, cache, {"tokens": toks[None, i:i + 1]},
+                torch.tensor(i), prng.fold_in(key, i), finite=finite)
+        self.prefill_finite &= bool(finite.item())
+        return int(tok[0]), cache
 
     def admit(self, pairs: List[tuple], now: float) -> List[Request]:
         """Admit (request, free slot) pairs with one batched prefill.
@@ -1313,8 +1354,17 @@ class ServeEngine:
             pairs = kept
             if not pairs:
                 return []
-        first, cache = self._prefill_group(pairs, shared)
-        self._write_rows(cache, [(i, j) for i, (_, j) in enumerate(pairs)])
+        if self.prefill_step is not None:
+            first, cache = self._prefill_group(pairs, shared)
+            self._write_rows(cache, [(i, j) for i, (_, j)
+                                     in enumerate(pairs)])
+        else:
+            first = []
+            for req, j in pairs:
+                f, cache = self._prefill_loop(
+                    req, prng.fold_in(self.base_key, 2 ** 31 + req.rid))
+                self._write_rows(cache, [(0, j)])
+                first.append(f)
         finished = []
         for i, (req, j) in enumerate(pairs):
             plen_eff = len(req.prompt) + len(req.tokens)
@@ -1707,15 +1757,16 @@ def _warmup(eng: ServeEngine, trace: List[Request]) -> float:
         pmax = min(eng.cache_len,
                    max((len(r.prompt) + r.max_new - 1 for r in trace),
                        default=1))
-    toks, plens, grid = _pad_group([np.zeros(pmax, np.int32)], eng.n_slots,
-                                   eng.chunk, eng.cache_len)
-    warm_cache = M.init_cache(
-        eng.cfg, eng.n_slots, eng.cache_len, dtype=eng.kv_dtype,
-        device=eng.device,
-        paged=attn.PagedLayout(eng.page_size, 1) if eng.paged else None)
-    _chunked_prefill(eng.prefill_step, eng.params, warm_cache, toks, plens,
-                     grid, eng.device)
-    del warm_cache
+    if eng.prefill_step is not None:
+        toks, plens, grid = _pad_group([np.zeros(pmax, np.int32)],
+                                       eng.n_slots, eng.chunk, eng.cache_len)
+        warm_cache = M.init_cache(
+            eng.cfg, eng.n_slots, eng.cache_len, dtype=eng.kv_dtype,
+            device=eng.device,
+            paged=attn.PagedLayout(eng.page_size, 1) if eng.paged else None)
+        _chunked_prefill(eng.prefill_step, eng.params, warm_cache, toks,
+                         plens, grid, eng.device)
+        del warm_cache
     if eng.spec == "draft":
         # the draft's admissions: single-row prefills over the same grid
         eng.draft_src.warm_prefill(pmax)
@@ -1833,7 +1884,7 @@ def _report(mode: str, eng: ServeEngine, done: List[Request], wall: float,
         "ttft_s": _percentiles(ttft),
         "occupancy": round(float(np.mean(eng.occupancy)), 3)
         if eng.occupancy else 0.0,
-        "chunked_prefill": True,
+        "chunked_prefill": eng.prefill_step is not None,
         "robustness": robustness,
         "speculative": speculative,
         "logits_finite": eng.logits_finite,
@@ -1896,11 +1947,15 @@ def run_engine(cfg, params, trace: List[Request], **kw) -> dict:
     return serve_trace(ServeEngine(cfg, params, **kw), trace)
 
 
-def run_lockstep(cfg, params, trace: List[Request], **kw) -> dict:
+def run_lockstep(cfg, params, trace: List[Request], *,
+                 chunked_prefill: bool = True, **kw) -> dict:
     """Wave-batched baseline: admit ``n_slots`` requests at once (after the
     whole wave has arrived) and decode until the wave's slowest request
-    finishes, on the same engine machinery as ``run_engine``."""
-    eng = ServeEngine(cfg, params, **kw)
+    finishes, on the same engine machinery as ``run_engine``.
+    ``chunked_prefill=False`` admits through the token loop, as the JAX
+    runner's, on the contiguous layout (the loop writes contiguous
+    caches)."""
+    eng = ServeEngine(cfg, params, chunked_prefill=chunked_prefill, **kw)
     warmup_s = _prepare(eng, trace)
     pending = sorted(trace, key=lambda r: r.arrival)
     n = eng.n_slots

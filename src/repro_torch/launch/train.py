@@ -6,7 +6,11 @@
     ``--seed`` the same environments, actions and initial weights as the
     JAX CLI.
   * ``--mode llm`` — A3C token-level training of a (reduced or full)
-    backbone on the synthetic TokenMDP pipeline, on one device.
+    backbone on the synthetic TokenMDP pipeline, on one device: any of
+    the ten configs but whisper-base, whose batches need ``enc_frames``
+    the pipeline does not make (the first step fails with a KeyError
+    naming them, as the JAX CLI's does).  zamba2 and xlstm need ``--seq``
+    a multiple of their chunk (16 reduced, 256 full).
 
 ``--device`` defaults to the card (``cuda``); ``--device cpu`` runs the
 kernels' plain versions on the CPU.

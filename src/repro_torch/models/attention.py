@@ -10,7 +10,12 @@ on the contiguous cache layout, the serving path:
     attended through the append kernel;
   * ``attend_verify``  — a speculative draft chunk a slot, scored through
     the append kernel without writing anything; ``commit_kv`` then writes
-    the accepted rows.
+    the accepted rows;
+  * ``cross_attend``   — the Whisper decoder's attention over the encoder
+    memory's K/V (``memory_kv``), plain products as in the reference.
+
+``attend_train`` and ``attend_decode`` take ``use_rope=False`` for
+Whisper's self attention, which has no rotary embedding.
 
 Caches are updated in place (the JAX functions return new caches; here the
 same dict comes back with its tensors written), which keeps one copy of
@@ -276,25 +281,31 @@ def _rope(cfg, positions: torch.Tensor):
     return cm.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
 
 
-def _qkv(params: dict, x: torch.Tensor, cfg, cos: torch.Tensor,
-         sin: torch.Tensor):
-    """q, k, v, the rotary tables (cos, sin) applied to q and k."""
+def _qkv(params: dict, x: torch.Tensor, cfg, cos: Optional[torch.Tensor],
+         sin: Optional[torch.Tensor]):
+    """q, k, v, the rotary tables (cos, sin) applied to q and k (none
+    where ``cos`` is None: Whisper's attention has no rotary)."""
     n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = _split_heads(cm.linear(params["wq"], x), n_h, hd)
     k = _split_heads(cm.linear(params["wk"], x), n_kv, hd)
     v = _split_heads(cm.linear(params["wv"], x), n_kv, hd)
-    q = cm.apply_rope(q, cos, sin, rotary_dim=cfg.rotary_dim)
-    k = cm.apply_rope(k, cos, sin, rotary_dim=cfg.rotary_dim)
+    if cos is not None:
+        q = cm.apply_rope(q, cos, sin, rotary_dim=cfg.rotary_dim)
+        k = cm.apply_rope(k, cos, sin, rotary_dim=cfg.rotary_dim)
     return q, k, v
 
 
-def attend_train(params: dict, x: torch.Tensor, cos: torch.Tensor,
-                 sin: torch.Tensor, cfg, *, window: Optional[int] = None,
+def attend_train(params: dict, x: torch.Tensor, cos: Optional[torch.Tensor],
+                 sin: Optional[torch.Tensor], cfg, *,
+                 window: Optional[int] = None, use_rope: bool = True,
                  bidirectional: bool = False) -> torch.Tensor:
     """Full-sequence self attention.  x (B, S, d_model); cos, sin the
     caller's rotary tables ((1 or B, S, D/2): plain RoPE at 0 .. S-1 or
-    M-RoPE, ``model._rope_tables``) -> (B, S, d_model)."""
+    M-RoPE, ``model._rope_tables``), unused with ``use_rope=False`` ->
+    (B, S, d_model)."""
     b, s, _ = x.shape
+    if not use_rope:
+        cos = sin = None
     q, k, v = _qkv(params, x, cfg, cos, sin)
     o = dispatch.flash_attention(q, k, v, causal=not bidirectional,
                                  window=window)
@@ -303,6 +314,7 @@ def attend_train(params: dict, x: torch.Tensor, cos: torch.Tensor,
 
 def attend_decode(params: dict, x: torch.Tensor, cache: dict,
                   pos: torch.Tensor, cfg, *, window: Optional[int] = None,
+                  use_rope: bool = True,
                   paged: Optional[PagedIndex] = None):
     """One-token decode.  x (B, 1, d_model); pos the absolute position, a
     lockstep scalar () or per slot (B,) (every row decodes at its own
@@ -320,7 +332,8 @@ def attend_decode(params: dict, x: torch.Tensor, cache: dict,
     every layer sharing the table may share."""
     b = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).expand(b)
-    q, k, v = _qkv(params, x, cfg, *_rope(cfg, pos[:, None]))
+    q, k, v = _qkv(params, x, cfg, *(_rope(cfg, pos[:, None]) if use_rope
+                                     else (None, None)))
     if "kp" in cache:
         _check_no_window(window)
         ps = cache["kp"].shape[1]
@@ -593,3 +606,33 @@ def commit_kv(cache: dict, pending: dict, pos: torch.Tensor,
             mask = keep.reshape(keep.shape + (1,) * (new.dim() - 2))
             leaf[r, s_] = torch.where(mask, new, leaf[r, s_])
     return cache
+
+
+# ---------------------------------------------------------------------------
+# cross attention (the Whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attend(params: dict, x: torch.Tensor, memory_kv: tuple,
+                 cfg) -> torch.Tensor:
+    """x (B, Sq, d); memory_kv = (k, v), each (B, Sm, Hkv, D), from
+    ``memory_kv``.  Every query sees every memory row (no mask).  Plain
+    products, as the reference's ``sdpa`` (outside any kernel there too):
+    f32 scores, an f32 softmax, the probabilities cast to v's dtype for
+    the second product."""
+    n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    b, sq, _ = x.shape
+    q = _split_heads(cm.linear(params["wq"], x), n_h, hd)
+    k, v = (t.to(q.dtype).repeat_interleave(n_h // n_kv, dim=2)
+            for t in memory_kv)
+    scores = torch.matmul(q.float().transpose(1, 2),
+                          k.float().permute(0, 2, 3, 1)) * hd ** -0.5
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)      # (B, H, Sq, Sm)
+    o = torch.matmul(probs, v.transpose(1, 2)).transpose(1, 2)
+    return cm.linear(params["wo"], o.reshape(b, sq, n_h * hd))
+
+
+def memory_kv(params: dict, mem: torch.Tensor, cfg) -> tuple:
+    """Cross-attention K/V of the encoder output mem (B, Sm, d)."""
+    n_kv, hd = cfg.n_kv_heads, cfg.hd
+    return (_split_heads(cm.linear(params["wk"], mem), n_kv, hd),
+            _split_heads(cm.linear(params["wv"], mem), n_kv, hd))

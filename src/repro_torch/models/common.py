@@ -120,4 +120,18 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
-ACTIVATIONS = {"silu": silu}
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form, ``jax.nn.gelu(x, approximate=True)``, in its order
+    of operations: x * (0.5 * (1 + tanh(sqrt(2 / pi) * (x + 0.044715 x^3))))."""
+    cdf = 0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI * (x + 0.044715 * x ** 3)))
+    return x * cdf
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+ACTIVATIONS = {"silu": silu, "gelu": gelu, "relu": relu}

@@ -1,4 +1,5 @@
-"""Gated (SwiGLU) feed-forward block, as ``repro/models/mlp.py``."""
+"""Feed-forward blocks, as ``repro/models/mlp.py``: the gated (SwiGLU)
+MLP and the plain two-layer MLP with biases (Whisper's)."""
 from __future__ import annotations
 
 import torch
@@ -12,10 +13,22 @@ def gated_mlp_shapes(d_model: int, d_ff: int) -> dict:
 
 
 def gated_mlp(p: dict, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
-    if act not in cm.ACTIVATIONS:
-        raise NotImplementedError(
-            f"activation {act!r} is not ported yet (see ROADMAP.md, "
-            "queue 1, slice 5: the other block kinds)")
     f = cm.ACTIVATIONS[act]
     return cm.linear(p["down"],
                      f(cm.linear(p["gate"], x)) * cm.linear(p["up"], x))
+
+
+def mlp_shapes(d_model: int, d_ff: int, *, bias: bool = True) -> dict:
+    """``init_mlp``'s layout: fc1 (d_model, d_ff) and fc2 (d_ff, d_model),
+    each with a bias by default."""
+    def lin(d_in, d_out):
+        p = {"w": (d_in, d_out)}
+        if bias:
+            p["b"] = (d_out,)
+        return p
+    return {"fc1": lin(d_model, d_ff), "fc2": lin(d_ff, d_model)}
+
+
+def mlp(p: dict, x: torch.Tensor, *, act: str = "gelu") -> torch.Tensor:
+    f = cm.ACTIVATIONS[act]
+    return cm.linear(p["fc2"], f(cm.linear(p["fc1"], x)))

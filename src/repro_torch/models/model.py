@@ -1,10 +1,15 @@
 """Config-driven backbone assembly for the training and serving paths.
 
-Counterpart of ``repro/models/model.py`` for decoder stacks of ``attn`` and
-``attn_local`` blocks with a gated MLP or a Mixture-of-Experts layer (the
-dense families yi-6b, stablelm-1.6b, qwen2-72b and minicpm-2b; the MoE
-families granite-moe-1b-a400m and llama4-scout-17b-a16e; qwen2-vl-72b,
-whose training forward takes M-RoPE positions):
+Counterpart of ``repro/models/model.py`` for every one of the ten configs:
+stacks of ``attn`` and ``attn_local`` blocks with a gated MLP or a
+Mixture-of-Experts layer (yi-6b, stablelm-1.6b, qwen2-72b, minicpm-2b,
+granite-moe-1b-a400m, llama4-scout-17b-a16e; qwen2-vl-72b, whose training
+forward takes M-RoPE positions), the recurrent kinds ``mamba2``
+(``models/ssm.py``), ``mlstm`` and ``slstm`` (``models/xlstm.py``),
+zamba2's shared attention block applied after every
+``shared_attn_every``-th layer (one set of weights, a KV cache for each
+application), and the encoder-decoder (``models/encdec.py``, where
+``cfg.is_encdec``):
 
   init_params(cfg, seed, device, dtype)        -> params (nested dicts)
   forward(cfg, params, batch)                  -> {"logits", "value", ...}
@@ -20,8 +25,9 @@ takes the f32 masters and casts each block's matrices inside the step, as
 the JAX loss does, so gradients reach the f32 leaves.  For serving,
 parameters are cast to the compute dtype ONCE (``cast_params``) by whoever
 builds them: the JAX steps cast inside every call, which in eager PyTorch
-would copy every weight each step.  SSM, xLSTM, shared-attention and
-enc-dec models are later slices and raise.
+would copy every weight each step.  Chunked prefill and speculative verify
+need attention-only caches (``supports_chunked_prefill``), as in the
+reference: recurrent and encoder-decoder models prefill token by token.
 """
 from __future__ import annotations
 
@@ -34,33 +40,20 @@ from repro_torch.core import prng
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
+from repro_torch.models import encdec
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
+from repro_torch.models import xlstm
 from repro_torch.models.config import ModelConfig
 
 Params = Any
-_BLOCKS_ITEM = "see ROADMAP.md, queue 1, slice 5: the other block kinds"
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+ATTN_KINDS = ("attn", "attn_local")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.layer_kinds())
-    why = None
-    if cfg.is_encdec:
-        why = "encoder-decoder models"
-    elif cfg.shared_attn_every:
-        why = "shared attention blocks (zamba2)"
-    elif not kinds <= {"attn", "attn_local"}:
-        why = f"block kinds {sorted(kinds - {'attn', 'attn_local'})}"
-    elif not cfg.d_ff and not cfg.n_experts:
-        why = "blocks with neither a gated MLP nor experts"
-    if why is not None:
-        raise NotImplementedError(f"{cfg.name}: {why} are not ported yet "
-                                  f"({_BLOCKS_ITEM})")
 
 
 # ---------------------------------------------------------------------------
@@ -94,27 +87,52 @@ def tree_map(fn, tree, *rest):
 
 
 
+def _block_shapes(cfg: ModelConfig, kind: str) -> dict:
+    """One block's layout, ``_init_block``'s."""
+    d = cfg.d_model
+    norm = cm.norm_shapes(cfg.norm, d)
+    if kind in ATTN_KINDS:
+        layer = {"ln1": norm,
+                 "attn": attn.attention_shapes(d, cfg.n_heads, cfg.n_kv_heads,
+                                               cfg.hd, qkv_bias=cfg.qkv_bias),
+                 "ln2": norm}
+        if cfg.n_experts:
+            layer["moe"] = moe_mod.moe_shapes(d, cfg.d_ff_expert,
+                                              cfg.n_experts)
+        elif cfg.d_ff:
+            layer["mlp"] = mlp_mod.gated_mlp_shapes(d, cfg.d_ff)
+        return layer
+    if kind == "mamba2":
+        return {"ln1": norm, "mamba": ssm.mamba2_shapes(
+            d, d_state=cfg.ssm_state, n_heads=cfg.ssm_heads,
+            head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
+            conv_width=cfg.ssm_conv_width)}
+    if kind == "mlstm":
+        return {"ln1": norm, "mlstm": xlstm.mlstm_shapes(
+            d, n_heads=cfg.n_heads, expand=cfg.lstm_expand,
+            conv_width=cfg.ssm_conv_width)}
+    if kind == "slstm":
+        return {"ln1": norm,
+                "slstm": xlstm.slstm_shapes(d, n_heads=cfg.n_heads)}
+    raise ValueError(f"unknown block kind {kind}")
+
+
 def _shape_tree(cfg: ModelConfig) -> dict:
     """Nested dicts of shape tuples, the layout of ``init_params``."""
-    _check_supported(cfg)
+    if cfg.is_encdec:
+        return encdec.shape_tree(cfg)
     d = cfg.d_model
-    layer = {
-        "ln1": cm.norm_shapes(cfg.norm, d),
-        "attn": attn.attention_shapes(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                                      qkv_bias=cfg.qkv_bias),
-        "ln2": cm.norm_shapes(cfg.norm, d),
-    }
-    if cfg.n_experts:
-        layer["moe"] = moe_mod.moe_shapes(d, cfg.d_ff_expert, cfg.n_experts)
-    else:
-        layer["mlp"] = mlp_mod.gated_mlp_shapes(d, cfg.d_ff)
     tree = {"embed": {"table": (cfg.vocab_size, d)},
             "final_norm": cm.norm_shapes(cfg.norm, d)}
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": (d, cfg.vocab_size)}
     if cfg.value_head:
         tree["value_head"] = {"w": (d, 1)}
-    tree["layers"] = [layer] * cfg.n_layers     # shared, never mutated
+    if cfg.shared_attn_every:
+        tree["shared_attn"] = _block_shapes(cfg, "attn")
+    by_kind = {k: _block_shapes(cfg, k) for k in set(cfg.layer_kinds())}
+    # shared, never mutated
+    tree["layers"] = [by_kind[k] for k in cfg.layer_kinds()]
     return tree
 
 
@@ -123,55 +141,107 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return flatten(_shape_tree(cfg))
 
 
+def _block_keys(cfg: ModelConfig, kind: str, key: torch.Tensor,
+                prefix: str, out: dict, split) -> None:
+    """The keys of one block's random leaves, ``_init_block``'s tree: the
+    block key split in four, the first for the attention (then four: wq,
+    wk, wv, wo) or the recurrent layer, the second for the gated MLP
+    (three: gate, up, down) or the experts (``init_moe``'s four).  mamba2
+    splits its key in four (in_proj, conv_w, dt_bias's uniform draw,
+    out_proj); mLSTM in eight (up_x, up_z, conv_w, wq, wk, wv, w_i, w_f)
+    and its ``down`` takes fold_in(key, 99); sLSTM in seven (w_in, r,
+    ff_gate, ff_up, ff_down)."""
+    ks = split(key, 4)
+
+    def put(sub, names, keys):
+        for name, k in zip(names, keys):
+            out[f"{prefix}.{sub}.{name}"] = k
+    if kind in ATTN_KINDS:
+        put("attn", ("wq.w", "wk.w", "wv.w", "wo.w"), split(ks[0], 4))
+        if cfg.n_experts:
+            put("moe", moe_mod.LEAVES, split(ks[1], 4))
+        elif cfg.d_ff:
+            put("mlp", ("gate.w", "up.w", "down.w"), split(ks[1], 3))
+    elif kind == "mamba2":
+        put("mamba", ("in_proj.w", "conv_w", "dt_bias", "out_proj.w"),
+            split(ks[0], 4))
+    elif kind == "mlstm":
+        put("mlstm", ("up_x.w", "up_z.w", "conv_w", "wq.w", "wk.w", "wv.w",
+                      "w_i.w", "w_f.w"), split(ks[0], 8))
+        out[f"{prefix}.mlstm.down.w"] = prng.fold_in(ks[0], 99)
+    elif kind == "slstm":
+        put("slstm", ("w_in.w", "r", "ff_gate.w", "ff_up.w", "ff_down.w"),
+            split(ks[0], 7))
+
+
 def _leaf_keys(cfg: ModelConfig, seed: int, partitionable: bool) -> dict:
     """{path: key} of every random leaf, the key tree of
     ``repro/models/model.py::init_params``: split(key(seed), n_layers + 5),
-    the last three keys for the embedding, the LM head and the value head,
-    key i for layer i, split in four there (attention, then the MLP or the
-    experts), then in four (wq, wk, wv, wo) and three (gate, up, down), or
-    four (router, w_gate, w_up, w_down: ``init_moe``'s split).  On the
-    CPU: a few hundred tiny hashes."""
+    the last four keys for the embedding, the LM head, the value head and
+    zamba2's shared block, key i for layer i (``_block_keys``); an
+    encoder-decoder's own tree (``encdec.leaf_keys``).  On the CPU: a few
+    hundred tiny hashes."""
     def split(k, n):
         return prng.split(k, n, partitionable=partitionable)
+    if cfg.is_encdec:
+        return encdec.leaf_keys(cfg, prng.key(seed), split)
     keys = split(prng.key(seed), cfg.n_layers + 5)
     out = {"embed.table": keys[-1], "lm_head.w": keys[-2],
            "value_head.w": keys[-3]}
-    for i in range(cfg.n_layers):
-        ks = split(keys[i], 4)
-        for name, k in zip(("wq", "wk", "wv", "wo"), split(ks[0], 4)):
-            out[f"layers.{i}.attn.{name}.w"] = k
-        if cfg.n_experts:
-            for name, k in zip(moe_mod.LEAVES, split(ks[1], 4)):
-                out[f"layers.{i}.moe.{name}"] = k
-            continue
-        for name, k in zip(("gate", "up", "down"), split(ks[1], 3)):
-            out[f"layers.{i}.mlp.{name}.w"] = k
+    if cfg.shared_attn_every:
+        _block_keys(cfg, "attn", keys[-4], "shared_attn", out, split)
+    for i, kind in enumerate(cfg.layer_kinds()):
+        _block_keys(cfg, kind, keys[i], f"layers.{i}", out, split)
     return out
 
 
 def _init_std(cfg: ModelConfig, path: str, shape: tuple) -> float:
-    """Spread of a random leaf: embeddings 0.02, the experts'
+    """Spread of a random matrix: embeddings 0.02, the experts'
     ``init_moe`` spreads (router 0.02, w_gate and w_up 1/sqrt(d_model),
-    w_down 1/sqrt(d_ff_expert)), linears 1/sqrt(d_in)."""
+    w_down 1/sqrt(d_ff_expert)), the recurrent layers' conv weights 0.2,
+    sLSTM's recurrent ``r`` (H, hd, 4 hd) 1/sqrt(hd), linears
+    1/sqrt(d_in)."""
     parts = path.split(".")
     if parts[-1] == "table":
         return 0.02
     if len(parts) >= 2 and parts[-2] == "moe":
         return moe_mod.init_std(parts[-1], cfg.d_model, cfg.d_ff_expert)
+    if parts[-1] == "conv_w":
+        return 0.2
+    if parts[-1] == "r":
+        return 1.0 / shape[1] ** 0.5
     return cm.linear_std(shape[0])
+
+
+def _init_vector(name: str, shape: tuple, key, dev,
+                 partitionable: bool) -> torch.Tensor:
+    """A 1-D leaf: mamba2's A_log = log(linspace(1, 16, H)) and its
+    dt_bias, the inverse softplus of exp(uniform(log 1e-3, log 1e-1))
+    drawn from its key; D and norm scales one; biases zero."""
+    if name == "A_log":
+        return torch.log(torch.linspace(1.0, 16.0, shape[0],
+                                        dtype=torch.float32, device=dev))
+    if name == "dt_bias":
+        lo, hi = (float(torch.log(torch.tensor(v, dtype=torch.float32)))
+                  for v in (1e-3, 1e-1))
+        u = prng.uniform(key.to(dev), shape, lo, hi,
+                         partitionable=partitionable)
+        return torch.log(torch.expm1(torch.exp(u)))
+    fill = 1.0 if name in ("scale", "D") else 0.0
+    return torch.full(shape, fill, dtype=torch.float32, device=dev)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 dtype: torch.dtype = torch.float32, *,
                 partitionable: bool = True) -> Params:
     """The JAX package's ``init_params(cfg, jax.random.key(seed))``, layers
-    unstacked: a normal truncated at +-2 times each leaf's spread
+    unstacked: a normal truncated at +-2 times each matrix's spread
     (``_init_std``), drawn by ``prng`` from the reference's key tree
-    (``partitionable``: the threefry counter layout, see ``prng``); biases
-    zero, norm scales one, norm biases zero.  Matrices are drawn in f32 and
-    stored in ``dtype`` (pass the compute dtype to build serving weights
-    directly on the card); 1-D parameters stay f32.  They agree with
-    jax's within a few f32 ulps (``prng.truncated_normal``)."""
+    (``partitionable``: the threefry counter layout, see ``prng``);
+    vectors as ``_init_vector``.  Matrices are drawn in f32 and stored in
+    ``dtype`` (pass the compute dtype to build serving weights directly
+    on the card); 1-D parameters stay f32.  They agree with jax's within
+    a few f32 ulps (``prng.truncated_normal``)."""
     dev = resolve(device)
     keys = _leaf_keys(cfg, seed, partitionable)
     flat = {}
@@ -183,9 +253,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 keys[path].to(dev), -2.0, 2.0, shape, scale=std,
                 dtype=dtype, partitionable=partitionable)
         else:
-            fill = 1.0 if name == "scale" else 0.0
-            flat[path] = torch.full(shape, fill, dtype=torch.float32,
-                                    device=dev)
+            flat[path] = _init_vector(name, shape, keys.get(path), dev,
+                                      partitionable)
     return unflatten(flat)
 
 
@@ -227,26 +296,49 @@ def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
     return cfg.sliding_window if kind == "attn_local" else None
 
 
+def _state_cache(cfg: ModelConfig, kind: str, batch: int, dev) -> dict:
+    """A recurrent layer's state, f32 (the engine's cache dtype in the
+    reference; a conv state holds inputs of the compute dtype, which f32
+    keeps exactly)."""
+    if kind == "mamba2":
+        return ssm.init_mamba2_state(batch, cfg, torch.float32, dev)
+    if kind == "mlstm":
+        return xlstm.init_mlstm_state(batch, cfg.d_model, cfg.n_heads,
+                                      expand=cfg.lstm_expand,
+                                      conv_width=cfg.ssm_conv_width,
+                                      device=dev)
+    if kind == "slstm":
+        return xlstm.init_slstm_state(batch, cfg.d_model, cfg.n_heads, dev)
+    raise ValueError(f"unknown block kind {kind}")
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None,
                paged: Optional[attn.PagedLayout] = None) -> dict:
-    """One KV cache of ``dtype`` (f32, bf16, or int8 with f32 row scales)
-    per layer (the JAX package's ``kv_dtype``: the port has no recurrent
-    state to keep apart).  Sliding-window layers keep a ring of
-    min(cache_len, window) rows.  Under the ``decode_cp`` rules a layer
-    whose length divides over the ranks holds only this rank's slice of
-    it (``attention.init_kv_cache``).  With ``paged`` every global
-    (``attn``) layer takes the page-pool layout, all of them behind one
-    page table, which the cache also holds as ``pt``; ring layers stay
-    contiguous."""
-    _check_supported(cfg)
+    """One KV cache of ``dtype`` (f32, bf16, or int8 with f32 row scales;
+    the JAX package's ``kv_dtype``) per attention layer, and a recurrent
+    layer's f32 state (``_state_cache``).  Sliding-window layers keep a
+    ring of min(cache_len, window) rows.  Zamba2's shared block adds
+    ``"shared"``: n_layers // shared_attn_every contiguous KV caches, one
+    an application.  Under the ``decode_cp`` rules a KV cache whose length
+    divides over the ranks holds only this rank's slice of it
+    (``attention.init_kv_cache``).  With ``paged`` every global (``attn``)
+    layer takes the page-pool layout, all of them behind one page table,
+    which the cache also holds as ``pt``; ring layers, recurrent layers
+    and the shared block's caches stay as they are.  An encoder-decoder
+    takes ``encdec.init_cache``."""
     dev = resolve(device)
+    if cfg.is_encdec:
+        return encdec.init_cache(cfg, batch, cache_len, dtype, dev)
     cache: Dict[str, Any] = {}
     if paged is not None and "attn" in cfg.layer_kinds():
         cache["pt"] = torch.full((batch, cache_len // paged.page_size), -1,
                                  dtype=torch.int32, device=dev)
     layers: List[dict] = []
     for kind in cfg.layer_kinds():
+        if kind not in ATTN_KINDS:
+            layers.append(_state_cache(cfg, kind, batch, dev))
+            continue
         if kind == "attn" and "pt" in cache:
             layers.append(attn.init_paged_kv_cache(
                 batch, cache_len, cfg.n_kv_heads, cfg.hd,
@@ -259,7 +351,32 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
         layers.append(attn.init_kv_cache(batch, clen, cfg.n_kv_heads,
                                          cfg.hd, dtype, dev))
     cache["layers"] = layers
+    if cfg.shared_attn_every:
+        cache["shared"] = [
+            attn.init_kv_cache(batch, cache_len, cfg.n_kv_heads, cfg.hd,
+                               dtype, dev)
+            for _ in range(cfg.n_layers // cfg.shared_attn_every)]
     return cache
+
+
+def state_leaves(layer: dict) -> List[str]:
+    """A layer cache's per-slot leaves (batch dimension 0): a contiguous
+    KV cache's k, v (and int8 scales), or every tensor of a recurrent
+    state; none for a paged layer (its pools have no batch dimension)."""
+    if "kp" in layer:
+        return []
+    if "k" in layer:
+        return attn.kv_leaves(layer)
+    return [n for n, t in layer.items() if torch.is_tensor(t)]
+
+
+def slot_layers(cache: dict) -> List[dict]:
+    """Every layer cache of a model cache that holds per-slot rows, in a
+    fixed order: the layers, then zamba2's shared caches (an
+    encoder-decoder's self and cross caches)."""
+    if "self" in cache:
+        return cache["self"] + cache["cross"]
+    return cache["layers"] + cache.get("shared", [])
 
 
 # ---------------------------------------------------------------------------
@@ -267,11 +384,13 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # ---------------------------------------------------------------------------
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
-    """Chunked prefill block-writes KV caches; recurrent states need their
-    own scans (and are not ported)."""
+    """Chunked prefill block-writes KV caches; recurrent states (SSM,
+    xLSTM), zamba2's shared block and the encoder-decoder would need
+    state-returning scans, so they prefill token by token (the engine's
+    ``_prefill_loop``), as in the reference."""
     return (not cfg.is_encdec
             and not cfg.shared_attn_every
-            and all(k in ("attn", "attn_local") for k in cfg.layer_kinds()))
+            and all(k in ATTN_KINDS for k in cfg.layer_kinds()))
 
 
 def _embed_inputs(cfg: ModelConfig, params: Params,
@@ -327,6 +446,14 @@ def _heads(cfg: ModelConfig, params: Params, x: torch.Tensor) -> dict:
     return out
 
 
+_TRAIN = {"mamba2": ("mamba", ssm.mamba2_train),
+          "mlstm": ("mlstm", xlstm.mlstm_train),
+          "slstm": ("slstm", xlstm.slstm_train)}
+_DECODE = {"mamba2": ("mamba", ssm.mamba2_decode),
+           "mlstm": ("mlstm", xlstm.mlstm_decode),
+           "slstm": ("slstm", xlstm.slstm_decode)}
+
+
 def _block_train(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  aux: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     """One residual block over the full sequence -> (x, aux plus the
@@ -336,8 +463,12 @@ def _block_train(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     at a time.  The recomputation routes the tokens as the forward did:
     top-k is a stable sort."""
     p = cast_params(cfg, p)
-    h = attn.attend_train(p["attn"], cm.apply_norm(cfg.norm, p["ln1"], x),
-                          cos, sin, cfg, window=_window(cfg, kind))
+    h = cm.apply_norm(cfg.norm, p["ln1"], x)
+    if kind in _TRAIN:
+        name, fn = _TRAIN[kind]
+        return x + fn(p[name], h, cfg), aux
+    h = attn.attend_train(p["attn"], h, cos, sin, cfg,
+                          window=_window(cfg, kind))
     x, lb = _ffn_half(cfg, p, x + h)
     return x, (aux if lb is None else aux + lb)
 
@@ -345,46 +476,70 @@ def _block_train(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
 def forward(cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Training (full-sequence) forward.  batch {"tokens": (B, S)} (or
-    {"embeds": (B, S, d)}), with {"positions": (3, B, S)} for M-RoPE;
-    ``params`` the f32 masters.  Returns {"logits" (B, S, V) in the
-    compute dtype, "value" (B, S) f32, "aux_loss" () f32: the experts'
-    load-balance losses summed over the layers, 0 without experts}.
-    With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
-    (the counterpart of ``jax.checkpoint``): its activations are
-    recomputed in the backward."""
-    _check_supported(cfg)
+    {"embeds": (B, S, d)}), with {"positions": (3, B, S)} for M-RoPE and
+    {"enc_frames": (B, F, d)} for the encoder-decoder; ``params`` the f32
+    masters.  Returns {"logits" (B, S, V) in the compute dtype, "value"
+    (B, S) f32, "aux_loss" () f32: the experts' load-balance losses summed
+    over the layers, 0 without experts}.  Zamba2's shared block runs after
+    every ``shared_attn_every``-th layer.  With ``cfg.remat`` each block,
+    the shared block's applications included, runs under
+    ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint``):
+    its activations are recomputed in the backward.  The encoder-decoder
+    has no remat, as in the reference."""
+    if cfg.is_encdec:
+        return encdec.forward(cfg, cast_params(cfg, params), batch)
     # gather, then cast: the values of casting the table first
     x = _embed_inputs(cfg, params, batch)
     cos, sin = _rope_tables(cfg, batch, x.shape[1], x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p in zip(cfg.layer_kinds(), params["layers"]):
+
+    def block(kind, p, x, aux):
         if cfg.remat:
-            x, aux = checkpoint(_block_train, cfg, kind, p, x, aux, cos, sin,
-                                use_reentrant=False)
-        else:
-            x, aux = _block_train(cfg, kind, p, x, aux, cos, sin)
+            return checkpoint(_block_train, cfg, kind, p, x, aux, cos, sin,
+                              use_reentrant=False)
+        return _block_train(cfg, kind, p, x, aux, cos, sin)
+    for i, (kind, p) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
+        x, aux = block(kind, p, x, aux)
+        if cfg.shared_attn_every and (i + 1) % cfg.shared_attn_every == 0:
+            x, aux = block("attn", params["shared_attn"], x, aux)
     top = cast_params(cfg, {k: v for k, v in params.items()
-                            if k != "layers"})
+                            if k not in ("layers", "shared_attn")})
     out = _heads(cfg, top, x)
     out["aux_loss"] = aux
     return out
 
 
+def _block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+                  c: dict, pos: torch.Tensor, paged) -> torch.Tensor:
+    """One residual block of a decode step; writes the layer's cache or
+    state in place."""
+    h = cm.apply_norm(cfg.norm, p["ln1"], x)
+    if kind in _DECODE:
+        name, fn = _DECODE[kind]
+        return x + fn(p[name], h, c, cfg)[0]
+    h, _ = attn.attend_decode(p["attn"], h, c, pos, cfg,
+                              window=_window(cfg, kind), paged=paged)
+    return _ffn_half(cfg, p, x + h)[0]
+
+
 def decode_step(cfg: ModelConfig, params: Params, cache: dict,
                 batch: Dict[str, torch.Tensor], pos: torch.Tensor):
     """One-token decode.  batch {"tokens": (B, 1)}; pos the current absolute
-    position, a lockstep scalar or per slot (B,).  ``params`` already cast
-    (``cast_params``).  Writes the caches in place; returns (out, cache)."""
-    _check_supported(cfg)
+    position, a lockstep scalar or per slot (B,) (the recurrent blocks
+    ignore it).  ``params`` already cast (``cast_params``).  Writes the
+    caches and states in place; returns (out, cache)."""
+    if cfg.is_encdec:
+        return encdec.decode_step(cfg, params, cache, batch, pos)
     x = _embed_inputs(cfg, params, batch)
     pos = torch.as_tensor(pos, device=x.device).expand(x.shape[0])
     paged = attn.model_paged_index(cache, pos=pos)
-    for kind, p, c in zip(cfg.layer_kinds(), params["layers"],
-                          cache["layers"]):
-        h, _ = attn.attend_decode(
-            p["attn"], cm.apply_norm(cfg.norm, p["ln1"], x), c, pos, cfg,
-            window=_window(cfg, kind), paged=paged)
-        x = _ffn_half(cfg, p, x + h)[0]
+    shared = iter(cache.get("shared", ()))
+    for i, (kind, p, c) in enumerate(zip(cfg.layer_kinds(), params["layers"],
+                                         cache["layers"])):
+        x = _block_decode(cfg, kind, p, x, c, pos, paged)
+        if cfg.shared_attn_every and (i + 1) % cfg.shared_attn_every == 0:
+            x = _block_decode(cfg, "attn", params["shared_attn"], x,
+                              next(shared), pos, None)
     return _heads(cfg, params, x), cache
 
 
@@ -400,7 +555,6 @@ def prefill_step(cfg: ModelConfig, params: Params, cache: dict,
     if not supports_chunked_prefill(cfg):
         raise NotImplementedError(
             f"{cfg.name}: chunked prefill needs attention-only caches")
-    _check_supported(cfg)
     x = _embed_inputs(cfg, params, batch)
     paged = attn.model_paged_index(cache, pos0=pos0, c=x.shape[1],
                                    true_len=true_len)
@@ -425,7 +579,6 @@ def verify_step(cfg: ModelConfig, params: Params, cache: dict,
     if not supports_chunked_prefill(cfg):
         raise NotImplementedError(
             f"{cfg.name}: speculative verify needs attention-only caches")
-    _check_supported(cfg)
     x = _embed_inputs(cfg, params, batch)
     pos = torch.as_tensor(pos, device=x.device).expand(x.shape[0])
     paged = attn.model_paged_index(cache, pos=pos, c=x.shape[1], verify=True)

@@ -97,10 +97,6 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25,
               act: str = "silu") -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d) in x's dtype, load-balance loss () f32)."""
-    if act not in cm.ACTIVATIONS:
-        raise NotImplementedError(
-            f"activation {act!r} is not ported yet (see ROADMAP.md, "
-            "queue 1, slice 5: the other block kinds)")
     b, s, d = x.shape
     e = p["router"].shape[1]
     t = b * s

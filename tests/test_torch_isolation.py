@@ -145,6 +145,19 @@ def test_moe_modules_are_among_the_checked_sources(module):
     """The MoE layer and the LLM example are walked by the import check
     (``pkgutil``), read by the source check, and import alone with jax
     blocked."""
+    _check_module_stands_alone(module)
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.ssm",
+                                    "repro_torch.models.xlstm",
+                                    "repro_torch.models.encdec"])
+def test_recurrent_and_encdec_modules_are_among_the_checked_sources(module):
+    """Mamba2, xLSTM and the encoder-decoder are walked by the import
+    check, read by the source check, and import alone with jax blocked."""
+    _check_module_stands_alone(module)
+
+
+def _check_module_stands_alone(module):
     code = ("import sys, pkgutil; sys.modules['jax'] = None; "
             "import importlib, repro_torch; "
             "names = [m.name for m in pkgutil.walk_packages("

@@ -86,13 +86,6 @@ def test_yi6b_is_six_billion():
     assert torch_configs.get_config("yi-6b").param_count() == 6_061_039_616
 
 
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "whisper-base",
-                                  "zamba2-1.2b"])
-def test_unported_blocks_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.param_shapes(torch_configs.get_config(arch).reduced())
-
-
 def _jax_flat_shapes(cfg):
     """{path: shape} of ``JM.init_params(cfg, ...)`` in the port's layout
     (scan-stacked layers unstacked), from ``jax.eval_shape``: nothing is

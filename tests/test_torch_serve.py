@@ -11,7 +11,6 @@ choice on the trace wins by at least 1e-3 (for a sampled run, over logits
 plus the stream's Gumbel noise), far above the ~1e-6 by which XLA and
 PyTorch sums differ.
 """
-import dataclasses
 import json
 
 import numpy as np
@@ -246,20 +245,27 @@ def test_sampling_follows_the_softmax():
 
 
 def test_engine_refuses_later_slices(models):
-    """The engine still refuses recurrent caches (mamba2, mLSTM/sLSTM and
-    zamba2's shared attention: slice 5c, whose token-loop admission is not
-    ported); encoder-decoder models (slice 5d) fail earlier, in the
-    model.  MoE models serve (``test_torch_moe_engine.py``), and so do
-    speculative decoding (``test_torch_spec_engine.py``), the paged
-    layout, fault plans and deadlines (``test_torch_paged_kv.py``,
-    ``test_torch_serve_robustness.py`` and the paged twins below)."""
+    """Nothing of the earlier slices is refused any more: recurrent caches
+    (mamba2 with zamba2's shared attention, mLSTM/sLSTM) build and admit
+    through the token loop (their parity with the JAX engine is in
+    ``test_torch_recurrent_engine.py``), MoE models serve
+    (``test_torch_moe_engine.py``), and so do speculative decoding
+    (``test_torch_spec_engine.py``), the paged layout, fault plans and
+    deadlines (``test_torch_paged_kv.py``,
+    ``test_torch_serve_robustness.py`` and the paged twins below).  Only
+    the serve CLI refuses encoder-decoder and VLM configs, as the JAX
+    CLI."""
     _, ct, _, pt = models
     kw = dict(n_slots=2, cache_len=16, device="cpu")
     for spec in ("ngram", "draft"):
         assert serve.ServeEngine(ct, pt, spec=spec, **kw).spec == spec
-    recurrent = dataclasses.replace(ct, block_cycle=("mamba2",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.ServeEngine(recurrent, pt, **kw)
+    zc = torch_config("zamba2-1.2b").reduced()
+    zp = TM.init_params(zc, 0, "cpu")
+    eng = serve.ServeEngine(zc, zp, **kw)
+    assert eng.prefill_step is None and not eng.paged
+    rep = serve.run_engine(zc, zp, serve.gen_trace(
+        2, vocab=zc.vocab_size, **TRACE), **ENGINE, device="cpu")
+    assert rep["requests"] == 2 and not rep["chunked_prefill"]
     eng = serve.ServeEngine(ct, pt, paged=True, page_size=8,
                             fault_plan=serve.FaultPlan(hold_pages=1), **kw)
     assert eng.paged and eng.usable_pages == 2 * 2 - 1
