@@ -262,12 +262,39 @@ Phases (any failure raises and the script exits non-zero):
      and step), a teacher-forced forward at S = 448 (kernel 3 twelve
      times: six bidirectional, then six causal), three train steps at B
      4, S 448 (12 forward and 12 backward flash launches a step, no
-     remat; kernel 8).
+     remat; kernel 8);
+  12. the multi-rank train step (``distributed/fsdp.py``,
+     ``models/moe_ep.py``, ``core/llm_a3c.loss_grads``): one rank a card
+     (n = torch.cuda.device_count()), spawned after the build, over NCCL;
+     with n = 1 every collective is a copy over a group of one, with more
+     the same checks run across cards:
+     12a. reduced yi-6b on (n, 1), FSDP and held whole, and reduced
+     granite-moe (no load-balance loss) under ``moe_ep`` on (1, n), f32, 3
+     steps against the CPU's single-process step (parameters rtol = atol
+     = 1e-5, losses rtol 1e-4); each run (12a-12c) launches kernels 1, 2,
+     3 and 5 exactly as ``_train_launches`` counts from the layer count
+     (which the unsharded step on the card, where one runs beside it,
+     must match too) and ``rmsprop_apply_multi`` once an update, issues
+     exactly ``_step_collectives`` a step and routes every MoE layer
+     expert-parallel;
+     12b. Yi-6B at full width through the FSDP step at phase 8's shape
+     (4 x 1024, remat), 3 steps, the runs sharing one draw of the
+     weights: with n = 1 16 of 32 layers, between two unsharded runs, and
+     bitwise equal to them where they are to each other (else within
+     twice their spread); with n >= 2 dividing 4 all 32 layers; step
+     wall, tokens/s and each run's own peak memory a rank;
+     12c. Granite-MoE with nothing cut under ``moe_ep`` on (1, n), the
+     experts held over the model axis, 2 steps: every MoE layer
+     expert-parallel, and with n = 1 the dense-MoE step's losses and
+     parameters within 1e-5 relative;
+     12d. delayed sync on (pod n, 1, 1), merging every 2 steps: each
+     group's parameters against the CPU's list form with n groups.
 
 Every kernel and arm must have been launched on one of the main paths
 (phase 5's reduced model and engines, each run of 5p, 5o and 5s, 6a, 6b, each
-of the four runs of 6c, 6d, 7, 8, each run of 9, of 10a-10e and of
-11a-11d, each with
+of the four runs of 6c, 6d, 7, 8, each run of 9, of 10a-10e, of
+11a-11d and of 12a-12d (rank 0's counts, which every rank must equal),
+each with
 the counters set to 0 just before it and read just after); the kernels line
 gives each one's launches by path.
 The last three lines are the card's name and power limit (nvidia-smi), a
@@ -4493,6 +4520,582 @@ def run_phase11():
     return counts
 
 
+
+# ---------------------------------------------------------------------------
+# phase 12: the multi-rank train step
+# ---------------------------------------------------------------------------
+
+MR_STEPS = 3
+MR_SEQ = 64
+MR_TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                    "flash_attention_bwd", "flash_attention_f32",
+                    "flash_attention_bwd_f32", "rmsprop_apply_multi")
+
+
+def _mr_configs():
+    """12a's and 12d's reduced f32 models: yi-6b, and granite-moe without
+    the load-balance loss (the expert-parallel loss averages each shard's,
+    the single-process one takes all tokens: ``test_torch_moe_ep.py`` holds
+    it to the reference's)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return {"yi": get_config("yi-6b").reduced(),
+            "granite": dataclasses.replace(get_config(GRANITE).reduced(),
+                                           aux_loss_weight=0.0)}
+
+
+def _mr_cases(n):
+    """12a: (path, config, mesh shape, layout) on ``n`` ranks."""
+    return [("multirank_yi_fsdp", "yi", (n, 1), "fsdp"),
+            ("multirank_yi_replicated", "yi", (n, 1), "whole"),
+            ("multirank_granite_ep", "granite", (1, n), "fsdp")]
+
+
+def _mr_batches(cfg, rows, steps=MR_STEPS, seq=MR_SEQ, key=0):
+    """Global TokenPipeline batches on the host."""
+    from repro_torch.core import prng
+    from repro_torch.data.pipeline import TokenPipeline
+    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=seq,
+                         global_batch=rows, device="cpu")
+    return [pipe.batch(prng.key(key), i) for i in range(steps)]
+
+
+def _mr_cpu_refs(n):
+    """The CPU's single-process references of 12a (each case's unsharded
+    step on the global batch of 2n rows) and 12d (the list form with n
+    groups): {path: (losses, flat parameters)}."""
+    from repro_torch.core import delayed_sync, llm_a3c
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt_mod
+    cfgs = _mr_configs()
+    refs = {}
+    for path, arch, _, _ in _mr_cases(n):
+        cfg = cfgs[arch]
+        params = M.init_params(cfg, 0, "cpu")
+        opt = opt_mod.shared_rmsprop()
+        state = opt.init(params)
+        step = llm_a3c.make_train_step(cfg, opt)
+        losses = []
+        for i, b in enumerate(_mr_batches(cfg, 2 * n)):
+            params, state, met = step(params, state, b, i)
+            losses.append(float(met["loss"]))
+        refs[path] = (losses, {k: v.detach().clone() for k, v in
+                               M.flatten(params).items()})
+    cfg = cfgs["yi"]
+    params_g = delayed_sync.replicate(M.init_params(cfg, 0, "cpu"), n)
+    opt = opt_mod.shared_rmsprop()
+    state_g = [opt.init(p) for p in params_g]
+    step = delayed_sync.make_delayed_train_step(cfg, opt, n_groups=n,
+                                                merge_interval=2, lr=1e-3)
+    losses = []
+    for i, batches in enumerate(_mr_delayed_batches(cfg, n)):
+        params_g, state_g, met = step(params_g, state_g, batches, i)
+        losses.append(float(met["loss"]))
+    refs["multirank_delayed"] = (losses, [
+        {k: v.detach().clone() for k, v in M.flatten(p).items()}
+        for p in params_g])
+    return refs
+
+
+def _mr_delayed_batches(cfg, n):
+    """12d: each step, one batch of 2 rows a group."""
+    from repro_torch.core import prng
+    from repro_torch.data.pipeline import TokenPipeline
+    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=MR_SEQ,
+                         global_batch=2, device="cpu")
+    return [[pipe.batch(k, i) for k in prng.split(prng.key(i), n)]
+            for i in range(MR_STEPS)]
+
+
+def _step_collectives(cfg, lay, mesh):
+    """The collectives one train step issues on each rank
+    (``llm_a3c.loss_grads`` under ``lay``, None: every leaf whole):
+    a gather of each data-sharded leaf, again in the remat recompute for
+    the layers' leaves; its backward's reduce-scatter; an all-reduce of
+    each other leaf's gradient and one of the metrics; and for each MoE
+    layer under the ``moe_ep`` rule two all-to-alls each way (again in the
+    recompute), the output's all-gather and the input slice's backward
+    all-gather (the recompute stops before the former), the router's
+    gradient all-reduce, and the load-balance mean's all-reduce each way
+    (not recomputed)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import model as M
+    paths = list(M.param_shapes(cfg))
+    axes = sharding.data_axes(mesh)
+    sharded = [p for p in paths if lay is not None
+               and any(lay.sharded(p, a) for a in axes)]
+    layers = [p for p in sharded if p.startswith(("layers.", "shared_attn."))]
+    remat = int(bool(cfg.remat))
+    moe = sum(1 for k in cfg.layer_kinds() if k in ("attn", "attn_local")) \
+        if cfg.n_experts else 0
+    return {"all_gather": len(sharded) + remat * len(layers) + 2 * moe,
+            "reduce_scatter": len(sharded),
+            "all_reduce": len(paths) - len(sharded) + 1 + 3 * moe,
+            "all_to_all": (4 + 2 * remat) * moe}
+
+
+def _train_launches(cfg):
+    """Launches of kernels 1-5 one train step of an attention-only model
+    makes, from its layer count: two norms a layer and the final one,
+    forward (again in the remat recompute) and backward; one attention a
+    layer, forward (again in the recompute) and backward; through the
+    arms of the compute dtype, the other arms never.  It holds the
+    unsharded run's counts where the script has one, and stands alone
+    for a mesh run that has none beside it."""
+    kinds = cfg.layer_kinds()
+    if any(k not in ("attn", "attn_local") for k in kinds):
+        raise ValueError(f"{cfg.name}: not an attention-only model")
+    n, r = len(kinds), 1 + bool(cfg.remat)
+    arm = "bf16" if cfg.dtype == "bfloat16" else "f32"
+    other = "f32" if arm == "bf16" else "bf16"
+    fwd, bwd = FLASH_ARMS[arm]
+    return {"rmsnorm": 2 * n * r + 1, "rmsnorm_bwd": 2 * n + 1,
+            fwd: n * r, bwd: n, **dict.fromkeys(FLASH_ARMS[other], 0)}
+
+
+def _fingerprint(params):
+    """Per leaf: (sum, sum of squares) in f64 and the sum of its f32 bits as
+    int64: equal fingerprints for bit-equal leaves."""
+    import torch
+
+    from repro_torch.models import model as M
+    out = {}
+    with torch.no_grad():
+        for k, t in M.flatten(params).items():
+            t = t.detach().float()
+            out[k] = (float(t.double().sum()),
+                      float(t.double().square().sum()),
+                      int(t.view(torch.int32).sum(dtype=torch.int64)))
+    return out
+
+
+def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
+              seq=MR_SEQ, key=0, lr0=7e-4, total=100_000, keep="params",
+              profile=None):
+    """``steps`` Shared RMSProp train steps of ``cfg`` on ``dev`` and
+    TokenPipeline batches of ``rows`` x ``seq`` from ``prng.key(key)``:
+    under ``mesh`` with the parameters held as ``held`` ("fsdp": the plan's
+    shards, "whole"), or the unsharded step without a mesh.  The
+    parameters are a copy of ``masters`` (whole, on ``dev``: several runs
+    share one draw), or without it seed 0's drawn on the CPU.  Launch,
+    collective and route counts are set to 0 just before the steps and
+    read just after.  Returns the losses, the walls, the run's own peak
+    memory (less what was allocated before it), the counts and the whole
+    parameters (``keep`` "params", on the host) or their fingerprint.
+    With ``profile`` (a label), one more step follows, profiled on rank 0
+    (``_profile``; the other ranks take it plainly, the collectives of a
+    mesh run with it)."""
+    import contextlib
+    import gc
+
+    import torch
+
+    from repro_torch.core import llm_a3c, prng
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed import collectives, ctx, fsdp, sharding
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt_mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    shared = masters is not None
+    if not shared:
+        masters = M.tree_map(lambda t: t.to(dev), M.init_params(cfg, 0,
+                                                                "cpu"))
+    lay = fsdp.layout(cfg, mesh) if held == "fsdp" else None
+    if lay is not None:
+        params = fsdp.shard(lay, masters)
+    else:
+        params = M.tree_map(torch.clone, masters) if shared else masters
+    del masters
+    opt = opt_mod.shared_rmsprop()
+    state = opt.init(params)
+    step = llm_a3c.make_train_step(cfg, opt, lr0=lr0, total_steps=total,
+                                   layout=lay)
+    pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=seq,
+                         global_batch=rows, device=str(dev), mesh=mesh)
+    scope = contextlib.ExitStack()
+    if mesh is not None:
+        scope.enter_context(ctx.use_mesh(mesh))
+        scope.enter_context(ctx.sharding_rules(sharding.activation_rules(
+            mesh, batch_size=rows, cfg=cfg)))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls = [], []
+    dispatch.reset_launch_counts()
+    collectives.reset_counts()
+    with scope:
+        for i in range(steps):
+            t0 = time.perf_counter()
+            params, state, met = step(params, state, pipe.batch(
+                prng.key(key), i), i)
+            torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+        out = {"losses": losses, "walls": walls,
+               "peak_gib": (torch.cuda.max_memory_allocated(dev) - base)
+               / 2**30,
+               "kernels": dispatch.launch_counts(),
+               "collectives": collectives.counts(),
+               "routes": dispatch.route_counts(),
+               "leaves": len(M.flatten(params)), "layout": lay}
+        bad = [k for k, t in M.flatten(params).items()
+               if not bool(torch.isfinite(t).all())]
+        if bad or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"phase 12: losses {losses}, non-finite "
+                                 f"parameters {bad[:5]}")
+        if keep == "params":
+            whole = fsdp.full(lay, params) if lay is not None else params
+            out["params"] = {k: v.detach().cpu() for k, v in
+                             M.flatten(whole).items()}
+        else:
+            out["fingerprint"] = _fingerprint(params) if lay is None else \
+                _fingerprint(fsdp.full(lay, params))
+        if profile is not None:
+            def one_step():
+                step(params, state, pipe.batch(prng.key(key), steps), steps)
+            if torch.distributed.get_rank() == 0:
+                _profile(profile, one_step,
+                         wall_ms=statistics.median(walls[1:]) * 1e3,
+                         watch=("nccl",))
+            else:
+                one_step()
+                torch.cuda.synchronize(dev)
+    del params, state
+    return out
+
+
+def _mr_check_counts(label, run, mesh, cfg, steps, lead, plain=None):
+    """Exact counts of a mesh run: each training kernel launched as
+    ``_train_launches`` says (and as the unsharded run ``plain`` did,
+    where there is one), the optimizer's apply mode once an update, the
+    collectives ``_step_collectives`` a step, and the expert-parallel MoE
+    on every MoE layer (and its remat)."""
+    want = {k: steps * v for k, v in _train_launches(cfg).items()}
+    want["rmsprop_apply_multi"] = steps * _per_update(run["leaves"])
+    for name, r in (("the mesh run", run), ("the unsharded run", plain)):
+        if r is None:
+            continue
+        got = {k: r["kernels"][k] for k in MR_TRAIN_KERNELS}
+        if got != want:
+            raise AssertionError(f"{label}: {name}'s kernel launches {got}, "
+                                 f"want {want}")
+    per_step = _step_collectives(cfg, run["layout"], mesh)
+    want_c = {k: steps * v for k, v in per_step.items()}
+    if run["collectives"] != want_c:
+        raise AssertionError(f"{label}: collectives {run['collectives']}, "
+                             f"want {want_c}")
+    moe = sum(1 for k in cfg.layer_kinds() if k in ("attn", "attn_local")) \
+        if cfg.n_experts else 0
+    routes = {k: run["routes"][k] for k in ("moe_ep", "moe_dense")}
+    want_r = {"moe_ep": steps * moe * (1 + bool(cfg.remat)), "moe_dense": 0}
+    if routes != want_r:
+        raise AssertionError(f"{label}: MoE routes {routes}, want {want_r}")
+    if lead:
+        held = "mesh and unsharded runs" if plain is not None else \
+            "mesh run"
+        print(f"check {label}: launches a step " + json.dumps(
+            {k: v / steps for k, v in want.items() if v}) + f" ({held}, "
+            "from the layer count), collectives a step " + json.dumps(
+                per_step) + f", MoE routes {routes} exact ok", flush=True)
+
+
+def _mr_reduced(n, dev, refs, lead):
+    """12a: reduced yi-6b (FSDP and whole) on (n, 1) and reduced
+    granite-moe (FSDP, experts over the model axis) under ``moe_ep`` on
+    (1, n), 3 steps in f32 on the card against the CPU's single-process
+    steps; exact counts against the unsharded step on the card."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_mod
+    cfgs = _mr_configs()
+    counts = {}
+    for path, arch, shape, held in _mr_cases(n):
+        cfg = cfgs[arch]
+        mesh = mesh_mod.make_mesh(shape, dev)
+        plain = _mr_train(cfg, None, None, dev, 2 * n, MR_STEPS)
+        run = _mr_train(cfg, mesh, held, dev, 2 * n, MR_STEPS)
+        ref_losses, ref_params = refs[path]
+        err = 0.0
+        for k, want in ref_params.items():
+            got = run["params"][k]
+            err = max(err, float((got - want).abs().max()))
+            if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"{path}: {k} differs from the CPU by "
+                                     f"{float((got - want).abs().max())}")
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(run["losses"], ref_losses))
+        if loss_err > 1e-4:
+            raise AssertionError(f"{path}: losses {run['losses']} vs "
+                                 f"{ref_losses} on the CPU")
+        _mr_check_counts(path, run, mesh, cfg, MR_STEPS, lead, plain)
+        if lead:
+            print(f"check {path} mesh {shape} {held}, {MR_STEPS} steps "
+                  f"card ranks vs the CPU's single-process step: losses "
+                  f"{[round(x, 4) for x in run['losses']]} rel_err="
+                  f"{loss_err:.2e} (tol 1e-4) params max_abs_err={err:.2e} "
+                  "(rtol=atol=1e-5) ok", flush=True)
+        counts[path] = run["kernels"]
+    return counts
+
+
+def _fp_spread(a, b):
+    """The largest relative difference of two fingerprints' float parts,
+    and whether they are equal outright."""
+    worst = 0.0
+    for k in a:
+        for x, y in zip(a[k][:2], b[k][:2]):
+            worst = max(worst, abs(x - y) / max(abs(y), 1e-30))
+    return worst, a == b
+
+
+def _mr_yi6b(n, dev, lead):
+    """12b: Yi-6B at full width through the FSDP step at phase 8's shape
+    (4 x 1024 tokens, remat, bf16 compute), 3 steps: 16 of 32 layers on
+    one rank, held to two unsharded runs (bitwise where those two are,
+    else within their spread); all 32 on n >= 2 ranks where n divides 4.
+    The runs share one draw of the weights on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    layers = 32 if n > 1 and 4 % n == 0 else 16
+    rows = 4 if 4 % n == 0 else n
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=layers,
+                              dtype="bfloat16", remat=True)
+    label = f"multirank yi-6b x{layers} fsdp"
+    mesh = mesh_mod.make_mesh((n, 1), dev)
+    kw = dict(masters=M.init_params(cfg, 0, dev), seq=TRAIN_SEQ, key=2,
+              lr0=7e-3, total=100, keep="fingerprint")
+    runs = {}
+    if n == 1:
+        runs["plain_a"] = _mr_train(cfg, None, None, dev, rows, MR_STEPS,
+                                    **kw)
+    runs["fsdp"] = _mr_train(cfg, mesh, "fsdp", dev, rows, MR_STEPS,
+                             profile=f"{label} train step", **kw)
+    run = runs["fsdp"]
+    if n == 1:
+        runs["plain_b"] = _mr_train(cfg, None, None, dev, rows, MR_STEPS,
+                                    **kw)
+    del kw
+    if n == 1:
+        a, b = runs["plain_a"], runs["plain_b"]
+        spread, bitwise = _fp_spread(a["fingerprint"], b["fingerprint"])
+        loss_spread = max(abs(x - y) for x, y in zip(a["losses"],
+                                                     b["losses"]))
+        got, same = _fp_spread(run["fingerprint"], a["fingerprint"])
+        loss_err = max(abs(x - y) for x, y in zip(run["losses"],
+                                                  a["losses"]))
+        if bitwise and a["losses"] == b["losses"]:
+            if not same or run["losses"] != a["losses"]:
+                raise AssertionError(
+                    f"{label}: the unsharded runs are bitwise equal, the "
+                    f"FSDP run is not: losses {run['losses']} vs "
+                    f"{a['losses']}, params rel {got:.3e}")
+            verdict = "bitwise equal to the unsharded step"
+        else:
+            if got > 2 * spread or loss_err > 2 * loss_spread:
+                raise AssertionError(
+                    f"{label}: params rel {got:.3e} and losses "
+                    f"{loss_err:.3e} off the unsharded step, whose two "
+                    f"runs spread {spread:.3e} and {loss_spread:.3e}")
+            verdict = (f"within twice the unsharded runs' spread (params "
+                       f"rel {got:.3e} vs {spread:.3e}, losses {loss_err:.3e}"
+                       f" vs {loss_spread:.3e})")
+    else:
+        verdict = "finite"
+    _mr_check_counts(label, run, mesh, cfg, MR_STEPS, lead,
+                     runs.get("plain_a"))
+    if lead:
+        tokens = rows * TRAIN_SEQ
+        report = {}
+        for name, r in runs.items():
+            wall = statistics.median(r["walls"][1:])
+            report[name] = {"losses": r["losses"], "step_wall_s": r["walls"],
+                            "step_wall_median_s": wall,
+                            "tokens_per_s": tokens / wall,
+                            "peak_device_memory_gib_per_rank": r["peak_gib"]}
+        print(f"train yi-6b full width x {layers} layers, fsdp over {n} "
+              f"rank(s), batch {rows} x {TRAIN_SEQ}: " + json.dumps(report),
+              flush=True)
+        print(f"check {label}: {verdict} ok", flush=True)
+    return run["kernels"]
+
+
+def _mr_granite(n, dev, lead):
+    """12c: Granite-MoE with nothing cut under ``moe_ep`` on (1, n), the
+    experts held over the model axis, 2 train steps at 4 x 1024 (remat):
+    the expert-parallel MoE on every MoE layer, finite losses, and on one
+    rank the dense-MoE step's losses and parameters (from the same draw)
+    within 1e-5 relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    cfg = get_config(GRANITE)
+    steps = 2
+    kw = dict(masters=M.init_params(cfg, 0, dev), seq=TRAIN_SEQ, key=2,
+              lr0=7e-3, total=100, keep="fingerprint")
+    label = f"multirank {GRANITE} moe_ep"
+    mesh = mesh_mod.make_mesh((1, n), dev)
+    run = _mr_train(cfg, mesh, "fsdp", dev, TRAIN_ROWS, steps,
+                    profile=f"{label} train step", **kw)
+    plain = None
+    verdict = "finite"
+    if n == 1:
+        plain = _mr_train(cfg, None, None, dev, TRAIN_ROWS, steps, **kw)
+        if plain["routes"]["moe_dense"] <= 0:
+            raise AssertionError(f"{label}: the unsharded step took no "
+                                 "dense MoE")
+        rel, _ = _fp_spread(run["fingerprint"], plain["fingerprint"])
+        loss = max(abs(x - y) / abs(y) for x, y in zip(run["losses"],
+                                                       plain["losses"]))
+        if rel > 1e-5 or loss > 1e-5:
+            raise AssertionError(f"{label}: losses {run['losses']} vs the "
+                                 f"dense {plain['losses']} ({loss:.2e}), "
+                                 f"params rel {rel:.2e} (tol 1e-5)")
+        verdict = (f"equal to the dense-MoE step (losses rel {loss:.2e}, "
+                   f"params rel {rel:.2e}, tol 1e-5)")
+    del kw
+    _mr_check_counts(label, run, mesh, cfg, steps, lead, plain)
+    if lead:
+        report = {"losses": run["losses"], "step_wall_s": run["walls"],
+                  "peak_device_memory_gib_per_rank": run["peak_gib"]}
+        if plain is not None:
+            report.update(dense_losses=plain["losses"],
+                          dense_step_wall_s=plain["walls"])
+        print(f"train {GRANITE} moe_ep over (1, {n}): " + json.dumps(report),
+              flush=True)
+        print(f"check {label}: {verdict} ok", flush=True)
+    return run["kernels"]
+
+
+def _mr_delayed(n, dev, refs, lead):
+    """12d: delayed sync on (pod n, 1, 1), each pod one group, merging
+    every 2 steps: 3 steps of reduced yi-6b in f32, each group's
+    parameters against the CPU's list form with n groups."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import delayed_sync
+    from repro_torch.distributed import ctx, fsdp
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt_mod
+    cfg = _mr_configs()["yi"]
+    mesh = mesh_mod.make_mesh((n, 1, 1), dev)
+    lay = fsdp.layout(cfg, mesh, pod_groups=True)
+    params = fsdp.shard(lay, M.tree_map(lambda t: t.to(dev),
+                                        M.init_params(cfg, 0, "cpu")))
+    opt = opt_mod.shared_rmsprop()
+    state = opt.init(params)
+    step = delayed_sync.make_delayed_train_step(
+        cfg, opt, n_groups=n, merge_interval=2, lr=1e-3, layout=lay)
+    g = dist.get_rank()
+    losses = []
+    dispatch.reset_launch_counts()
+    with ctx.use_mesh(mesh):
+        for i, batches in enumerate(_mr_delayed_batches(cfg, n)):
+            batch = {k: v.to(dev) for k, v in batches[g].items()}
+            params, state, met = step(params, state, batch, i)
+            losses.append(float(met["loss"]))
+    counts = dispatch.launch_counts()
+    ref_losses, ref_groups = refs["multirank_delayed"]
+    whole = M.flatten(fsdp.full(lay, params))
+    err = max(float((whole[k].detach().cpu() - want).abs().max())
+              for k, want in ref_groups[g].items())
+    if err > 1e-5 or any(abs(a - b) > 1e-4 * abs(b)
+                         for a, b in zip(losses, ref_losses)):
+        raise AssertionError(f"multirank delayed sync: group {g} params off "
+                             f"the CPU's by {err:.2e}, losses {losses} vs "
+                             f"{ref_losses}")
+    _check_rmsprop_launches(
+        "multirank delayed sync", counts, MR_STEPS * _per_update(
+            len(M.flatten(params))),
+        others=("rmsnorm", "rmsnorm_bwd", "flash_attention_f32",
+                "flash_attention_bwd_f32"))
+    if lead:
+        print(f"check multirank delayed sync (pod {n}, 1, 1), merge every "
+              f"2, reduced yi-6b f32, cards vs the CPU's {n} groups: losses "
+              f"{[round(x, 4) for x in losses]}, group {g} params "
+              f"max_abs_err={err:.2e} (tol 1e-5) ok", flush=True)
+    return counts
+
+
+def _phase12_rank(rank, n, port, tmp):
+    """One rank of phase 12 on card ``rank``: 12a-12d, its launch counts
+    by path written to ``tmp``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=n)
+    try:
+        build.library()
+        refs = torch.load(os.path.join(tmp, "refs.pt"))
+        lead = rank == 0
+
+        def lap(name, t0):
+            if lead:
+                print(f"phase {name}_s {time.perf_counter() - t0:.1f}",
+                      flush=True)
+            return time.perf_counter()
+        t = time.perf_counter()
+        counts = _mr_reduced(n, dev, refs, lead)
+        t = lap("12a", t)
+        counts["multirank_yi6b_fsdp"] = _mr_yi6b(n, dev, lead)
+        t = lap("12b", t)
+        counts["multirank_granite_full_ep"] = _mr_granite(n, dev, lead)
+        t = lap("12c", t)
+        counts["multirank_delayed"] = _mr_delayed(n, dev, refs, lead)
+        lap("12d", t)
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(counts, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_phase12():
+    """Phase 12 (12a-12d): one rank a card over NCCL, started from the
+    parent, which has built the kernels and computed the CPU's
+    references; returns rank 0's {path: counts}, the ranks' counts
+    required equal."""
+    import gc
+    import pickle
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    n = torch.cuda.device_count()
+    print(f"phase 12 world {n}", flush=True)
+    refs = _mr_cpu_refs(n)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mr_") as tmp:
+        torch.save(refs, os.path.join(tmp, "refs.pt"))
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        mp.start_processes(_phase12_rank, args=(n, port, tmp), nprocs=n,
+                           start_method="spawn")
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    if any(c != ranks[0] for c in ranks[1:]):
+        raise AssertionError("phase 12: the ranks' launch counts differ")
+    return ranks[0]
+
+
 def _shapes(record):
     """A kernel record and its timings at other shapes."""
     return [record] + [record[k] for k in (
@@ -4661,6 +5264,11 @@ def main():
     t_phase = time.perf_counter()
     path_counts.update(run_phase11())
     print(f"phase recurrent_encdec_s {time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    path_counts.update(run_phase12())
+    print(f"phase multirank_s {time.perf_counter() - t_phase:.1f}")
 
     by_op = {"rmsnorm_fwd": "rmsnorm",
              "flash_attention_append": "flash_append",

@@ -26,15 +26,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.distributed.sharding import scan_stacked as _use_scan
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-
-
-def _use_scan(cfg: ModelConfig) -> bool:
-    """The JAX package's rule for scan-stacked layers (model.py:218-221)."""
-    return (cfg.n_layers % len(cfg.block_cycle) == 0
-            and cfg.shared_attn_every == 0
-            and not cfg.is_encdec)
 
 
 def params_from_jax(cfg: ModelConfig, tree: Any, device=None,

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.returns import n_step_returns
+from repro_torch.distributed import collectives, ctx, fsdp, sharding
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import optimizers as opt_mod
@@ -30,14 +31,16 @@ from repro_torch.optim import schedules
 
 def a3c_token_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
                    *, gamma: float = 0.99, beta: float = 0.01,
-                   value_coef: float = 0.5):
+                   value_coef: float = 0.5,
+                   layout: Optional[fsdp.Layout] = None):
     """batch: tokens (B, S) [or embeds; an encoder-decoder's also carries
     enc_frames (B, F, d_model), which ``forward`` encodes], rewards
     (B, S), discounts (B, S) = gamma * (1 - done).  Position t's reward is for the transition
     prefix[:t] --tokens[t+1]--> prefix[:t+1].  Returns (loss, metrics), the
     metrics as 0-d tensors (no host sync).  ``gamma`` is carried by the
-    discounts; it is in the signature for parity with the JAX package."""
-    out = M.forward(cfg, params, batch)
+    discounts; it is in the signature for parity with the JAX package.
+    ``layout``: ``params`` are this rank's shards (``M.forward``)."""
+    out = M.forward(cfg, params, batch, layout)
     logits = out["logits"].float()                    # (B, S, V)
     values = out["value"]                             # (B, S)
     if "actions" in batch:
@@ -70,9 +73,48 @@ def a3c_token_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     return loss, {k: v.detach() for k, v in metrics.items()}
 
 
+def loss_grads(cfg: ModelConfig, params, batch, *, gamma: float = 0.99,
+               beta: float = 0.01, layout: Optional[fsdp.Layout] = None,
+               data_axes=None):
+    """(gradient tree, metrics) of the A3C token loss at ``params`` (f32
+    masters, or this rank's shards under ``layout``), turning on
+    ``requires_grad`` for every leaf.
+
+    Under an installed mesh (``ctx.use_mesh``) ``batch`` holds this rank's
+    rows and the loss is their mean; ranks of the data axes (``data_axes``,
+    by default ``sharding.data_axes(mesh)``) hold equal shares, so the
+    mean over them is the global loss, and the gradients and metrics are
+    averaged over them: a leaf held whole by an all-reduce, a leaf sharded
+    over them (FSDP) by dividing the sum its gather's backward
+    reduce-scattered.  The model axis computes one loss: nothing is summed
+    over it."""
+    leaves = list(M.flatten(params).values())
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, metrics = a3c_token_loss(cfg, params, batch, gamma=gamma,
+                                   beta=beta, layout=layout)
+    grads = list(torch.autograd.grad(loss, leaves))
+    mesh = ctx.current_mesh()
+    if mesh is not None:
+        axes = sharding.data_axes(mesh) if data_axes is None else data_axes
+        group = sharding.axes_group(mesh, axes)
+        n = sharding.axes_size(mesh, axes)
+        for path, g in zip(M.flatten(params), grads):
+            if layout is None or not any(layout.sharded(path, a)
+                                         for a in axes):
+                collectives.all_reduce(g, group)
+            g.div_(n)
+        vals = collectives.all_reduce(torch.stack(list(metrics.values())),
+                                      group) / n
+        metrics = dict(zip(metrics, vals.unbind()))
+    paths = iter(grads)
+    return M.tree_map(lambda _: next(paths), params), metrics
+
+
 def make_train_step(cfg: ModelConfig, opt, *, gamma: float = 0.99,
                     beta: float = 0.01, lr0: float = 7e-4,
-                    total_steps: int = 100_000):
+                    total_steps: int = 100_000,
+                    layout: Optional[fsdp.Layout] = None):
     """Synchronous train step, the A2C limit of A3C:
     ``train_step(params, opt_state, batch, step) -> (params, opt_state,
     metrics)``.  ``step`` is a host int; lr = linear_anneal(lr0, step,
@@ -82,18 +124,19 @@ def make_train_step(cfg: ModelConfig, opt, *, gamma: float = 0.99,
     f32 parameter leaves, and the optimizer state where the optimizer
     writes it (the RMSProp accumulator), are the same tensors before and
     after the call.  ``params`` must be f32 masters on one device; the step
-    turns on ``requires_grad`` for every leaf."""
+    turns on ``requires_grad`` for every leaf.
+
+    Under an installed mesh the step is data-parallel (``loss_grads``):
+    ``batch`` is this rank's rows (``TokenPipeline(mesh=...)``), and with
+    ``layout`` the parameters and optimizer state are this rank's shards
+    (``fsdp.shard``), which the optimizer updates as its leaves (one
+    kernel-8 launch an update, as on one device); without it every rank
+    holds them whole, as the JAX launcher leaves them."""
 
     def train_step(params, opt_state, batch, step):
         lr = schedules.linear_anneal(lr0, step, float(total_steps))
-        leaves = list(M.flatten(params).values())
-        for t in leaves:
-            t.requires_grad_(True)
-        loss, metrics = a3c_token_loss(cfg, params, batch, gamma=gamma,
-                                       beta=beta)
-        grads = torch.autograd.grad(loss, leaves)
-        paths = iter(grads)
-        grads = M.tree_map(lambda _: next(paths), params)
+        grads, metrics = loss_grads(cfg, params, batch, gamma=gamma,
+                                    beta=beta, layout=layout)
         opt_state = opt_mod.update_and_apply(opt, params, grads, opt_state,
                                              lr)
         return params, opt_state, metrics

@@ -1,19 +1,27 @@
-"""Thread-local sharding rules.
+"""Thread-local sharding rules and mesh, as ``repro/distributed/ctx.py``.
 
-The port's share of ``repro/distributed/ctx.py``: the active rule set
-(``current_rules``) and the context manager that installs one
-(``sharding_rules``).  The model layer reads the rules when it lays out and
-writes a KV cache; the dispatch layer reads them to pick the
-context-parallel decode.  The JAX module also folds the rule set into a
-trace token, because a jitted function would otherwise replay a trace made
-under other rules; eager PyTorch keeps no trace cache, so the port needs
-no token.
+The active rule set (``current_rules``) and the context manager that
+installs one (``sharding_rules``): the model layer reads the rules when it
+lays out and writes a KV cache and when it picks the expert-parallel MoE
+(``moe_ep``); the dispatch layer reads them to pick the context-parallel
+decode.  The installed mesh (``use_mesh``, ``current_mesh``): the train
+step reads it for its data and model groups.  The JAX module also folds
+rules and mesh into a trace token, because a jitted function would
+otherwise replay a trace made under others; eager PyTorch keeps no trace
+cache, so the port needs no token.
+
+``constrain`` is the identity: the names it is called with ("residual",
+"attn_q", "attn_kv") are layout hints of tensor and sequence parallelism,
+which the port does not do yet; every activation is held whole on each
+rank of the model axis.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 from typing import Optional
+
+import torch
 
 _state = threading.local()
 
@@ -32,3 +40,35 @@ def sharding_rules(rules: Optional[dict]):
         yield
     finally:
         _state.rules = prev
+
+
+def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The named activation constraint: the identity (see the module
+    docstring)."""
+    return x
+
+
+def current_mesh():
+    """The mesh the launcher installed (None on a single-process run)."""
+    return getattr(_state, "mesh", None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Install ``mesh`` (a ``DeviceMesh``; None clears it) for the body of
+    the ``with``."""
+    prev = current_mesh()
+    _state.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _state.mesh = prev
+
+
+def mesh_devices(mesh) -> int:
+    """Ranks in a mesh (a ``DeviceMesh`` or an {axis: size} dict)."""
+    sizes = mesh.values() if isinstance(mesh, dict) else mesh.shape
+    n = 1
+    for s in sizes:
+        n *= s
+    return n

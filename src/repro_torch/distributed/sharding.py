@@ -1,25 +1,48 @@
-"""Context-parallel decode layout over a ``torch.distributed`` group.
+"""Sharding over a mesh of ``torch.distributed`` ranks, as
+``repro/distributed/sharding.py``.
 
-The port's share of ``repro/distributed/sharding.py``: the decode part
-only.  The JAX launcher's ``--decode-cp`` builds a (data=1, model=n) mesh
-whose ``decode_rules`` shard the KV cache's sequence dim over the model
-axis; here that mesh is one process group over every rank, with no data
-axes.  Rank r holds global cache slots [r * l_loc, (r + 1) * l_loc) of
-every row; the model layer writes a new row only on the rank that owns its
-slot, and the dispatch layer runs the partials kernel over the local slice
-and combines the ranks with two all-reduces.
+Mesh axes (``launch/mesh.py``):
+  pod    -- outer replica groups (the delayed-sync merge axis)
+  data   -- batch and FSDP axis
+  model  -- tensor parallelism: heads, d_ff, vocab, experts
 
-Only the divisibility rule is taken (``length % n_shards == 0``): the JAX
-rule's 128-row alignment of each slice exists for the TPU's matrix unit,
-and the port's kernels mask their own ragged edges.
+*The plan* (``param_shardings``, ``batch_shardings``,
+``opt_state_shardings``, and ``activation_rules``' ``moe_ep`` entry) is
+the reference's, name by name: for each parameter leaf a tuple of
+mesh-axis names, one per dim ("data", "model", a tuple of axes, or None
+for a dim held whole), from the same path regexes (matched on the port's
+"." path joined with "/"), the same resolution and the same rule that
+drops an axis that does not divide its dim.  The reference plans scan-stacked leaves with a leading layer
+dim; the port's layer i takes the stacked spec without it.  The plan only
+needs the mesh's axis sizes, so it takes a ``DeviceMesh`` or an
+{axis: size} dict.  How the port holds the plan is ``fsdp.py``'s: in this
+slice only the experts' "model" entries are held sharded; every other
+"model" entry is held whole on each rank of the model axis.
+
+*Groups*: ``axes_group`` gives the process group over one or more mesh
+axes (several flattened, pod-major, as the reference's ('pod', 'data')
+batch axes), ``axes_rank`` this rank's index in it.
+
+*Context-parallel decode*: the JAX launcher's ``--decode-cp`` builds a
+(data=1, model=n) mesh whose ``decode_rules`` shard the KV cache's sequence
+dim over the model axis; here that mesh is one process group over every
+rank, with no data axes.  Rank r holds global cache slots
+[r * l_loc, (r + 1) * l_loc) of every row; the model layer writes a new row
+only on the rank that owns its slot, and the dispatch layer runs the
+partials kernel over the local slice and combines the ranks with two
+all-reduces.  Only the divisibility rule is taken
+(``length % n_shards == 0``): the JAX rule's 128-row alignment of each
+slice exists for the TPU's matrix unit, and the port's kernels mask their
+own ragged edges.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import re
 import shutil
 import tempfile
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -107,3 +130,257 @@ def process_group(device: torch.device):
             dist.destroy_process_group()
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# meshes and their groups
+# ---------------------------------------------------------------------------
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """{axis: size} of a ``DeviceMesh`` or of such a dict."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    """Batch-parallel axes: ('pod', 'data') on the multi-pod mesh."""
+    names = mesh_shape(mesh)
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def axes_size(mesh, axes) -> int:
+    shape = mesh_shape(mesh)
+    n = 1
+    for a in axes:
+        n *= shape[a]
+    return n
+
+
+_GROUPS: Dict[Any, Any] = {}
+
+
+def axes_group(mesh, axes: Tuple[str, ...]):
+    """The process group over mesh ``axes`` that holds this rank: one axis's
+    group, or for several a group over their product, ranks in row-major
+    order of ``axes``.  Every rank must ask for the same axes in the same
+    order (the groups are made collectively, once a mesh)."""
+    axes = tuple(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (id(mesh), axes)
+    if key not in _GROUPS:
+        names = list(mesh.mesh_dim_names)
+        order = [names.index(a) for a in names if a not in axes] + \
+            [names.index(a) for a in axes]
+        rows = mesh.mesh.permute(order).reshape(-1, axes_size(mesh, axes))
+        group, _ = dist.new_subgroups_by_enumeration(rows.tolist())
+        _GROUPS[key] = (mesh, group)
+    return _GROUPS[key][1]
+
+
+def axes_rank(mesh, axes: Tuple[str, ...]) -> int:
+    """This rank's index along ``axes`` (row-major over several)."""
+    shape = mesh_shape(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    r = 0
+    for a in axes:
+        r = r * shape[a] + coord[a]
+    return r
+
+
+def scan_stacked(cfg) -> bool:
+    """The reference's rule for scan-stacked layers
+    (``repro/models/model.py:218-221``): its parameter plan gives such
+    layers' leaves a leading layer dim."""
+    return (cfg.n_layers % len(cfg.block_cycle) == 0
+            and cfg.shared_attn_every == 0
+            and not cfg.is_encdec)
+
+
+# ---------------------------------------------------------------------------
+# parameter plan
+# ---------------------------------------------------------------------------
+
+# (regex on the "/"-joined path, spec of the unstacked leaf): "F" = the
+# FSDP (data) axes, "M" = the model axis; resolved per mesh
+_PARAM_RULES = [
+    (r"embed/table$",              ("M", "F")),
+    (r"lm_head/w$",                ("F", "M")),
+    (r"value_head/w$",             ("F", None)),
+    (r"(wq|wk|wv|up_x|up_z|w_in|ff_gate|ff_up)/w$", ("F", "M")),
+    (r"(wo|down|ff_down|out_proj)/w$",              ("M", "F")),
+    (r"(gate|up)/w$",              ("F", "M")),
+    (r"(mlp/fc1|fc1)/w$",          ("F", "M")),
+    (r"(mlp/fc2|fc2)/w$",          ("M", "F")),
+    (r"in_proj/w$",                ("F", "M")),
+    (r"(wq|wk|wv)/b$",             ("M",)),
+    (r"(gate|up|fc1)/b$",          ("M",)),
+    (r"router$",                   ("F", None)),
+    # expert weights: over the model axis only
+    (r"w_(gate|up)$",              ("M", None, None)),  # (E, d, f)
+    (r"w_down$",                   ("M", None, None)),  # (E, f, d)
+    (r"conv_w$",                   (None, "M")),
+    (r"conv_b$",                   ("M",)),
+    (r"(A_log|D|dt_bias)$",        ("M",)),
+    (r"(mamba|mlstm)/norm/scale$", ("M",)),
+    (r"w_[if]/w$",                 ("F", None)),
+    (r"slstm/r$",                  (None, "F", "M")),   # (H, hd, 4hd)
+]
+
+
+def _resolve(tpl, mesh, *, fsdp: bool = True) -> tuple:
+    d_ax = data_axes(mesh)
+    out = []
+    for s in tpl:
+        if s == "M":
+            out.append("model")
+        elif s == "F":
+            ax = d_ax if (fsdp and d_ax) else None
+            out.append(ax[0] if isinstance(ax, tuple) and len(ax) == 1
+                       else ax)
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def param_spec(path: str, ndim: int, mesh, *, stacked: bool,
+               fsdp: bool = True) -> tuple:
+    """The reference's spec of a leaf of ``ndim`` dims at ``path`` ("/"
+    joined; ``ndim`` counts the layer dim of a stacked leaf), as long as
+    the rule says (shorter than ``ndim`` where the rule is)."""
+    for pat, tpl in _PARAM_RULES:
+        if re.search(pat, path):
+            spec = _resolve(tpl, mesh, fsdp=fsdp)
+            if len(spec) > ndim:
+                return ()                   # degenerate leaf: replicated
+            if stacked and ndim == len(spec) + 1:
+                return (None,) + spec
+            return spec
+    return ()                               # norms, small biases, scalars
+
+
+def entry_axes(entry) -> tuple:
+    """The mesh axes of one spec entry (None, an axis or a tuple of them)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _divisible_spec(shape: tuple, spec: tuple, mesh) -> tuple:
+    """``spec`` padded to ``shape``'s dims, each axis that does not divide
+    its dim dropped (e.g. 4-head xLSTM), as ``param_shardings`` does."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(ax if dim % axes_size(mesh, entry_axes(ax)) == 0 else None
+                 for dim, ax in zip(shape, spec))
+
+
+def param_shardings(cfg, mesh, shapes: Optional[Dict[str, tuple]] = None,
+                    *, fsdp: bool = True) -> Dict[str, tuple]:
+    """The plan: {"layers.3.attn.wq.w": ("data", "model"), ...}, one entry
+    a dim, for the leaves of ``shapes`` (the port's ``param_shapes(cfg)``
+    by default)."""
+    if shapes is None:
+        from repro_torch.models.model import param_shapes
+        shapes = param_shapes(cfg)
+    stacked = scan_stacked(cfg)
+    out = {}
+    for key, shape in shapes.items():
+        path = key.replace(".", "/")
+        lead = stacked and path.startswith("layers/")
+        spec = param_spec(path, len(shape) + lead, mesh, stacked=lead,
+                          fsdp=fsdp)
+        spec = tuple(spec) + (None,) * (len(shape) + lead - len(spec))
+        if lead:
+            if spec[0] is not None:
+                raise ValueError(f"{key}: the plan {spec} shards the layer "
+                                 "dim, which the port's layer list has not")
+            spec = spec[1:]
+        out[key] = _divisible_spec(tuple(shape), spec, mesh)
+    return out
+
+
+def strip_axis(spec: tuple, axis: str) -> tuple:
+    """A spec with ``axis`` taken out of every entry."""
+    def strip(a):
+        if isinstance(a, tuple):
+            t = tuple(x for x in a if x != axis)
+            return t if len(t) > 1 else (t[0] if t else None)
+        return None if a == axis else a
+    return tuple(strip(a) for a in spec)
+
+
+def strip_pod(spec: tuple) -> tuple:
+    """The delayed-sync groups' inner layout: ``dryrun.py``'s
+    ``prepend_pod`` without the prepended group dim."""
+    return strip_axis(spec, "pod")
+
+
+def opt_state_shardings(cfg, mesh, params_shardings: Dict[str, tuple]):
+    """Optimizer state mirrors the parameter plan (g has params' shape)."""
+    return {"g": params_shardings}
+
+
+# ---------------------------------------------------------------------------
+# batch plan and activation rules
+# ---------------------------------------------------------------------------
+
+def _batch_axis(mesh, batch_size: int):
+    d_ax = data_axes(mesh)
+    if not d_ax or batch_size % axes_size(mesh, d_ax) != 0:
+        return None
+    return d_ax[0] if len(d_ax) == 1 else d_ax
+
+
+def batch_shardings(mesh, batch_tree: Dict[str, Any], *,
+                    batch_size: int) -> Dict[str, tuple]:
+    """The leading batch dim over the data axes (when they divide it);
+    M-RoPE ``positions`` (3, B, S) on its second dim.  ``batch_tree``:
+    {name: tensor or shape}."""
+    dp = _batch_axis(mesh, batch_size)
+    out = {}
+    for name, leaf in batch_tree.items():
+        ndim = len(getattr(leaf, "shape", leaf))
+        if name.endswith("positions"):
+            out[name] = (None, dp, None)
+        else:
+            out[name] = (dp,) + (None,) * (ndim - 1)
+    return out
+
+
+def shard_batch(mesh, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch, as ``batch_shardings`` lays it
+    out: rows [r * B / n, (r + 1) * B / n) of the data axes.  A batch the
+    data axes do not divide is a ValueError (a rank cannot run the whole
+    batch as the reference's one device does)."""
+    d_ax = data_axes(mesh)
+    n = axes_size(mesh, d_ax)
+    size = next(iter(batch.values())).shape[0]
+    specs = batch_shardings(mesh, batch, batch_size=size)
+    if n > 1 and all(d is None for s in specs.values() for d in s):
+        raise ValueError(f"batch {size} does not divide over the {n} ranks "
+                         f"of the data axes {d_ax}: each rank takes "
+                         "batch / n rows")
+    r = axes_rank(mesh, d_ax)
+    out = {}
+    for name, t in batch.items():
+        dim = 1 if name.endswith("positions") else 0
+        rows = t.shape[dim] // n
+        out[name] = t.narrow(dim, r * rows, rows)
+    return out
+
+
+def activation_rules(mesh, *, batch_size: int, cfg=None) -> dict:
+    """Activation rules, installed with ``ctx.sharding_rules``: for a config
+    with experts, ``moe_ep`` picks the expert-parallel MoE over the model
+    group, ``dp_axes`` the data axes where they divide the batch.  The
+    reference's layout rules ("residual", "expert_buffer", "attn_q",
+    "attn_kv") are tensor and sequence parallelism, which the port does not
+    do yet."""
+    if cfg is None or not cfg.n_experts:
+        return {}
+    dp = _batch_axis(mesh, batch_size)
+    return {"moe_ep": {"mesh": mesh, "tp": mesh_shape(mesh)["model"],
+                       "dp_axes": data_axes(mesh) if dp is not None
+                       else ()}}

@@ -27,7 +27,8 @@ Each wrapper counts its launches, by kernel and arm; ``launch_counts`` /
 main path went through the kernels.  The verify arms keep route counts
 beside them (``route_counts``: ``flash_verify``, ``verify_paged``), the
 calls that reached the append kernel through them, which the kernel
-counts again as its own; ``reset_launch_counts`` clears both.
+counts again as its own; the model layer counts there which MoE it took
+(``moe_ep``, ``moe_dense``); ``reset_launch_counts`` clears both.
 """
 from __future__ import annotations
 
@@ -62,9 +63,11 @@ _COUNTERS = {
     "rmsprop": (rmsprop_cuda, "launches"),
     "rmsprop_update_multi": (rmsprop_cuda, "multi_launches"),
     "rmsprop_apply_multi": (rmsprop_cuda, "apply_launches")}
-# route -> calls since the last reset (not kernels: each call is counted
-# again by the append kernel's arm that it launches)
-_ROUTES = {"flash_verify": 0, "verify_paged": 0}
+# route -> calls since the last reset (not kernels: each verify call is
+# counted again by the append kernel's arm that it launches; the MoE
+# routes are the model layer's, which it counts here with count_route)
+_ROUTES = {"flash_verify": 0, "verify_paged": 0, "moe_ep": 0,
+           "moe_dense": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -73,6 +76,10 @@ def launch_counts() -> Dict[str, int]:
 
 def route_counts() -> Dict[str, int]:
     return dict(_ROUTES)
+
+
+def count_route(route: str) -> None:
+    _ROUTES[route] += 1
 
 
 def reset_launch_counts() -> None:

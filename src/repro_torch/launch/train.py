@@ -15,15 +15,30 @@
 ``--device`` defaults to the card (``cuda``); ``--device cpu`` runs the
 kernels' plain versions on the CPU.
 
+``--mode llm`` under torchrun (``WORLD_SIZE`` > 1) trains data-parallel, as
+the JAX launcher does on a multi-device host (``repro/launch/train.py:89-
+100``): one rank a device (NCCL for ``cuda``, gloo for ``cpu``), a
+(data=world, model=1) mesh, each rank on its rows of every batch, the
+gradients averaged over the ranks.  The parameters stay whole on every
+rank, as the JAX launcher leaves them; a model with experts takes the
+expert-parallel MoE (the ``moe_ep`` rule of ``activation_rules``).  Only
+rank 0 prints.  The JAX launcher runs a batch the devices do not divide on
+one device; a rank cannot, so such a batch is a ValueError.
+
   PYTHONPATH=src python -m repro_torch.launch.train --mode rl --env catch \\
       --algo a3c --workers 8 --frames 200000
   PYTHONPATH=src python -m repro_torch.launch.train --mode llm \\
       --arch yi-6b --reduced --steps 3 --seq 128 --batch 2 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --mode llm --arch yi-6b --reduced --steps 3 --seq 128 --batch 4 \\
+      --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import time
 
 
@@ -78,14 +93,35 @@ def run_rl(args) -> dict:
 
 
 def run_llm(args) -> dict:
+    """The CLI's LLM run: on one device, or data-parallel over the ranks
+    torchrun started (``WORLD_SIZE`` > 1)."""
+    from repro_torch.device import resolve
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_mod
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return _train_llm(args, resolve(args.device), None)
+    if args.batch % world:
+        raise ValueError(f"--batch {args.batch} does not divide over the "
+                         f"{world} ranks: each rank takes batch / world "
+                         "rows")
+    dev = mesh_mod.local_device(args.device)
+    with sharding.process_group(dev):
+        mesh = mesh_mod.make_debug_mesh(data=world, model=1, device=dev)
+        return _train_llm(args, dev, mesh)
+
+
+def _train_llm(args, dev, mesh) -> dict:
+    import torch.distributed as dist
+
     from repro_torch.configs import get_config
     from repro_torch.core import llm_a3c, prng
     from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.device import resolve
+    from repro_torch.distributed import ctx, sharding
     from repro_torch.models import model as M
     from repro_torch.optim import optimizers as opt_mod
 
-    dev = resolve(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -93,25 +129,34 @@ def run_llm(args) -> dict:
     opt = opt_mod.OPTIMIZERS[args.optimizer]()
     opt_state = opt.init(params)
     pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=args.seq,
-                         global_batch=args.batch, device=str(dev))
+                         global_batch=args.batch, device=str(dev), mesh=mesh)
     train_step = llm_a3c.make_train_step(cfg, opt, lr0=args.lr,
                                          total_steps=args.steps)
     data_key = prng.key(args.seed + 2)      # the JAX CLI's key
+    lead = mesh is None or dist.get_rank() == 0
+    scope = contextlib.ExitStack()
+    if mesh is not None:
+        scope.enter_context(ctx.use_mesh(mesh))
+        scope.enter_context(ctx.sharding_rules(sharding.activation_rules(
+            mesh, batch_size=args.batch, cfg=cfg)))
     history = []
     t0 = time.time()
-    for step in range(args.steps):
-        batch = pipe.batch(data_key, step)
-        params, opt_state, metrics = train_step(params, opt_state, batch,
-                                                step)
-        if step % max(1, args.steps // 20) == 0 or step == args.steps - 1:
-            rec = {"step": step,
-                   "loss": float(metrics["loss"]),
-                   "mean_return": float(metrics["mean_return"]),
-                   "entropy": float(metrics["entropy"]),
-                   "wall_s": round(time.time() - t0, 1)}
-            history.append(rec)
-            print(json.dumps(rec), flush=True)
-    if args.checkpoint:
+    with scope:
+        for step in range(args.steps):
+            batch = pipe.batch(data_key, step)
+            params, opt_state, metrics = train_step(params, opt_state,
+                                                    batch, step)
+            if step % max(1, args.steps // 20) == 0 \
+                    or step == args.steps - 1:
+                rec = {"step": step,
+                       "loss": float(metrics["loss"]),
+                       "mean_return": float(metrics["mean_return"]),
+                       "entropy": float(metrics["entropy"]),
+                       "wall_s": round(time.time() - t0, 1)}
+                history.append(rec)
+                if lead:
+                    print(json.dumps(rec), flush=True)
+    if args.checkpoint and lead:
         from repro_torch import checkpoint
         checkpoint.save(args.checkpoint, params)
         print(f"saved params to {args.checkpoint}")

@@ -38,11 +38,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import prng
 from repro_torch.device import resolve
+from repro_torch.distributed import ctx, fsdp
+from repro_torch.kernels import dispatch
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import encdec
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import moe_ep
 from repro_torch.models import ssm
 from repro_torch.models import xlstm
 from repro_torch.models.config import ModelConfig
@@ -402,17 +405,34 @@ def _embed_inputs(cfg: ModelConfig, params: Params,
     return x.to(compute_dtype(cfg))
 
 
-def _ffn_half(cfg: ModelConfig, p: Params, x: torch.Tensor):
+def _moe_rule(s: int) -> Optional[dict]:
+    """The installed ``moe_ep`` rule where the sequence of ``s`` divides
+    over its model ranks, else None: the reference's rule for taking the
+    expert-parallel MoE (``repro/models/model.py:91-104``)."""
+    ep = (ctx.current_rules() or {}).get("moe_ep")
+    return ep if ep is not None and s % ep["tp"] == 0 else None
+
+
+def _ffn_half(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              ep: Optional[dict] = None):
     """The block's second residual half: (x + FFN(norm(x)), the experts'
     load-balance loss or None).  The FFN is the experts where the config
-    has them (their capacity is per call: every row of the call, padding
-    and idle slots included, competes for it, as in the JAX steps), the
-    gated MLP otherwise."""
+    has them, the gated MLP otherwise.  The experts are expert-parallel
+    (``moe_ep.moe_apply_ep``) under the ``moe_ep`` rule ``ep``
+    (``_moe_rule``), dense otherwise (``moe.moe_apply``: its capacity is
+    per call, every row of the call, padding and idle slots included,
+    competing for it, as in the JAX steps); the route is counted
+    (``dispatch.route_counts``)."""
     y = cm.apply_norm(cfg.norm, p["ln2"], x)
     if cfg.n_experts:
-        y, lb = moe_mod.moe_apply(p["moe"], y, top_k=cfg.top_k,
-                                  capacity_factor=cfg.capacity_factor,
-                                  act=cfg.act)
+        kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                  act=cfg.act)
+        if ep is not None:
+            dispatch.count_route("moe_ep")
+            y, lb = moe_ep.moe_apply_ep(p["moe"], y, rule=ep, **kw)
+        else:
+            dispatch.count_route("moe_dense")
+            y, lb = moe_mod.moe_apply(p["moe"], y, **kw)
         return x + y, lb
     return x + mlp_mod.gated_mlp(p["mlp"], y, act=cfg.act), None
 
@@ -455,56 +475,72 @@ _DECODE = {"mamba2": ("mamba", ssm.mamba2_decode),
 
 
 def _block_train(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-                 aux: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+                 aux: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                 layout: Optional[fsdp.Layout] = None, prefix: str = "",
+                 ep: Optional[dict] = None):
     """One residual block over the full sequence -> (x, aux plus the
-    block's load-balance loss).  ``p`` holds the f32 masters; the cast to
-    the compute dtype happens here, so under ``cfg.remat`` it is
-    recomputed in the backward and only one block's cast copies are alive
-    at a time.  The recomputation routes the tokens as the forward did:
-    top-k is a stable sort."""
+    block's load-balance loss).  ``p`` holds the f32 masters (this rank's
+    shards under ``layout``, whose paths start with ``prefix``); the cast
+    to the compute dtype, and the gather of the cast shards, happen here,
+    so under ``cfg.remat`` they are recomputed in the backward and only
+    one block's cast, whole copies are alive at a time.  ``ep``: the
+    ``moe_ep`` rule the forward found, an argument rather than read from
+    the thread-local rules because the recomputation runs on the autograd
+    engine's thread (a card's backward runs on a device thread of its own).
+    The recomputation routes the tokens as the forward did: top-k is a
+    stable sort."""
     p = cast_params(cfg, p)
+    if layout is not None:
+        p = fsdp.gather(layout, prefix, p, model=ep is None)
     h = cm.apply_norm(cfg.norm, p["ln1"], x)
     if kind in _TRAIN:
         name, fn = _TRAIN[kind]
         return x + fn(p[name], h, cfg), aux
     h = attn.attend_train(p["attn"], h, cos, sin, cfg,
                           window=_window(cfg, kind))
-    x, lb = _ffn_half(cfg, p, x + h)
+    x, lb = _ffn_half(cfg, p, x + h, ep)
     return x, (aux if lb is None else aux + lb)
 
 
 def forward(cfg: ModelConfig, params: Params,
-            batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            batch: Dict[str, torch.Tensor],
+            layout: Optional[fsdp.Layout] = None) -> Dict[str, torch.Tensor]:
     """Training (full-sequence) forward.  batch {"tokens": (B, S)} (or
     {"embeds": (B, S, d)}), with {"positions": (3, B, S)} for M-RoPE and
     {"enc_frames": (B, F, d)} for the encoder-decoder; ``params`` the f32
-    masters.  Returns {"logits" (B, S, V) in the compute dtype, "value"
-    (B, S) f32, "aux_loss" () f32: the experts' load-balance losses summed
-    over the layers, 0 without experts}.  Zamba2's shared block runs after
-    every ``shared_attn_every``-th layer.  With ``cfg.remat`` each block,
-    the shared block's applications included, runs under
+    masters, or this rank's shards of them under ``layout``
+    (``distributed/fsdp.py``), which the forward gathers: the top-level
+    leaves once, each block's inside the block.  Returns {"logits"
+    (B, S, V) in the compute dtype, "value" (B, S) f32, "aux_loss" () f32:
+    the experts' load-balance losses summed over the layers, 0 without
+    experts}.  Zamba2's shared block runs after every
+    ``shared_attn_every``-th layer.  With ``cfg.remat`` each block, the
+    shared block's applications included, runs under
     ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint``):
     its activations are recomputed in the backward.  The encoder-decoder
     has no remat, as in the reference."""
     if cfg.is_encdec:
-        return encdec.forward(cfg, cast_params(cfg, params), batch)
+        return encdec.forward(cfg, fsdp.gather(
+            layout, "", cast_params(cfg, params), model=True), batch)
+    top = fsdp.gather(layout, "", {k: v for k, v in params.items()
+                                   if k not in ("layers", "shared_attn")})
     # gather, then cast: the values of casting the table first
-    x = _embed_inputs(cfg, params, batch)
+    x = _embed_inputs(cfg, top, batch)
     cos, sin = _rope_tables(cfg, batch, x.shape[1], x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ep = _moe_rule(x.shape[1]) if cfg.n_experts else None
 
-    def block(kind, p, x, aux):
+    def block(kind, p, x, aux, prefix):
+        args = (cfg, kind, p, x, aux, cos, sin, layout, prefix, ep)
         if cfg.remat:
-            return checkpoint(_block_train, cfg, kind, p, x, aux, cos, sin,
-                              use_reentrant=False)
-        return _block_train(cfg, kind, p, x, aux, cos, sin)
+            return checkpoint(_block_train, *args, use_reentrant=False)
+        return _block_train(*args)
     for i, (kind, p) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
-        x, aux = block(kind, p, x, aux)
+        x, aux = block(kind, p, x, aux, f"layers.{i}")
         if cfg.shared_attn_every and (i + 1) % cfg.shared_attn_every == 0:
-            x, aux = block("attn", params["shared_attn"], x, aux)
-    top = cast_params(cfg, {k: v for k, v in params.items()
-                            if k not in ("layers", "shared_attn")})
-    out = _heads(cfg, top, x)
+            x, aux = block("attn", params["shared_attn"], x, aux,
+                           "shared_attn")
+    out = _heads(cfg, cast_params(cfg, top), x)
     out["aux_loss"] = aux
     return out
 

@@ -93,6 +93,53 @@ def route(probs: torch.Tensor, top_k: int):
     return vals[:, :top_k], idx[:, :top_k]
 
 
+def gate(router: torch.Tensor, xf: torch.Tensor, top_k: int):
+    """Route T tokens (T, d): (gates (T, k) normalised over k, expert
+    indices (T, k), the Switch load-balance loss () f32), the router in
+    f32."""
+    e = router.shape[1]
+    probs = torch.softmax(xf.float() @ router.float(), dim=-1)       # (T, E)
+    gates, eidx = route(probs, top_k)                                # (T, k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    # load-balance loss on the full probabilities; f_e carries no gradient
+    f_e = torch.nn.functional.one_hot(eidx[:, 0], e).float().mean(0)
+    return gates, eidx, e * torch.sum(f_e * probs.mean(0))
+
+
+def dispatch(xf: torch.Tensor, e_flat: torch.Tensor, pos: torch.Tensor,
+             keep: torch.Tensor, n_experts: int, cap: int, top_k: int
+             ) -> torch.Tensor:
+    """The (E, cap, d) expert buffer: each token's row k times,
+    token-major (an expand: its gradient sums over k); kept rows land in
+    distinct slots, dropped ones in slot ``cap`` of their expert, which is
+    cut off."""
+    t, d = xf.shape
+    rows = xf[:, None, :].expand(t, top_k, d).reshape(t * top_k, d)
+    slot = e_flat * (cap + 1) + torch.where(keep, pos, cap)
+    return xf.new_zeros((n_experts * (cap + 1), d)).index_put(
+        (slot,), rows).reshape(n_experts, cap + 1, d)[:, :cap]
+
+
+def experts(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+            w_down: torch.Tensor, act: str) -> torch.Tensor:
+    """A gated MLP over each expert's slots: (E, C, d) -> (E, C, d)."""
+    f = cm.ACTIVATIONS[act]
+    return torch.bmm(f(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up),
+                     w_down)
+
+
+def combine(out: torch.Tensor, e_flat: torch.Tensor, pos: torch.Tensor,
+            keep: torch.Tensor, gates: torch.Tensor, top_k: int
+            ) -> torch.Tensor:
+    """Each token's k rows of the (E, C, d) expert outputs, gated (0 where
+    dropped), summed over k: (T, d)."""
+    e, cap, d = out.shape
+    read = e_flat * cap + torch.where(keep, pos, 0)
+    g = gates.reshape(-1).to(out.dtype) * keep.to(out.dtype)
+    y = out.reshape(e * cap, d)[read] * g[:, None]
+    return y.reshape(-1, top_k, d).sum(1)
+
+
 def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25,
               act: str = "silu") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -101,35 +148,13 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     e = p["router"].shape[1]
     t = b * s
     xf = x.reshape(t, d)
-
-    probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)  # (T, E)
-    gates, eidx = route(probs, top_k)                                # (T, k)
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-
-    # load-balance loss on the full probabilities; f_e carries no gradient
-    f_e = torch.nn.functional.one_hot(eidx[:, 0], e).float().mean(0)
-    lb_loss = e * torch.sum(f_e * probs.mean(0))
-
+    gates, eidx, lb_loss = gate(p["router"], xf, top_k)
     # capacity-based dispatch, token-major priority
     cap = capacity(t, top_k, e, capacity_factor)
     e_flat = eidx.reshape(-1)                                        # (T*k,)
     pos = slot_positions(e_flat, e)
     keep = pos < cap
-    # each token's row k times, token-major (an expand: its gradient sums
-    # over k); kept rows land in distinct slots, dropped ones in slot `cap`
-    # of their expert, which is cut off below
-    rows = xf[:, None, :].expand(t, top_k, d).reshape(t * top_k, d)
-    slot = e_flat * (cap + 1) + torch.where(keep, pos, cap)
-    buf = x.new_zeros((e * (cap + 1), d)).index_put(
-        (slot,), rows).reshape(e, cap + 1, d)[:, :cap]
-
-    # the experts: a gated MLP over each expert's slots
-    f = cm.ACTIVATIONS[act]
-    h = f(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
-    out = torch.bmm(h, p["w_down"]).reshape(e * cap, d)             # (E*C, d)
-
-    # combine: each token's k rows, gated (0 where dropped), summed over k
-    read = e_flat * cap + torch.where(keep, pos, 0)
-    g = gates.reshape(-1).to(x.dtype) * keep.to(x.dtype)
-    y = (out[read] * g[:, None]).reshape(t, top_k, d).sum(1)
+    buf = dispatch(xf, e_flat, pos, keep, e, cap, top_k)
+    out = experts(buf, p["w_gate"], p["w_up"], p["w_down"], act)
+    y = combine(out, e_flat, pos, keep, gates, top_k)
     return y.reshape(b, s, d), lb_loss

@@ -13,7 +13,10 @@ the update kernel over itself, and ``apply_updates`` subtracts into the
 parameter leaves, so a full-size learner holds one copy of each.
 ``update_and_apply(opt, params, grads, state, lr)`` does both, in one
 pass where the optimizer can (``opt.apply``), and is what the runners and
-train steps call.
+train steps call.  Over a mesh the parameters may be this rank's shards
+(``distributed/fsdp.py``): ``init`` then gives the state the same layout
+(the reference's ``opt_state_shardings``: g mirrors the parameters), and
+the update runs on the shards as its leaves.
 
 Both RMSProp flavours send all leaves of an update to one kernel launch
 (``dispatch.rmsprop_update_multi``; with ``update_and_apply``,

@@ -157,6 +157,17 @@ def test_recurrent_and_encdec_modules_are_among_the_checked_sources(module):
     _check_module_stands_alone(module)
 
 
+@pytest.mark.parametrize("module", ["repro_torch.launch.mesh",
+                                    "repro_torch.distributed.fsdp",
+                                    "repro_torch.distributed.collectives",
+                                    "repro_torch.models.moe_ep"])
+def test_multirank_modules_are_among_the_checked_sources(module):
+    """The mesh, the FSDP layout, the counted collectives and the
+    expert-parallel MoE are walked by the import check, read by the source
+    check, and import alone with jax blocked."""
+    _check_module_stands_alone(module)
+
+
 def _check_module_stands_alone(module):
     code = ("import sys, pkgutil; sys.modules['jax'] = None; "
             "import importlib, repro_torch; "
