@@ -268,10 +268,11 @@ Phases (any failure raises and the script exits non-zero):
      (n = torch.cuda.device_count()), spawned after the build, over NCCL;
      with n = 1 every collective is a copy over a group of one, with more
      the same checks run across cards:
-     12a. reduced yi-6b on (n, 1), FSDP and held whole, and reduced
-     granite-moe (no load-balance loss) under ``moe_ep`` on (1, n), f32, 3
-     steps against the CPU's single-process step (parameters rtol = atol
-     = 1e-5, losses rtol 1e-4); each run (12a-12c) launches kernels 1, 2,
+     12a. reduced yi-6b on (n, 1), FSDP and held whole, and at n = 1
+     reduced granite-moe (no load-balance loss) under ``moe_ep`` on
+     (1, 1), f32, 3 steps against the CPU's single-process step
+     (parameters rtol = atol = 1e-5, losses rtol 1e-4); each run (12a-12f)
+     launches kernels 1, 2,
      3 and 5 exactly as ``_train_launches`` counts from the layer count
      (which the unsharded step on the card, where one runs beside it,
      must match too) and ``rmsprop_apply_multi`` once an update, issues
@@ -283,17 +284,26 @@ Phases (any failure raises and the script exits non-zero):
      bitwise equal to them where they are to each other (else within
      twice their spread); with n >= 2 dividing 4 all 32 layers; step
      wall, tokens/s and each run's own peak memory a rank;
-     12c. Granite-MoE with nothing cut under ``moe_ep`` on (1, n), the
-     experts held over the model axis, 2 steps: every MoE layer
-     expert-parallel, and with n = 1 the dense-MoE step's losses and
-     parameters within 1e-5 relative;
+     12c. Granite-MoE with nothing cut on (1, n), tensor-parallel
+     attention and the experts expert-parallel over the model axis, 2
+     steps: every MoE layer expert-parallel, and with n = 1 the dense-MoE
+     step's losses and parameters within 1e-5 relative;
      12d. delayed sync on (pod n, 1, 1), merging every 2 steps: each
-     group's parameters against the CPU's list form with n groups.
+     group's parameters against the CPU's list form with n groups;
+     12e. tensor and sequence parallelism on (1, n), asked for at n = 1
+     too: reduced yi-6b (the whole-kv arm at n >= 2), stablelm and
+     granite-moe (TP attention, expert-parallel experts on the sequence
+     rows), and at n = 4 yi and granite-moe on (2, 2) with FSDP over data,
+     held to the CPU as 12a; every layer attends on local heads and
+     normalises the sequence rows (the routes, exact);
+     12f. Yi-6B at full width through the tensor-parallel step with
+     remat: at n = 1 16 layers on 12b's draw, 2 steps, against its
+     unsharded runs; at n = 4 all 32 layers on (1, 4) and on (2, 2).
 
 Every kernel and arm must have been launched on one of the main paths
 (phase 5's reduced model and engines, each run of 5p, 5o and 5s, 6a, 6b, each
 of the four runs of 6c, 6d, 7, 8, each run of 9, of 10a-10e, of
-11a-11d and of 12a-12d (rank 0's counts, which every rank must equal),
+11a-11d and of 12a-12f (rank 0's counts, which every rank must equal),
 each with
 the counters set to 0 just before it and read just after); the kernels line
 gives each one's launches by path.
@@ -433,10 +443,12 @@ def check_rmsnorm(gen, flush):
                              rmsnorm_cuda.rmsnorm_fwd(x, scale),
                              ref.rmsnorm_ref(x, scale)))
     # the rstd output of the training forward: train shape, f32, ragged
+    # and Yi-6B's sequence-parallel rows at tp 2 and 4 (4 x 1024 / tp)
     for rows, d, dt in ((4096, 4096, torch.bfloat16),
                         (4096, 4096, torch.float32),
                         (4099, 4096, torch.bfloat16), (7, 104, torch.float32),
-                        (4096, 2048, torch.bfloat16)):
+                        (4096, 2048, torch.bfloat16),
+                        *((r, 4096, torch.bfloat16) for r in SP_ROWS)):
         x = _randn((rows, d), gen, dt)
         scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
         y, rstd = rmsnorm_cuda.rmsnorm_fwd(x, scale, save_residuals=True)
@@ -489,6 +501,9 @@ def check_rmsnorm(gen, flush):
         "train_shape": record(4096, True, "train"),
         "decode_shape": record(4, False, "decode"),
         "width_2048_shape": record(4096, True, "zamba2 / xlstm train", 2048),
+        **{f"tp{tp}_shape": record(rows, True, f"train, sequence-parallel "
+                                               f"rows at tp {tp}")
+           for tp, rows in zip(TP_DEGREES, SP_ROWS)},
     }
 
 
@@ -1332,7 +1347,9 @@ def check_rmsnorm_bwd(gen, flush):
                         # block's norms, the sLSTM norm) at their train
                         # shape, and a single row
                         (4096, 2048, torch.bfloat16),
-                        (1, 2048, torch.bfloat16)):
+                        (1, 2048, torch.bfloat16),
+                        # Yi-6B's sequence-parallel rows at tp 2 and 4
+                        *((r, 4096, torch.bfloat16) for r in SP_ROWS)):
         x = _randn((rows, d), gen, dt)
         dy = _randn((rows, d), gen, dt)
         scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
@@ -1345,30 +1362,37 @@ def check_rmsnorm_bwd(gen, flush):
         errs.append(_compare(label + " dscale", dscale, want_ds,
                              sum_abs=terms))
 
-    # timed at the train shape
-    rows, d = 4096, 4096
-    x = _randn((rows, d), gen, torch.bfloat16)
-    dy = _randn((rows, d), gen, torch.bfloat16)
-    scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
-    _, rstd = ref.rmsnorm_ref(x, scale, save_residuals=True)
-    xl = x.clone().requires_grad_(True)
-    wl = scale.to(torch.bfloat16).requires_grad_(True)
-    yl = F.rms_norm(xl, (d,), wl, 1e-6)
-    # least bytes: x, dy and rstd in, dx and dscale out
-    nbytes = 3 * rows * d * 2 + rows * 4 + 2 * d * 4
+    def record(rows, what, d=4096):
+        """Times at one shape, bf16."""
+        x = _randn((rows, d), gen, torch.bfloat16)
+        dy = _randn((rows, d), gen, torch.bfloat16)
+        scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
+        _, rstd = ref.rmsnorm_ref(x, scale, save_residuals=True)
+        xl = x.clone().requires_grad_(True)
+        wl = scale.to(torch.bfloat16).requires_grad_(True)
+        yl = F.rms_norm(xl, (d,), wl, 1e-6)
+        # least bytes: x, dy and rstd in, dx and dscale out
+        nbytes = 3 * rows * d * 2 + rows * 4 + 2 * d * 4
+        return {
+            "ms": _time_ms(lambda: rmsnorm_cuda.rmsnorm_bwd(
+                x, scale, rstd, dy), flush),
+            "plain_ms": _time_ms(lambda: ref.rmsnorm_bwd_ref(
+                x, scale, rstd, dy), flush),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": _time_ms(lambda: torch.autograd.grad(
+                yl, (xl, wl), dy, retain_graph=True), flush),
+            "shape": f"x, dy ({rows}, {d}) bf16{what}"}
+
+    # timed at the train shape, and at the sequence-parallel rows
     return {
         "name": "rmsnorm_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/rmsnorm_bwd.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:92",
         "max_abs_err": max(errs),
-        "ms": _time_ms(lambda: rmsnorm_cuda.rmsnorm_bwd(x, scale, rstd, dy),
-                       flush),
-        "plain_ms": _time_ms(lambda: ref.rmsnorm_bwd_ref(x, scale, rstd, dy),
-                             flush),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": _time_ms(lambda: torch.autograd.grad(
-            yl, (xl, wl), dy, retain_graph=True), flush),
-        "shape": f"x, dy ({rows}, {d}) bf16",
+        **record(4096, ""),
+        **{f"tp{tp}_shape": record(rows, f" (sequence-parallel rows at tp "
+                                         f"{tp})")
+           for tp, rows in zip(TP_DEGREES, SP_ROWS)},
     }
 
 
@@ -1402,8 +1426,16 @@ _WHISPER_DEC = {dt: (f"Whisper decoder {dt}", 4, 448, 8, 8, 64, dt, True,
                      None) for dt in ("bf16", "f32")}
 _ZAMBA2_TRAIN = {dt: (f"Zamba2 train shape {dt}", 4, 1024, 32, 32, 64, dt,
                       True, None) for dt in ("bf16", "f32")}
+# Yi-6B's train shape on one model rank's local heads under tensor
+# parallelism: tp 2 (16 q / 2 kv heads) and tp 4 (8 q / 1 kv head)
+TP_DEGREES = (2, 4)
+_TP_TRAIN = {tp: (f"Yi-6B train shape, tp {tp} local heads", 4, 1024,
+                  32 // tp, 4 // tp, 128, "bf16", True, None)
+             for tp in TP_DEGREES}
+# and its sequence-parallel rows (4 x 1024 tokens over tp ranks)
+SP_ROWS = tuple(4 * 1024 // tp for tp in TP_DEGREES)
 _FLASH_CASES += [*_WHISPER_ENC.values(), *_WHISPER_DEC.values(),
-                 *_ZAMBA2_TRAIN.values()]
+                 *_ZAMBA2_TRAIN.values(), *_TP_TRAIN.values()]
 
 
 def _new_shape_records(timing, gen, flush, dt):
@@ -1491,6 +1523,8 @@ def check_flash_fwd(gen, flush):
             **_flash_fwd_timing(gen, flush, case)})
     records[0]["granite_train_shape"] = _flash_fwd_timing(
         gen, flush, _GRANITE_TRAIN_SHAPE)
+    for tp, case in _TP_TRAIN.items():
+        records[0][f"tp{tp}_shape"] = _flash_fwd_timing(gen, flush, case)
     for r, dt in zip(records, ("bf16", "f32")):
         r.update(_new_shape_records(_flash_fwd_timing, gen, flush, dt))
     return records
@@ -1591,6 +1625,8 @@ def check_flash_bwd(gen, flush):
             **_flash_bwd_timing(gen, flush, case)})
     records[0]["granite_train_shape"] = _flash_bwd_timing(
         gen, flush, _GRANITE_TRAIN_SHAPE)
+    for tp, case in _TP_TRAIN.items():
+        records[0][f"tp{tp}_shape"] = _flash_bwd_timing(gen, flush, case)
     for r, dt in zip(records, ("bf16", "f32")):
         r.update(_new_shape_records(_flash_bwd_timing, gen, flush, dt))
     return records
@@ -4541,15 +4577,37 @@ def _mr_configs():
 
     from repro_torch.configs import get_config
     return {"yi": get_config("yi-6b").reduced(),
+            "stablelm": get_config("stablelm-1.6b").reduced(),
             "granite": dataclasses.replace(get_config(GRANITE).reduced(),
                                            aux_loss_weight=0.0)}
 
 
 def _mr_cases(n):
-    """12a: (path, config, mesh shape, layout) on ``n`` ranks."""
-    return [("multirank_yi_fsdp", "yi", (n, 1), "fsdp"),
-            ("multirank_yi_replicated", "yi", (n, 1), "whole"),
-            ("multirank_granite_ep", "granite", (1, n), "fsdp")]
+    """12a: (path, config, mesh shape, layout) on ``n`` ranks ("fsdp": the
+    plan's shards; "whole"); granite-moe's expert-parallel step without
+    tensor parallelism only at n = 1 (on a model axis of n > 1 ranks its
+    layout is tensor-parallel, which 12e runs)."""
+    cases = [("multirank_yi_fsdp", "yi", (n, 1), "fsdp"),
+             ("multirank_yi_replicated", "yi", (n, 1), "whole")]
+    if n == 1:
+        cases.append(("multirank_granite_ep", "granite", (1, 1), "fsdp"))
+    return cases
+
+
+def _mr_tp_cases(n):
+    """12e: tensor and sequence parallelism on (1, n) ("tp": asked for even
+    at n = 1, a model group of one): reduced yi-6b (one kv head: the
+    whole-kv arm at n >= 2), stablelm (layernorm, partial rotary) and
+    granite-moe (experts expert-parallel on the sequence rows); at n = 4
+    yi and granite again on (2, 2), tensor parallelism with FSDP over
+    data."""
+    cases = [("multirank_yi_tp", "yi", (1, n), "tp"),
+             ("multirank_stablelm_tp", "stablelm", (1, n), "tp"),
+             ("multirank_granite_tp", "granite", (1, n), "tp")]
+    if n == 4:
+        cases += [("multirank_yi_tp_2x2", "yi", (2, 2), "tp"),
+                  ("multirank_granite_tp_2x2", "granite", (2, 2), "tp")]
+    return cases
 
 
 def _mr_batches(cfg, rows, steps=MR_STEPS, seq=MR_SEQ, key=0):
@@ -4562,15 +4620,15 @@ def _mr_batches(cfg, rows, steps=MR_STEPS, seq=MR_SEQ, key=0):
 
 
 def _mr_cpu_refs(n):
-    """The CPU's single-process references of 12a (each case's unsharded
-    step on the global batch of 2n rows) and 12d (the list form with n
-    groups): {path: (losses, flat parameters)}."""
+    """The CPU's single-process references of 12a and 12e (each case's
+    unsharded step on the global batch of 2n rows) and 12d (the list form
+    with n groups): {path: (losses, flat parameters)}."""
     from repro_torch.core import delayed_sync, llm_a3c
     from repro_torch.models import model as M
     from repro_torch.optim import optimizers as opt_mod
     cfgs = _mr_configs()
     refs = {}
-    for path, arch, _, _ in _mr_cases(n):
+    for path, arch, _, _ in _mr_cases(n) + _mr_tp_cases(n):
         cfg = cfgs[arch]
         params = M.init_params(cfg, 0, "cpu")
         opt = opt_mod.shared_rmsprop()
@@ -4615,10 +4673,11 @@ def _step_collectives(cfg, lay, mesh):
     the layers' leaves; its backward's reduce-scatter; an all-reduce of
     each other leaf's gradient and one of the metrics; and for each MoE
     layer under the ``moe_ep`` rule two all-to-alls each way (again in the
-    recompute), the output's all-gather and the input slice's backward
-    all-gather (the recompute stops before the former), the router's
-    gradient all-reduce, and the load-balance mean's all-reduce each way
-    (not recomputed)."""
+    recompute), the router's gradient all-reduce and the load-balance
+    mean's all-reduce each way (not recomputed), and where the residual is
+    whole the output's all-gather and the input slice's backward
+    all-gather (the recompute stops before the former).  Under tensor and
+    sequence parallelism (``_tp_collectives``) more."""
     from repro_torch.distributed import sharding
     from repro_torch.models import model as M
     paths = list(M.param_shapes(cfg))
@@ -4629,15 +4688,50 @@ def _step_collectives(cfg, lay, mesh):
     remat = int(bool(cfg.remat))
     moe = sum(1 for k in cfg.layer_kinds() if k in ("attn", "attn_local")) \
         if cfg.n_experts else 0
-    return {"all_gather": len(sharded) + remat * len(layers) + 2 * moe,
-            "reduce_scatter": len(sharded),
-            "all_reduce": len(paths) - len(sharded) + 1 + 3 * moe,
-            "all_to_all": (4 + 2 * remat) * moe}
+    tp = lay is not None and lay.tp
+    out = {"all_gather": len(sharded) + remat * len(layers)
+           + (0 if tp else 2 * moe),
+           "reduce_scatter": len(sharded),
+           "all_reduce": len(paths) - len(sharded) + 1 + 3 * moe,
+           "all_to_all": (4 + 2 * remat) * moe}
+    if tp:
+        for k, v in _tp_collectives(cfg, lay).items():
+            out[k] += v
+    return out
+
+
+def _tp_collectives(cfg, lay):
+    """What tensor and sequence parallelism adds to a step's collectives:
+    the embedding's reduce-scatter to the sequence rows and its backward's
+    all-gather (the vocab-parallel lookup; a whole table's slice only the
+    latter); a layer's gather before attention (again in the recompute)
+    and its backward's reduce-scatter, the output projection's
+    reduce-scatter (again in the recompute) and its backward's all-gather;
+    the same pair around a gated MLP, whose reduce-scatter the recompute
+    stops before; the gradient all-reduce of each whole leaf used on the
+    rows or on this rank's heads (the norms' leaves, whole kv weights and
+    biases, the value head); the values' all-gather; the final rows'
+    gather for the LM head, with its backward's reduce-scatter where the
+    vocab is split; and for the vocab-parallel loss the max and the sums'
+    all-reduce."""
+    layers = sum(1 for k in cfg.layer_kinds() if k in ("attn", "attn_local"))
+    remat = int(bool(cfg.remat))
+    vocab = lay.sharded("embed.table", "model")
+    norm = 2 if cfg.norm == "layernorm" else 1
+    kv_whole = not lay.sharded("layers.0.attn.wk.w", "model")
+    kv = (2 + 2 * bool(cfg.qkv_bias)) if kv_whole else 0
+    mlp = 0 if cfg.n_experts else 1
+    value = int(bool(cfg.value_head))
+    return {"all_gather": 1 + layers * (2 + remat + mlp * (2 + remat))
+            + value + 1,
+            "reduce_scatter": 2 * vocab + layers * (2 + remat + 2 * mlp),
+            "all_reduce": layers * (2 * norm + kv) + norm + value
+            + 2 * vocab}
 
 
 def _train_launches(cfg):
     """Launches of kernels 1-5 one train step of an attention-only model
-    makes, from its layer count: two norms a layer and the final one,
+    makes, from its layer count: two RMSNorms a layer and the final one,
     forward (again in the remat recompute) and backward; one attention a
     layer, forward (again in the recompute) and backward; through the
     arms of the compute dtype, the other arms never.  It holds the
@@ -4650,7 +4744,8 @@ def _train_launches(cfg):
     arm = "bf16" if cfg.dtype == "bfloat16" else "f32"
     other = "f32" if arm == "bf16" else "bf16"
     fwd, bwd = FLASH_ARMS[arm]
-    return {"rmsnorm": 2 * n * r + 1, "rmsnorm_bwd": 2 * n + 1,
+    rms = cfg.norm == "rmsnorm"          # a layernorm launches no kernel
+    return {"rmsnorm": rms * (2 * n * r + 1), "rmsnorm_bwd": rms * (2 * n + 1),
             fwd: n * r, bwd: n, **dict.fromkeys(FLASH_ARMS[other], 0)}
 
 
@@ -4670,13 +4765,32 @@ def _fingerprint(params):
     return out
 
 
+def _one_rank_params(params, lay):
+    """The flat parameters of a run, unsharded or on a one-rank mesh
+    (whose shards are the whole leaves: no collective is issued)."""
+    from repro_torch.distributed import ctx
+    from repro_torch.models import model as M
+    if lay is not None and ctx.mesh_devices(lay.mesh) != 1:
+        raise ValueError("parameters are compared on one rank only")
+    return {k: t.detach() for k, t in M.flatten(params).items()}
+
+
+def _rel_l2(a, b):
+    """The largest relative L2 distance of two parameter trees, leaf by
+    leaf: ||a - b|| / ||b||."""
+    return max(float((a[k] - b[k]).norm()) / max(float(b[k].norm()), 1e-30)
+               for k in b)
+
+
 def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
               seq=MR_SEQ, key=0, lr0=7e-4, total=100_000, keep="params",
-              profile=None):
+              profile=None, snapshot=None, against=None):
     """``steps`` Shared RMSProp train steps of ``cfg`` on ``dev`` and
     TokenPipeline batches of ``rows`` x ``seq`` from ``prng.key(key)``:
     under ``mesh`` with the parameters held as ``held`` ("fsdp": the plan's
-    shards, "whole"), or the unsharded step without a mesh.  The
+    shards, tensor-parallel where the model axis has more than one rank;
+    "tp": tensor-parallel on any model axis; "whole"), or the unsharded
+    step without a mesh.  The
     parameters are a copy of ``masters`` (whole, on ``dev``: several runs
     share one draw), or without it seed 0's drawn on the CPU.  Launch,
     collective and route counts are set to 0 just before the steps and
@@ -4685,7 +4799,11 @@ def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
     parameters (``keep`` "params", on the host) or their fingerprint.
     With ``profile`` (a label), one more step follows, profiled on rank 0
     (``_profile``; the other ranks take it plainly, the collectives of a
-    mesh run with it)."""
+    mesh run with it).  On one rank, outside the timed walls: with
+    ``snapshot`` (k) a copy of the parameters after k steps
+    (``out["snapshot"]``, on the card); with ``against`` (k, such a copy)
+    their largest leaf's relative L2 distance from it after k steps
+    (``out["rel_l2"]``)."""
     import contextlib
     import gc
 
@@ -4704,7 +4822,9 @@ def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
     if not shared:
         masters = M.tree_map(lambda t: t.to(dev), M.init_params(cfg, 0,
                                                                 "cpu"))
-    lay = fsdp.layout(cfg, mesh) if held == "fsdp" else None
+    lay = None
+    if held in ("fsdp", "tp"):
+        lay = fsdp.layout(cfg, mesh, force_tp=held == "tp")
     if lay is not None:
         params = fsdp.shard(lay, masters)
     else:
@@ -4734,13 +4854,25 @@ def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
             torch.cuda.synchronize(dev)
             walls.append(time.perf_counter() - t0)
             losses.append(float(met["loss"]))
+            if snapshot == i + 1:
+                # the run's peak without the copy
+                peak = torch.cuda.max_memory_allocated(dev)
+                snap = {k: t.clone() for k, t in
+                        _one_rank_params(params, lay).items()}
+            if against is not None and against[0] == i + 1:
+                rel_l2 = _rel_l2(_one_rank_params(params, lay), against[1])
+        if snapshot is None:
+            peak = torch.cuda.max_memory_allocated(dev)
         out = {"losses": losses, "walls": walls,
-               "peak_gib": (torch.cuda.max_memory_allocated(dev) - base)
-               / 2**30,
+               "peak_gib": (peak - base) / 2**30,
                "kernels": dispatch.launch_counts(),
                "collectives": collectives.counts(),
                "routes": dispatch.route_counts(),
                "leaves": len(M.flatten(params)), "layout": lay}
+        if snapshot is not None:
+            out["snapshot"] = snap
+        if against is not None:
+            out["rel_l2"] = rel_l2
         bad = [k for k, t in M.flatten(params).items()
                if not bool(torch.isfinite(t).all())]
         if bad or not all(math.isfinite(x) for x in losses):
@@ -4771,8 +4903,10 @@ def _mr_check_counts(label, run, mesh, cfg, steps, lead, plain=None):
     """Exact counts of a mesh run: each training kernel launched as
     ``_train_launches`` says (and as the unsharded run ``plain`` did,
     where there is one), the optimizer's apply mode once an update, the
-    collectives ``_step_collectives`` a step, and the expert-parallel MoE
-    on every MoE layer (and its remat)."""
+    collectives ``_step_collectives`` a step, and the routes
+    ``_mr_routes`` a step: the expert-parallel MoE on every MoE layer, and
+    under tensor parallelism local-head attention on every layer and the
+    norms on the sequence rows (each again in the remat)."""
     want = {k: steps * v for k, v in _train_launches(cfg).items()}
     want["rmsprop_apply_multi"] = steps * _per_update(run["leaves"])
     for name, r in (("the mesh run", run), ("the unsharded run", plain)):
@@ -4787,32 +4921,48 @@ def _mr_check_counts(label, run, mesh, cfg, steps, lead, plain=None):
     if run["collectives"] != want_c:
         raise AssertionError(f"{label}: collectives {run['collectives']}, "
                              f"want {want_c}")
-    moe = sum(1 for k in cfg.layer_kinds() if k in ("attn", "attn_local")) \
-        if cfg.n_experts else 0
-    routes = {k: run["routes"][k] for k in ("moe_ep", "moe_dense")}
-    want_r = {"moe_ep": steps * moe * (1 + bool(cfg.remat)), "moe_dense": 0}
+    want_r = {k: steps * v for k, v in _mr_routes(cfg, run["layout"]).items()}
+    routes = {k: run["routes"][k] for k in want_r}
     if routes != want_r:
-        raise AssertionError(f"{label}: MoE routes {routes}, want {want_r}")
+        raise AssertionError(f"{label}: routes {routes}, want {want_r}")
     if lead:
         held = "mesh and unsharded runs" if plain is not None else \
             "mesh run"
         print(f"check {label}: launches a step " + json.dumps(
             {k: v / steps for k, v in want.items() if v}) + f" ({held}, "
             "from the layer count), collectives a step " + json.dumps(
-                per_step) + f", MoE routes {routes} exact ok", flush=True)
+                per_step) + ", routes a step " + json.dumps(
+                {k: v / steps for k, v in routes.items()}) + " exact ok",
+            flush=True)
 
 
-def _mr_reduced(n, dev, refs, lead):
-    """12a: reduced yi-6b (FSDP and whole) on (n, 1) and reduced
-    granite-moe (FSDP, experts over the model axis) under ``moe_ep`` on
-    (1, n), 3 steps in f32 on the card against the CPU's single-process
-    steps; exact counts against the unsharded step on the card."""
+def _mr_routes(cfg, lay):
+    """The model layer's routes one train step takes under ``lay``: the
+    expert-parallel MoE on every MoE layer and, under tensor parallelism,
+    local-head attention on every layer (from whole kv leaves where the kv
+    heads do not divide the model axis) and two norms a layer and the
+    final one on the sequence rows, the layers' again in the remat
+    recompute."""
+    layers = sum(1 for k in cfg.layer_kinds() if k in ("attn", "attn_local"))
+    r = 1 + bool(cfg.remat)
+    tp = lay is not None and lay.tp
+    kv_whole = tp and not lay.sharded("layers.0.attn.wk.w", "model")
+    return {"moe_ep": layers * r if cfg.n_experts else 0, "moe_dense": 0,
+            "tp_heads": layers * r * tp, "tp_kv_whole": layers * r * kv_whole,
+            "sp_rows": (2 * layers * r + 1) * tp}
+
+
+def _mr_reduced(n, dev, refs, lead, cases):
+    """12a: ``_mr_cases``, reduced yi-6b (FSDP and whole) on (n, 1) and,
+    at n = 1, reduced granite-moe under ``moe_ep``; 12e: ``_mr_tp_cases``; 3 steps each in f32 on the card against
+    the CPU's single-process steps; exact counts against the unsharded
+    step on the card."""
     import torch
 
     from repro_torch.launch import mesh as mesh_mod
     cfgs = _mr_configs()
     counts = {}
-    for path, arch, shape, held in _mr_cases(n):
+    for path, arch, shape, held in cases:
         cfg = cfgs[arch]
         mesh = mesh_mod.make_mesh(shape, dev)
         plain = _mr_train(cfg, None, None, dev, 2 * n, MR_STEPS)
@@ -4871,16 +5021,18 @@ def _mr_yi6b(n, dev, lead):
     kw = dict(masters=M.init_params(cfg, 0, dev), seq=TRAIN_SEQ, key=2,
               lr0=7e-3, total=100, keep="fingerprint")
     runs = {}
+    # 12f holds its step to the unsharded runs' parameters after 2 steps
+    snap = TP_SNAPSHOT if n == 1 else None
     if n == 1:
         runs["plain_a"] = _mr_train(cfg, None, None, dev, rows, MR_STEPS,
-                                    **kw)
+                                    snapshot=snap, **kw)
     runs["fsdp"] = _mr_train(cfg, mesh, "fsdp", dev, rows, MR_STEPS,
                              profile=f"{label} train step", **kw)
     run = runs["fsdp"]
     if n == 1:
-        runs["plain_b"] = _mr_train(cfg, None, None, dev, rows, MR_STEPS,
-                                    **kw)
-    del kw
+        runs["plain_b"] = _mr_train(
+            cfg, None, None, dev, rows, MR_STEPS,
+            against=(snap, runs["plain_a"]["snapshot"]), **kw)
     if n == 1:
         a, b = runs["plain_a"], runs["plain_b"]
         spread, bitwise = _fp_spread(a["fingerprint"], b["fingerprint"])
@@ -4910,55 +5062,141 @@ def _mr_yi6b(n, dev, lead):
     _mr_check_counts(label, run, mesh, cfg, MR_STEPS, lead,
                      runs.get("plain_a"))
     if lead:
-        tokens = rows * TRAIN_SEQ
-        report = {}
-        for name, r in runs.items():
-            wall = statistics.median(r["walls"][1:])
-            report[name] = {"losses": r["losses"], "step_wall_s": r["walls"],
-                            "step_wall_median_s": wall,
-                            "tokens_per_s": tokens / wall,
-                            "peak_device_memory_gib_per_rank": r["peak_gib"]}
+        report = _train_report(runs, rows * TRAIN_SEQ)
         print(f"train yi-6b full width x {layers} layers, fsdp over {n} "
               f"rank(s), batch {rows} x {TRAIN_SEQ}: " + json.dumps(report),
               flush=True)
         print(f"check {label}: {verdict} ok", flush=True)
-    return run["kernels"]
+    out = {"multirank_yi6b_fsdp": run["kernels"]}
+    t0 = time.perf_counter()
+    out.update(_mr_yi6b_tp(n, dev, lead, cfg, rows, kw, runs))
+    if lead:
+        print(f"phase 12f_s {time.perf_counter() - t0:.1f}", flush=True)
+    return out
+
+
+# the steps after which 12f holds the tensor-parallel step to the
+# unsharded one (``_mr_yi6b_tp``)
+TP_SNAPSHOT = 2
+
+
+def _train_report(runs, tokens):
+    """Per run: losses, step walls, the median step wall past the first,
+    tokens/s at it, the run's peak device memory a rank."""
+    report = {}
+    for name, r in runs.items():
+        wall = statistics.median(r["walls"][1:])
+        report[name] = {"losses": r["losses"], "step_wall_s": r["walls"],
+                        "step_wall_median_s": wall,
+                        "tokens_per_s": tokens / wall,
+                        "peak_device_memory_gib_per_rank": r["peak_gib"]}
+    return report
+
+
+def _near_unsharded(label, run, ref, others=()):
+    """Hold a run on one rank to the unsharded run ``ref`` after
+    ``TP_SNAPSHOT`` steps: its losses and its parameters' largest leaf
+    distance (``rel_l2``) within 1e-5 relative, or twice the largest
+    distance of the other unsharded ``others`` from ``ref``.  Returns the
+    verdict ("bitwise equal" where it is)."""
+    k = TP_SNAPSHOT
+
+    def loss_rel(r):
+        return max(abs(x - y) / abs(y) for x, y in zip(r["losses"][:k],
+                                                       ref["losses"][:k]))
+    spread = max([o["rel_l2"] for o in others], default=0.0)
+    loss_spread = max([loss_rel(o) for o in others], default=0.0)
+    rel, loss = run["rel_l2"], loss_rel(run)
+    if rel > max(1e-5, 2 * spread) or loss > max(1e-5, 2 * loss_spread):
+        raise AssertionError(
+            f"{label}: after {k} steps params rel {rel:.3e} and losses rel "
+            f"{loss:.3e} off the unsharded step (tol 1e-5, or twice the "
+            f"unsharded runs' spread {spread:.3e} and {loss_spread:.3e}); "
+            f"losses {run['losses']} against {ref['losses']}")
+    if rel == 0.0 and loss == 0.0:
+        return f"bitwise equal to the unsharded step after {k} steps"
+    return (f"after {k} steps params rel {rel:.3e} (largest leaf's L2), "
+            f"losses rel {loss:.3e} of the unsharded step (tol 1e-5 or twice "
+            f"the unsharded runs' spread {spread:.3e} / {loss_spread:.3e})")
+
+
+def _mr_yi6b_tp(n, dev, lead, cfg, rows, kw, plain):
+    """12f: Yi-6B at full width through the tensor- and sequence-parallel
+    step (remat, bf16 compute) from 12b's draw and batches, 3 steps: on
+    one rank a (1, 1) mesh (the collectives over groups of one, the vocab
+    split over one rank), its 16 layers held to 12b's unsharded run after
+    ``TP_SNAPSHOT`` steps (``_near_unsharded``, with 12b's second run as
+    the spread): the loss takes one form split or not
+    (``llm_a3c.logp_entropy``), so equal bit for bit is expected.  Not
+    past 2 steps: 12b's learning rate drives the loss from 190 to about
+    19,000 at the third step, where in bf16 any difference would grow.
+    On n ranks dividing 4, all 32 layers on (1, n), and on (2, 2) with
+    FSDP over data where n is 4.  Exact launches, collectives and routes
+    a step; the busy share from a profiled fourth step."""
+    from repro_torch.launch import mesh as mesh_mod
+    if n > 1 and 4 % n:
+        return {}
+    shapes = [(1, n)] + ([(2, 2)] if n == 4 else [])
+    out, runs = {}, {}
+    a = plain.get("plain_a")
+    for shape in shapes:
+        name = f"tp_{shape[0]}x{shape[1]}"
+        label = f"multirank yi-6b x{cfg.n_layers} {name}"
+        mesh = mesh_mod.make_mesh(shape, dev)
+        against = (TP_SNAPSHOT, a["snapshot"]) if n == 1 else None
+        run = _mr_train(cfg, mesh, "tp", dev, rows, MR_STEPS,
+                        profile=f"{label} train step", against=against,
+                        **kw)
+        runs[name] = run
+        _mr_check_counts(label, run, mesh, cfg, MR_STEPS, lead,
+                         plain.get("plain_a"))
+        out[f"multirank_yi6b_{name}"] = run["kernels"]
+        verdict = "finite" if n > 1 else _near_unsharded(
+            label, run, a, (plain["plain_b"],))
+        if lead:
+            print(f"check {label}: {verdict} ok", flush=True)
+    del a
+    if lead:
+        print(f"train yi-6b full width x {cfg.n_layers} layers, tensor and "
+              f"sequence parallel over {n} rank(s), batch {rows} x "
+              f"{TRAIN_SEQ}: " + json.dumps(_train_report(
+                  runs, rows * TRAIN_SEQ)), flush=True)
+    return out
 
 
 def _mr_granite(n, dev, lead):
-    """12c: Granite-MoE with nothing cut under ``moe_ep`` on (1, n), the
-    experts held over the model axis, 2 train steps at 4 x 1024 (remat):
-    the expert-parallel MoE on every MoE layer, finite losses, and on one
-    rank the dense-MoE step's losses and parameters (from the same draw)
-    within 1e-5 relative."""
+    """12c: Granite-MoE with nothing cut on (1, n), tensor and sequence
+    parallel (attention on local heads; its vocab, 49155, divides over
+    one rank but not over more, where the table and the logits stay
+    whole) with the experts expert-parallel on the sequence rows, 2 train
+    steps at 4 x 1024 (remat): the expert-parallel MoE on every MoE layer,
+    finite losses, and on one rank the dense-MoE step's (from the same
+    draw) within 1e-5 relative after 2 steps (``_near_unsharded``)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models import model as M
     cfg = get_config(GRANITE)
-    steps = 2
+    steps = TP_SNAPSHOT
     kw = dict(masters=M.init_params(cfg, 0, dev), seq=TRAIN_SEQ, key=2,
               lr0=7e-3, total=100, keep="fingerprint")
-    label = f"multirank {GRANITE} moe_ep"
+    label = f"multirank {GRANITE} tp+moe_ep"
     mesh = mesh_mod.make_mesh((1, n), dev)
-    run = _mr_train(cfg, mesh, "fsdp", dev, TRAIN_ROWS, steps,
-                    profile=f"{label} train step", **kw)
     plain = None
     verdict = "finite"
+    against = None
     if n == 1:
-        plain = _mr_train(cfg, None, None, dev, TRAIN_ROWS, steps, **kw)
+        plain = _mr_train(cfg, None, None, dev, TRAIN_ROWS, steps,
+                          snapshot=steps, **kw)
         if plain["routes"]["moe_dense"] <= 0:
             raise AssertionError(f"{label}: the unsharded step took no "
                                  "dense MoE")
-        rel, _ = _fp_spread(run["fingerprint"], plain["fingerprint"])
-        loss = max(abs(x - y) / abs(y) for x, y in zip(run["losses"],
-                                                       plain["losses"]))
-        if rel > 1e-5 or loss > 1e-5:
-            raise AssertionError(f"{label}: losses {run['losses']} vs the "
-                                 f"dense {plain['losses']} ({loss:.2e}), "
-                                 f"params rel {rel:.2e} (tol 1e-5)")
-        verdict = (f"equal to the dense-MoE step (losses rel {loss:.2e}, "
-                   f"params rel {rel:.2e}, tol 1e-5)")
-    del kw
+        against = (steps, plain["snapshot"])
+    run = _mr_train(cfg, mesh, "tp", dev, TRAIN_ROWS, steps,
+                    profile=f"{label} train step", against=against, **kw)
+    del kw, against
+    if n == 1:
+        verdict = _near_unsharded(label, run, plain)
+        del plain["snapshot"]
     _mr_check_counts(label, run, mesh, cfg, steps, lead, plain)
     if lead:
         report = {"losses": run["losses"], "step_wall_s": run["walls"],
@@ -4966,7 +5204,8 @@ def _mr_granite(n, dev, lead):
         if plain is not None:
             report.update(dense_losses=plain["losses"],
                           dense_step_wall_s=plain["walls"])
-        print(f"train {GRANITE} moe_ep over (1, {n}): " + json.dumps(report),
+        print(f"train {GRANITE} tp+moe_ep over (1, {n}): "
+              + json.dumps(report),
               flush=True)
         print(f"check {label}: {verdict} ok", flush=True)
     return run["kernels"]
@@ -5026,8 +5265,8 @@ def _mr_delayed(n, dev, refs, lead):
 
 
 def _phase12_rank(rank, n, port, tmp):
-    """One rank of phase 12 on card ``rank``: 12a-12d, its launch counts
-    by path written to ``tmp``."""
+    """One rank of phase 12 on card ``rank``: 12a, 12e, 12b with 12f, 12c
+    and 12d, its launch counts by path written to ``tmp``."""
     import pickle
 
     import torch
@@ -5049,9 +5288,11 @@ def _phase12_rank(rank, n, port, tmp):
                       flush=True)
             return time.perf_counter()
         t = time.perf_counter()
-        counts = _mr_reduced(n, dev, refs, lead)
+        counts = _mr_reduced(n, dev, refs, lead, _mr_cases(n))
         t = lap("12a", t)
-        counts["multirank_yi6b_fsdp"] = _mr_yi6b(n, dev, lead)
+        counts.update(_mr_reduced(n, dev, refs, lead, _mr_tp_cases(n)))
+        t = lap("12e", t)
+        counts.update(_mr_yi6b(n, dev, lead))
         t = lap("12b", t)
         counts["multirank_granite_full_ep"] = _mr_granite(n, dev, lead)
         t = lap("12c", t)
@@ -5064,7 +5305,7 @@ def _phase12_rank(rank, n, port, tmp):
 
 
 def run_phase12():
-    """Phase 12 (12a-12d): one rank a card over NCCL, started from the
+    """Phase 12 (12a-12f): one rank a card over NCCL, started from the
     parent, which has built the kernels and computed the CPU's
     references; returns rank 0's {path: counts}, the ranks' counts
     required equal."""
@@ -5105,7 +5346,7 @@ def _shapes(record):
         "granite_shape", "scout_shape", "granite_train_shape",
         "width_2048_shape", "zamba2_shape", "whisper_shape",
         "whisper_encoder_shape", "whisper_decoder_shape",
-        "zamba2_train_shape")
+        "zamba2_train_shape", "tp2_shape", "tp4_shape")
         if k in record]
 
 

@@ -6,8 +6,10 @@ Leaves are stored under their tree paths ("layers.3.attn.wq.w") as numpy
 arrays; bf16 leaves are widened to f32 on save (numpy has no bf16, and the
 widening is exact) and cast back to ``like``'s dtype on restore.
 
-Under a mesh, with the parameters' ``fsdp.Layout``: ``save`` gathers each
-leaf whole and rank 0 writes, so the file is the single-process file of
+Under a mesh, with the parameters' ``fsdp.Layout`` (FSDP shards over the
+data axes, and under tensor parallelism heads, d_ff columns and vocab rows
+over the model axis): ``save`` gathers each leaf whole over every axis it
+is split on and rank 0 writes, so the file is the single-process file of
 the same parameters; ``restore`` reads the whole leaves and hands each
 rank its shards.
 """

@@ -39,7 +39,9 @@ def a3c_token_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     prefix[:t] --tokens[t+1]--> prefix[:t+1].  Returns (loss, metrics), the
     metrics as 0-d tensors (no host sync).  ``gamma`` is carried by the
     discounts; it is in the signature for parity with the JAX package.
-    ``layout``: ``params`` are this rank's shards (``M.forward``)."""
+    ``layout``: ``params`` are this rank's shards (``M.forward``); under
+    tensor parallelism with the vocab split the logits are this rank's
+    columns (``logp_entropy``)."""
     out = M.forward(cfg, params, batch, layout)
     logits = out["logits"].float()                    # (B, S, V)
     values = out["value"]                             # (B, S)
@@ -58,9 +60,12 @@ def a3c_token_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     nvalid = torch.clamp(valid.sum(), min=1.0)
     adv = (rets - values).detach()
 
-    logp_all = torch.log_softmax(logits, dim=-1)
-    logp_a = torch.gather(logp_all, -1, actions[..., None].long())[..., 0]
-    entropy = -(torch.exp(logp_all) * logp_all).sum(-1)
+    group = None
+    if "vocab_start" in out:
+        group = sharding.axes_group(layout.mesh, ("model",))
+    logp_a, entropy = logp_entropy(logits, actions,
+                                   start=out.get("vocab_start", 0),
+                                   group=group)
 
     pol_loss = -(logp_a * adv * valid).sum() / nvalid
     v_loss = value_coef * ((rets - values) ** 2 * valid).sum() / nvalid
@@ -71,6 +76,40 @@ def a3c_token_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
                "entropy": -ent_loss / max(beta, 1e-9), "aux": aux,
                "mean_return": (rets * valid).sum() / nvalid}
     return loss, {k: v.detach() for k, v in metrics.items()}
+
+
+def logp_entropy(logits: torch.Tensor, actions: torch.Tensor, *,
+                 start: int = 0, group=None):
+    """(log pi(a), entropy), each (B, S), from f32 logits (B, S, V'): the
+    log-sum-exp as the max of the logits (no gradient: the loss does not
+    depend on it) plus the log of the sum of exp of the shifted logits,
+    log pi(a) as the action's shifted logit less it, the entropy as it
+    less the softmax mean of the shifted logits -- the reference's
+    ``log_softmax`` forms (``repro/core/llm_a3c.py``), summed in this
+    order.  Under tensor parallelism with the vocab split (``group``, the
+    model group) the logits are this rank's columns [start, start + V'):
+    the max goes over the group, the action's logit comes from the rank
+    that owns its column, and the three sums take one
+    ``collectives.sum_over`` (all-reduce, identity backward: what follows
+    it is the same on every rank, so each rank's cotangent of a sum is its
+    partial's).  One form for both, so that a split over one rank computes
+    the unsharded step's values bit for bit."""
+    m = logits.detach().amax(-1)
+    if group is not None:
+        m = collectives.max_over(m, group)
+    z = logits - m[..., None]
+    e = torch.exp(z)
+    local = actions.long() - start
+    own = (local >= 0) & (local < logits.shape[-1])
+    idx = local.clamp(0, logits.shape[-1] - 1)[..., None]
+    za = torch.gather(z, -1, idx)[..., 0]
+    za = torch.where(own, za, torch.zeros_like(za))
+    sums = torch.stack([e.sum(-1), (e * z).sum(-1), za])
+    if group is not None:
+        sums = collectives.sum_over(sums, group)
+    se, sez, za = sums.unbind()
+    log_z = torch.log(se)
+    return za - log_z, log_z - sez / se
 
 
 def loss_grads(cfg: ModelConfig, params, batch, *, gamma: float = 0.99,
@@ -86,8 +125,13 @@ def loss_grads(cfg: ModelConfig, params, batch, *, gamma: float = 0.99,
     mean over them is the global loss, and the gradients and metrics are
     averaged over them: a leaf held whole by an all-reduce, a leaf sharded
     over them (FSDP) by dividing the sum its gather's backward
-    reduce-scattered.  The model axis computes one loss: nothing is summed
-    over it."""
+    reduce-scattered.  The model axis computes one loss, every rank of it
+    the same: under tensor parallelism the model layer sums over the model
+    group the gradients of the whole leaves that each rank uses on its own
+    sequence rows or heads (norm scales, the value head, the router,
+    whole kv weights: ``collectives.sum_grads``), and a leaf split over the
+    model axis has its shard's whole gradient on its rank; nothing more is
+    summed over it here."""
     leaves = list(M.flatten(params).values())
     for t in leaves:
         t.requires_grad_(True)
@@ -130,8 +174,10 @@ def make_train_step(cfg: ModelConfig, opt, *, gamma: float = 0.99,
     ``batch`` is this rank's rows (``TokenPipeline(mesh=...)``), and with
     ``layout`` the parameters and optimizer state are this rank's shards
     (``fsdp.shard``), which the optimizer updates as its leaves (one
-    kernel-8 launch an update, as on one device); without it every rank
-    holds them whole, as the JAX launcher leaves them."""
+    kernel-8 launch an update, as on one device), tensor- and
+    sequence-parallel where the layout splits the model axis
+    (``fsdp.layout``); without it every rank holds them whole, as the JAX
+    launcher leaves them."""
 
     def train_step(params, opt_state, batch, step):
         lr = schedules.linear_anneal(lr0, step, float(total_steps))

@@ -32,6 +32,17 @@ The autograd functions, by what their backward assumes of the cotangent:
   (the router over each rank's tokens).
 * ``all_to_all``: ``dist.all_to_all_single`` over dim 0; its backward is
   the same exchange of the cotangent, which sends each chunk back.
+* ``scatter_sum``: reduce-scatter (sum) along a dim; backward all-gather.
+  The inverse pair of ``gather_sum``: Megatron-SP takes a row-parallel
+  product's partial sums (B, S, d) to this rank's sequence rows with it,
+  and the cotangent of those rows, gathered, is every rank's cotangent of
+  its partial sum.
+* ``sum_over``: all-reduce (sum) forward; backward the identity.  Sums of
+  per-rank partials (the vocab-parallel loss's) after which every rank of
+  the group computes the same function: each rank's cotangent of the sum
+  is already the whole one, and it is its partial's.
+* ``max_over``: the group's elementwise max, without a gradient (the
+  vocab-parallel log-sum-exp's shift, which the loss does not depend on).
 * ``mean_over``: the mean of a scalar over a group of ``n`` ranks whose
   losses come in ``copies`` equal copies (the model axis computes one
   loss); backward the group's sum of the cotangent over n * copies, each
@@ -170,6 +181,27 @@ class _AllToAll(torch.autograd.Function):
         return _exchange(g, ctx.group), None
 
 
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.detach().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class _MeanOver(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, copies):
@@ -201,6 +233,23 @@ def sum_grads(x, group):
 
 def all_to_all(x, group):
     return _AllToAll.apply(x, group)
+
+
+def scatter_sum(x, group, dim: int = 0):
+    return _ScatterSum.apply(x, group, dim)
+
+
+def sum_over(x, group):
+    return _SumOver.apply(x, group)
+
+
+def max_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over the group's ranks (a copy, no gradient);
+    counted as an all-reduce."""
+    _issue("all_reduce", group, x)
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
 
 
 def mean_over(x, group, copies: int = 1):

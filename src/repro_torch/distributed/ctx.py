@@ -10,10 +10,17 @@ rules and mesh into a trace token, because a jitted function would
 otherwise replay a trace made under others; eager PyTorch keeps no trace
 cache, so the port needs no token.
 
-``constrain`` is the identity: the names it is called with ("residual",
-"attn_q", "attn_kv") are layout hints of tensor and sequence parallelism,
-which the port does not do yet; every activation is held whole on each
-rank of the model axis.
+``constrain`` is the identity.  The reference names its activation
+layouts there ("residual", "attn_q", "attn_kv") and GSPMD places the
+collectives that realise them; the port expresses the same layouts as
+explicit collectives in the model layer instead.  Under tensor and
+sequence parallelism (``fsdp.tp_rule``) the residual stream between
+blocks is each rank's slice of the sequence (``residual``), gathered
+before each column-parallel product and reduce-scattered after each
+row-parallel one, and attention runs on each rank's local heads
+(``attn_q``/``attn_kv``); ``sharding.activation_rules`` gives the entries
+as spec tuples.  Without it every activation is held whole on each rank of
+the model axis.
 """
 from __future__ import annotations
 
@@ -43,8 +50,8 @@ def sharding_rules(rules: Optional[dict]):
 
 
 def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
-    """The named activation constraint: the identity (see the module
-    docstring)."""
+    """The named activation constraint: the identity (the model layer lays
+    the activations out itself; see the module docstring)."""
     return x
 
 

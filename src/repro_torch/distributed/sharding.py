@@ -7,17 +7,29 @@ Mesh axes (``launch/mesh.py``):
   model  -- tensor parallelism: heads, d_ff, vocab, experts
 
 *The plan* (``param_shardings``, ``batch_shardings``,
-``opt_state_shardings``, and ``activation_rules``' ``moe_ep`` entry) is
-the reference's, name by name: for each parameter leaf a tuple of
-mesh-axis names, one per dim ("data", "model", a tuple of axes, or None
-for a dim held whole), from the same path regexes (matched on the port's
-"." path joined with "/"), the same resolution and the same rule that
-drops an axis that does not divide its dim.  The reference plans scan-stacked leaves with a leading layer
-dim; the port's layer i takes the stacked spec without it.  The plan only
+``opt_state_shardings`` and ``activation_rules``) is the reference's,
+name by name: for each parameter leaf a tuple of mesh-axis names, one
+per dim ("data", "model", a tuple of axes, or None for a dim held whole),
+from the same path regexes (matched on the port's "." path joined with
+"/"), the same resolution and the same rule that drops an axis that does
+not divide its dim.  The reference plans scan-stacked leaves with a
+leading layer dim; the port's layer i takes the stacked spec without it.  The plan only
 needs the mesh's axis sizes, so it takes a ``DeviceMesh`` or an
-{axis: size} dict.  How the port holds the plan is ``fsdp.py``'s: in this
-slice only the experts' "model" entries are held sharded; every other
-"model" entry is held whole on each rank of the model axis.
+{axis: size} dict.  How the port holds the plan is ``fsdp.py``'s: the
+experts' "model" entries, and under tensor parallelism each dense "model"
+entry that ``tp_holds`` keeps; every other "model" entry is held whole on
+each rank of the model axis.
+
+*Tensor and sequence parallelism* (slice 6b-i): ``activation_rules`` gives
+the reference's layout entries ("residual", "attn_q", "attn_kv") as spec
+tuples.  Its "attn_q" and "attn_kv" entries decide the heads:
+``tp_refusal`` refuses a config whose q heads the rules pin to the
+sequence instead, and ``tp_holds`` splits wk and wv only where the kv
+heads stay local (else they are held whole: the whole-kv arm, a stated
+difference in layout from the reference, which would pin the sequence).
+``attention_shard_spec`` and ``rmsnorm_shard_spec`` are the reference's
+head-locality and row checks, kept for parity with it only: they decide
+nothing in the port, whose kernels see each rank's local tensors.
 
 *Groups*: ``axes_group`` gives the process group over one or more mesh
 axes (several flattened, pod-major, as the reference's ('pod', 'data')
@@ -372,15 +384,200 @@ def shard_batch(mesh, batch: Dict[str, torch.Tensor]
 
 
 def activation_rules(mesh, *, batch_size: int, cfg=None) -> dict:
-    """Activation rules, installed with ``ctx.sharding_rules``: for a config
-    with experts, ``moe_ep`` picks the expert-parallel MoE over the model
-    group, ``dp_axes`` the data axes where they divide the batch.  The
-    reference's layout rules ("residual", "expert_buffer", "attn_q",
-    "attn_kv") are tensor and sequence parallelism, which the port does not
-    do yet."""
-    if cfg is None or not cfg.n_experts:
-        return {}
+    """Activation rules, installed with ``ctx.sharding_rules``: the
+    reference's layout entries as spec tuples, one entry a dim --
+    "residual" (dp, "model", None), the Megatron-SP residual between
+    blocks; "attn_q" and "attn_kv" (dp, None, "model", None), heads local
+    to the model axis, or, where the config's q (kv) heads do not divide
+    the model axis, the sequence dim pinned instead, (dp, "model", None,
+    None) -- and for a config with experts ``moe_ep``, which picks the
+    expert-parallel MoE over the model group outside tensor parallelism,
+    ``dp_axes`` the data axes where they divide the batch.  The port lays
+    its activations out by explicit collectives in the model layer
+    (``fsdp.tp_rule``); ``tp_refusal`` and ``tp_holds`` read the head
+    entries to choose that layout."""
+    d_ax = data_axes(mesh)
+    batch_ok = bool(d_ax) and batch_size % axes_size(mesh, d_ax) == 0
     dp = _batch_axis(mesh, batch_size)
-    return {"moe_ep": {"mesh": mesh, "tp": mesh_shape(mesh)["model"],
-                       "dp_axes": data_axes(mesh) if dp is not None
-                       else ()}}
+    msize = mesh_shape(mesh)["model"]
+    heads = (dp, None, "model", None)
+    seq_sharded = (dp, "model", None, None)
+    rules = {"residual": (dp, "model", None),
+             "attn_q": heads, "attn_kv": heads}
+    if cfg is not None:
+        if cfg.n_heads % msize != 0:
+            rules["attn_q"] = seq_sharded
+        if cfg.n_kv_heads % msize != 0:
+            rules["attn_kv"] = seq_sharded
+    if cfg is not None and cfg.n_experts:
+        rules["moe_ep"] = {"mesh": mesh, "tp": msize,
+                           "dp_axes": d_ax if batch_ok else ()}
+    return rules
+
+
+# ---------------------------------------------------------------------------
+# tensor and sequence parallelism (slice 6b-i)
+# ---------------------------------------------------------------------------
+
+class AttnShardSpec(NamedTuple):
+    """``attention_shard_spec``'s layout: the batch over ``batch`` (an
+    axis, a tuple of axes, or None), q and kv heads over ``heads``
+    ("model" or None)."""
+    batch: Any
+    heads: Optional[str]
+
+
+class RowShardSpec(NamedTuple):
+    """``rmsnorm_shard_spec``'s layout: rows over the product of ``axes``."""
+    axes: Tuple[str, ...]
+
+
+def attention_shard_spec(mesh, *, batch: int, n_q_heads: int,
+                         n_kv_heads: int
+                         ) -> Tuple[Optional[AttnShardSpec], str]:
+    """The reference's head-locality check (``repro/distributed/
+    sharding.py::attention_shard_spec``): the batch over the data axes
+    where they divide it, q *and* kv heads over "model" where both divide
+    it, so shard j owns q heads [j hq / m, (j + 1) hq / m) and exactly the
+    kv heads they read.  (spec, "") or (None, reason).  Reference parity
+    only: the port decides its heads from the rules (``tp_refusal``,
+    ``tp_holds``) and runs the kv heads that do not divide through the
+    whole-kv arm, where this check refuses."""
+    shape = mesh_shape(mesh)
+    d_ax = data_axes(mesh)
+    d_size = axes_size(mesh, d_ax)
+    m_size = shape.get("model", 1)
+    if d_size == 1 and m_size == 1:
+        return AttnShardSpec(None, None), ""
+    dp: Any = d_ax if (d_ax and batch % d_size == 0 and d_size > 1) \
+        else None
+    if isinstance(dp, tuple) and len(dp) == 1:
+        dp = dp[0]
+    heads = None
+    if m_size > 1:
+        if n_q_heads % m_size == 0 and n_kv_heads % m_size == 0:
+            heads = "model"
+        else:
+            return None, (f"heads ({n_q_heads}q/{n_kv_heads}kv) do not "
+                          f"divide the {m_size}-way model axis")
+    if dp is None and heads is None:
+        return None, (f"mesh axes divide neither batch={batch} "
+                      f"(data={d_size}) nor heads (model={m_size})")
+    return AttnShardSpec(dp, heads), ""
+
+
+def _mentions(spec, axis: str, dim: int) -> bool:
+    if spec is None or dim >= len(spec):
+        return False
+    return axis in entry_axes(spec[dim])
+
+
+def rmsnorm_shard_spec(mesh, *, rows: int, rules: Optional[dict] = None
+                       ) -> Tuple[Optional[RowShardSpec], str]:
+    """The reference's row check (``rmsnorm_shard_spec``): rows split over
+    every mesh axis of size > 1 where their product divides them into
+    blocks of >= 8 rows, except under the sequence-parallel residual,
+    whose rows are already split over "model" (there the port normalises
+    each rank's rows where they lie).  (spec, "") or (None, reason).
+    Reference parity only: under tensor parallelism the port's norms run
+    on the sequence-parallel rows (``models/model.py``)."""
+    shape = mesh_shape(mesh)
+    names = list(shape)
+    r = (rules or {}).get("residual")
+    if shape.get("model", 1) > 1 and _mentions(r, "model", 1):
+        return None, ("the sequence-parallel residual splits the rows over "
+                      "'model' already: a row split over the mesh would "
+                      "gather the residual stream again")
+    axes = tuple(a for a in names if shape[a] > 1)
+    if not axes:
+        return RowShardSpec(tuple(names)[:1] or ("data",)), ""
+    n = axes_size(mesh, axes)
+    if rows % n != 0 or rows // n < 8:
+        return None, (f"rows={rows} do not divide into >=8-row blocks "
+                      f"over the {n}-device mesh axes {axes}")
+    return RowShardSpec(axes), ""
+
+
+# the ROADMAP items (queue 1, item 5) of the layouts this slice refuses
+TP_LATER = {"recurrent": "6b-ii (mamba2/zamba2, mLSTM/sLSTM and Whisper "
+                         "tensor parallelism)",
+            "heads": "6b-iii (sequence-sharded attention for q heads that "
+                     "do not divide the model axis)"}
+
+
+def tp_covered(cfg) -> bool:
+    """Whether this slice's tensor parallelism covers ``cfg``'s blocks:
+    stacks of attention blocks with a gated MLP or experts."""
+    return not (cfg.is_encdec or cfg.shared_attn_every
+                or any(k not in ("attn", "attn_local")
+                       for k in cfg.layer_kinds()))
+
+
+def _pinned_to_sequence(rule) -> bool:
+    """Whether an "attn_q"/"attn_kv" entry pins the sequence dim to the
+    model axis (heads that do not divide it) rather than the heads."""
+    return _mentions(rule, "model", 1)
+
+
+def _head_rules(cfg, mesh) -> dict:
+    """The rules' head entries for ``cfg`` over ``mesh`` (the batch does
+    not enter them)."""
+    if "model" not in mesh_shape(mesh):
+        mesh = {**mesh_shape(mesh), "model": 1}
+    return activation_rules(mesh, batch_size=1, cfg=cfg)
+
+
+def tp_refusal(cfg, mesh) -> str:
+    """Why this slice cannot lay ``cfg`` out tensor- and sequence-parallel
+    over ``mesh``'s model axis, naming the ROADMAP item that will; "" where
+    it can: a covered config (``tp_covered``) whose q heads the rules keep
+    local to the model axis (``activation_rules``' "attn_q") and whose d_ff
+    divides it (kv heads the rules pin to the sequence are held whole:
+    ``tp_holds``)."""
+    tp = mesh_shape(mesh).get("model", 1)
+    if not tp_covered(cfg):
+        return (f"{cfg.name}: tensor parallelism of its blocks is ROADMAP "
+                f"queue 1 item 5, slice {TP_LATER['recurrent']}")
+    if _pinned_to_sequence(_head_rules(cfg, mesh)["attn_q"]):
+        return (f"{cfg.name}: its {cfg.n_heads} q heads do not divide the "
+                f"{tp}-way model axis: ROADMAP queue 1 item 5, slice "
+                f"{TP_LATER['heads']}")
+    if cfg.d_ff and cfg.d_ff % tp:
+        return (f"{cfg.name}: d_ff {cfg.d_ff} does not divide the {tp}-way "
+                "model axis, which no slice plans (ROADMAP queue 1 item 5)")
+    return ""
+
+
+_KV = re.compile(r"(^|\.)attn\.(wk|wv)\.[wb]$")
+_EXPERT_LEAF = re.compile(r"(^|\.)moe\.w_(gate|up|down)$")
+
+
+def tp_holds(cfg, mesh, shapes: Optional[Dict[str, tuple]] = None
+             ) -> Dict[str, bool]:
+    """For each leaf whose plan puts "model" on a dim: whether this slice
+    holds that entry (True: each model rank keeps its 1/tp of the dim) or
+    holds the leaf whole over the model axis (False).  Held where the split
+    falls on whole heads (q always, once ``tp_refusal`` passes; k and v
+    where the rules' "attn_kv" keeps the kv heads local), on whole d_ff
+    columns, on whole vocab rows (the plan has already dropped an odd
+    vocab's axis), and on the experts (slice 6a).  Where "attn_kv" pins
+    the sequence instead, wk and wv are held whole and each rank keeps the
+    kv heads its q heads read (``models/attention.py``).  A config
+    ``tp_refusal`` refuses holds only its experts."""
+    if shapes is None:
+        from repro_torch.models.model import param_shapes
+        shapes = param_shapes(cfg)
+    plan = param_shardings(cfg, mesh, shapes)
+    ok = not tp_refusal(cfg, mesh)
+    kv_local = not _pinned_to_sequence(_head_rules(cfg, mesh)["attn_kv"])
+    out = {}
+    for path, spec in plan.items():
+        if not any("model" in entry_axes(a) for a in spec):
+            continue
+        if _EXPERT_LEAF.search(path):
+            out[path] = True
+        elif _KV.search(path):
+            out[path] = ok and kv_local
+        else:
+            out[path] = ok
+    return out

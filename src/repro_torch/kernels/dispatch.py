@@ -28,7 +28,11 @@ main path went through the kernels.  The verify arms keep route counts
 beside them (``route_counts``: ``flash_verify``, ``verify_paged``), the
 calls that reached the append kernel through them, which the kernel
 counts again as its own; the model layer counts there which MoE it took
-(``moe_ep``, ``moe_dense``); ``reset_launch_counts`` clears both.
+(``moe_ep``, ``moe_dense``) and, under tensor and sequence parallelism,
+its attention calls on local heads (``tp_heads``; ``tp_kv_whole`` where
+the kv heads are taken from whole leaves) and its norms on the
+sequence-parallel rows (``sp_rows``): the kernels see local tensors and
+need no arm of their own.  ``reset_launch_counts`` clears both.
 """
 from __future__ import annotations
 
@@ -67,7 +71,7 @@ _COUNTERS = {
 # counted again by the append kernel's arm that it launches; the MoE
 # routes are the model layer's, which it counts here with count_route)
 _ROUTES = {"flash_verify": 0, "verify_paged": 0, "moe_ep": 0,
-           "moe_dense": 0}
+           "moe_dense": 0, "tp_heads": 0, "tp_kv_whole": 0, "sp_rows": 0}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -40,11 +40,11 @@ contiguous inside a paged model cache.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed import ctx
+from repro_torch.distributed import collectives, ctx
 from repro_torch.distributed.sharding import (DecodeCPSpec,
                                               decode_cp_shard_spec,
                                               decode_cp_spec)
@@ -284,32 +284,86 @@ def _rope(cfg, positions: torch.Tensor):
 def _qkv(params: dict, x: torch.Tensor, cfg, cos: Optional[torch.Tensor],
          sin: Optional[torch.Tensor]):
     """q, k, v, the rotary tables (cos, sin) applied to q and k (none
-    where ``cos`` is None: Whisper's attention has no rotary)."""
-    n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _split_heads(cm.linear(params["wq"], x), n_h, hd)
-    k = _split_heads(cm.linear(params["wk"], x), n_kv, hd)
-    v = _split_heads(cm.linear(params["wv"], x), n_kv, hd)
+    where ``cos`` is None: Whisper's attention has no rotary).  The head
+    counts are the leaves' own (this rank's heads under tensor
+    parallelism)."""
+    hd = cfg.hd
+    q = _split_heads(cm.linear(params["wq"], x),
+                     params["wq"]["w"].shape[1] // hd, hd)
+    k = _split_heads(cm.linear(params["wk"], x),
+                     params["wk"]["w"].shape[1] // hd, hd)
+    v = _split_heads(cm.linear(params["wv"], x),
+                     params["wv"]["w"].shape[1] // hd, hd)
     if cos is not None:
         q = cm.apply_rope(q, cos, sin, rotary_dim=cfg.rotary_dim)
         k = cm.apply_rope(k, cos, sin, rotary_dim=cfg.rotary_dim)
     return q, k, v
 
 
+def _kv_heads_read(cfg, tp) -> Tuple[int, int]:
+    """(first, count) of the kv heads this rank's q heads read when the kv
+    heads do not divide the model axis: q heads [r hq / tp, (r + 1) hq /
+    tp) read kv head h // g, g = hq / hkv.  The local heads must group
+    evenly (each kv head read by as many consecutive local q heads), as
+    every config's do (their q heads lie in one group)."""
+    hq_loc = cfg.n_heads // tp.size
+    g = cfg.n_heads // cfg.n_kv_heads
+    q0 = tp.rank * hq_loc
+    reads = [h // g for h in range(q0, q0 + hq_loc)]
+    first, count = reads[0], reads[-1] - reads[0] + 1
+    if hq_loc % count or any(reads[i] != first + i // (hq_loc // count)
+                             for i in range(hq_loc)):
+        raise ValueError(f"{cfg.name}: the q heads of model rank {tp.rank} "
+                         f"({hq_loc} of {cfg.n_heads}) read the kv heads "
+                         f"{reads}, which no GQA grouping covers")
+    return first, count
+
+
+def _kv_whole_params(params: dict, cfg, tp) -> dict:
+    """Under tensor parallelism with kv heads that do not divide the model
+    axis (``sharding.tp_holds`` holds ``wk``/``wv`` whole): the columns of
+    the kv heads this rank's q heads read, taken from the whole leaves
+    before the products.  Each rank's gradient of the whole leaves covers
+    its own heads' use of them, so the model group sums it
+    (``collectives.sum_grads``)."""
+    first, count = _kv_heads_read(cfg, tp)
+    lo, n = first * cfg.hd, count * cfg.hd
+    out = dict(params)
+    for name in ("wk", "wv"):
+        out[name] = {key: collectives.sum_grads(t, tp.group).narrow(-1, lo, n)
+                     for key, t in params[name].items()}
+    return out
+
+
 def attend_train(params: dict, x: torch.Tensor, cos: Optional[torch.Tensor],
                  sin: Optional[torch.Tensor], cfg, *,
                  window: Optional[int] = None, use_rope: bool = True,
-                 bidirectional: bool = False) -> torch.Tensor:
+                 bidirectional: bool = False, tp=None) -> torch.Tensor:
     """Full-sequence self attention.  x (B, S, d_model); cos, sin the
     caller's rotary tables ((1 or B, S, D/2): plain RoPE at 0 .. S-1 or
     M-RoPE, ``model._rope_tables``), unused with ``use_rope=False`` ->
-    (B, S, d_model)."""
+    (B, S, d_model).
+
+    Under tensor parallelism (``tp``, ``fsdp.TPRule``) x is the whole
+    sequence gathered from the ranks' rows, the leaves are this rank's
+    heads (``wq`` columns, ``wo`` rows; ``wk``/``wv`` too where the kv
+    heads divide the model axis, else whole: ``_kv_whole_params``), the
+    kernels see only the local heads, and the result is this rank's
+    partial sum of the output projection, which the caller reduce-scatters
+    (counted as the ``tp_heads`` and ``tp_kv_whole`` routes)."""
     b, s, _ = x.shape
     if not use_rope:
         cos = sin = None
+    if tp is not None:
+        dispatch.count_route("tp_heads")
+        if params["wk"]["w"].shape[1] == cfg.n_kv_heads * cfg.hd \
+                and cfg.n_kv_heads % tp.size:
+            dispatch.count_route("tp_kv_whole")
+            params = _kv_whole_params(params, cfg, tp)
     q, k, v = _qkv(params, x, cfg, cos, sin)
     o = dispatch.flash_attention(q, k, v, causal=not bidirectional,
                                  window=window)
-    return cm.linear(params["wo"], o.reshape(b, s, cfg.n_heads * cfg.hd))
+    return cm.linear(params["wo"], o.reshape(b, s, -1))
 
 
 def attend_decode(params: dict, x: torch.Tensor, cache: dict,

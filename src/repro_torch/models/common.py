@@ -12,6 +12,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.kernels import dispatch
 
 Params = dict
@@ -32,6 +33,23 @@ def linear(p: Params, x: torch.Tensor, *, dtype=None) -> torch.Tensor:
 
 def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
     return p["table"][ids.long()]
+
+
+def embed_vocab_parallel(p: Params, ids: torch.Tensor, *, start: int,
+                         group, dtype) -> torch.Tensor:
+    """The vocab-parallel embedding under tensor and sequence parallelism:
+    ``p["table"]`` holds vocab rows [start, start + V / tp) of the table;
+    ids (B, S) the whole sequence.  Each rank looks its rows up, zeros the
+    ids it does not own, casts to ``dtype`` and reduce-scatters the
+    (B, S, d) partials along the sequence (``collectives.scatter_sum``):
+    -> this rank's rows (B, S / tp, d).  Each id has one owner, so the sum
+    adds exact zeros to it."""
+    table = p["table"]
+    local = ids.long() - start
+    own = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    part = torch.where(own[..., None], rows, torch.zeros_like(rows))
+    return collectives.scatter_sum(part.to(dtype), group, 1)
 
 
 def rmsnorm(p: Params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:

@@ -13,6 +13,9 @@ def gated_mlp_shapes(d_model: int, d_ff: int) -> dict:
 
 
 def gated_mlp(p: dict, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+    """The SwiGLU MLP.  On this rank's d_ff columns of ``gate``/``up`` and
+    rows of ``down`` (tensor parallelism) it returns this rank's partial
+    sum of the output, which the caller reduce-scatters."""
     f = cm.ACTIVATIONS[act]
     return cm.linear(p["down"],
                      f(cm.linear(p["gate"], x)) * cm.linear(p["up"], x))

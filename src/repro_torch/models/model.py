@@ -38,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import prng
 from repro_torch.device import resolve
-from repro_torch.distributed import ctx, fsdp
+from repro_torch.distributed import collectives, ctx, fsdp
 from repro_torch.kernels import dispatch
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
@@ -414,27 +414,36 @@ def _moe_rule(s: int) -> Optional[dict]:
 
 
 def _ffn_half(cfg: ModelConfig, p: Params, x: torch.Tensor,
-              ep: Optional[dict] = None):
+              ep: Optional[dict] = None, tp: Optional[fsdp.TPRule] = None):
     """The block's second residual half: (x + FFN(norm(x)), the experts'
     load-balance loss or None).  The FFN is the experts where the config
     has them, the gated MLP otherwise.  The experts are expert-parallel
     (``moe_ep.moe_apply_ep``) under the ``moe_ep`` rule ``ep``
-    (``_moe_rule``), dense otherwise (``moe.moe_apply``: its capacity is
+    (``_moe_rule``, or the layout's ``fsdp.ep_rule`` under tensor
+    parallelism), dense otherwise (``moe.moe_apply``: its capacity is
     per call, every row of the call, padding and idle slots included,
     competing for it, as in the JAX steps); the route is counted
-    (``dispatch.route_counts``)."""
-    y = cm.apply_norm(cfg.norm, p["ln2"], x)
+    (``dispatch.route_counts``).  Under tensor parallelism (``tp``) x is
+    this rank's sequence rows: the experts route them as they are, the
+    gated MLP runs on its d_ff columns over the gathered sequence and its
+    partial sums are reduce-scattered back to the rows."""
+    y = _norm(cfg, p["ln2"], x, tp)
     if cfg.n_experts:
         kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                   act=cfg.act)
         if ep is not None:
             dispatch.count_route("moe_ep")
-            y, lb = moe_ep.moe_apply_ep(p["moe"], y, rule=ep, **kw)
+            y, lb = moe_ep.moe_apply_ep(p["moe"], y, rule=ep,
+                                        sp=tp is not None, **kw)
         else:
             dispatch.count_route("moe_dense")
             y, lb = moe_mod.moe_apply(p["moe"], y, **kw)
         return x + y, lb
-    return x + mlp_mod.gated_mlp(p["mlp"], y, act=cfg.act), None
+    if tp is None:
+        return x + mlp_mod.gated_mlp(p["mlp"], y, act=cfg.act), None
+    y = collectives.gather_sum(y, tp.group, 1)
+    y = mlp_mod.gated_mlp(p["mlp"], y, act=cfg.act)
+    return x + collectives.scatter_sum(y, tp.group, 1), None
 
 
 def _rope_tables(cfg: ModelConfig, batch: Dict[str, torch.Tensor], s: int,
@@ -454,15 +463,51 @@ def _rope_tables(cfg: ModelConfig, batch: Dict[str, torch.Tensor], s: int,
                            cfg.rope_theta)
 
 
-def _heads(cfg: ModelConfig, params: Params, x: torch.Tensor) -> dict:
-    x = cm.apply_norm(cfg.norm, params["final_norm"], x)
+def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor,
+          tp: Optional[fsdp.TPRule]) -> torch.Tensor:
+    """A norm; under tensor parallelism on this rank's sequence rows (the
+    ``sp_rows`` route), its whole leaves' gradients summed over the model
+    group, since each rank's covers its own rows."""
+    if tp is not None:
+        dispatch.count_route("sp_rows")
+        p = {k: collectives.sum_grads(t, tp.group) for k, t in p.items()}
+    return cm.apply_norm(cfg.norm, p, x)
+
+
+def _heads(cfg: ModelConfig, params: Params, x: torch.Tensor,
+           tp: Optional[fsdp.TPRule] = None) -> dict:
+    """The final norm, the LM head (the tied table where the config ties
+    them) and the value head.  Under tensor parallelism x is this rank's
+    sequence rows: the value head runs on them (its leaf's gradient summed
+    over the model group) and its values are all-gathered, so every model
+    rank holds all of them; the normed rows are all-gathered for the LM
+    head.  With the vocab split (``tp.vocab``) the logits are this rank's
+    V / tp columns (``out["vocab_start"]`` their first) and the gather's
+    backward sums the ranks' partial cotangents; with the vocab whole each
+    rank computes every logit, whose cotangents are alike on the ranks, so
+    the backward keeps this rank's rows."""
+    x = _norm(cfg, params["final_norm"], x, tp)
     out = {}
+    if cfg.value_head:
+        vh = params["value_head"]
+        if tp is not None:
+            vh = {k: collectives.sum_grads(t, tp.group)
+                  for k, t in vh.items()}
+        value = cm.linear(vh, x)[..., 0].float()
+        if tp is not None:
+            value = collectives.gather_slice(value, tp.group, 1)
+        out["value"] = value
+    if tp is not None:
+        gather = collectives.gather_sum if tp.vocab else \
+            collectives.gather_slice
+        x = gather(x, tp.group, 1)
     if cfg.tie_embeddings:
-        out["logits"] = x @ params["embed"]["table"].T.to(x.dtype)
+        table = params["embed"]["table"]
+        out["logits"] = x @ table.T.to(x.dtype)
     else:
         out["logits"] = cm.linear(params["lm_head"], x, dtype=x.dtype)
-    if cfg.value_head:
-        out["value"] = cm.linear(params["value_head"], x)[..., 0].float()
+    if tp is not None and tp.vocab:
+        out["vocab_start"] = tp.rank * out["logits"].shape[-1]
     return out
 
 
@@ -477,29 +522,58 @@ _DECODE = {"mamba2": ("mamba", ssm.mamba2_decode),
 def _block_train(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  aux: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                  layout: Optional[fsdp.Layout] = None, prefix: str = "",
-                 ep: Optional[dict] = None):
+                 ep: Optional[dict] = None,
+                 tp: Optional[fsdp.TPRule] = None):
     """One residual block over the full sequence -> (x, aux plus the
     block's load-balance loss).  ``p`` holds the f32 masters (this rank's
     shards under ``layout``, whose paths start with ``prefix``); the cast
     to the compute dtype, and the gather of the cast shards, happen here,
     so under ``cfg.remat`` they are recomputed in the backward and only
     one block's cast, whole copies are alive at a time.  ``ep``: the
-    ``moe_ep`` rule the forward found, an argument rather than read from
-    the thread-local rules because the recomputation runs on the autograd
-    engine's thread (a card's backward runs on a device thread of its own).
-    The recomputation routes the tokens as the forward did: top-k is a
-    stable sort."""
+    ``moe_ep`` rule the forward found, and ``tp``: the tensor-parallel
+    rule, arguments rather than read from the thread-local rules because
+    the recomputation runs on the autograd engine's thread (a card's
+    backward runs on a device thread of its own).  The recomputation
+    routes the tokens as the forward did: top-k is a stable sort.
+
+    Under ``tp`` (Megatron-SP) x is this rank's rows of the sequence: the
+    norm runs on them, they are all-gathered before the attention's (and
+    the MLP's) column-parallel products, and the row-parallel products'
+    partial sums are reduce-scattered back to the rows."""
     p = cast_params(cfg, p)
     if layout is not None:
-        p = fsdp.gather(layout, prefix, p, model=ep is None)
-    h = cm.apply_norm(cfg.norm, p["ln1"], x)
+        p = fsdp.gather(layout, prefix, p, model=ep is None and tp is None)
+    h = _norm(cfg, p["ln1"], x, tp)
     if kind in _TRAIN:
         name, fn = _TRAIN[kind]
         return x + fn(p[name], h, cfg), aux
+    if tp is not None:
+        h = collectives.gather_sum(h, tp.group, 1)
     h = attn.attend_train(p["attn"], h, cos, sin, cfg,
-                          window=_window(cfg, kind))
-    x, lb = _ffn_half(cfg, p, x + h, ep)
+                          window=_window(cfg, kind), tp=tp)
+    if tp is not None:
+        h = collectives.scatter_sum(h, tp.group, 1)
+    x, lb = _ffn_half(cfg, p, x + h, ep, tp)
     return x, (aux if lb is None else aux + lb)
+
+
+def _sp_inputs(cfg: ModelConfig, top: Params, batch: Dict[str, torch.Tensor],
+               tp: fsdp.TPRule) -> torch.Tensor:
+    """The embedded inputs as this rank's rows of the sequence: the
+    vocab-parallel embedding where the table is split over the vocab,
+    else this rank's slice of the whole lookup (its backward gathers the
+    rows' cotangents, so each rank's table gradient covers every token)."""
+    s = batch.get("tokens", batch.get("embeds")).shape[1]
+    if s % tp.size:
+        raise ValueError(f"sequence {s} does not divide over the {tp.size} "
+                         "model ranks of the sequence-parallel residual")
+    if tp.vocab and "embeds" not in batch:
+        table = top["embed"]["table"]
+        return cm.embed_vocab_parallel(
+            top["embed"], batch["tokens"], start=tp.rank * table.shape[0],
+            group=tp.group, dtype=compute_dtype(cfg))
+    return collectives.scatter_slice(_embed_inputs(cfg, top, batch),
+                                     tp.group, 1)
 
 
 def forward(cfg: ModelConfig, params: Params,
@@ -518,20 +592,38 @@ def forward(cfg: ModelConfig, params: Params,
     shared block's applications included, runs under
     ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint``):
     its activations are recomputed in the backward.  The encoder-decoder
-    has no remat, as in the reference."""
+    has no remat, as in the reference.
+
+    Under a tensor-parallel layout (``fsdp.tp_rule``) the residual stream
+    between blocks is this rank's S / tp rows of the sequence, the rotary
+    tables are whole (attention runs on the gathered sequence), the
+    experts are expert-parallel under the layout's rule (``fsdp.ep_rule``;
+    the installed rules are not read), and the logits are this rank's
+    vocab columns where the vocab is split (``_heads``)."""
     if cfg.is_encdec:
         return encdec.forward(cfg, fsdp.gather(
             layout, "", cast_params(cfg, params), model=True), batch)
+    tp = fsdp.tp_rule(layout)
     top = fsdp.gather(layout, "", {k: v for k, v in params.items()
                                    if k not in ("layers", "shared_attn")})
     # gather, then cast: the values of casting the table first
-    x = _embed_inputs(cfg, top, batch)
-    cos, sin = _rope_tables(cfg, batch, x.shape[1], x.device)
+    if tp is None:
+        x = _embed_inputs(cfg, top, batch)
+        s = x.shape[1]
+    else:
+        x = _sp_inputs(cfg, top, batch, tp)
+        s = x.shape[1] * tp.size
+    cos, sin = _rope_tables(cfg, batch, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    ep = _moe_rule(x.shape[1]) if cfg.n_experts else None
+    if not cfg.n_experts:
+        ep = None
+    elif tp is not None:
+        ep = fsdp.ep_rule(layout)
+    else:
+        ep = _moe_rule(s)
 
     def block(kind, p, x, aux, prefix):
-        args = (cfg, kind, p, x, aux, cos, sin, layout, prefix, ep)
+        args = (cfg, kind, p, x, aux, cos, sin, layout, prefix, ep, tp)
         if cfg.remat:
             return checkpoint(_block_train, *args, use_reentrant=False)
         return _block_train(*args)
@@ -540,7 +632,7 @@ def forward(cfg: ModelConfig, params: Params,
         if cfg.shared_attn_every and (i + 1) % cfg.shared_attn_every == 0:
             x, aux = block("attn", params["shared_attn"], x, aux,
                            "shared_attn")
-    out = _heads(cfg, cast_params(cfg, top), x)
+    out = _heads(cfg, cast_params(cfg, top), x, tp)
     out["aux_loss"] = aux
     return out
 

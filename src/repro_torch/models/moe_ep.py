@@ -9,11 +9,13 @@ E / tp of the experts:
   all-to-all back -> combine with the gates
 
 Tokens: the caller's rows are this rank's share of the batch over the data
-axes (``dp_axes``; the train step has split it already) and the whole
-sequence, held alike on every model rank (the dense halves are not tensor
-parallel in this slice); the block takes the model rank's slice of the
-sequence (``x_spec``'s P(dp, 'model', None)), and all-gathers the outputs
-back into the whole sequence.  The capacity is the reference's
+axes (``dp_axes``; the train step has split it already).  Under sequence
+parallelism (``sp``) they are already the model rank's slice of the
+sequence, the Megatron-SP residual's rows, and the block routes them as
+they are.  Otherwise they are the whole sequence, held alike on every
+model rank: the block takes the rank's slice of the sequence
+(``x_spec``'s P(dp, 'model', None)) and all-gathers the outputs back into
+the whole sequence.  The capacity is the reference's
 expert-parallel expression over the local tokens, without the dense
 path's cap at the token count.  The load-balance loss is averaged over
 the model and data groups.
@@ -66,14 +68,17 @@ def capacity(b: int, s: int, tp: int, top_k: int, n_experts: int,
 
 
 def moe_apply_ep(p: dict, x: torch.Tensor, *, top_k: int,
-                 capacity_factor: float, act: str,
-                 rule: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+                 capacity_factor: float, act: str, rule: dict,
+                 sp: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B_loc, S, d), this rank's rows -> (y (B_loc, S, d), the
-    load-balance loss averaged over the ranks).  ``rule``: the ``moe_ep``
-    entry of ``sharding.activation_rules`` (mesh, tp, dp_axes).  S and E
-    must divide by tp; the expert weights are this rank's E / tp."""
+    load-balance loss averaged over the ranks); with ``sp`` x and y are
+    this model rank's S / tp rows of the sequence.  ``rule``: the
+    ``moe_ep`` entry of ``sharding.activation_rules`` (mesh, tp, dp_axes).
+    S and E must divide by tp; the expert weights are this rank's E / tp."""
     mesh, tp = rule["mesh"], int(rule["tp"])
     b, s, d = x.shape
+    if sp:
+        s *= tp
     e = p["router"].shape[1]
     if e % tp or s % tp:
         raise ValueError(f"experts {e} and sequence {s} must divide over "
@@ -88,7 +93,7 @@ def moe_apply_ep(p: dict, x: torch.Tensor, *, top_k: int,
                          f"each of the {tp} model ranks takes its {e_loc} "
                          "(hold them by fsdp.layout)")
     router = collectives.sum_grads(p["router"], group)
-    xl = collectives.scatter_slice(x, group, 1)            # (b, s/tp, d)
+    xl = x if sp else collectives.scatter_slice(x, group, 1)  # (b, s/tp, d)
     xf = xl.reshape(b * (s // tp), d)
 
     send, route, lb = _local_route(router, xf, top_k=top_k, n_experts=e,
@@ -106,4 +111,4 @@ def moe_apply_ep(p: dict, x: torch.Tensor, *, top_k: int,
     axes = tuple(rule["dp_axes"]) + ("model",)
     lb = collectives.mean_over(lb, sharding.axes_group(mesh, axes),
                                copies=tp)
-    return collectives.gather_slice(y, group, 1), lb
+    return (y if sp else collectives.gather_slice(y, group, 1)), lb

@@ -160,20 +160,33 @@ def test_batch_plan_and_moe_rule_match_jax(jax_plans, mname):
 
 
 def test_held_layout_keeps_model_only_on_experts():
-    """The layout this slice holds: the plan with every "model" entry but
-    the experts' taken out, the pod axis stripped for the delayed-sync
-    groups, and the optimizer state on the parameters' plan."""
+    """The layout of granite-moe on (2, 16, 16): "model" held on the
+    experts and, under tensor parallelism, on the dense leaves whose split
+    falls on whole heads (the q heads; its 8 kv heads do not divide 16, so
+    wk and wv are held whole) and nowhere else (its odd vocab keeps the
+    table's model entry out of the plan); the pod axis stripped for the
+    delayed-sync groups, and the optimizer state on the parameters'
+    plan.  A config whose tensor parallelism is a later slice (zamba2)
+    keeps "model" off every dense leaf."""
     cfg = torch_configs.get_config("granite-moe-1b-a400m")
     mesh = _mesh("2x16x16")
     plan = sharding.param_shardings(cfg, mesh)
     lay = fsdp.layout(cfg, mesh)
     pods = fsdp.layout(cfg, mesh, pod_groups=True)
+    holds = sharding.tp_holds(cfg, mesh)
+    assert lay.tp and pods.tp
     assert plan["layers.0.attn.wq.w"] == (("pod", "data"), "model")
-    assert lay.held["layers.0.attn.wq.w"] == (("pod", "data"), None)
-    assert pods.held["layers.0.attn.wq.w"] == ("data", None)
+    assert lay.held["layers.0.attn.wq.w"] == (("pod", "data"), "model")
+    assert pods.held["layers.0.attn.wq.w"] == ("data", "model")
+    assert lay.held["layers.0.attn.wk.w"] == (("pod", "data"), None)
     assert lay.held["layers.0.moe.w_gate"] == ("model", None, None)
     assert pods.held["layers.0.moe.router"] == ("data", None)
     assert sharding.opt_state_shardings(cfg, mesh, plan) == {"g": plan}
     for path, spec in lay.held.items():
         if "model" in str(spec):
-            assert ".moe.w_" in path, (path, spec)
+            assert ".moe.w_" in path or holds[path], (path, spec)
+    later = torch_configs.get_config("zamba2-1.2b")
+    whole = fsdp.layout(later, mesh)
+    assert not whole.tp
+    for path, spec in whole.held.items():
+        assert "model" not in str(spec), (path, spec)

@@ -11,8 +11,9 @@ parameters, gathered whole, are within 1e-5 of JAX's unsharded
   launcher's layout) and as the parameter plan's FSDP shards;
 * reduced granite-moe at capacity factor 4.0 and ``aux_loss_weight`` 0 on
   both sides, under the ``moe_ep`` rule on (2, 1), held whole and as
-  shards, and on (1, 2) as shards (experts over the model axis), with
-  remat and without: nothing drops, so the expert-parallel block equals
+  shards, and on (1, 2) as shards (experts over the model axis, and the
+  attention, norms and vocab tensor- and sequence-parallel), with remat
+  and without: nothing drops, so the expert-parallel block equals
   the dense one (``test_torch_moe_ep.py`` holds its load-balance loss and
   its drops to ``moe_apply_ep``).
 
