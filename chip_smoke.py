@@ -298,12 +298,31 @@ Phases (any failure raises and the script exits non-zero):
      normalises the sequence rows (the routes, exact);
      12f. Yi-6B at full width through the tensor-parallel step with
      remat: at n = 1 16 layers on 12b's draw, 2 steps, against its
-     unsharded runs; at n = 4 all 32 layers on (1, 4) and on (2, 2).
+     unsharded runs; at n = 4 all 32 layers on (1, 4) and on (2, 2);
+     12g. tensor and sequence parallelism of the recurrent and
+     encoder-decoder blocks on (1, n), asked for at n = 1 too: reduced
+     zamba2 (mamba2's blocked ``in_proj`` and conv, the shared block),
+     xlstm on the ("mlstm", "slstm") cycle (the sLSTM's ``r`` over its
+     heads) and Whisper (vocab split), and at n = 4 each on (2, 2), held
+     to the CPU as 12a, with every recurrent layer on local heads and its
+     inner norm on feature-gathered rows, every Whisper decoder layer's
+     cross attention on local heads (the routes, exact);
+     12h. at full width with remat (bf16 compute) from one draw: at n =
+     1 zamba2-1.2b with nothing cut (4 x 1024) and Whisper-base with
+     nothing cut (4 x 1500 stub frames, 448 tokens), 2 steps each, and
+     xlstm-1.3b cut to 8 of 48 layers (one 7:1 cycle, its sLSTM
+     included), 1 step, each on a
+     (1, 1) mesh against its unsharded step (bitwise, or within 1e-5
+     relative, or twice the spread of a second unsharded run); at n = 4
+     zamba2-1.2b and xlstm-1.3b at all 48 layers on (1, 4); step wall,
+     tokens/s, peak memory a rank, busy share (not for xlstm, whose
+     sLSTM loop's launches the profiler would take minutes over), and the
+     collectives and launches a step, exact.
 
 Every kernel and arm must have been launched on one of the main paths
 (phase 5's reduced model and engines, each run of 5p, 5o and 5s, 6a, 6b, each
 of the four runs of 6c, 6d, 7, 8, each run of 9, of 10a-10e, of
-11a-11d and of 12a-12f (rank 0's counts, which every rank must equal),
+11a-11d and of 12a-12h (rank 0's counts, which every rank must equal),
 each with
 the counters set to 0 just before it and read just after); the kernels line
 gives each one's launches by path.
@@ -448,7 +467,11 @@ def check_rmsnorm(gen, flush):
                         (4096, 4096, torch.float32),
                         (4099, 4096, torch.bfloat16), (7, 104, torch.float32),
                         (4096, 2048, torch.bfloat16),
-                        *((r, 4096, torch.bfloat16) for r in SP_ROWS)):
+                        *((r, 4096, torch.bfloat16) for r in SP_ROWS),
+                        # zamba2's and xlstm's sequence-parallel rows at
+                        # tp 2 (their split-feature norms take whole rows
+                        # of 4096, the train shape above)
+                        (ZAMBA2_SP_ROWS, 2048, torch.bfloat16)):
         x = _randn((rows, d), gen, dt)
         scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
         y, rstd = rmsnorm_cuda.rmsnorm_fwd(x, scale, save_residuals=True)
@@ -504,6 +527,9 @@ def check_rmsnorm(gen, flush):
         **{f"tp{tp}_shape": record(rows, True, f"train, sequence-parallel "
                                                f"rows at tp {tp}")
            for tp, rows in zip(TP_DEGREES, SP_ROWS)},
+        "width_2048_tp2_shape": record(
+            ZAMBA2_SP_ROWS, True, "zamba2 / xlstm train, sequence-parallel "
+            "rows at tp 2", 2048),
     }
 
 
@@ -1348,8 +1374,10 @@ def check_rmsnorm_bwd(gen, flush):
                         # shape, and a single row
                         (4096, 2048, torch.bfloat16),
                         (1, 2048, torch.bfloat16),
-                        # Yi-6B's sequence-parallel rows at tp 2 and 4
-                        *((r, 4096, torch.bfloat16) for r in SP_ROWS)):
+                        # Yi-6B's sequence-parallel rows at tp 2 and 4,
+                        # zamba2's and xlstm's at tp 2
+                        *((r, 4096, torch.bfloat16) for r in SP_ROWS),
+                        (ZAMBA2_SP_ROWS, 2048, torch.bfloat16)):
         x = _randn((rows, d), gen, dt)
         dy = _randn((rows, d), gen, dt)
         scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
@@ -1393,6 +1421,9 @@ def check_rmsnorm_bwd(gen, flush):
         **{f"tp{tp}_shape": record(rows, f" (sequence-parallel rows at tp "
                                          f"{tp})")
            for tp, rows in zip(TP_DEGREES, SP_ROWS)},
+        "width_2048_tp2_shape": record(
+            ZAMBA2_SP_ROWS, " (zamba2 / xlstm sequence-parallel rows at tp "
+            "2)", 2048),
     }
 
 
@@ -1434,8 +1465,21 @@ _TP_TRAIN = {tp: (f"Yi-6B train shape, tp {tp} local heads", 4, 1024,
              for tp in TP_DEGREES}
 # and its sequence-parallel rows (4 x 1024 tokens over tp ranks)
 SP_ROWS = tuple(4 * 1024 // tp for tp in TP_DEGREES)
+# zamba2's shared block on one model rank's heads at tp 2 (16 / 16) and
+# Whisper's encoder at tp 2 and 4 (4 / 4 and 2 / 2 heads over the 1500
+# gathered frames), in the bf16 arm the full-width steps take
+_REC_TP_TRAIN = {
+    "zamba2_tp2_shape": ("Zamba2 train shape, tp 2 local heads", 4, 1024,
+                         16, 16, 64, "bf16", True, None),
+    "whisper_encoder_tp2_shape": ("Whisper encoder, tp 2 local heads", 4,
+                                  1500, 4, 4, 64, "bf16", False, None),
+    "whisper_encoder_tp4_shape": ("Whisper encoder, tp 4 local heads", 4,
+                                  1500, 2, 2, 64, "bf16", False, None)}
+# zamba2's and xlstm's sequence-parallel rows at tp 2 (4 x 1024 / 2)
+ZAMBA2_SP_ROWS = 4 * 1024 // 2
 _FLASH_CASES += [*_WHISPER_ENC.values(), *_WHISPER_DEC.values(),
-                 *_ZAMBA2_TRAIN.values(), *_TP_TRAIN.values()]
+                 *_ZAMBA2_TRAIN.values(), *_TP_TRAIN.values(),
+                 *_REC_TP_TRAIN.values()]
 
 
 def _new_shape_records(timing, gen, flush, dt):
@@ -1525,6 +1569,8 @@ def check_flash_fwd(gen, flush):
         gen, flush, _GRANITE_TRAIN_SHAPE)
     for tp, case in _TP_TRAIN.items():
         records[0][f"tp{tp}_shape"] = _flash_fwd_timing(gen, flush, case)
+    for key, case in _REC_TP_TRAIN.items():
+        records[0][key] = _flash_fwd_timing(gen, flush, case)
     for r, dt in zip(records, ("bf16", "f32")):
         r.update(_new_shape_records(_flash_fwd_timing, gen, flush, dt))
     return records
@@ -1627,6 +1673,8 @@ def check_flash_bwd(gen, flush):
         gen, flush, _GRANITE_TRAIN_SHAPE)
     for tp, case in _TP_TRAIN.items():
         records[0][f"tp{tp}_shape"] = _flash_bwd_timing(gen, flush, case)
+    for key, case in _REC_TP_TRAIN.items():
+        records[0][key] = _flash_bwd_timing(gen, flush, case)
     for r, dt in zip(records, ("bf16", "f32")):
         r.update(_new_shape_records(_flash_bwd_timing, gen, flush, dt))
     return records
@@ -2653,15 +2701,18 @@ def check_spec_reduced(devices=("cpu", "cuda")):
     return out
 
 
-def _profile(label, fn, wall_ms=None, watch=(), steps=None, gather=()):
+def _profile(label, fn, wall_ms=None, watch=(), steps=None, gather=(),
+             host=True):
     """Device busy share of ``fn`` from a torch.profiler trace: the summed
     time of the kernels it ran (one stream, so they do not overlap) over
     its wall time without the profiler (``wall_ms``, or one more run of
     ``fn``), the kernels that took the most device time, the kernels whose
-    names hold one of ``watch`` wherever they rank, and the host ops that
-    took the most host time.  With ``steps``, the kernels launched a step
-    and the device time of those whose names hold one of ``gather``.
-    Returns {kernel name: (launches, device ms)}."""
+    names hold one of ``watch`` wherever they rank, and (with ``host``) the
+    host ops that took the most host time; ``host=False`` traces the device
+    only, which a step of tens of thousands of host ops makes far cheaper
+    to collect.  With ``steps``, the kernels launched a step and the
+    device time of those whose names hold one of ``gather``.  Returns
+    {kernel name: (launches, device ms)}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2671,13 +2722,16 @@ def _profile(label, fn, wall_ms=None, watch=(), steps=None, gather=()):
         fn()
         torch.cuda.synchronize()
         plain_wall = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    kernels = [e for e in averages
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"profile {label}: wall_ms={plain_wall:.2f} (profiled "
@@ -2698,10 +2752,10 @@ def _profile(label, fn, wall_ms=None, watch=(), steps=None, gather=()):
                   f"{e.key[:90]}")
     # where the host spends a host-bound window (profiled: inflated by the
     # profiler's own cost, so read the shares, not the times)
-    host = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CPU]
-    total = sum(e.self_cpu_time_total for e in host) / 1e3
-    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]:
+    ops = [e for e in averages
+           if host and e.device_type == torch.autograd.DeviceType.CPU]
+    total = sum(e.self_cpu_time_total for e in ops) / 1e3
+    for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:6]:
         print(f"profile {label}:   host {e.self_cpu_time_total / 1e3:8.2f} "
               f"ms of {total:.2f} x{e.count:<6d} {e.key[:60]}")
     return {e.key: (e.count, e.self_device_time_total / 1e3)
@@ -4569,17 +4623,23 @@ MR_TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
 
 
 def _mr_configs():
-    """12a's and 12d's reduced f32 models: yi-6b, and granite-moe without
+    """Phase 12's reduced f32 models: yi-6b, stablelm, granite-moe without
     the load-balance loss (the expert-parallel loss averages each shard's,
     the single-process one takes all tokens: ``test_torch_moe_ep.py`` holds
-    it to the reference's)."""
+    it to the reference's), and 12g's zamba2, xlstm on the ("mlstm",
+    "slstm") cycle (reduced depth drops the sLSTM otherwise) and
+    Whisper."""
     import dataclasses
 
     from repro_torch.configs import get_config
     return {"yi": get_config("yi-6b").reduced(),
             "stablelm": get_config("stablelm-1.6b").reduced(),
             "granite": dataclasses.replace(get_config(GRANITE).reduced(),
-                                           aux_loss_weight=0.0)}
+                                           aux_loss_weight=0.0),
+            "zamba2": get_config(ZAMBA2).reduced(),
+            "xlstm": dataclasses.replace(get_config(XLSTM).reduced(),
+                                         block_cycle=("mlstm", "slstm")),
+            "whisper": get_config(WHISPER).reduced()}
 
 
 def _mr_cases(n):
@@ -4610,6 +4670,30 @@ def _mr_tp_cases(n):
     return cases
 
 
+def _mr_rec_cases(n):
+    """12g: tensor and sequence parallelism of the recurrent and
+    encoder-decoder blocks on (1, n), asked for at n = 1: reduced zamba2,
+    xlstm on the ("mlstm", "slstm") cycle and Whisper; at n = 4 each
+    again on (2, 2), with FSDP over data."""
+    archs = ("zamba2", "xlstm", "whisper")
+    cases = [(f"multirank_{a}_tp", a, (1, n), "tp") for a in archs]
+    if n == 4:
+        cases += [(f"multirank_{a}_tp_2x2", a, (2, 2), "tp") for a in archs]
+    return cases
+
+
+def _mr_extra(cfg, rows, dtype=None, device="cpu"):
+    """A global batch's entries beside the tokens: an encoder-decoder's
+    stub frames (rows, encoder_seq, d_model) from seed 0 (``_frames``),
+    in ``dtype`` (f32 by default) on ``device``; none otherwise."""
+    import torch
+    if not cfg.is_encdec:
+        return {}
+    gen = torch.Generator(device=device).manual_seed(0)
+    return {"enc_frames": _frames(cfg, rows, gen, dtype or torch.float32,
+                                  device)}
+
+
 def _mr_batches(cfg, rows, steps=MR_STEPS, seq=MR_SEQ, key=0):
     """Global TokenPipeline batches on the host."""
     from repro_torch.core import prng
@@ -4620,23 +4704,25 @@ def _mr_batches(cfg, rows, steps=MR_STEPS, seq=MR_SEQ, key=0):
 
 
 def _mr_cpu_refs(n):
-    """The CPU's single-process references of 12a and 12e (each case's
-    unsharded step on the global batch of 2n rows) and 12d (the list form
+    """The CPU's single-process references of 12a, 12e and 12g (each
+    case's unsharded step on the global batch of 2n rows) and 12d (the list form
     with n groups): {path: (losses, flat parameters)}."""
     from repro_torch.core import delayed_sync, llm_a3c
     from repro_torch.models import model as M
     from repro_torch.optim import optimizers as opt_mod
     cfgs = _mr_configs()
     refs = {}
-    for path, arch, _, _ in _mr_cases(n) + _mr_tp_cases(n):
+    for path, arch, _, _ in _mr_cases(n) + _mr_tp_cases(n) + \
+            _mr_rec_cases(n):
         cfg = cfgs[arch]
         params = M.init_params(cfg, 0, "cpu")
         opt = opt_mod.shared_rmsprop()
         state = opt.init(params)
         step = llm_a3c.make_train_step(cfg, opt)
         losses = []
+        extra = _mr_extra(cfg, 2 * n)
         for i, b in enumerate(_mr_batches(cfg, 2 * n)):
-            params, state, met = step(params, state, b, i)
+            params, state, met = step(params, state, dict(b, **extra), i)
             losses.append(float(met["loss"]))
         refs[path] = (losses, {k: v.detach().clone() for k, v in
                                M.flatten(params).items()})
@@ -4666,32 +4752,50 @@ def _mr_delayed_batches(cfg, n):
             for i in range(MR_STEPS)]
 
 
+def _shared_apps(cfg):
+    """Applications of zamba2's shared block a forward."""
+    return cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every \
+        else 0
+
+
+def _remat(cfg):
+    """Whether a step recomputes its blocks (the encoder-decoder has no
+    remat, as in the reference)."""
+    return int(bool(cfg.remat) and not cfg.is_encdec)
+
+
 def _step_collectives(cfg, lay, mesh):
     """The collectives one train step issues on each rank
     (``llm_a3c.loss_grads`` under ``lay``, None: every leaf whole):
-    a gather of each data-sharded leaf, again in the remat recompute for
-    the layers' leaves; its backward's reduce-scatter; an all-reduce of
-    each other leaf's gradient and one of the metrics; and for each MoE
-    layer under the ``moe_ep`` rule two all-to-alls each way (again in the
-    recompute), the router's gradient all-reduce and the load-balance
-    mean's all-reduce each way (not recomputed), and where the residual is
-    whole the output's all-gather and the input slice's backward
-    all-gather (the recompute stops before the former).  Under tensor and
-    sequence parallelism (``_tp_collectives``) more."""
+    a gather of each data-sharded leaf (zamba2's shared block's once an
+    application), again in the remat recompute for the blocks' leaves;
+    its backward's reduce-scatter; an all-reduce of each other leaf's
+    gradient and one of the metrics; and for each MoE layer under the
+    ``moe_ep`` rule two all-to-alls each way (again in the recompute), the
+    router's gradient all-reduce and the load-balance mean's all-reduce
+    each way (not recomputed), and where the residual is whole the
+    output's all-gather and the input slice's backward all-gather (the
+    recompute stops before the former).  Under tensor and sequence
+    parallelism (``_tp_collectives``) more."""
     from repro_torch.distributed import sharding
     from repro_torch.models import model as M
     paths = list(M.param_shapes(cfg))
     axes = sharding.data_axes(mesh)
     sharded = [p for p in paths if lay is not None
                and any(lay.sharded(p, a) for a in axes)]
-    layers = [p for p in sharded if p.startswith(("layers.", "shared_attn."))]
-    remat = int(bool(cfg.remat))
+    apps = _shared_apps(cfg)
+
+    def uses(p):
+        return apps if p.startswith("shared_attn.") else 1
+    gathers = sum(uses(p) for p in sharded)
+    blocks = sum(uses(p) for p in sharded
+                 if p.startswith(("layers.", "shared_attn.")))
+    remat = _remat(cfg)
     moe = sum(1 for k in cfg.layer_kinds() if k in ("attn", "attn_local")) \
         if cfg.n_experts else 0
     tp = lay is not None and lay.tp
-    out = {"all_gather": len(sharded) + remat * len(layers)
-           + (0 if tp else 2 * moe),
-           "reduce_scatter": len(sharded),
+    out = {"all_gather": gathers + remat * blocks + (0 if tp else 2 * moe),
+           "reduce_scatter": gathers,
            "all_reduce": len(paths) - len(sharded) + 1 + 3 * moe,
            "all_to_all": (4 + 2 * remat) * moe}
     if tp:
@@ -4700,53 +4804,97 @@ def _step_collectives(cfg, lay, mesh):
     return out
 
 
+def _kv_whole(lay):
+    """Whether ``lay`` holds the attention's kv leaves whole over the
+    model axis (the whole-kv arm)."""
+    import re
+    path = next((p for p in lay.held if re.search(r"(^|\.)attn\.wk\.w$",
+                                                  p)), None)
+    return path is not None and not lay.sharded(path, "model")
+
+
+# a recurrent block's collectives under tensor parallelism, beside its
+# ln1 and the gather and scatter around it: (all-gathers of the forward
+# (again in the recompute), reduce-scatters, gradient all-reduces)
+_REC_TP = {"mamba2": (3, 2, 0),   # B and C, the gated rows, the scale
+           "mlstm": (3, 2, 4),    # xc and xi, the normed rows, the scale;
+                                  # w_i and w_f's w and b
+           "slstm": (1, 1, 2)}    # y; w_in's b and the norm's scale
+
+
 def _tp_collectives(cfg, lay):
     """What tensor and sequence parallelism adds to a step's collectives:
     the embedding's reduce-scatter to the sequence rows and its backward's
     all-gather (the vocab-parallel lookup; a whole table's slice only the
-    latter); a layer's gather before attention (again in the recompute)
-    and its backward's reduce-scatter, the output projection's
+    latter); an attention block's gather before attention (again in the
+    recompute) and its backward's reduce-scatter, the output projection's
     reduce-scatter (again in the recompute) and its backward's all-gather;
     the same pair around a gated MLP, whose reduce-scatter the recompute
-    stops before; the gradient all-reduce of each whole leaf used on the
-    rows or on this rank's heads (the norms' leaves, whole kv weights and
-    biases, the value head); the values' all-gather; the final rows'
-    gather for the LM head, with its backward's reduce-scatter where the
-    vocab is split; and for the vocab-parallel loss the max and the sums'
-    all-reduce."""
-    layers = sum(1 for k in cfg.layer_kinds() if k in ("attn", "attn_local"))
-    remat = int(bool(cfg.remat))
+    stops before; a recurrent block's gather and scatter as the MLP's,
+    and inside it the gathers along the features (``_REC_TP``); the
+    encoder-decoder's (no remat) the same around each attention, cross
+    attention and MLP (its ``fc2`` bias's gradient all-reduce), and the
+    encoder output's gather; the gradient all-reduce of each whole leaf
+    used on the rows or on this rank's heads (the norms' leaves, whole kv
+    weights and biases, the value head); the values' all-gather; the final
+    rows' gather for the LM head, with its backward's reduce-scatter where
+    the vocab is split; and for the vocab-parallel loss the max and the
+    sums' all-reduce."""
+    r = _remat(cfg)
     vocab = lay.sharded("embed.table", "model")
     norm = 2 if cfg.norm == "layernorm" else 1
-    kv_whole = not lay.sharded("layers.0.attn.wk.w", "model")
-    kv = (2 + 2 * bool(cfg.qkv_bias)) if kv_whole else 0
-    mlp = 0 if cfg.n_experts else 1
     value = int(bool(cfg.value_head))
-    return {"all_gather": 1 + layers * (2 + remat + mlp * (2 + remat))
-            + value + 1,
-            "reduce_scatter": 2 * vocab + layers * (2 + remat + 2 * mlp),
-            "all_reduce": layers * (2 * norm + kv) + norm + value
-            + 2 * vocab}
+    ag, rs, ar = 1 + value + 1, 2 * vocab, norm + value + 2 * vocab
+    if cfg.is_encdec:
+        enc, dec = cfg.encoder_layers, cfg.n_layers
+        return {"all_gather": ag + 4 * enc + 1 + 6 * dec,
+                "reduce_scatter": rs + 4 * enc + 1 + 6 * dec,
+                "all_reduce": ar + enc * (2 * norm + 1) + norm
+                + dec * (3 * norm + 1)}
+    kinds = cfg.layer_kinds()
+    attn = sum(1 for k in kinds if k in ("attn", "attn_local")) + \
+        _shared_apps(cfg)
+    kv = (2 + 2 * bool(cfg.qkv_bias)) if _kv_whole(lay) else 0
+    mlp = 0 if cfg.n_experts else 1
+    ag += attn * (2 + r + mlp * (2 + r))
+    rs += attn * (2 + r + 2 * mlp)
+    ar += attn * (2 * norm + kv)
+    for kind in kinds:
+        if kind in _REC_TP:
+            g, s_, a = _REC_TP[kind]
+            ag += 2 + r + g * (1 + r)
+            rs += 2 + s_
+            ar += norm + a
+    return {"all_gather": ag, "reduce_scatter": rs, "all_reduce": ar}
 
 
 def _train_launches(cfg):
-    """Launches of kernels 1-5 one train step of an attention-only model
-    makes, from its layer count: two RMSNorms a layer and the final one,
-    forward (again in the remat recompute) and backward; one attention a
-    layer, forward (again in the recompute) and backward; through the
-    arms of the compute dtype, the other arms never.  It holds the
-    unsharded run's counts where the script has one, and stands alone
-    for a mesh run that has none beside it."""
+    """Launches of kernels 1-5 one train step makes, from its layer
+    kinds: two RMSNorms a block (an attention block's two; a recurrent
+    block's ln1 and the one inside it; two an application of zamba2's
+    shared block) and the final one, forward (again in the remat
+    recompute) and backward; one attention an attention block or shared
+    application (an encoder-decoder's encoder and decoder layers),
+    forward (again in the recompute) and backward; through the arms of
+    the compute dtype, the other arms never.  A LayerNorm launches no
+    kernel.  It holds the unsharded run's counts where the script has
+    one, and stands alone for a mesh run that has none beside it."""
     kinds = cfg.layer_kinds()
-    if any(k not in ("attn", "attn_local") for k in kinds):
-        raise ValueError(f"{cfg.name}: not an attention-only model")
-    n, r = len(kinds), 1 + bool(cfg.remat)
+    r = 1 + _remat(cfg)
+    if cfg.is_encdec:
+        attn = cfg.encoder_layers + cfg.n_layers
+        blocks = 2 * attn + 1
+    else:
+        attn = sum(1 for k in kinds if k in ("attn", "attn_local")) + \
+            _shared_apps(cfg)
+        blocks = len(kinds) + _shared_apps(cfg)
     arm = "bf16" if cfg.dtype == "bfloat16" else "f32"
     other = "f32" if arm == "bf16" else "bf16"
     fwd, bwd = FLASH_ARMS[arm]
     rms = cfg.norm == "rmsnorm"          # a layernorm launches no kernel
-    return {"rmsnorm": rms * (2 * n * r + 1), "rmsnorm_bwd": rms * (2 * n + 1),
-            fwd: n * r, bwd: n, **dict.fromkeys(FLASH_ARMS[other], 0)}
+    return {"rmsnorm": rms * (2 * blocks * r + 1),
+            "rmsnorm_bwd": rms * (2 * blocks + 1),
+            fwd: attn * r, bwd: attn, **dict.fromkeys(FLASH_ARMS[other], 0)}
 
 
 def _fingerprint(params):
@@ -4784,7 +4932,8 @@ def _rel_l2(a, b):
 
 def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
               seq=MR_SEQ, key=0, lr0=7e-4, total=100_000, keep="params",
-              profile=None, snapshot=None, against=None):
+              profile=None, snapshot=None, against=None, extra=None,
+              profile_host=True):
     """``steps`` Shared RMSProp train steps of ``cfg`` on ``dev`` and
     TokenPipeline batches of ``rows`` x ``seq`` from ``prng.key(key)``:
     under ``mesh`` with the parameters held as ``held`` ("fsdp": the plan's
@@ -4803,7 +4952,9 @@ def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
     ``snapshot`` (k) a copy of the parameters after k steps
     (``out["snapshot"]``, on the card); with ``against`` (k, such a copy)
     their largest leaf's relative L2 distance from it after k steps
-    (``out["rel_l2"]``)."""
+    (``out["rel_l2"]``).  ``extra``: global batch entries beside the
+    tokens (``_mr_extra``), each step given this rank's rows of them;
+    ``profile_host``: ``_profile``'s ``host``."""
     import contextlib
     import gc
 
@@ -4836,6 +4987,13 @@ def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
                                    layout=lay)
     pipe = TokenPipeline(vocab=cfg.vocab_size, seq_len=seq,
                          global_batch=rows, device=str(dev), mesh=mesh)
+    extra = extra or {}
+    if extra and mesh is not None:
+        extra = sharding.shard_batch(mesh, extra)
+    extra = {k: v.to(dev) for k, v in extra.items()}
+
+    def batch(i):
+        return dict(pipe.batch(prng.key(key), i), **extra)
     scope = contextlib.ExitStack()
     if mesh is not None:
         scope.enter_context(ctx.use_mesh(mesh))
@@ -4849,8 +5007,7 @@ def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
     with scope:
         for i in range(steps):
             t0 = time.perf_counter()
-            params, state, met = step(params, state, pipe.batch(
-                prng.key(key), i), i)
+            params, state, met = step(params, state, batch(i), i)
             torch.cuda.synchronize(dev)
             walls.append(time.perf_counter() - t0)
             losses.append(float(met["loss"]))
@@ -4887,11 +5044,11 @@ def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
                 _fingerprint(fsdp.full(lay, params))
         if profile is not None:
             def one_step():
-                step(params, state, pipe.batch(prng.key(key), steps), steps)
+                step(params, state, batch(steps), steps)
             if torch.distributed.get_rank() == 0:
                 _profile(profile, one_step,
-                         wall_ms=statistics.median(walls[1:]) * 1e3,
-                         watch=("nccl",))
+                         wall_ms=statistics.median(walls[1:] or walls) * 1e3,
+                         watch=("nccl",), host=profile_host)
             else:
                 one_step()
                 torch.cuda.synchronize(dev)
@@ -4939,22 +5096,42 @@ def _mr_check_counts(label, run, mesh, cfg, steps, lead, plain=None):
 def _mr_routes(cfg, lay):
     """The model layer's routes one train step takes under ``lay``: the
     expert-parallel MoE on every MoE layer and, under tensor parallelism,
-    local-head attention on every layer (from whole kv leaves where the kv
-    heads do not divide the model axis) and two norms a layer and the
-    final one on the sequence rows, the layers' again in the remat
-    recompute."""
-    layers = sum(1 for k in cfg.layer_kinds() if k in ("attn", "attn_local"))
-    r = 1 + bool(cfg.remat)
+    local-head attention on every attention block or application (from
+    whole kv leaves where the kv heads do not divide the model axis), the
+    residual's norms on the sequence rows (two an attention block, one a
+    recurrent block, three a decoder layer of an encoder-decoder, and the
+    final one), mamba2 and the xLSTM blocks on local heads with a norm on
+    feature-gathered rows each, and cross attention on local heads, the
+    blocks' again in the remat recompute."""
+    kinds = cfg.layer_kinds()
+    r = 1 + _remat(cfg)
     tp = lay is not None and lay.tp
-    kv_whole = tp and not lay.sharded("layers.0.attn.wk.w", "model")
-    return {"moe_ep": layers * r if cfg.n_experts else 0, "moe_dense": 0,
-            "tp_heads": layers * r * tp, "tp_kv_whole": layers * r * kv_whole,
-            "sp_rows": (2 * layers * r + 1) * tp}
+    kv_whole = tp and _kv_whole(lay)
+    ssm = sum(1 for k in kinds if k == "mamba2")
+    lstm = sum(1 for k in kinds if k in ("mlstm", "slstm"))
+    cross = 0
+    if cfg.is_encdec:
+        enc, dec = cfg.encoder_layers, cfg.n_layers
+        attn, cross, ssm = enc + dec, dec, 0
+        rows = 2 * enc + 1 + 3 * dec + 1
+    else:
+        layers = sum(1 for k in kinds if k in ("attn", "attn_local"))
+        attn = layers + _shared_apps(cfg)
+        rows = (2 * attn + ssm + lstm) * r + 1
+    moe = sum(1 for k in kinds if k in ("attn", "attn_local")) \
+        if cfg.n_experts else 0
+    return {"moe_ep": moe * r, "moe_dense": 0,
+            "tp_heads": attn * r * tp, "tp_kv_whole": attn * r * kv_whole,
+            "sp_rows": rows * tp, "tp_ssm_heads": ssm * r * tp,
+            "tp_lstm_heads": lstm * r * tp,
+            "tp_feature_rows": (ssm + lstm) * r * tp,
+            "tp_cross": cross * tp}
 
 
 def _mr_reduced(n, dev, refs, lead, cases):
     """12a: ``_mr_cases``, reduced yi-6b (FSDP and whole) on (n, 1) and,
-    at n = 1, reduced granite-moe under ``moe_ep``; 12e: ``_mr_tp_cases``; 3 steps each in f32 on the card against
+    at n = 1, reduced granite-moe under ``moe_ep``; 12e: ``_mr_tp_cases``;
+    12g: ``_mr_rec_cases``; 3 steps each in f32 on the card against
     the CPU's single-process steps; exact counts against the unsharded
     step on the card."""
     import torch
@@ -4965,8 +5142,9 @@ def _mr_reduced(n, dev, refs, lead, cases):
     for path, arch, shape, held in cases:
         cfg = cfgs[arch]
         mesh = mesh_mod.make_mesh(shape, dev)
-        plain = _mr_train(cfg, None, None, dev, 2 * n, MR_STEPS)
-        run = _mr_train(cfg, mesh, held, dev, 2 * n, MR_STEPS)
+        extra = _mr_extra(cfg, 2 * n)
+        plain = _mr_train(cfg, None, None, dev, 2 * n, MR_STEPS, extra=extra)
+        run = _mr_train(cfg, mesh, held, dev, 2 * n, MR_STEPS, extra=extra)
         ref_losses, ref_params = refs[path]
         err = 0.0
         for k, want in ref_params.items():
@@ -5081,11 +5259,12 @@ TP_SNAPSHOT = 2
 
 
 def _train_report(runs, tokens):
-    """Per run: losses, step walls, the median step wall past the first,
-    tokens/s at it, the run's peak device memory a rank."""
+    """Per run: losses, step walls, the median step wall past the first
+    (the first, in a run of one step), tokens/s at it, the run's peak
+    device memory a rank."""
     report = {}
     for name, r in runs.items():
-        wall = statistics.median(r["walls"][1:])
+        wall = statistics.median(r["walls"][1:] or r["walls"])
         report[name] = {"losses": r["losses"], "step_wall_s": r["walls"],
                         "step_wall_median_s": wall,
                         "tokens_per_s": tokens / wall,
@@ -5093,13 +5272,12 @@ def _train_report(runs, tokens):
     return report
 
 
-def _near_unsharded(label, run, ref, others=()):
-    """Hold a run on one rank to the unsharded run ``ref`` after
-    ``TP_SNAPSHOT`` steps: its losses and its parameters' largest leaf
-    distance (``rel_l2``) within 1e-5 relative, or twice the largest
-    distance of the other unsharded ``others`` from ``ref``.  Returns the
-    verdict ("bitwise equal" where it is)."""
-    k = TP_SNAPSHOT
+def _near_unsharded(label, run, ref, others=(), k=TP_SNAPSHOT):
+    """Hold a run on one rank to the unsharded run ``ref`` after ``k``
+    steps: its losses and its parameters' largest leaf distance
+    (``rel_l2``) within 1e-5 relative, or twice the largest distance of
+    the other unsharded ``others`` from ``ref``.  Returns the verdict
+    ("bitwise equal" where it is)."""
 
     def loss_rel(r):
         return max(abs(x - y) / abs(y) for x, y in zip(r["losses"][:k],
@@ -5109,13 +5287,14 @@ def _near_unsharded(label, run, ref, others=()):
     rel, loss = run["rel_l2"], loss_rel(run)
     if rel > max(1e-5, 2 * spread) or loss > max(1e-5, 2 * loss_spread):
         raise AssertionError(
-            f"{label}: after {k} steps params rel {rel:.3e} and losses rel "
+            f"{label}: after {k} step(s) params rel {rel:.3e} and losses rel "
             f"{loss:.3e} off the unsharded step (tol 1e-5, or twice the "
             f"unsharded runs' spread {spread:.3e} and {loss_spread:.3e}); "
             f"losses {run['losses']} against {ref['losses']}")
+    steps = f"{k} step{'s' * (k > 1)}"
     if rel == 0.0 and loss == 0.0:
-        return f"bitwise equal to the unsharded step after {k} steps"
-    return (f"after {k} steps params rel {rel:.3e} (largest leaf's L2), "
+        return f"bitwise equal to the unsharded step after {steps}"
+    return (f"after {steps} params rel {rel:.3e} (largest leaf's L2), "
             f"losses rel {loss:.3e} of the unsharded step (tol 1e-5 or twice "
             f"the unsharded runs' spread {spread:.3e} / {loss_spread:.3e})")
 
@@ -5211,6 +5390,87 @@ def _mr_granite(n, dev, lead):
     return run["kernels"]
 
 
+# 12h's full-width configs: (label, arch, depth cut, rows, seq, steps,
+# profiled) at n = 1 against the unsharded step, and at n = 4 on (1, 4).
+# xlstm takes one step: its sLSTM loop makes a step 4-7 s on one card, and
+# one step already holds the forward, the backward and the update to the
+# unsharded ones
+REC_FULL = {1: (("zamba2-1.2b", ZAMBA2, {}, 4, TRAIN_SEQ, TP_SNAPSHOT, True),
+                ("whisper-base", WHISPER, {}, 4, 448, TP_SNAPSHOT, True),
+                ("xlstm-1.3b x8", XLSTM, {"n_layers": 8}, 4, TRAIN_SEQ, 1,
+                 False)),
+            4: (("zamba2-1.2b", ZAMBA2, {}, 4, TRAIN_SEQ, TP_SNAPSHOT, True),
+                ("xlstm-1.3b", XLSTM, {}, 4, TRAIN_SEQ, TP_SNAPSHOT, False))}
+
+
+def _mr_rec_full(n, dev, lead):
+    """12h: the recurrent and encoder-decoder models at full width through
+    the tensor- and sequence-parallel step (remat, bf16 compute), the
+    steps ``REC_FULL[n]`` gives from one draw of the weights (and of
+    Whisper's stub frames).  At n = 1 each on a (1, 1) mesh, held to the
+    unsharded step after those steps (``_near_unsharded``: bitwise
+    expected, as 12f; where it is not, a second unsharded run gives the
+    spread); at n = 4 on (1, 4).  Exact launches, collectives and routes a
+    step; the busy share from one more step, profiled on the device only
+    (its host ops would hold the profiler for tens of seconds), where
+    ``REC_FULL`` says (not xlstm: its sLSTM loop's launches would hold it
+    for minutes).  Returns {path: counts}."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    out = {}
+    for name, arch, cut, rows, seq, steps, profiled in REC_FULL.get(n, ()):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), dtype="bfloat16",
+                                  remat=True, **cut)
+        label = f"multirank {name} tp (1, {n})"
+        kw = dict(masters=M.init_params(cfg, 0, dev), seq=seq, key=2,
+                  lr0=7e-3, total=100, keep="fingerprint",
+                  extra=_mr_extra(cfg, rows, torch.bfloat16, dev))
+        mesh = mesh_mod.make_mesh((1, n), dev)
+        runs, plain = {}, None
+        if n == 1:
+            plain = runs["plain_a"] = _mr_train(
+                cfg, None, None, dev, rows, steps, snapshot=steps, **kw)
+        run = runs["tp"] = _mr_train(
+            cfg, mesh, "tp", dev, rows, steps,
+            profile=f"{label} train step" if profiled else None,
+            profile_host=False,
+            against=(steps, plain["snapshot"]) if plain else None, **kw)
+        verdict = "finite"
+        if plain is not None:
+            try:
+                verdict = _near_unsharded(label, run, plain, k=steps)
+            except AssertionError:
+                runs["plain_b"] = _mr_train(
+                    cfg, None, None, dev, rows, steps,
+                    against=(steps, plain["snapshot"]), **kw)
+                verdict = _near_unsharded(label, run, plain,
+                                          (runs["plain_b"],), k=steps)
+            del plain["snapshot"]
+        del kw
+        _mr_check_counts(label, run, mesh, cfg, steps, lead, plain)
+        if lead:
+            print(f"train {name} full width x {cfg.n_layers} layers, tensor "
+                  f"and sequence parallel over (1, {n}), batch {rows} x "
+                  f"{seq}: " + json.dumps(_train_report(runs, rows * seq)),
+                  flush=True)
+            print(f"check {label}: {verdict} ok", flush=True)
+        out[f"multirank_{name.replace(' ', '_')}_tp"] = run["kernels"]
+        del runs, run, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        if lead:
+            print(f"phase 12h_{name.replace(' ', '_')}_s "
+                  f"{time.perf_counter() - t0:.1f}", flush=True)
+    return out
+
+
 def _mr_delayed(n, dev, refs, lead):
     """12d: delayed sync on (pod n, 1, 1), each pod one group, merging
     every 2 steps: 3 steps of reduced yi-6b in f32, each group's
@@ -5265,8 +5525,8 @@ def _mr_delayed(n, dev, refs, lead):
 
 
 def _phase12_rank(rank, n, port, tmp):
-    """One rank of phase 12 on card ``rank``: 12a, 12e, 12b with 12f, 12c
-    and 12d, its launch counts by path written to ``tmp``."""
+    """One rank of phase 12 on card ``rank``: 12a, 12e, 12g, 12b with 12f,
+    12c, 12d and 12h, its launch counts by path written to ``tmp``."""
     import pickle
 
     import torch
@@ -5292,12 +5552,16 @@ def _phase12_rank(rank, n, port, tmp):
         t = lap("12a", t)
         counts.update(_mr_reduced(n, dev, refs, lead, _mr_tp_cases(n)))
         t = lap("12e", t)
+        counts.update(_mr_reduced(n, dev, refs, lead, _mr_rec_cases(n)))
+        t = lap("12g", t)
         counts.update(_mr_yi6b(n, dev, lead))
         t = lap("12b", t)
         counts["multirank_granite_full_ep"] = _mr_granite(n, dev, lead)
         t = lap("12c", t)
         counts["multirank_delayed"] = _mr_delayed(n, dev, refs, lead)
-        lap("12d", t)
+        t = lap("12d", t)
+        counts.update(_mr_rec_full(n, dev, lead))
+        lap("12h", t)
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(counts, f)
     finally:
@@ -5305,7 +5569,7 @@ def _phase12_rank(rank, n, port, tmp):
 
 
 def run_phase12():
-    """Phase 12 (12a-12f): one rank a card over NCCL, started from the
+    """Phase 12 (12a-12h): one rank a card over NCCL, started from the
     parent, which has built the kernels and computed the CPU's
     references; returns rank 0's {path: counts}, the ranks' counts
     required equal."""
@@ -5346,7 +5610,8 @@ def _shapes(record):
         "granite_shape", "scout_shape", "granite_train_shape",
         "width_2048_shape", "zamba2_shape", "whisper_shape",
         "whisper_encoder_shape", "whisper_decoder_shape",
-        "zamba2_train_shape", "tp2_shape", "tp4_shape")
+        "zamba2_train_shape", "tp2_shape", "tp4_shape",
+        "width_2048_tp2_shape", *_REC_TP_TRAIN)
         if k in record]
 
 

@@ -8,10 +8,12 @@ widening is exact) and cast back to ``like``'s dtype on restore.
 
 Under a mesh, with the parameters' ``fsdp.Layout`` (FSDP shards over the
 data axes, and under tensor parallelism heads, d_ff columns and vocab rows
-over the model axis): ``save`` gathers each leaf whole over every axis it
-is split on and rank 0 writes, so the file is the single-process file of
-the same parameters; ``restore`` reads the whole leaves and hands each
-rank its shards.
+over the model axis, mamba2's blocked leaves and the sLSTM's ``r`` over
+its heads included): ``save`` gathers each leaf whole over every axis it
+is split on (a blocked leaf's parts back in order) and rank 0 writes, so
+the file is the single-process file of the same parameters; ``restore``
+reads the whole leaves and hands each rank its shards
+(``fsdp.leaf_shard``).
 """
 from __future__ import annotations
 
@@ -65,7 +67,7 @@ def restore(path: str, like, layout=None):
     def one(key, leaf):
         t = torch.from_numpy(arrays[key])
         if layout is not None:
-            t = fsdp.local_shard(t, layout.held[key], layout.mesh)
+            t = fsdp.leaf_shard(layout, key, t)
         return t.to(device=leaf.device, dtype=leaf.dtype)
     paths = iter(want)
     return tree_map(lambda leaf: one(next(paths), leaf), like)

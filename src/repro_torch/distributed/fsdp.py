@@ -6,15 +6,16 @@ tuple of axes) it is split over, or None for a dim held whole.  It is the
 plan of ``sharding.param_shardings`` with the "model" entries this port
 does not hold taken out.  The experts' are always held, E / tp a rank, as
 the expert-parallel MoE (``models/moe_ep.py``) uses them.  Under tensor
-parallelism (``Layout.tp``: where the model axis has more than one rank
-and ``sharding.tp_covered`` covers the config, or where ``force_tp`` asks
-for it) so is each dense entry that ``sharding.tp_holds`` keeps: heads,
-d_ff columns and vocab rows.  The configs whose tensor parallelism is a
-later slice hold their dense leaves whole on each rank of the model
-axis.  The data ("F")
-entries are FSDP: each rank holds its slice of the dim as a contiguous
-tensor of its own, and the optimizer (kernel 8) updates the slices as its
-leaves.
+parallelism (``Layout.tp``: where the model axis has more than one rank,
+or where ``force_tp`` asks for it) so is each dense entry that
+``sharding.tp_holds`` keeps: heads, d_ff columns and vocab rows, split as
+``sharding.tp_splits`` says.  Most splits are the plan's, a contiguous
+1/tp of the dim; mamba2's ``in_proj.w`` and conv leaves are split part by
+part (``Layout.blocks``: rank r holds the r-th 1/tp of each part, in part
+order) and the sLSTM's ``r`` over its heads, dim 0, instead of the plan's
+dim 2 (its held spec says so).  The data ("F") entries are FSDP: each
+rank holds its slice of the dim as a contiguous tensor of its own, and
+the optimizer (kernel 8) updates the slices as its leaves.
 
 ``gather`` makes a tree's leaves whole over the data axes for the forward:
 an all-gather along each data-sharded dim, whose backward is a
@@ -27,12 +28,13 @@ leaves inside the block's remat region, cast to the compute dtype first
 (the cast is elementwise, so cast-then-gather equals gather-then-cast),
 and the backward gathers them again rather than holding whole weights.
 The experts' model dim is gathered only for the dense MoE (the rules
-choose it; ``models/model.py``), and ``full`` gathers every dim.
+choose it; ``models/model.py``), and ``full`` gathers every dim, putting
+a blocked leaf's parts back in their order.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,9 +49,15 @@ class Layout(NamedTuple):
     held: Dict[str, tuple]             # path -> axes a dim (None: whole)
     shapes: Dict[str, tuple]           # path -> the whole leaf's shape
     tp: bool = False                   # dense leaves split over "model"
+    # path -> (dim, parts) of each leaf split part by part over "model"
+    blocks: Optional[Dict[str, Tuple[int, Tuple[int, ...]]]] = None
 
     def sharded(self, path: str, axis: str) -> bool:
         return any(axis in sharding.entry_axes(a) for a in self.held[path])
+
+    def block(self, path: str) -> Optional[Tuple[int, Tuple[int, ...]]]:
+        """(dim, parts) where ``path`` is split part by part, else None."""
+        return (self.blocks or {}).get(path)
 
 
 class TPRule(NamedTuple):
@@ -73,31 +81,43 @@ def _held_spec(path: str, spec: tuple, holds: Dict[str, bool]) -> tuple:
 def layout(cfg, mesh, *, pod_groups: bool = False,
            force_tp: bool = False) -> Layout:
     """The layout of ``cfg``'s parameters over ``mesh``: the reference's
-    FSDP plan, held as ``_held_spec`` says.  ``pod_groups``: the
-    delayed-sync groups' inner layout, the pod axis stripped from each
-    entry (each pod holds a copy).  Tensor and sequence parallelism over
-    the model axis is taken where the axis has more than one rank and the
-    slice covers the config's blocks (the others keep the whole dense
-    leaves); ``force_tp`` takes it over a model axis of one rank too, whose
-    collectives run over a group of one.  A config the slice covers but
-    cannot lay out (q heads that do not divide the axis), or ``force_tp``
-    for one it does not cover, is a ValueError that names its ROADMAP
-    item."""
+    FSDP plan, held as ``_held_spec`` says, with the blocked and moved
+    splits of ``sharding.tp_splits``.  ``pod_groups``: the delayed-sync
+    groups' inner layout, the pod axis stripped from each entry (each pod
+    holds a copy).  Tensor and sequence parallelism over the model axis is
+    taken where the axis has more than one rank; ``force_tp`` takes it
+    over a model axis of one rank too, whose collectives run over a group
+    of one.  A layout the port cannot hold (``sharding.tp_refusal``: q
+    heads or a recurrent width that do not divide the axis) is a
+    ValueError that names its reason; no dense leaf is quietly held
+    whole."""
     from repro_torch.models.model import param_shapes
     shapes = param_shapes(cfg)
     plan = sharding.param_shardings(cfg, mesh, shapes)
-    tp = force_tp or (sharding.mesh_shape(mesh).get("model", 1) > 1
-                      and sharding.tp_covered(cfg))
+    tp = force_tp or sharding.mesh_shape(mesh).get("model", 1) > 1
     why = sharding.tp_refusal(cfg, mesh) if tp else ""
     if why:
         raise ValueError(why)
     holds = sharding.tp_holds(cfg, mesh, shapes) if tp else {}
-    held = {}
+    splits = sharding.tp_splits(cfg, mesh, shapes) if tp else {}
+    held, blocks = {}, {}
     for path, spec in plan.items():
         if pod_groups:
             spec = sharding.strip_pod(spec)
-        held[path] = _held_spec(path, spec, holds)
-    return Layout(mesh, held, {k: tuple(v) for k, v in shapes.items()}, tp)
+        spec = _held_spec(path, spec, holds)
+        split = splits.get(path)
+        if split is not None and split.kind == "moved":
+            spec = list(sharding.strip_axis(spec, "model"))
+            if spec[split.dim] is not None:
+                raise ValueError(f"{path}: dim {split.dim} is held over "
+                                 f"{spec[split.dim]} already")
+            spec[split.dim] = "model"
+            spec = tuple(spec)
+        elif split is not None and split.kind == "blocked":
+            blocks[path] = (split.dim, split.parts)
+        held[path] = spec
+    return Layout(mesh, held, {k: tuple(v) for k, v in shapes.items()}, tp,
+                  blocks)
 
 
 def tp_rule(lay: Optional[Layout]) -> Optional[TPRule]:
@@ -121,16 +141,33 @@ def ep_rule(lay: Layout) -> dict:
             "dp_axes": sharding.data_axes(lay.mesh)}
 
 
-def local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
-    """This rank's shard of a whole leaf held as ``spec``, contiguous."""
-    for dim, ax in enumerate(spec):
+def leaf_shard(lay: Layout, path: str, t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of the whole leaf ``t`` at ``path``, contiguous: a
+    blocked dim (``Layout.block``) split part by part, the r-th 1/n of each
+    part in part order."""
+    block = lay.block(path)
+    for dim, ax in enumerate(lay.held[path]):
         axes = sharding.entry_axes(ax)
         if not axes:
             continue
-        n = sharding.axes_size(mesh, axes)
+        n = sharding.axes_size(lay.mesh, axes)
+        r = sharding.axes_rank(lay.mesh, axes)
+        if block is not None and block[0] == dim:
+            t = torch.cat([p.narrow(dim, r * (p.shape[dim] // n),
+                                    p.shape[dim] // n)
+                           for p in t.split(list(block[1]), dim)], dim)
+            continue
         size = t.shape[dim] // n
-        t = t.narrow(dim, sharding.axes_rank(mesh, axes) * size, size)
+        t = t.narrow(dim, r * size, size)
     return t.contiguous()
+
+
+def _unblock(t: torch.Tensor, dim: int, parts: tuple, n: int
+             ) -> torch.Tensor:
+    """A blocked dim gathered from ``n`` ranks (each rank's parts laid end
+    to end, rank after rank) put back in part order."""
+    chunks = [c.split([p // n for p in parts], dim) for c in t.chunk(n, dim)]
+    return torch.cat([c[i] for i in range(len(parts)) for c in chunks], dim)
 
 
 def shard(lay: Layout, params):
@@ -138,8 +175,7 @@ def shard(lay: Layout, params):
     same whole tree): each a contiguous copy."""
     from repro_torch.models.model import flatten, unflatten
     flat = flatten(params)
-    return unflatten({k: local_shard(t.detach(), lay.held[k],
-                                     lay.mesh).clone()
+    return unflatten({k: leaf_shard(lay, k, t.detach()).clone()
                       for k, t in flat.items()})
 
 
@@ -150,8 +186,10 @@ def gather_leaf(lay: Layout, path: str, t: torch.Tensor, *,
     sum of the data ranks' gradients (``collectives.gather_sum``).  A
     model-sharded dim stays this rank's shard unless ``model`` (the dense
     MoE's experts outside tensor parallelism, and ``full``): then it is
-    gathered too, its backward this rank's slice, since the model ranks
-    compute one loss (``collectives.gather_slice``)."""
+    gathered too (a blocked dim's parts put back in order), its backward
+    this rank's slice, since the model ranks compute one loss
+    (``collectives.gather_slice``)."""
+    block = lay.block(path)
     for dim, ax in enumerate(lay.held[path]):
         axes = sharding.entry_axes(ax)
         if not axes or ("model" in axes and not model):
@@ -159,6 +197,9 @@ def gather_leaf(lay: Layout, path: str, t: torch.Tensor, *,
         fn = collectives.gather_slice if "model" in axes else \
             collectives.gather_sum
         t = fn(t, sharding.axes_group(lay.mesh, axes), dim)
+        if block is not None and block[0] == dim:
+            t = _unblock(t, dim, block[1], sharding.axes_size(lay.mesh,
+                                                              axes))
     return t
 
 

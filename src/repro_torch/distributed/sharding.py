@@ -27,6 +27,11 @@ tuples.  Its "attn_q" and "attn_kv" entries decide the heads:
 sequence instead, and ``tp_holds`` splits wk and wv only where the kv
 heads stay local (else they are held whole: the whole-kv arm, a stated
 difference in layout from the reference, which would pin the sequence).
+Slice 6b-ii covers every other block kind: ``tp_refusal`` names each
+recurrent width that does not divide the model axis, and
+``tp_splits`` says how each held leaf is split (mamba2's ``in_proj`` and
+conv part by part, the sLSTM's ``r`` over its heads: stated differences
+in layout, ROADMAP queue 3).
 ``attention_shard_spec`` and ``rmsnorm_shard_spec`` are the reference's
 head-locality and row checks, kept for parity with it only: they decide
 nothing in the port, whose kernels see each rank's local tensors.
@@ -498,19 +503,15 @@ def rmsnorm_shard_spec(mesh, *, rows: int, rules: Optional[dict] = None
     return RowShardSpec(axes), ""
 
 
-# the ROADMAP items (queue 1, item 5) of the layouts this slice refuses
-TP_LATER = {"recurrent": "6b-ii (mamba2/zamba2, mLSTM/sLSTM and Whisper "
-                         "tensor parallelism)",
-            "heads": "6b-iii (sequence-sharded attention for q heads that "
+# the ROADMAP item (queue 1, item 5) of the layouts this port still refuses
+TP_LATER = {"heads": "6b-iii (sequence-sharded attention for q heads that "
                      "do not divide the model axis)"}
+ATTN_KINDS = ("attn", "attn_local")
 
 
-def tp_covered(cfg) -> bool:
-    """Whether this slice's tensor parallelism covers ``cfg``'s blocks:
-    stacks of attention blocks with a gated MLP or experts."""
-    return not (cfg.is_encdec or cfg.shared_attn_every
-                or any(k not in ("attn", "attn_local")
-                       for k in cfg.layer_kinds()))
+def _has_attention(cfg) -> bool:
+    return bool(cfg.is_encdec or cfg.shared_attn_every
+                or any(k in ATTN_KINDS for k in cfg.layer_kinds()))
 
 
 def _pinned_to_sequence(rule) -> bool:
@@ -527,24 +528,49 @@ def _head_rules(cfg, mesh) -> dict:
     return activation_rules(mesh, batch_size=1, cfg=cfg)
 
 
+def _recurrent_widths(cfg) -> Dict[str, int]:
+    """The widths each rank of the model axis must hold whole parts of:
+    mamba2's heads, its B and C width (groups x state) and d_inner; the
+    xLSTM blocks' heads and the sLSTM's feed-forward width; the encoder's
+    frames (the sequence-parallel rows of the encoder)."""
+    kinds = set(cfg.layer_kinds())
+    out = {}
+    if "mamba2" in kinds:
+        out["mamba2 heads"] = cfg.ssm_heads
+        out["mamba2 groups x state (B and C)"] = cfg.ssm_groups * cfg.ssm_state
+        out["mamba2 d_inner"] = cfg.ssm_heads * cfg.ssm_head_dim
+    if kinds & {"mlstm", "slstm"}:
+        out["mLSTM/sLSTM heads"] = cfg.n_heads
+    if "slstm" in kinds:
+        from repro_torch.models.xlstm import slstm_d_ff
+        out["sLSTM d_ff"] = slstm_d_ff(cfg.d_model)
+    if cfg.is_encdec:
+        out["encoder frames"] = cfg.encoder_seq
+    return out
+
+
 def tp_refusal(cfg, mesh) -> str:
-    """Why this slice cannot lay ``cfg`` out tensor- and sequence-parallel
-    over ``mesh``'s model axis, naming the ROADMAP item that will; "" where
-    it can: a covered config (``tp_covered``) whose q heads the rules keep
-    local to the model axis (``activation_rules``' "attn_q") and whose d_ff
-    divides it (kv heads the rules pin to the sequence are held whole:
-    ``tp_holds``)."""
+    """Why the port cannot lay ``cfg`` out tensor- and sequence-parallel
+    over ``mesh``'s model axis, naming the ROADMAP item that will where
+    one plans it; "" where it can (every block kind has a tensor-parallel
+    layout since slice 6b-ii): where the config has attention, its q heads
+    stay local to the model axis (``activation_rules``' "attn_q"; kv
+    heads the rules pin to the sequence are held whole: ``tp_holds``);
+    d_ff divides the axis; and each recurrent width of
+    ``_recurrent_widths`` does."""
     tp = mesh_shape(mesh).get("model", 1)
-    if not tp_covered(cfg):
-        return (f"{cfg.name}: tensor parallelism of its blocks is ROADMAP "
-                f"queue 1 item 5, slice {TP_LATER['recurrent']}")
-    if _pinned_to_sequence(_head_rules(cfg, mesh)["attn_q"]):
+    if _has_attention(cfg) and \
+            _pinned_to_sequence(_head_rules(cfg, mesh)["attn_q"]):
         return (f"{cfg.name}: its {cfg.n_heads} q heads do not divide the "
                 f"{tp}-way model axis: ROADMAP queue 1 item 5, slice "
                 f"{TP_LATER['heads']}")
-    if cfg.d_ff and cfg.d_ff % tp:
-        return (f"{cfg.name}: d_ff {cfg.d_ff} does not divide the {tp}-way "
-                "model axis, which no slice plans (ROADMAP queue 1 item 5)")
+    widths = {"d_ff": cfg.d_ff} if cfg.d_ff else {}
+    widths.update(_recurrent_widths(cfg))
+    for what, n in widths.items():
+        if n % tp:
+            return (f"{cfg.name}: {what} {n} does not divide the {tp}-way "
+                    "model axis, which no slice plans (ROADMAP queue 1 "
+                    "item 5)")
     return ""
 
 
@@ -554,11 +580,12 @@ _EXPERT_LEAF = re.compile(r"(^|\.)moe\.w_(gate|up|down)$")
 
 def tp_holds(cfg, mesh, shapes: Optional[Dict[str, tuple]] = None
              ) -> Dict[str, bool]:
-    """For each leaf whose plan puts "model" on a dim: whether this slice
-    holds that entry (True: each model rank keeps its 1/tp of the dim) or
-    holds the leaf whole over the model axis (False).  Held where the split
-    falls on whole heads (q always, once ``tp_refusal`` passes; k and v
-    where the rules' "attn_kv" keeps the kv heads local), on whole d_ff
+    """For each leaf whose plan puts "model" on a dim: whether the port
+    holds that entry (True: each model rank keeps its 1/tp of the leaf, as
+    ``tp_splits`` says) or holds the leaf whole over the model axis
+    (False).  Held where the split falls on whole heads (q always, once
+    ``tp_refusal`` passes; k and v where the rules' "attn_kv" keeps the kv
+    heads local; mamba2's and the xLSTM blocks' heads), on whole d_ff
     columns, on whole vocab rows (the plan has already dropped an odd
     vocab's axis), and on the experts (slice 6a).  Where "attn_kv" pins
     the sequence instead, wk and wv are held whole and each rank keeps the
@@ -580,4 +607,59 @@ def tp_holds(cfg, mesh, shapes: Optional[Dict[str, tuple]] = None
             out[path] = ok and kv_local
         else:
             out[path] = ok
+    return out
+
+
+class TPSplit(NamedTuple):
+    """How the port splits a leaf it holds over "model" (``tp_splits``):
+    ``kind`` "contiguous" (rank r holds the r-th 1/tp of dim ``dim``, the
+    plan's split), "blocked" (dim ``dim`` is ``parts`` laid end to end,
+    each split tp ways: rank r holds the r-th 1/tp of every part, in part
+    order) or "moved" (the plan splits dim ``plan_dim``; the port splits
+    ``dim`` instead)."""
+    kind: str
+    dim: int
+    parts: Tuple[int, ...] = ()
+    plan_dim: Optional[int] = None
+
+
+_IN_PROJ = re.compile(r"(^|\.)mamba\.in_proj\.w$")
+_CONV = re.compile(r"(^|\.)mamba\.conv_[wb]$")
+_SLSTM_R = re.compile(r"(^|\.)slstm\.r$")
+
+
+def tp_splits(cfg, mesh, shapes: Optional[Dict[str, tuple]] = None
+              ) -> Dict[str, TPSplit]:
+    """For each leaf ``tp_holds`` holds: how.  The plan's contiguous split
+    everywhere but in two places, where it does not fall on whole heads
+    (ROADMAP queue 3, stated differences in layout):
+
+    * mamba2's ``in_proj.w`` columns are its z | x | B | C | dt parts and
+      its ``conv_w``/``conv_b`` channels the x | B | C parts: each part is
+      split on its own ("blocked"), so rank r holds its heads' z, x and dt
+      and 1/tp of B and C (``models/ssm.py`` gathers B and C whole);
+    * the sLSTM's ``r`` (H, hd, 4 hd) is split over its heads (dim 0)
+      rather than the plan's gate dim (dim 2), which would put one head's
+      gates on different ranks ("moved")."""
+    if shapes is None:
+        from repro_torch.models.model import param_shapes
+        shapes = param_shapes(cfg)
+    plan = param_shardings(cfg, mesh, shapes)
+    d_inner = cfg.ssm_heads * cfg.ssm_head_dim
+    gn = cfg.ssm_groups * cfg.ssm_state
+    out = {}
+    for path, held in tp_holds(cfg, mesh, shapes).items():
+        if not held:
+            continue
+        dim = next(i for i, a in enumerate(plan[path])
+                   if "model" in entry_axes(a))
+        if _IN_PROJ.search(path):
+            out[path] = TPSplit("blocked", dim,
+                                (d_inner, d_inner, gn, gn, cfg.ssm_heads))
+        elif _CONV.search(path):
+            out[path] = TPSplit("blocked", dim, (d_inner, gn, gn))
+        elif _SLSTM_R.search(path):
+            out[path] = TPSplit("moved", 0, plan_dim=dim)
+        else:
+            out[path] = TPSplit("contiguous", dim)
     return out

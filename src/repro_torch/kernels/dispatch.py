@@ -30,9 +30,12 @@ calls that reached the append kernel through them, which the kernel
 counts again as its own; the model layer counts there which MoE it took
 (``moe_ep``, ``moe_dense``) and, under tensor and sequence parallelism,
 its attention calls on local heads (``tp_heads``; ``tp_kv_whole`` where
-the kv heads are taken from whole leaves) and its norms on the
-sequence-parallel rows (``sp_rows``): the kernels see local tensors and
-need no arm of their own.  ``reset_launch_counts`` clears both.
+the kv heads are taken from whole leaves), its norms on the
+sequence-parallel rows (``sp_rows``), its recurrent blocks on local heads
+(``tp_ssm_heads`` for mamba2, ``tp_lstm_heads`` for mLSTM and sLSTM),
+its norms on rows gathered along the features (``tp_feature_rows``) and
+its cross attention on local heads (``tp_cross``): the kernels see local
+tensors and need no arm of their own.  ``reset_launch_counts`` clears both.
 """
 from __future__ import annotations
 
@@ -69,9 +72,12 @@ _COUNTERS = {
     "rmsprop_apply_multi": (rmsprop_cuda, "apply_launches")}
 # route -> calls since the last reset (not kernels: each verify call is
 # counted again by the append kernel's arm that it launches; the MoE
-# routes are the model layer's, which it counts here with count_route)
+# routes and the tensor-parallel ones are the model layer's, which it
+# counts here with count_route)
 _ROUTES = {"flash_verify": 0, "verify_paged": 0, "moe_ep": 0,
-           "moe_dense": 0, "tp_heads": 0, "tp_kv_whole": 0, "sp_rows": 0}
+           "moe_dense": 0, "tp_heads": 0, "tp_kv_whole": 0, "sp_rows": 0,
+           "tp_ssm_heads": 0, "tp_lstm_heads": 0, "tp_feature_rows": 0,
+           "tp_cross": 0}
 
 
 def launch_counts() -> Dict[str, int]:

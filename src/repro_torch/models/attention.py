@@ -667,13 +667,19 @@ def commit_kv(cache: dict, pending: dict, pos: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def cross_attend(params: dict, x: torch.Tensor, memory_kv: tuple,
-                 cfg) -> torch.Tensor:
+                 cfg, tp=None) -> torch.Tensor:
     """x (B, Sq, d); memory_kv = (k, v), each (B, Sm, Hkv, D), from
     ``memory_kv``.  Every query sees every memory row (no mask).  Plain
     products, as the reference's ``sdpa`` (outside any kernel there too):
     f32 scores, an f32 softmax, the probabilities cast to v's dtype for
-    the second product."""
-    n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    the second product.  The head counts are the leaves' and the memory's
+    own: under tensor parallelism (``tp``: counted as the ``tp_cross``
+    route) this rank's heads, x the whole gathered sequence, and the
+    result this rank's partial sum of the output projection."""
+    hd = cfg.hd
+    n_h, n_kv = params["wq"]["w"].shape[1] // hd, memory_kv[0].shape[2]
+    if tp is not None:
+        dispatch.count_route("tp_cross")
     b, sq, _ = x.shape
     q = _split_heads(cm.linear(params["wq"], x), n_h, hd)
     k, v = (t.to(q.dtype).repeat_interleave(n_h // n_kv, dim=2)
@@ -686,7 +692,9 @@ def cross_attend(params: dict, x: torch.Tensor, memory_kv: tuple,
 
 
 def memory_kv(params: dict, mem: torch.Tensor, cfg) -> tuple:
-    """Cross-attention K/V of the encoder output mem (B, Sm, d)."""
-    n_kv, hd = cfg.n_kv_heads, cfg.hd
+    """Cross-attention K/V of the encoder output mem (B, Sm, d), on the
+    leaves' kv heads (this rank's under tensor parallelism)."""
+    hd = cfg.hd
+    n_kv = params["wk"]["w"].shape[1] // hd
     return (_split_heads(cm.linear(params["wk"], mem), n_kv, hd),
             _split_heads(cm.linear(params["wv"], mem), n_kv, hd))

@@ -75,6 +75,48 @@ def apply_norm(kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown norm {kind}")
 
 
+def norm_rows(kind: str, p: Params, x: torch.Tensor, tp=None
+              ) -> torch.Tensor:
+    """A norm of the residual; under tensor and sequence parallelism
+    (``tp``, ``fsdp.TPRule``) on this rank's sequence rows (the
+    ``sp_rows`` route), its whole leaves' gradients summed over the model
+    group, since each rank's covers its own rows."""
+    if tp is not None:
+        dispatch.count_route("sp_rows")
+        p = {k: collectives.sum_grads(t, tp.group) for k, t in p.items()}
+    return apply_norm(kind, p, x)
+
+
+def on_sequence(fn, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """fn over the whole sequence (dim 1).  Under tensor and sequence
+    parallelism x is this rank's rows: gathered along the sequence before
+    fn (``gather_sum``: the backward sums the ranks' partial cotangents),
+    and fn's partial sums (a row-parallel product's) reduce-scattered back
+    to the rows (``scatter_sum``)."""
+    if tp is None:
+        return fn(x)
+    x = collectives.gather_sum(x, tp.group, 1)
+    return collectives.scatter_sum(fn(x), tp.group, 1)
+
+
+def rmsnorm_features(p: Params, y: torch.Tensor, tp=None) -> torch.Tensor:
+    """RMSNorm over a feature dim that tensor parallelism splits (mamba2's
+    gated norm, the mLSTM's): under ``tp`` y holds this rank's d / tp
+    columns and ``p["scale"]`` its slice of the scale.  The rows are
+    all-gathered along the features (``gather_sum``: the backward sums the
+    ranks' partial cotangents), kernel 1 runs on whole rows with the scale
+    gathered (``gather_slice``: the scale's gradient is this rank's
+    slice, the only columns its cotangent reaches), and this rank's
+    columns are taken back (the ``tp_feature_rows`` route)."""
+    if tp is None:
+        return rmsnorm(p, y)
+    dispatch.count_route("tp_feature_rows")
+    n = y.shape[-1]
+    whole = collectives.gather_sum(y, tp.group, y.dim() - 1)
+    scale = collectives.gather_slice(p["scale"], tp.group, 0)
+    return rmsnorm({"scale": scale}, whole).narrow(-1, tp.rank * n, n)
+
+
 def norm_shapes(kind: str, d: int) -> dict:
     if kind == "rmsnorm":
         return {"scale": (d,)}

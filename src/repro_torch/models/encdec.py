@@ -9,7 +9,18 @@ memory is plain products (``attention.cross_attend``), as the
 reference's.  Positions are sinusoids, computed in f32 on the device of
 their positions, as the reference computes them.  ``model.forward``,
 ``init_cache`` and ``decode_step`` route here when ``cfg.is_encdec``;
-parameters come cast (``model.cast_params``).
+``forward`` takes the f32 masters (or this rank's shards under a layout)
+and casts and gathers a block at a time, the serving functions take
+parameters cast once (``model.cast_params``).  The embedding and the
+heads are the model layer's (``model._sp_inputs``, ``model._heads``).
+
+Under tensor and sequence parallelism (``forward`` under a
+tensor-parallel layout) the encoder's residual is this rank's F / tp
+frames and the decoder's its S / tp tokens, each with the sinusoids of
+its own positions; every attention (self and cross) and the MLP run on
+this rank's heads and d_ff columns over the gathered sequence
+(``common.on_sequence``), and the encoder's output is gathered along the
+frames once, for every decoder layer's cross-attention K/V.
 """
 from __future__ import annotations
 
@@ -17,6 +28,7 @@ from typing import Dict, List
 
 import torch
 
+from repro_torch.distributed import collectives, fsdp
 from repro_torch.kernels import kv_quant
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
@@ -36,8 +48,9 @@ def sinusoid_rows(pos: torch.Tensor, d: int) -> torch.Tensor:
     return pe
 
 
-def _sinusoid(s: int, d: int, device) -> torch.Tensor:
-    return sinusoid_rows(torch.arange(s, device=device), d)
+def _sinusoid(s: int, d: int, device, start: int = 0) -> torch.Tensor:
+    """Rows ``start`` .. ``start + s - 1`` of the sinusoid table."""
+    return sinusoid_rows(torch.arange(start, start + s, device=device), d)
 
 
 def shape_tree(cfg) -> dict:
@@ -96,48 +109,88 @@ def _dtype(cfg) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
 
 
-def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
+def _keep(prefix: str, p):
+    return p
+
+
+def encode(cfg, params, frames: torch.Tensor, tp=None,
+           prep=_keep) -> torch.Tensor:
     """frames (B, F, d_model), the stub's output -> the bidirectional
-    encoder's memory (B, F, d_model)."""
+    encoder's memory (B, F, d_model).  ``prep(prefix, leaves)``: a layer's
+    leaves as it computes on them (``forward``'s cast and gather).  Under
+    tensor and sequence parallelism (``tp``) the residual is this rank's
+    frames, and the memory is gathered whole along them at the end (the
+    backward sums the ranks' partial cotangents: each rank's cross
+    attention reads it through its own heads)."""
     x = frames.to(_dtype(cfg))
-    x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
-    for lyr in params["enc_layers"]:
-        x = x + attn.attend_train(
-            lyr["attn"], cm.apply_norm(cfg.norm, lyr["ln1"], x), None, None,
-            cfg, use_rope=False, bidirectional=True)
-        x = x + mlp_mod.mlp(lyr["mlp"], cm.apply_norm(cfg.norm, lyr["ln2"], x),
-                            act=cfg.act)
-    return cm.apply_norm(cfg.norm, params["enc_norm"], x)
+    start = 0
+    if tp is not None:
+        f = x.shape[1]
+        if f % tp.size:
+            raise ValueError(f"{cfg.name}: {f} encoder frames do not divide "
+                             f"over the {tp.size} model ranks of the "
+                             "sequence-parallel residual")
+        start = tp.rank * (f // tp.size)
+        x = x.narrow(1, start, f // tp.size)
+    x = x + _sinusoid(x.shape[1], cfg.d_model, x.device,
+                      start).to(x.dtype)[None]
+    for i, lyr in enumerate(params["enc_layers"]):
+        lyr = prep(f"enc_layers.{i}", lyr)
+        x = x + cm.on_sequence(lambda h: attn.attend_train(
+            lyr["attn"], h, None, None, cfg, use_rope=False,
+            bidirectional=True, tp=tp),
+            cm.norm_rows(cfg.norm, lyr["ln1"], x, tp), tp)
+        x = x + mlp_mod.mlp(lyr["mlp"], cm.norm_rows(cfg.norm, lyr["ln2"], x,
+                                                     tp), act=cfg.act, tp=tp)
+    mem = cm.norm_rows(cfg.norm, params["enc_norm"], x, tp)
+    if tp is not None:
+        mem = collectives.gather_sum(mem, tp.group, 1)
+    return mem
 
 
-def _heads(cfg, params, x: torch.Tensor) -> dict:
-    x = cm.apply_norm(cfg.norm, params["final_norm"], x)
-    out = {"logits": x @ params["embed"]["table"].T.to(x.dtype)}
-    if cfg.value_head:
-        out["value"] = cm.linear(params["value_head"], x)[..., 0].float()
-    return out
+_LAYERS = ("enc_layers", "dec_layers")
 
 
-def forward(cfg, params, batch) -> dict:
+def forward(cfg, params, batch, layout=None) -> dict:
     """batch {"tokens": (B, S), "enc_frames": (B, F, d_model)} ->
-    {"logits", "value", "aux_loss" (0)}."""
+    {"logits", "value", "aux_loss" (0)}; under a tensor-parallel layout
+    the logits are this rank's vocab columns where the vocab is split
+    (``model._heads``).  ``params``: the f32 masters, or this rank's shards
+    under ``layout``, cast and gathered a layer at a time (the
+    encoder-decoder has no remat, as in the reference)."""
+    from repro_torch.models import model as M
     if "enc_frames" not in batch:
         raise KeyError(f"{cfg.name}: an encoder-decoder batch needs "
                        "'enc_frames' (B, F, d_model)")
-    mem = encode(cfg, params, batch["enc_frames"])
-    x = cm.embed(params["embed"], batch["tokens"]).to(_dtype(cfg))
-    x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
-    for lyr in params["dec_layers"]:
+    tp = fsdp.tp_rule(layout)
+
+    def prep(prefix, p):
+        return fsdp.gather(layout, prefix, M.cast_params(cfg, p),
+                           model=tp is None)
+    top = fsdp.gather(layout, "", {k: v for k, v in params.items()
+                                   if k not in _LAYERS})
+    mem = encode(cfg, {**top, "enc_layers": params["enc_layers"]},
+                 batch["enc_frames"], tp, prep)
+    if tp is None:
+        x = M._embed_inputs(cfg, top, batch)
+        start = 0
+    else:
+        x = M._sp_inputs(cfg, top, batch, tp)
+        start = tp.rank * x.shape[1]
+    x = x + _sinusoid(x.shape[1], cfg.d_model, x.device,
+                      start).to(x.dtype)[None]
+    for i, lyr in enumerate(params["dec_layers"]):
+        lyr = prep(f"dec_layers.{i}", lyr)
         mkv = attn.memory_kv(lyr["cross_attn"], mem, cfg)
-        x = x + attn.attend_train(
-            lyr["self_attn"], cm.apply_norm(cfg.norm, lyr["ln1"], x), None,
-            None, cfg, use_rope=False)
-        x = x + attn.cross_attend(lyr["cross_attn"],
-                                  cm.apply_norm(cfg.norm, lyr["ln_x"], x),
-                                  mkv, cfg)
-        x = x + mlp_mod.mlp(lyr["mlp"], cm.apply_norm(cfg.norm, lyr["ln2"], x),
-                            act=cfg.act)
-    out = _heads(cfg, params, x)
+        x = x + cm.on_sequence(lambda h: attn.attend_train(
+            lyr["self_attn"], h, None, None, cfg, use_rope=False, tp=tp),
+            cm.norm_rows(cfg.norm, lyr["ln1"], x, tp), tp)
+        x = x + cm.on_sequence(lambda h: attn.cross_attend(
+            lyr["cross_attn"], h, mkv, cfg, tp=tp),
+            cm.norm_rows(cfg.norm, lyr["ln_x"], x, tp), tp)
+        x = x + mlp_mod.mlp(lyr["mlp"], cm.norm_rows(cfg.norm, lyr["ln2"], x,
+                                                     tp), act=cfg.act, tp=tp)
+    out = M._heads(cfg, M.cast_params(cfg, top), x, tp)
     out["aux_loss"] = torch.zeros((), dtype=torch.float32, device=x.device)
     return out
 
@@ -191,4 +244,5 @@ def decode_step(cfg, params, cache: dict, batch, pos):
                                   (cx["k"], cx["v"]), cfg)
         x = x + mlp_mod.mlp(lyr["mlp"], cm.apply_norm(cfg.norm, lyr["ln2"], x),
                             act=cfg.act)
-    return _heads(cfg, params, x), cache
+    from repro_torch.models import model as M
+    return M._heads(cfg, params, x), cache

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.models import common as cm
 
 
@@ -32,6 +33,19 @@ def mlp_shapes(d_model: int, d_ff: int, *, bias: bool = True) -> dict:
     return {"fc1": lin(d_model, d_ff), "fc2": lin(d_ff, d_model)}
 
 
-def mlp(p: dict, x: torch.Tensor, *, act: str = "gelu") -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, *, act: str = "gelu",
+        tp=None) -> torch.Tensor:
+    """The plain MLP.  Under tensor and sequence parallelism (``tp``) x is
+    this rank's sequence rows: gathered along the sequence, ``fc1`` on
+    this rank's d_ff columns (its bias with them), ``fc2`` on its rows,
+    the partial sums reduce-scattered back to the rows, and ``fc2``'s
+    whole bias added once after that (its gradient summed over the model
+    group: each rank's covers its own rows)."""
     f = cm.ACTIVATIONS[act]
-    return cm.linear(p["fc2"], f(cm.linear(p["fc1"], x)))
+    if tp is None:
+        return cm.linear(p["fc2"], f(cm.linear(p["fc1"], x)))
+    y = cm.on_sequence(lambda h: f(cm.linear(p["fc1"], h)) @ p["fc2"]["w"],
+                       x, tp)
+    if "b" in p["fc2"]:
+        y = y + collectives.sum_grads(p["fc2"]["b"], tp.group).to(y.dtype)
+    return y

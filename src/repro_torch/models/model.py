@@ -427,7 +427,7 @@ def _ffn_half(cfg: ModelConfig, p: Params, x: torch.Tensor,
     this rank's sequence rows: the experts route them as they are, the
     gated MLP runs on its d_ff columns over the gathered sequence and its
     partial sums are reduce-scattered back to the rows."""
-    y = _norm(cfg, p["ln2"], x, tp)
+    y = cm.norm_rows(cfg.norm, p["ln2"], x, tp)
     if cfg.n_experts:
         kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                   act=cfg.act)
@@ -463,17 +463,6 @@ def _rope_tables(cfg: ModelConfig, batch: Dict[str, torch.Tensor], s: int,
                            cfg.rope_theta)
 
 
-def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor,
-          tp: Optional[fsdp.TPRule]) -> torch.Tensor:
-    """A norm; under tensor parallelism on this rank's sequence rows (the
-    ``sp_rows`` route), its whole leaves' gradients summed over the model
-    group, since each rank's covers its own rows."""
-    if tp is not None:
-        dispatch.count_route("sp_rows")
-        p = {k: collectives.sum_grads(t, tp.group) for k, t in p.items()}
-    return cm.apply_norm(cfg.norm, p, x)
-
-
 def _heads(cfg: ModelConfig, params: Params, x: torch.Tensor,
            tp: Optional[fsdp.TPRule] = None) -> dict:
     """The final norm, the LM head (the tied table where the config ties
@@ -486,7 +475,7 @@ def _heads(cfg: ModelConfig, params: Params, x: torch.Tensor,
     backward sums the ranks' partial cotangents; with the vocab whole each
     rank computes every logit, whose cotangents are alike on the ranks, so
     the backward keeps this rank's rows."""
-    x = _norm(cfg, params["final_norm"], x, tp)
+    x = cm.norm_rows(cfg.norm, params["final_norm"], x, tp)
     out = {}
     if cfg.value_head:
         vh = params["value_head"]
@@ -538,15 +527,18 @@ def _block_train(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
 
     Under ``tp`` (Megatron-SP) x is this rank's rows of the sequence: the
     norm runs on them, they are all-gathered before the attention's (and
-    the MLP's) column-parallel products, and the row-parallel products'
-    partial sums are reduce-scattered back to the rows."""
+    the MLP's) column-parallel products, or a recurrent block's, and the
+    row-parallel products' partial sums are reduce-scattered back to the
+    rows.  A recurrent block runs on this rank's heads (``models/ssm.py``,
+    ``models/xlstm.py``)."""
     p = cast_params(cfg, p)
     if layout is not None:
         p = fsdp.gather(layout, prefix, p, model=ep is None and tp is None)
-    h = _norm(cfg, p["ln1"], x, tp)
+    h = cm.norm_rows(cfg.norm, p["ln1"], x, tp)
     if kind in _TRAIN:
         name, fn = _TRAIN[kind]
-        return x + fn(p[name], h, cfg), aux
+        return x + cm.on_sequence(lambda seq: fn(p[name], seq, cfg, tp), h,
+                                  tp), aux
     if tp is not None:
         h = collectives.gather_sum(h, tp.group, 1)
     h = attn.attend_train(p["attn"], h, cos, sin, cfg,
@@ -592,17 +584,19 @@ def forward(cfg: ModelConfig, params: Params,
     shared block's applications included, runs under
     ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint``):
     its activations are recomputed in the backward.  The encoder-decoder
-    has no remat, as in the reference.
+    (``encdec.forward``, which gathers a layer at a time) has no remat,
+    as in the reference.
 
     Under a tensor-parallel layout (``fsdp.tp_rule``) the residual stream
     between blocks is this rank's S / tp rows of the sequence, the rotary
-    tables are whole (attention runs on the gathered sequence), the
+    tables are whole (attention runs on the gathered sequence), zamba2's
+    shared block takes the attention blocks' path (its applications'
+    gradients add up on its one set of shards), the
     experts are expert-parallel under the layout's rule (``fsdp.ep_rule``;
     the installed rules are not read), and the logits are this rank's
     vocab columns where the vocab is split (``_heads``)."""
     if cfg.is_encdec:
-        return encdec.forward(cfg, fsdp.gather(
-            layout, "", cast_params(cfg, params), model=True), batch)
+        return encdec.forward(cfg, params, batch, layout)
     tp = fsdp.tp_rule(layout)
     top = fsdp.gather(layout, "", {k: v for k, v in params.items()
                                    if k not in ("layers", "shared_attn")})

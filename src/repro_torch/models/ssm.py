@@ -7,6 +7,14 @@ loop here, ``lax.scan`` there).  Decode is the O(1) recurrence
 ``h <- a h + dt B (x)  x;  y = C . h + D x``.  Everything is plain
 PyTorch: the reference has no kernel here, and its gated norm is
 ``common.rmsnorm``, kernel 1 on the card.
+
+Under tensor parallelism (``mamba2_train``'s ``tp``) a rank holds its
+heads: its 1/tp of z, x and dt in ``in_proj``, of A_log, D, dt_bias and
+the norm's scale, and 1/tp of B and C (``sharding.tp_splits``' blocked
+``in_proj`` and conv).  B and C are all-gathered after the conv, since
+every head reads its group's whole maps; the gated norm runs on rows
+gathered along the features (``common.rmsnorm_features``); ``out_proj``
+returns this rank's partial sums.
 """
 from __future__ import annotations
 
@@ -14,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.kernels import dispatch
 from repro_torch.models import common as cm
 
 
@@ -38,11 +48,13 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
                                           device=x.device))
 
 
-def _split_in_proj(z_all, d_inner, n_groups, d_state):
+def _split_in_proj(z_all, d_inner, gn):
+    """z | x | B | C | dt of in_proj's output (d_inner the z and x width,
+    gn the B and C width: this rank's under tensor parallelism)."""
     zi = d_inner
     xi = 2 * d_inner
-    bi = xi + n_groups * d_state
-    ci = bi + n_groups * d_state
+    bi = xi + gn
+    ci = bi + gn
     return (z_all[..., :zi], z_all[..., zi:xi], z_all[..., xi:bi],
             z_all[..., bi:ci], z_all[..., ci:])
 
@@ -125,34 +137,45 @@ def ssd_chunked(x, log_a, b, c, *, chunk: int = 256,
     return y, hh
 
 
-def _conv_split(p: dict, xin: torch.Tensor, cfg, state=None):
+def _conv_split(p: dict, xin: torch.Tensor, state=None):
     """in_proj, the causal conv and its silu; returns (z, xs, bb, cc, dt,
-    the conv state)."""
-    h, pd, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
-        cfg.ssm_groups
-    d_inner = h * pd
+    the conv state).  The widths are the leaves' own (this rank's parts
+    under tensor parallelism)."""
+    d_inner = p["norm"]["scale"].shape[0]
+    gn = (p["conv_w"].shape[1] - d_inner) // 2
     z, xs, bb, cc, dt = _split_in_proj(cm.linear(p["in_proj"], xin),
-                                       d_inner, g, n)
+                                       d_inner, gn)
     conv_in = torch.cat([xs, bb, cc], dim=-1)
     conv_out, conv_state = causal_conv(conv_in, p["conv_w"], p["conv_b"],
                                        state)
     conv_out = cm.silu(conv_out)
     return (z, conv_out[..., :d_inner],
-            conv_out[..., d_inner:d_inner + g * n],
-            conv_out[..., d_inner + g * n:], dt, conv_state)
+            conv_out[..., d_inner:d_inner + gn],
+            conv_out[..., d_inner + gn:], dt, conv_state)
 
 
-def mamba2_train(p: dict, xin: torch.Tensor, cfg) -> torch.Tensor:
-    """xin (B, S, d_model) -> (B, S, d_model)."""
-    h, pd, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
-        cfg.ssm_groups
+def mamba2_train(p: dict, xin: torch.Tensor, cfg, tp=None) -> torch.Tensor:
+    """xin (B, S, d_model) -> (B, S, d_model).  Under tensor parallelism
+    (``tp``, ``fsdp.TPRule``) xin is the whole sequence, ``p`` this rank's
+    leaves (its H / tp heads, counted from ``A_log``), and the result this
+    rank's partial sums of ``out_proj`` (the ``tp_ssm_heads`` route)."""
+    pd, n, g = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    h = p["A_log"].shape[0]
     d_inner = h * pd
-    z, xs, bb, cc, dt, _ = _conv_split(p, xin, cfg)
+    z, xs, bb, cc, dt, _ = _conv_split(p, xin)
+    if tp is not None:
+        dispatch.count_route("tp_ssm_heads")
+        # every head reads its group's whole B and C: gathered along the
+        # features, the backward summing the ranks' partial cotangents
+        bc = collectives.gather_sum(torch.stack([bb, cc]), tp.group, 3)
+        bb, cc = bc[0], bc[1]
     bsz, s = xin.shape[:2]
     xs = xs.reshape(bsz, s, h, pd)
-    rep = h // g
+    rep = cfg.ssm_heads // g
     bb = bb.reshape(bsz, s, g, n).repeat_interleave(rep, dim=2)
     cc = cc.reshape(bsz, s, g, n).repeat_interleave(rep, dim=2)
+    if h < cfg.ssm_heads:
+        bb, cc = (t.narrow(2, tp.rank * h, h) for t in (bb, cc))
 
     dt = softplus(dt.float() + p["dt_bias"])                     # (B,S,H)
     a = -torch.exp(p["A_log"])                                   # (H,)
@@ -162,7 +185,7 @@ def mamba2_train(p: dict, xin: torch.Tensor, cfg) -> torch.Tensor:
     y, _ = ssd_chunked(x_dt, log_decay, bb, cc, chunk=cfg.ssm_chunk)
     y = y.to(xin.dtype) + xs * p["D"].to(xs.dtype)[None, None, :, None]
     y = y.reshape(bsz, s, d_inner)
-    y = cm.rmsnorm(p["norm"], y * cm.silu(z))
+    y = cm.rmsnorm_features(p["norm"], y * cm.silu(z), tp)
     return cm.linear(p["out_proj"], y)
 
 
@@ -184,7 +207,7 @@ def mamba2_decode(p: dict, xin: torch.Tensor, state: dict, cfg):
     h, pd, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_groups
     d_inner = h * pd
-    z, xs, bb, cc, dt, conv_state = _conv_split(p, xin, cfg, state["conv"])
+    z, xs, bb, cc, dt, conv_state = _conv_split(p, xin, state["conv"])
     bsz = xin.shape[0]
     xs = xs.reshape(bsz, h, pd)
     bb = bb.reshape(bsz, g, n).repeat_interleave(h // g, dim=1)

@@ -9,12 +9,26 @@ chunk states (``lax.scan`` there).  sLSTM has a recurrent matrix inside
 its gates, so training loops over time.  All plain PyTorch (the reference
 has no kernel here); the norms inside the blocks are ``common.rmsnorm``,
 kernel 1 on the card.
+
+Under tensor parallelism (``tp``) a rank runs its H / tp heads.  The
+mLSTM's ``up_x``/``up_z`` and conv are column-parallel; its conv output
+and ``xi`` are all-gathered along the features for ``wq``/``wk``/``wv``
+(this rank's heads' columns) and the whole ``w_i``/``w_f`` (narrowed to
+this rank's heads, their gradients summed over the model group); its norm
+runs on rows gathered along the features (``common.rmsnorm_features``).
+The sLSTM's ``w_in`` columns are head-major, so its contiguous split is
+this rank's heads' gate blocks, and ``r`` is split over the heads
+(``sharding.tp_splits``): the recurrence needs no collective; its output
+is gathered along the features before the block's norm and
+feed-forward, whose ``ff_down`` returns partial sums.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives
+from repro_torch.kernels import dispatch
 from repro_torch.models import common as cm
 from repro_torch.models.ssm import causal_conv
 
@@ -125,21 +139,39 @@ def _mlstm_inputs(p: dict, x: torch.Tensor, conv_state=None):
     return xi, z, cm.silu(xc), conv_state
 
 
-def mlstm_train(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x (B, S, d_model) -> (B, S, d_model)."""
+def _local_heads(p: dict, h: int, tp) -> dict:
+    """Whole leaves narrowed to this rank's ``h`` heads (their last dim),
+    each gradient summed over the model group: each rank's covers its own
+    heads."""
+    return {k: collectives.sum_grads(t, tp.group).narrow(-1, tp.rank * h, h)
+            for k, t in p.items()}
+
+
+def mlstm_train(p: dict, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
+    """x (B, S, d_model) -> (B, S, d_model).  Under tensor parallelism
+    (``tp``, ``fsdp.TPRule``) x is the whole sequence, ``p`` this rank's
+    leaves, and the result this rank's partial sums of ``down`` (the
+    ``tp_lstm_heads`` route)."""
     bsz, s, _ = x.shape
-    h = cfg.n_heads
+    hd = cfg.lstm_expand * cfg.d_model // cfg.n_heads
     xi, z, xc, _ = _mlstm_inputs(p, x)
-    d_inner = xi.shape[-1]
-    hd = d_inner // h
-    q = cm.linear(p["wq"], xc).reshape(bsz, s, h, hd)
-    k = cm.linear(p["wk"], xc).reshape(bsz, s, h, hd)
-    v = cm.linear(p["wv"], xi).reshape(bsz, s, h, hd)
-    log_i = cm.linear(p["w_i"], xc).float()                      # (B,S,H)
-    log_f = F.logsigmoid(cm.linear(p["w_f"], xc).float())
+    d_loc = xi.shape[-1]
+    h = d_loc // hd
+    gates = {"w_i": p["w_i"], "w_f": p["w_f"]}
+    xc_all, xi_all = xc, xi
+    if tp is not None:
+        dispatch.count_route("tp_lstm_heads")
+        both = collectives.gather_sum(torch.stack([xc, xi]), tp.group, 3)
+        xc_all, xi_all = both[0], both[1]
+        gates = {k: _local_heads(g, h, tp) for k, g in gates.items()}
+    q = cm.linear(p["wq"], xc_all).reshape(bsz, s, h, hd)
+    k = cm.linear(p["wk"], xc_all).reshape(bsz, s, h, hd)
+    v = cm.linear(p["wv"], xi_all).reshape(bsz, s, h, hd)
+    log_i = cm.linear(gates["w_i"], xc_all).float()              # (B,S,H)
+    log_f = F.logsigmoid(cm.linear(gates["w_f"], xc_all).float())
     y, _ = mlstm_chunked(q, k, v, log_f, log_i, chunk=cfg.ssm_chunk)
-    y = y.to(x.dtype).reshape(bsz, s, d_inner)
-    y = cm.rmsnorm(p["norm"], y) * cm.silu(z)
+    y = y.to(x.dtype).reshape(bsz, s, d_loc)
+    y = cm.rmsnorm_features(p["norm"], y, tp) * cm.silu(z)
     return cm.linear(p["down"], y)
 
 
@@ -245,23 +277,45 @@ def slstm_step(p: dict, state: dict, xt: torch.Tensor, n_heads: int) -> dict:
     return {"h": h_new, "c": c_new, "n": n_new, "m": m_new}
 
 
-def _slstm_out(p: dict, y: torch.Tensor) -> torch.Tensor:
-    y = cm.rmsnorm(p["norm"], y)
+def _slstm_out(p: dict, y: torch.Tensor, tp=None) -> torch.Tensor:
+    """The block's norm and gated feed-forward.  Under tensor parallelism
+    y is this rank's heads' features: gathered along them first, the norm
+    on whole rows (its whole scale's gradient summed over the model group:
+    each rank's cotangent reaches it through its own d_ff columns only),
+    ``ff_down`` this rank's partial sums."""
+    norm = p["norm"]
+    if tp is not None:
+        dispatch.count_route("tp_feature_rows")
+        y = collectives.gather_sum(y, tp.group, 2)
+        norm = {"scale": collectives.sum_grads(norm["scale"], tp.group)}
+    y = cm.rmsnorm(norm, y)
     return cm.linear(p["ff_down"], cm.gelu(cm.linear(p["ff_gate"], y))
                      * cm.linear(p["ff_up"], y))
 
 
-def slstm_train(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """The recurrence over time, one step a position.  x (B, S, d)."""
-    bsz, s, d = x.shape
-    pre = cm.linear(p["w_in"], x)                           # (B,S,4d)
-    st = init_slstm_state(bsz, d, cfg.n_heads, x.device)
+def slstm_train(p: dict, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
+    """The recurrence over time, one step a position.  x (B, S, d).  Under
+    tensor parallelism (``tp``) x is the whole sequence and this rank runs
+    the recurrence of its heads (``r``'s first dim), ``w_in``'s whole bias
+    narrowed to their columns (its gradient summed over the model group);
+    the result is this rank's partial sums (the ``tp_lstm_heads``
+    route)."""
+    bsz, s, _ = x.shape
+    w_in = p["w_in"]
+    if tp is not None:
+        dispatch.count_route("tp_lstm_heads")
+        n = w_in["w"].shape[1]
+        w_in = {"w": w_in["w"], "b": collectives.sum_grads(
+            w_in["b"], tp.group).narrow(0, tp.rank * n, n)}
+    h, hd = p["r"].shape[:2]
+    pre = cm.linear(w_in, x)                              # (B,S,4 h hd)
+    st = init_slstm_state(bsz, h * hd, h, x.device)
     hs = []
     for t in range(s):
-        st = slstm_step(p, st, pre[:, t], cfg.n_heads)
+        st = slstm_step(p, st, pre[:, t], h)
         hs.append(st["h"])
-    y = torch.stack(hs, dim=1).reshape(bsz, s, d).to(x.dtype)
-    return _slstm_out(p, y)
+    y = torch.stack(hs, dim=1).reshape(bsz, s, h * hd).to(x.dtype)
+    return _slstm_out(p, y, tp)
 
 
 def slstm_decode(p: dict, x: torch.Tensor, state: dict, cfg):

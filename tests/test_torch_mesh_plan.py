@@ -166,8 +166,8 @@ def test_held_layout_keeps_model_only_on_experts():
     wk and wv are held whole) and nowhere else (its odd vocab keeps the
     table's model entry out of the plan); the pod axis stripped for the
     delayed-sync groups, and the optimizer state on the parameters'
-    plan.  A config whose tensor parallelism is a later slice (zamba2)
-    keeps "model" off every dense leaf."""
+    plan.  Zamba2, whose tensor parallelism came with slice 6b-ii, holds
+    "model" exactly where ``tp_holds`` does."""
     cfg = torch_configs.get_config("granite-moe-1b-a400m")
     mesh = _mesh("2x16x16")
     plan = sharding.param_shardings(cfg, mesh)
@@ -186,7 +186,9 @@ def test_held_layout_keeps_model_only_on_experts():
         if "model" in str(spec):
             assert ".moe.w_" in path or holds[path], (path, spec)
     later = torch_configs.get_config("zamba2-1.2b")
-    whole = fsdp.layout(later, mesh)
-    assert not whole.tp
-    for path, spec in whole.held.items():
-        assert "model" not in str(spec), (path, spec)
+    lay = fsdp.layout(later, mesh)
+    holds = sharding.tp_holds(later, mesh)
+    assert lay.tp
+    for path, spec in lay.held.items():
+        if "model" in str(spec):
+            assert holds[path], (path, spec)

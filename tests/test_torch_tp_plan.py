@@ -16,9 +16,11 @@ entries: ``sharding.tp_holds`` keeps a plan's "model" entry where the
 split falls on whole q heads, whole kv heads (else the kv leaves are held
 whole), whole d_ff columns and whole vocab rows, and on the experts; ``fsdp.layout`` holds exactly those, so a
 rank holds 1/tp of ``wq``, ``wo``, ``gate``, ``up``, ``down`` and of the
-divisible vocab leaves; a config the slice does not cover keeps slice
-6a's layout, and a layout the slice refuses is a ValueError naming its
-ROADMAP item.
+divisible vocab leaves.  Every config is covered (slice 6b-ii added
+mamba2 with zamba2's shared block, mLSTM, sLSTM and Whisper): mamba2's
+``in_proj`` and conv leaves are split part by part and the sLSTM's ``r``
+over its heads (``sharding.tp_splits``), and a layout the port refuses is
+a ValueError naming its reason or its ROADMAP item.
 """
 import json
 import os
@@ -40,8 +42,6 @@ MESHES = {"1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4), "2x1x2": (2, 1, 2)}
 BATCHES = (4, 3)
 ROWS = (4096, 24, 6)
 RULES = ("residual", "attn_q", "attn_kv")
-IN_SCOPE = ("yi_6b", "stablelm_1p6b", "qwen2_72b", "minicpm_2b",
-            "granite_moe_1b_a400m", "llama4_scout_17b_a16e", "qwen2_vl_72b")
 
 _JAX_RULES = r"""
 import json, math, sys
@@ -145,16 +145,22 @@ def test_row_check_matches_jax(jax_rules, mname):
 
 
 def _expected_hold(arch, cfg, path, tp):
-    """The slice's rule, written out: experts always; the kv leaves where
-    the kv heads divide tp; every other planned "model" entry of a covered
-    config (q heads, d_ff and vocab divide for these meshes)."""
+    """The rule, written out: experts always; the kv leaves where the kv
+    heads divide tp; every other planned "model" entry (q heads, d_ff,
+    vocab and the recurrent widths divide for these meshes)."""
     if ".moe.w_" in path:
         return True
-    if arch not in IN_SCOPE:
-        return False
     if ".attn.wk." in path or ".attn.wv." in path:
         return cfg.n_kv_heads % tp == 0
     return True
+
+
+def _expected_held(cfg, path, spec):
+    """The held spec of a leaf the port holds over "model": the plan's,
+    but the sLSTM's ``r`` over its heads (dim 0) instead of its gates."""
+    if path.endswith(".slstm.r"):
+        return ("model", spec[1], None)
+    return spec
 
 
 @pytest.mark.parametrize("arch", torch_configs.ARCH_IDS)
@@ -175,11 +181,10 @@ def test_held_model_entries_leaf_by_leaf(arch):
             if path in holds:
                 assert holds[path] == _expected_hold(arch, cfg, path, tp), \
                     (arch, mname, path)
-            want = spec if holds.get(path) else \
+            want = _expected_held(cfg, path, spec) if holds.get(path) else \
                 sharding.strip_axis(spec, "model")
             assert lay.held[path] == want, (arch, mname, path)
-        if not covered:
-            continue
+        assert covered, (arch, mname)
         # a rank's share of the split leaves
         for path, shape in shapes.items():
             name = path.split(".", 2)[-1] if path.startswith("layers.") \
@@ -188,6 +193,20 @@ def test_held_model_entries_leaf_by_leaf(arch):
                 assert lay.held[path][1] == "model", (arch, path)
             if name in ("attn.wo.w", "mlp.down.w"):
                 assert lay.held[path][0] == "model", (arch, path)
+            # the blocked splits: mamba2's z | x | B | C | dt columns and
+            # x | B | C conv channels, each part split on its own
+            if name.endswith("mamba.in_proj.w"):
+                d_in = cfg.ssm_heads * cfg.ssm_head_dim
+                gn = cfg.ssm_groups * cfg.ssm_state
+                assert lay.block(path) == (1, (d_in, d_in, gn, gn,
+                                               cfg.ssm_heads)), path
+            elif ".mamba.conv_" in path:
+                assert lay.block(path)[1] == (
+                    cfg.ssm_heads * cfg.ssm_head_dim,
+                    cfg.ssm_groups * cfg.ssm_state,
+                    cfg.ssm_groups * cfg.ssm_state), path
+            else:
+                assert lay.block(path) is None, path
         vocab_split = cfg.vocab_size % tp == 0
         assert lay.sharded("embed.table", "model") == vocab_split
         if not cfg.tie_embeddings:
@@ -210,9 +229,12 @@ def test_shards_hold_one_tp_th_of_the_split_leaves():
 @pytest.mark.parametrize("arch,shape,force,words", [
     ("minicpm-2b", (1, 8), False, "6b-iii"),
     ("llama4-scout-17b-a16e", (1, 16), False, "6b-iii"),
-    ("zamba2-1.2b", (1, 2), True, "6b-ii"),
-    ("xlstm-1.3b", (1, 2), True, "6b-ii"),
-    ("whisper-base", (1, 2), True, "6b-ii")])
+    # zamba2's shared attention block: its 32 q heads
+    ("zamba2-1.2b", (1, 64), False, "6b-iii"),
+    # the recurrence runs whole heads: xLSTM's 4 over 8 ranks
+    ("xlstm-1.3b", (1, 8), False, "mLSTM/sLSTM heads 4 does not divide"),
+    # the encoder's sequence-parallel rows
+    ("whisper-base", (1, 8), False, "encoder frames 1500 does not divide")])
 def test_unsupported_tp_layout_raises_naming_its_roadmap_item(arch, shape,
                                                                force, words):
     cfg = torch_configs.get_config(arch)
@@ -224,9 +246,18 @@ def test_unsupported_tp_layout_raises_naming_its_roadmap_item(arch, shape,
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b",
                                   "whisper-base"])
 def test_later_slices_keep_the_whole_dense_leaves(arch):
-    """Without ``tp`` asked for, a config of a later slice keeps 6a's
-    layout on a model axis of 2: "model" only on experts (none here)."""
+    """The configs whose tensor parallelism was a later slice (6b-ii) take
+    it now on a model axis of 2, unasked: every planned "model" entry is
+    held (the sLSTM's ``r`` moved to its heads), and the only dense leaves
+    held whole on each model rank are those the plan leaves whole."""
     cfg = torch_configs.get_config(arch)
-    lay = fsdp.layout(cfg, _mesh("2x2"))
-    assert not lay.tp
-    assert not any("model" in str(s) for s in lay.held.values())
+    mesh = _mesh("2x2")
+    lay = fsdp.layout(cfg, mesh)
+    plan = sharding.param_shardings(cfg, mesh)
+    assert lay.tp
+    for path, spec in plan.items():
+        if "model" in str(spec):
+            assert lay.held[path] == _expected_held(cfg, path, spec), path
+        else:
+            assert "model" not in str(lay.held[path]), path
+    assert any("model" in str(s) for s in lay.held.values())
