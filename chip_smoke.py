@@ -253,9 +253,10 @@ Phases (any failure raises and the script exits non-zero):
      train steps (4 x 1024, remat) with phase 8's gates, the flash
      kernels 2 x 6 forward and 6 backward launches a step (the shared
      block's applications);
-     11c. xlstm-1.3b at full width and depth: the same engine run (kernel
-     1, 97 launches a decode step, and no attention kernel at all) and
-     three train steps (no flash launch), without a profiled step;
+     11c. xlstm-1.3b at full width cut to 8 of 48 layers (one 7:1
+     cycle, as 12h cuts it): the same engine run (kernel 1, 17 launches
+     a decode step, and no attention kernel at all) and three train
+     steps (no flash launch), without a profiled step;
      11d. Whisper-base at full size: stub frames (4, 1500, 512),
      ``prefill_cross`` (kernel 3's bidirectional arm once an encoder
      layer) and 32 greedy decode steps on 4 rows (kernel 6 once a layer
@@ -530,6 +531,12 @@ def check_rmsnorm(gen, flush):
         "width_2048_tp2_shape": record(
             ZAMBA2_SP_ROWS, True, "zamba2 / xlstm train, sequence-parallel "
             "rows at tp 2", 2048),
+        "decode32k_shape": record(YI_DECODE["batch"], False,
+                                  "phase 13b: Yi-6B decode_32k step, batch "
+                                  f"{YI_DECODE['batch']}"),
+        "long500k_shape": record(ZAMBA2_LONG["batch"], False,
+                                 "phase 13c: zamba2-1.2b long_500k step, "
+                                 "batch 1", 2048),
     }
 
 
@@ -688,14 +695,29 @@ def check_decode(gen, flush):
         "whisper_shape": _decode_shape_record(gen, flush, "Whisper decoder",
                                               8, 8, 64, length=448,
                                               pos=(40, 100, 250, 440)),
+        **{key: _decode_shape_record(gen, flush, model, hq, hkv, d, b=b,
+                                     length=length, pos=pos, check=True)
+           for key, model, hq, hkv, d, b, length, pos in LONG_DECODES},
     }
 
 
+# phase 13's unsharded decodes (kernel 6 over a whole cache): Yi-6B at
+# decode_32k (batch 8, ragged depths) and zamba2's shared block at
+# long_500k (batch 1, 524288 rows: 2^30 elements a leaf)
+LONG_DECODES = (
+    ("decode32k_shape", "phase 13b: Yi-6B decode_32k", 32, 4, 128, 8, 32768,
+     tuple(32768 - 17 - 37 * i for i in range(8))),
+    ("long500k_shape", "phase 13c: zamba2 shared block, long_500k", 32, 32,
+     64, 1, 524288, (524283,)))
+
+
 def _decode_shape_record(gen, flush, model, hq, hkv, d, b=4, length=1024,
-                         pos=(100, 400, 700, 1000)):
+                         pos=(100, 400, 700, 1000), check=False):
     """Kernel 6's bf16 arm timed at a model's serving shape (4 slots, a
     bf16 cache of ``length`` rows, ragged depths ``pos``), beside its plain
-    version, its least bytes and masked SDPA with ``enable_gqa``."""
+    version, its least bytes and masked SDPA with ``enable_gqa``; with
+    ``check`` first held to the plain version (the split plan's count of
+    splits printed)."""
     import torch
     import torch.nn.functional as F
 
@@ -710,6 +732,13 @@ def _decode_shape_record(gen, flush, model, hq, hkv, d, b=4, length=1024,
     valid_rows = int(valid.sum())
     nbytes = (2 * valid_rows * hkv * d * 2 + 2 * q.numel() * 2
               + kpos.numel() * 4 + b * 4)
+    if check:
+        plan = decode_attention_cuda.split_plan(
+            b, hkv, length, _sm_count())
+        _compare(f"decode {model} L={length} (n_split, tiles a split) "
+                 f"{plan}", decode_attention_cuda.decode_attention_fwd(
+                     q, k, v, kpos, pos),
+                 ref.decode_attention_ref(q, k, v, kpos, pos))
     qt = q[:, :, None]
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()
@@ -725,6 +754,11 @@ def _decode_shape_record(gen, flush, model, hq, hkv, d, b=4, length=1024,
         "shape": f"{model}: q ({b}, {hq}, {d}) bf16, cache ({b}, {length}, "
                  f"{hkv}, {d}) bf16, G {hq // hkv}, pos {pos.tolist()}, "
                  f"valid rows {valid_rows}"}
+
+
+def _sm_count():
+    from repro_torch.kernels import build
+    return build.sm_count(0)
 
 
 def _append_inputs(gen, b, c, hq, hkv, d, pos0, dt, *, ring=None):
@@ -892,6 +926,18 @@ NO_INT8_LIBRARY = ("none: no PyTorch call attends over int8 K/V with "
                    "per-(row, kv head) scales")
 NO_PARTIALS_LIBRARY = ("none: no PyTorch call returns the unnormalised "
                        "flash-decoding state (acc, m, l)")
+# kernel 7 held to its plain version at phase 13's slice lengths: Yi-6B's
+# decode_32k cache on one rank (batch 8) and zamba2's long_500k cache over
+# 4 sequence shards (batch 1, 131072 rows); one row fully masked
+LONG_SLICES = ((8, 32, 4, 128, 32768,
+                [32767 - 37 * i if i != 3 else -1 for i in range(8)]),
+               (1, 32, 32, 64, 131072, [131071]))
+# and timed there, and at zamba2's whole long_500k cache on one rank
+LONG_PARTIALS = (
+    ("decode32k_shape", 8, 32, 4, 128, 32768,
+     [32767 - 37 * i for i in range(8)]),
+    ("long131k_shape", 1, 32, 32, 64, 131072, [131071]),
+    ("long500k_shape", 1, 32, 32, 64, 524288, [524287]))
 
 
 def _decode_cache(gen, b, hq, hkv, d, length, qdt, kvdt, pos, *, ring=None,
@@ -1312,6 +1358,29 @@ def check_partials(gen, flush):
                                            whole))
                 errs[kvdt].append(_compare(label + " vs plain", o, plain))
 
+    # phase 13's slices: Yi-6B's decode_32k cache whole on one rank
+    # (32768 rows, batch 8) and zamba2's long_500k cache over 4 sequence
+    # shards (131072 rows, batch 1), each at the three splits
+    for b, hq, hkv, d, length, rows in LONG_SLICES:
+        q, k, v, ks, vs, kpos, pos = _decode_cache(
+            gen, b, hq, hkv, d, length, bf, bf, rows)
+        want = ref.decode_attention_partials_ref(q, k, v, kpos, pos)
+        acc_abs = ref.decode_attention_partials_ref(q, k, v.abs(), kpos,
+                                                    pos)[0]
+        plan = decode_attention_cuda.split_plan(b, hkv, length,
+                                                _sm_count())
+        for ns in DECODE_SPLITS:
+            got = decode_attention_cuda.decode_attention_partials(
+                q, k, v, kpos, pos, n_split=ns)
+            # l is a sum of positive terms: its own sum over |terms|
+            for name, g_, w_, a_ in zip(("acc", "m", "l"), got, want,
+                                        (acc_abs, None, want[2])):
+                errs[bf].append(_compare(
+                    f"partials long slice B={b} L={length} "
+                    f"n_split={ns or f'plan {plan}'} {name}", g_, w_,
+                    sum_abs=a_))
+        del q, k, v, want, acc_abs
+
     records = []
     b, hq, hkv, d, length = 4, 32, 4, 128, 1024
     for kvdt, suffix in ((bf, ""), (i8, "_int8")):
@@ -1356,6 +1425,25 @@ def check_partials(gen, flush):
         "shape": f"q ({b}, {hq}, {d}) f32, one slice: cache ({b}, {length}, "
                  f"{hkv}, {d}) f32, pos {pos.tolist()}, valid rows "
                  f"{valid_rows}"}
+    for key, b, hq, hkv, d, length, rows in LONG_PARTIALS:
+        q, k, v, _, _, kpos, pos = _decode_cache(
+            gen, b, hq, hkv, d, length, bf, bf, rows)
+        valid_rows = int(((kpos >= 0) & (kpos <= pos[:, None])).sum())
+        nbytes = _decode_bytes(q, k, None, kpos, valid_rows,
+                               b * hq * (d + 2) * 4)
+        plan = decode_attention_cuda.split_plan(b, hkv, length, _sm_count())
+        records[0][key] = {
+            "ms": _time_ms(lambda: decode_attention_cuda
+                           .decode_attention_partials(q, k, v, kpos, pos),
+                           flush),
+            "plain_ms": _time_ms(lambda: ref.decode_attention_partials_ref(
+                q, k, v, kpos, pos), flush),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "library_note": NO_PARTIALS_LIBRARY,
+            "shape": f"phase 13 slice: q ({b}, {hq}, {d}) bf16, cache ({b}, "
+                     f"{length}, {hkv}, {d}) bf16, valid rows {valid_rows}, "
+                     f"(n_split, tiles a split) {plan}"}
+        del q, k, v
     return records
 
 
@@ -2730,36 +2818,90 @@ def _profile(label, fn, wall_ms=None, watch=(), steps=None, gather=(),
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    averages = prof.key_averages()
-    kernels = [e for e in averages
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    t_trace = time.perf_counter()
+    kernels, ops = _trace_tables(prof)
+    if not host:
+        ops = {}
+    busy = sum(ms for _, ms in kernels.values())
     print(f"profile {label}: wall_ms={plain_wall:.2f} (profiled "
           f"{wall:.2f}) device_busy_ms={busy:.2f} busy_share="
           f"{busy / plain_wall:.3f} (of the profiled wall "
           f"{busy / wall:.3f})")
     if steps:
-        n = sum(e.count for e in kernels)
-        g = [e for e in kernels if any(w in e.key for w in gather)]
+        n = sum(c for c, _ in kernels.values())
+        g = [v for k, v in kernels.items() if any(w in k for w in gather)]
         print(f"profile {label}: kernels_per_step={n / steps:.1f} "
-              f"gather_ms={sum(e.self_device_time_total for e in g) / 1e3:.3f}"
-              f" ({sum(e.count for e in g)} launches)")
-    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    for rank, e in enumerate(ranked):
-        if rank < 8 or any(w in e.key for w in watch + tuple(gather)):
-            print(f"profile {label}: #{rank + 1:<3d}"
-                  f"{e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} "
-                  f"{e.key[:90]}")
+              f"gather_ms={sum(ms for _, ms in g):.3f}"
+              f" ({sum(c for c, _ in g)} launches)")
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    for rank, (key, (count, ms)) in enumerate(ranked):
+        if rank < 8 or any(w in key for w in watch + tuple(gather)):
+            print(f"profile {label}: #{rank + 1:<3d}{ms:8.2f} ms "
+                  f"x{count:<5d} {key[:90]}")
     # where the host spends a host-bound window (profiled: inflated by the
     # profiler's own cost, so read the shares, not the times)
-    ops = [e for e in averages
-           if host and e.device_type == torch.autograd.DeviceType.CPU]
-    total = sum(e.self_cpu_time_total for e in ops) / 1e3
-    for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:6]:
-        print(f"profile {label}:   host {e.self_cpu_time_total / 1e3:8.2f} "
-              f"ms of {total:.2f} x{e.count:<6d} {e.key[:60]}")
-    return {e.key: (e.count, e.self_device_time_total / 1e3)
-            for e in kernels}
+    total = sum(ms for _, ms in ops.values())
+    for key, (count, ms) in sorted(ops.items(),
+                                   key=lambda kv: -kv[1][1])[:6]:
+        print(f"profile {label}:   host {ms:8.2f} ms of {total:.2f} "
+              f"x{count:<6d} {key[:60]}")
+    print(f"profile {label}: trace read in "
+          f"{time.perf_counter() - t_trace:.2f} s")
+    return kernels
+
+
+def _trace_tables(prof):
+    """The trace's device kernels and host ops, read from the profiler's
+    raw events (``key_averages`` builds a Python object an event and
+    their tree, which holds the host for seconds on a window of a few
+    decode steps): {kernel name:
+    (launches, device ms)} (each kernel's own span: no kernel has
+    children) and {host op name: (calls, self ms)}, an op's self time
+    being its span less its direct children's on its thread, as
+    ``key_averages``' ``self_cpu_time_total`` counts it."""
+    import torch
+    from torch.autograd.profiler import _filter_name
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    kernels, ops, spans = {}, {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if _filter_name(name) or getattr(e, "is_hidden_event",
+                                         lambda: False)():
+            continue
+        kind = e.device_type()
+        if kind == cuda:
+            c, ms = kernels.get(name, (0, 0.0))
+            kernels[name] = (c + 1, ms + e.duration_ns() / 1e6)
+        elif kind == cpu and not e.is_async() and \
+                e.start_thread_id() == e.end_thread_id():
+            spans.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), -e.end_ns(), name))
+    for rows in spans.values():
+        rows.sort()
+        # [end, name, span, children's ns, children, last child's name]
+        stack = []
+        for start, neg_end, name in rows:
+            end = -neg_end
+            while stack and stack[-1][0] <= start:
+                _close(stack.pop(), ops)
+            if stack:
+                stack[-1][3] += end - start
+                stack[-1][4] += 1
+                stack[-1][5] = name
+            stack.append([end, name, end - start, 0, 0, None])
+        while stack:
+            _close(stack.pop(), ops)
+    return kernels, ops
+
+
+def _close(span, ops):
+    """Count a closed span in ``ops``; an op whose one child has its own
+    name (``aten::sum`` calling its overload) counts once, as
+    ``key_averages`` folds the two."""
+    _, name, ns, children_ns, children, child = span
+    c, ms = ops.get(name, (0, 0.0))
+    ops[name] = (c + 1 - (children == 1 and child == name),
+                 ms + (ns - children_ns) / 1e6)
 
 
 def _profile_diff(label, a, b, steps):
@@ -3940,7 +4082,7 @@ def _serve_watched(label, cfg, params, trace, **engine_kw):
     return {r.rid: list(r.tokens) for r in trace}, watch
 
 
-def run_moe_engine(name, cfg, params):
+def run_moe_engine(name, cfg, params, repeat=False):
     """Phases 10b and 10d: phase 5's trace (8 greedy requests; 4 slots,
     cache 1024, chunk 128, bf16 KV) through the engine at full width, on
     the default paged layout and then contiguous, each run held to its
@@ -3953,7 +4095,10 @@ def run_moe_engine(name, cfg, params):
     later rows, so where the tokens differ both runs are repeated under
     ``_Interference`` and a difference must come with such an event.
     Then both layouts again at capacity factor n_experts / top_k, where no
-    assignment drops: the tokens must be equal outright.  Returns
+    assignment drops: the tokens must be equal outright.  With
+    ``repeat`` the paged run runs twice and must give the same tokens:
+    its idle slots and padding rows write the page-0 sink, which idle
+    rows read, in a defined order (``attention._write_pool``).  Returns
     ({path: counts}, paged run's report)."""
     import dataclasses
 
@@ -3973,6 +4118,15 @@ def run_moe_engine(name, cfg, params):
         if paged is None:
             report = rep
         torch.cuda.empty_cache()
+        if paged is None and repeat:
+            again = _serve(label + " again", cfg, params, _phase5_trace(cfg),
+                           "bf16", paged=paged)[3]
+            if again != tokens[lay]:
+                raise AssertionError(f"{name}: two paged runs of one trace "
+                                     f"gave different tokens: {again} vs "
+                                     f"{tokens[lay]}")
+            print(f"check {name} paged, run twice: greedy tokens identical "
+                  "(the sink's writes in a defined order) ok")
     same = tokens["paged"] == tokens["contiguous"]
     if same:
         print(f"check {name} paged vs contiguous at capacity "
@@ -4201,7 +4355,7 @@ def run_phase10():
     import torch
     counts = check_moe_reduced()
     cfg, params = build_full(GRANITE)
-    c, _ = run_moe_engine("granite-moe", cfg, params)
+    c, _ = run_moe_engine("granite-moe", cfg, params, repeat=True)
     counts.update(c)
     profile_engine(cfg, params, "granite-moe bf16 paged", kv_dtype="bf16")
     profile_moe_split(cfg, params, "granite-moe bf16 paged")
@@ -4587,10 +4741,14 @@ def run_phase11():
     t0 = time.perf_counter()
     counts = check_recurrent_reduced()
     print(f"phase rec_reduced_s {time.perf_counter() - t0:.1f}")
-    for name, arch, profile in (("zamba2-1.2b", ZAMBA2, True),
-                                ("xlstm-1.3b", XLSTM, False)):
+    # xlstm-1.3b cut to one 7:1 cycle of its 48 layers, as 12h cuts it:
+    # its sLSTM recurrence runs a step a token (about 23 s a train step
+    # at all 48 on an H100)
+    for name, arch, profile, cut in (
+            ("zamba2-1.2b", ZAMBA2, True, {}),
+            ("xlstm-1.3b x8", XLSTM, False, {"n_layers": 8})):
         t0 = time.perf_counter()
-        cfg, masters = build_full(arch, "float32")
+        cfg, masters = build_full(arch, "float32", **cut)
         counts[f"engine_{name}"] = run_recurrent_engine(name, cfg, masters)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5601,6 +5759,544 @@ def run_phase12():
     return ranks[0]
 
 
+# ---------------------------------------------------------------------------
+# phase 13: decode across cards under the serving layout
+# ---------------------------------------------------------------------------
+
+def _decode_attention_layers(cfg):
+    """``attention.attend_decode`` calls of one decode step: the attention
+    layers, zamba2's shared-block applications and Whisper's decoder
+    self-attention layers."""
+    if cfg.is_encdec:
+        return cfg.n_layers
+    n = sum(k in ("attn", "attn_local") for k in cfg.layer_kinds())
+    return n + _shared_apps(cfg)
+
+
+# collectives a recurrent layer issues at decode under the serving layout:
+# (all-gathers, all-reduces): mamba2's B and C, its norm's rows and scale,
+# the out_proj sum; the mLSTM's conv output and xi, its norm's rows and
+# scale, the down sum; the sLSTM's gathered heads and the ff_down sum
+_REC_DECODE = {"mamba2": (3, 1), "mlstm": (3, 1), "slstm": (1, 1)}
+
+
+def _decode_collectives(cfg, lay, owned=True):
+    """Collectives of one decode step under the serving layout
+    (``collectives.counts()``): the vocab-parallel embedding's sum and the
+    logits' gather where the vocab is split; for each attention call the
+    gather of its heads, the combine's two all-reduces where the rule owns
+    the cache (``owned``) and the sum of ``wo``; each MLP or MoE half one
+    sum; the recurrent layers' ``_REC_DECODE``; Whisper's cross attention
+    as a self attention whose memory the rule splits."""
+    gather = reduce = 0
+    if lay.sharded("embed.table", "model"):
+        gather += 1
+        reduce += 1
+    attn_calls = _decode_attention_layers(cfg)
+    if cfg.is_encdec:
+        attn_calls += cfg.n_layers
+    gather += attn_calls
+    reduce += attn_calls * (1 + 2 * bool(owned))
+    ffn = cfg.n_layers if cfg.is_encdec else _decode_attention_layers(cfg)
+    reduce += ffn
+    for kind in cfg.layer_kinds():
+        g, r = _REC_DECODE.get(kind, (0, 0))
+        gather += g
+        reduce += r
+    return {"all_gather": gather, "reduce_scatter": 0,
+            "all_reduce": reduce, "all_to_all": 0}
+
+
+def _decode_launches(cfg, kv, owned=True):
+    """Kernel launches of one decode step under the serving layout (or of
+    the unsharded step, ``owned=False``): kernel 1 on every RMSNorm (two
+    a block or shared-block application: ln1 and ln2, mamba2's gated norm
+    or the xLSTM blocks' inner one; and the final norm); kernel 7 on every
+    attention call whose cache the rule owns, kernel 6 otherwise (its int8
+    arm over an int8 cache); Whisper's cross attention is plain
+    products."""
+    out = {}
+    if cfg.norm == "rmsnorm":
+        out["rmsnorm"] = 2 * (cfg.n_layers + _shared_apps(cfg)) + 1
+    arm = "decode_attention_partials" if owned else "decode_attention"
+    out[arm + ("_int8" if kv == "int8" else "")] = \
+        _decode_attention_layers(cfg)
+    return out
+
+
+DL_STEPS = 4
+DL_LEN = 16
+DL_POS = {4: (2, 5, 8, 11), 1: (9,)}
+# 13a's reduced configs (the parity tests' set): attention with kv heads
+# held whole (yi, qwen2-72b with its qkv biases) and split (stablelm),
+# experts (granite-moe), mamba2 with the shared block (zamba2), mLSTM and
+# sLSTM, and Whisper (its cross memory split over the sequence shards)
+DL_ARCHS = ("yi-6b", "stablelm-1.6b", "qwen2-72b", "granite-moe-1b-a400m",
+            "zamba2-1.2b", "xlstm-1.3b", "whisper-base")
+# card vs CPU for the reduced f32 models: over an f32 state DL_TOL in
+# every logit; over bf16 or int8 KV a written bf16 element or int8 code of
+# a step's new row may round the other way where the card's and the CPU's
+# f32 projections straddle its rounding boundary (about 1 in 20000
+# elements), one quantum (~4e-3 of a bf16 row, ~1e-2 of an int8 one)
+# that moves the step's logits by up to ~2e-3 (probe 26b: 1.68e-3), so
+# there the logits are held to DL_REL_KV relative L2, which a sparse flip
+# barely moves and an error in every logit would not pass, and to
+# DL_FLIP_ABS in every logit
+DL_TOL = 1e-4
+DL_REL_KV = 1e-3
+DL_FLIP_ABS = 1e-2
+YI_DECODE = dict(batch=8, seq=32768, steps=16)     # decode_32k, batch cut
+ZAMBA2_LONG = dict(batch=1, seq=524288, steps=4)   # long_500k, native
+DL_TOKEN_SEED = 13
+
+
+def _dl_config(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    if arch == "xlstm-1.3b":
+        cfg = dataclasses.replace(cfg, block_cycle=("mlstm", "slstm"))
+    return cfg
+
+
+def _dl_kvs(cfg):
+    """The KV dtypes a config's decode cache takes (none but its
+    recurrent states for xlstm; the encoder-decoder's no int8)."""
+    if cfg.is_encdec:
+        return ("bf16",)
+    if not _decode_attention_layers(cfg):
+        return ("f32",)
+    return ("bf16", "int8")
+
+
+def _dl_fill(cache, gen, scale=0.5):
+    """Every tensor of a whole decode cache drawn from ``gen``: K/V rows
+    and recurrent states normal times ``scale`` (int8 rows quantised, with
+    their scales; the sLSTM's n positive); page tables left alone."""
+    import torch
+
+    from repro_torch.kernels import kv_quant
+    from repro_torch.models import model as M
+    for layer in M.slot_layers(cache):
+        quant = "ks" in layer
+        for name, t in list(layer.items()):
+            if not torch.is_tensor(t) or name in ("ks", "vs", "pt"):
+                continue
+            if quant and name in ("k", "v"):
+                x = torch.randn(t.shape, generator=gen, device=t.device)
+                q, sc = kv_quant.quantize(x * scale)
+                t.copy_(q)
+                layer[name + "s"].copy_(sc)
+                continue
+            t.normal_(generator=gen).mul_(scale)
+            if name == "n" and t.dim() == 3 and "C" not in layer:
+                t.abs_().add_(1.0)
+    return cache
+
+
+def _dl_steps(cfg, steps, b, seed=DL_TOKEN_SEED):
+    """The teacher-forced token stream (steps, b, 1) int64, from a seed."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (steps, b, 1), generator=g)
+
+
+def _dl_decode(cfg, params, cache, tokens, pos0, *, layout=None, mesh=None,
+               rules=None, rows=slice(None), sample=False):
+    """``make_serve_step`` over the token stream, each step's logits
+    captured from the model layer: (tokens (steps, rows), logits (steps,
+    rows, V) f32 on the CPU, wall seconds, launches, collectives)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.core import llm_a3c, prng
+    from repro_torch.distributed import collectives, ctx
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
+    dev = _cache_device(cache)
+    step = llm_a3c.make_serve_step(cfg, sample=sample, layout=layout)
+    orig = M.decode_step
+    logits, toks = [], []
+
+    def watched(*a, **k):
+        out, c = orig(*a, **k)
+        logits.append(out["logits"][:, -1].float().clone())
+        return out, c
+    scope = contextlib.ExitStack()
+    if mesh is not None:
+        scope.enter_context(ctx.use_mesh(mesh))
+    scope.enter_context(ctx.sharding_rules(rules))
+    pos = torch.as_tensor(pos0, dtype=torch.int32)[rows]
+    M.decode_step = watched
+    try:
+        with scope, torch.no_grad():
+            torch.cuda.synchronize(dev)
+            dispatch.reset_launch_counts()
+            collectives.reset_counts()
+            t0 = time.perf_counter()
+            for i in range(tokens.shape[0]):
+                tok, _, cache = step(params, cache, {
+                    "tokens": tokens[i][rows].to(dev)}, pos,
+                    prng.fold_in(prng.key(0), i))
+                toks.append(tok)
+                pos = pos + 1
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+    finally:
+        M.decode_step = orig
+    return (torch.stack(toks).cpu(), torch.stack(logits).cpu(), wall,
+            dispatch.launch_counts(), collectives.counts())
+
+
+def _cache_device(cache):
+    import torch
+
+    from repro_torch.models import model as M
+    return next(t.device for t in M.flatten(cache).values()
+                if torch.is_tensor(t))
+
+
+def _dl_check_counts(label, cfg, lay, kv, steps, launches, colls, lead,
+                     owned=True):
+    """The run's kernel launches exactly ``_decode_launches`` and its
+    collectives exactly ``_decode_collectives`` a step."""
+    want = {k: steps * v for k, v in _decode_launches(cfg, kv, owned)
+            .items()}
+    got = {k: launches[k] for k in ATTENTION_ARMS + ("rmsnorm",)
+           if launches[k] or k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    if lay is not None:
+        per = _decode_collectives(cfg, lay, owned)
+        want_c = {k: steps * v for k, v in per.items()}
+        if colls != want_c:
+            raise AssertionError(f"{label}: collectives {colls}, want "
+                                 f"{want_c}")
+    if lead:
+        print(f"check {label}: launches a step " + json.dumps(
+            {k: v // steps for k, v in want.items()}) + (
+            ", collectives a step " + json.dumps(per) if lay is not None
+            else "") + " exact ok", flush=True)
+
+
+def _dl_rows(rules, mesh, b):
+    from repro_torch.distributed import sharding
+    axes = tuple(rules["decode_cp"]["dp_axes"])
+    n = sharding.axes_size(mesh, axes)
+    r = sharding.axes_rank(mesh, axes) if axes else 0
+    return slice(r * (b // n), (r + 1) * (b // n))
+
+
+def _dl_reduced(n, dev, lead, shapes):
+    """13a: the reduced configs' decode under the serving layout on the
+    card against the unsharded decode on this rank's CPU, on each mesh of
+    ``shapes``: a batch of 4 over the data axes and of 1 (its sequence
+    over data and model), each KV dtype the config takes; logits within
+    DL_TOL (over bf16 or int8 KV: DL_FLIP_ABS and DL_REL_KV), greedy
+    tokens equal where the CPU's margin is at least 1e-3, launches and
+    collectives exact.  Returns {path: launches}."""
+    import torch
+
+    from repro_torch.distributed import fsdp, sharding
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    dts = {"bf16": torch.bfloat16, "int8": torch.int8, "f32": torch.float32}
+    totals = {}
+    for shape in shapes:
+        mesh = mesh_mod.make_mesh(shape, dev)
+        worst, worst_rel = {True: 0.0, False: 0.0}, 0.0
+        for arch in DL_ARCHS:
+            cfg = _dl_config(arch)
+            params = M.cast_params(cfg, M.init_params(cfg, 0, "cpu"))
+            lay = fsdp.serve_layout(cfg, mesh, force_tp=True)
+            shards = M.tree_map(lambda t: t.to(dev), fsdp.shard(lay, params))
+            for b in (4, 1):
+                rules = sharding.decode_rules(cfg, mesh, batch_size=b)
+                rows = _dl_rows(rules, mesh, b)
+                tokens = _dl_steps(cfg, DL_STEPS, b)
+                for kv in _dl_kvs(cfg):
+                    gen = torch.Generator().manual_seed(b * 31 + len(kv))
+                    whole = _dl_fill(M.init_cache(
+                        cfg, b, DL_LEN, dtype=dts[kv], device="cpu"), gen)
+                    ref_cache = M.tree_map(lambda t: t.clone(), whole)
+                    cache = fsdp.shard_cache(
+                        cfg, mesh, M.tree_map(lambda t: t.to(dev), whole),
+                        batch_size=b)
+                    label = (f"decode layout {'x'.join(map(str, shape))} "
+                             f"{arch} reduced b={b} kv={kv}")
+                    toks, logits, _, launches, colls = _dl_decode(
+                        cfg, shards, cache, tokens, DL_POS[b], layout=lay,
+                        mesh=mesh, rules=rules, rows=rows)
+                    _, ref_logits = _dl_cpu_decode(cfg, params, ref_cache,
+                                                   tokens, DL_POS[b])
+                    ref_logits = ref_logits[:, rows]
+                    err = float((logits - ref_logits).abs().max())
+                    rel = float((logits - ref_logits).norm()
+                                / ref_logits.norm())
+                    ok_err = err <= DL_TOL if kv == "f32" else \
+                        err <= DL_FLIP_ABS and rel <= DL_REL_KV
+                    if not ok_err:
+                        raise AssertionError(
+                            f"{label}: logits off the CPU's by {err:.3e} "
+                            f"(rel L2 {rel:.3e}; tol {DL_TOL} over f32, "
+                            f"{DL_FLIP_ABS} and rel {DL_REL_KV} over "
+                            "bf16 / int8 KV)")
+                    top2 = ref_logits.topk(2, dim=-1).values
+                    ok = (top2[..., 0] - top2[..., 1]) >= 1e-3
+                    if not torch.equal(toks[ok], ref_logits.argmax(-1)[ok]):
+                        raise AssertionError(f"{label}: greedy tokens differ "
+                                             "at a healthy margin")
+                    _dl_check_counts(label, cfg, lay, kv, DL_STEPS,
+                                     launches, colls, False)
+                    for k, v in launches.items():
+                        totals[k] = totals.get(k, 0) + v
+                    worst[kv == "f32"] = max(worst[kv == "f32"], err)
+                    worst_rel = max(worst_rel, rel)
+        if lead:
+            print(f"check decode layout {'x'.join(map(str, shape))}: "
+                  f"{len(DL_ARCHS)} reduced configs x batch 4, 1 x their KV "
+                  f"dtypes, {DL_STEPS} steps each, card vs CPU logits "
+                  f"max_abs_err={worst[True]:.3e} over f32 states (tol "
+                  f"{DL_TOL}), {worst[False]:.3e} over bf16 / int8 KV (tol "
+                  f"{DL_FLIP_ABS}), rel L2 {worst_rel:.3e} (tol "
+                  f"{DL_REL_KV}), greedy tokens where the margin >= 1e-3, "
+                  "launches and collectives exact ok", flush=True)
+    return {"decode_layout_reduced": totals}
+
+
+def _dl_cpu_decode(cfg, params, cache, tokens, pos0):
+    """The unsharded decode on the CPU: (tokens, logits (steps, B, V))."""
+    import torch
+
+    from repro_torch.models import model as M
+    pos = torch.as_tensor(pos0, dtype=torch.int32)
+    toks, logits = [], []
+    with torch.no_grad():
+        for i in range(tokens.shape[0]):
+            out, cache = M.decode_step(cfg, params, cache,
+                                       {"tokens": tokens[i]}, pos)
+            lg = out["logits"][:, -1].float()
+            logits.append(lg)
+            toks.append(lg.argmax(-1))
+            pos = pos + 1
+    return torch.stack(toks), torch.stack(logits)
+
+
+def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0):
+    """13b / 13c: ``arch`` at full width and depth, bf16, decoding
+    ``spec["steps"]`` tokens a row against a ``spec["seq"]``-row context
+    filled from a seed, under the serving layout on each mesh of
+    ``shapes``; held to the unsharded serve step on rank 0's card (logits
+    within BF16_LOGITS_REL relative L2; the greedy tokens the argmax of
+    the step's logits, and the unsharded step's wherever its margin
+    clears twice the row's largest logit difference); the ranks of a
+    batch row agree; kernel 7's launches and the collectives exact.  Prints decode
+    tokens/s and each rank's peak memory.  Returns {path: launches}."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import fsdp, sharding
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    cfg = get_config(arch)
+    b, seq, steps = spec["batch"], spec["seq"], spec["steps"]
+    tokens = _dl_steps(cfg, steps, b)
+    out = {}
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, dev, torch.bfloat16)
+    for shape in shapes:
+        tag = "x".join(map(str, shape))
+        label = f"decode layout {tag} {arch} {name}"
+        mesh = mesh_mod.make_mesh(shape, dev)
+        lay = fsdp.serve_layout(cfg, mesh, force_tp=True)
+        shards = fsdp.shard(lay, params)
+        rules = sharding.decode_rules(cfg, mesh, batch_size=b)
+        rows = _dl_rows(rules, mesh, b)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        whole = _dl_fill(M.init_cache(cfg, b, seq, dtype=torch.bfloat16,
+                                      device=dev), gen)
+        ref_cache = M.tree_map(lambda t: t.clone(), whole) if lead else None
+        cache = fsdp.shard_cache(cfg, mesh, whole, batch_size=b)
+        del whole
+        gc.collect()
+        # what the rank holds under the layout: its weights and its cache
+        held = sum(t.numel() * t.element_size() for tree in (shards, cache)
+                   for t in M.flatten(tree).values() if torch.is_tensor(t))
+        build_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        dist.barrier()
+        toks, logits, wall, launches, colls = _dl_decode(
+            cfg, shards, cache, tokens, pos0, layout=lay, mesh=mesh,
+            rules=rules, rows=rows)
+        peak = (held, torch.cuda.max_memory_allocated(dev))
+        del cache, shards
+        gc.collect()
+        _dl_check_counts(label, cfg, lay, "bf16", steps, launches, colls,
+                         lead)
+        out[f"decode_layout_{name}_{tag}"] = launches
+        # the ranks holding the same rows drew the same tokens
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, (rows.start, toks.tolist(), peak))
+        by_rows = {}
+        for start, t, _ in every:
+            if by_rows.setdefault(start, t) != t:
+                raise AssertionError(f"{label}: ranks of rows {start} drew "
+                                     "different tokens")
+        if lead:
+            rtoks, rlogits, rwall, rlaunch, _ = _dl_decode(
+                cfg, params, ref_cache, tokens, pos0, rows=slice(None))
+            del ref_cache
+            gc.collect()
+            _dl_check_counts(f"{label} unsharded", cfg, None, "bf16", steps,
+                             rlaunch, None, True, owned=False)
+            out[f"decode_unsharded_{name}"] = rlaunch
+            ref = rlogits[:, rows]
+            rel = float((logits - ref).norm() / ref.norm())
+            # a row's argmax can move only where its margin is within
+            # twice the row's largest logit difference
+            top2 = ref.topk(2, dim=-1).values
+            ok = (top2[..., 0] - top2[..., 1]) > \
+                2 * (logits - ref).abs().amax(dim=-1)
+            print(f"decode layout {tag} {arch} {name}: logits rel L2 "
+                  f"{rel:.3e}, max abs {float((logits - ref).abs().max()):.3e}"
+                  f" off the unsharded step's, {int(ok.sum())}/{ok.numel()} "
+                  "choices clear of it", flush=True)
+            if not rel <= BF16_LOGITS_REL:
+                raise AssertionError(f"{label}: logits rel L2 {rel:.3e} off "
+                                     f"the unsharded step's (gate "
+                                     f"{BF16_LOGITS_REL})")
+            if not torch.equal(toks, logits.argmax(-1)):
+                raise AssertionError(f"{label}: the greedy tokens are not "
+                                     "the argmax of the step's logits")
+            if not torch.equal(toks[ok], ref.argmax(-1)[ok]):
+                raise AssertionError(f"{label}: greedy tokens differ from "
+                                     "the unsharded step's where the margin "
+                                     "clears the logits' difference")
+            tps = b * steps / wall
+            print(f"decode layout {tag} {arch} {name}: batch {b}, context "
+                  f"{seq}, {steps} steps: {tps:.1f} decode tokens/s "
+                  f"(unsharded on one card {b * steps / rwall:.1f}), "
+                  f"ranks' weights and cache GB "
+                  f"{[round(p[0] / 1e9, 2) for _, _, p in every]}, peak "
+                  f"memory during the decode GB (the whole weights kept "
+                  f"for the next mesh, and rank 0's reference cache, "
+                  f"included) {[round(p[1] / 1e9, 2) for _, _, p in every]}"
+                  f", cache built and sharded in {build_s:.1f} s",
+                  flush=True)
+            print(f"check {label}: logits rel L2 {rel:.3e} of the unsharded "
+                  f"serve step's (gate {BF16_LOGITS_REL}), greedy tokens the "
+                  f"argmax of the logits and equal to the unsharded step's "
+                  f"at {int(ok.sum())}/{ok.numel()} choices whose margin "
+                  "clears twice the row's largest logit difference, ranks "
+                  "agree ok", flush=True)
+            ref_cache = None
+        dist.barrier()
+        t0 = time.perf_counter()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# the relative L2 distance allowed between a bf16 decode's logits under the
+# layout and the unsharded step's.  The layout rounds other sums in bf16
+# (each rank's partial product before the f32 sum over the model group,
+# the combine of the sequence shards), and a bf16 model's rounding grows
+# with depth: reduced yi in bf16 on the CPU is 1.0e-2 / 1.8e-2 / 5.0e-2
+# (2 / 8 / 32 layers) from the same weights computed in f32, and its
+# layout on (1, 4) 1.2e-2 / 2.0e-2 / 5.7e-2 from its unsharded bf16 step.
+# So the gate is 2^-3, about twice a 32-layer model's own bf16 noise; the
+# layout's arithmetic is held tight by 13a (f32) and the CPU tests
+BF16_LOGITS_REL = 2.0 ** -3
+
+
+def _phase13_rank(rank, n, port, tmp):
+    """One rank of phase 13 on card ``rank``: 13a, 13b and 13c, its launch
+    counts by path written to ``tmp``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    torch.cuda.set_device(rank)
+    torch.set_num_threads(max(1, 8 // n))
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=n)
+    try:
+        build.library()
+        lead = rank == 0
+        shapes = [(1, n)] + ([(2, 2)] if n == 4 else [])
+        t = time.perf_counter()
+        counts = _dl_reduced(n, dev, lead, shapes)
+        if lead:
+            print(f"phase 13a_s {time.perf_counter() - t:.1f}", flush=True)
+        t = time.perf_counter()
+        yb = YI_DECODE["batch"]
+        counts.update(_dl_full(
+            n, dev, lead, "32k", "yi-6b", YI_DECODE, shapes,
+            [YI_DECODE["seq"] - YI_DECODE["steps"] - 1 - 37 * i
+             for i in range(yb)]))
+        if lead:
+            print(f"phase 13b_s {time.perf_counter() - t:.1f}", flush=True)
+        t = time.perf_counter()
+        counts.update(_dl_full(
+            n, dev, lead, "500k", "zamba2-1.2b", ZAMBA2_LONG, shapes,
+            [ZAMBA2_LONG["seq"] - ZAMBA2_LONG["steps"] - 1]))
+        if lead:
+            print(f"phase 13c_s {time.perf_counter() - t:.1f}", flush=True)
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(counts, f)
+    except BaseException:
+        # a rank that fails leaves its peers inside a collective, where
+        # destroying the process group would wait for them: report and
+        # leave at once, and the parent stops the others
+        import traceback
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def run_phase13():
+    """Phase 13 (13a-13c): one rank a card over NCCL; returns rank 0's
+    {path: counts}, the ranks' counts of the layout runs required
+    equal."""
+    import pickle
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    n = torch.cuda.device_count()
+    print(f"phase 13 world {n}", flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dl_") as tmp:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        mp.start_processes(_phase13_rank, args=(n, port, tmp), nprocs=n,
+                           start_method="spawn")
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    for c in ranks[1:]:
+        for path, v in c.items():
+            if v != ranks[0][path]:
+                raise AssertionError(f"phase 13: the ranks' launch counts "
+                                     f"differ on {path}")
+    return ranks[0]
+
+
 def _shapes(record):
     """A kernel record and its timings at other shapes."""
     return [record] + [record[k] for k in (
@@ -5611,7 +6307,8 @@ def _shapes(record):
         "width_2048_shape", "zamba2_shape", "whisper_shape",
         "whisper_encoder_shape", "whisper_decoder_shape",
         "zamba2_train_shape", "tp2_shape", "tp4_shape",
-        "width_2048_tp2_shape", *_REC_TP_TRAIN)
+        "width_2048_tp2_shape", *_REC_TP_TRAIN, "decode32k_shape",
+        "long131k_shape", "long500k_shape")
         if k in record]
 
 
@@ -5775,6 +6472,11 @@ def main():
     t_phase = time.perf_counter()
     path_counts.update(run_phase12())
     print(f"phase multirank_s {time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    path_counts.update(run_phase13())
+    print(f"phase decode_layout_s {time.perf_counter() - t_phase:.1f}")
 
     by_op = {"rmsnorm_fwd": "rmsnorm",
              "flash_attention_append": "flash_append",

@@ -202,14 +202,16 @@ def stream_keys(key: torch.Tensor, sids, pos, b: int) -> torch.Tensor:
 def sample_slot_tokens(logits: torch.Tensor, key: torch.Tensor, *,
                        sample: bool = True,
                        sids: Optional[torch.Tensor] = None,
-                       pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       pos: Optional[torch.Tensor] = None,
+                       row0: int = 0) -> torch.Tensor:
     """Per-slot sampling: logits (B, V) and one threaded key (2,) ->
     tokens (B,) int64.
 
     With ``sids``/``pos`` (the serve engine's path) row j draws from the
     ``fold_in(fold_in(key, sids[j]), pos[j])`` stream, pos being the
     logical position of the sampled token.  Without them row j draws from
-    ``fold_in(key, j)`` and the caller folds its step index into ``key``.
+    ``fold_in(key, row0 + j)`` and the caller folds its step index into
+    ``key``.
     The row keys are hashed where ``sids`` lives (the engine's are host
     data: two hashes of B counters are a few hundred tiny operations,
     far cheaper on the host than as launches on the card), then the noise
@@ -219,14 +221,16 @@ def sample_slot_tokens(logits: torch.Tensor, key: torch.Tensor, *,
     b = logits.shape[0]
     if sids is None:
         keys = prng.fold_in(key.to(logits.device),
-                            torch.arange(b, device=logits.device))
+                            torch.arange(row0, row0 + b,
+                                         device=logits.device))
     else:
         sids = torch.as_tensor(sids)
         keys = stream_keys(key.to(sids.device), sids, pos, b)
     return prng.categorical(keys.to(logits.device), logits)
 
 
-def make_serve_step(cfg: ModelConfig, *, sample: bool = True):
+def make_serve_step(cfg: ModelConfig, *, sample: bool = True,
+                    layout=None):
     """One-token decode step for the serving path.
 
     ``serve_step(params, cache, batch, pos, key, sids=None, finite=None)
@@ -236,22 +240,43 @@ def make_serve_step(cfg: ModelConfig, *, sample: bool = True):
     pos + 1 draws from the (sid, pos + 1) stream of ``key``; host ``sids``
     and ``pos`` keep that hash on the host (``sample_slot_tokens``).
     ``finite``, a bool tensor, is and-ed in place with "every logit of
-    this step is finite" (no host sync)."""
+    this step is finite" (no host sync).  The batch is {"tokens": (B, 1)}
+    or a VLM's {"embeds": (B, 1, d), "positions": (3, B, 1)}.
+
+    ``layout``: the serving layout (``fsdp.serve_layout``), run under the
+    installed mesh (``ctx.use_mesh``) and ``decode_rules``, ``params``
+    this rank's shards and the batch, pos and caches this rank's rows.
+    The logits come back whole on every model rank, so every rank of a
+    model group draws the same tokens.  Under an installed mesh whose
+    ``decode_rules`` split the batch, row j of this rank draws without
+    ``sids`` as row j + r * B of the whole batch, r this rank's index over
+    the rule's batch axes (the reference's ``fold_in(key, row)``)."""
+
+    kw = {} if layout is None else {"layout": layout}
 
     def serve_step(params, cache, batch, pos, key, sids=None, finite=None):
-        out, cache = M.decode_step(cfg, params, cache, batch,
-                                   pos.to(batch["tokens"].device))
+        dev = next(iter(batch.values())).device
+        out, cache = M.decode_step(cfg, params, cache, batch, pos.to(dev),
+                                   **kw)
         logits = out["logits"][:, -1].float()
         if finite is not None:
             finite.logical_and_(torch.isfinite(logits).all())
         if sids is None:
-            token = sample_slot_tokens(logits, key, sample=sample)
+            token = sample_slot_tokens(logits, key, sample=sample,
+                                       row0=_row0(logits.shape[0]))
         else:
             token = sample_slot_tokens(logits, key, sample=sample,
                                        sids=sids, pos=pos + 1)
         value = out["value"][:, -1] if "value" in out else \
             torch.zeros(logits.shape[0], device=logits.device)
         return token, value, cache
+
+    def _row0(b: int) -> int:
+        rule = (ctx.current_rules() or {}).get("decode_cp")
+        mesh = ctx.current_mesh()
+        if rule is None or mesh is None or not rule["dp_axes"]:
+            return 0
+        return sharding.axes_rank(mesh, tuple(rule["dp_axes"])) * b
 
     return serve_step
 

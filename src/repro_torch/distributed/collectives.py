@@ -112,6 +112,17 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
+def sum_partials(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the ranks of partial products ``x`` (no gradient),
+    taken in f32 and rounded once to ``x``'s dtype: one all-reduce of an
+    f32 copy.  A bf16 sum would round each rank's partial and every
+    addition; the decode step's partials are a few rows, so the f32 bytes
+    cost nothing."""
+    if x.dtype == torch.float32:
+        return all_reduce(x, group)
+    return all_reduce(x.float(), group).to(x.dtype)
+
+
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
     _issue("all_to_all", group, x)
     x = x.contiguous()

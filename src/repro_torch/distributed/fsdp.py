@@ -79,7 +79,7 @@ def _held_spec(path: str, spec: tuple, holds: Dict[str, bool]) -> tuple:
 
 
 def layout(cfg, mesh, *, pod_groups: bool = False,
-           force_tp: bool = False) -> Layout:
+           force_tp: bool = False, fsdp: bool = True) -> Layout:
     """The layout of ``cfg``'s parameters over ``mesh``: the reference's
     FSDP plan, held as ``_held_spec`` says, with the blocked and moved
     splits of ``sharding.tp_splits``.  ``pod_groups``: the delayed-sync
@@ -90,10 +90,11 @@ def layout(cfg, mesh, *, pod_groups: bool = False,
     of one.  A layout the port cannot hold (``sharding.tp_refusal``: q
     heads or a recurrent width that do not divide the axis) is a
     ValueError that names its reason; no dense leaf is quietly held
-    whole."""
+    whole.  ``fsdp=False`` plans the data ("F") entries away, as the
+    reference's serving replicas do (``serve_layout``)."""
     from repro_torch.models.model import param_shapes
     shapes = param_shapes(cfg)
-    plan = sharding.param_shardings(cfg, mesh, shapes)
+    plan = sharding.param_shardings(cfg, mesh, shapes, fsdp=fsdp)
     tp = force_tp or sharding.mesh_shape(mesh).get("model", 1) > 1
     why = sharding.tp_refusal(cfg, mesh) if tp else ""
     if why:
@@ -118,6 +119,21 @@ def layout(cfg, mesh, *, pod_groups: bool = False,
         held[path] = spec
     return Layout(mesh, held, {k: tuple(v) for k, v in shapes.items()}, tp,
                   blocks)
+
+
+def serve_layout(cfg, mesh, *, force_tp: bool = False) -> Layout:
+    """The decode layout of the reference's dry run
+    (``repro/launch/dryrun.py:179-186``): weights over the model axis
+    only, with no FSDP (``param_shardings(..., fsdp=False)``), each model
+    rank holding what ``sharding.tp_holds`` holds, split as
+    ``sharding.tp_splits`` says (mamba2's blocked leaves, the sLSTM's
+    ``r`` over its heads, wk/wv whole where the kv heads do not divide the
+    axis), every leaf whole over the data axes.  The weights it holds are
+    the serving ones, cast once (``model.cast_params``: bf16 matrices, f32
+    vectors).  A config ``sharding.tp_refusal`` refuses raises, naming
+    its reason (q heads that do not divide the axis: ROADMAP queue 1 item
+    5, slice 6b-iii)."""
+    return layout(cfg, mesh, force_tp=force_tp, fsdp=False)
 
 
 def tp_rule(lay: Optional[Layout]) -> Optional[TPRule]:
@@ -214,6 +230,52 @@ def gather(lay: Optional[Layout], prefix: str, tree, *,
     flat = flatten(tree)
     return unflatten({k: gather_leaf(lay, pre + k, t, model=model)
                       for k, t in flat.items()})
+
+
+def shard_cache(cfg, mesh, cache, *, batch_size: int):
+    """This rank's part of a whole decode cache (every rank holds the same
+    whole cache): each tensor leaf cut as ``sharding.cache_shardings``
+    lays it out over ``mesh`` (a ``DeviceMesh``), a contiguous copy, and
+    mamba2's conv state part by part (x | B | C).  A K/V layer (or a cross
+    memory) whose sequence is split records its global length
+    (``global_len``), which the ``decode_cp`` rules then own.  Shared
+    leaves (one page table behind many layers) stay shared."""
+    from repro_torch.models.model import flatten, unflatten
+    specs = sharding.cache_shardings(cfg, mesh, cache,
+                                     batch_size=batch_size)
+    d_inner = cfg.ssm_heads * cfg.ssm_head_dim
+    gn = cfg.ssm_groups * cfg.ssm_state
+    kinds = cfg.layer_kinds()
+    done: Dict[int, torch.Tensor] = {}
+    flat = {}
+    for path, t in flatten(cache).items():
+        if path not in specs:
+            flat[path] = t
+            continue
+        if id(t) in done:
+            flat[path] = done[id(t)]
+            continue
+        parts = path.split(".")
+        blocked = parts[0] == "layers" and parts[-1] == "conv" and \
+            kinds[int(parts[1])] == "mamba2"
+        out = t
+        for dim, ax in enumerate(specs[path]):
+            axes = sharding.entry_axes(ax)
+            if not axes:
+                continue
+            n = sharding.axes_size(mesh, axes)
+            r = sharding.axes_rank(mesh, axes)
+            if blocked and dim == out.dim() - 1:
+                out = torch.cat([p.narrow(dim, r * (p.shape[dim] // n),
+                                          p.shape[dim] // n) for p in
+                                 out.split([d_inner, gn, gn], dim)], dim)
+                continue
+            size = out.shape[dim] // n
+            out = out.narrow(dim, r * size, size)
+            if dim == 1 and parts[-1] in ("k", "v", "ks", "vs"):
+                flat[".".join(parts[:-1] + ["global_len"])] = t.shape[1]
+        done[id(t)] = flat[path] = out.contiguous()
+    return unflatten(flat)
 
 
 @torch.no_grad()

@@ -40,17 +40,28 @@ nothing in the port, whose kernels see each rank's local tensors.
 axes (several flattened, pod-major, as the reference's ('pod', 'data')
 batch axes), ``axes_rank`` this rank's index in it.
 
-*Context-parallel decode*: the JAX launcher's ``--decode-cp`` builds a
-(data=1, model=n) mesh whose ``decode_rules`` shard the KV cache's sequence
-dim over the model axis; here that mesh is one process group over every
-rank, with no data axes.  Rank r holds global cache slots
-[r * l_loc, (r + 1) * l_loc) of every row; the model layer writes a new row
-only on the rank that owns its slot, and the dispatch layer runs the
-partials kernel over the local slice and combines the ranks with two
-all-reduces.  Only the divisibility rule is taken
-(``length % n_shards == 0``): the JAX rule's 128-row alignment of each
-slice exists for the TPU's matrix unit, and the port's kernels mask their
-own ragged edges.
+*Context-parallel decode* (``decode_rules``): the reference's rule set,
+in one function for every mesh.  Where the data axes divide the batch,
+each data rank takes its rows and the caches' sequence dim goes over
+"model"; otherwise every rank holds the whole batch and the sequence goes
+over the data axes and "model" together (batch-1 long-context decode over
+the whole mesh).  The sequence-shard index is data-major (``axes_group``
+orders the ranks row-major over the rule's ``seq_axes``), as the
+reference's ``attention.py`` computes it.  The serve engine's
+``--decode-cp`` builds the JAX CLI's (data 1, model n) mesh and takes the
+same rules.  Shard s of ``n_shards`` holds global cache slots
+[s * l_loc, (s + 1) * l_loc) of each of its rows; the model layer writes a
+new row only on the shard that owns its slot, and the dispatch layer runs
+the partials kernel over the local slice and combines the shards with two
+all-reduces over the ``seq_axes`` group.  Only the divisibility rule is
+taken (``length % n_shards == 0``): the JAX rule's 128-row alignment of
+each slice exists for the TPU's matrix unit, and the port's kernels mask
+their own ragged edges.  ``cache_shardings`` gives each leaf of a decode
+cache its layout under these rules: the reference's for KV caches, page
+pools and page tables; the recurrent states over their heads, where the
+reference puts "model" on their last dim that divides it (a stated
+difference in layout, ROADMAP queue 3: the port decodes on each rank's
+heads, and a rank's bytes are the same wherever both dims divide).
 """
 from __future__ import annotations
 
@@ -69,11 +80,16 @@ BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
 class DecodeCPSpec(NamedTuple):
-    """How the context-parallel decode lays one cache out over its ranks."""
+    """How the context-parallel decode lays one cache out over its shards:
+    ``group`` the process group over ``seq_axes`` (None where the mesh has
+    no ranks, a plan), ``rank`` this process's shard in it, ``batch`` the
+    axes of the batch rows (None: every rank holds the whole batch)."""
     group: Any          # torch.distributed process group of the seq shards
     rank: int           # this process's shard within the group
     n_shards: int
     l_loc: int          # cache rows of each shard (global length / n_shards)
+    batch: Any = None
+    seq_axes: Tuple[str, ...] = ("model",)
 
     @property
     def start(self) -> int:
@@ -81,13 +97,34 @@ class DecodeCPSpec(NamedTuple):
         return self.rank * self.l_loc
 
 
-def decode_rules(group) -> dict:
-    """Context-parallel decode rule set over ``group``: the JAX launcher's
-    (1, n) mesh, where every rank is a sequence shard and the batch is not
-    split (so the JAX rule's data axes, picked from the config and the
-    batch size, have no counterpart here)."""
-    return {"decode_cp": {"group": group, "rank": dist.get_rank(group),
-                          "n_shards": dist.get_world_size(group)}}
+def _decode_axes(mesh, batch_size: int):
+    """(batch axes or None, seq axes) of the decode layout: the batch over
+    the data axes where they divide it, else the sequence over them too."""
+    d_ax = data_axes(mesh)
+    batch_ok = bool(d_ax) and batch_size % axes_size(mesh, d_ax) == 0
+    if batch_ok:
+        return d_ax, ("model",)
+    return None, tuple(d_ax) + ("model",)
+
+
+def decode_rules(cfg, mesh, *, batch_size: int) -> dict:
+    """The context-parallel decode rule set (``repro/distributed/
+    sharding.py::decode_rules``): {"decode_cp": {"mesh", "seq_axes",
+    "dp_axes", "n_shards"}}, the batch over the data axes where they
+    divide ``batch_size`` (``dp_axes``, empty otherwise) and the caches'
+    sequence over ``seq_axes`` ("model", or the data axes and "model").
+    On a ``DeviceMesh`` the rule also holds the process group over
+    ``seq_axes`` and this rank's shard in it (made here, so every rank
+    must call this in the same order); ``mesh`` may be an {axis: size}
+    dict for a plan.  ``cfg`` is the reference's argument; the layout does
+    not depend on it."""
+    dp, seq_axes = _decode_axes(mesh, batch_size)
+    rule = {"mesh": mesh, "seq_axes": seq_axes, "dp_axes": dp or (),
+            "n_shards": axes_size(mesh, seq_axes)}
+    if not isinstance(mesh, dict):
+        rule["group"] = axes_group(mesh, seq_axes)
+        rule["rank"] = axes_rank(mesh, seq_axes)
+    return {"decode_cp": rule}
 
 
 def decode_cp_spec(rule: dict, *, length: int) -> DecodeCPSpec:
@@ -96,7 +133,11 @@ def decode_cp_spec(rule: dict, *, length: int) -> DecodeCPSpec:
     admission copy and the dispatch layer's combine, which must agree on
     the partitioning."""
     n = int(rule["n_shards"])
-    return DecodeCPSpec(rule["group"], int(rule["rank"]), n, length // n)
+    dp = tuple(rule.get("dp_axes", ()))
+    batch = None if not dp else (dp[0] if len(dp) == 1 else dp)
+    return DecodeCPSpec(rule.get("group"), int(rule.get("rank", 0)), n,
+                        length // n, batch,
+                        tuple(rule.get("seq_axes", ("model",))))
 
 
 def decode_cp_shard_spec(rule: dict, *, length: int
@@ -385,6 +426,80 @@ def shard_batch(mesh, batch: Dict[str, torch.Tensor]
         dim = 1 if name.endswith("positions") else 0
         rows = t.shape[dim] // n
         out[name] = t.narrow(dim, r * rows, rows)
+    return out
+
+
+_KV_LEAVES = ("k", "v", "ks", "vs")
+_POOL_LEAVES = ("kp", "vp", "kps", "vps")
+
+
+def _state_split_ok(cfg, kind: str, name: str, width: int, m: int) -> bool:
+    """Whether a recurrent state's held dim splits over ``m`` model ranks:
+    mamba2's conv state part by part (x | B | C, as ``tp_splits`` splits
+    its conv), every other state on its heads or channels whole."""
+    if kind == "mamba2" and name == "conv":
+        d_inner = cfg.ssm_heads * cfg.ssm_head_dim
+        gn = cfg.ssm_groups * cfg.ssm_state
+        return d_inner % m == 0 and gn % m == 0
+    return width % m == 0
+
+
+def cache_shardings(cfg, mesh, cache, *, batch_size: int
+                    ) -> Dict[str, tuple]:
+    """The decode cache's layout under ``decode_rules``: {"layers.3.k":
+    ("data", "model", None, None), ...}, one entry a dim, for every tensor
+    leaf of ``cache`` (whole, as ``init_cache`` makes it; meta tensors
+    will do).  The reference's rules (``repro/distributed/sharding.py::
+    cache_shardings``):
+
+    * K/V caches and their int8 scales (B, L, Hkv, D | 1): the batch over
+      the data axes where they divide it, the sequence over the rule's
+      ``seq_axes`` where they divide L (a ring of another length, and the
+      encoder-decoder's cross memory alike);
+    * page pools (P, page, Hkv, D | 1): the kv heads over "model" where
+      the batch divides the data axes (and the heads the axis), else the
+      pages over the ``seq_axes`` where they divide them;
+    * page tables and scalars: replicated;
+    * recurrent states: the batch as a K/V cache's, and "model" on the
+      heads (mamba2's ``h``, the mLSTM's ``C``/``n``/``m``, the sLSTM's
+      four) or on the conv state's channels (mamba2's part by part) where
+      they divide.  The reference puts "model" on each state's last dim
+      that divides it: a stated difference in layout (ROADMAP queue 3),
+      the same bytes a rank wherever both dims divide."""
+    from repro_torch.models.model import flatten
+    dp = _batch_axis(mesh, batch_size)
+    _, seq_axes = _decode_axes(mesh, batch_size)
+    seq = seq_axes[0] if len(seq_axes) == 1 else seq_axes
+    n_seq = axes_size(mesh, seq_axes)
+    m = mesh_shape(mesh).get("model", 1)
+    kinds = cfg.layer_kinds()
+    out = {}
+    for path, leaf in flatten(cache).items():
+        if not torch.is_tensor(leaf):
+            continue
+        shape = tuple(leaf.shape)
+        name = path.rsplit(".", 1)[-1]
+        if not shape or name == "pt":
+            spec = (None,) * len(shape)
+        elif name in _POOL_LEAVES:
+            if dp is not None:
+                heads = "model" if m > 1 and shape[2] % m == 0 else None
+                spec = (None, None, heads, None)
+            else:
+                spec = (seq if shape[0] % n_seq == 0 else None, None, None,
+                        None)
+        elif name in _KV_LEAVES:
+            spec = (dp, seq if shape[1] % n_seq == 0 else None, None, None)
+        else:
+            parts = path.split(".")
+            kind = kinds[int(parts[1])] if parts[0] == "layers" else ""
+            dim = len(shape) - 1 if name == "conv" else 1
+            spec = [None] * len(shape)
+            spec[0] = dp
+            if _state_split_ok(cfg, kind, name, shape[dim], m):
+                spec[dim] = "model"
+            spec = tuple(spec)
+        out[path] = spec
     return out
 
 

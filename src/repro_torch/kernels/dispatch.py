@@ -10,7 +10,7 @@ falls back.  What stays from the JAX layer is the per-slot normalisation
 of the decode call (scalar ``pos`` and 1-D ``kpos`` broadcast, ``pos=None``
 meaning ``max(kpos)``), the GQA check, the context-parallel decode (the
 partials kernel over the local cache slice, then the (m, l, acc) combine
-across ranks: ``jax.lax.pmax``/``psum`` there, two ``dist.all_reduce``s
+across ranks: ``jax.lax.pmax``/``psum`` there, two counted all-reduces
 here), and the custom gradients of ``flash_attention`` and ``rmsnorm``
 (``jax.custom_vjp`` there, a ``torch.autograd.Function`` here, the same on
 both devices) whose backwards are kernels too.  Int8 KV caches pass their
@@ -34,17 +34,18 @@ the kv heads are taken from whole leaves), its norms on the
 sequence-parallel rows (``sp_rows``), its recurrent blocks on local heads
 (``tp_ssm_heads`` for mamba2, ``tp_lstm_heads`` for mLSTM and sLSTM),
 its norms on rows gathered along the features (``tp_feature_rows``) and
-its cross attention on local heads (``tp_cross``): the kernels see local
-tensors and need no arm of their own.  ``reset_launch_counts`` clears both.
+its cross attention on local heads (``tp_cross``), and under the serving
+layout its decode attention on gathered heads (``tp_decode_heads``) and
+its dense MoE on this rank's experts (``tp_experts_local``): the kernels
+see local tensors and need no arm of their own.  ``reset_launch_counts`` clears both.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
-import torch.distributed as dist
 
-from repro_torch.distributed import sharding
+from repro_torch.distributed import collectives, sharding
 from repro_torch.kernels import (decode_attention_cuda, flash_append_cuda,
                                  flash_attention_bwd_cuda,
                                  flash_attention_cuda, ref, rmsnorm_cuda,
@@ -77,7 +78,7 @@ _COUNTERS = {
 _ROUTES = {"flash_verify": 0, "verify_paged": 0, "moe_ep": 0,
            "moe_dense": 0, "tp_heads": 0, "tp_kv_whole": 0, "sp_rows": 0,
            "tp_ssm_heads": 0, "tp_lstm_heads": 0, "tp_feature_rows": 0,
-           "tp_cross": 0}
+           "tp_cross": 0, "tp_decode_heads": 0, "tp_experts_local": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -253,7 +254,7 @@ def decode_attention(q, k_cache, v_cache, kpos, pos=None, *,
                          f"rows, the layout says {cp.l_loc}")
     acc, m, l = decode_attention_cuda.decode_attention_partials(
         q, k_cache, v_cache, kpos, pos, k_scale, v_scale)
-    return _combine_partials(acc, m, l, cp.group).to(q.dtype)
+    return combine_partials(acc, m, l, cp.group).to(q.dtype)
 
 
 def decode_attention_paged(q, k_pool, v_pool, page_table, pos, *,
@@ -380,17 +381,16 @@ def flash_attention_verify_paged(q, k_pool, v_pool, page_table, k_chunk,
                                   v_scale=scales[1])
 
 
-def _combine_partials(acc, m, l, group) -> torch.Tensor:
+def combine_partials(acc, m, l, group) -> torch.Tensor:
     """o = sum(acc e^(m - max m)) / sum(l e^(m - max m)) over the ranks of
     ``group`` (``ref.combine_partials`` across processes): an all-reduce
-    MAX of m, then one SUM of l and acc packed in one buffer.  Every rank
+    MAX of m, then one SUM of l and acc packed in one buffer, both counted
+    (``collectives.counts``).  Every rank
     gets the same (B, Hq, D) f32 result."""
-    sharding.check_backend(group, acc.device)
-    m_max = m.clone()
-    dist.all_reduce(m_max, op=dist.ReduceOp.MAX, group=group)
+    m_max = collectives.max_over(m, group)
     corr = torch.exp(m - m_max)
     buf = torch.cat([(l * corr)[..., None], acc * corr[..., None]], dim=-1)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    collectives.all_reduce(buf, group)
     o = buf[..., 1:] / torch.clamp(buf[..., :1], min=ref.L_FLOOR)
     b, hkv, g, d = acc.shape
     return o.reshape(b, hkv * g, d)

@@ -7,19 +7,36 @@ must exist already (``sharding.process_group``); the mesh only lays its
 ranks out.
 
 The plan functions of ``distributed/sharding.py`` need only a mesh's axis
-sizes, so they also take a plain {axis: size} dict, such as the
-reference's production meshes ((data 16, model 16) and (pod 2, data 16,
-model 16)) without their 256 or 512 ranks.
+sizes, so they also take a plain {axis: size} dict: ``production_mesh``
+gives the reference's production meshes ((data 16, model 16) and (pod 2,
+data 16, model 16)) so, without their 256 or 512 ranks, for the planner
+(``launch/dryrun.py``).
 
-The reference's roofline constants are a TPU v5e's and have no
-counterpart here: nothing in the port plans by a peak rate, and
-``chip_smoke.py`` bounds its kernels by the H100 SXM data sheet's.
+The roofline constants below are the H100's (NVIDIA H100 80GB HBM3, SXM,
+700 W, from its data sheet), for the planner's roofline terms; the
+reference's are a TPU v5e's and are not copied.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
+
+
+# roofline constants: NVIDIA H100 80GB HBM3, 700 W, datasheet
+PEAK_FLOPS_BF16 = 989e12      # dense bf16 tensor-core FLOP/s a card
+HBM_BW = 3.35e12              # device-memory bytes/s a card
+NVLINK_BW = 450e9             # NVLink bytes/s a card, each way
+HBM_BYTES = 80 * 10**9        # device memory a card
+DEVICE = "NVIDIA H100 80GB HBM3, 700 W, datasheet"
+
+
+def production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
+    """The reference's production mesh as {axis: size}: (data 16, model
+    16), or (pod 2, data 16, model 16) with ``multi_pod``."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
 
 
 def axis_names(ndim: int) -> Tuple[str, ...]:

@@ -92,6 +92,7 @@ from repro_torch.core import llm_a3c, prng
 from repro_torch.device import resolve
 from repro_torch.distributed import ctx, sharding
 from repro_torch.kernels import dispatch, kv_quant
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import traffic
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
@@ -811,8 +812,9 @@ class ServeEngine:
     table rows, so the prefill writes land in place; contiguous leaves are
     the group's own, and each row is copied into its freed slot.  With
     ``decode_cp`` the slot cache is laid out under ``decode_rules`` over
-    the default process group (each rank its slice of the sequence), while
-    the group cache stays whole.  With ``spec`` every decode step is a
+    the JAX CLI's (data 1, model n) mesh of every rank (each rank its
+    slice of the sequence, the weights whole), while the group cache
+    stays whole.  With ``spec`` every decode step is a
     speculative round (``_spec_step_all``) of up to ``spec_k`` tokens a
     slot, drafted by ``NgramDraft(draft_ngram)`` or
     ``DraftModel(draft_arch)``."""
@@ -932,7 +934,10 @@ class ServeEngine:
                 raise ValueError("decode_cp needs a process group: run the "
                                  "engine inside sharding.process_group")
             sharding.check_backend(None, self.device)
-            self.rules = sharding.decode_rules(dist.group.WORLD)
+            # the JAX CLI's (data 1, model n) mesh over every rank
+            self.rules = sharding.decode_rules(
+                cfg, mesh_mod.make_mesh((1, dist.get_world_size()),
+                                        self.device), batch_size=n_slots)
             n = self.rules["decode_cp"]["n_shards"]
             # a length that does not divide keeps the cache whole on every
             # rank (the JAX rule); the report says so

@@ -2,13 +2,17 @@
 
 Counterpart of ``repro/launch/traffic.py``'s serving share: the bytes a
 cache layout holds and a decode step or a chunked prefill moves, the
-concurrency a page pool sustains, and the combine's bytes of the
-context-parallel decode.  Cache bytes come from the port's own
+concurrency a page pool sustains, the combine's bytes of the
+context-parallel decode, and the planner's per-card traffic of a step
+(``hbm_bytes``, the roofline's memory term).  Cache bytes come from the port's own
 ``init_cache`` built on the meta device, so layout knowledge lives in one
 place: every tensor counted once (the page table all paged layers share
 is one tensor).  The JAX cache also carries an int32 ``index`` per layer
 and a page table per paged layer; the port's has neither, so its cache
-byte counts are below the JAX package's by those few bytes.  The marginal
+byte counts are below the JAX package's by those few bytes.  The port
+keeps mamba2's conv state in f32 (its inputs exactly), where the
+reference's cache holds it in the cache dtype, bf16 at the planner's
+shapes.  The marginal
 bytes of a speculative verify position give the report's wasted bytes.
 """
 from __future__ import annotations
@@ -21,11 +25,12 @@ from repro_torch.models import model as M
 
 
 def _tree_bytes(cache: dict) -> int:
-    tensors = {}
-    for t in [cache.get("pt")] + [x for layer in cache["layers"]
-                                  for x in layer.values()]:
-        if isinstance(t, torch.Tensor):
-            tensors[id(t)] = t.numel() * t.element_size()
+    """Bytes of every tensor of a cache tree (the layers, zamba2's shared
+    caches, an encoder-decoder's self and cross caches, the page table),
+    each once."""
+    tensors = {id(t): t.numel() * t.element_size()
+               for t in M.flatten(cache).values()
+               if isinstance(t, torch.Tensor)}
     return sum(tensors.values())
 
 
@@ -207,3 +212,29 @@ def spec_wasted_bytes(cfg, wasted_tokens: int) -> int:
     """Marginal bytes of a run's rejected and over-drafted verify
     positions: ``wasted_tokens * spec_verify_bytes_per_token``."""
     return wasted_tokens * spec_verify_bytes_per_token(cfg)
+
+
+def hbm_bytes(cfg, shape_id: str, kind: str, n_chips: int) -> float:
+    """A card's device-memory traffic of one step of ``kind`` at the
+    planner's input shape ``shape_id`` over ``n_chips`` cards, the
+    reference's analytic model (``repro/launch/traffic.py::hbm_bytes``:
+    every tensor sharded over the whole mesh) on the port's
+    ``cache_bytes``: a train step reads the bf16 weights three times and
+    the f32 masters, gradients and RMSProp state (30 P), the saved
+    residuals (4 L B S d) and the f32 logits' passes (16 B S V); a
+    prefill reads the weights once (2 P), writes the activations (4 L B S
+    d), the cache and the logits (4 B S V); a decode step reads the bf16
+    weights once and the cache."""
+    from repro_torch.launch.specs import INPUT_SHAPES
+    sh = INPUT_SHAPES[shape_id]
+    b, s = sh["batch"], sh["seq"]
+    p = cfg.param_count()
+    l, d, v = cfg.n_layers, cfg.d_model, cfg.vocab_size
+    if kind == "train":
+        total = 30 * p + 4 * l * b * s * d + 16 * b * s * v
+    elif kind == "prefill":
+        total = 2 * p + 4 * l * b * s * d + cache_bytes(cfg, b, s) + \
+            4 * b * s * v
+    else:
+        total = 2 * p + cache_bytes(cfg, b, s)
+    return total / n_chips

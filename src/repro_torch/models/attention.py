@@ -32,7 +32,8 @@ A paged cache (``init_paged_kv_cache``) keeps a layer's rows in a shared
 page pool ``kp``/``vp`` (n_pages, page_size, Hkv, D) (int8: scale pools
 ``kps``/``vps``) behind a page table ``pt`` (batch, cache_len / page_size)
 int32, -1 unmapped; page 0 is the garbage sink that writes through
-unmapped entries land in.  Every layer of a model references one ``pt``
+unmapped entries land in (several a step, each target's last writer the
+one defined: ``_write_pool``).  Every layer of a model references one ``pt``
 tensor.  Writes go through the table; reads gather the dense view and run
 the contiguous kernels (``dispatch.decode_attention_paged``,
 ``dispatch.flash_attention_append_paged``).  Ring (windowed) layers stay
@@ -220,6 +221,33 @@ def _new_pool_rows(k, v, quant: bool) -> dict:
     return {"kp": kq, "vp": vq, "kps": ks, "vps": vs}
 
 
+def _last_writer(page: torch.Tensor, off: torch.Tensor,
+                 page_size: int) -> torch.Tensor:
+    """For each write of a pool scatter (flattened in row order) the index
+    of the last write to the same (page, row).  Duplicate targets come
+    from the page-0 sink, which idle slots, padding rows and rejected
+    drafts all write: each then carries the last one's value, so the last
+    writer is the one defined writer whatever order the device applies
+    the writes in, and the sink holds what XLA's scatter leaves there (its
+    last write) on every device and thread count.  Distinct targets keep
+    their own rows.  No host sync: an (n, n) comparison of n writes."""
+    key = (page.long() * page_size + off.long()).reshape(-1)
+    idx = torch.arange(key.numel(), device=key.device)
+    same = key[:, None] == key[None, :]
+    return torch.where(same, idx[None, :], -1).amax(dim=1)
+
+
+def _write_pool(cache: dict, name: str, page: torch.Tensor,
+                off: torch.Tensor, rows: torch.Tensor) -> None:
+    """Pool leaf ``name`` written at (page, off) (any shape S) with
+    ``rows`` (S + the row's trailing dims), each target's last writer
+    defined (``_last_writer``)."""
+    pool = cache[name]
+    last = _last_writer(page, off, pool.shape[1])
+    flat = rows.reshape((-1,) + tuple(rows.shape[page.dim():]))[last]
+    pool[page.reshape(-1), off.reshape(-1)] = flat.to(pool.dtype)
+
+
 def _check_no_window(window: Optional[int]) -> None:
     if window is not None:
         raise ValueError("paged KV caches do not support sliding windows; "
@@ -366,10 +394,24 @@ def attend_train(params: dict, x: torch.Tensor, cos: Optional[torch.Tensor],
     return cm.linear(params["wo"], o.reshape(b, s, -1))
 
 
+def _gather_heads(tp, *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Tensors (B, 1, h_i, D) of this rank's heads -> every rank's heads,
+    in rank order, with one all-gather over the model group: the parts
+    are laid side by side along the heads, gathered, and split back, each
+    contiguous (the kernels take contiguous q)."""
+    sizes = [t.shape[2] for t in ts]
+    both = torch.cat(ts, dim=2) if len(ts) > 1 else ts[0]
+    whole = collectives.gather_slice(both, tp.group, 2)
+    b, s, _, d = whole.shape
+    chunks = whole.reshape(b, s, tp.size, sum(sizes), d).split(sizes, 3)
+    return tuple(c.reshape(b, s, tp.size * n, d).contiguous()
+                 for c, n in zip(chunks, sizes))
+
+
 def attend_decode(params: dict, x: torch.Tensor, cache: dict,
                   pos: torch.Tensor, cfg, *, window: Optional[int] = None,
                   use_rope: bool = True,
-                  paged: Optional[PagedIndex] = None):
+                  paged: Optional[PagedIndex] = None, tp=None):
     """One-token decode.  x (B, 1, d_model); pos the absolute position, a
     lockstep scalar () or per slot (B,) (every row decodes at its own
     depth: writes, RoPE and the validity mask are per row).
@@ -383,23 +425,43 @@ def attend_decode(params: dict, x: torch.Tensor, cache: dict,
     partials kernel and the combine across ranks.  A paged cache takes the
     row in page pt[pos // page_size] (the sink where unmapped) and attends
     its gathered view; ``paged`` is the step's ``decode_index``, which
-    every layer sharing the table may share."""
+    every layer sharing the table may share.
+
+    Under the serving layout (``tp``, ``fsdp.TPRule``; x this rank's batch
+    rows, whole on every model rank) the projections run on this rank's
+    heads (all kv heads where ``wk``/``wv`` are held whole), q, k and v
+    are all-gathered over the model group, since the context-parallel
+    rule keeps the heads whole on each sequence shard (the reference's
+    ``DecodeCPSpec.q_decode``/``.kv``), the kernels run on every head and
+    the result is this rank's heads' partial sum of ``wo``, which the
+    caller sums over the model group (the ``tp_decode_heads`` route).  A
+    paged cache has no such layout."""
     b = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).expand(b)
     q, k, v = _qkv(params, x, cfg, *(_rope(cfg, pos[:, None]) if use_rope
                                      else (None, None)))
+    hq_loc = q.shape[2]
+    if tp is not None:
+        if "kp" in cache:
+            raise ValueError("the serving layout decodes contiguous caches; "
+                             "a page pool has no sequence slice")
+        dispatch.count_route("tp_decode_heads")
+        if k.shape[2] == cfg.n_kv_heads:
+            (q,) = _gather_heads(tp, q)
+        else:
+            q, k, v = _gather_heads(tp, q, k, v)
+    n = cfg.n_heads * cfg.hd
     if "kp" in cache:
         _check_no_window(window)
         ps = cache["kp"].shape[1]
         pt = cache["pt"]
         idx = paged if paged is not None else decode_index(pt, ps, pos)
         for name, new in _new_pool_rows(k, v, "kps" in cache).items():
-            cache[name][idx.page, idx.off] = new[:, 0].to(cache[name].dtype)
+            _write_pool(cache, name, idx.page, idx.off, new[:, 0])
         o = dispatch.decode_attention_paged(
             q[:, 0], cache["kp"], cache["vp"], pt, pos,
             length=pt.shape[1] * ps, k_scale=cache.get("kps"),
             v_scale=cache.get("vps"), kpos=idx.kpos, rows=idx.rows)[:, None]
-        n = cfg.n_heads * cfg.hd
         return cm.linear(params["wo"], o.reshape(b, 1, n)), cache
     new = {"k": k, "v": v}
     if "ks" in cache:
@@ -420,7 +482,9 @@ def attend_decode(params: dict, x: torch.Tensor, cache: dict,
     o = dispatch.decode_attention(q[:, 0], cache["k"], cache["v"], kpos, pos,
                                   k_scale=cache.get("ks"),
                                   v_scale=cache.get("vs"), cp=cp)[:, None]
-    n = cfg.n_heads * cfg.hd
+    if tp is not None:
+        o = o.narrow(2, tp.rank * hq_loc, hq_loc)
+        n = hq_loc * cfg.hd
     return cm.linear(params["wo"], o.reshape(b, 1, n)), cache
 
 
@@ -542,7 +606,8 @@ def _attend_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
     chunk's own K/V (int8: quantised once, the bytes the write lands).
     The writes go where ``prefill_index`` says (``paged``, the chunk's, or
     computed here); rows of one batch that share a page write identical
-    values there."""
+    values there, and the sink takes its last writer's
+    (``_write_pool``)."""
     _check_no_window(window)
     b, c, _ = x.shape
     ps = cache["kp"].shape[1]
@@ -562,7 +627,7 @@ def _attend_prefill_paged(params: dict, x: torch.Tensor, cache: dict,
         ks_chunk=new.get("kps"), vs_chunk=new.get("vps"), kpos=idx.kpos,
         rows=idx.rows)
     for name, t in new.items():
-        cache[name][idx.page, idx.off] = t.to(cache[name].dtype)
+        _write_pool(cache, name, idx.page, idx.off, t)
     n = cfg.n_heads * cfg.hd
     return cm.linear(params["wo"], o.reshape(b, c, n)), cache
 
@@ -640,13 +705,13 @@ def commit_kv(cache: dict, pending: dict, pos: torch.Tensor,
     if "kp" in cache:
         idx = paged if paged is not None else verify_index(
             cache["pt"], cache["kp"].shape[1], pos, kq)
-        # rejected rows all land on the sink page: duplicate indices in one
-        # index_put_ are safe only because the sink is never read
+        # rejected rows all land on the sink page, each target's last
+        # writer defined
         page = torch.where(sel & (idx.page > 0), idx.page, 0)
         for name, leaf in zip(("kp", "vp", "kps", "vps"),
                               ("k", "v", "ks", "vs")):
             if name in cache:
-                cache[name][page, idx.off] =                     pending[leaf].to(cache[name].dtype)
+                _write_pool(cache, name, page, idx.off, pending[leaf])
         return cache
     cache_len = cache["k"].shape[1]
     slots = positions % cache_len
@@ -689,6 +754,49 @@ def cross_attend(params: dict, x: torch.Tensor, memory_kv: tuple,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)      # (B, H, Sq, Sm)
     o = torch.matmul(probs, v.transpose(1, 2)).transpose(1, 2)
     return cm.linear(params["wo"], o.reshape(b, sq, n_h * hd))
+
+
+def cross_decode(params: dict, x: torch.Tensor, cross: dict, cfg,
+                 tp=None) -> torch.Tensor:
+    """The Whisper decoder's cross attention at decode, over the cache's
+    encoder memory ``cross`` {"k", "v"} (B, Sm, Hkv, D).  Alone it is
+    ``cross_attend``.  Under the serving layout (``tp``) q is projected on
+    this rank's heads and all-gathered over the model group, the memory
+    holds every kv head, and the result is this rank's heads' partial sum
+    of ``wo`` (the ``tp_cross`` route).  Where the ``decode_cp`` rules
+    split the memory's rows (``cp_layout``: the reference's
+    ``cache_shardings`` splits them as a K/V cache's), each shard takes
+    f32 scores and the unnormalised (acc, m, l) over its rows, plain
+    products as ``cross_attend``'s, and the shards combine as the decode
+    kernel's partials do (``dispatch.combine_partials``)."""
+    cp = cp_layout(cross)
+    if tp is None and cp is None:
+        return cross_attend(params, x, (cross["k"], cross["v"]), cfg)
+    hd = cfg.hd
+    b = x.shape[0]
+    q = _split_heads(cm.linear(params["wq"], x),
+                     params["wq"]["w"].shape[1] // hd, hd)   # (B, 1, h, D)
+    h_loc = q.shape[2]
+    if tp is not None:
+        dispatch.count_route("tp_cross")
+        (q,) = _gather_heads(tp, q)
+    n_h = q.shape[2]
+    k, v = (t.to(q.dtype).repeat_interleave(n_h // t.shape[2], dim=2)
+            for t in (cross["k"], cross["v"]))
+    scores = torch.matmul(q.float().transpose(1, 2),
+                          k.float().permute(0, 2, 3, 1)) * hd ** -0.5
+    if cp is None:
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)  # (B, H, 1, Sm)
+        o = torch.matmul(probs, v.transpose(1, 2)).transpose(1, 2)
+    else:
+        m = scores.amax(dim=-1)                            # (B, H, 1)
+        p = torch.exp(scores - m[..., None])
+        acc = torch.matmul(p, v.transpose(1, 2).float())  # (B, H, 1, D)
+        o = dispatch.combine_partials(acc, m, p.sum(-1), cp.group)
+        o = o.to(q.dtype)[:, None]                         # (B, 1, H, D)
+    if tp is not None:
+        o = o.narrow(2, tp.rank * h_loc, h_loc)
+    return cm.linear(params["wo"], o.reshape(b, 1, h_loc * hd))
 
 
 def memory_kv(params: dict, mem: torch.Tensor, cfg) -> tuple:

@@ -35,20 +35,28 @@ def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
     return p["table"][ids.long()]
 
 
+def vocab_rows(p: Params, ids: torch.Tensor, *, start: int
+               ) -> torch.Tensor:
+    """The rows of the ids this rank owns, zeros for the others:
+    ``p["table"]`` holds vocab rows [start, start + V / tp) of the
+    table."""
+    table = p["table"]
+    local = ids.long() - start
+    own = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return torch.where(own[..., None], rows, torch.zeros_like(rows))
+
+
 def embed_vocab_parallel(p: Params, ids: torch.Tensor, *, start: int,
                          group, dtype) -> torch.Tensor:
     """The vocab-parallel embedding under tensor and sequence parallelism:
     ``p["table"]`` holds vocab rows [start, start + V / tp) of the table;
     ids (B, S) the whole sequence.  Each rank looks its rows up, zeros the
-    ids it does not own, casts to ``dtype`` and reduce-scatters the
-    (B, S, d) partials along the sequence (``collectives.scatter_sum``):
-    -> this rank's rows (B, S / tp, d).  Each id has one owner, so the sum
-    adds exact zeros to it."""
-    table = p["table"]
-    local = ids.long() - start
-    own = (local >= 0) & (local < table.shape[0])
-    rows = table[local.clamp(0, table.shape[0] - 1)]
-    part = torch.where(own[..., None], rows, torch.zeros_like(rows))
+    ids it does not own (``vocab_rows``), casts to ``dtype`` and
+    reduce-scatters the (B, S, d) partials along the sequence
+    (``collectives.scatter_sum``): -> this rank's rows (B, S / tp, d).
+    Each id has one owner, so the sum adds exact zeros to it."""
+    part = vocab_rows(p, ids, start=start)
     return collectives.scatter_sum(part.to(dtype), group, 1)
 
 

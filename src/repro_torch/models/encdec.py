@@ -226,23 +226,32 @@ def prefill_cross(cfg, params, cache: dict, frames: torch.Tensor) -> dict:
     return cache
 
 
-def decode_step(cfg, params, cache: dict, batch, pos):
+def decode_step(cfg, params, cache: dict, batch, pos, tp=None):
     """One decoder token a row: batch {"tokens": (B, 1)}, pos a lockstep
     scalar or per row (B,); the sinusoid at each row's pos.  Writes the
-    self-attention caches in place; returns (out, cache)."""
-    x = cm.embed(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    self-attention caches in place; returns (out, cache).  Under the
+    serving layout (``tp``, ``fsdp.TPRule``) every attention and the MLP
+    run on this rank's heads and d_ff columns, their partial sums summed
+    over the model group (the embedding and the heads as
+    ``model.decode_step``'s); the self-attention caches and the cross
+    memory are laid out by ``sharding.cache_shardings``."""
+    from repro_torch.models import model as M
+    x = M._decode_inputs(cfg, params, batch, tp).to(_dtype(cfg))
     pos = torch.as_tensor(pos, device=x.device).expand(x.shape[0])
     x = x + sinusoid_rows(pos, cfg.d_model).to(x.dtype)[:, None]
+
+    def summed(y):
+        return y if tp is None else collectives.sum_partials(y, tp.group)
     for lyr, c, cx in zip(params["dec_layers"], cache["self"],
                           cache["cross"]):
         h, _ = attn.attend_decode(lyr["self_attn"],
                                   cm.apply_norm(cfg.norm, lyr["ln1"], x), c,
-                                  pos, cfg, use_rope=False)
-        x = x + h
-        x = x + attn.cross_attend(lyr["cross_attn"],
-                                  cm.apply_norm(cfg.norm, lyr["ln_x"], x),
-                                  (cx["k"], cx["v"]), cfg)
-        x = x + mlp_mod.mlp(lyr["mlp"], cm.apply_norm(cfg.norm, lyr["ln2"], x),
-                            act=cfg.act)
-    from repro_torch.models import model as M
-    return M._heads(cfg, params, x), cache
+                                  pos, cfg, use_rope=False, tp=tp)
+        x = x + summed(h)
+        x = x + summed(attn.cross_decode(
+            lyr["cross_attn"], cm.apply_norm(cfg.norm, lyr["ln_x"], x), cx,
+            cfg, tp))
+        x = x + mlp_mod.mlp_decode(lyr["mlp"],
+                                   cm.apply_norm(cfg.norm, lyr["ln2"], x),
+                                   act=cfg.act, tp=tp)
+    return M.decode_heads(cfg, params, x, tp), cache

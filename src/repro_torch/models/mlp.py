@@ -49,3 +49,18 @@ def mlp(p: dict, x: torch.Tensor, *, act: str = "gelu",
     if "b" in p["fc2"]:
         y = y + collectives.sum_grads(p["fc2"]["b"], tp.group).to(y.dtype)
     return y
+
+
+def mlp_decode(p: dict, x: torch.Tensor, *, act: str = "gelu",
+               tp=None) -> torch.Tensor:
+    """The plain MLP at decode.  Under the serving layout (``tp``) ``fc1``
+    runs on this rank's d_ff columns (their bias with them) and ``fc2`` on
+    its rows; the partial sums are summed over the model group (in f32,
+    ``collectives.sum_partials``) and ``fc2``'s whole bias is added once
+    after that."""
+    if tp is None:
+        return mlp(p, x, act=act)
+    f = cm.ACTIVATIONS[act]
+    y = collectives.sum_partials(f(cm.linear(p["fc1"], x)) @ p["fc2"]["w"],
+                                 tp.group)
+    return y + p["fc2"]["b"].to(y.dtype) if "b" in p["fc2"] else y

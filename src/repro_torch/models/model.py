@@ -631,38 +631,108 @@ def forward(cfg: ModelConfig, params: Params,
     return out
 
 
+def _ffn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                tp: Optional[fsdp.TPRule]) -> torch.Tensor:
+    """The block's second half at decode.  Under the serving layout the
+    gated MLP runs on this rank's d_ff columns and the experts on this
+    rank's E / tp, each routed over all E under the global capacity (the
+    reference runs the dense block at decode: ``_moe_rule(1)`` is None);
+    the partial sums are summed over the model group in f32
+    (``collectives.sum_partials``)."""
+    if tp is None:
+        return _ffn_half(cfg, p, x)[0]
+    y = cm.apply_norm(cfg.norm, p["ln2"], x)
+    if cfg.n_experts:
+        dispatch.count_route("tp_experts_local")
+        e_loc = p["moe"]["w_gate"].shape[0]
+        y = moe_mod.moe_apply_local(
+            p["moe"], y, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, act=cfg.act,
+            first=tp.rank * e_loc)
+    else:
+        y = mlp_mod.gated_mlp(p["mlp"], y, act=cfg.act)
+    return x + collectives.sum_partials(y, tp.group)
+
+
 def _block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-                  c: dict, pos: torch.Tensor, paged) -> torch.Tensor:
+                  c: dict, pos: torch.Tensor, paged,
+                  tp: Optional[fsdp.TPRule] = None) -> torch.Tensor:
     """One residual block of a decode step; writes the layer's cache or
-    state in place."""
+    state in place.  Under the serving layout (``tp``) x is whole on every
+    model rank (the one-token residual is replicated over "model": the
+    Megatron-SP row split has one row to split), each half computes this
+    rank's partial sum, and the halves are summed over the model group in
+    f32 (``collectives.sum_partials``)."""
     h = cm.apply_norm(cfg.norm, p["ln1"], x)
     if kind in _DECODE:
         name, fn = _DECODE[kind]
-        return x + fn(p[name], h, c, cfg)[0]
+        y = fn(p[name], h, c, cfg, tp)[0]
+        return x + (y if tp is None else
+                    collectives.sum_partials(y, tp.group))
     h, _ = attn.attend_decode(p["attn"], h, c, pos, cfg,
-                              window=_window(cfg, kind), paged=paged)
-    return _ffn_half(cfg, p, x + h)[0]
+                              window=_window(cfg, kind), paged=paged, tp=tp)
+    if tp is not None:
+        h = collectives.sum_partials(h, tp.group)
+    return _ffn_decode(cfg, p, x + h, tp)
+
+
+def _decode_inputs(cfg: ModelConfig, params: Params,
+                   batch: Dict[str, torch.Tensor],
+                   tp: Optional[fsdp.TPRule]) -> torch.Tensor:
+    """The embedded one-token inputs, whole on every model rank: under
+    the serving layout with the vocab split, each rank looks up the ids it
+    owns and the rows are summed over the model group (the vocab-parallel
+    embedding of ``_sp_inputs`` without its sequence split)."""
+    if tp is None or not tp.vocab or "embeds" in batch:
+        return _embed_inputs(cfg, params, batch)
+    table = params["embed"]["table"]
+    part = cm.vocab_rows(params["embed"], batch["tokens"],
+                         start=tp.rank * table.shape[0])
+    return collectives.all_reduce(part.to(compute_dtype(cfg)), tp.group)
+
+
+def decode_heads(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                 tp: Optional[fsdp.TPRule] = None) -> dict:
+    """``_heads`` of a decode step.  Under the serving layout x is whole on
+    every model rank: the value head runs on it as it is (the leaf is held
+    whole), and with the vocab split the logits of this rank's columns are
+    all-gathered over the model group, so every rank samples from the
+    whole row and draws the same token."""
+    out = _heads(cfg, params, x)
+    if tp is not None and tp.vocab:
+        out["logits"] = collectives.gather_slice(out["logits"], tp.group, 2)
+    return out
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: dict,
-                batch: Dict[str, torch.Tensor], pos: torch.Tensor):
-    """One-token decode.  batch {"tokens": (B, 1)}; pos the current absolute
-    position, a lockstep scalar or per slot (B,) (the recurrent blocks
-    ignore it).  ``params`` already cast (``cast_params``).  Writes the
-    caches and states in place; returns (out, cache)."""
+                batch: Dict[str, torch.Tensor], pos: torch.Tensor,
+                layout: Optional[fsdp.Layout] = None):
+    """One-token decode.  batch {"tokens": (B, 1)} (or {"embeds": (B, 1,
+    d)}); pos the current absolute position, a lockstep scalar or per slot
+    (B,) (the recurrent blocks ignore it).  ``params`` already cast
+    (``cast_params``).  Writes the caches and states in place; returns
+    (out, cache).
+
+    Under the serving layout (``layout``, ``fsdp.serve_layout``; the
+    caches laid out by ``sharding.cache_shardings`` under the installed
+    ``decode_rules``) ``params`` are this rank's shards, the batch and the
+    caches this rank's rows, and every block runs on this rank's heads,
+    d_ff columns or experts with its partial sums summed over the model
+    group; the logits come back whole on every rank."""
+    tp = fsdp.tp_rule(layout)
     if cfg.is_encdec:
-        return encdec.decode_step(cfg, params, cache, batch, pos)
-    x = _embed_inputs(cfg, params, batch)
+        return encdec.decode_step(cfg, params, cache, batch, pos, tp)
+    x = _decode_inputs(cfg, params, batch, tp)
     pos = torch.as_tensor(pos, device=x.device).expand(x.shape[0])
     paged = attn.model_paged_index(cache, pos=pos)
     shared = iter(cache.get("shared", ()))
     for i, (kind, p, c) in enumerate(zip(cfg.layer_kinds(), params["layers"],
                                          cache["layers"])):
-        x = _block_decode(cfg, kind, p, x, c, pos, paged)
+        x = _block_decode(cfg, kind, p, x, c, pos, paged, tp)
         if cfg.shared_attn_every and (i + 1) % cfg.shared_attn_every == 0:
             x = _block_decode(cfg, "attn", params["shared_attn"], x,
-                              next(shared), pos, None)
-    return _heads(cfg, params, x), cache
+                              next(shared), pos, None, tp)
+    return decode_heads(cfg, params, x, tp), cache
 
 
 def prefill_step(cfg: ModelConfig, params: Params, cache: dict,

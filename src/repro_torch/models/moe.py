@@ -158,3 +158,33 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     out = experts(buf, p["w_gate"], p["w_up"], p["w_down"], act)
     y = combine(out, e_flat, pos, keep, gates, top_k)
     return y.reshape(b, s, d), lb_loss
+
+
+def moe_apply_local(p: dict, x: torch.Tensor, *, top_k: int,
+                    capacity_factor: float = 1.25, act: str = "silu",
+                    first: int = 0) -> torch.Tensor:
+    """The dense layer's partial sum over the experts [first, first + E_loc)
+    that ``p``'s expert leaves hold (the serving layout's E / tp a model
+    rank; the router is whole): every row is routed over all E experts
+    under the global capacity and slot order, exactly as ``moe_apply``
+    routes it, and only the assignments to these experts are computed.
+    Summed over the model ranks, it is ``moe_apply``'s output (a decode
+    step is one token a row, which the expert-parallel block cannot split
+    over the ranks; the reference runs the dense block there).  x (B, S,
+    d) -> (B, S, d) in x's dtype."""
+    b, s, d = x.shape
+    e = p["router"].shape[1]
+    e_loc = p["w_gate"].shape[0]
+    t = b * s
+    xf = x.reshape(t, d)
+    gates, eidx, _ = gate(p["router"], xf, top_k)
+    cap = capacity(t, top_k, e, capacity_factor)
+    e_flat = eidx.reshape(-1)
+    pos = slot_positions(e_flat, e)
+    local = e_flat - first
+    mine = (local >= 0) & (local < e_loc)
+    keep = (pos < cap) & mine
+    local = local.clamp(0, e_loc - 1)
+    buf = dispatch(xf, local, pos, keep, e_loc, cap, top_k)
+    out = experts(buf, p["w_gate"], p["w_up"], p["w_down"], act)
+    return combine(out, local, pos, keep, gates, top_k).reshape(b, s, d)

@@ -201,17 +201,29 @@ def init_mamba2_state(batch: int, cfg, dtype=torch.float32,
                                 dtype=dtype, device=device)}
 
 
-def mamba2_decode(p: dict, xin: torch.Tensor, state: dict, cfg):
+def mamba2_decode(p: dict, xin: torch.Tensor, state: dict, cfg, tp=None):
     """One-token decode.  xin (B, 1, d_model) -> (y, state), the state
-    written in place."""
-    h, pd, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
-        cfg.ssm_groups
+    written in place.  Under the serving layout (``tp``) ``p`` holds this
+    rank's heads and the state its heads' ``h`` and its parts of the conv
+    channels (``sharding.cache_shardings``); B and C are all-gathered
+    after the conv, the gated norm runs on feature-gathered rows, and y is
+    this rank's partial sum of ``out_proj`` (the ``tp_ssm_heads``
+    route)."""
+    pd, n, g = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    h = p["A_log"].shape[0]
     d_inner = h * pd
     z, xs, bb, cc, dt, conv_state = _conv_split(p, xin, state["conv"])
+    if tp is not None:
+        dispatch.count_route("tp_ssm_heads")
+        bc = collectives.gather_slice(torch.stack([bb, cc]), tp.group, 3)
+        bb, cc = bc[0], bc[1]
     bsz = xin.shape[0]
     xs = xs.reshape(bsz, h, pd)
-    bb = bb.reshape(bsz, g, n).repeat_interleave(h // g, dim=1)
-    cc = cc.reshape(bsz, g, n).repeat_interleave(h // g, dim=1)
+    rep = cfg.ssm_heads // g
+    bb = bb.reshape(bsz, g, n).repeat_interleave(rep, dim=1)
+    cc = cc.reshape(bsz, g, n).repeat_interleave(rep, dim=1)
+    if h < cfg.ssm_heads:
+        bb, cc = (t.narrow(1, tp.rank * h, h) for t in (bb, cc))
     dt = softplus(dt[:, 0].float() + p["dt_bias"])               # (B,H)
     a = torch.exp(dt * -torch.exp(p["A_log"]))                   # (B,H)
 
@@ -220,7 +232,7 @@ def mamba2_decode(p: dict, xin: torch.Tensor, state: dict, cfg):
     y = torch.einsum("bhn,bhnp->bhp", cc.float(), hh)
     y = y.to(xin.dtype) + xs * p["D"].to(xs.dtype)[None, :, None]
     y = y.reshape(bsz, 1, d_inner)
-    y = cm.rmsnorm(p["norm"], y * cm.silu(z))
+    y = cm.rmsnorm_features(p["norm"], y * cm.silu(z), tp)
     state["h"].copy_(hh)
     state["conv"].copy_(conv_state)
     return cm.linear(p["out_proj"], y), state

@@ -191,19 +191,31 @@ def init_mlstm_state(batch: int, d_model: int, n_heads: int, *,
             "conv": z(batch, conv_width - 1, d_inner)}
 
 
-def mlstm_decode(p: dict, x: torch.Tensor, state: dict, cfg):
+def mlstm_decode(p: dict, x: torch.Tensor, state: dict, cfg, tp=None):
     """One-token decode.  x (B, 1, d_model) -> (y, state), the state
-    written in place."""
+    written in place.  Under the serving layout (``tp``) ``p`` holds this
+    rank's heads and the state theirs (its conv state this rank's
+    channels): the conv output and ``xi`` are all-gathered along the
+    features, ``w_i``/``w_f`` narrowed to the rank's heads, the norm on
+    feature-gathered rows, and y is this rank's partial sum of ``down``
+    (the ``tp_lstm_heads`` route)."""
     bsz = x.shape[0]
-    h = cfg.n_heads
+    hd = cfg.lstm_expand * cfg.d_model // cfg.n_heads
     xi, z, xc, conv_state = _mlstm_inputs(p, x, state["conv"])
-    d_inner = xi.shape[-1]
-    hd = d_inner // h
-    q = cm.linear(p["wq"], xc).reshape(bsz, h, hd).float()
-    k = cm.linear(p["wk"], xc).reshape(bsz, h, hd).float()
-    v = cm.linear(p["wv"], xi).reshape(bsz, h, hd).float()
-    log_i = cm.linear(p["w_i"], xc)[:, 0].float()                # (B,H)
-    log_f = F.logsigmoid(cm.linear(p["w_f"], xc))[:, 0].float()
+    d_loc = xi.shape[-1]
+    h = d_loc // hd
+    gates = {"w_i": p["w_i"], "w_f": p["w_f"]}
+    xc_all, xi_all = xc, xi
+    if tp is not None:
+        dispatch.count_route("tp_lstm_heads")
+        both = collectives.gather_slice(torch.stack([xc, xi]), tp.group, 3)
+        xc_all, xi_all = both[0], both[1]
+        gates = {k: _local_heads(g, h, tp) for k, g in gates.items()}
+    q = cm.linear(p["wq"], xc_all).reshape(bsz, h, hd).float()
+    k = cm.linear(p["wk"], xc_all).reshape(bsz, h, hd).float()
+    v = cm.linear(p["wv"], xi_all).reshape(bsz, h, hd).float()
+    log_i = cm.linear(gates["w_i"], xc_all)[:, 0].float()        # (B,H)
+    log_f = F.logsigmoid(cm.linear(gates["w_f"], xc_all))[:, 0].float()
 
     m_new = torch.maximum(log_f + state["m"], log_i)
     f_s = torch.exp(log_f + state["m"] - m_new)
@@ -216,8 +228,8 @@ def mlstm_decode(p: dict, x: torch.Tensor, state: dict, cfg):
     den = torch.maximum(
         torch.einsum("bhd,bhd->bh", n_new, q * scale).abs(),
         torch.exp(-m_new))
-    y = (num / den[:, :, None]).to(x.dtype).reshape(bsz, 1, d_inner)
-    y = cm.rmsnorm(p["norm"], y) * cm.silu(z)
+    y = (num / den[:, :, None]).to(x.dtype).reshape(bsz, 1, d_loc)
+    y = cm.rmsnorm_features(p["norm"], y, tp) * cm.silu(z)
     out = cm.linear(p["down"], y)
     for name, new in (("C", c_new), ("n", n_new), ("m", m_new),
                       ("conv", conv_state)):
@@ -318,12 +330,22 @@ def slstm_train(p: dict, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     return _slstm_out(p, y, tp)
 
 
-def slstm_decode(p: dict, x: torch.Tensor, state: dict, cfg):
-    """One-token decode; the state written in place."""
-    bsz, _, d = x.shape
-    pre = cm.linear(p["w_in"], x)[:, 0]
-    st = slstm_step(p, state, pre, cfg.n_heads)
-    y = st["h"].reshape(bsz, 1, d).to(x.dtype)
+def slstm_decode(p: dict, x: torch.Tensor, state: dict, cfg, tp=None):
+    """One-token decode; the state written in place.  Under the serving
+    layout (``tp``) the recurrence runs on this rank's heads (``r``'s
+    first dim, ``w_in``'s head-major columns with its whole bias narrowed
+    to them) and the state holds theirs; y is this rank's partial sum of
+    ``ff_down`` (the ``tp_lstm_heads`` route)."""
+    bsz = x.shape[0]
+    w_in = p["w_in"]
+    if tp is not None:
+        dispatch.count_route("tp_lstm_heads")
+        n = w_in["w"].shape[1]
+        w_in = {"w": w_in["w"], "b": w_in["b"].narrow(0, tp.rank * n, n)}
+    h, hd = p["r"].shape[:2]
+    pre = cm.linear(w_in, x)[:, 0]
+    st = slstm_step(p, state, pre, h)
+    y = st["h"].reshape(bsz, 1, h * hd).to(x.dtype)
     for name, new in st.items():
         state[name].copy_(new)
-    return _slstm_out(p, y), state
+    return _slstm_out(p, y, tp), state

@@ -251,7 +251,10 @@ def _cp_logits(ct, pt, kv_dtype, rank):
                           device="cpu")
     TM.prefill_step(ct, pt, whole, {"tokens": torch.from_numpy(toks)}, 0,
                     torch.from_numpy(STEP_POS0))
-    rules = sharding.decode_rules(dist.group.WORLD)
+    from repro_torch.launch import mesh as mesh_mod
+    rules = sharding.decode_rules(
+        ct, mesh_mod.make_mesh((1, dist.get_world_size()), "cpu"),
+        batch_size=2)
     out = []
     with ctx.sharding_rules(rules):
         cache = TM.init_cache(ct, 2, ENGINE["cache_len"], dtype=kv_dtype,

@@ -88,6 +88,39 @@ def test_context_parallel_modules_stand_alone(name):
     assert not set(_imported_roots(path)) & {"jax", "jaxlib", "repro"}
 
 
+_PLANNER_MODULES = ("repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                    "repro_torch.launch.hlo_analysis")
+
+
+@pytest.mark.parametrize("name", _PLANNER_MODULES)
+def test_planner_modules_stand_alone(name):
+    """The planner's modules (input specs, the dry run, the roofline
+    terms) import alone with jax blocked and load nothing of ``repro``."""
+    code = ("import sys; sys.modules['jax'] = None; import importlib; "
+            f"importlib.import_module({name!r}); "
+            "print(sorted(m for m in sys.modules if m == 'repro' or "
+            "m.startswith('repro.')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_planner_runs_with_jax_blocked():
+    """``python -m repro_torch.launch.dryrun`` plans on the meta device
+    with no jax: one decode case, ``ok``."""
+    code = ("import sys; sys.modules['jax'] = None; import runpy; "
+            "sys.argv = ['dryrun', '--arch', 'yi-6b', '--shape', "
+            "'decode_32k']; runpy.run_module('repro_torch.launch.dryrun', "
+            "run_name='__main__')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert '"status": "ok"' in out.stdout
+
+
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
