@@ -318,12 +318,43 @@ Phases (any failure raises and the script exits non-zero):
      zamba2-1.2b and xlstm-1.3b at all 48 layers on (1, 4); step wall,
      tokens/s, peak memory a rank, busy share (not for xlstm, whose
      sLSTM loop's launches the profiler would take minutes over), and the
-     collectives and launches a step, exact.
+     collectives and launches a step, exact;
+     12i. the attention's sequence arm (q heads that do not divide the
+     model axis: each rank attends its rows against the whole
+     sequence's keys through kernels 3 and 5's query-offset arms): a
+     minicpm-like (3 / 3 heads) and a scout-like (5 / 1 heads, MoE,
+     8-key windows) reduced f32 config on (1, n), the arm forced at
+     n = 1, and at n = 4 on (2, 2), held to the CPU as 12a; minicpm-2b at
+     full width cut to 8 of 40 layers, the arm forced on (1, n), 2 steps
+     at 4 x 1024 against the unsharded step (losses within 1e-3
+     relative, bitwise expected on (1, 1)); launches (the offset arms
+     only), collectives and routes exact;
+  13. decode across cards under the serving layout, one rank a card:
+     13a the reduced configs against the CPU; 13b Yi-6B at decode_32k
+     (batch 8) and 13c zamba2-1.2b at long_500k against the unsharded
+     step on (1, n) (and (2, 2) at n = 4); 13d minicpm-2b (batch 8,
+     4096-row context) on the column arm (q, k, v projected on a rank's
+     columns and gathered along the features), forced, bitwise equal to
+     the unsharded step on (1, 1); launches, collectives and routes
+     exact.
+
+Phase 4 also holds kernels 3 and 5's query-offset arms (a sequence
+shard's rows at positions q_offset.. against the whole sequence's keys)
+at the production mesh's per-rank shapes: minicpm-2b train_4k (q 16 x
+256 x 36 x 64 against 4096 keys), llama4-scout train_4k (40 / 8 heads,
+D 128) and Scout's prefill_32k (q 2 x 2048 against 32768 keys, forward,
+with and without its 8192-key window), each at the first, middle and
+last of 16 ranks' offsets, bf16 and (train shapes) f32, the plain
+version a batch row and kv head at a time where its scores would not
+fit; the 16 shards at b = 1 put back together against the whole-sequence
+kernels (out, lse and dq bitwise, dk and dv summed within tolerance);
+each shape timed at the last rank's offset beside SDPA with an explicit
+(Sq, Sk) mask.
 
 Every kernel and arm must have been launched on one of the main paths
 (phase 5's reduced model and engines, each run of 5p, 5o and 5s, 6a, 6b, each
 of the four runs of 6c, 6d, 7, 8, each run of 9, of 10a-10e, of
-11a-11d and of 12a-12h (rank 0's counts, which every rank must equal),
+11a-11d, of 12a-12i and of 13 (rank 0's counts, which every rank must equal),
 each with
 the counters set to 0 just before it and read just after); the kernels line
 gives each one's launches by path.
@@ -1696,7 +1727,7 @@ def _flash_fwd_timing(gen, flush, case):
                  f", live pairs {live}, {arm}"}
 
 
-def _bwd_sum_abs(q, k, v, o, lse, do, causal, window):
+def _bwd_sum_abs(q, k, v, o, lse, do, causal, window, q_offset=0):
     """dq, dk, dv recomputed over absolute values (|ds| from |dp| and
     |delta| taken as sums of |terms|): the scale of each output's f32
     summation-order error (SUM_ABS_TOL)."""
@@ -1706,7 +1737,7 @@ def _bwd_sum_abs(q, k, v, o, lse, do, causal, window):
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
-    p = torch.exp(ref._train_logits(q, k, causal, window)
+    p = torch.exp(ref._train_logits(q, k, causal, window, q_offset)
                   - lse.transpose(1, 2).reshape(b, s, hkv, g, 1))
     dog = do.reshape(b, s, hkv, g, d).float().abs()
     delta = (dog * o.reshape(b, s, hkv, g, d).float().abs()).sum(-1, True)
@@ -1800,6 +1831,305 @@ def _flash_bwd_timing(gen, flush, case):
                  f"k/v {k.shape[2]} heads, "
                  f"{'causal' if causal else 'bidirectional'}, live pairs "
                  f"{live}, {arm}"}
+
+# ---------------------------------------------------------------------------
+# the query-offset arms of kernels 3 and 5 (the sequence-sharded attention)
+# ---------------------------------------------------------------------------
+
+# The per-rank shapes of the production mesh (16 data x 16 model,
+# launch/mesh.py::production_mesh) where the q heads do not divide the
+# model axis, so each model rank attends its S / 16 rows against all S
+# keys: (key, label, B, Sq, Sk, Hq, Hkv, D, window, backward too).  Scout's
+# attn_local layers carry an 8192-key window, which binds at prefill_32k
+SEQ_TP = 16
+SEQ_RANKS = (0, SEQ_TP // 2, SEQ_TP - 1)      # first, middle, last rank
+SEQ_SHAPES = (
+    ("minicpm_train4k", "minicpm-2b train_4k", 16, 256, 4096, 36, 36, 64,
+     None, True),
+    ("scout_train4k", "llama4-scout train_4k", 16, 256, 4096, 40, 8, 128,
+     None, True),
+    ("scout_prefill32k", "llama4-scout prefill_32k", 2, 2048, 32768, 40, 8,
+     128, None, False),
+    ("scout_prefill32k_w8192", "llama4-scout prefill_32k window 8192", 2,
+     2048, 32768, 40, 8, 128, 8192, False))
+# a plain version's (B, Sq, Hkv, G, Sk) f32 scores above this many bytes
+# are computed a batch row and kv head at a time (the whole tensor and its
+# copies would not fit beside the inputs)
+SEQ_PIECE_BYTES = 4 * 2**30
+
+
+def _seq_inputs(gen, shape, dt):
+    import torch
+    _, _, b, sq, sk, hq, hkv, d, window, _ = shape
+    dt = torch.bfloat16 if dt == "bf16" else torch.float32
+    return (_randn((b, sq, hq, d), gen, dt), _randn((b, sk, hkv, d), gen, dt),
+            _randn((b, sk, hkv, d), gen, dt), _randn((b, sq, hq, d), gen, dt),
+            window)
+
+
+def _seq_pieces(q, k):
+    """Index tuples (batch rows, q heads, kv heads) that cover the plain
+    version's work: all of it at once where its scores fit
+    (SEQ_PIECE_BYTES), else a batch row and kv head at a time."""
+    b, sq, hq, _ = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    if b * sq * hq * k.shape[1] * 4 <= SEQ_PIECE_BYTES:
+        return [(slice(None), slice(None), slice(None))]
+    return [(slice(i, i + 1), slice(h * g, (h + 1) * g), slice(h, h + 1))
+            for i in range(b) for h in range(hkv)]
+
+
+def _seq_live_pairs(b, sq, sk, off, hq, causal, window):
+    """(query, key) pairs the mask keeps for a shard of sq rows at offset
+    ``off`` against sk keys, over batch and q heads."""
+    import torch
+    pos = off + torch.arange(sq)
+    hi = torch.minimum(pos + 1, torch.tensor(sk)) if causal else \
+        torch.full_like(pos, sk)
+    lo = torch.clamp(pos - window + 1, min=0) if window else \
+        torch.zeros_like(pos)
+    return int((hi - lo).clamp(min=0).sum()) * b * hq
+
+
+def _seq_check_fwd(label, q, k, v, window, off, errs):
+    """The offset forward against the plain version, piece by piece where
+    its scores would not fit (``_seq_pieces``)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention_cuda, ref
+    o, lse = flash_attention_cuda.flash_attention_fwd(
+        q, k, v, window=window, q_offset=off)
+    pieces = _seq_pieces(q, k)
+    for bi, hs, ks in pieces:
+        qp = q[bi, :, hs].contiguous()
+        kp, vp = k[bi, :, ks].contiguous(), v[bi, :, ks].contiguous()
+        want_o, want_lse = ref.flash_attention_ref(qp, kp, vp, window=window,
+                                                   q_offset=off)
+        round_abs = None
+        if q.dtype == torch.bfloat16:
+            round_abs = ref.flash_round_scale(qp, kp, vp, want_o, want_lse,
+                                              None, True, window, off)[0]
+        tag = "" if len(pieces) == 1 else \
+            " (the plain version a batch row and kv head at a time)"
+        echo = bi == pieces[-1][0] and hs == pieces[-1][1]
+        errs.append(_compare(f"{label} o{tag}", o[bi, :, hs], want_o,
+                             round_abs=round_abs, echo=echo))
+        errs.append(_compare(f"{label} lse{tag}", lse[bi, hs], want_lse,
+                             echo=echo))
+        del want_o, want_lse, round_abs
+
+
+def _seq_check_bwd(label, q, k, v, do, window, off, errs):
+    """The offset backward against the plain version (dq of the shard's
+    rows, dk and dv over every key, zero where no query reaches it)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention_bwd_cuda, ref
+    o, lse = ref.flash_attention_ref(q, k, v, window=window, q_offset=off)
+    got = flash_attention_bwd_cuda.flash_attention_bwd(
+        q, k, v, o, lse, do, window=window, q_offset=off)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, window=window,
+                                       q_offset=off)
+    scale = _bwd_sum_abs(q, k, v, o, lse, do, True, window, off)
+    rounding = (None, None, None)
+    if q.dtype == torch.bfloat16:
+        rounding = ref.flash_round_scale(q, k, v, o, lse, do, True, window,
+                                         off)[1:]
+    for name, g_, w_, m_, r_ in zip(("dq", "dk", "dv"), got, want, scale,
+                                    rounding):
+        errs.append(_compare(f"{label} {name}", g_, w_, sum_abs=m_,
+                             round_abs=r_))
+    unreached = k.shape[1] > off + q.shape[1]
+    if unreached and not all(bool((t[:, off + q.shape[1]:] == 0).all())
+                             for t in got[1:]):
+        raise AssertionError(f"{label}: dk/dv nonzero at keys no query of "
+                             "the shard reaches")
+
+
+def check_flash_offset(gen, flush):
+    """Kernels 3 and 5's query-offset arms at ``SEQ_SHAPES``, each at the
+    first, middle and last rank's offset, bf16 (the tensor-core arms) and
+    f32 (the SIMT bodies; the train shapes), against their plain versions;
+    the 16-shard sweep at b = 1 against the whole-sequence arms; then the
+    records: each shape timed at the last rank's offset (every key live)
+    beside its bound, its plain version and SDPA with an explicit boolean
+    (Sq, Sk) mask over k, v repeated to the q heads (no PyTorch call takes
+    an offset)."""
+    import torch
+    errs = {("fwd", "bf16"): [], ("fwd", "f32"): [], ("bwd", "bf16"): [],
+            ("bwd", "f32"): []}
+    for shape in SEQ_SHAPES:
+        key, name, b, sq, sk, hq, hkv, d, window, bwd = shape
+        for dt in ("bf16", "f32") if bwd else ("bf16",):
+            q, k, v, do, _ = _seq_inputs(gen, shape, dt)
+            for r in SEQ_RANKS:
+                off = r * sq
+                label = (f"flash offset {name} rank {r} (q_offset {off}) "
+                         f"q {tuple(q.shape)} k/v {tuple(k.shape)} {dt}")
+                _seq_check_fwd(f"{label} fwd", q, k, v, window, off,
+                               errs[("fwd", dt)])
+                if bwd:
+                    _seq_check_bwd(f"{label} bwd", q, k, v, do, window, off,
+                                   errs[("bwd", dt)])
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    for shape in SEQ_SHAPES[:2]:
+        for dt in ("bf16", "f32"):
+            _seq_sweep(gen, shape, dt)
+
+    records = []
+    for kind, src, replaces, timing in (
+            ("fwd", "flash_attention.cu", "flash_attention.py:129",
+             _seq_fwd_timing),
+            ("bwd", "flash_attention_bwd.cu", "flash_attention_bwd.py:142",
+             _seq_bwd_timing)):
+        shapes = [sh for sh in SEQ_SHAPES if kind == "fwd" or sh[-1]]
+        for dt in ("bf16", "f32"):
+            rec = {"name": f"flash_attention_{kind}_offset"
+                           + ("_f32" if dt == "f32" else ""),
+                   "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
+                   "replaces": f"src/repro/kernels/{replaces}",
+                   "max_abs_err": max(errs[(kind, dt)])}
+            rec.update(timing(gen, flush, shapes[0], dt))
+            if dt == "bf16":
+                for sh in shapes[1:]:
+                    rec[f"{sh[0]}_shape"] = timing(gen, flush, sh, dt)
+            records.append(rec)
+            torch.cuda.empty_cache()
+    return records
+
+
+def _seq_sweep(gen, shape, dt):
+    """At b = 1, the 16 shards' offset forwards and backwards put back
+    together against the whole-sequence kernels 3 and 5 (q_offset None):
+    out, lse and dq bit for bit (the same tiles in the same order), dk and
+    dv summed over the shards in f32 within the tolerance of a sum of
+    partials each rounded once (SUM_ABS_TOL over |terms|, and in bf16
+    ROUND_TOL over the partials' absolute values)."""
+    import torch
+
+    from repro_torch.kernels import (flash_attention_bwd_cuda,
+                                     flash_attention_cuda, ref)
+    _, name, _, sq, sk, hq, hkv, d, window, _ = shape
+    q, k, v, do, _ = _seq_inputs(gen, (*shape[:2], 1, sk, sk, *shape[5:]),
+                                 dt)
+    o, lse = flash_attention_cuda.flash_attention_fwd(q, k, v, window=window)
+    dq, dk, dv = flash_attention_bwd_cuda.flash_attention_bwd(
+        q, k, v, o, lse, do, window=window)
+    parts = []
+    for r in range(SEQ_TP):
+        rows = slice(r * sq, (r + 1) * sq)
+        qr, dor = q[:, rows].contiguous(), do[:, rows].contiguous()
+        o_r, lse_r = flash_attention_cuda.flash_attention_fwd(
+            qr, k, v, window=window, q_offset=r * sq)
+        grads = flash_attention_bwd_cuda.flash_attention_bwd(
+            qr, k, v, o_r, lse_r, dor, window=window, q_offset=r * sq)
+        parts.append((o_r, lse_r, *grads))
+    label = f"flash offset sweep {name} b=1 {SEQ_TP} shards {dt}"
+    for what, got, want in (("o", torch.cat([p[0] for p in parts], 1), o),
+                            ("lse", torch.cat([p[1] for p in parts], 2), lse),
+                            ("dq", torch.cat([p[2] for p in parts], 1), dq)):
+        if not torch.equal(got, want):
+            err = float((got.float() - want.float()).abs().max())
+            raise AssertionError(f"{label}: {what} of the shards differs "
+                                 "from the whole-sequence kernel's (max abs "
+                                 f"{err})")
+    scale = _bwd_sum_abs(q, k, v, o, lse, do, True, window)
+    for i, (what, want) in enumerate((("dk", dk), ("dv", dv))):
+        got = sum(p[3 + i].float() for p in parts)
+        rounded = sum(p[3 + i].float().abs() for p in parts) \
+            if dt == "bf16" else None
+        _compare(f"{label} {what} summed over the shards", got, want,
+                 sum_abs=scale[1 + i], round_abs=rounded)
+    print(f"check {label}: out, lse and dq bitwise equal to the "
+          "whole-sequence kernels', dk and dv summed within tolerance ok")
+
+
+def _seq_library(q, k, v, window, off):
+    """SDPA on the shard: k and v repeated to the q heads, the (Sq, Sk)
+    boolean mask of the shard's positions (``ref._train_mask``)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+              for t in (k, v))
+    mask = ref._train_mask(q.shape[1], True, window, q.device, k.shape[1],
+                           off)
+    return qt, kt, vt, mask
+
+
+def _seq_shape_text(shape, q, k, off, live, arm, pieces):
+    _, name, *_ = shape
+    plain = "" if pieces == 1 else \
+        f", plain version in {pieces} pieces (a batch row and kv head each)"
+    return (f"{name}, rank {SEQ_TP - 1} of {SEQ_TP}: q {tuple(q.shape)} at "
+            f"q_offset {off} against k/v {tuple(k.shape)} {q.dtype}, "
+            f"window {shape[8]}, live pairs {live}, {arm}{plain}; library: "
+            f"SDPA, explicit (Sq, Sk) mask, k/v repeated to the q heads")
+
+
+def _seq_fwd_timing(gen, flush, shape, dt):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_cuda, ref
+    q, k, v, _, window = _seq_inputs(gen, shape, dt)
+    b, sq, hq, _ = q.shape
+    off = (SEQ_TP - 1) * sq
+    live = _seq_live_pairs(b, sq, k.shape[1], off, hq, True, window)
+    bound, bound_by = _flash_bound(q, k, live, 4, 2, 2)
+    pieces = _seq_pieces(q, k)
+
+    def plain():
+        for bi, hs, ks in pieces:
+            ref.flash_attention_ref(q[bi, :, hs], k[bi, :, ks], v[bi, :, ks],
+                                    window=window, q_offset=off)
+    qt, kt, vt, mask = _seq_library(q, k, v, window, off)
+    out = {"ms": _time_ms(lambda: flash_attention_cuda.flash_attention_fwd(
+               q, k, v, window=window, q_offset=off), flush),
+           "plain_ms": _time_ms(plain, flush),
+           "bound_ms": bound, "bound_by": bound_by,
+           "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=mask), flush),
+           "shape": _seq_shape_text(
+               shape, q, k, off, live,
+               "tensor cores" if dt == "bf16" else "SIMT", len(pieces))}
+    del qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return out
+
+
+def _seq_bwd_timing(gen, flush, shape, dt):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_bwd_cuda, ref
+    q, k, v, do, window = _seq_inputs(gen, shape, dt)
+    b, sq, hq, _ = q.shape
+    off = (SEQ_TP - 1) * sq
+    o, lse = ref.flash_attention_ref(q, k, v, window=window, q_offset=off)
+    live = _seq_live_pairs(b, sq, k.shape[1], off, hq, True, window)
+    bound, bound_by = _flash_bound(q, k, live, 10, 4, 4)
+    qt, kt, vt, mask = _seq_library(q, k, v, window, off)
+    qt, kt, vt = (t.requires_grad_(True) for t in (qt, kt, vt))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    dot = do.transpose(1, 2).contiguous()
+    out = {"ms": _time_ms(lambda: flash_attention_bwd_cuda.flash_attention_bwd(
+               q, k, v, o, lse, do, window=window, q_offset=off), flush),
+           "plain_ms": _time_ms(lambda: ref.flash_attention_bwd_ref(
+               q, k, v, o, lse, do, window=window, q_offset=off), flush),
+           "bound_ms": bound, "bound_by": bound_by,
+           "library_ms": _time_ms(lambda: torch.autograd.grad(
+               ot, (qt, kt, vt), dot, retain_graph=True), flush),
+           "shape": _seq_shape_text(
+               shape, q, k, off, live,
+               "tensor cores" if dt == "bf16" else "SIMT", 1)}
+    del qt, kt, vt, ot, mask
+    torch.cuda.empty_cache()
+    return out
 
 
 def _train_table_sizes(cut=1):
@@ -3117,6 +3447,11 @@ def check_train_small(cfg=None, label="train reduced yi-6b f32"):
 
 FLASH_ARMS = {"bf16": ("flash_attention", "flash_attention_bwd"),
               "f32": ("flash_attention_f32", "flash_attention_bwd_f32")}
+# the query-offset arms of kernels 3 and 5 (the attention's sequence arm)
+OFFSET_ARMS = {"bf16": ("flash_attention_offset",
+                        "flash_attention_bwd_offset"),
+               "f32": ("flash_attention_offset_f32",
+                       "flash_attention_bwd_offset_f32")}
 
 
 def _check_flash_arms(label, counts, arm, per_step=None):
@@ -3787,6 +4122,7 @@ def check_delayed_sync():
 # ---------------------------------------------------------------------------
 
 GRANITE = "granite-moe-1b-a400m"
+MINICPM = "minicpm-2b"
 SCOUT = "llama4-scout-17b-a16e"
 QWEN2VL = "qwen2-vl-72b"
 # the reduced engines' trace: 6 requests on 4 slots, so slots stand idle
@@ -4384,7 +4720,8 @@ def run_phase10():
 
 ZAMBA2, XLSTM, WHISPER = "zamba2-1.2b", "xlstm-1.3b", "whisper-base"
 # every attention arm, serving and training
-ATTENTION_ARMS = SERVING_ARMS + FLASH_ARMS["bf16"] + FLASH_ARMS["f32"]
+ATTENTION_ARMS = SERVING_ARMS + FLASH_ARMS["bf16"] + FLASH_ARMS["f32"] + \
+    OFFSET_ARMS["bf16"] + OFFSET_ARMS["f32"]
 # the reduced token-loop engines' trace: 4 requests on 2 slots; at trace
 # seed 7 every greedy choice of the CPU runs wins by >= 1e-3
 TOKEN_LOOP_TRACE = dict(prompt_range=(3, 6), gen_range=(2, 4),
@@ -4777,7 +5114,10 @@ MR_STEPS = 3
 MR_SEQ = 64
 MR_TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
                     "flash_attention_bwd", "flash_attention_f32",
-                    "flash_attention_bwd_f32", "rmsprop_apply_multi")
+                    "flash_attention_bwd_f32", "flash_attention_offset",
+                    "flash_attention_bwd_offset",
+                    "flash_attention_offset_f32",
+                    "flash_attention_bwd_offset_f32", "rmsprop_apply_multi")
 
 
 def _mr_configs():
@@ -4786,12 +5126,20 @@ def _mr_configs():
     the single-process one takes all tokens: ``test_torch_moe_ep.py`` holds
     it to the reference's), and 12g's zamba2, xlstm on the ("mlstm",
     "slstm") cycle (reduced depth drops the sLSTM otherwise) and
-    Whisper."""
+    Whisper; 12i's minicpm-like MHA config (3 / 3 heads) and scout-like
+    GQA MoE config (5 q / 1 kv head, attn_local windows of 8 keys, nothing
+    dropped)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     return {"yi": get_config("yi-6b").reduced(),
             "stablelm": get_config("stablelm-1.6b").reduced(),
+            # 12i: q heads that divide neither 2 nor 4 (the sequence arm)
+            "minicpm_seq": dataclasses.replace(
+                get_config(MINICPM).reduced(), n_heads=3, n_kv_heads=3),
+            "scout_seq": dataclasses.replace(
+                get_config(SCOUT).reduced(), n_heads=5, n_kv_heads=1,
+                sliding_window=8, capacity_factor=4.0, aux_loss_weight=0.0),
             "granite": dataclasses.replace(get_config(GRANITE).reduced(),
                                            aux_loss_weight=0.0),
             "zamba2": get_config(ZAMBA2).reduced(),
@@ -4840,6 +5188,18 @@ def _mr_rec_cases(n):
     return cases
 
 
+def _mr_seq_cases(n):
+    """12i: the attention's sequence arm on (1, n) (forced at n = 1, a
+    model group of one; the heads divide neither 2 nor 4): the
+    minicpm-like and scout-like reduced configs; at n = 4 each again on
+    (2, 2), with FSDP over data."""
+    archs = ("minicpm_seq", "scout_seq")
+    cases = [(f"multirank_{a}", a, (1, n), "seq") for a in archs]
+    if n == 4:
+        cases += [(f"multirank_{a}_2x2", a, (2, 2), "seq") for a in archs]
+    return cases
+
+
 def _mr_extra(cfg, rows, dtype=None, device="cpu"):
     """A global batch's entries beside the tokens: an encoder-decoder's
     stub frames (rows, encoder_seq, d_model) from seed 0 (``_frames``),
@@ -4871,7 +5231,7 @@ def _mr_cpu_refs(n):
     cfgs = _mr_configs()
     refs = {}
     for path, arch, _, _ in _mr_cases(n) + _mr_tp_cases(n) + \
-            _mr_rec_cases(n):
+            _mr_rec_cases(n) + _mr_seq_cases(n):
         cfg = cfgs[arch]
         params = M.init_params(cfg, 0, "cpu")
         opt = opt_mod.shared_rmsprop()
@@ -4971,6 +5331,17 @@ def _kv_whole(lay):
     return path is not None and not lay.sharded(path, "model")
 
 
+def _seq_model_leaves(lay):
+    """The attention leaves one layer gathers over "model" under the
+    sequence arm: those ``lay`` holds over the model axis (wq's columns,
+    wo's rows, the biases; wk and wv where their heads divide the axis)."""
+    import re
+    first = next(p for p in lay.held if re.search(r"(^|\.)attn\.wq\.w$", p))
+    pre = first[:-len("wq.w")]
+    return sum(1 for p in lay.held
+               if p.startswith(pre) and lay.sharded(p, "model"))
+
+
 # a recurrent block's collectives under tensor parallelism, beside its
 # ln1 and the gather and scatter around it: (all-gathers of the forward
 # (again in the recompute), reduce-scatters, gradient all-reduces)
@@ -4986,7 +5357,10 @@ def _tp_collectives(cfg, lay):
     all-gather (the vocab-parallel lookup; a whole table's slice only the
     latter); an attention block's gather before attention (again in the
     recompute) and its backward's reduce-scatter, the output projection's
-    reduce-scatter (again in the recompute) and its backward's all-gather;
+    reduce-scatter (again in the recompute) and its backward's all-gather
+    (under the sequence arm instead: each leaf of ``_seq_model_leaves``
+    gathered, again in the recompute, its backward's reduce-scatter, and
+    the same pair for k and v gathered along the sequence);
     the same pair around a gated MLP, whose reduce-scatter the recompute
     stops before; a recurrent block's gather and scatter as the MLP's,
     and inside it the gathers along the features (``_REC_TP``); the
@@ -5014,8 +5388,13 @@ def _tp_collectives(cfg, lay):
         _shared_apps(cfg)
     kv = (2 + 2 * bool(cfg.qkv_bias)) if _kv_whole(lay) else 0
     mlp = 0 if cfg.n_experts else 1
-    ag += attn * (2 + r + mlp * (2 + r))
-    rs += attn * (2 + r + 2 * mlp)
+    if lay.seq:
+        n_m = _seq_model_leaves(lay)
+        ag += attn * ((n_m + 1) * (1 + r) + mlp * (2 + r))
+        rs += attn * (n_m + 1 + 2 * mlp)
+    else:
+        ag += attn * (2 + r + mlp * (2 + r))
+        rs += attn * (2 + r + 2 * mlp)
     ar += attn * (2 * norm + kv)
     for kind in kinds:
         if kind in _REC_TP:
@@ -5026,7 +5405,7 @@ def _tp_collectives(cfg, lay):
     return {"all_gather": ag, "reduce_scatter": rs, "all_reduce": ar}
 
 
-def _train_launches(cfg):
+def _train_launches(cfg, seq=False):
     """Launches of kernels 1-5 one train step makes, from its layer
     kinds: two RMSNorms a block (an attention block's two; a recurrent
     block's ln1 and the one inside it; two an application of zamba2's
@@ -5034,8 +5413,9 @@ def _train_launches(cfg):
     recompute) and backward; one attention an attention block or shared
     application (an encoder-decoder's encoder and decoder layers),
     forward (again in the recompute) and backward; through the arms of
-    the compute dtype, the other arms never.  A LayerNorm launches no
-    kernel.  It holds the unsharded run's counts where the script has
+    the compute dtype (their query-offset arms under the attention's
+    sequence arm, ``seq``), the other arms never.  A LayerNorm launches
+    no kernel.  It holds the unsharded run's counts where the script has
     one, and stands alone for a mesh run that has none beside it."""
     kinds = cfg.layer_kinds()
     r = 1 + _remat(cfg)
@@ -5047,12 +5427,14 @@ def _train_launches(cfg):
             _shared_apps(cfg)
         blocks = len(kinds) + _shared_apps(cfg)
     arm = "bf16" if cfg.dtype == "bfloat16" else "f32"
-    other = "f32" if arm == "bf16" else "bf16"
-    fwd, bwd = FLASH_ARMS[arm]
+    fwd, bwd = (OFFSET_ARMS if seq else FLASH_ARMS)[arm]
     rms = cfg.norm == "rmsnorm"          # a layernorm launches no kernel
-    return {"rmsnorm": rms * (2 * blocks * r + 1),
-            "rmsnorm_bwd": rms * (2 * blocks + 1),
-            fwd: attn * r, bwd: attn, **dict.fromkeys(FLASH_ARMS[other], 0)}
+    out = dict.fromkeys(sum(map(tuple, (*FLASH_ARMS.values(),
+                                        *OFFSET_ARMS.values())), ()), 0)
+    out.update({"rmsnorm": rms * (2 * blocks * r + 1),
+                "rmsnorm_bwd": rms * (2 * blocks + 1),
+                fwd: attn * r, bwd: attn})
+    return out
 
 
 def _fingerprint(params):
@@ -5088,6 +5470,17 @@ def _rel_l2(a, b):
                for k in b)
 
 
+def _rel_l2_shards(params, lay, whole):
+    """``_rel_l2`` of this rank's shards under ``lay`` (None: whole
+    leaves) against the same shards cut from the whole flat tree
+    ``whole``."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.models import model as M
+    mine = {k: t.detach() for k, t in M.flatten(params).items()}
+    return _rel_l2(mine, {k: t if lay is None else fsdp.leaf_shard(lay, k, t)
+                          for k, t in whole.items()})
+
+
 def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
               seq=MR_SEQ, key=0, lr0=7e-4, total=100_000, keep="params",
               profile=None, snapshot=None, against=None, extra=None,
@@ -5096,7 +5489,8 @@ def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
     TokenPipeline batches of ``rows`` x ``seq`` from ``prng.key(key)``:
     under ``mesh`` with the parameters held as ``held`` ("fsdp": the plan's
     shards, tensor-parallel where the model axis has more than one rank;
-    "tp": tensor-parallel on any model axis; "whole"), or the unsharded
+    "tp": tensor-parallel on any model axis; "seq": that with the
+    attention's sequence arm; "whole"), or the unsharded
     step without a mesh.  The
     parameters are a copy of ``masters`` (whole, on ``dev``: several runs
     share one draw), or without it seed 0's drawn on the CPU.  Launch,
@@ -5108,11 +5502,12 @@ def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
     (``_profile``; the other ranks take it plainly, the collectives of a
     mesh run with it).  On one rank, outside the timed walls: with
     ``snapshot`` (k) a copy of the parameters after k steps
-    (``out["snapshot"]``, on the card); with ``against`` (k, such a copy)
-    their largest leaf's relative L2 distance from it after k steps
-    (``out["rel_l2"]``).  ``extra``: global batch entries beside the
-    tokens (``_mr_extra``), each step given this rank's rows of them;
-    ``profile_host``: ``_profile``'s ``host``."""
+    (``out["snapshot"]``, on the card); on any ranks, with ``against`` (k,
+    such a copy) the largest relative L2 distance of this rank's shards
+    from the same shards of it after k steps (``out["rel_l2"]``).
+    ``extra``: global batch entries beside the tokens (``_mr_extra``),
+    each step given this rank's rows of them; ``profile_host``:
+    ``_profile``'s ``host``."""
     import contextlib
     import gc
 
@@ -5132,8 +5527,9 @@ def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
         masters = M.tree_map(lambda t: t.to(dev), M.init_params(cfg, 0,
                                                                 "cpu"))
     lay = None
-    if held in ("fsdp", "tp"):
-        lay = fsdp.layout(cfg, mesh, force_tp=held == "tp")
+    if held in ("fsdp", "tp", "seq"):
+        lay = fsdp.layout(cfg, mesh, force_tp=held == "tp",
+                          force_seq=held == "seq")
     if lay is not None:
         params = fsdp.shard(lay, masters)
     else:
@@ -5175,7 +5571,7 @@ def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
                 snap = {k: t.clone() for k, t in
                         _one_rank_params(params, lay).items()}
             if against is not None and against[0] == i + 1:
-                rel_l2 = _rel_l2(_one_rank_params(params, lay), against[1])
+                rel_l2 = _rel_l2_shards(params, lay, against[1])
         if snapshot is None:
             peak = torch.cuda.max_memory_allocated(dev)
         out = {"losses": losses, "walls": walls,
@@ -5222,11 +5618,13 @@ def _mr_check_counts(label, run, mesh, cfg, steps, lead, plain=None):
     ``_mr_routes`` a step: the expert-parallel MoE on every MoE layer, and
     under tensor parallelism local-head attention on every layer and the
     norms on the sequence rows (each again in the remat)."""
-    want = {k: steps * v for k, v in _train_launches(cfg).items()}
-    want["rmsprop_apply_multi"] = steps * _per_update(run["leaves"])
-    for name, r in (("the mesh run", run), ("the unsharded run", plain)):
+    seq = run["layout"] is not None and run["layout"].seq
+    for name, r in (("the unsharded run", plain), ("the mesh run", run)):
         if r is None:
             continue
+        want = {k: steps * v for k, v in _train_launches(
+            cfg, seq and r is run).items()}
+        want["rmsprop_apply_multi"] = steps * _per_update(run["leaves"])
         got = {k: r["kernels"][k] for k in MR_TRAIN_KERNELS}
         if got != want:
             raise AssertionError(f"{label}: {name}'s kernel launches {got}, "
@@ -5264,6 +5662,7 @@ def _mr_routes(cfg, lay):
     kinds = cfg.layer_kinds()
     r = 1 + _remat(cfg)
     tp = lay is not None and lay.tp
+    seq = tp and lay.seq
     kv_whole = tp and _kv_whole(lay)
     ssm = sum(1 for k in kinds if k == "mamba2")
     lstm = sum(1 for k in kinds if k in ("mlstm", "slstm"))
@@ -5279,7 +5678,8 @@ def _mr_routes(cfg, lay):
     moe = sum(1 for k in kinds if k in ("attn", "attn_local")) \
         if cfg.n_experts else 0
     return {"moe_ep": moe * r, "moe_dense": 0,
-            "tp_heads": attn * r * tp, "tp_kv_whole": attn * r * kv_whole,
+            "tp_heads": attn * r * (tp and not seq), "tp_seq": attn * r * seq,
+            "tp_kv_whole": attn * r * kv_whole,
             "sp_rows": rows * tp, "tp_ssm_heads": ssm * r * tp,
             "tp_lstm_heads": lstm * r * tp,
             "tp_feature_rows": (ssm + lstm) * r * tp,
@@ -5629,6 +6029,79 @@ def _mr_rec_full(n, dev, lead):
     return out
 
 
+# 12i's full-width model: minicpm-2b (36 q heads: the sequence arm at the
+# production mesh's 16-way model axis) cut to 8 of 40 layers, 4 x 1024
+MINICPM_SEQ_CUT = {"n_layers": 8}
+SEQ_LOSS_REL = 1e-3
+
+
+def _mr_seq_full(n, dev, lead):
+    """12i: minicpm-2b at full width cut in depth (``MINICPM_SEQ_CUT``)
+    through the train step with the attention's sequence arm forced on
+    (1, n) (remat, bf16 compute), ``TP_SNAPSHOT`` steps from one draw,
+    against the unsharded step on each rank's card: on (1, 1) its losses
+    within ``SEQ_LOSS_REL`` relative, or bitwise equal, as expected where
+    the query-offset arm at offset 0 walks the whole arm's tiles (the
+    verdict says which); on more ranks its first loss so (see below), the
+    rest and the parameters' distance printed.  Exact launches (the
+    offset arms only), collectives and routes a step.  Returns {path:
+    counts}."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(MINICPM), dtype="bfloat16",
+                              remat=True, **MINICPM_SEQ_CUT)
+    rows, steps = 4, TP_SNAPSHOT
+    label = f"multirank minicpm-2b x{cfg.n_layers} seq (1, {n})"
+    kw = dict(masters=M.init_params(cfg, 0, dev), seq=TRAIN_SEQ, key=2,
+              lr0=7e-3, total=100, keep="fingerprint")
+    mesh = mesh_mod.make_mesh((1, n), dev)
+    runs = {}
+    plain = runs["plain"] = _mr_train(cfg, None, None, dev, rows, steps,
+                                      snapshot=steps, **kw)
+    run = runs["seq"] = _mr_train(cfg, mesh, "seq", dev, rows, steps,
+                                  against=(steps, plain.pop("snapshot")),
+                                  **kw)
+    del kw
+    rels = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                plain["losses"])]
+    # over n ranks each rank's weight gradients are its rows' partials,
+    # reduce-scattered in bf16, where the unsharded step rounds one f32
+    # sum: after an update at 12b's learning rate the losses part by more
+    # than that rounding, so there the first loss (the same weights) is
+    # gated and the rest printed
+    loss = max(rels) if n == 1 else rels[0]
+    same = max(rels) == 0.0 and run["rel_l2"] == 0.0
+    params = (f"losses rel {[float(f'{x:.3e}') for x in rels]}, params "
+              f"rel {run['rel_l2']:.3e} (largest leaf's L2 on rank 0)")
+    if loss > SEQ_LOSS_REL:
+        raise AssertionError(
+            f"{label}: losses {run['losses']} against the unsharded "
+            f"{plain['losses']} ({params}, gate {SEQ_LOSS_REL} on "
+            f"{'every loss' if n == 1 else 'the first'})")
+    _mr_check_counts(label, run, mesh, cfg, steps, lead, plain)
+    if lead:
+        verdict = "bitwise equal to the unsharded step" if same else (
+            f"{params} (gate {SEQ_LOSS_REL} on "
+            f"{'every loss' if n == 1 else 'the first'})")
+        print(f"train minicpm-2b full width x {cfg.n_layers} layers, "
+              f"sequence arm over (1, {n}), batch {rows} x {TRAIN_SEQ}: "
+              + json.dumps(_train_report(runs, rows * TRAIN_SEQ)),
+              flush=True)
+        print(f"check {label}: after {steps} steps {verdict} ok",
+              flush=True)
+    out = {f"multirank_minicpm_seq_1x{n}": run["kernels"]}
+    del runs, run, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _mr_delayed(n, dev, refs, lead):
     """12d: delayed sync on (pod n, 1, 1), each pod one group, merging
     every 2 steps: 3 steps of reduced yi-6b in f32, each group's
@@ -5719,7 +6192,10 @@ def _phase12_rank(rank, n, port, tmp):
         counts["multirank_delayed"] = _mr_delayed(n, dev, refs, lead)
         t = lap("12d", t)
         counts.update(_mr_rec_full(n, dev, lead))
-        lap("12h", t)
+        t = lap("12h", t)
+        counts.update(_mr_reduced(n, dev, refs, lead, _mr_seq_cases(n)))
+        counts.update(_mr_seq_full(n, dev, lead))
+        lap("12i", t)
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(counts, f)
     finally:
@@ -5847,6 +6323,9 @@ DL_REL_KV = 1e-3
 DL_FLIP_ABS = 1e-2
 YI_DECODE = dict(batch=8, seq=32768, steps=16)     # decode_32k, batch cut
 ZAMBA2_LONG = dict(batch=1, seq=524288, steps=4)   # long_500k, native
+# 13d: minicpm-2b's bf16 cache is 369 KB a token (36 kv heads x 40
+# layers), so decode_32k's context is cut to 4096 rows at batch 8
+MINICPM_DECODE = dict(batch=8, seq=4096, steps=8)
 DL_TOKEN_SEED = 13
 
 
@@ -6084,7 +6563,7 @@ def _dl_cpu_decode(cfg, params, cache, tokens, pos0):
     return torch.stack(toks), torch.stack(logits)
 
 
-def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0):
+def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0, force_seq=False):
     """13b / 13c: ``arch`` at full width and depth, bf16, decoding
     ``spec["steps"]`` tokens a row against a ``spec["seq"]``-row context
     filled from a seed, under the serving layout on each mesh of
@@ -6093,7 +6572,10 @@ def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0):
     the step's logits, and the unsharded step's wherever its margin
     clears twice the row's largest logit difference); the ranks of a
     batch row agree; kernel 7's launches and the collectives exact.  Prints decode
-    tokens/s and each rank's peak memory.  Returns {path: launches}."""
+    tokens/s and each rank's peak memory.  With ``force_seq`` (13d) the
+    attention takes the column arm (``fsdp.serve_layout(force_seq=True)``)
+    on every call, and on (1, 1) the logits must equal the unsharded
+    step's bit for bit.  Returns {path: launches}."""
     import gc
 
     import torch
@@ -6101,6 +6583,7 @@ def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0):
 
     from repro_torch.configs import get_config
     from repro_torch.distributed import fsdp, sharding
+    from repro_torch.kernels import dispatch
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models import model as M
     cfg = get_config(arch)
@@ -6113,7 +6596,8 @@ def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0):
         tag = "x".join(map(str, shape))
         label = f"decode layout {tag} {arch} {name}"
         mesh = mesh_mod.make_mesh(shape, dev)
-        lay = fsdp.serve_layout(cfg, mesh, force_tp=True)
+        lay = fsdp.serve_layout(cfg, mesh, force_tp=True,
+                                force_seq=force_seq)
         shards = fsdp.shard(lay, params)
         rules = sharding.decode_rules(cfg, mesh, batch_size=b)
         rows = _dl_rows(rules, mesh, b)
@@ -6139,6 +6623,13 @@ def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0):
         gc.collect()
         _dl_check_counts(label, cfg, lay, "bf16", steps, launches, colls,
                          lead)
+        routes = dispatch.route_counts()
+        arm = "tp_decode_cols" if lay.seq else "tp_decode_heads"
+        want = steps * _decode_attention_layers(cfg)
+        if (routes[arm], routes["tp_decode_cols"] + routes[
+                "tp_decode_heads"]) != (want, want):
+            raise AssertionError(f"{label}: routes {routes}, want {arm} "
+                                 f"{want}")
         out[f"decode_layout_{name}_{tag}"] = launches
         # the ranks holding the same rows drew the same tokens
         every = [None] * dist.get_world_size()
@@ -6171,6 +6662,11 @@ def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0):
                 raise AssertionError(f"{label}: logits rel L2 {rel:.3e} off "
                                      f"the unsharded step's (gate "
                                      f"{BF16_LOGITS_REL})")
+            if force_seq and shape == (1, 1) and \
+                    not torch.equal(logits, ref):
+                raise AssertionError(f"{label}: the column arm over one "
+                                     "rank is not bitwise equal to the "
+                                     "unsharded step")
             if not torch.equal(toks, logits.argmax(-1)):
                 raise AssertionError(f"{label}: the greedy tokens are not "
                                      "the argmax of the step's logits")
@@ -6252,6 +6748,13 @@ def _phase13_rank(rank, n, port, tmp):
             [ZAMBA2_LONG["seq"] - ZAMBA2_LONG["steps"] - 1]))
         if lead:
             print(f"phase 13c_s {time.perf_counter() - t:.1f}", flush=True)
+        t = time.perf_counter()
+        counts.update(_dl_full(
+            n, dev, lead, "cols", MINICPM, MINICPM_DECODE, shapes,
+            [MINICPM_DECODE["seq"] - MINICPM_DECODE["steps"] - 1 - 301 * i
+             for i in range(MINICPM_DECODE["batch"])], force_seq=True))
+        if lead:
+            print(f"phase 13d_s {time.perf_counter() - t:.1f}", flush=True)
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(counts, f)
     except BaseException:
@@ -6308,7 +6811,8 @@ def _shapes(record):
         "whisper_encoder_shape", "whisper_decoder_shape",
         "zamba2_train_shape", "tp2_shape", "tp4_shape",
         "width_2048_tp2_shape", *_REC_TP_TRAIN, "decode32k_shape",
-        "long131k_shape", "long500k_shape")
+        "long131k_shape", "long500k_shape",
+        *(f"{sh[0]}_shape" for sh in SEQ_SHAPES))
         if k in record]
 
 
@@ -6351,7 +6855,8 @@ def main():
                *check_append_int8(gen, flush), check_decode(gen, flush),
                check_decode_int8(gen, flush), *check_partials(gen, flush),
                check_rmsnorm_bwd(gen, flush), *check_flash_fwd(gen, flush),
-               *check_flash_bwd(gen, flush), check_rmsprop(gen, flush)]
+               *check_flash_bwd(gen, flush), *check_flash_offset(gen, flush),
+               check_rmsprop(gen, flush)]
     for name, subs in check_verify(gen, flush).items():
         next(r for r in records if r["name"] == name).update(subs)
     t_prng = time.perf_counter()
@@ -6493,6 +6998,11 @@ def main():
              "flash_attention_fwd_f32": "flash_attention_f32",
              "flash_attention_bwd": "flash_attention_bwd",
              "flash_attention_bwd_f32": "flash_attention_bwd_f32",
+             "flash_attention_fwd_offset": "flash_attention_offset",
+             "flash_attention_fwd_offset_f32": "flash_attention_offset_f32",
+             "flash_attention_bwd_offset": "flash_attention_bwd_offset",
+             "flash_attention_bwd_offset_f32":
+                 "flash_attention_bwd_offset_f32",
              # kernel 8 through its three entries (the main paths take
              # the apply mode only)
              "rmsprop_update": ("rmsprop", "rmsprop_update_multi",

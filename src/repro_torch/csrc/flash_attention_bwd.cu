@@ -64,6 +64,16 @@
 //
 // Both arms skip dead tiles by the forward's rule (and its transpose in
 // dkv).
+//
+// The query-offset arm (flash_attention.cu's): q, o, dout, dq (B, Sq, Hq,
+// D) at positions q_off .. q_off + Sq - 1, k, v, dk, dv (B, Sk, Hkv, D),
+// lse and delta (B, Hq, Sq).  The masks and live-tile bounds compare
+// absolute positions; the dq grid covers the Sq rows, the dkv grid all Sk
+// keys with the shard's query tiles, and a key tile that no query of the
+// shard reaches writes zeros (its dk, dv are this shard's part: none).
+// With Sk > Sq the key tiles alone fill the card, so the wrapper takes one
+// split of the q heads, whose dkv block writes dk and dv itself (bf16;
+// no partials, no sum launch); it does so wherever n_split is 1.
 #include <cmath>
 
 #include "attention_tiles.cuh"
@@ -77,10 +87,32 @@ constexpr int kBK = 32;  // dq kernel: keys per tile
 constexpr int kBN = 64;  // dkv kernel: keys per block
 constexpr int kBM = 32;  // dkv kernel: query rows per tile
 
-__device__ __forceinline__ bool valid(int qp, int kp, int S, int causal,
-                                      int window) {
-  return qp < S && kp < S && (!causal || kp <= qp) &&
+// query row qi (position q_off + qi) against key kp
+__device__ __forceinline__ bool valid(int qi, int kp, int Sq, int Sk,
+                                      int q_off, int causal, int window) {
+  const int qp = q_off + qi;
+  return qi < Sq && kp < Sk && (!causal || kp <= qp) &&
          (window <= 0 || kp > qp - window);
+}
+
+// The live query tiles [begin, end) of tile size BM for the keys [j0,
+// k_hi] (the forward's rule, transposed): none whose last row is before
+// the block's first key (causal); none whose first row is at or past the
+// block's last key + window (window).  Empty where no query of the shard
+// reaches the keys.
+template <int BM>
+__device__ __forceinline__ void live_q_tiles(int j0, int k_hi, int Sq,
+                                             int q_off, int causal,
+                                             int window, int& begin,
+                                             int& end) {
+  const int n_qt = (Sq + BM - 1) / BM;
+  begin = causal ? max(j0 - q_off, 0) / BM : 0;
+  end = n_qt;
+  if (window > 0) {
+    const int last = k_hi + window - 1 - q_off;  // the last live query row
+    end = last < 0 ? 0 : min(n_qt, last / BM + 1);
+  }
+  if (end < begin) end = begin;
 }
 
 // ---------------------------------------------------------------------------
@@ -116,8 +148,9 @@ __global__ void __launch_bounds__(kThreads)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ o,
               const T* __restrict__ dout, const float* __restrict__ lse,
-              float* __restrict__ delta, T* __restrict__ dq, int S, int Hq,
-              int Hkv, int causal, int window, float scale) {
+              float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk,
+              int q_off, int Hq, int Hkv, int causal, int window,
+              float scale) {
   using Sm = DqSmem<D>;
   using Rows = rt::AccRows<D, kBQ>;
   constexpr int kKS = Sm::kKS;
@@ -130,45 +163,46 @@ __global__ void __launch_bounds__(kThreads)
   const int i0 = iq * kBQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long row_stride = (long long)Hq * D;
-  const long long q_off = ((long long)b * S + i0) * row_stride +
-                          (long long)h * D;
-  const long long stat_off = ((long long)b * Hq + h) * S;
+  const long long q_at = ((long long)b * Sq + i0) * row_stride +
+                         (long long)h * D;
+  const long long stat_off = ((long long)b * Hq + h) * Sq;
 
-  // q and do rows -> shared (f32); rows past S are zero
+  // q and do rows -> shared (f32); rows past Sq are zero
   {
     float* const dst[2] = {sm.q, sm.dout};
-    const T* const src[2] = {q + q_off, dout + q_off};
-    rt::load_rows_f32<D, kBQ, 2, T>(dst, D, src, row_stride, S - i0);
+    const T* const src[2] = {q + q_at, dout + q_at};
+    rt::load_rows_f32<D, kBQ, 2, T>(dst, D, src, row_stride, Sq - i0);
   }
   __syncthreads();
   // delta = rowsum(do * o) in f32, one warp per row
   for (int r = warp; r < kBQ; r += kThreads / 32) {
     const int row = i0 + r;
     float dsum = 0.f;
-    if (row < S) {
-      const T* orow = o + q_off + r * row_stride;
+    if (row < Sq) {
+      const T* orow = o + q_at + r * row_stride;
       for (int d = lane; d < D; d += 32)
         dsum += sm.dout[r * D + d] * rt::to_f32(orow[d]);
     }
     dsum = rt::warp_sum(dsum);
     if (lane == 0) {
       sm.delta[r] = dsum;
-      sm.lse[r] = row < S ? lse[stat_off + row] : 0.f;
-      if (row < S) delta[stat_off + row] = dsum;
+      sm.lse[r] = row < Sq ? lse[stat_off + row] : 0.f;
+      if (row < Sq) delta[stat_off + row] = dsum;
     }
   }
 
   float acc[Rows::kCount];
 #pragma unroll
   for (int i = 0; i < Rows::kCount; ++i) acc[i] = 0.f;
-  int kt_begin = 0, kt_end = (S + kBK - 1) / kBK;
-  if (causal) kt_end = min(kt_end, (i0 + kBQ - 1) / kBK + 1);
+  const int p0 = q_off + i0;  // the block's first query position
+  int kt_begin = 0, kt_end = (Sk + kBK - 1) / kBK;
+  if (causal) kt_end = min(kt_end, (p0 + kBQ - 1) / kBK + 1);
   if (window > 0) {
-    const int t = i0 - window + 1;  // live iff (kt + 1) * kBK > t
+    const int t = p0 - window + 1;  // live iff (kt + 1) * kBK > t
     if (t > 0) kt_begin = t / kBK;
   }
   const long long kv_stride = (long long)Hkv * D;
-  const long long kv_off = (long long)b * S * kv_stride + (long long)hk * D;
+  const long long kv_off = (long long)b * Sk * kv_stride + (long long)hk * D;
   __syncthreads();
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
@@ -177,7 +211,7 @@ __global__ void __launch_bounds__(kThreads)
       float* const dst[2] = {sm.k, sm.v};
       const T* const src[2] = {k + kv_off + k0 * kv_stride,
                                v + kv_off + k0 * kv_stride};
-      rt::load_rows_f32<D, kBK, 2, T>(dst, kKS, src, kv_stride, S - k0);
+      rt::load_rows_f32<D, kBK, 2, T>(dst, kKS, src, kv_stride, Sk - k0);
     }
     __syncthreads();
 
@@ -201,7 +235,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < kRS; ++i) {
         const int r = r0 + i * kStepS;
-        const float p = valid(i0 + r, k0 + j, S, causal, window)
+        const float p = valid(i0 + r, k0 + j, Sq, Sk, q_off, causal, window)
                             ? expf(sc[i] * scale - sm.lse[r])
                             : 0.f;
         sm.ds[r * kBK + j] = p * (dp[i] - sm.delta[r]) * scale;
@@ -226,8 +260,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < Rows::kCount; ++i) {
     const int row = i0 + a0 + i * Rows::kStep;
-    if (row < S)
-      dq[q_off + (long long)(row - i0) * row_stride + d] =
+    if (row < Sq)
+      dq[q_at + (long long)(row - i0) * row_stride + d] =
           rt::from_f32<T>(acc[i]);
   }
 }
@@ -267,8 +301,9 @@ __global__ void __launch_bounds__(kThreads)
     dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dk, T* __restrict__ dv, int S, int Hq, int Hkv,
-               int causal, int window, float scale) {
+               T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk,
+               int q_off, int Hq, int Hkv, int causal, int window,
+               float scale) {
   using Sm = DkvSmem<D>;
   constexpr int kKS = Sm::kKS;
   constexpr int kStepS = kThreads / kBN;  // query rows between a thread's
@@ -282,47 +317,40 @@ __global__ void __launch_bounds__(kThreads)
   const int j0 = ik * kBN;
   const int tid = threadIdx.x;
   const long long kv_stride = (long long)Hkv * D;
-  const long long kv_off = ((long long)b * S + j0) * kv_stride +
+  const long long kv_off = ((long long)b * Sk + j0) * kv_stride +
                            (long long)hk * D;
   const long long row_stride = (long long)Hq * D;
 
   {
     float* const dst[2] = {sm.k, sm.v};
     const T* const src[2] = {k + kv_off, v + kv_off};
-    rt::load_rows_f32<D, kBN, 2, T>(dst, kKS, src, kv_stride, S - j0);
+    rt::load_rows_f32<D, kBN, 2, T>(dst, kKS, src, kv_stride, Sk - j0);
   }
   float dk_acc[kCA], dv_acc[kCA];
 #pragma unroll
   for (int i = 0; i < kCA; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
-  // live q tiles (the forward's rule, transposed): none whose last row is
-  // before the block's first key (causal); none whose first row is at or
-  // past the block's last key + window (window)
-  const int n_qt = (S + kBM - 1) / kBM;
-  const int qt_begin = causal ? j0 / kBM : 0;
-  int qt_end = n_qt;
-  if (window > 0) {
-    const int k_hi = min(j0 + kBN, S) - 1;
-    qt_end = min(n_qt, (k_hi + window - 1) / kBM + 1);
-  }
+  int qt_begin, qt_end;
+  live_q_tiles<kBM>(j0, min(j0 + kBN, Sk) - 1, Sq, q_off, causal, window,
+                    qt_begin, qt_end);
 
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
-    const long long stat_off = ((long long)b * Hq + h) * S;
+    const long long stat_off = ((long long)b * Hq + h) * Sq;
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int m0 = qt * kBM;
-      const long long q_off = ((long long)b * S + m0) * row_stride +
-                              (long long)h * D;
+      const long long q_at = ((long long)b * Sq + m0) * row_stride +
+                             (long long)h * D;
       __syncthreads();  // the previous tile's readers are done
       {
         float* const dst[2] = {sm.q, sm.dout};
-        const T* const src[2] = {q + q_off, dout + q_off};
-        rt::load_rows_f32<D, kBM, 2, T>(dst, D, src, row_stride, S - m0);
+        const T* const src[2] = {q + q_at, dout + q_at};
+        rt::load_rows_f32<D, kBM, 2, T>(dst, D, src, row_stride, Sq - m0);
       }
       if (tid < kBM) {
         const int row = m0 + tid;
-        sm.lse[tid] = row < S ? lse[stat_off + row] : 0.f;
-        sm.delta[tid] = row < S ? delta[stat_off + row] : 0.f;
+        sm.lse[tid] = row < Sq ? lse[stat_off + row] : 0.f;
+        sm.delta[tid] = row < Sq ? delta[stat_off + row] : 0.f;
       }
       __syncthreads();
 
@@ -346,7 +374,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int i = 0; i < kRS; ++i) {
           const int r = r0 + i * kStepS;
-          const float p = valid(m0 + r, j0 + j, S, causal, window)
+          const float p = valid(m0 + r, j0 + j, Sq, Sk, q_off, causal,
+                                window)
                               ? expf(sc[i] * scale - sm.lse[r])
                               : 0.f;
           sm.p[r * kBN + j] = p;
@@ -376,7 +405,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < kCA; ++i) {
     const int j = a0 + i * kStepA;
-    if (j0 + j < S) {
+    if (j0 + j < Sk) {
       const long long at = kv_off + (long long)j * kv_stride + d;
       dk[at] = rt::from_f32<T>(dk_acc[i]);
       dv[at] = rt::from_f32<T>(dv_acc[i]);
@@ -393,8 +422,8 @@ int set_smem(K kernel, size_t bytes) {
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const void* lse, void* delta, void* dq,
-               void* dk, void* dv, int B, int S, int Hq, int Hkv, int causal,
-               int window, cudaStream_t stream) {
+               void* dk, void* dv, int B, int Sq, int Sk, int q_off, int Hq,
+               int Hkv, int causal, int window, cudaStream_t stream) {
   using T = float;
   static bool configured = false;
   if (!configured) {
@@ -404,22 +433,22 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o,
     configured = true;
   }
   const float scale = (float)(1.0 / sqrt((double)D));
-  dq_kernel<D, T><<<dim3((S + kBQ - 1) / kBQ, Hq, B), kThreads,
+  dq_kernel<D, T><<<dim3((Sq + kBQ - 1) / kBQ, Hq, B), kThreads,
                     DqSmem<D>::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(o),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<T*>(dq), S, Hq, Hkv, causal,
-      window, scale);
+      static_cast<float*>(delta), static_cast<T*>(dq), Sq, Sk, q_off, Hq, Hkv,
+      causal, window, scale);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  dkv_kernel<D, T><<<dim3((S + kBN - 1) / kBN, Hkv, B), kThreads,
+  dkv_kernel<D, T><<<dim3((Sk + kBN - 1) / kBN, Hkv, B), kThreads,
                      DkvSmem<D>::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), S, Hq, Hkv, causal, window,
-      scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, q_off, Hq, Hkv,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -434,11 +463,6 @@ constexpr int kMBK = 64;          // dq: keys per tile
 constexpr int kMBN = 64;          // dkv: keys per block
 constexpr int kMBM = 32;          // dkv: query rows per tile
 
-__device__ __forceinline__ bool live(int qi, int key, int S, int causal,
-                                     int window) {
-  return qi < S && key < S && (!causal || key <= qi) &&
-         (window <= 0 || key > qi - window);
-}
 
 template <int D>
 struct DqMmaSmem {
@@ -457,8 +481,8 @@ __global__ void __launch_bounds__(kMmaThreads)
                   const bf16* __restrict__ v, const bf16* __restrict__ o,
                   const bf16* __restrict__ dout,
                   const float* __restrict__ lse, float* __restrict__ delta,
-                  bf16* __restrict__ dq, int S, int Hq, int Hkv, int causal,
-                  int window, float scale) {
+                  bf16* __restrict__ dq, int Sq, int Sk, int q_off, int Hq,
+                  int Hkv, int causal, int window, float scale) {
   using Sm = DqMmaSmem<D>;
   constexpr int kRow = Sm::kRow;
   constexpr int kKD = D / 16;
@@ -478,16 +502,17 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long q_stride = (long long)Hq * D;
   const long long kv_stride = (long long)Hkv * D;
-  const long long q_off = ((long long)b * S + i0) * q_stride +
-                          (long long)h * D;
-  const long long stat_off = ((long long)b * Hq + h) * S;
-  const bf16* kg = k + (long long)b * S * kv_stride + (long long)hk * D;
-  const bf16* vg = v + (long long)b * S * kv_stride + (long long)hk * D;
+  const long long q_at = ((long long)b * Sq + i0) * q_stride +
+                         (long long)h * D;
+  const long long stat_off = ((long long)b * Hq + h) * Sq;
+  const bf16* kg = k + (long long)b * Sk * kv_stride + (long long)hk * D;
+  const bf16* vg = v + (long long)b * Sk * kv_stride + (long long)hk * D;
 
-  int kt_begin = 0, kt_end = (S + kMBK - 1) / kMBK;
-  if (causal) kt_end = min(kt_end, (i0 + kMBQ - 1) / kMBK + 1);
+  const int p0 = q_off + i0;  // the block's first query position
+  int kt_begin = 0, kt_end = (Sk + kMBK - 1) / kMBK;
+  if (causal) kt_end = min(kt_end, (p0 + kMBQ - 1) / kMBK + 1);
   if (window > 0) {
-    const int t = i0 - window + 1;  // live iff (kt + 1) * kMBK > t
+    const int t = p0 - window + 1;  // live iff (kt + 1) * kMBK > t
     if (t > 0) kt_begin = t / kMBK;
   }
 
@@ -495,14 +520,14 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int k0 = kt * kMBK;
     bf16* dst = skv + buf * 2 * Sm::kTile;
     mt::load_tile_async<kMBK, D, kMmaThreads>(dst, kg + k0 * kv_stride,
-                                              kv_stride, S - k0);
+                                              kv_stride, Sk - k0);
     mt::load_tile_async<kMBK, D, kMmaThreads>(dst + Sm::kTile,
                                               vg + k0 * kv_stride, kv_stride,
-                                              S - k0);
+                                              Sk - k0);
   };
-  mt::load_tile_async<kMBQ, D, kMmaThreads>(sq, q + q_off, q_stride, S - i0);
-  mt::load_tile_async<kMBQ, D, kMmaThreads>(sdo, dout + q_off, q_stride,
-                                            S - i0);
+  mt::load_tile_async<kMBQ, D, kMmaThreads>(sq, q + q_at, q_stride, Sq - i0);
+  mt::load_tile_async<kMBQ, D, kMmaThreads>(sdo, dout + q_at, q_stride,
+                                            Sq - i0);
   load_kv(kt_begin, 0);
   mt::cp_async_commit();
   mt::cp_async_wait<0>();
@@ -512,8 +537,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int r = 0; r < 16; ++r) {
     const int lr = warp * 16 + r, row = i0 + lr;
     float dsum = 0.f;
-    if (row < S) {
-      const bf16* orow = o + q_off + (long long)lr * q_stride;
+    if (row < Sq) {
+      const bf16* orow = o + q_at + (long long)lr * q_stride;
       for (int d = lane; d < D; d += 32)
         dsum += __bfloat162float(sdo[lr * kRow + d]) *
                 __bfloat162float(orow[d]);
@@ -521,8 +546,8 @@ __global__ void __launch_bounds__(kMmaThreads)
     dsum = rt::warp_sum(dsum);
     if (lane == 0) {
       sdelta[lr] = dsum;
-      slse[lr] = row < S ? lse[stat_off + row] * mt::kLog2e : 0.f;
-      if (row < S) delta[stat_off + row] = dsum;
+      slse[lr] = row < Sq ? lse[stat_off + row] * mt::kLog2e : 0.f;
+      if (row < Sq) delta[stat_off + row] = dsum;
     }
   }
   __syncwarp();
@@ -574,17 +599,17 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
 
     // p = exp(s * scale - lse), ds = p (dp - delta) scale, in f32
-    const bool full = k0 + kMBK <= S && i0 + kMBQ <= S &&
-                      (!causal || k0 + kMBK - 1 <= i0) &&
-                      (window <= 0 || k0 > i0 + kMBQ - 1 - window);
+    const bool full = k0 + kMBK <= Sk && i0 + kMBQ <= Sq &&
+                      (!causal || k0 + kMBK - 1 <= p0) &&
+                      (window <= 0 || k0 > p0 + kMBQ - 1 - window);
 #pragma unroll
     for (int nt = 0; nt < kNK; ++nt) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int rr = c >> 1;
         const bool ok =
-            full || live(row0 + rr * 8, k0 + nt * 8 + col0 + (c & 1), S,
-                         causal, window);
+            full || valid(row0 + rr * 8, k0 + nt * 8 + col0 + (c & 1), Sq,
+                          Sk, q_off, causal, window);
         const float p = ok ? exp2f(s[nt][c] * sl2 - lse2[rr]) : 0.f;
         s[nt][c] = p * (dp[nt][c] - dlt[rr]) * scale;
       }
@@ -610,8 +635,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int row = row0 + rr * 8;
-    if (row >= S) continue;
-    bf16* out = dq + q_off + (long long)(lrow + rr * 8) * q_stride;
+    if (row >= Sq) continue;
+    bf16* out = dq + q_at + (long long)(lrow + rr * 8) * q_stride;
 #pragma unroll
     for (int nd = 0; nd < kND; ++nd)
       *reinterpret_cast<uint32_t*>(out + nd * 8 + col0) =
@@ -637,8 +662,9 @@ __global__ void __launch_bounds__(kMmaThreads)
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ part,
-                   int B, int S, int Hq, int Hkv, int n_split, int causal,
-                   int window, float scale) {
+                   bf16* __restrict__ dk_out, bf16* __restrict__ dv_out,
+                   int B, int Sq, int Sk, int q_off, int Hq, int Hkv,
+                   int n_split, int causal, int window, float scale) {
   using Sm = DkvMmaSmem<D>;
   constexpr int kKD = D / 16;
   constexpr int kNM = kMBM / 8;  // n8 tiles of a transposed score row
@@ -655,44 +681,37 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long q_stride = (long long)Hq * D;
   const long long kv_stride = (long long)Hkv * D;
-  const long long kv_off = ((long long)b * S + j0) * kv_stride +
+  const long long kv_off = ((long long)b * Sk + j0) * kv_stride +
                            (long long)hk * D;
 
-  // live q tiles (the forward's rule, transposed): none whose last row is
-  // before the block's first key (causal); none whose first row is at or
-  // past the block's last key + window (window)
-  const int n_qt = (S + kMBM - 1) / kMBM;
-  const int qt_begin = causal ? j0 / kMBM : 0;
-  int qt_end = n_qt;
-  if (window > 0) {
-    const int k_hi = min(j0 + kMBN, S) - 1;
-    qt_end = min(n_qt, (k_hi + window - 1) / kMBM + 1);
-  }
+  int qt_begin, qt_end;
+  live_q_tiles<kMBM>(j0, min(j0 + kMBN, Sk) - 1, Sq, q_off, causal, window,
+                     qt_begin, qt_end);
   const int n_live = qt_end - qt_begin;
   const int n_items = gps * n_live;  // (q head of the split, q tile) pairs
 
   auto load_q = [&](int item, int buf) {
     const int h = hk * G + sp * gps + item / n_live;
     const int m0 = (qt_begin + item % n_live) * kMBM;
-    const long long q_off = ((long long)b * S + m0) * q_stride +
-                            (long long)h * D;
+    const long long q_at = ((long long)b * Sq + m0) * q_stride +
+                           (long long)h * D;
     bf16* dst = sqd + buf * 2 * Sm::kQT;
-    mt::load_tile_async<kMBM, D, kMmaThreads>(dst, q + q_off, q_stride,
-                                              S - m0);
-    mt::load_tile_async<kMBM, D, kMmaThreads>(dst + Sm::kQT, dout + q_off,
-                                              q_stride, S - m0);
+    mt::load_tile_async<kMBM, D, kMmaThreads>(dst, q + q_at, q_stride,
+                                              Sq - m0);
+    mt::load_tile_async<kMBM, D, kMmaThreads>(dst + Sm::kQT, dout + q_at,
+                                              q_stride, Sq - m0);
     if (tid < kMBM) {
-      const long long stat_off = ((long long)b * Hq + h) * S;
+      const long long stat_off = ((long long)b * Hq + h) * Sq;
       const int row = m0 + tid;
       float* st = sstat + buf * 2 * kMBM;
-      st[tid] = row < S ? lse[stat_off + row] * mt::kLog2e : 0.f;
-      st[kMBM + tid] = row < S ? delta[stat_off + row] : 0.f;
+      st[tid] = row < Sq ? lse[stat_off + row] * mt::kLog2e : 0.f;
+      st[kMBM + tid] = row < Sq ? delta[stat_off + row] : 0.f;
     }
   };
   mt::load_tile_async<kMBN, D, kMmaThreads>(sk, k + kv_off, kv_stride,
-                                            S - j0);
+                                            Sk - j0);
   mt::load_tile_async<kMBN, D, kMmaThreads>(sv, v + kv_off, kv_stride,
-                                            S - j0);
+                                            Sk - j0);
   if (n_items > 0) load_q(0, 0);
   mt::cp_async_commit();
   mt::cp_async_wait<0>();
@@ -740,11 +759,12 @@ __global__ void __launch_bounds__(kMmaThreads)
       }
     }
 
-    // p^T and ds^T in f32; queries past S get p = 0 (their rows of q and
+    // p^T and ds^T in f32; queries past Sq get p = 0 (their rows of q and
     // do are zero, but lse is not theirs)
-    const bool full = m0 + kMBM <= S && j0 + kMBN <= S &&
-                      (!causal || j0 + kMBN - 1 <= m0) &&
-                      (window <= 0 || j0 > m0 + kMBM - 1 - window);
+    const int p0 = q_off + m0;  // the tile's first query position
+    const bool full = m0 + kMBM <= Sq && j0 + kMBN <= Sk &&
+                      (!causal || j0 + kMBN - 1 <= p0) &&
+                      (window <= 0 || j0 > p0 + kMBM - 1 - window);
 #pragma unroll
     for (int nt = 0; nt < kNM; ++nt) {
       const int qc = nt * 8 + col0;
@@ -752,8 +772,9 @@ __global__ void __launch_bounds__(kMmaThreads)
       const float2 dl = *reinterpret_cast<const float2*>(st + kMBM + qc);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const bool ok = full || live(m0 + qc + (c & 1), key0 + (c >> 1) * 8,
-                                     S, causal, window);
+        const bool ok = full || valid(m0 + qc + (c & 1),
+                                      key0 + (c >> 1) * 8, Sq, Sk, q_off,
+                                      causal, window);
         const float l2 = (c & 1) ? ls.y : ls.x;
         const float d0 = (c & 1) ? dl.y : dl.x;
         const float p = ok ? exp2f(s[nt][c] * sl2 - l2) : 0.f;
@@ -785,17 +806,26 @@ __global__ void __launch_bounds__(kMmaThreads)
     __syncthreads();
   }
 
-  // f32 partials of this split: part[0][sp] is dk, part[1][sp] is dv
-  const long long n = (long long)B * S * Hkv * D;
+  // f32 partials of this split: part[0][sp] is dk, part[1][sp] is dv;
+  // with one split (part null) dk and dv themselves, rounded once to bf16
+  // as the sum launch would round its one partial
+  const long long n = (long long)B * Sk * Hkv * D;
   float* pk = part + (long long)sp * n;
   float* pv = part + (long long)(n_split + sp) * n;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int key = key0 + rr * 8;
-    if (key >= S) continue;
-    const long long at = (((long long)b * S + key) * Hkv + hk) * D + col0;
+    if (key >= Sk) continue;
+    const long long at = (((long long)b * Sk + key) * Hkv + hk) * D + col0;
 #pragma unroll
     for (int nd = 0; nd < kND; ++nd) {
+      if (part == nullptr) {
+        *reinterpret_cast<uint32_t*>(dk_out + at + nd * 8) =
+            mt::pack_bf16(dk[nd][2 * rr], dk[nd][2 * rr + 1]);
+        *reinterpret_cast<uint32_t*>(dv_out + at + nd * 8) =
+            mt::pack_bf16(dv[nd][2 * rr], dv[nd][2 * rr + 1]);
+        continue;
+      }
       *reinterpret_cast<float2*>(pk + at + nd * 8) =
           make_float2(dk[nd][2 * rr], dk[nd][2 * rr + 1]);
       *reinterpret_cast<float2*>(pv + at + nd * 8) =
@@ -829,8 +859,8 @@ __global__ void __launch_bounds__(256)
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const void* lse, void* delta, void* dq,
-                void* dk, void* dv, void* part, int n_split, int B, int S,
-                int Hq, int Hkv, int causal, int window,
+                void* dk, void* dv, void* part, int n_split, int B, int Sq,
+                int Sk, int q_off, int Hq, int Hkv, int causal, int window,
                 cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
@@ -840,25 +870,26 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
     configured = true;
   }
   const float scale = (float)(1.0 / sqrt((double)D));
-  dq_mma_kernel<D><<<dim3(Hq, B, (S + kMBQ - 1) / kMBQ), kMmaThreads,
+  dq_mma_kernel<D><<<dim3(Hq, B, (Sq + kMBQ - 1) / kMBQ), kMmaThreads,
                      DqMmaSmem<D>::kBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<bf16*>(dq), S, Hq, Hkv, causal,
-      window, scale);
+      static_cast<float*>(delta), static_cast<bf16*>(dq), Sq, Sk, q_off, Hq,
+      Hkv, causal, window, scale);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  dkv_mma_kernel<D><<<dim3(Hkv * n_split, B, (S + kMBN - 1) / kMBN),
+  dkv_mma_kernel<D><<<dim3(Hkv * n_split, B, (Sk + kMBN - 1) / kMBN),
                       kMmaThreads, DkvMmaSmem<D>::kBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(part), B, S, Hq, Hkv, n_split, causal, window,
-      scale);
+      static_cast<float*>(part), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), B, Sq, Sk, q_off, Hq, Hkv, n_split, causal,
+      window, scale);
   err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  const long long n = (long long)B * S * Hkv * D;
+  if (err != 0 || part == nullptr) return err;
+  const long long n = (long long)B * Sk * Hkv * D;
   dkv_sum_kernel<<<dim3((unsigned)((n / 4 + 255) / 256), 2), 256, 0,
                    stream>>>(static_cast<const float*>(part),
                              static_cast<bf16*>(dk), static_cast<bf16*>(dv),
@@ -870,52 +901,59 @@ template <int D>
 int launch_t(int dtype, const void* q, const void* k, const void* v,
              const void* o, const void* dout, const void* lse, void* delta,
              void* dq, void* dk, void* dv, void* part, int n_split, int B,
-             int S, int Hq, int Hkv, int causal, int window,
-             cudaStream_t s) {
+             int Sq, int Sk, int q_off, int Hq, int Hkv, int causal,
+             int window, cudaStream_t s) {
   switch (dtype) {
     case rt::kF32:
-      return launch_f32<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
-                           Hq, Hkv, causal, window, s);
+      return launch_f32<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq,
+                           Sk, q_off, Hq, Hkv, causal, window, s);
     case rt::kBF16:
-      if (part == nullptr || n_split <= 0 || (Hq / Hkv) % n_split != 0 ||
-          Hkv * n_split > 65535)
+      if ((part == nullptr) != (n_split == 1) || n_split <= 0 ||
+          (Hq / Hkv) % n_split != 0 || Hkv * n_split > 65535)
         return (int)cudaErrorInvalidValue;
       return launch_bf16<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, part,
-                            n_split, B, S, Hq, Hkv, causal, window, s);
+                            n_split, B, Sq, Sk, q_off, Hq, Hkv, causal,
+                            window, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, o, dout, dq (B, S, Hq, D); k, v, dk, dv (B, S, Hkv, D); one dtype (f32
-// or bf16) for all ten; lse and the scratch delta (B, Hq, S) f32.  The
-// bf16 arm also takes the f32 scratch `part` (2, n_split, B, S, Hkv, D)
-// for the dkv kernel's partials, n_split dividing Hq / Hkv; the f32 arm
-// ignores both.  All contiguous, q, k, v, dout 16-byte aligned.  D in
-// {64, 128}, Hq % Hkv == 0; causal 0 or 1; window <= 0 means none.
-// Launches the dq kernel, then the dkv kernel (then, bf16, the sum of the
-// partials), on `stream`.  Returns the CUDA error code.
+// q, o, dout, dq (B, Sq, Hq, D); k, v, dk, dv (B, Sk, Hkv, D); one dtype
+// (f32 or bf16) for all ten; lse and the scratch delta (B, Hq, Sq) f32.
+// Query row i sits at position q_off + i, key row j at j; q_off >= 0,
+// Sq + q_off <= Sk (the whole arm: q_off = 0, Sq = Sk).  The bf16 arm also
+// takes n_split, dividing Hq / Hkv, and for n_split > 1 the f32 scratch
+// `part` (2, n_split, B, Sk, Hkv, D) for the dkv kernel's partials (null
+// for n_split = 1); the f32 arm ignores both.  All contiguous, q, k, v,
+// dout 16-byte aligned.  D in {64, 128}, Hq % Hkv == 0; causal 0 or 1;
+// window <= 0 means none.  Launches the dq kernel, then the dkv kernel
+// (then, bf16 over several splits, the sum of the partials), on
+// `stream`.  Returns the CUDA error code.
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
                                       void* delta, void* dq, void* dk,
                                       void* dv, void* part, int n_split,
-                                      int B, int S, int Hq, int Hkv, int D,
-                                      int causal, int window, int dtype,
-                                      void* stream) {
-  if (B <= 0 || S <= 0 || Hq <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || B > 65535 || Hq > 65535 ||
-      (S + kMBQ - 1) / kMBQ > 65535)
+                                      int B, int Sq, int Sk, int q_off,
+                                      int Hq, int Hkv, int D, int causal,
+                                      int window, int dtype, void* stream) {
+  if (B <= 0 || Sq <= 0 || Hq <= 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv != 0 || B > 65535 || Hq > 65535 || q_off < 0 ||
+      Sq > Sk - q_off || (Sq + kMBQ - 1) / kMBQ > 65535 ||
+      (Sk + kMBN - 1) / kMBN > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
       return launch_t<64>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv,
-                          part, n_split, B, S, Hq, Hkv, causal, window, s);
+                          part, n_split, B, Sq, Sk, q_off, Hq, Hkv, causal,
+                          window, s);
     case 128:
       return launch_t<128>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv,
-                           part, n_split, B, S, Hq, Hkv, causal, window, s);
+                           part, n_split, B, Sq, Sk, q_off, Hq, Hkv, causal,
+                           window, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -69,34 +69,39 @@ struct Int8Stream {
   static constexpr bool kQuant = true;
 };
 
-// Training: query row i and key row j of one sequence sit at positions i
-// and j; key j is valid for query i iff (causal: j <= i) and (window: j >
-// i - window).  The live tiles end at the block's causal bound and start
-// above its window floor; a tile wholly inside both is full.
+// Training: query row i of the block's q and key row j sit at positions
+// q_off + i and j (q_off = 0 over one whole sequence; a sequence shard's
+// first row otherwise); key j is valid for query i iff (causal: j <=
+// q_off + i) and (window: j > q_off + i - window).  The live tiles end at
+// the block's causal bound and start above its window floor; a tile
+// wholly inside both is full.
 struct TrainMask {
   static constexpr bool kKeyPos = false;  // positions are row indices
   static constexpr bool kLse = true;
-  int S, causal, window;
+  int Sk, causal, window, q_off;
 
-  __device__ int keys() const { return S; }
+  __device__ int keys() const { return Sk; }
   __device__ void tiles(int i0, int& begin, int& end) const {
+    const int p0 = q_off + i0;
     begin = 0;
-    end = (S + kBK - 1) / kBK;
-    if (causal) end = min(end, (i0 + kBQ - 1) / kBK + 1);
+    end = (Sk + kBK - 1) / kBK;
+    if (causal) end = min(end, (p0 + kBQ - 1) / kBK + 1);
     if (window > 0) {
-      const int t = i0 - window + 1;  // live iff (kt + 1) * kBK > t
+      const int t = p0 - window + 1;  // live iff (kt + 1) * kBK > t
       if (t > 0) begin = t / kBK;
     }
   }
   // no element of tile k0 needs the mask for any row of the block
   __device__ bool full(int k0, int i0, const int*, int) const {
-    return k0 + kBK <= S && (!causal || k0 + kBK - 1 <= i0) &&
-           (window <= 0 || k0 > i0 + kBQ - 1 - window);
+    const int p0 = q_off + i0;
+    return k0 + kBK <= Sk && (!causal || k0 + kBK - 1 <= p0) &&
+           (window <= 0 || k0 > p0 + kBQ - 1 - window);
   }
   // score x (log2 units) of key row `key` for query row `row`
   __device__ float mask(float x, int key, int, int row, const int*) const {
-    if (key >= S) return -INFINITY;
-    if ((causal && key > row) || (window > 0 && key <= row - window))
+    const int qp = q_off + row;
+    if (key >= Sk) return -INFINITY;
+    if ((causal && key > qp) || (window > 0 && key <= qp - window))
       return rt::kNeg;
     return x;
   }

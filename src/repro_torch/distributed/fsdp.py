@@ -10,12 +10,14 @@ parallelism (``Layout.tp``: where the model axis has more than one rank,
 or where ``force_tp`` asks for it) so is each dense entry that
 ``sharding.tp_holds`` keeps: heads, d_ff columns and vocab rows, split as
 ``sharding.tp_splits`` says.  Most splits are the plan's, a contiguous
-1/tp of the dim; mamba2's ``in_proj.w`` and conv leaves are split part by
-part (``Layout.blocks``: rank r holds the r-th 1/tp of each part, in part
-order) and the sLSTM's ``r`` over its heads, dim 0, instead of the plan's
-dim 2 (its held spec says so).  The data ("F") entries are FSDP: each
-rank holds its slice of the dim as a contiguous tensor of its own, and
-the optimizer (kernel 8) updates the slices as its leaves.
+1/tp of the dim (under the attention's sequence arm, ``Layout.seq``, wq's
+columns and wo's rows off head boundaries); mamba2's ``in_proj.w`` and
+conv leaves are split part by part (``Layout.blocks``: rank r holds the
+r-th 1/tp of each part, in part order) and the sLSTM's ``r`` over its
+heads, dim 0, instead of the plan's dim 2 (its held spec says so).  The
+data ("F") entries are FSDP: each rank holds its slice of the dim as a
+contiguous tensor of its own, and the optimizer (kernel 8) updates the
+slices as its leaves.
 
 ``gather`` makes a tree's leaves whole over the data axes for the forward:
 an all-gather along each data-sharded dim, whose backward is a
@@ -23,10 +25,14 @@ reduce-scatter (sum) of the ranks' partial gradients, so each rank ends
 with the sum over the data ranks of its slice's gradient (``llm_a3c``
 divides by the data size).  A dense leaf held over "model" keeps its
 model shard: the tensor-parallel layer computes on it, and the gradient of
-that shard is complete on its rank.  The model layer gathers a block's
-leaves inside the block's remat region, cast to the compute dtype first
-(the cast is elementwise, so cast-then-gather equals gather-then-cast),
-and the backward gathers them again rather than holding whole weights.
+that shard is complete on its rank.  Under the sequence arm the
+attention's model-held leaves are gathered over "model" as well, their
+backward a reduce-scatter too (``gather_leaf(model="sum")``): each model
+rank's rows give its own part of their gradient.  The model layer
+gathers a block's leaves inside the block's remat region, cast to the
+compute dtype first (the cast is elementwise, so cast-then-gather equals
+gather-then-cast), and the backward gathers them again rather than
+holding whole weights.
 The experts' model dim is gathered only for the dense MoE (the rules
 choose it; ``models/model.py``), and ``full`` gathers every dim, putting
 a blocked leaf's parts back in their order.
@@ -51,6 +57,8 @@ class Layout(NamedTuple):
     tp: bool = False                   # dense leaves split over "model"
     # path -> (dim, parts) of each leaf split part by part over "model"
     blocks: Optional[Dict[str, Tuple[int, Tuple[int, ...]]]] = None
+    # the attention's sequence arm (train) / column arm (decode)
+    seq: bool = False
 
     def sharded(self, path: str, axis: str) -> bool:
         return any(axis in sharding.entry_axes(a) for a in self.held[path])
@@ -68,6 +76,10 @@ class TPRule(NamedTuple):
     size: int
     rank: int
     vocab: bool                        # embedding and head split over vocab
+    # the attention's sequence arm: each rank attends its rows of the
+    # sequence against the whole sequence's keys (train), or projects its
+    # columns of q, k, v (decode), where the q heads do not divide the group
+    seq: bool = False
 
 
 def _held_spec(path: str, spec: tuple, holds: Dict[str, bool]) -> tuple:
@@ -79,7 +91,8 @@ def _held_spec(path: str, spec: tuple, holds: Dict[str, bool]) -> tuple:
 
 
 def layout(cfg, mesh, *, pod_groups: bool = False,
-           force_tp: bool = False, fsdp: bool = True) -> Layout:
+           force_tp: bool = False, fsdp: bool = True,
+           force_seq: bool = False) -> Layout:
     """The layout of ``cfg``'s parameters over ``mesh``: the reference's
     FSDP plan, held as ``_held_spec`` says, with the blocked and moved
     splits of ``sharding.tp_splits``.  ``pod_groups``: the delayed-sync
@@ -87,18 +100,27 @@ def layout(cfg, mesh, *, pod_groups: bool = False,
     holds a copy).  Tensor and sequence parallelism over the model axis is
     taken where the axis has more than one rank; ``force_tp`` takes it
     over a model axis of one rank too, whose collectives run over a group
-    of one.  A layout the port cannot hold (``sharding.tp_refusal``: q
-    heads or a recurrent width that do not divide the axis) is a
+    of one.  Where the q heads do not divide the axis the attention takes
+    the sequence arm (``sharding.seq_attention``); ``force_seq`` takes it
+    (and tensor parallelism) over an axis whose heads divide, a check of
+    that arm over a group of one that no CLI asks for.  A layout the port
+    cannot hold (``sharding.tp_refusal``: a recurrent width or d_ff that
+    does not divide the axis, the encoder-decoder's q heads) is a
     ValueError that names its reason; no dense leaf is quietly held
     whole.  ``fsdp=False`` plans the data ("F") entries away, as the
     reference's serving replicas do (``serve_layout``)."""
     from repro_torch.models.model import param_shapes
     shapes = param_shapes(cfg)
     plan = sharding.param_shardings(cfg, mesh, shapes, fsdp=fsdp)
-    tp = force_tp or sharding.mesh_shape(mesh).get("model", 1) > 1
+    tp = force_tp or force_seq or \
+        sharding.mesh_shape(mesh).get("model", 1) > 1
     why = sharding.tp_refusal(cfg, mesh) if tp else ""
+    if force_seq and cfg.is_encdec:
+        why = (f"{cfg.name}: the encoder-decoder's attention has no "
+               "sequence arm")
     if why:
         raise ValueError(why)
+    seq = tp and (force_seq or sharding.seq_attention(cfg, mesh))
     holds = sharding.tp_holds(cfg, mesh, shapes) if tp else {}
     splits = sharding.tp_splits(cfg, mesh, shapes) if tp else {}
     held, blocks = {}, {}
@@ -118,10 +140,11 @@ def layout(cfg, mesh, *, pod_groups: bool = False,
             blocks[path] = (split.dim, split.parts)
         held[path] = spec
     return Layout(mesh, held, {k: tuple(v) for k, v in shapes.items()}, tp,
-                  blocks)
+                  blocks, seq)
 
 
-def serve_layout(cfg, mesh, *, force_tp: bool = False) -> Layout:
+def serve_layout(cfg, mesh, *, force_tp: bool = False,
+                 force_seq: bool = False) -> Layout:
     """The decode layout of the reference's dry run
     (``repro/launch/dryrun.py:179-186``): weights over the model axis
     only, with no FSDP (``param_shardings(..., fsdp=False)``), each model
@@ -130,10 +153,14 @@ def serve_layout(cfg, mesh, *, force_tp: bool = False) -> Layout:
     ``r`` over its heads, wk/wv whole where the kv heads do not divide the
     axis), every leaf whole over the data axes.  The weights it holds are
     the serving ones, cast once (``model.cast_params``: bf16 matrices, f32
-    vectors).  A config ``sharding.tp_refusal`` refuses raises, naming
-    its reason (q heads that do not divide the axis: ROADMAP queue 1 item
-    5, slice 6b-iii)."""
-    return layout(cfg, mesh, force_tp=force_tp, fsdp=False)
+    vectors).  Where the q heads do not divide the axis (or with
+    ``force_seq``) wq, wk and wv are held as the plan's contiguous column
+    split and wo as its row split, off head boundaries (wk and wv whole
+    where the kv heads do not divide either), and the attention takes
+    the column arm (``Layout.seq``).  A config ``sharding.tp_refusal``
+    refuses raises, naming its reason."""
+    return layout(cfg, mesh, force_tp=force_tp, fsdp=False,
+                  force_seq=force_seq)
 
 
 def tp_rule(lay: Optional[Layout]) -> Optional[TPRule]:
@@ -144,7 +171,7 @@ def tp_rule(lay: Optional[Layout]) -> Optional[TPRule]:
     group = sharding.axes_group(lay.mesh, ("model",))
     return TPRule(group, sharding.axes_size(lay.mesh, ("model",)),
                   sharding.axes_rank(lay.mesh, ("model",)),
-                  lay.sharded("embed.table", "model"))
+                  lay.sharded("embed.table", "model"), lay.seq)
 
 
 def ep_rule(lay: Layout) -> dict:
@@ -196,22 +223,25 @@ def shard(lay: Layout, params):
 
 
 def gather_leaf(lay: Layout, path: str, t: torch.Tensor, *,
-                model: bool = False) -> torch.Tensor:
+                model: Optional[str] = None) -> torch.Tensor:
     """The leaf gathered over its data axes from this rank's shard,
     differentiably: each data-sharded dim all-gathered, its backward the
     sum of the data ranks' gradients (``collectives.gather_sum``).  A
-    model-sharded dim stays this rank's shard unless ``model`` (the dense
-    MoE's experts outside tensor parallelism, and ``full``): then it is
-    gathered too (a blocked dim's parts put back in order), its backward
-    this rank's slice, since the model ranks compute one loss
-    (``collectives.gather_slice``)."""
+    model-sharded dim stays this rank's shard unless ``model`` says how to
+    gather it (a blocked dim's parts put back in order): "slice" (the
+    dense MoE's experts outside tensor parallelism, and ``full``), its
+    backward this rank's slice, since the model ranks compute one loss
+    (``collectives.gather_slice``); "sum" (the attention's leaves under
+    the sequence arm, used by each model rank on its own rows), its
+    backward the reduce-scatter of the ranks' gradients
+    (``collectives.gather_sum``)."""
     block = lay.block(path)
     for dim, ax in enumerate(lay.held[path]):
         axes = sharding.entry_axes(ax)
-        if not axes or ("model" in axes and not model):
+        if not axes or ("model" in axes and model is None):
             continue
-        fn = collectives.gather_slice if "model" in axes else \
-            collectives.gather_sum
+        fn = collectives.gather_slice if "model" in axes and \
+            model == "slice" else collectives.gather_sum
         t = fn(t, sharding.axes_group(lay.mesh, axes), dim)
         if block is not None and block[0] == dim:
             t = _unblock(t, dim, block[1], sharding.axes_size(lay.mesh,
@@ -220,16 +250,20 @@ def gather_leaf(lay: Layout, path: str, t: torch.Tensor, *,
 
 
 def gather(lay: Optional[Layout], prefix: str, tree, *,
-           model: bool = False):
+           model: Optional[str] = None, model_sum: Tuple[str, ...] = ()):
     """``gather_leaf`` over a subtree whose paths start with ``prefix``
-    (e.g. "layers.3"); the tree itself without a layout."""
+    (e.g. "layers.3"); the tree itself without a layout.  The leaves
+    under the subtrees named in ``model_sum`` (e.g. "attn") take
+    ``model="sum"``, the others ``model``."""
     if lay is None:
         return tree
     from repro_torch.models.model import flatten, unflatten
     pre = prefix + "." if prefix else ""
     flat = flatten(tree)
-    return unflatten({k: gather_leaf(lay, pre + k, t, model=model)
-                      for k, t in flat.items()})
+    return unflatten({k: gather_leaf(
+        lay, pre + k, t,
+        model="sum" if k.split(".", 1)[0] in model_sum else model)
+        for k, t in flat.items()})
 
 
 def shard_cache(cfg, mesh, cache, *, batch_size: int):
@@ -283,5 +317,5 @@ def full(lay: Layout, shards):
     """The whole tree from every rank's shards (no gradient): what a
     checkpoint writes."""
     from repro_torch.models.model import flatten, unflatten
-    return unflatten({k: gather_leaf(lay, k, t, model=True)
+    return unflatten({k: gather_leaf(lay, k, t, model="slice")
                       for k, t in flatten(shards).items()})

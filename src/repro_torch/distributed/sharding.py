@@ -23,10 +23,13 @@ each rank of the model axis.
 *Tensor and sequence parallelism* (slice 6b-i): ``activation_rules`` gives
 the reference's layout entries ("residual", "attn_q", "attn_kv") as spec
 tuples.  Its "attn_q" and "attn_kv" entries decide the heads:
-``tp_refusal`` refuses a config whose q heads the rules pin to the
-sequence instead, and ``tp_holds`` splits wk and wv only where the kv
-heads stay local (else they are held whole: the whole-kv arm, a stated
-difference in layout from the reference, which would pin the sequence).
+``tp_holds`` splits wk and wv only where the kv heads stay local (else
+they are held whole: the whole-kv arm, a stated difference in layout
+from the reference, which splits their columns).  Where "attn_q" pins
+the sequence instead (q heads that do not divide the model axis), the
+attention takes the sequence arm (slice 6b-iii, ``seq_attention``): each
+model rank attends its rows of the sequence, wq's columns and wo's rows
+held as the plan splits them, off head boundaries.
 Slice 6b-ii covers every other block kind: ``tp_refusal`` names each
 recurrent width that does not divide the model axis, and
 ``tp_splits`` says how each held leaf is split (mamba2's ``in_proj`` and
@@ -618,15 +621,21 @@ def rmsnorm_shard_spec(mesh, *, rows: int, rules: Optional[dict] = None
     return RowShardSpec(axes), ""
 
 
-# the ROADMAP item (queue 1, item 5) of the layouts this port still refuses
-TP_LATER = {"heads": "6b-iii (sequence-sharded attention for q heads that "
-                     "do not divide the model axis)"}
 ATTN_KINDS = ("attn", "attn_local")
 
 
 def _has_attention(cfg) -> bool:
     return bool(cfg.is_encdec or cfg.shared_attn_every
                 or any(k in ATTN_KINDS for k in cfg.layer_kinds()))
+
+
+def seq_attention(cfg, mesh) -> bool:
+    """Whether ``cfg``'s attention over ``mesh``'s model axis takes the
+    sequence arm: the rules' "attn_q" pins the sequence (q heads that do
+    not divide the axis), so each rank attends its rows of the sequence
+    against the whole sequence's keys (``models/attention.py``)."""
+    return _has_attention(cfg) and \
+        _pinned_to_sequence(_head_rules(cfg, mesh)["attn_q"])
 
 
 def _pinned_to_sequence(rule) -> bool:
@@ -666,19 +675,13 @@ def _recurrent_widths(cfg) -> Dict[str, int]:
 
 def tp_refusal(cfg, mesh) -> str:
     """Why the port cannot lay ``cfg`` out tensor- and sequence-parallel
-    over ``mesh``'s model axis, naming the ROADMAP item that will where
-    one plans it; "" where it can (every block kind has a tensor-parallel
-    layout since slice 6b-ii): where the config has attention, its q heads
-    stay local to the model axis (``activation_rules``' "attn_q"; kv
-    heads the rules pin to the sequence are held whole: ``tp_holds``);
-    d_ff divides the axis; and each recurrent width of
-    ``_recurrent_widths`` does."""
+    over ``mesh``'s model axis, naming the ROADMAP item that would; ""
+    where it can: d_ff divides the axis; each recurrent width of
+    ``_recurrent_widths`` does; and the attention's q heads divide it
+    (heads local to the model axis) or, where ``activation_rules``' "attn_q"
+    pins the sequence instead, the attention takes the sequence arm
+    (``seq_attention``), which the encoder-decoder's attention has not."""
     tp = mesh_shape(mesh).get("model", 1)
-    if _has_attention(cfg) and \
-            _pinned_to_sequence(_head_rules(cfg, mesh)["attn_q"]):
-        return (f"{cfg.name}: its {cfg.n_heads} q heads do not divide the "
-                f"{tp}-way model axis: ROADMAP queue 1 item 5, slice "
-                f"{TP_LATER['heads']}")
     widths = {"d_ff": cfg.d_ff} if cfg.d_ff else {}
     widths.update(_recurrent_widths(cfg))
     for what, n in widths.items():
@@ -686,6 +689,10 @@ def tp_refusal(cfg, mesh) -> str:
             return (f"{cfg.name}: {what} {n} does not divide the {tp}-way "
                     "model axis, which no slice plans (ROADMAP queue 1 "
                     "item 5)")
+    if cfg.is_encdec and seq_attention(cfg, mesh):
+        return (f"{cfg.name}: its {cfg.n_heads} q heads do not divide the "
+                f"{tp}-way model axis, and the encoder-decoder's attention "
+                "has no sequence arm (ROADMAP queue 1 item 5)")
     return ""
 
 
@@ -704,7 +711,10 @@ def tp_holds(cfg, mesh, shapes: Optional[Dict[str, tuple]] = None
     columns, on whole vocab rows (the plan has already dropped an odd
     vocab's axis), and on the experts (slice 6a).  Where "attn_kv" pins
     the sequence instead, wk and wv are held whole and each rank keeps the
-    kv heads its q heads read (``models/attention.py``).  A config
+    kv heads its q heads read (``models/attention.py``).  Where "attn_q"
+    pins the sequence (the sequence arm), wq's columns and wo's rows are
+    held as the plan splits them, off head boundaries: the train step
+    gathers them at use, decode computes on its columns.  A config
     ``tp_refusal`` refuses holds only its experts."""
     if shapes is None:
         from repro_torch.models.model import param_shapes

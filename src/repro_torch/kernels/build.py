@@ -55,10 +55,8 @@ _SIGNATURES = {
     "rt_decode_attention_partials": (_P,) * 13 + (_I,) * 9 + (_P,),
     "rt_flash_append_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _P),
-    "rt_flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _P),
-    "rt_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "rt_flash_attention_fwd": (_P,) * 5 + (_I,) * 10 + (_P,),
+    "rt_flash_attention_bwd": (_P,) * 11 + (_I,) * 11 + (_P,),
     "rt_rmsprop_multi": (_P, _I, _I, _I, _F, _F, _F, _F, _P),
 }
 

@@ -34,10 +34,14 @@ the kv heads are taken from whole leaves), its norms on the
 sequence-parallel rows (``sp_rows``), its recurrent blocks on local heads
 (``tp_ssm_heads`` for mamba2, ``tp_lstm_heads`` for mLSTM and sLSTM),
 its norms on rows gathered along the features (``tp_feature_rows``) and
-its cross attention on local heads (``tp_cross``), and under the serving
-layout its decode attention on gathered heads (``tp_decode_heads``) and
-its dense MoE on this rank's experts (``tp_experts_local``): the kernels
-see local tensors and need no arm of their own.  ``reset_launch_counts`` clears both.
+its cross attention on local heads (``tp_cross``), its attention on the
+rank's sequence rows where the q heads do not divide the model axis
+(``tp_seq``: the flash kernels' query-offset arm), and under the serving
+layout its decode attention on gathered heads (``tp_decode_heads``) or on
+features gathered from the rank's columns (``tp_decode_cols``) and its
+dense MoE on this rank's experts (``tp_experts_local``): but for the
+query offset the kernels see local tensors and need no arm of their own.
+``reset_launch_counts`` clears both.
 """
 from __future__ import annotations
 
@@ -68,6 +72,13 @@ _COUNTERS = {
     "flash_attention_f32": (flash_attention_cuda, "f32_launches"),
     "flash_attention_bwd": (flash_attention_bwd_cuda, "launches"),
     "flash_attention_bwd_f32": (flash_attention_bwd_cuda, "f32_launches"),
+    "flash_attention_offset": (flash_attention_cuda, "offset_launches"),
+    "flash_attention_offset_f32": (flash_attention_cuda,
+                                   "offset_f32_launches"),
+    "flash_attention_bwd_offset": (flash_attention_bwd_cuda,
+                                   "offset_launches"),
+    "flash_attention_bwd_offset_f32": (flash_attention_bwd_cuda,
+                                       "offset_f32_launches"),
     "rmsprop": (rmsprop_cuda, "launches"),
     "rmsprop_update_multi": (rmsprop_cuda, "multi_launches"),
     "rmsprop_apply_multi": (rmsprop_cuda, "apply_launches")}
@@ -78,7 +89,8 @@ _COUNTERS = {
 _ROUTES = {"flash_verify": 0, "verify_paged": 0, "moe_ep": 0,
            "moe_dense": 0, "tp_heads": 0, "tp_kv_whole": 0, "sp_rows": 0,
            "tp_ssm_heads": 0, "tp_lstm_heads": 0, "tp_feature_rows": 0,
-           "tp_cross": 0, "tp_decode_heads": 0, "tp_experts_local": 0}
+           "tp_cross": 0, "tp_decode_heads": 0, "tp_experts_local": 0,
+           "tp_seq": 0, "tp_decode_cols": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -145,11 +157,11 @@ class _FlashAttention(torch.autograd.Function):
     residuals (q, k, v, o, lse))."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, q_offset):
         o, lse = flash_attention_cuda.flash_attention_fwd(
-            q, k, v, causal=causal, window=window)
+            q, k, v, causal=causal, window=window, q_offset=q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return o
 
     @staticmethod
@@ -157,19 +169,23 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_cuda.flash_attention_bwd(
             q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
-            window=ctx.window)
-        return dq, dk, dv, None, None
+            window=ctx.window, q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: Optional[int] = None) -> torch.Tensor:
     """q (B,S,Hq,D); k,v (B,S,Hkv,D) -> (B,S,Hq,D): full-sequence causal
     (or bidirectional, ``causal=False``) attention with an optional sliding
-    window.  Differentiable through the forward and backward kernels."""
+    window.  With ``q_offset`` q (B,Sq,Hq,D) is the sequence shard at
+    positions q_offset .. q_offset + Sq - 1 against the whole sequence's
+    k, v (B,Sk,Hkv,D) (the kernels' query-offset arm); the backward gives
+    dk, dv over all Sk keys.  Differentiable through the forward and
+    backward kernels."""
     _check_gqa(q.shape[2], k.shape[2])
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), causal, window)
+                                 v.contiguous(), causal, window, q_offset)
 
 
 def rmsprop_update(g: torch.Tensor, grad: torch.Tensor, *, lr: float,

@@ -61,11 +61,14 @@ def rmsprop_update_ref(g: torch.Tensor, grad: torch.Tensor, *, lr: float,
     return new_g, lr * grad / torch.sqrt(new_g + eps)
 
 
-def _train_mask(s: int, causal: bool, window: Optional[int], device):
-    """(S, S) validity of key t for query s, positions = row indices."""
-    qpos = torch.arange(s, device=device)[:, None]
-    kpos = torch.arange(s, device=device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=device)
+def _train_mask(sq: int, causal: bool, window: Optional[int], device,
+                sk: Optional[int] = None, q_offset: int = 0):
+    """(Sq, Sk) validity of key t for query s: query row s at position
+    q_offset + s, key row t at position t (Sk = Sq without an offset)."""
+    sk = sq if sk is None else sk
+    qpos = q_offset + torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         mask &= kpos <= qpos
     if window is not None:
@@ -73,23 +76,28 @@ def _train_mask(s: int, causal: bool, window: Optional[int], device):
     return mask
 
 
-def _train_logits(q, k, causal: bool, window: Optional[int]):
-    """Masked, scaled f32 scores (B, S, Hkv, G, S) of the grouped heads."""
+def _train_logits(q, k, causal: bool, window: Optional[int],
+                  q_offset: int = 0):
+    """Masked, scaled f32 scores (B, Sq, Hkv, G, Sk) of the grouped heads,
+    query row i at position q_offset + i against key row j at j."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, hq // hkv, d).float()
     logits = torch.einsum("bshgd,bthd->bshgt", qg, k.float()) * d ** -0.5
-    mask = _train_mask(s, causal, window, q.device)
+    mask = _train_mask(s, causal, window, q.device, k.shape[1], q_offset)
     return torch.where(mask[None, :, None, None, :], logits, NEG)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None):
+                        window: Optional[int] = None, q_offset: int = 0):
     """q (B,S,Hq,D); k,v (B,S,Hkv,D) -> (out (B,S,Hq,D), lse (B,Hq,S) f32):
     softmax in f32, and the per-row log-sum-exp of the masked scores, the
-    statistic the backward rebuilds p from."""
+    statistic the backward rebuilds p from.  With ``q_offset`` q is one
+    shard of a longer sequence: q (B,Sq,Hq,D) at positions q_offset ..
+    q_offset + Sq - 1 against k, v (B,Sk,Hkv,D) of the whole, Sq +
+    q_offset <= Sk; out (B,Sq,Hq,D), lse (B,Hq,Sq)."""
     b, s, hq, d = q.shape
-    logits = _train_logits(q, k, causal, window)
+    logits = _train_logits(q, k, causal, window, q_offset)
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bshgt,bthd->bshgd", p, v.float())
     o = o.reshape(b, s, hq, d).to(q.dtype).contiguous()
@@ -98,7 +106,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                            window: Optional[int] = None):
+                            window: Optional[int] = None, q_offset: int = 0):
     """FlashAttention-2 backward from the saved lse, with the formulas of
     ``flash_attention_bwd.py``: p = exp(s - lse), delta = rowsum(do * o),
     ds = p * (dp - delta) * scale.  p and ds stay in f32: this is the exact
@@ -106,12 +114,14 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     bf16 before their products (the f32 arm does not); ``ROUND_TOL`` times
     ``flash_round_scale`` bounds what that rounding moves.  Returns (dq, dk,
     dv) in the input dtypes, dk and dv summed over each kv head's G query
-    heads."""
+    heads.  With ``q_offset`` (``flash_attention_ref``'s shard) dq covers
+    the shard's Sq rows and dk, dv all Sk keys: this shard's part of
+    them, zero where none of its queries reaches a key."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
     scale = d ** -0.5
-    logits = _train_logits(q, k, causal, window)          # (B,S,Hkv,G,S)
+    logits = _train_logits(q, k, causal, window, q_offset)  # (B,S,Hkv,G,Sk)
     lse_g = lse.transpose(1, 2).reshape(b, s, hkv, g, 1)
     p = torch.exp(logits - lse_g)
     dog = do.reshape(b, s, hkv, g, d).float()
@@ -127,18 +137,18 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 def flash_round_scale(q, k, v, o, lse, do=None, causal: bool = True,
-                      window: Optional[int] = None):
+                      window: Optional[int] = None, q_offset: int = 0):
     """The sums over absolute terms that bound the bf16 rounding of p and ds
     (``ROUND_TOL``), from the true (f32) p and ds of the plain versions:
     sum_j p_ij |v_j| for o, and with ``do`` also sum_j |ds_ij| |k_j| for dq,
     sum_i |ds_ij| |q_i| for dk and sum_i p_ij |do_i| for dv (dk and dv
     summed over each kv head's query heads).  o and lse are the plain
     forward's.  Returns (o, dq, dk, dv) scales in f32 (the last three None
-    without ``do``)."""
+    without ``do``); ``q_offset`` as in ``flash_attention_ref``."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
-    logits = _train_logits(q, k, causal, window)          # (B,S,Hkv,G,S)
+    logits = _train_logits(q, k, causal, window, q_offset)
     p = torch.exp(logits - lse.transpose(1, 2).reshape(b, s, hkv, g, 1))
     o_s = torch.einsum("bshgt,bthd->bshgd", p,
                        v.float().abs()).reshape(b, s, hq, d)

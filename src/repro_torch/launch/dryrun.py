@@ -46,11 +46,13 @@ What it does not report, and why:
 
 A case is ``skipped`` where the reference skips it (Whisper at
 ``long_500k``) and ``refused`` where ``sharding.tp_refusal`` refuses the
-layout, with its reason (q heads that do not divide the 16-way model
-axis, minicpm-2b and llama4-scout: ROADMAP queue 1 item 5, slice 6b-iii;
-xlstm-1.3b's 4 heads and Whisper's 8).  The reference compiles those
-through its jnp fallbacks: a stated difference until the port can lay
-them out.
+layout, with its reason: xlstm-1.3b's 4 mLSTM/sLSTM heads and Whisper's
+1500 encoder frames do not divide the 16-way model axis (ROADMAP queue 1
+item 5).  The reference compiles those through its jnp fallbacks: a
+stated difference until the port can lay them out.  Minicpm-2b's 36 and
+llama4-scout's 40 q heads do not divide it either: their attention takes
+the sequence arm (train, prefill) or the column arm (decode), whose held
+weights the memory record counts (``fsdp.layout``'s ``Layout.seq``).
 """
 from __future__ import annotations
 

@@ -363,6 +363,47 @@ def _kv_whole_params(params: dict, cfg, tp) -> dict:
     return out
 
 
+def _kv_whole(cfg, tp) -> bool:
+    """Whether ``wk``/``wv`` are held whole over the model group: the kv
+    heads do not divide it (``sharding.tp_holds``)."""
+    return cfg.n_kv_heads % tp.size != 0
+
+
+def _attend_seq(params: dict, x: torch.Tensor, cos: Optional[torch.Tensor],
+                sin: Optional[torch.Tensor], cfg, *, window: Optional[int],
+                causal: bool, tp) -> torch.Tensor:
+    """The sequence arm of ``attend_train`` (q heads that do not divide the
+    model group, or ``fsdp.layout(force_seq=True)``): x (B, S / tp,
+    d_model) this rank's rows of the sequence, starting at row r S / tp;
+    the leaves whole (the caller gathered the model-held ones, whose
+    backward reduce-scatters their gradients; ``wk``/``wv`` held whole take
+    ``collectives.sum_grads``).  q, k and v come from the rank's rows, the
+    rotary tables sliced to those rows' positions; k and v are all-gathered
+    along the sequence (one collective; its backward reduce-scatters dk
+    and dv), and the flash kernels' query-offset arm attends the rows
+    against every key.  Returns this rank's rows of the output
+    projection, the residual's update with no collective (the
+    ``tp_seq`` route)."""
+    dispatch.count_route("tp_seq")
+    b, s_loc, _ = x.shape
+    start = tp.rank * s_loc
+    if cos is not None:
+        cos, sin = (t.narrow(1, start, s_loc) for t in (cos, sin))
+    if _kv_whole(cfg, tp):
+        dispatch.count_route("tp_kv_whole")
+        params = dict(params)
+        for name in ("wk", "wv"):
+            params[name] = {key: collectives.sum_grads(t, tp.group)
+                            for key, t in params[name].items()}
+    q, k, v = _qkv(params, x, cfg, cos, sin)
+    hkv = k.shape[2]
+    kv = collectives.gather_sum(torch.cat([k, v], dim=2), tp.group, 1)
+    k, v = kv.split(hkv, dim=2)
+    o = dispatch.flash_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=start)
+    return cm.linear(params["wo"], o.reshape(b, s_loc, -1))
+
+
 def attend_train(params: dict, x: torch.Tensor, cos: Optional[torch.Tensor],
                  sin: Optional[torch.Tensor], cfg, *,
                  window: Optional[int] = None, use_rope: bool = True,
@@ -378,14 +419,19 @@ def attend_train(params: dict, x: torch.Tensor, cos: Optional[torch.Tensor],
     heads divide the model axis, else whole: ``_kv_whole_params``), the
     kernels see only the local heads, and the result is this rank's
     partial sum of the output projection, which the caller reduce-scatters
-    (counted as the ``tp_heads`` and ``tp_kv_whole`` routes)."""
+    (counted as the ``tp_heads`` and ``tp_kv_whole`` routes).  Under the
+    sequence arm (``tp.seq``) x is this rank's rows instead:
+    ``_attend_seq``."""
     b, s, _ = x.shape
     if not use_rope:
         cos = sin = None
+    if tp is not None and tp.seq:
+        return _attend_seq(params, x, cos, sin, cfg, window=window,
+                           causal=not bidirectional, tp=tp)
     if tp is not None:
         dispatch.count_route("tp_heads")
         if params["wk"]["w"].shape[1] == cfg.n_kv_heads * cfg.hd \
-                and cfg.n_kv_heads % tp.size:
+                and _kv_whole(cfg, tp):
             dispatch.count_route("tp_kv_whole")
             params = _kv_whole_params(params, cfg, tp)
     q, k, v = _qkv(params, x, cfg, cos, sin)
@@ -406,6 +452,38 @@ def _gather_heads(tp, *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     chunks = whole.reshape(b, s, tp.size, sum(sizes), d).split(sizes, 3)
     return tuple(c.reshape(b, s, tp.size * n, d).contiguous()
                  for c, n in zip(chunks, sizes))
+
+
+def _gather_cols(tp, *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Tensors (B, 1, n_i / tp) of this rank's columns -> the whole (B, 1,
+    n_i), with one all-gather over the model group along the features:
+    the parts laid side by side, gathered, and each part's columns put
+    back in rank order."""
+    sizes = [t.shape[-1] for t in ts]
+    whole = collectives.gather_slice(torch.cat(ts, dim=-1), tp.group, 2)
+    b, s, _ = whole.shape
+    chunks = whole.reshape(b, s, tp.size, sum(sizes)).split(sizes, 3)
+    return tuple(c.reshape(b, s, tp.size * n) for c, n in zip(chunks, sizes))
+
+
+def _qkv_cols(params: dict, x: torch.Tensor, cfg, tp, cos, sin):
+    """The column arm of ``attend_decode``: q (and k, v where their leaves
+    are split) projected on this rank's columns without RoPE, the columns
+    all-gathered along the features in one collective (k and v computed
+    whole where ``wk``/``wv`` are held whole), then split into heads and
+    rotated (no rotary where ``cos`` is None)."""
+    hd = cfg.hd
+    if _kv_whole(cfg, tp):
+        (q,) = _gather_cols(tp, cm.linear(params["wq"], x))
+        k, v = cm.linear(params["wk"], x), cm.linear(params["wv"], x)
+    else:
+        q, k, v = _gather_cols(tp, *(cm.linear(params[n], x)
+                                     for n in ("wq", "wk", "wv")))
+    q, k, v = (_split_heads(t, t.shape[-1] // hd, hd) for t in (q, k, v))
+    if cos is not None:
+        q = cm.apply_rope(q, cos, sin, rotary_dim=cfg.rotary_dim)
+        k = cm.apply_rope(k, cos, sin, rotary_dim=cfg.rotary_dim)
+    return q.contiguous(), k.contiguous(), v.contiguous()
 
 
 def attend_decode(params: dict, x: torch.Tensor, cache: dict,
@@ -434,17 +512,25 @@ def attend_decode(params: dict, x: torch.Tensor, cache: dict,
     rule keeps the heads whole on each sequence shard (the reference's
     ``DecodeCPSpec.q_decode``/``.kv``), the kernels run on every head and
     the result is this rank's heads' partial sum of ``wo``, which the
-    caller sums over the model group (the ``tp_decode_heads`` route).  A
-    paged cache has no such layout."""
+    caller sums over the model group (the ``tp_decode_heads`` route).
+    Under the column arm (``tp.seq``: q heads that do not divide the
+    group) the leaves are the plan's column split, off head boundaries:
+    ``_qkv_cols`` gathers q, k and v whole before RoPE, and the rank's
+    columns of the attention's output meet its rows of ``wo`` (the
+    ``tp_decode_cols`` route).  A paged cache has no such layout."""
     b = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).expand(b)
-    q, k, v = _qkv(params, x, cfg, *(_rope(cfg, pos[:, None]) if use_rope
-                                     else (None, None)))
+    rope = _rope(cfg, pos[:, None]) if use_rope else (None, None)
+    if tp is not None and "kp" in cache:
+        raise ValueError("the serving layout decodes contiguous caches; "
+                         "a page pool has no sequence slice")
+    if tp is not None and tp.seq:
+        dispatch.count_route("tp_decode_cols")
+        q, k, v = _qkv_cols(params, x, cfg, tp, *rope)
+    else:
+        q, k, v = _qkv(params, x, cfg, *rope)
     hq_loc = q.shape[2]
-    if tp is not None:
-        if "kp" in cache:
-            raise ValueError("the serving layout decodes contiguous caches; "
-                             "a page pool has no sequence slice")
+    if tp is not None and not tp.seq:
         dispatch.count_route("tp_decode_heads")
         if k.shape[2] == cfg.n_kv_heads:
             (q,) = _gather_heads(tp, q)
@@ -482,6 +568,10 @@ def attend_decode(params: dict, x: torch.Tensor, cache: dict,
     o = dispatch.decode_attention(q[:, 0], cache["k"], cache["v"], kpos, pos,
                                   k_scale=cache.get("ks"),
                                   v_scale=cache.get("vs"), cp=cp)[:, None]
+    if tp is not None and tp.seq:
+        cols = params["wo"]["w"].shape[0]
+        return cm.linear(params["wo"], o.reshape(b, 1, n).narrow(
+            2, tp.rank * cols, cols)), cache
     if tp is not None:
         o = o.narrow(2, tp.rank * hq_loc, hq_loc)
         n = hq_loc * cfg.hd

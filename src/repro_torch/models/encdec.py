@@ -166,7 +166,7 @@ def forward(cfg, params, batch, layout=None) -> dict:
 
     def prep(prefix, p):
         return fsdp.gather(layout, prefix, M.cast_params(cfg, p),
-                           model=tp is None)
+                           model="slice" if tp is None else None)
     top = fsdp.gather(layout, "", {k: v for k, v in params.items()
                                    if k not in _LAYERS})
     mem = encode(cfg, {**top, "enc_layers": params["enc_layers"]},

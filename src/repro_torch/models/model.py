@@ -530,20 +530,27 @@ def _block_train(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     the MLP's) column-parallel products, or a recurrent block's, and the
     row-parallel products' partial sums are reduce-scattered back to the
     rows.  A recurrent block runs on this rank's heads (``models/ssm.py``,
-    ``models/xlstm.py``)."""
+    ``models/xlstm.py``).  Under the sequence arm (``tp.seq``) the
+    attention runs on the rows themselves, with no gather before it or
+    scatter after it: its model-held leaves are gathered whole here
+    (``fsdp.gather_leaf(model="sum")``) and it gathers k and v along the
+    sequence (``attention._attend_seq``)."""
     p = cast_params(cfg, p)
+    seq = tp is not None and tp.seq
     if layout is not None:
-        p = fsdp.gather(layout, prefix, p, model=ep is None and tp is None)
+        p = fsdp.gather(layout, prefix, p,
+                        model="slice" if ep is None and tp is None else None,
+                        model_sum=("attn",) if seq else ())
     h = cm.norm_rows(cfg.norm, p["ln1"], x, tp)
     if kind in _TRAIN:
         name, fn = _TRAIN[kind]
         return x + cm.on_sequence(lambda seq: fn(p[name], seq, cfg, tp), h,
                                   tp), aux
-    if tp is not None:
+    if tp is not None and not seq:
         h = collectives.gather_sum(h, tp.group, 1)
     h = attn.attend_train(p["attn"], h, cos, sin, cfg,
                           window=_window(cfg, kind), tp=tp)
-    if tp is not None:
+    if tp is not None and not seq:
         h = collectives.scatter_sum(h, tp.group, 1)
     x, lb = _ffn_half(cfg, p, x + h, ep, tp)
     return x, (aux if lb is None else aux + lb)
@@ -589,7 +596,8 @@ def forward(cfg: ModelConfig, params: Params,
 
     Under a tensor-parallel layout (``fsdp.tp_rule``) the residual stream
     between blocks is this rank's S / tp rows of the sequence, the rotary
-    tables are whole (attention runs on the gathered sequence), zamba2's
+    tables are whole (attention runs on the gathered sequence, or, under
+    the sequence arm, slices them to the rank's rows), zamba2's
     shared block takes the attention blocks' path (its applications'
     gradients add up on its one set of shards), the
     experts are expert-parallel under the layout's rule (``fsdp.ep_rule``;

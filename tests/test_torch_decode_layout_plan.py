@@ -186,9 +186,9 @@ def test_state_layout_is_the_heads_where_the_reference_takes_another_dim():
 def test_serve_layout_holds_the_model_axis_only(arch):
     """The serving layout of the reference's dry run: the plan with
     ``fsdp=False`` (no data entry on any leaf), each "model" entry held as
-    ``tp_holds`` says; on (16, 16) the configs whose q heads or widths do
-    not divide the axis raise, naming their reason (minicpm-2b and
-    llama4-scout: slice 6b-iii)."""
+    ``tp_holds`` says; on (16, 16) the configs whose widths do not divide
+    the axis raise, naming their reason, and those whose q heads do not
+    (minicpm-2b and llama4-scout) take the column arm (``Layout.seq``)."""
     from repro_torch.distributed import fsdp
     cfg = torch_configs.get_config(arch)
     for name in ("1x4", "2x2", "16x16"):
@@ -198,10 +198,13 @@ def test_serve_layout_holds_the_model_axis_only(arch):
             with pytest.raises(ValueError, match="does not divide|do not "
                                                  "divide"):
                 fsdp.serve_layout(cfg, sizes)
-            if arch in ("minicpm-2b", "llama4-scout-17b-a16e"):
-                assert "6b-iii" in why
+            assert arch in ("xlstm-1.3b", "whisper-base"), why
             continue
         lay = fsdp.serve_layout(cfg, sizes)
+        assert lay.seq == sharding.seq_attention(cfg, sizes)
+        if name == "16x16":
+            assert lay.seq == (arch in ("minicpm-2b",
+                                        "llama4-scout-17b-a16e"))
         holds = sharding.tp_holds(cfg, sizes)
         plan = sharding.param_shardings(cfg, sizes, fsdp=False)
         for path, spec in lay.held.items():

@@ -295,7 +295,9 @@ def test_cli_runs_on_cpu(capsys):
         "decode_attention_int8": 0, "decode_attention_partials": 0,
         "decode_attention_partials_int8": 0, "flash_attention": 0,
         "flash_attention_f32": 0, "flash_attention_bwd": 0,
-        "flash_attention_bwd_f32": 0, "rmsprop": 0,
+        "flash_attention_bwd_f32": 0, "flash_attention_offset": 0,
+        "flash_attention_offset_f32": 0, "flash_attention_bwd_offset": 0,
+        "flash_attention_bwd_offset_f32": 0, "rmsprop": 0,
         "rmsprop_update_multi": 0, "rmsprop_apply_multi": 0}
 
 

@@ -227,20 +227,45 @@ def test_shards_hold_one_tp_th_of_the_split_leaves():
 
 
 @pytest.mark.parametrize("arch,shape,force,words", [
-    ("minicpm-2b", (1, 8), False, "6b-iii"),
-    ("llama4-scout-17b-a16e", (1, 16), False, "6b-iii"),
-    # zamba2's shared attention block: its 32 q heads
-    ("zamba2-1.2b", (1, 64), False, "6b-iii"),
     # the recurrence runs whole heads: xLSTM's 4 over 8 ranks
     ("xlstm-1.3b", (1, 8), False, "mLSTM/sLSTM heads 4 does not divide"),
     # the encoder's sequence-parallel rows
-    ("whisper-base", (1, 8), False, "encoder frames 1500 does not divide")])
+    ("whisper-base", (1, 8), False, "encoder frames 1500 does not divide"),
+    # its 8 q heads pinned to the sequence at 16: the frames still refuse
+    ("whisper-base", (1, 16), False, "encoder frames 1500 does not divide"),
+    # the encoder-decoder's attention has no sequence arm to force
+    ("whisper-base", (1, 1), True, "no sequence arm")])
 def test_unsupported_tp_layout_raises_naming_its_roadmap_item(arch, shape,
                                                                force, words):
     cfg = torch_configs.get_config(arch)
     mesh = dict(zip(("data", "model"), shape))
     with pytest.raises(ValueError, match=words):
-        fsdp.layout(cfg, mesh, force_tp=force)
+        fsdp.layout(cfg, mesh, force_seq=force)
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("minicpm-2b", (1, 8)), ("llama4-scout-17b-a16e", (1, 16)),
+    # zamba2's shared attention block: its 32 q heads over 64 ranks
+    ("zamba2-1.2b", (1, 64))])
+def test_seq_arm_holds_the_plans_split(arch, shape):
+    """Where the q heads do not divide the model axis the layout takes the
+    sequence arm: wq's columns and wo's rows held as the plan splits them,
+    off head boundaries, and wk, wv (whose heads do not divide either)
+    whole."""
+    cfg = torch_configs.get_config(arch)
+    mesh = dict(zip(("data", "model"), shape))
+    lay = fsdp.layout(cfg, mesh)
+    assert lay.tp and lay.seq
+    assert sharding.seq_attention(cfg, mesh)
+    plan = sharding.param_shardings(cfg, mesh)
+    pre = "shared_attn.attn." if cfg.shared_attn_every else "layers.0.attn."
+    for name in ("wq.w", "wo.w"):
+        assert lay.held[pre + name] == plan[pre + name], name
+    cols = lay.shapes[pre + "wq.w"][1] // shape[1]
+    assert cols % cfg.hd != 0          # a rank's columns split a head
+    for name in ("wk.w", "wv.w"):
+        assert cfg.n_kv_heads % shape[1] != 0
+        assert not lay.sharded(pre + name, "model"), name
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b",
