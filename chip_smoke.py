@@ -329,14 +329,28 @@ Phases (any failure raises and the script exits non-zero):
      at 4 x 1024 against the unsharded step (losses within 1e-3
      relative, bitwise expected on (1, 1)); launches (the offset arms
      only), collectives and routes exact;
+     12j. the arms of a model axis wider than a block's heads, forced
+     on (1, n) from one draw at full width (remat, bf16): xlstm-1.3b cut
+     to 8 of 48 layers, 1 step at 4 x 1024, through the head-split arm
+     (q and k gathered along the features, the sLSTM's pre-activations
+     gathered once a layer, r's zero-padded sum), and whisper-base with
+     nothing cut, 2 steps, through the encoder-decoder's sequence arm
+     (every attention on kernels 3 and 5's query-offset arms, the cross
+     attention on the rank's rows); bitwise equal to the unsharded step
+     on (1, 1) (on more ranks the first loss within 1e-3 relative);
+     launches, collectives and routes exact;
   13. decode across cards under the serving layout, one rank a card:
      13a the reduced configs against the CPU; 13b Yi-6B at decode_32k
      (batch 8) and 13c zamba2-1.2b at long_500k against the unsharded
      step on (1, n) (and (2, 2) at n = 4); 13d minicpm-2b (batch 8,
      4096-row context) on the column arm (q, k, v projected on a rank's
      columns and gathered along the features), forced, bitwise equal to
-     the unsharded step on (1, 1); launches, collectives and routes
-     exact.
+     the unsharded step on (1, 1); 13e xlstm-1.3b (batch 8, every layer)
+     through the head-split arm and whisper-base (batch 8, its 448-token
+     context and 1500-frame cross memory, held whole as over 16 ranks)
+     through the column arm of its self and cross attention, both
+     forced, bitwise equal to the unsharded step on (1, 1); launches,
+     collectives and routes exact.
 
 Phase 4 also holds kernels 3 and 5's query-offset arms (a sequence
 shard's rows at positions q_offset.. against the whole sequence's keys)
@@ -349,12 +363,19 @@ version a batch row and kv head at a time where its scores would not
 fit; the 16 shards at b = 1 put back together against the whole-sequence
 kernels (out, lse and dq bitwise, dk and dv summed within tolerance);
 each shape timed at the last rank's offset beside SDPA with an explicit
-(Sq, Sk) mask.
+(Sq, Sk) mask.  Beside them whisper-base's 16-way shards (8 / 8 heads,
+D 64, 16 rows a rank): the encoder's padded frames, bidirectional, Sq 94
+at offset 0 and the last rank's 90 valid rows at 1410 against 1500 keys,
+and the decoder's last rank, causal, 256 rows at 3840 of 4096; bf16 and
+f32, each checked and timed at its own offset.  Kernels 1 and 2 are
+held at the mLSTM's rows gathered along the features under the
+head-split arm (xlstm-1.3b train_4k at 16 model ranks: 16 x 4096 rows of
+4096).
 
 Every kernel and arm must have been launched on one of the main paths
 (phase 5's reduced model and engines, each run of 5p, 5o and 5s, 6a, 6b, each
 of the four runs of 6c, 6d, 7, 8, each run of 9, of 10a-10e, of
-11a-11d, of 12a-12i and of 13 (rank 0's counts, which every rank must equal),
+11a-11d, of 12a-12j and of 13 (rank 0's counts, which every rank must equal),
 each with
 the counters set to 0 just before it and read just after); the kernels line
 gives each one's launches by path.
@@ -503,7 +524,11 @@ def check_rmsnorm(gen, flush):
                         # zamba2's and xlstm's sequence-parallel rows at
                         # tp 2 (their split-feature norms take whole rows
                         # of 4096, the train shape above)
-                        (ZAMBA2_SP_ROWS, 2048, torch.bfloat16)):
+                        (ZAMBA2_SP_ROWS, 2048, torch.bfloat16),
+                        # the mLSTM's norm under the head-split arm: rows
+                        # gathered along the features
+                        (XLSTM_SPLIT_ROWS, 4096, torch.bfloat16),
+                        (XLSTM_SPLIT_ROWS, 4096, torch.float32)):
         x = _randn((rows, d), gen, dt)
         scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
         y, rstd = rmsnorm_cuda.rmsnorm_fwd(x, scale, save_residuals=True)
@@ -562,6 +587,8 @@ def check_rmsnorm(gen, flush):
         "width_2048_tp2_shape": record(
             ZAMBA2_SP_ROWS, True, "zamba2 / xlstm train, sequence-parallel "
             "rows at tp 2", 2048),
+        "xlstm_split_shape": record(XLSTM_SPLIT_ROWS, True,
+                                    XLSTM_SPLIT_TEXT),
         "decode32k_shape": record(YI_DECODE["batch"], False,
                                   "phase 13b: Yi-6B decode_32k step, batch "
                                   f"{YI_DECODE['batch']}"),
@@ -1496,7 +1523,10 @@ def check_rmsnorm_bwd(gen, flush):
                         # Yi-6B's sequence-parallel rows at tp 2 and 4,
                         # zamba2's and xlstm's at tp 2
                         *((r, 4096, torch.bfloat16) for r in SP_ROWS),
-                        (ZAMBA2_SP_ROWS, 2048, torch.bfloat16)):
+                        (ZAMBA2_SP_ROWS, 2048, torch.bfloat16),
+                        # the mLSTM's norm under the head-split arm
+                        (XLSTM_SPLIT_ROWS, 4096, torch.bfloat16),
+                        (XLSTM_SPLIT_ROWS, 4096, torch.float32)):
         x = _randn((rows, d), gen, dt)
         dy = _randn((rows, d), gen, dt)
         scale = _randn((d,), gen, torch.float32, 0.5) + 1.0
@@ -1543,6 +1573,8 @@ def check_rmsnorm_bwd(gen, flush):
         "width_2048_tp2_shape": record(
             ZAMBA2_SP_ROWS, " (zamba2 / xlstm sequence-parallel rows at tp "
             "2)", 2048),
+        "xlstm_split_shape": record(XLSTM_SPLIT_ROWS,
+                                    f" ({XLSTM_SPLIT_TEXT})"),
     }
 
 
@@ -1596,6 +1628,12 @@ _REC_TP_TRAIN = {
                                   1500, 2, 2, 64, "bf16", False, None)}
 # zamba2's and xlstm's sequence-parallel rows at tp 2 (4 x 1024 / 2)
 ZAMBA2_SP_ROWS = 4 * 1024 // 2
+# xlstm-1.3b at train_4k on the production mesh (16 rows over 16 data
+# ranks, 4 heads over 16 model ranks: the head-split arm, g = 4): the
+# mLSTM's norm on a rank's rows gathered along the features, d_inner 4096
+XLSTM_SPLIT_ROWS = 16 * 4096
+XLSTM_SPLIT_TEXT = ("xlstm-1.3b train_4k, 16 model ranks: the mLSTM norm "
+                    "on rows gathered along the features, 16 x 4096 a rank")
 _FLASH_CASES += [*_WHISPER_ENC.values(), *_WHISPER_DEC.values(),
                  *_ZAMBA2_TRAIN.values(), *_TP_TRAIN.values(),
                  *_REC_TP_TRAIN.values()]
@@ -1852,6 +1890,33 @@ SEQ_SHAPES = (
      128, None, False),
     ("scout_prefill32k_w8192", "llama4-scout prefill_32k window 8192", 2,
      2048, 32768, 40, 8, 128, 8192, False))
+# whisper-base at the production mesh's 16-way model axis (its 8 q heads
+# take the sequence arm; train_4k's 256 rows over 16 data ranks): the
+# encoder's 1500 frames padded to 16 x 94, each rank's valid rows
+# bidirectional against the 1500 keys (rank 0: 94 at offset 0; rank 15:
+# 90 at 1410), and the decoder's last rank causal (256 at 3840 of 4096).
+# These carry (offsets, causal) after the ten fields above
+WHISPER_SEQ_SHAPES = (
+    ("whisper_enc_rank0", "whisper-base encoder train_4k, rank 0 of 16",
+     16, 94, 1500, 8, 8, 64, None, True, (0,), False),
+    ("whisper_enc_rank15", "whisper-base encoder train_4k, rank 15 of 16 "
+     "(90 valid of 94 rows)", 16, 90, 1500, 8, 8, 64, None, True, (1410,),
+     False),
+    ("whisper_dec_rank15", "whisper-base decoder train_4k, rank 15 of 16",
+     16, 256, 4096, 8, 8, 64, None, True, (3840,), True))
+
+
+def _seq_offsets(shape):
+    """The query offsets a shape is held at: its own, or the first,
+    middle and last rank's of ``SEQ_TP``."""
+    return shape[10] if len(shape) > 10 else \
+        tuple(r * shape[3] for r in SEQ_RANKS)
+
+
+def _seq_causal(shape):
+    return shape[11] if len(shape) > 11 else True
+
+
 # a plain version's (B, Sq, Hkv, G, Sk) f32 scores above this many bytes
 # are computed a batch row and kv head at a time (the whole tensor and its
 # copies would not fit beside the inputs)
@@ -1860,7 +1925,7 @@ SEQ_PIECE_BYTES = 4 * 2**30
 
 def _seq_inputs(gen, shape, dt):
     import torch
-    _, _, b, sq, sk, hq, hkv, d, window, _ = shape
+    _, _, b, sq, sk, hq, hkv, d, window, _ = shape[:10]
     dt = torch.bfloat16 if dt == "bf16" else torch.float32
     return (_randn((b, sq, hq, d), gen, dt), _randn((b, sk, hkv, d), gen, dt),
             _randn((b, sk, hkv, d), gen, dt), _randn((b, sq, hq, d), gen, dt),
@@ -1892,24 +1957,24 @@ def _seq_live_pairs(b, sq, sk, off, hq, causal, window):
     return int((hi - lo).clamp(min=0).sum()) * b * hq
 
 
-def _seq_check_fwd(label, q, k, v, window, off, errs):
+def _seq_check_fwd(label, q, k, v, window, off, errs, causal=True):
     """The offset forward against the plain version, piece by piece where
     its scores would not fit (``_seq_pieces``)."""
     import torch
 
     from repro_torch.kernels import flash_attention_cuda, ref
     o, lse = flash_attention_cuda.flash_attention_fwd(
-        q, k, v, window=window, q_offset=off)
+        q, k, v, causal=causal, window=window, q_offset=off)
     pieces = _seq_pieces(q, k)
     for bi, hs, ks in pieces:
         qp = q[bi, :, hs].contiguous()
         kp, vp = k[bi, :, ks].contiguous(), v[bi, :, ks].contiguous()
-        want_o, want_lse = ref.flash_attention_ref(qp, kp, vp, window=window,
-                                                   q_offset=off)
+        want_o, want_lse = ref.flash_attention_ref(
+            qp, kp, vp, causal=causal, window=window, q_offset=off)
         round_abs = None
         if q.dtype == torch.bfloat16:
             round_abs = ref.flash_round_scale(qp, kp, vp, want_o, want_lse,
-                                              None, True, window, off)[0]
+                                              None, causal, window, off)[0]
         tag = "" if len(pieces) == 1 else \
             " (the plain version a batch row and kv head at a time)"
         echo = bi == pieces[-1][0] and hs == pieces[-1][1]
@@ -1920,27 +1985,28 @@ def _seq_check_fwd(label, q, k, v, window, off, errs):
         del want_o, want_lse, round_abs
 
 
-def _seq_check_bwd(label, q, k, v, do, window, off, errs):
+def _seq_check_bwd(label, q, k, v, do, window, off, errs, causal=True):
     """The offset backward against the plain version (dq of the shard's
     rows, dk and dv over every key, zero where no query reaches it)."""
     import torch
 
     from repro_torch.kernels import flash_attention_bwd_cuda, ref
-    o, lse = ref.flash_attention_ref(q, k, v, window=window, q_offset=off)
+    o, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     q_offset=off)
     got = flash_attention_bwd_cuda.flash_attention_bwd(
-        q, k, v, o, lse, do, window=window, q_offset=off)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, window=window,
-                                       q_offset=off)
-    scale = _bwd_sum_abs(q, k, v, o, lse, do, True, window, off)
+        q, k, v, o, lse, do, causal=causal, window=window, q_offset=off)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window, q_offset=off)
+    scale = _bwd_sum_abs(q, k, v, o, lse, do, causal, window, off)
     rounding = (None, None, None)
     if q.dtype == torch.bfloat16:
-        rounding = ref.flash_round_scale(q, k, v, o, lse, do, True, window,
+        rounding = ref.flash_round_scale(q, k, v, o, lse, do, causal, window,
                                          off)[1:]
     for name, g_, w_, m_, r_ in zip(("dq", "dk", "dv"), got, want, scale,
                                     rounding):
         errs.append(_compare(f"{label} {name}", g_, w_, sum_abs=m_,
                              round_abs=r_))
-    unreached = k.shape[1] > off + q.shape[1]
+    unreached = causal and k.shape[1] > off + q.shape[1]
     if unreached and not all(bool((t[:, off + q.shape[1]:] == 0).all())
                              for t in got[1:]):
         raise AssertionError(f"{label}: dk/dv nonzero at keys no query of "
@@ -1949,29 +2015,32 @@ def _seq_check_bwd(label, q, k, v, do, window, off, errs):
 
 def check_flash_offset(gen, flush):
     """Kernels 3 and 5's query-offset arms at ``SEQ_SHAPES``, each at the
-    first, middle and last rank's offset, bf16 (the tensor-core arms) and
-    f32 (the SIMT bodies; the train shapes), against their plain versions;
-    the 16-shard sweep at b = 1 against the whole-sequence arms; then the
-    records: each shape timed at the last rank's offset (every key live)
+    first, middle and last rank's offset, and at ``WHISPER_SEQ_SHAPES``
+    (ragged shards of padded frames, bidirectional, and the decoder's
+    last rank), bf16 (the tensor-core arms) and f32 (the SIMT bodies; the
+    train shapes), against their plain versions; the 16-shard sweep at b
+    = 1 against the whole-sequence arms; then the records: each shape
+    timed at the last rank's offset (every key live) or at its own
     beside its bound, its plain version and SDPA with an explicit boolean
     (Sq, Sk) mask over k, v repeated to the q heads (no PyTorch call takes
     an offset)."""
     import torch
     errs = {("fwd", "bf16"): [], ("fwd", "f32"): [], ("bwd", "bf16"): [],
             ("bwd", "f32"): []}
-    for shape in SEQ_SHAPES:
-        key, name, b, sq, sk, hq, hkv, d, window, bwd = shape
+    for shape in SEQ_SHAPES + WHISPER_SEQ_SHAPES:
+        key, name, b, sq, sk, hq, hkv, d, window, bwd = shape[:10]
+        causal = _seq_causal(shape)
         for dt in ("bf16", "f32") if bwd else ("bf16",):
             q, k, v, do, _ = _seq_inputs(gen, shape, dt)
-            for r in SEQ_RANKS:
-                off = r * sq
-                label = (f"flash offset {name} rank {r} (q_offset {off}) "
-                         f"q {tuple(q.shape)} k/v {tuple(k.shape)} {dt}")
+            for off in _seq_offsets(shape):
+                label = (f"flash offset {name} (q_offset {off}"
+                         f"{'' if causal else ', bidirectional'}) q "
+                         f"{tuple(q.shape)} k/v {tuple(k.shape)} {dt}")
                 _seq_check_fwd(f"{label} fwd", q, k, v, window, off,
-                               errs[("fwd", dt)])
+                               errs[("fwd", dt)], causal)
                 if bwd:
                     _seq_check_bwd(f"{label} bwd", q, k, v, do, window, off,
-                                   errs[("bwd", dt)])
+                                   errs[("bwd", dt)], causal)
             del q, k, v, do
             torch.cuda.empty_cache()
     for shape in SEQ_SHAPES[:2]:
@@ -1995,6 +2064,8 @@ def check_flash_offset(gen, flush):
             if dt == "bf16":
                 for sh in shapes[1:]:
                     rec[f"{sh[0]}_shape"] = timing(gen, flush, sh, dt)
+            for sh in WHISPER_SEQ_SHAPES:
+                rec[f"{sh[0]}_shape"] = timing(gen, flush, sh, dt)
             records.append(rec)
             torch.cuda.empty_cache()
     return records
@@ -2046,7 +2117,7 @@ def _seq_sweep(gen, shape, dt):
           "whole-sequence kernels', dk and dv summed within tolerance ok")
 
 
-def _seq_library(q, k, v, window, off):
+def _seq_library(q, k, v, window, off, causal=True):
     """SDPA on the shard: k and v repeated to the q heads, the (Sq, Sk)
     boolean mask of the shard's positions (``ref._train_mask``)."""
     import torch
@@ -2056,19 +2127,30 @@ def _seq_library(q, k, v, window, off):
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
               for t in (k, v))
-    mask = ref._train_mask(q.shape[1], True, window, q.device, k.shape[1],
+    mask = ref._train_mask(q.shape[1], causal, window, q.device, k.shape[1],
                            off)
     return qt, kt, vt, mask
+
+
+def _seq_timing_offset(shape):
+    """The offset a shape is timed at: the last of its own, or the last
+    rank's of ``SEQ_TP`` (every key live)."""
+    return shape[10][-1] if len(shape) > 10 else (SEQ_TP - 1) * shape[3]
 
 
 def _seq_shape_text(shape, q, k, off, live, arm, pieces):
     _, name, *_ = shape
     plain = "" if pieces == 1 else \
         f", plain version in {pieces} pieces (a batch row and kv head each)"
-    return (f"{name}, rank {SEQ_TP - 1} of {SEQ_TP}: q {tuple(q.shape)} at "
+    # a ragged shape names its rank in its label
+    rank = f", rank {off // shape[3]} of {SEQ_TP}" if len(shape) <= 10 \
+        else ""
+    mask = "causal" if _seq_causal(shape) else "bidirectional"
+    return (f"{name}{rank}: q {tuple(q.shape)} at "
             f"q_offset {off} against k/v {tuple(k.shape)} {q.dtype}, "
-            f"window {shape[8]}, live pairs {live}, {arm}{plain}; library: "
-            f"SDPA, explicit (Sq, Sk) mask, k/v repeated to the q heads")
+            f"{mask}, window {shape[8]}, live pairs {live}, {arm}{plain}; "
+            f"library: SDPA, explicit (Sq, Sk) mask, k/v repeated to the q "
+            f"heads")
 
 
 def _seq_fwd_timing(gen, flush, shape, dt):
@@ -2078,18 +2160,20 @@ def _seq_fwd_timing(gen, flush, shape, dt):
     from repro_torch.kernels import flash_attention_cuda, ref
     q, k, v, _, window = _seq_inputs(gen, shape, dt)
     b, sq, hq, _ = q.shape
-    off = (SEQ_TP - 1) * sq
-    live = _seq_live_pairs(b, sq, k.shape[1], off, hq, True, window)
+    off = _seq_timing_offset(shape)
+    causal = _seq_causal(shape)
+    live = _seq_live_pairs(b, sq, k.shape[1], off, hq, causal, window)
     bound, bound_by = _flash_bound(q, k, live, 4, 2, 2)
     pieces = _seq_pieces(q, k)
 
     def plain():
         for bi, hs, ks in pieces:
             ref.flash_attention_ref(q[bi, :, hs], k[bi, :, ks], v[bi, :, ks],
-                                    window=window, q_offset=off)
-    qt, kt, vt, mask = _seq_library(q, k, v, window, off)
+                                    causal=causal, window=window,
+                                    q_offset=off)
+    qt, kt, vt, mask = _seq_library(q, k, v, window, off, causal)
     out = {"ms": _time_ms(lambda: flash_attention_cuda.flash_attention_fwd(
-               q, k, v, window=window, q_offset=off), flush),
+               q, k, v, causal=causal, window=window, q_offset=off), flush),
            "plain_ms": _time_ms(plain, flush),
            "bound_ms": bound, "bound_by": bound_by,
            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
@@ -2109,18 +2193,22 @@ def _seq_bwd_timing(gen, flush, shape, dt):
     from repro_torch.kernels import flash_attention_bwd_cuda, ref
     q, k, v, do, window = _seq_inputs(gen, shape, dt)
     b, sq, hq, _ = q.shape
-    off = (SEQ_TP - 1) * sq
-    o, lse = ref.flash_attention_ref(q, k, v, window=window, q_offset=off)
-    live = _seq_live_pairs(b, sq, k.shape[1], off, hq, True, window)
+    off = _seq_timing_offset(shape)
+    causal = _seq_causal(shape)
+    o, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     q_offset=off)
+    live = _seq_live_pairs(b, sq, k.shape[1], off, hq, causal, window)
     bound, bound_by = _flash_bound(q, k, live, 10, 4, 4)
-    qt, kt, vt, mask = _seq_library(q, k, v, window, off)
+    qt, kt, vt, mask = _seq_library(q, k, v, window, off, causal)
     qt, kt, vt = (t.requires_grad_(True) for t in (qt, kt, vt))
     ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     dot = do.transpose(1, 2).contiguous()
     out = {"ms": _time_ms(lambda: flash_attention_bwd_cuda.flash_attention_bwd(
-               q, k, v, o, lse, do, window=window, q_offset=off), flush),
+               q, k, v, o, lse, do, causal=causal, window=window,
+               q_offset=off), flush),
            "plain_ms": _time_ms(lambda: ref.flash_attention_bwd_ref(
-               q, k, v, o, lse, do, window=window, q_offset=off), flush),
+               q, k, v, o, lse, do, causal=causal, window=window,
+               q_offset=off), flush),
            "bound_ms": bound, "bound_by": bound_by,
            "library_ms": _time_ms(lambda: torch.autograd.grad(
                ot, (qt, kt, vt), dot, retain_graph=True), flush),
@@ -5349,6 +5437,10 @@ _REC_TP = {"mamba2": (3, 2, 0),   # B and C, the gated rows, the scale
            "mlstm": (3, 2, 4),    # xc and xi, the normed rows, the scale;
                                   # w_i and w_f's w and b
            "slstm": (1, 1, 2)}    # y; w_in's b and the norm's scale
+# the same under the head-split arm (``Layout.head_split``): the mLSTM's q
+# and k columns gathered too; the sLSTM's pre-activations gathered, and
+# its r's zero-padded whole summed
+_REC_TP_SPLIT = {"mlstm": (4, 3, 4), "slstm": (2, 2, 3)}
 
 
 def _tp_collectives(cfg, lay):
@@ -5363,10 +5455,14 @@ def _tp_collectives(cfg, lay):
     the same pair for k and v gathered along the sequence);
     the same pair around a gated MLP, whose reduce-scatter the recompute
     stops before; a recurrent block's gather and scatter as the MLP's,
-    and inside it the gathers along the features (``_REC_TP``); the
+    and inside it the gathers along the features (``_REC_TP``; under the
+    head-split arm ``_REC_TP_SPLIT``); the
     encoder-decoder's (no remat) the same around each attention, cross
     attention and MLP (its ``fc2`` bias's gradient all-reduce), and the
-    encoder output's gather; the gradient all-reduce of each whole leaf
+    encoder output's gather (under the sequence arm each attention's
+    model-held leaves gathered instead, the self attentions' k | v, and
+    the whole kv leaves' sums of the self and cross attentions); the
+    gradient all-reduce of each whole leaf
     used on the rows or on this rank's heads (the norms' leaves, whole kv
     weights and biases, the value head); the values' all-gather; the final
     rows' gather for the LM head, with its backward's reduce-scatter where
@@ -5377,6 +5473,18 @@ def _tp_collectives(cfg, lay):
     norm = 2 if cfg.norm == "layernorm" else 1
     value = int(bool(cfg.value_head))
     ag, rs, ar = 1 + value + 1, 2 * vocab, norm + value + 2 * vocab
+    if cfg.is_encdec and lay.seq:
+        # the sequence arm: each attention's model-held leaves gathered
+        # (and k | v along the sequence for the self attentions), wk and
+        # wv (with their biases) whole and summed where their heads do
+        # not divide the axis; the MLPs' pair as on local heads
+        enc, dec = cfg.encoder_layers, cfg.n_layers
+        n_m = _seq_model_leaves(lay)
+        kv = 4 * _kv_whole(lay)
+        pairs = enc * (n_m + 1 + 2) + 1 + dec * (2 * n_m + 1 + 2)
+        return {"all_gather": ag + pairs, "reduce_scatter": rs + pairs,
+                "all_reduce": ar + enc * (2 * norm + 1 + kv) + norm
+                + dec * (3 * norm + 1 + 2 * kv)}
     if cfg.is_encdec:
         enc, dec = cfg.encoder_layers, cfg.n_layers
         return {"all_gather": ag + 4 * enc + 1 + 6 * dec,
@@ -5398,7 +5506,8 @@ def _tp_collectives(cfg, lay):
     ar += attn * (2 * norm + kv)
     for kind in kinds:
         if kind in _REC_TP:
-            g, s_, a = _REC_TP[kind]
+            g, s_, a = (_REC_TP_SPLIT if lay.head_split and
+                        kind in _REC_TP_SPLIT else _REC_TP)[kind]
             ag += 2 + r + g * (1 + r)
             rs += 2 + s_
             ar += norm + a
@@ -5490,7 +5599,8 @@ def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
     under ``mesh`` with the parameters held as ``held`` ("fsdp": the plan's
     shards, tensor-parallel where the model axis has more than one rank;
     "tp": tensor-parallel on any model axis; "seq": that with the
-    attention's sequence arm; "whole"), or the unsharded
+    attention's sequence arm; "split": with the xLSTM head-split arm;
+    "whole"), or the unsharded
     step without a mesh.  The
     parameters are a copy of ``masters`` (whole, on ``dev``: several runs
     share one draw), or without it seed 0's drawn on the CPU.  Launch,
@@ -5527,9 +5637,10 @@ def _mr_train(cfg, mesh, held, dev, rows, steps, *, masters=None,
         masters = M.tree_map(lambda t: t.to(dev), M.init_params(cfg, 0,
                                                                 "cpu"))
     lay = None
-    if held in ("fsdp", "tp", "seq"):
+    if held in ("fsdp", "tp", "seq", "split"):
         lay = fsdp.layout(cfg, mesh, force_tp=held == "tp",
-                          force_seq=held == "seq")
+                          force_seq=held == "seq",
+                          force_head_split=held == "split")
     if lay is not None:
         params = fsdp.shard(lay, masters)
     else:
@@ -5657,7 +5768,10 @@ def _mr_routes(cfg, lay):
     residual's norms on the sequence rows (two an attention block, one a
     recurrent block, three a decoder layer of an encoder-decoder, and the
     final one), mamba2 and the xLSTM blocks on local heads with a norm on
-    feature-gathered rows each, and cross attention on local heads, the
+    feature-gathered rows each (the xLSTM blocks on a part of one head
+    under the head-split arm), and cross attention on local heads (on
+    the rank's rows under the sequence arm, from whole kv leaves where
+    they are whole), the encoder's attention on padded frames, the
     blocks' again in the remat recompute."""
     kinds = cfg.layer_kinds()
     r = 1 + _remat(cfg)
@@ -5666,24 +5780,38 @@ def _mr_routes(cfg, lay):
     kv_whole = tp and _kv_whole(lay)
     ssm = sum(1 for k in kinds if k == "mamba2")
     lstm = sum(1 for k in kinds if k in ("mlstm", "slstm"))
-    cross = 0
+    cross = pad = 0
+    kv_calls = None
     if cfg.is_encdec:
         enc, dec = cfg.encoder_layers, cfg.n_layers
         attn, cross, ssm = enc + dec, dec, 0
         rows = 2 * enc + 1 + 3 * dec + 1
+        # the encoder's frames padded over the model axis
+        pad = enc * (tp and cfg.encoder_seq % _model_ranks(lay) != 0)
+        if seq:
+            kv_calls = enc + 2 * dec       # the cross attention's too
     else:
         layers = sum(1 for k in kinds if k in ("attn", "attn_local"))
         attn = layers + _shared_apps(cfg)
         rows = (2 * attn + ssm + lstm) * r + 1
     moe = sum(1 for k in kinds if k in ("attn", "attn_local")) \
         if cfg.n_experts else 0
+    split = bool(tp and lay.head_split)
     return {"moe_ep": moe * r, "moe_dense": 0,
             "tp_heads": attn * r * (tp and not seq), "tp_seq": attn * r * seq,
-            "tp_kv_whole": attn * r * kv_whole,
+            "tp_kv_whole": (attn if kv_calls is None else kv_calls) * r
+            * kv_whole,
             "sp_rows": rows * tp, "tp_ssm_heads": ssm * r * tp,
             "tp_lstm_heads": lstm * r * tp,
             "tp_feature_rows": (ssm + lstm) * r * tp,
-            "tp_cross": cross * tp}
+            "tp_cross": cross * tp, "tp_lstm_split": lstm * r * split,
+            "tp_frames_pad": pad}
+
+
+def _model_ranks(lay):
+    """The ranks of ``lay``'s model axis."""
+    from repro_torch.distributed import sharding
+    return sharding.mesh_shape(lay.mesh).get("model", 1)
 
 
 def _mr_reduced(n, dev, refs, lead, cases):
@@ -6102,6 +6230,84 @@ def _mr_seq_full(n, dev, lead):
     return out
 
 
+# 12j: the slice 6b-iv arms at full width, forced on (1, n): xlstm-1.3b
+# cut to 8 of 48 layers (as 12h; one step, its sLSTM loop takes seconds)
+# through the head-split arm, and whisper-base whole through the
+# encoder-decoder's sequence arm: (label, arch, depth cut, held, rows,
+# seq, steps)
+SPLIT_FULL = (("xlstm-1.3b x8", XLSTM, {"n_layers": 8}, "split", 4,
+               TRAIN_SEQ, 1),
+              ("whisper-base", WHISPER, {}, "seq", 4, 448, TP_SNAPSHOT))
+
+
+def _mr_split_full(n, dev, lead):
+    """12j: ``SPLIT_FULL``'s models through the train step with their arm
+    forced on (1, n) (remat, bf16 compute; the head-split arm runs its
+    gathers of q, k and the sLSTM's pre-activations and the zero-padded
+    sum of ``r`` over a group of n, the encoder-decoder's every attention
+    on the query-offset arm), from one draw, against the unsharded step
+    on each rank's card: on (1, 1) bitwise equal in losses and
+    parameters (the arms over one rank compute what the unsharded step
+    computes, in its order); on more ranks the first loss within
+    ``SEQ_LOSS_REL`` relative (as 12i), the rest printed.  Exact
+    launches, collectives and routes a step.  Returns {path: counts}."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    out = {}
+    for name, arch, cut, held, rows, seq, steps in SPLIT_FULL:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), dtype="bfloat16",
+                                  remat=True, **cut)
+        label = f"multirank {name} {held} (1, {n})"
+        kw = dict(masters=M.init_params(cfg, 0, dev), seq=seq, key=2,
+                  lr0=7e-3, total=100, keep="fingerprint",
+                  extra=_mr_extra(cfg, rows, torch.bfloat16, dev))
+        mesh = mesh_mod.make_mesh((1, n), dev)
+        runs = {}
+        plain = runs["plain"] = _mr_train(cfg, None, None, dev, rows, steps,
+                                          snapshot=steps, **kw)
+        run = runs[held] = _mr_train(cfg, mesh, held, dev, rows, steps,
+                                     against=(steps, plain.pop("snapshot")),
+                                     **kw)
+        del kw
+        rels = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                    plain["losses"])]
+        same = max(rels) == 0.0 and run["rel_l2"] == 0.0
+        params = (f"losses rel {[float(f'{x:.3e}') for x in rels]}, params "
+                  f"rel {run['rel_l2']:.3e} (largest leaf's L2 on rank 0)")
+        if n == 1 and not same:
+            raise AssertionError(f"{label}: not bitwise equal to the "
+                                 f"unsharded step over one rank ({params})")
+        if rels[0] > SEQ_LOSS_REL:
+            raise AssertionError(f"{label}: first loss {run['losses'][0]} "
+                                 f"against the unsharded {plain['losses'][0]}"
+                                 f" ({params}, gate {SEQ_LOSS_REL})")
+        _mr_check_counts(label, run, mesh, cfg, steps, lead, plain)
+        if lead:
+            verdict = "bitwise equal to the unsharded step" if same else \
+                f"{params} (gate {SEQ_LOSS_REL} on the first loss)"
+            print(f"train {name} full width x {cfg.n_layers} layers, "
+                  f"{held} arm over (1, {n}), batch {rows} x {seq}: "
+                  + json.dumps(_train_report(runs, rows * seq)), flush=True)
+            print(f"check {label}: after {steps} steps {verdict} ok",
+                  flush=True)
+        out[f"multirank_{name.replace(' ', '_')}_{held}_1x{n}"] = \
+            run["kernels"]
+        del runs, run, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        if lead:
+            print(f"phase 12j_{name.replace(' ', '_')}_s "
+                  f"{time.perf_counter() - t0:.1f}", flush=True)
+    return out
+
+
 def _mr_delayed(n, dev, refs, lead):
     """12d: delayed sync on (pod n, 1, 1), each pod one group, merging
     every 2 steps: 3 steps of reduced yi-6b in f32, each group's
@@ -6157,7 +6363,8 @@ def _mr_delayed(n, dev, refs, lead):
 
 def _phase12_rank(rank, n, port, tmp):
     """One rank of phase 12 on card ``rank``: 12a, 12e, 12g, 12b with 12f,
-    12c, 12d and 12h, its launch counts by path written to ``tmp``."""
+    12c, 12d, 12h, 12i and 12j, its launch counts by path written to
+    ``tmp``."""
     import pickle
 
     import torch
@@ -6195,7 +6402,9 @@ def _phase12_rank(rank, n, port, tmp):
         t = lap("12h", t)
         counts.update(_mr_reduced(n, dev, refs, lead, _mr_seq_cases(n)))
         counts.update(_mr_seq_full(n, dev, lead))
-        lap("12i", t)
+        t = lap("12i", t)
+        counts.update(_mr_split_full(n, dev, lead))
+        lap("12j", t)
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(counts, f)
     finally:
@@ -6254,29 +6463,38 @@ def _decode_attention_layers(cfg):
 # the out_proj sum; the mLSTM's conv output and xi, its norm's rows and
 # scale, the down sum; the sLSTM's gathered heads and the ff_down sum
 _REC_DECODE = {"mamba2": (3, 1), "mlstm": (3, 1), "slstm": (1, 1)}
+# under the head-split arm: the mLSTM's q and k columns gathered too, the
+# sLSTM's pre-activations
+_REC_DECODE_SPLIT = {"mlstm": (4, 1), "slstm": (2, 1)}
 
 
-def _decode_collectives(cfg, lay, owned=True):
+def _decode_collectives(cfg, lay, owned=True, cross_owned=None):
     """Collectives of one decode step under the serving layout
     (``collectives.counts()``): the vocab-parallel embedding's sum and the
     logits' gather where the vocab is split; for each attention call the
     gather of its heads, the combine's two all-reduces where the rule owns
     the cache (``owned``) and the sum of ``wo``; each MLP or MoE half one
-    sum; the recurrent layers' ``_REC_DECODE``; Whisper's cross attention
-    as a self attention whose memory the rule splits."""
+    sum; the recurrent layers' ``_REC_DECODE`` (``_REC_DECODE_SPLIT``
+    under the head-split arm); Whisper's cross attention as a self
+    attention, its combine where the rule splits the memory
+    (``cross_owned``, by default ``owned``: a memory whose rows do not
+    divide the shards is held whole)."""
     gather = reduce = 0
     if lay.sharded("embed.table", "model"):
         gather += 1
         reduce += 1
     attn_calls = _decode_attention_layers(cfg)
-    if cfg.is_encdec:
-        attn_calls += cfg.n_layers
     gather += attn_calls
     reduce += attn_calls * (1 + 2 * bool(owned))
+    if cfg.is_encdec:
+        cross_owned = owned if cross_owned is None else cross_owned
+        gather += cfg.n_layers
+        reduce += cfg.n_layers * (1 + 2 * bool(cross_owned))
     ffn = cfg.n_layers if cfg.is_encdec else _decode_attention_layers(cfg)
     reduce += ffn
+    table = _REC_DECODE_SPLIT if lay.head_split else _REC_DECODE
     for kind in cfg.layer_kinds():
-        g, r = _REC_DECODE.get(kind, (0, 0))
+        g, r = table.get(kind, _REC_DECODE.get(kind, (0, 0)))
         gather += g
         reduce += r
     return {"all_gather": gather, "reduce_scatter": 0,
@@ -6326,6 +6544,13 @@ ZAMBA2_LONG = dict(batch=1, seq=524288, steps=4)   # long_500k, native
 # 13d: minicpm-2b's bf16 cache is 369 KB a token (36 kv heads x 40
 # layers), so decode_32k's context is cut to 4096 rows at batch 8
 MINICPM_DECODE = dict(batch=8, seq=4096, steps=8)
+# 13e: xlstm-1.3b whole (its states only: the context length sizes no
+# cache) through the head-split arm, and whisper-base's decoder (its
+# 448-token context; the cross memory of 1500 frames held whole, as the
+# rules hold it over 16 ranks) through the column arm, both forced on
+# (1, n)
+XLSTM_DECODE = dict(batch=8, seq=64, steps=8)
+WHISPER_DECODE = dict(batch=8, seq=448, steps=8)
 DL_TOKEN_SEED = 13
 
 
@@ -6438,7 +6663,7 @@ def _cache_device(cache):
 
 
 def _dl_check_counts(label, cfg, lay, kv, steps, launches, colls, lead,
-                     owned=True):
+                     owned=True, cross_owned=None):
     """The run's kernel launches exactly ``_decode_launches`` and its
     collectives exactly ``_decode_collectives`` a step."""
     want = {k: steps * v for k, v in _decode_launches(cfg, kv, owned)
@@ -6448,7 +6673,7 @@ def _dl_check_counts(label, cfg, lay, kv, steps, launches, colls, lead,
     if got != want:
         raise AssertionError(f"{label}: launches {got}, want {want}")
     if lay is not None:
-        per = _decode_collectives(cfg, lay, owned)
+        per = _decode_collectives(cfg, lay, owned, cross_owned)
         want_c = {k: steps * v for k, v in per.items()}
         if colls != want_c:
             raise AssertionError(f"{label}: collectives {colls}, want "
@@ -6563,7 +6788,8 @@ def _dl_cpu_decode(cfg, params, cache, tokens, pos0):
     return torch.stack(toks), torch.stack(logits)
 
 
-def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0, force_seq=False):
+def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0, force_seq=False,
+             force_head_split=False, cut=None, cross_whole=False):
     """13b / 13c: ``arch`` at full width and depth, bf16, decoding
     ``spec["steps"]`` tokens a row against a ``spec["seq"]``-row context
     filled from a seed, under the serving layout on each mesh of
@@ -6574,8 +6800,14 @@ def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0, force_seq=False):
     batch row agree; kernel 7's launches and the collectives exact.  Prints decode
     tokens/s and each rank's peak memory.  With ``force_seq`` (13d) the
     attention takes the column arm (``fsdp.serve_layout(force_seq=True)``)
-    on every call, and on (1, 1) the logits must equal the unsharded
-    step's bit for bit.  Returns {path: launches}."""
+    on every call, with ``force_head_split`` (13e) the xLSTM blocks the
+    head-split arm, and on (1, 1) the logits must equal the unsharded
+    step's bit for bit.  ``cut``: config fields replaced (a depth cut);
+    ``cross_whole``: the encoder-decoder's cross memory held whole on
+    every rank, as the rules hold it where its rows do not divide the
+    sequence shards (whisper-base's 1500 frames over 16), rather than
+    split where they do.  Returns {path: launches}."""
+    import dataclasses
     import gc
 
     import torch
@@ -6586,7 +6818,8 @@ def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0, force_seq=False):
     from repro_torch.kernels import dispatch
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models import model as M
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **(cut or {}))
+    forced = force_seq or force_head_split
     b, seq, steps = spec["batch"], spec["seq"], spec["steps"]
     tokens = _dl_steps(cfg, steps, b)
     out = {}
@@ -6597,7 +6830,8 @@ def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0, force_seq=False):
         label = f"decode layout {tag} {arch} {name}"
         mesh = mesh_mod.make_mesh(shape, dev)
         lay = fsdp.serve_layout(cfg, mesh, force_tp=True,
-                                force_seq=force_seq)
+                                force_seq=force_seq,
+                                force_head_split=force_head_split)
         shards = fsdp.shard(lay, params)
         rules = sharding.decode_rules(cfg, mesh, batch_size=b)
         rows = _dl_rows(rules, mesh, b)
@@ -6607,6 +6841,10 @@ def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0, force_seq=False):
                                       device=dev), gen)
         ref_cache = M.tree_map(lambda t: t.clone(), whole) if lead else None
         cache = fsdp.shard_cache(cfg, mesh, whole, batch_size=b)
+        if cross_whole:
+            for c, w in zip(cache["cross"], whole["cross"]):
+                c.pop("global_len", None)
+                c.update({k: w[k][rows].contiguous() for k in ("k", "v")})
         del whole
         gc.collect()
         # what the rank holds under the layout: its weights and its cache
@@ -6622,14 +6860,18 @@ def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0, force_seq=False):
         del cache, shards
         gc.collect()
         _dl_check_counts(label, cfg, lay, "bf16", steps, launches, colls,
-                         lead)
+                         lead, cross_owned=not cross_whole)
         routes = dispatch.route_counts()
         arm = "tp_decode_cols" if lay.seq else "tp_decode_heads"
         want = steps * _decode_attention_layers(cfg)
+        lstm = steps * sum(k in ("mlstm", "slstm")
+                           for k in cfg.layer_kinds())
         if (routes[arm], routes["tp_decode_cols"] + routes[
-                "tp_decode_heads"]) != (want, want):
+                "tp_decode_heads"]) != (want, want) or \
+                routes["tp_lstm_split"] != lstm * bool(lay.head_split):
             raise AssertionError(f"{label}: routes {routes}, want {arm} "
-                                 f"{want}")
+                                 f"{want}, tp_lstm_split "
+                                 f"{lstm * bool(lay.head_split)}")
         out[f"decode_layout_{name}_{tag}"] = launches
         # the ranks holding the same rows drew the same tokens
         every = [None] * dist.get_world_size()
@@ -6662,9 +6904,9 @@ def _dl_full(n, dev, lead, name, arch, spec, shapes, pos0, force_seq=False):
                 raise AssertionError(f"{label}: logits rel L2 {rel:.3e} off "
                                      f"the unsharded step's (gate "
                                      f"{BF16_LOGITS_REL})")
-            if force_seq and shape == (1, 1) and \
+            if forced and shape == (1, 1) and \
                     not torch.equal(logits, ref):
-                raise AssertionError(f"{label}: the column arm over one "
+                raise AssertionError(f"{label}: the forced arm over one "
                                      "rank is not bitwise equal to the "
                                      "unsharded step")
             if not torch.equal(toks, logits.argmax(-1)):
@@ -6713,7 +6955,7 @@ BF16_LOGITS_REL = 2.0 ** -3
 
 
 def _phase13_rank(rank, n, port, tmp):
-    """One rank of phase 13 on card ``rank``: 13a, 13b and 13c, its launch
+    """One rank of phase 13 on card ``rank``: 13a to 13e, its launch
     counts by path written to ``tmp``."""
     import pickle
 
@@ -6755,6 +6997,18 @@ def _phase13_rank(rank, n, port, tmp):
              for i in range(MINICPM_DECODE["batch"])], force_seq=True))
         if lead:
             print(f"phase 13d_s {time.perf_counter() - t:.1f}", flush=True)
+        t = time.perf_counter()
+        counts.update(_dl_full(
+            n, dev, lead, "split", XLSTM, XLSTM_DECODE, shapes,
+            [XLSTM_DECODE["seq"] - XLSTM_DECODE["steps"] - 1 - 3 * i
+             for i in range(XLSTM_DECODE["batch"])], force_head_split=True))
+        counts.update(_dl_full(
+            n, dev, lead, "encdec_seq", WHISPER, WHISPER_DECODE, shapes,
+            [WHISPER_DECODE["seq"] - WHISPER_DECODE["steps"] - 1 - 29 * i
+             for i in range(WHISPER_DECODE["batch"])], force_seq=True,
+            cross_whole=True))
+        if lead:
+            print(f"phase 13e_s {time.perf_counter() - t:.1f}", flush=True)
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(counts, f)
     except BaseException:
@@ -6811,8 +7065,8 @@ def _shapes(record):
         "whisper_encoder_shape", "whisper_decoder_shape",
         "zamba2_train_shape", "tp2_shape", "tp4_shape",
         "width_2048_tp2_shape", *_REC_TP_TRAIN, "decode32k_shape",
-        "long131k_shape", "long500k_shape",
-        *(f"{sh[0]}_shape" for sh in SEQ_SHAPES))
+        "long131k_shape", "long500k_shape", "xlstm_split_shape",
+        *(f"{sh[0]}_shape" for sh in SEQ_SHAPES + WHISPER_SEQ_SHAPES))
         if k in record]
 
 

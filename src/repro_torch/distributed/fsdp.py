@@ -14,7 +14,9 @@ or where ``force_tp`` asks for it) so is each dense entry that
 columns and wo's rows off head boundaries); mamba2's ``in_proj.w`` and
 conv leaves are split part by part (``Layout.blocks``: rank r holds the
 r-th 1/tp of each part, in part order) and the sLSTM's ``r`` over its
-heads, dim 0, instead of the plan's dim 2 (its held spec says so).  The
+heads, dim 0, instead of the plan's dim 2 (its held spec says so; under
+the head-split arm, ``Layout.head_split`` g ranks a head, a
+``sharding.Grouped`` entry: each head's block whole on its g ranks).  The
 data ("F") entries are FSDP: each rank holds its slice of the dim as a
 contiguous tensor of its own, and the optimizer (kernel 8) updates the
 slices as its leaves.
@@ -59,6 +61,9 @@ class Layout(NamedTuple):
     blocks: Optional[Dict[str, Tuple[int, Tuple[int, ...]]]] = None
     # the attention's sequence arm (train) / column arm (decode)
     seq: bool = False
+    # the ranks each xLSTM head is split over (the head-split arm), 0
+    # without it
+    head_split: int = 0
 
     def sharded(self, path: str, axis: str) -> bool:
         return any(axis in sharding.entry_axes(a) for a in self.held[path])
@@ -80,6 +85,10 @@ class TPRule(NamedTuple):
     # sequence against the whole sequence's keys (train), or projects its
     # columns of q, k, v (decode), where the q heads do not divide the group
     seq: bool = False
+    # the head-split arm: the g ranks each xLSTM head is split over (0
+    # without it); rank r works on the heads its d_inner / tp features
+    # fall in, head r // g where g > 1
+    head_split: int = 0
 
 
 def _held_spec(path: str, spec: tuple, holds: Dict[str, bool]) -> tuple:
@@ -92,7 +101,8 @@ def _held_spec(path: str, spec: tuple, holds: Dict[str, bool]) -> tuple:
 
 def layout(cfg, mesh, *, pod_groups: bool = False,
            force_tp: bool = False, fsdp: bool = True,
-           force_seq: bool = False) -> Layout:
+           force_seq: bool = False, force_head_split: bool = False
+           ) -> Layout:
     """The layout of ``cfg``'s parameters over ``mesh``: the reference's
     FSDP plan, held as ``_held_spec`` says, with the blocked and moved
     splits of ``sharding.tp_splits``.  ``pod_groups``: the delayed-sync
@@ -103,24 +113,30 @@ def layout(cfg, mesh, *, pod_groups: bool = False,
     of one.  Where the q heads do not divide the axis the attention takes
     the sequence arm (``sharding.seq_attention``); ``force_seq`` takes it
     (and tensor parallelism) over an axis whose heads divide, a check of
-    that arm over a group of one that no CLI asks for.  A layout the port
-    cannot hold (``sharding.tp_refusal``: a recurrent width or d_ff that
-    does not divide the axis, the encoder-decoder's q heads) is a
-    ValueError that names its reason; no dense leaf is quietly held
-    whole.  ``fsdp=False`` plans the data ("F") entries away, as the
-    reference's serving replicas do (``serve_layout``)."""
+    that arm over a group of one that no CLI asks for.  Where the model
+    axis is wider than the xLSTM heads and a multiple of them each head is
+    split over g = tp / H ranks (``sharding.head_split``, ``head_split``);
+    ``force_head_split`` takes that arm's code (and tensor parallelism)
+    where the heads divide the axis, g = 1, again a check.  A layout the
+    port cannot hold (``sharding.tp_refusal``: a recurrent width or d_ff
+    that does not divide the axis) is a ValueError that names its reason;
+    no dense leaf is quietly held whole.  ``fsdp=False`` plans the data
+    ("F") entries away, as the reference's serving replicas do
+    (``serve_layout``)."""
     from repro_torch.models.model import param_shapes
     shapes = param_shapes(cfg)
     plan = sharding.param_shardings(cfg, mesh, shapes, fsdp=fsdp)
-    tp = force_tp or force_seq or \
+    tp = force_tp or force_seq or force_head_split or \
         sharding.mesh_shape(mesh).get("model", 1) > 1
     why = sharding.tp_refusal(cfg, mesh) if tp else ""
-    if force_seq and cfg.is_encdec:
-        why = (f"{cfg.name}: the encoder-decoder's attention has no "
-               "sequence arm")
+    if force_head_split and not set(cfg.layer_kinds()) & {"mlstm", "slstm"}:
+        why = f"{cfg.name}: no xLSTM block has heads to split"
     if why:
         raise ValueError(why)
     seq = tp and (force_seq or sharding.seq_attention(cfg, mesh))
+    g = sharding.head_split(cfg, mesh) if tp else 0
+    if tp and force_head_split:
+        g = g or 1
     holds = sharding.tp_holds(cfg, mesh, shapes) if tp else {}
     splits = sharding.tp_splits(cfg, mesh, shapes) if tp else {}
     held, blocks = {}, {}
@@ -129,22 +145,24 @@ def layout(cfg, mesh, *, pod_groups: bool = False,
             spec = sharding.strip_pod(spec)
         spec = _held_spec(path, spec, holds)
         split = splits.get(path)
-        if split is not None and split.kind == "moved":
+        if split is not None and split.kind in ("moved", "grouped"):
             spec = list(sharding.strip_axis(spec, "model"))
             if spec[split.dim] is not None:
                 raise ValueError(f"{path}: dim {split.dim} is held over "
                                  f"{spec[split.dim]} already")
-            spec[split.dim] = "model"
+            spec[split.dim] = "model" if split.kind == "moved" else \
+                sharding.Grouped("model", split.g)
             spec = tuple(spec)
         elif split is not None and split.kind == "blocked":
             blocks[path] = (split.dim, split.parts)
         held[path] = spec
     return Layout(mesh, held, {k: tuple(v) for k, v in shapes.items()}, tp,
-                  blocks, seq)
+                  blocks, seq, g)
 
 
 def serve_layout(cfg, mesh, *, force_tp: bool = False,
-                 force_seq: bool = False) -> Layout:
+                 force_seq: bool = False,
+                 force_head_split: bool = False) -> Layout:
     """The decode layout of the reference's dry run
     (``repro/launch/dryrun.py:179-186``): weights over the model axis
     only, with no FSDP (``param_shardings(..., fsdp=False)``), each model
@@ -157,10 +175,12 @@ def serve_layout(cfg, mesh, *, force_tp: bool = False,
     ``force_seq``) wq, wk and wv are held as the plan's contiguous column
     split and wo as its row split, off head boundaries (wk and wv whole
     where the kv heads do not divide either), and the attention takes
-    the column arm (``Layout.seq``).  A config ``sharding.tp_refusal``
-    refuses raises, naming its reason."""
+    the column arm (``Layout.seq``).  Under the head-split arm
+    (``Layout.head_split``) the sLSTM's ``r`` is held a head a group of g
+    ranks.  A config ``sharding.tp_refusal`` refuses raises, naming its
+    reason."""
     return layout(cfg, mesh, force_tp=force_tp, fsdp=False,
-                  force_seq=force_seq)
+                  force_seq=force_seq, force_head_split=force_head_split)
 
 
 def tp_rule(lay: Optional[Layout]) -> Optional[TPRule]:
@@ -171,7 +191,8 @@ def tp_rule(lay: Optional[Layout]) -> Optional[TPRule]:
     group = sharding.axes_group(lay.mesh, ("model",))
     return TPRule(group, sharding.axes_size(lay.mesh, ("model",)),
                   sharding.axes_rank(lay.mesh, ("model",)),
-                  lay.sharded("embed.table", "model"), lay.seq)
+                  lay.sharded("embed.table", "model"), lay.seq,
+                  lay.head_split)
 
 
 def ep_rule(lay: Layout) -> dict:
@@ -187,14 +208,13 @@ def ep_rule(lay: Layout) -> dict:
 def leaf_shard(lay: Layout, path: str, t: torch.Tensor) -> torch.Tensor:
     """This rank's shard of the whole leaf ``t`` at ``path``, contiguous: a
     blocked dim (``Layout.block``) split part by part, the r-th 1/n of each
-    part in part order."""
+    part in part order; a ``sharding.Grouped`` dim cut as it says."""
     block = lay.block(path)
     for dim, ax in enumerate(lay.held[path]):
-        axes = sharding.entry_axes(ax)
-        if not axes:
+        if not sharding.entry_axes(ax):
             continue
-        n = sharding.axes_size(lay.mesh, axes)
-        r = sharding.axes_rank(lay.mesh, axes)
+        n = sharding.entry_parts(lay.mesh, ax)
+        r = sharding.entry_index(lay.mesh, ax)
         if block is not None and block[0] == dim:
             t = torch.cat([p.narrow(dim, r * (p.shape[dim] // n),
                                     p.shape[dim] // n)
@@ -234,15 +254,25 @@ def gather_leaf(lay: Layout, path: str, t: torch.Tensor, *,
     (``collectives.gather_slice``); "sum" (the attention's leaves under
     the sequence arm, used by each model rank on its own rows), its
     backward the reduce-scatter of the ranks' gradients
-    (``collectives.gather_sum``)."""
+    (``collectives.gather_sum``).  A ``sharding.Grouped`` head dim (each
+    head whole on its g ranks) is gathered only to be whole ("slice"): the
+    gathered copies of each head after the first are dropped."""
     block = lay.block(path)
     for dim, ax in enumerate(lay.held[path]):
         axes = sharding.entry_axes(ax)
         if not axes or ("model" in axes and model is None):
             continue
+        grouped = isinstance(ax, sharding.Grouped)
+        if grouped and (ax.inner or model != "slice"):
+            raise ValueError(f"{path}: a grouped dim is gathered whole "
+                             "only (model='slice')")
         fn = collectives.gather_slice if "model" in axes and \
             model == "slice" else collectives.gather_sum
         t = fn(t, sharding.axes_group(lay.mesh, axes), dim)
+        if grouped:
+            parts = sharding.entry_parts(lay.mesh, ax)
+            t = t.unflatten(dim, (parts, ax.g, -1)).select(
+                dim + 1, 0).flatten(dim, dim + 1)
         if block is not None and block[0] == dim:
             t = _unblock(t, dim, block[1], sharding.axes_size(lay.mesh,
                                                               axes))
@@ -269,8 +299,9 @@ def gather(lay: Optional[Layout], prefix: str, tree, *,
 def shard_cache(cfg, mesh, cache, *, batch_size: int):
     """This rank's part of a whole decode cache (every rank holds the same
     whole cache): each tensor leaf cut as ``sharding.cache_shardings``
-    lays it out over ``mesh`` (a ``DeviceMesh``), a contiguous copy, and
-    mamba2's conv state part by part (x | B | C).  A K/V layer (or a cross
+    lays it out over ``mesh`` (a ``DeviceMesh``), a contiguous copy (a
+    ``sharding.Grouped`` dim cut as it says), and mamba2's conv state part
+    by part (x | B | C).  A K/V layer (or a cross
     memory) whose sequence is split records its global length
     (``global_len``), which the ``decode_cp`` rules then own.  Shared
     leaves (one page table behind many layers) stay shared."""
@@ -294,11 +325,10 @@ def shard_cache(cfg, mesh, cache, *, batch_size: int):
             kinds[int(parts[1])] == "mamba2"
         out = t
         for dim, ax in enumerate(specs[path]):
-            axes = sharding.entry_axes(ax)
-            if not axes:
+            if not sharding.entry_axes(ax):
                 continue
-            n = sharding.axes_size(mesh, axes)
-            r = sharding.axes_rank(mesh, axes)
+            n = sharding.entry_parts(mesh, ax)
+            r = sharding.entry_index(mesh, ax)
             if blocked and dim == out.dim() - 1:
                 out = torch.cat([p.narrow(dim, r * (p.shape[dim] // n),
                                           p.shape[dim] // n) for p in

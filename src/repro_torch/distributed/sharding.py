@@ -34,7 +34,13 @@ Slice 6b-ii covers every other block kind: ``tp_refusal`` names each
 recurrent width that does not divide the model axis, and
 ``tp_splits`` says how each held leaf is split (mamba2's ``in_proj`` and
 conv part by part, the sLSTM's ``r`` over its heads: stated differences
-in layout, ROADMAP queue 3).
+in layout, ROADMAP queue 3).  Slice 6b-iv lays out a model axis wider
+than a block's heads: the xLSTM heads split over groups of ``g = tp / H``
+ranks (``head_split``; rank r works on head r // g and owns a g-th of its
+features, the sLSTM's ``r`` held whole on the head's g ranks, a
+``Grouped`` spec entry), and the encoder-decoder on the sequence arm,
+its encoder frames padded to a multiple of the axis
+(``models/encdec.py``).
 ``attention_shard_spec`` and ``rmsnorm_shard_spec`` are the reference's
 head-locality and row checks, kept for parity with it only: they decide
 nothing in the port, whose kernels see each rank's local tensors.
@@ -64,7 +70,10 @@ cache its layout under these rules: the reference's for KV caches, page
 pools and page tables; the recurrent states over their heads, where the
 reference puts "model" on their last dim that divides it (a stated
 difference in layout, ROADMAP queue 3: the port decodes on each rank's
-heads, and a rank's bytes are the same wherever both dims divide).
+heads, and a rank's bytes are the same wherever both dims divide; under
+the head-split arm the mLSTM's ``C`` is held on the rank's v rows of its
+head, and its ``n``, ``m`` and the sLSTM's states whole on the head's g
+ranks).
 """
 from __future__ import annotations
 
@@ -321,11 +330,41 @@ def param_spec(path: str, ndim: int, mesh, *, stacked: bool,
     return ()                               # norms, small biases, scalars
 
 
+class Grouped(NamedTuple):
+    """A spec entry of the head-split arm: the dim split over ``axis`` in
+    groups of ``g`` consecutive ranks.  ``inner`` False: the dim cut into
+    n / g parts, part r // g on rank r (a head held whole on its group's g
+    ranks); True: cut into g parts, part r % g on rank r (a head's
+    features within its group)."""
+    axis: str
+    g: int
+    inner: bool = False
+
+
 def entry_axes(entry) -> tuple:
-    """The mesh axes of one spec entry (None, an axis or a tuple of them)."""
+    """The mesh axes of one spec entry (None, an axis, a tuple of them or
+    a ``Grouped`` entry)."""
     if entry is None:
         return ()
+    if isinstance(entry, Grouped):
+        return (entry.axis,)
     return entry if isinstance(entry, tuple) else (entry,)
+
+
+def entry_parts(mesh, entry) -> int:
+    """How many parts one spec entry cuts its dim into over ``mesh``."""
+    n = axes_size(mesh, entry_axes(entry))
+    if isinstance(entry, Grouped):
+        return entry.g if entry.inner else n // entry.g
+    return n
+
+
+def entry_index(mesh, entry) -> int:
+    """Which of ``entry_parts`` this rank holds."""
+    r = axes_rank(mesh, entry_axes(entry))
+    if isinstance(entry, Grouped):
+        return r % entry.g if entry.inner else r // entry.g
+    return r
 
 
 def _divisible_spec(shape: tuple, spec: tuple, mesh) -> tuple:
@@ -364,6 +403,8 @@ def param_shardings(cfg, mesh, shapes: Optional[Dict[str, tuple]] = None,
 def strip_axis(spec: tuple, axis: str) -> tuple:
     """A spec with ``axis`` taken out of every entry."""
     def strip(a):
+        if isinstance(a, Grouped):
+            return None if a.axis == axis else a
         if isinstance(a, tuple):
             t = tuple(x for x in a if x != axis)
             return t if len(t) > 1 else (t[0] if t else None)
@@ -468,7 +509,12 @@ def cache_shardings(cfg, mesh, cache, *, batch_size: int
       four) or on the conv state's channels (mamba2's part by part) where
       they divide.  The reference puts "model" on each state's last dim
       that divides it: a stated difference in layout (ROADMAP queue 3),
-      the same bytes a rank wherever both dims divide."""
+      the same bytes a rank wherever both dims divide.  Under the
+      head-split arm (``head_split``: g ranks a head) the xLSTM states
+      take ``Grouped`` entries: the mLSTM's ``C`` the rank's head and its
+      hd / g v rows (the reference's bytes), its ``n`` and ``m`` and the
+      sLSTM's four the head whole on its g ranks (g times the reference's
+      bytes of ``n`` and the sLSTM's states)."""
     from repro_torch.models.model import flatten
     dp = _batch_axis(mesh, batch_size)
     _, seq_axes = _decode_axes(mesh, batch_size)
@@ -476,6 +522,7 @@ def cache_shardings(cfg, mesh, cache, *, batch_size: int
     n_seq = axes_size(mesh, seq_axes)
     m = mesh_shape(mesh).get("model", 1)
     kinds = cfg.layer_kinds()
+    g = head_split(cfg, mesh)
     out = {}
     for path, leaf in flatten(cache).items():
         if not torch.is_tensor(leaf):
@@ -499,7 +546,11 @@ def cache_shardings(cfg, mesh, cache, *, batch_size: int
             dim = len(shape) - 1 if name == "conv" else 1
             spec = [None] * len(shape)
             spec[0] = dp
-            if _state_split_ok(cfg, kind, name, shape[dim], m):
+            if g and kind in ("mlstm", "slstm") and name != "conv":
+                spec[1] = Grouped("model", g)
+                if kind == "mlstm" and name == "C":
+                    spec[2] = Grouped("model", g, inner=True)
+            elif _state_split_ok(cfg, kind, name, shape[dim], m):
                 spec[dim] = "model"
             spec = tuple(spec)
         out[path] = spec
@@ -652,11 +703,14 @@ def _head_rules(cfg, mesh) -> dict:
     return activation_rules(mesh, batch_size=1, cfg=cfg)
 
 
-def _recurrent_widths(cfg) -> Dict[str, int]:
-    """The widths each rank of the model axis must hold whole parts of:
-    mamba2's heads, its B and C width (groups x state) and d_inner; the
-    xLSTM blocks' heads and the sLSTM's feed-forward width; the encoder's
-    frames (the sequence-parallel rows of the encoder)."""
+def _recurrent_widths(cfg, tp: int) -> Dict[str, int]:
+    """The widths each rank of the ``tp``-way model axis must hold whole
+    parts of: mamba2's heads, its B and C width (groups x state) and
+    d_inner; the xLSTM blocks' heads (where the head-split arm does not
+    take them: ``head_split``), their widths (d_inner, d_model: a rank's
+    share of a head's features) and the sLSTM's feed-forward width.  The
+    encoder's frames are padded to a multiple of the axis
+    (``models/encdec.py``), so they need not divide it."""
     kinds = set(cfg.layer_kinds())
     out = {}
     if "mamba2" in kinds:
@@ -664,39 +718,61 @@ def _recurrent_widths(cfg) -> Dict[str, int]:
         out["mamba2 groups x state (B and C)"] = cfg.ssm_groups * cfg.ssm_state
         out["mamba2 d_inner"] = cfg.ssm_heads * cfg.ssm_head_dim
     if kinds & {"mlstm", "slstm"}:
-        out["mLSTM/sLSTM heads"] = cfg.n_heads
+        if not _splits_heads(cfg.n_heads, tp):
+            out["mLSTM/sLSTM heads"] = cfg.n_heads
+        if "mlstm" in kinds:
+            out["mLSTM d_inner"] = cfg.lstm_expand * cfg.d_model
+        if "slstm" in kinds:
+            out["sLSTM d_model"] = cfg.d_model
     if "slstm" in kinds:
         from repro_torch.models.xlstm import slstm_d_ff
         out["sLSTM d_ff"] = slstm_d_ff(cfg.d_model)
-    if cfg.is_encdec:
-        out["encoder frames"] = cfg.encoder_seq
     return out
+
+
+def _splits_heads(n_heads: int, tp: int) -> bool:
+    """Whether the head-split arm takes ``n_heads`` over ``tp`` ranks: the
+    axis is a multiple of the heads, and wider."""
+    return tp % n_heads == 0 and n_heads % tp != 0
+
+
+def head_split(cfg, mesh) -> int:
+    """The ranks of the model axis each xLSTM head is split over, g = tp /
+    H, where the axis is wider than the heads and a multiple of them (the
+    head-split arm: rank r works on head r // g and owns the g-th part
+    r % g of its features); 0 where the arm does not apply (no xLSTM
+    block, or the heads divide the axis)."""
+    tp = mesh_shape(mesh).get("model", 1)
+    if not set(cfg.layer_kinds()) & {"mlstm", "slstm"} or \
+            not _splits_heads(cfg.n_heads, tp):
+        return 0
+    return tp // cfg.n_heads
 
 
 def tp_refusal(cfg, mesh) -> str:
     """Why the port cannot lay ``cfg`` out tensor- and sequence-parallel
-    over ``mesh``'s model axis, naming the ROADMAP item that would; ""
-    where it can: d_ff divides the axis; each recurrent width of
-    ``_recurrent_widths`` does; and the attention's q heads divide it
-    (heads local to the model axis) or, where ``activation_rules``' "attn_q"
-    pins the sequence instead, the attention takes the sequence arm
-    (``seq_attention``), which the encoder-decoder's attention has not."""
+    over ``mesh``'s model axis; "" where it can: d_ff divides the axis,
+    and so does each recurrent width of ``_recurrent_widths`` (the xLSTM
+    heads may instead be split over groups of ranks, ``head_split``).  The
+    attention's q heads need not divide it: where ``activation_rules``'
+    "attn_q" pins the sequence the attention takes the sequence arm
+    (``seq_attention``), the encoder-decoder's included."""
     tp = mesh_shape(mesh).get("model", 1)
     widths = {"d_ff": cfg.d_ff} if cfg.d_ff else {}
-    widths.update(_recurrent_widths(cfg))
+    widths.update(_recurrent_widths(cfg, tp))
     for what, n in widths.items():
         if n % tp:
+            extra = (f", nor is the axis a multiple of them (the head-split "
+                     f"arm)") if what == "mLSTM/sLSTM heads" else ""
             return (f"{cfg.name}: {what} {n} does not divide the {tp}-way "
-                    "model axis, which no slice plans (ROADMAP queue 1 "
-                    "item 5)")
-    if cfg.is_encdec and seq_attention(cfg, mesh):
-        return (f"{cfg.name}: its {cfg.n_heads} q heads do not divide the "
-                f"{tp}-way model axis, and the encoder-decoder's attention "
-                "has no sequence arm (ROADMAP queue 1 item 5)")
+                    f"model axis{extra}, and no arm of the layout holds a "
+                    "part of one")
     return ""
 
 
-_KV = re.compile(r"(^|\.)attn\.(wk|wv)\.[wb]$")
+# the attention's kv leaves: a decoder-only block's, and the
+# encoder-decoder's encoder, decoder self and cross attention
+_KV = re.compile(r"(^|\.|_)attn\.(wk|wv)\.[wb]$")
 _EXPERT_LEAF = re.compile(r"(^|\.)moe\.w_(gate|up|down)$")
 
 
@@ -707,7 +783,8 @@ def tp_holds(cfg, mesh, shapes: Optional[Dict[str, tuple]] = None
     ``tp_splits`` says) or holds the leaf whole over the model axis
     (False).  Held where the split falls on whole heads (q always, once
     ``tp_refusal`` passes; k and v where the rules' "attn_kv" keeps the kv
-    heads local; mamba2's and the xLSTM blocks' heads), on whole d_ff
+    heads local; mamba2's and the xLSTM blocks' heads, or under the
+    head-split arm a g-th of one head's features), on whole d_ff
     columns, on whole vocab rows (the plan has already dropped an odd
     vocab's axis), and on the experts (slice 6a).  Where "attn_kv" pins
     the sequence instead, wk and wv are held whole and each rank keeps the
@@ -740,12 +817,15 @@ class TPSplit(NamedTuple):
     ``kind`` "contiguous" (rank r holds the r-th 1/tp of dim ``dim``, the
     plan's split), "blocked" (dim ``dim`` is ``parts`` laid end to end,
     each split tp ways: rank r holds the r-th 1/tp of every part, in part
-    order) or "moved" (the plan splits dim ``plan_dim``; the port splits
-    ``dim`` instead)."""
+    order), "moved" (the plan splits dim ``plan_dim``; the port splits
+    ``dim`` instead) or "grouped" (as "moved", but the dim, the heads, is
+    cut into tp / ``g`` parts, each held whole on ``g`` consecutive ranks:
+    the head-split arm's head block)."""
     kind: str
     dim: int
     parts: Tuple[int, ...] = ()
     plan_dim: Optional[int] = None
+    g: int = 0
 
 
 _IN_PROJ = re.compile(r"(^|\.)mamba\.in_proj\.w$")
@@ -765,13 +845,16 @@ def tp_splits(cfg, mesh, shapes: Optional[Dict[str, tuple]] = None
       and 1/tp of B and C (``models/ssm.py`` gathers B and C whole);
     * the sLSTM's ``r`` (H, hd, 4 hd) is split over its heads (dim 0)
       rather than the plan's gate dim (dim 2), which would put one head's
-      gates on different ranks ("moved")."""
+      gates on different ranks ("moved"); under the head-split arm each
+      head's block is held whole on its g ranks ("grouped"), so the
+      recurrence issues no collective either."""
     if shapes is None:
         from repro_torch.models.model import param_shapes
         shapes = param_shapes(cfg)
     plan = param_shardings(cfg, mesh, shapes)
     d_inner = cfg.ssm_heads * cfg.ssm_head_dim
     gn = cfg.ssm_groups * cfg.ssm_state
+    g = head_split(cfg, mesh)
     out = {}
     for path, held in tp_holds(cfg, mesh, shapes).items():
         if not held:
@@ -783,6 +866,8 @@ def tp_splits(cfg, mesh, shapes: Optional[Dict[str, tuple]] = None
                                 (d_inner, d_inner, gn, gn, cfg.ssm_heads))
         elif _CONV.search(path):
             out[path] = TPSplit("blocked", dim, (d_inner, gn, gn))
+        elif _SLSTM_R.search(path) and g:
+            out[path] = TPSplit("grouped", 0, plan_dim=dim, g=g)
         elif _SLSTM_R.search(path):
             out[path] = TPSplit("moved", 0, plan_dim=dim)
         else:

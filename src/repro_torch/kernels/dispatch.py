@@ -36,7 +36,10 @@ sequence-parallel rows (``sp_rows``), its recurrent blocks on local heads
 its norms on rows gathered along the features (``tp_feature_rows``) and
 its cross attention on local heads (``tp_cross``), its attention on the
 rank's sequence rows where the q heads do not divide the model axis
-(``tp_seq``: the flash kernels' query-offset arm), and under the serving
+(``tp_seq``: the flash kernels' query-offset arm), its xLSTM blocks on
+a part of one head where the model axis is wider than the heads
+(``tp_lstm_split``), its encoder attention on frames padded to a
+multiple of the model group (``tp_frames_pad``), and under the serving
 layout its decode attention on gathered heads (``tp_decode_heads``) or on
 features gathered from the rank's columns (``tp_decode_cols``) and its
 dense MoE on this rank's experts (``tp_experts_local``): but for the
@@ -90,7 +93,8 @@ _ROUTES = {"flash_verify": 0, "verify_paged": 0, "moe_ep": 0,
            "moe_dense": 0, "tp_heads": 0, "tp_kv_whole": 0, "sp_rows": 0,
            "tp_ssm_heads": 0, "tp_lstm_heads": 0, "tp_feature_rows": 0,
            "tp_cross": 0, "tp_decode_heads": 0, "tp_experts_local": 0,
-           "tp_seq": 0, "tp_decode_cols": 0}
+           "tp_seq": 0, "tp_decode_cols": 0, "tp_lstm_split": 0,
+           "tp_frames_pad": 0}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -45,14 +45,18 @@ What it does not report, and why:
   between steps, not a step's temporaries.
 
 A case is ``skipped`` where the reference skips it (Whisper at
-``long_500k``) and ``refused`` where ``sharding.tp_refusal`` refuses the
-layout, with its reason: xlstm-1.3b's 4 mLSTM/sLSTM heads and Whisper's
-1500 encoder frames do not divide the 16-way model axis (ROADMAP queue 1
-item 5).  The reference compiles those through its jnp fallbacks: a
-stated difference until the port can lay them out.  Minicpm-2b's 36 and
-llama4-scout's 40 q heads do not divide it either: their attention takes
-the sequence arm (train, prefill) or the column arm (decode), whose held
-weights the memory record counts (``fsdp.layout``'s ``Layout.seq``).
+``long_500k``), and would be ``refused`` where ``sharding.tp_refusal``
+refuses the layout, with its reason; no case of the production meshes
+is: ``--all`` plans 39 ok / 1 skipped / 0 refused of 40.  Minicpm-2b's
+36, llama4-scout's 40 and whisper-base's 8 q heads do not divide the
+16-way model axis: their attention takes the sequence arm (train,
+prefill) or the column arm (decode), whose held weights the memory
+record counts (``fsdp.layout``'s ``Layout.seq``); Whisper's 1500 encoder
+frames are padded to 1504 over it.  xlstm-1.3b's 4 mLSTM/sLSTM heads are
+split over groups of 4 ranks (``Layout.head_split``): the memory record
+counts the sLSTM's ``r`` a head a rank, and the decode cache the mLSTM's
+``C`` on the rank's v rows, its ``n``/``m`` and the sLSTM's states whole
+on the head's 4 ranks (``sharding.Grouped``).
 """
 from __future__ import annotations
 
@@ -75,7 +79,7 @@ from repro_torch.models import model as M
 def _shard_bytes(shape, spec, mesh, itemsize: int) -> int:
     n = math.prod(shape)
     for ax in spec:
-        n //= sharding.axes_size(mesh, sharding.entry_axes(ax))
+        n //= sharding.entry_parts(mesh, ax)
     return n * itemsize
 
 

@@ -224,7 +224,13 @@ def hbm_bytes(cfg, shape_id: str, kind: str, n_chips: int) -> float:
     residuals (4 L B S d) and the f32 logits' passes (16 B S V); a
     prefill reads the weights once (2 P), writes the activations (4 L B S
     d), the cache and the logits (4 B S V); a decode step reads the bf16
-    weights once and the cache."""
+    weights once and the cache.  Like the reference's, the model spreads
+    every byte over the chips; the layouts that hold a part on several
+    ranks read more than that on those ranks: under the xLSTM head-split
+    arm (g ranks a head) the mLSTM's ``n`` and the sLSTM's four states
+    are whole on the head's g ranks, g times the reference's bytes of
+    them (the planner's memory record counts them, ``sharding.
+    cache_shardings``), while the mLSTM's ``C`` takes the reference's."""
     from repro_torch.launch.specs import INPUT_SHAPES
     sh = INPUT_SHAPES[shape_id]
     b, s = sh["batch"], sh["seq"]

@@ -369,9 +369,26 @@ def _kv_whole(cfg, tp) -> bool:
     return cfg.n_kv_heads % tp.size != 0
 
 
+def kv_seq_params(params: dict, cfg, tp) -> dict:
+    """Under the sequence arm: ``wk``/``wv`` held whole (the kv heads do
+    not divide the model group) with their gradients summed over the group,
+    since each rank's rows give their own part of it (counted as the
+    ``tp_kv_whole`` route); the leaves as they are where the caller has
+    gathered them (their backward reduce-scatters)."""
+    if not _kv_whole(cfg, tp):
+        return params
+    dispatch.count_route("tp_kv_whole")
+    params = dict(params)
+    for name in ("wk", "wv"):
+        params[name] = {key: collectives.sum_grads(t, tp.group)
+                        for key, t in params[name].items()}
+    return params
+
+
 def _attend_seq(params: dict, x: torch.Tensor, cos: Optional[torch.Tensor],
                 sin: Optional[torch.Tensor], cfg, *, window: Optional[int],
-                causal: bool, tp) -> torch.Tensor:
+                causal: bool, tp, length: Optional[int] = None
+                ) -> torch.Tensor:
     """The sequence arm of ``attend_train`` (q heads that do not divide the
     model group, or ``fsdp.layout(force_seq=True)``): x (B, S / tp,
     d_model) this rank's rows of the sequence, starting at row r S / tp;
@@ -383,31 +400,50 @@ def _attend_seq(params: dict, x: torch.Tensor, cos: Optional[torch.Tensor],
     and dv), and the flash kernels' query-offset arm attends the rows
     against every key.  Returns this rank's rows of the output
     projection, the residual's update with no collective (the
-    ``tp_seq`` route)."""
+    ``tp_seq`` route).  With ``length`` the sequence is padded past it
+    (the encoder's frames, padded to a multiple of the group): the
+    gathered k and v are narrowed to ``length`` and the kernel attends
+    only the rank's rows below it (``ragged_rows``), the pad rows' output
+    zero."""
     dispatch.count_route("tp_seq")
     b, s_loc, _ = x.shape
     start = tp.rank * s_loc
     if cos is not None:
         cos, sin = (t.narrow(1, start, s_loc) for t in (cos, sin))
-    if _kv_whole(cfg, tp):
-        dispatch.count_route("tp_kv_whole")
-        params = dict(params)
-        for name in ("wk", "wv"):
-            params[name] = {key: collectives.sum_grads(t, tp.group)
-                            for key, t in params[name].items()}
+    params = kv_seq_params(params, cfg, tp)
     q, k, v = _qkv(params, x, cfg, cos, sin)
     hkv = k.shape[2]
     kv = collectives.gather_sum(torch.cat([k, v], dim=2), tp.group, 1)
+    valid = s_loc
+    if length is not None:
+        kv = kv.narrow(1, 0, length)
+        valid = ragged_rows(length, s_loc, tp.rank)
+        q = q.narrow(1, 0, valid)
     k, v = kv.split(hkv, dim=2)
     o = dispatch.flash_attention(q, k, v, causal=causal, window=window,
                                  q_offset=start)
+    if valid < s_loc:
+        o = torch.cat([o, o.new_zeros((b, s_loc - valid) + o.shape[2:])], 1)
     return cm.linear(params["wo"], o.reshape(b, s_loc, -1))
+
+
+def ragged_rows(length: int, s_loc: int, rank: int) -> int:
+    """The rows below ``length`` of rank ``rank``'s ``s_loc`` rows of a
+    sequence padded to a multiple of its group (rows [rank s_loc, (rank +
+    1) s_loc)); each rank must hold at least one."""
+    valid = min(s_loc, length - rank * s_loc)
+    if valid < 1:
+        raise ValueError(f"rank {rank}'s rows [{rank * s_loc}, "
+                         f"{(rank + 1) * s_loc}) lie past the sequence's "
+                         f"{length}: too few rows for the group")
+    return valid
 
 
 def attend_train(params: dict, x: torch.Tensor, cos: Optional[torch.Tensor],
                  sin: Optional[torch.Tensor], cfg, *,
                  window: Optional[int] = None, use_rope: bool = True,
-                 bidirectional: bool = False, tp=None) -> torch.Tensor:
+                 bidirectional: bool = False, tp=None,
+                 length: Optional[int] = None) -> torch.Tensor:
     """Full-sequence self attention.  x (B, S, d_model); cos, sin the
     caller's rotary tables ((1 or B, S, D/2): plain RoPE at 0 .. S-1 or
     M-RoPE, ``model._rope_tables``), unused with ``use_rope=False`` ->
@@ -421,13 +457,13 @@ def attend_train(params: dict, x: torch.Tensor, cos: Optional[torch.Tensor],
     partial sum of the output projection, which the caller reduce-scatters
     (counted as the ``tp_heads`` and ``tp_kv_whole`` routes).  Under the
     sequence arm (``tp.seq``) x is this rank's rows instead:
-    ``_attend_seq``."""
+    ``_attend_seq`` (``length``: the true length of a padded sequence)."""
     b, s, _ = x.shape
     if not use_rope:
         cos = sin = None
     if tp is not None and tp.seq:
         return _attend_seq(params, x, cos, sin, cfg, window=window,
-                           causal=not bidirectional, tp=tp)
+                           causal=not bidirectional, tp=tp, length=length)
     if tp is not None:
         dispatch.count_route("tp_heads")
         if params["wk"]["w"].shape[1] == cfg.n_kv_heads * cfg.hd \
@@ -830,7 +866,10 @@ def cross_attend(params: dict, x: torch.Tensor, memory_kv: tuple,
     the second product.  The head counts are the leaves' and the memory's
     own: under tensor parallelism (``tp``: counted as the ``tp_cross``
     route) this rank's heads, x the whole gathered sequence, and the
-    result this rank's partial sum of the output projection."""
+    result this rank's partial sum of the output projection; under the
+    sequence arm (``tp.seq``) every head, the leaves gathered or whole
+    (``kv_seq_params``), x this rank's rows and the result their rows of
+    the output projection."""
     hd = cfg.hd
     n_h, n_kv = params["wq"]["w"].shape[1] // hd, memory_kv[0].shape[2]
     if tp is not None:
@@ -858,16 +897,24 @@ def cross_decode(params: dict, x: torch.Tensor, cross: dict, cfg,
     ``cache_shardings`` splits them as a K/V cache's), each shard takes
     f32 scores and the unnormalised (acc, m, l) over its rows, plain
     products as ``cross_attend``'s, and the shards combine as the decode
-    kernel's partials do (``dispatch.combine_partials``)."""
+    kernel's partials do (``dispatch.combine_partials``).  Under the
+    column arm (``tp.seq``) q is projected on this rank's columns of
+    ``wq`` and gathered along the features (``_gather_cols``), and the
+    rank's columns of the output meet its rows of ``wo``."""
     cp = cp_layout(cross)
     if tp is None and cp is None:
         return cross_attend(params, x, (cross["k"], cross["v"]), cfg)
     hd = cfg.hd
     b = x.shape[0]
-    q = _split_heads(cm.linear(params["wq"], x),
-                     params["wq"]["w"].shape[1] // hd, hd)   # (B, 1, h, D)
-    h_loc = q.shape[2]
-    if tp is not None:
+    if tp is not None and tp.seq:
+        dispatch.count_route("tp_cross")
+        (q,) = _gather_cols(tp, cm.linear(params["wq"], x))
+        q = _split_heads(q, q.shape[-1] // hd, hd)
+    else:
+        q = _split_heads(cm.linear(params["wq"], x),
+                         params["wq"]["w"].shape[1] // hd, hd)
+    h_loc = q.shape[2]                                      # (B, 1, h, D)
+    if tp is not None and not tp.seq:
         dispatch.count_route("tp_cross")
         (q,) = _gather_heads(tp, q)
     n_h = q.shape[2]
@@ -884,6 +931,10 @@ def cross_decode(params: dict, x: torch.Tensor, cross: dict, cfg,
         acc = torch.matmul(p, v.transpose(1, 2).float())  # (B, H, 1, D)
         o = dispatch.combine_partials(acc, m, p.sum(-1), cp.group)
         o = o.to(q.dtype)[:, None]                         # (B, 1, H, D)
+    if tp is not None and tp.seq:
+        cols = params["wo"]["w"].shape[0]
+        return cm.linear(params["wo"], o.reshape(b, 1, n_h * hd).narrow(
+            2, tp.rank * cols, cols))
     if tp is not None:
         o = o.narrow(2, tp.rank * h_loc, h_loc)
     return cm.linear(params["wo"], o.reshape(b, 1, h_loc * hd))

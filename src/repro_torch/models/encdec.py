@@ -15,12 +15,25 @@ parameters cast once (``model.cast_params``).  The embedding and the
 heads are the model layer's (``model._sp_inputs``, ``model._heads``).
 
 Under tensor and sequence parallelism (``forward`` under a
-tensor-parallel layout) the encoder's residual is this rank's F / tp
-frames and the decoder's its S / tp tokens, each with the sinusoids of
-its own positions; every attention (self and cross) and the MLP run on
-this rank's heads and d_ff columns over the gathered sequence
+tensor-parallel layout) the encoder's residual is this rank's frames and
+the decoder's its S / tp tokens, each with the sinusoids of its own
+positions; every attention (self and cross) and the MLP run on this
+rank's heads and d_ff columns over the gathered sequence
 (``common.on_sequence``), and the encoder's output is gathered along the
-frames once, for every decoder layer's cross-attention K/V.
+frames once, for every decoder layer's cross-attention K/V.  The frames
+are padded to a multiple of the model group, Fp = ceil(F / tp) tp (1500
+-> 1504 at 8 and 16 ranks): rank r holds rows [r Fp / tp, (r + 1) Fp /
+tp), the pad rows start as zeros, and no key, loss or memory row reads
+them (the rows they carry through the norms and MLPs stay their own):
+the gathered rows, keys and memory are narrowed to F
+(``_frames_attention``).
+Where the q heads do not divide the group every attention takes the
+sequence arm (``TPRule.seq``): the encoder's and the decoder's self
+attention attend the rank's rows through the query-offset arm of the
+flash kernels (``attention._attend_seq``, the encoder on its valid rows
+only), and the cross attention takes the rank's decoder rows against
+the whole memory with every head, its wq and wo gathered and wk, wv
+whole (``attention.kv_seq_params``).
 """
 from __future__ import annotations
 
@@ -29,7 +42,7 @@ from typing import Dict, List
 import torch
 
 from repro_torch.distributed import collectives, fsdp
-from repro_torch.kernels import kv_quant
+from repro_torch.kernels import dispatch, kv_quant
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_mod
@@ -113,42 +126,76 @@ def _keep(prefix: str, p):
     return p
 
 
+def frame_rows(f: int, tp) -> int:
+    """A rank's rows of ``f`` encoder frames padded to a multiple of the
+    model group: ceil(f / tp)."""
+    return -(-f // tp.size)
+
+
+def _frames_attention(p: dict, h: torch.Tensor, cfg, tp, f: int
+                      ) -> torch.Tensor:
+    """The encoder's bidirectional self attention on this rank's padded
+    rows h (B, Fp / tp, d): under the sequence arm the rank's valid rows
+    against the F gathered keys (``attend_train(length=f)``); on local
+    heads the rows gathered and narrowed to F, and the attention's
+    partial sums padded back and reduce-scattered onto the rows (counted
+    as the ``tp_frames_pad`` route where the frames are padded)."""
+    pad = h.shape[1] * tp.size - f
+    if pad:
+        dispatch.count_route("tp_frames_pad")
+    if tp.seq:
+        return attn.attend_train(p, h, None, None, cfg, use_rope=False,
+                                 bidirectional=True, tp=tp, length=f)
+    whole = collectives.gather_sum(h, tp.group, 1)
+    o = attn.attend_train(p, whole.narrow(1, 0, f), None, None, cfg,
+                          use_rope=False, bidirectional=True, tp=tp)
+    if pad:
+        o = torch.cat([o, o.new_zeros((o.shape[0], pad, o.shape[2]))], 1)
+    return collectives.scatter_sum(o, tp.group, 1)
+
+
 def encode(cfg, params, frames: torch.Tensor, tp=None,
            prep=_keep) -> torch.Tensor:
     """frames (B, F, d_model), the stub's output -> the bidirectional
     encoder's memory (B, F, d_model).  ``prep(prefix, leaves)``: a layer's
     leaves as it computes on them (``forward``'s cast and gather).  Under
     tensor and sequence parallelism (``tp``) the residual is this rank's
-    frames, and the memory is gathered whole along them at the end (the
-    backward sums the ranks' partial cotangents: each rank's cross
-    attention reads it through its own heads)."""
+    rows of the frames padded to a multiple of the group (``frame_rows``;
+    its pad rows start as zeros), and the memory is gathered whole along
+    them at the end and narrowed to F (the backward sums the ranks'
+    partial cotangents: each rank's cross attention reads it through its
+    own heads or rows)."""
     x = frames.to(_dtype(cfg))
+    f = x.shape[1]
     start = 0
     if tp is not None:
-        f = x.shape[1]
-        if f % tp.size:
-            raise ValueError(f"{cfg.name}: {f} encoder frames do not divide "
-                             f"over the {tp.size} model ranks of the "
-                             "sequence-parallel residual")
-        start = tp.rank * (f // tp.size)
-        x = x.narrow(1, start, f // tp.size)
+        rows = frame_rows(f, tp)
+        start = tp.rank * rows
+        valid = attn.ragged_rows(f, rows, tp.rank)
+        x = x.narrow(1, start, valid)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device,
                       start).to(x.dtype)[None]
+    if tp is not None and valid < rows:
+        x = torch.cat([x, x.new_zeros((x.shape[0], rows - valid,
+                                       x.shape[2]))], 1)
     for i, lyr in enumerate(params["enc_layers"]):
         lyr = prep(f"enc_layers.{i}", lyr)
-        x = x + cm.on_sequence(lambda h: attn.attend_train(
-            lyr["attn"], h, None, None, cfg, use_rope=False,
-            bidirectional=True, tp=tp),
-            cm.norm_rows(cfg.norm, lyr["ln1"], x, tp), tp)
+        h = cm.norm_rows(cfg.norm, lyr["ln1"], x, tp)
+        x = x + (attn.attend_train(lyr["attn"], h, None, None, cfg,
+                                   use_rope=False, bidirectional=True)
+                 if tp is None else _frames_attention(lyr["attn"], h, cfg,
+                                                      tp, f))
         x = x + mlp_mod.mlp(lyr["mlp"], cm.norm_rows(cfg.norm, lyr["ln2"], x,
                                                      tp), act=cfg.act, tp=tp)
     mem = cm.norm_rows(cfg.norm, params["enc_norm"], x, tp)
     if tp is not None:
-        mem = collectives.gather_sum(mem, tp.group, 1)
+        mem = collectives.gather_sum(mem, tp.group, 1).narrow(1, 0, f)
     return mem
 
 
 _LAYERS = ("enc_layers", "dec_layers")
+# a layer's attention subtrees, gathered over "model" under the sequence arm
+_ATTENTION = ("attn", "self_attn", "cross_attn")
 
 
 def forward(cfg, params, batch, layout=None) -> dict:
@@ -163,10 +210,12 @@ def forward(cfg, params, batch, layout=None) -> dict:
         raise KeyError(f"{cfg.name}: an encoder-decoder batch needs "
                        "'enc_frames' (B, F, d_model)")
     tp = fsdp.tp_rule(layout)
+    seq = tp is not None and tp.seq
 
     def prep(prefix, p):
         return fsdp.gather(layout, prefix, M.cast_params(cfg, p),
-                           model="slice" if tp is None else None)
+                           model="slice" if tp is None else None,
+                           model_sum=_ATTENTION if seq else ())
     top = fsdp.gather(layout, "", {k: v for k, v in params.items()
                                    if k not in _LAYERS})
     mem = encode(cfg, {**top, "enc_layers": params["enc_layers"]},
@@ -179,15 +228,20 @@ def forward(cfg, params, batch, layout=None) -> dict:
         start = tp.rank * x.shape[1]
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device,
                       start).to(x.dtype)[None]
+    # under the sequence arm the attentions take this rank's rows as they
+    # are; otherwise the gathered sequence, on local heads
+    rows = (lambda fn, h: fn(h)) if seq else \
+        (lambda fn, h: cm.on_sequence(fn, h, tp))
     for i, lyr in enumerate(params["dec_layers"]):
         lyr = prep(f"dec_layers.{i}", lyr)
-        mkv = attn.memory_kv(lyr["cross_attn"], mem, cfg)
-        x = x + cm.on_sequence(lambda h: attn.attend_train(
+        cross = attn.kv_seq_params(lyr["cross_attn"], cfg, tp) if seq \
+            else lyr["cross_attn"]
+        mkv = attn.memory_kv(cross, mem, cfg)
+        x = x + rows(lambda h: attn.attend_train(
             lyr["self_attn"], h, None, None, cfg, use_rope=False, tp=tp),
-            cm.norm_rows(cfg.norm, lyr["ln1"], x, tp), tp)
-        x = x + cm.on_sequence(lambda h: attn.cross_attend(
-            lyr["cross_attn"], h, mkv, cfg, tp=tp),
-            cm.norm_rows(cfg.norm, lyr["ln_x"], x, tp), tp)
+            cm.norm_rows(cfg.norm, lyr["ln1"], x, tp))
+        x = x + rows(lambda h: attn.cross_attend(cross, h, mkv, cfg, tp=tp),
+                     cm.norm_rows(cfg.norm, lyr["ln_x"], x, tp))
         x = x + mlp_mod.mlp(lyr["mlp"], cm.norm_rows(cfg.norm, lyr["ln2"], x,
                                                      tp), act=cfg.act, tp=tp)
     out = M._heads(cfg, M.cast_params(cfg, top), x, tp)

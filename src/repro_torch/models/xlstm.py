@@ -21,6 +21,20 @@ this rank's heads' gate blocks, and ``r`` is split over the heads
 (``sharding.tp_splits``): the recurrence needs no collective; its output
 is gathered along the features before the block's norm and
 feed-forward, whose ``ff_down`` returns partial sums.
+
+Where the model axis is wider than the heads (the head-split arm,
+``TPRule.head_split`` = g ranks a head) rank r works on head r // g and
+owns the g-th part r % g of its features.  The mLSTM's q and k columns
+are all-gathered along the features and narrowed to the head; v, the
+rows of C and y stay on the rank's hd / g features; the gates and the
+normaliser n . q are computed whole on each of the head's g ranks.  The
+sLSTM's ``w_in`` columns are a g-th of the head's gate block: the
+pre-activations are gathered once a layer, before the time loop, and each
+of the head's ranks runs its whole recurrence with ``r[h]`` held whole
+on them, then keeps its features of h.  Each rank's cotangent reaches
+only its own features, so the redundant parts' gradients are partial:
+the gathers' reduce-scatters and ``sum_grads`` sum them once over the
+model group (``r`` through a zero-padded whole, ``_head_block``).
 """
 from __future__ import annotations
 
@@ -57,13 +71,16 @@ def mlstm_shapes(d_model: int, *, n_heads: int, expand: int = 2,
 def mlstm_chunked(q, k, v, log_f, log_i, *, chunk: int, state=None):
     """Chunkwise mLSTM with the exponential-gating stabiliser.
 
-    q, k, v (B, S, H, D); log_f, log_i (B, S, H).  Returns (y (B, S, H, D)
-    f32, (C, n, m) the final state).  C_t = f_t C_{t-1} + i_t v_t k_t^T,
+    q, k (B, S, H, D); v (B, S, H, Dv), Dv = D or a part of it (the
+    head-split arm's features: C's v rows and y follow v, the normaliser
+    and the scale q's D); log_f, log_i (B, S, H).  Returns (y (B, S, H,
+    Dv) f32, (C, n, m) the final state).  C_t = f_t C_{t-1} + i_t v_t k_t^T,
     n_t = f_t n_{t-1} + i_t k_t, y_t = C_t q_t / max(|n_t . q_t|,
     exp(-m_t)), every gate stabilised by m_t = max(log f_t + m_{t-1},
     log i_t).  The within-chunk mask is -inf, the state's m starts at
     ``M_INIT``."""
     bsz, s, h, d = q.shape
+    dv = v.shape[-1]
     qc = min(chunk, s)
     if s % qc:
         raise ValueError(f"seq {s} not divisible by chunk {qc}")
@@ -91,7 +108,7 @@ def mlstm_chunked(q, k, v, log_f, log_i, *, chunk: int, state=None):
     qk = torch.einsum("bcihd,bcjhd->bcijh", q, k) * scale
 
     if state is None:
-        c_prev = torch.zeros((bsz, h, d, d), dtype=torch.float32,
+        c_prev = torch.zeros((bsz, h, dv, d), dtype=torch.float32,
                              device=q.device)
         n_prev = torch.zeros((bsz, h, d), dtype=torch.float32,
                              device=q.device)
@@ -127,7 +144,7 @@ def mlstm_chunked(q, k, v, log_f, log_i, *, chunk: int, state=None):
         n_prev = (decay[:, :, None] * n_prev
                   + torch.einsum("bjh,bjhd->bhd", s_w, ki))
         m_prev = m_end
-    y = torch.stack(ys, dim=1).reshape(bsz, s, h, d)
+    y = torch.stack(ys, dim=1).reshape(bsz, s, h, dv)
     return y, (c_prev, n_prev, m_prev)
 
 
@@ -139,34 +156,61 @@ def _mlstm_inputs(p: dict, x: torch.Tensor, conv_state=None):
     return xi, z, cm.silu(xc), conv_state
 
 
-def _local_heads(p: dict, h: int, tp) -> dict:
-    """Whole leaves narrowed to this rank's ``h`` heads (their last dim),
-    each gradient summed over the model group: each rank's covers its own
-    heads."""
-    return {k: collectives.sum_grads(t, tp.group).narrow(-1, tp.rank * h, h)
+def _local_heads(p: dict, first: int, h: int, tp) -> dict:
+    """Whole leaves narrowed to this rank's ``h`` heads from ``first``
+    (their last dim), each gradient summed over the model group: each
+    rank's covers its own heads (its own features of them, under the
+    head-split arm)."""
+    return {k: collectives.sum_grads(t, tp.group).narrow(-1, first, h)
             for k, t in p.items()}
+
+
+def _head_span(d_loc: int, hd: int, tp) -> tuple:
+    """(first head, heads) this rank's ``d_loc`` features fall in: its
+    d_loc / hd whole heads, or under the head-split arm the one head it
+    owns a part of."""
+    return tp.rank * d_loc // hd, max(d_loc // hd, 1)
+
+
+def _mlstm_heads(p: dict, xc_all, xi_all, hd: int, d_loc: int, tp, gather):
+    """q, k (B, S, h, hd), v (B, S, h, d_loc / h) and the gate leaves of
+    this rank's heads.  Under the head-split arm (``tp.head_split``) the
+    rank's q and k columns are gathered along the features (``gather``:
+    ``gather_sum`` in training, ``gather_slice`` at decode) and narrowed
+    to its head; v stays on its own features."""
+    lead = xc_all.shape[:-1]
+    gates = {"w_i": p["w_i"], "w_f": p["w_f"]}
+    q = cm.linear(p["wq"], xc_all)
+    k = cm.linear(p["wk"], xc_all)
+    v = cm.linear(p["wv"], xi_all)
+    first, h = (0, d_loc // hd) if tp is None else _head_span(d_loc, hd, tp)
+    if tp is not None and tp.head_split:
+        dispatch.count_route("tp_lstm_split")
+        qk = gather(torch.stack([q, k]), tp.group, q.dim())
+        q, k = qk.narrow(-1, first * hd, h * hd).unbind(0)
+    if tp is not None:
+        gates = {n: _local_heads(g, first, h, tp) for n, g in gates.items()}
+    return (q.reshape(*lead, h, hd), k.reshape(*lead, h, hd),
+            v.reshape(*lead, h, d_loc // h), gates)
 
 
 def mlstm_train(p: dict, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     """x (B, S, d_model) -> (B, S, d_model).  Under tensor parallelism
     (``tp``, ``fsdp.TPRule``) x is the whole sequence, ``p`` this rank's
     leaves, and the result this rank's partial sums of ``down`` (the
-    ``tp_lstm_heads`` route)."""
+    ``tp_lstm_heads`` route; under the head-split arm also
+    ``tp_lstm_split``)."""
     bsz, s, _ = x.shape
     hd = cfg.lstm_expand * cfg.d_model // cfg.n_heads
     xi, z, xc, _ = _mlstm_inputs(p, x)
     d_loc = xi.shape[-1]
-    h = d_loc // hd
-    gates = {"w_i": p["w_i"], "w_f": p["w_f"]}
     xc_all, xi_all = xc, xi
     if tp is not None:
         dispatch.count_route("tp_lstm_heads")
         both = collectives.gather_sum(torch.stack([xc, xi]), tp.group, 3)
         xc_all, xi_all = both[0], both[1]
-        gates = {k: _local_heads(g, h, tp) for k, g in gates.items()}
-    q = cm.linear(p["wq"], xc_all).reshape(bsz, s, h, hd)
-    k = cm.linear(p["wk"], xc_all).reshape(bsz, s, h, hd)
-    v = cm.linear(p["wv"], xi_all).reshape(bsz, s, h, hd)
+    q, k, v, gates = _mlstm_heads(p, xc_all, xi_all, hd, d_loc, tp,
+                                  collectives.gather_sum)
     log_i = cm.linear(gates["w_i"], xc_all).float()              # (B,S,H)
     log_f = F.logsigmoid(cm.linear(gates["w_f"], xc_all).float())
     y, _ = mlstm_chunked(q, k, v, log_f, log_i, chunk=cfg.ssm_chunk)
@@ -198,22 +242,21 @@ def mlstm_decode(p: dict, x: torch.Tensor, state: dict, cfg, tp=None):
     channels): the conv output and ``xi`` are all-gathered along the
     features, ``w_i``/``w_f`` narrowed to the rank's heads, the norm on
     feature-gathered rows, and y is this rank's partial sum of ``down``
-    (the ``tp_lstm_heads`` route)."""
+    (the ``tp_lstm_heads`` route).  Under the head-split arm the state
+    holds the rank's head: ``C`` its v rows (B, 1, hd / g, hd), ``n`` and
+    ``m`` whole (``sharding.cache_shardings``)."""
     bsz = x.shape[0]
     hd = cfg.lstm_expand * cfg.d_model // cfg.n_heads
     xi, z, xc, conv_state = _mlstm_inputs(p, x, state["conv"])
     d_loc = xi.shape[-1]
-    h = d_loc // hd
-    gates = {"w_i": p["w_i"], "w_f": p["w_f"]}
     xc_all, xi_all = xc, xi
     if tp is not None:
         dispatch.count_route("tp_lstm_heads")
         both = collectives.gather_slice(torch.stack([xc, xi]), tp.group, 3)
         xc_all, xi_all = both[0], both[1]
-        gates = {k: _local_heads(g, h, tp) for k, g in gates.items()}
-    q = cm.linear(p["wq"], xc_all).reshape(bsz, h, hd).float()
-    k = cm.linear(p["wk"], xc_all).reshape(bsz, h, hd).float()
-    v = cm.linear(p["wv"], xi_all).reshape(bsz, h, hd).float()
+    q, k, v, gates = _mlstm_heads(p, xc_all, xi_all, hd, d_loc, tp,
+                                  collectives.gather_slice)
+    q, k, v = (t[:, 0].float() for t in (q, k, v))
     log_i = cm.linear(gates["w_i"], xc_all)[:, 0].float()        # (B,H)
     log_f = F.logsigmoid(cm.linear(gates["w_f"], xc_all))[:, 0].float()
 
@@ -305,29 +348,67 @@ def _slstm_out(p: dict, y: torch.Tensor, tp=None) -> torch.Tensor:
                      * cm.linear(p["ff_up"], y))
 
 
+def _head_block(r: torch.Tensor, first: int, n_heads: int, group
+                ) -> torch.Tensor:
+    """The head-split arm's ``r`` (h, hd, 4 hd), this rank's heads from
+    ``first``, held whole on each of their ranks, with its gradient summed
+    over those ranks exactly once: placed in a zero-padded whole (H, hd,
+    4 hd) whose gradient is all-reduced over the model group
+    (``sum_grads``), where each rank's covers its own heads only."""
+    pad = [r.new_zeros((n,) + tuple(r.shape[1:]))
+           for n in (first, n_heads - first - r.shape[0])]
+    whole = torch.cat([pad[0], r, pad[1]])
+    return collectives.sum_grads(whole, group).narrow(0, first, r.shape[0])
+
+
+def _slstm_pre(p: dict, x: torch.Tensor, cfg, tp, gather):
+    """The pre-activations of this rank's heads (B, S, 4 h hd), ``r`` as
+    the recurrence takes it, and (offset, width) of the rank's features
+    within its heads' h.  Under tensor parallelism ``w_in``'s whole bias
+    is narrowed to the rank's columns (its gradient summed over the model
+    group where ``gather`` is ``gather_sum``: training); under the
+    head-split arm its columns (a g-th of the head's gate block) are
+    gathered along the features (``gather``) and narrowed to the head."""
+    w_in, r = p["w_in"], p["r"]
+    h, hd = r.shape[:2]
+    if tp is None:
+        return cm.linear(w_in, x), r, (0, h * hd)
+    dispatch.count_route("tp_lstm_heads")
+    n = w_in["w"].shape[1]
+    b = w_in["b"]
+    if gather is collectives.gather_sum:
+        b = collectives.sum_grads(b, tp.group)
+    pre = cm.linear({"w": w_in["w"], "b": b.narrow(0, tp.rank * n, n)}, x)
+    if not tp.head_split:
+        return pre, r, (0, h * hd)
+    dispatch.count_route("tp_lstm_split")
+    d_loc = cfg.d_model // tp.size
+    first = tp.rank * d_loc // hd
+    pre = gather(pre, tp.group, pre.dim() - 1).narrow(
+        -1, first * 4 * hd, h * 4 * hd)
+    if gather is collectives.gather_sum:
+        r = _head_block(r, first, cfg.n_heads, tp.group)
+    return pre, r, (tp.rank * d_loc - first * hd, d_loc)
+
+
 def slstm_train(p: dict, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     """The recurrence over time, one step a position.  x (B, S, d).  Under
     tensor parallelism (``tp``) x is the whole sequence and this rank runs
     the recurrence of its heads (``r``'s first dim), ``w_in``'s whole bias
     narrowed to their columns (its gradient summed over the model group);
-    the result is this rank's partial sums (the ``tp_lstm_heads``
-    route)."""
+    the result is this rank's partial sums (the ``tp_lstm_heads`` route).
+    Under the head-split arm the rank runs its head's whole recurrence
+    and keeps its features of h (``_slstm_pre``; ``tp_lstm_split``)."""
     bsz, s, _ = x.shape
-    w_in = p["w_in"]
-    if tp is not None:
-        dispatch.count_route("tp_lstm_heads")
-        n = w_in["w"].shape[1]
-        w_in = {"w": w_in["w"], "b": collectives.sum_grads(
-            w_in["b"], tp.group).narrow(0, tp.rank * n, n)}
-    h, hd = p["r"].shape[:2]
-    pre = cm.linear(w_in, x)                              # (B,S,4 h hd)
+    pre, r, (off, width) = _slstm_pre(p, x, cfg, tp, collectives.gather_sum)
+    h, hd = r.shape[:2]
     st = init_slstm_state(bsz, h * hd, h, x.device)
     hs = []
     for t in range(s):
-        st = slstm_step(p, st, pre[:, t], h)
+        st = slstm_step({"r": r}, st, pre[:, t], h)
         hs.append(st["h"])
     y = torch.stack(hs, dim=1).reshape(bsz, s, h * hd).to(x.dtype)
-    return _slstm_out(p, y, tp)
+    return _slstm_out(p, y.narrow(-1, off, width), tp)
 
 
 def slstm_decode(p: dict, x: torch.Tensor, state: dict, cfg, tp=None):
@@ -335,17 +416,14 @@ def slstm_decode(p: dict, x: torch.Tensor, state: dict, cfg, tp=None):
     layout (``tp``) the recurrence runs on this rank's heads (``r``'s
     first dim, ``w_in``'s head-major columns with its whole bias narrowed
     to them) and the state holds theirs; y is this rank's partial sum of
-    ``ff_down`` (the ``tp_lstm_heads`` route)."""
+    ``ff_down`` (the ``tp_lstm_heads`` route).  Under the head-split arm
+    the state holds the rank's head whole, as its g ranks each do."""
     bsz = x.shape[0]
-    w_in = p["w_in"]
-    if tp is not None:
-        dispatch.count_route("tp_lstm_heads")
-        n = w_in["w"].shape[1]
-        w_in = {"w": w_in["w"], "b": w_in["b"].narrow(0, tp.rank * n, n)}
-    h, hd = p["r"].shape[:2]
-    pre = cm.linear(w_in, x)[:, 0]
-    st = slstm_step(p, state, pre, h)
+    pre, r, (off, width) = _slstm_pre(p, x, cfg, tp,
+                                      collectives.gather_slice)
+    h, hd = r.shape[:2]
+    st = slstm_step({"r": r}, state, pre[:, 0], h)
     y = st["h"].reshape(bsz, 1, h * hd).to(x.dtype)
     for name, new in st.items():
         state[name].copy_(new)
-    return _slstm_out(p, y, tp), state
+    return _slstm_out(p, y.narrow(-1, off, width), tp), state

@@ -186,9 +186,11 @@ def test_state_layout_is_the_heads_where_the_reference_takes_another_dim():
 def test_serve_layout_holds_the_model_axis_only(arch):
     """The serving layout of the reference's dry run: the plan with
     ``fsdp=False`` (no data entry on any leaf), each "model" entry held as
-    ``tp_holds`` says; on (16, 16) the configs whose widths do not divide
-    the axis raise, naming their reason, and those whose q heads do not
-    (minicpm-2b and llama4-scout) take the column arm (``Layout.seq``)."""
+    ``tp_holds`` says; a config whose widths the layout cannot hold would
+    raise, naming its reason (none on these meshes since slice 6b-iv);
+    on (16, 16) those whose q heads do not divide the axis (minicpm-2b,
+    llama4-scout and whisper-base) take the column arm (``Layout.seq``),
+    and xlstm-1.3b splits each head over 4 ranks."""
     from repro_torch.distributed import fsdp
     cfg = torch_configs.get_config(arch)
     for name in ("1x4", "2x2", "16x16"):
@@ -203,8 +205,9 @@ def test_serve_layout_holds_the_model_axis_only(arch):
         lay = fsdp.serve_layout(cfg, sizes)
         assert lay.seq == sharding.seq_attention(cfg, sizes)
         if name == "16x16":
-            assert lay.seq == (arch in ("minicpm-2b",
+            assert lay.seq == (arch in ("minicpm-2b", "whisper-base",
                                         "llama4-scout-17b-a16e"))
+            assert lay.head_split == (4 if arch == "xlstm-1.3b" else 0)
         holds = sharding.tp_holds(cfg, sizes)
         plan = sharding.param_shardings(cfg, sizes, fsdp=False)
         for path, spec in lay.held.items():

@@ -24,6 +24,7 @@ a ValueError naming its reason or its ROADMAP item.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -227,20 +228,55 @@ def test_shards_hold_one_tp_th_of_the_split_leaves():
 
 
 @pytest.mark.parametrize("arch,shape,force,words", [
-    # the recurrence runs whole heads: xLSTM's 4 over 8 ranks
-    ("xlstm-1.3b", (1, 8), False, "mLSTM/sLSTM heads 4 does not divide"),
-    # the encoder's sequence-parallel rows
-    ("whisper-base", (1, 8), False, "encoder frames 1500 does not divide"),
-    # its 8 q heads pinned to the sequence at 16: the frames still refuse
-    ("whisper-base", (1, 16), False, "encoder frames 1500 does not divide"),
-    # the encoder-decoder's attention has no sequence arm to force
-    ("whisper-base", (1, 1), True, "no sequence arm")])
+    # 4 xLSTM heads over 6 ranks: they do not divide the axis, nor is the
+    # axis a multiple of them (the head-split arm's case)
+    ("xlstm-1.3b", (1, 6), False, "mLSTM/sLSTM heads 4 does not divide "
+                                  "the 6-way model axis, nor is the axis")])
 def test_unsupported_tp_layout_raises_naming_its_roadmap_item(arch, shape,
                                                                force, words):
     cfg = torch_configs.get_config(arch)
     mesh = dict(zip(("data", "model"), shape))
     with pytest.raises(ValueError, match=words):
         fsdp.layout(cfg, mesh, force_seq=force)
+
+
+@pytest.mark.parametrize("arch,shape,force", [
+    # the head-split arm: xLSTM's 4 heads over 8 ranks, g = 2
+    ("xlstm-1.3b", (1, 8), False),
+    # the encoder's frames padded over the axis, heads local at 8
+    ("whisper-base", (1, 8), False),
+    # its 8 q heads pinned to the sequence at 16: the sequence arm
+    ("whisper-base", (1, 16), False),
+    # the encoder-decoder's sequence arm forced over one rank
+    ("whisper-base", (1, 1), True)])
+def test_wider_model_axes_hold_the_slice_6b_iv_arms(arch, shape, force):
+    """The layouts slice 6b-iv added where the port refused before: every
+    planned "model" entry held (the plan's split; the sLSTM's ``r`` a
+    head a group of g ranks), the attention on the sequence arm where the
+    q heads do not divide the axis (wk, wv whole where the kv heads do
+    not), and nothing refused."""
+    cfg = torch_configs.get_config(arch)
+    mesh = dict(zip(("data", "model"), shape))
+    lay = fsdp.layout(cfg, mesh, force_seq=force)
+    tp = shape[1]
+    assert lay.tp and not sharding.tp_refusal(cfg, mesh)
+    assert lay.seq == (force or (cfg.is_encdec and cfg.n_heads % tp != 0))
+    g = sharding.head_split(cfg, mesh)
+    assert lay.head_split == g == (tp // 4 if arch == "xlstm-1.3b" else 0)
+    plan = sharding.param_shardings(cfg, mesh)
+    splits = sharding.tp_splits(cfg, mesh)
+    for path, spec in plan.items():
+        if "model" not in str(spec):
+            continue
+        kv = re.search(r"attn\.(wk|wv)\.", path)
+        if kv and cfg.n_kv_heads % tp:
+            assert path not in splits and not lay.sharded(path, "model")
+        elif path.endswith("slstm.r"):
+            assert splits[path].kind == "grouped" and splits[path].g == g
+            assert lay.held[path] == (sharding.Grouped("model", g),
+                                      spec[1], None), path
+        else:
+            assert lay.held[path] == spec, path
 
 
 @pytest.mark.parametrize("arch,shape", [
