@@ -21,6 +21,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import prng
 from repro_torch.core.returns import n_step_returns
 from repro_torch.distributed import collectives, ctx, fsdp, sharding
@@ -53,7 +54,8 @@ def a3c_token_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 
     # returns over the sequence axis (time-major for the recursion)
     bootstrap = values[:, -1].detach()
-    rets = n_step_returns(rewards.T, discounts.T, bootstrap).T   # (B, S)
+    with spans.span("learner.returns"):
+        rets = n_step_returns(rewards.T, discounts.T, bootstrap).T  # (B, S)
 
     valid = torch.ones_like(rewards)
     valid[:, -1] = 0.0                                # last pos: no action
@@ -132,25 +134,28 @@ def loss_grads(cfg: ModelConfig, params, batch, *, gamma: float = 0.99,
     whole kv weights: ``collectives.sum_grads``), and a leaf split over the
     model axis has its shard's whole gradient on its rank; nothing more is
     summed over it here."""
-    leaves = list(M.flatten(params).values())
-    for t in leaves:
-        t.requires_grad_(True)
-    loss, metrics = a3c_token_loss(cfg, params, batch, gamma=gamma,
-                                   beta=beta, layout=layout)
-    grads = list(torch.autograd.grad(loss, leaves))
-    mesh = ctx.current_mesh()
-    if mesh is not None:
-        axes = sharding.data_axes(mesh) if data_axes is None else data_axes
-        group = sharding.axes_group(mesh, axes)
-        n = sharding.axes_size(mesh, axes)
-        for path, g in zip(M.flatten(params), grads):
-            if layout is None or not any(layout.sharded(path, a)
-                                         for a in axes):
-                collectives.all_reduce(g, group)
-            g.div_(n)
-        vals = collectives.all_reduce(torch.stack(list(metrics.values())),
-                                      group) / n
-        metrics = dict(zip(metrics, vals.unbind()))
+    with spans.span("learner.loss"):
+        leaves = list(M.flatten(params).values())
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, metrics = a3c_token_loss(cfg, params, batch, gamma=gamma,
+                                       beta=beta, layout=layout)
+    with spans.span("learner.grad"):
+        grads = list(torch.autograd.grad(loss, leaves))
+        mesh = ctx.current_mesh()
+        if mesh is not None:
+            axes = sharding.data_axes(mesh) if data_axes is None \
+                else data_axes
+            group = sharding.axes_group(mesh, axes)
+            n = sharding.axes_size(mesh, axes)
+            for path, g in zip(M.flatten(params), grads):
+                if layout is None or not any(layout.sharded(path, a)
+                                             for a in axes):
+                    collectives.all_reduce(g, group)
+                g.div_(n)
+            vals = collectives.all_reduce(
+                torch.stack(list(metrics.values())), group) / n
+            metrics = dict(zip(metrics, vals.unbind()))
     paths = iter(grads)
     return M.tree_map(lambda _: next(paths), params), metrics
 
@@ -180,11 +185,13 @@ def make_train_step(cfg: ModelConfig, opt, *, gamma: float = 0.99,
     launcher leaves them."""
 
     def train_step(params, opt_state, batch, step):
-        lr = schedules.linear_anneal(lr0, step, float(total_steps))
-        grads, metrics = loss_grads(cfg, params, batch, gamma=gamma,
-                                    beta=beta, layout=layout)
-        opt_state = opt_mod.update_and_apply(opt, params, grads, opt_state,
-                                             lr)
+        with spans.span("learner.step"):
+            lr = schedules.linear_anneal(lr0, step, float(total_steps))
+            grads, metrics = loss_grads(cfg, params, batch, gamma=gamma,
+                                        beta=beta, layout=layout)
+            with spans.span("learner.update"):
+                opt_state = opt_mod.update_and_apply(opt, params, grads,
+                                                     opt_state, lr)
         return params, opt_state, metrics
 
     return train_step
@@ -256,17 +263,19 @@ def make_serve_step(cfg: ModelConfig, *, sample: bool = True,
 
     def serve_step(params, cache, batch, pos, key, sids=None, finite=None):
         dev = next(iter(batch.values())).device
-        out, cache = M.decode_step(cfg, params, cache, batch, pos.to(dev),
-                                   **kw)
+        with spans.span("serve.model"):
+            out, cache = M.decode_step(cfg, params, cache, batch,
+                                       pos.to(dev), **kw)
         logits = out["logits"][:, -1].float()
         if finite is not None:
             finite.logical_and_(torch.isfinite(logits).all())
-        if sids is None:
-            token = sample_slot_tokens(logits, key, sample=sample,
-                                       row0=_row0(logits.shape[0]))
-        else:
-            token = sample_slot_tokens(logits, key, sample=sample,
-                                       sids=sids, pos=pos + 1)
+        with spans.span("serve.sample"):
+            if sids is None:
+                token = sample_slot_tokens(logits, key, sample=sample,
+                                           row0=_row0(logits.shape[0]))
+            else:
+                token = sample_slot_tokens(logits, key, sample=sample,
+                                           sids=sids, pos=pos + 1)
         value = out["value"][:, -1] if "value" in out else \
             torch.zeros(logits.shape[0], device=logits.device)
         return token, value, cache
@@ -340,8 +349,9 @@ def make_prefill_step(cfg: ModelConfig):
         return None
 
     def prefill_step(params, cache, batch, pos0=0, true_len=None):
-        out, cache = M.prefill_step(cfg, params, cache, batch, pos0,
-                                    true_len)
+        with spans.span("serve.model"):
+            out, cache = M.prefill_step(cfg, params, cache, batch, pos0,
+                                        true_len)
         return out["logits"].float(), cache
 
     return prefill_step

@@ -88,6 +88,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import spans
 from repro_torch.core import llm_a3c, prng
 from repro_torch.device import resolve
 from repro_torch.distributed import ctx, sharding
@@ -368,20 +369,25 @@ def _chunked_prefill(prefill_step, params, cache, toks, plens, grid,
     for p0, c in grid:
         if p0 in skip:
             continue
-        logits, cache = prefill_step(params, cache,
-                                     {"tokens": toks_d[:, p0:p0 + c]},
-                                     pos0=p0, true_len=true_len)
-        if last is None:
-            last = torch.zeros((toks.shape[0], logits.shape[-1]),
-                               dtype=torch.float32, device=device)
-        rel = plens - 1 - p0
-        hit = (rel >= 0) & (rel < c)
-        if hit.any():
-            idx = torch.as_tensor(np.clip(rel, 0, c - 1), device=device)
-            rows = logits[torch.arange(len(plens), device=device), idx]
-            last = torch.where(torch.as_tensor(hit, device=device)[:, None],
-                               rows, last)
-    return last.cpu().numpy(), cache
+        with spans.span("engine.prefill_chunk") as live:
+            if live:
+                spans.count(computed=toks.shape[0] * c,
+                            real=int(np.clip(plens - p0, 0, c).sum()))
+            logits, cache = prefill_step(params, cache,
+                                         {"tokens": toks_d[:, p0:p0 + c]},
+                                         pos0=p0, true_len=true_len)
+            if last is None:
+                last = torch.zeros((toks.shape[0], logits.shape[-1]),
+                                   dtype=torch.float32, device=device)
+            rel = plens - 1 - p0
+            hit = (rel >= 0) & (rel < c)
+            if hit.any():
+                idx = torch.as_tensor(np.clip(rel, 0, c - 1), device=device)
+                rows = logits[torch.arange(len(plens), device=device), idx]
+                last = torch.where(
+                    torch.as_tensor(hit, device=device)[:, None], rows, last)
+    with spans.span("engine.logits_to_host"):
+        return last.cpu().numpy(), cache
 
 
 # ---------------------------------------------------------------------------
@@ -1300,10 +1306,11 @@ class ServeEngine:
         rids = np.zeros(self.n_slots, np.int64)
         for i, (r, _) in enumerate(pairs):
             rids[i] = r.rid
-        first = llm_a3c.sample_slot_tokens(
-            torch.from_numpy(last), self.base_key, sample=self.sample,
-            sids=torch.from_numpy(rids),
-            pos=torch.as_tensor(plens, dtype=torch.int64))
+        with spans.span("engine.first_draw"):
+            first = llm_a3c.sample_slot_tokens(
+                torch.from_numpy(last), self.base_key, sample=self.sample,
+                sids=torch.from_numpy(rids),
+                pos=torch.as_tensor(plens, dtype=torch.int64))
         return first.numpy(), cache
 
     def _prefill_loop(self, req: Request, key: torch.Tensor):
@@ -1335,7 +1342,8 @@ class ServeEngine:
         front."""
         t0 = self.now()
         try:
-            return self._admit(pairs, now)
+            with spans.span("engine.admit"):
+                return self._admit(pairs, now)
         finally:
             self.prefill_wall += self.now() - t0
 
@@ -1345,30 +1353,33 @@ class ServeEngine:
         shared = None
         if self.paged:
             kept, shared = [], []
-            for req, j in pairs:
-                cov = self._map_prompt_pages(req, j)
-                if cov is None:
-                    self.admission_alloc_failures += 1
-                    self.requeues += 1
-                    req.eff_arrival = min(req.eff_arrival, now) \
-                        if req.eff_arrival >= 0 else now
-                    self.queue.appendleft(req)
-                else:
-                    kept.append((req, j))
-                    shared.append(cov)
+            with spans.span("engine.map_pages"):
+                for req, j in pairs:
+                    cov = self._map_prompt_pages(req, j)
+                    if cov is None:
+                        self.admission_alloc_failures += 1
+                        self.requeues += 1
+                        req.eff_arrival = min(req.eff_arrival, now) \
+                            if req.eff_arrival >= 0 else now
+                        self.queue.appendleft(req)
+                    else:
+                        kept.append((req, j))
+                        shared.append(cov)
             pairs = kept
             if not pairs:
                 return []
         if self.prefill_step is not None:
             first, cache = self._prefill_group(pairs, shared)
-            self._write_rows(cache, [(i, j) for i, (_, j)
-                                     in enumerate(pairs)])
+            with spans.span("engine.write_rows"):
+                self._write_rows(cache, [(i, j) for i, (_, j)
+                                         in enumerate(pairs)])
         else:
             first = []
             for req, j in pairs:
                 f, cache = self._prefill_loop(
                     req, prng.fold_in(self.base_key, 2 ** 31 + req.rid))
-                self._write_rows(cache, [(0, j)])
+                with spans.span("engine.write_rows"):
+                    self._write_rows(cache, [(0, j)])
                 first.append(f)
         finished = []
         for i, (req, j) in enumerate(pairs):
@@ -1540,7 +1551,10 @@ class ServeEngine:
                                                        int(k_eff[j]))
                     k_eff[j] = min(int(k_eff[j]), 1 + len(props))
                     toks[j, 1:k_eff[j]] = props[:int(k_eff[j]) - 1]
-        new_idx = self._map_pages(k_eff) if self.paged else {}
+        new_idx = {}
+        if self.paged:
+            with spans.span("engine.map_pages"):
+                new_idx = self._map_pages(k_eff)
         # preemptions while mapping may have evicted drafted slots
         active &= np.array([r is not None for r in self.req_of])
         remaining = np.zeros(n, np.int32)
@@ -1633,14 +1647,19 @@ class ServeEngine:
         (latency on the virtual clock, forced preemptions); paged growth
         and forks may preempt; a request past its total deadline sheds
         after the token in flight lands."""
-        if self.spec != "off":
-            return self._spec_step_all()
+        with spans.span("engine.decode"):
+            if self.spec != "off":
+                return self._spec_step_all()
+            return self._decode_step()
+
+    def _decode_step(self) -> List[Request]:
         now = self._fault_hooks()
         if any(r is not None and r.deadline_total is not None
                for r in self.req_of):
             now = self.shared_now()         # sheds agree across ranks
         if self.paged:
-            self._map_pages(np.ones(self.n_slots, np.int32))
+            with spans.span("engine.map_pages"):
+                self._map_pages(np.ones(self.n_slots, np.int32))
         with ctx.sharding_rules(self.rules):
             tok, _, self.cache = self.serve_step(
                 self.params, self.cache,
@@ -1649,7 +1668,15 @@ class ServeEngine:
                 torch.from_numpy(self.pos), self.base_key, self._sids(),
                 finite=self._decode_finite)
         self.step_count += 1
-        tok = tok.cpu().numpy()
+        with spans.span("engine.tokens_to_host"):
+            tok = tok.cpu().numpy()
+        with spans.span("engine.bookkeep"):
+            return self._bookkeep(tok, now)
+
+    def _bookkeep(self, tok: np.ndarray, now: float) -> List[Request]:
+        """A decode step's slot loop: each active slot's token appended,
+        finished and shed requests vacated, the page table pushed, the
+        occupancy sampled.  Returns the finished requests."""
         finished = []
         freed = False
         for j in range(self.n_slots):
