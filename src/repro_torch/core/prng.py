@@ -392,14 +392,17 @@ def categorical(key: torch.Tensor, logits: torch.Tensor, *,
     """``jax.random.categorical`` over the last axis: the argmax of Gumbel
     noise plus f32 logits.  ``key`` (2,) draws noise of the logits' shape;
     a batch of keys (B, 2) draws one row of noise per key for logits
-    (B, V), as ``vmap(categorical)`` does."""
+    (B, V), as ``vmap(categorical)`` does.  A small draw on the CPU runs
+    on one thread throughout, the noise's floats and the argmax too
+    (``_serial``)."""
     logits = logits.float()
     shape = logits.shape if key.dim() == 1 else logits.shape[key.dim() - 1:]
-    scores = gumbel(key, shape, partitionable=partitionable) + logits
-    if _LOG and scores.shape[-1] > 1:
-        top = torch.topk(scores, 2, dim=-1).values
-        record_margin(top[..., 0] - top[..., 1])
-    return torch.argmax(scores, dim=-1)
+    with _serial(logits, logits.numel()):
+        scores = gumbel(key, shape, partitionable=partitionable) + logits
+        if _LOG and scores.shape[-1] > 1:
+            top = torch.topk(scores, 2, dim=-1).values
+            record_margin(top[..., 0] - top[..., 1])
+        return torch.argmax(scores, dim=-1)
 
 
 def normal(key: torch.Tensor, shape: Shape, *,

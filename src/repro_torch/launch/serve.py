@@ -354,6 +354,15 @@ def _pad_group(prompts: List[np.ndarray], n_rows: int, chunk: int,
     return toks, plens, grid
 
 
+def _admission_rows(cfg, n_admitted: int, n_slots: int) -> int:
+    """Rows an admission prefill runs: the admitted ones, since each row's
+    output depends on that row alone; ``n_slots`` under capacity-routed
+    MoE, whose expert capacity grows with the batch's tokens, so the
+    padding rows are part of what the real rows compute (the JAX engine
+    pads every group to ``n_slots``)."""
+    return n_slots if cfg.n_experts else n_admitted
+
+
 def _chunked_prefill(prefill_step, params, cache, toks, plens, grid,
                      device, skip=()) -> tuple:
     """Run a right-padded (B, padded) token block through the chunk chain.
@@ -971,9 +980,10 @@ class ServeEngine:
         self.reset()
 
     def _new_group_cache(self) -> dict:
-        """The persistent admission-prefill cache (batch n_slots), whole on
-        every rank: stale rows beyond a new request's prompt are hidden by
-        the kpos/pos invariant, so it never needs re-zeroing.  Its paged
+        """The persistent admission-prefill cache (batch n_slots; a group
+        of fewer rows runs on its first rows), whole on every rank: stale
+        rows beyond a new request's prompt are hidden by the kpos/pos
+        invariant, so it never needs re-zeroing.  Its paged
         layers hold the engine's pools (never copies) behind its own page
         table."""
         if not self.paged:
@@ -1270,15 +1280,26 @@ class ServeEngine:
         self.pt_host[j] = row
         return cov
 
+    def _group_rows(self, g: int) -> dict:
+        """The group cache's first ``g`` rows, as views: the chain's
+        in-place writes land in the persistent cache.  Paged layers keep
+        the engine's pools whole behind the table's first ``g`` rows."""
+        def rows(layer: dict) -> dict:
+            keep = attn.pool_leaves(layer)
+            return {n: t if n in keep else t[:g] for n, t in layer.items()}
+        return {n: [rows(layer) for layer in t] if n == "layers" else t[:g]
+                for n, t in self._group_cache.items()}
+
     def _prefill_group(self, pairs: List[tuple], shared=None):
         """Chunked prefill of up to ``n_slots`` requests in one batched
-        chunk chain (rows beyond len(pairs) are dummies).  On the paged
-        layout the group's page table takes the admitted slots' rows, and a
-        chunk that every row's shared prefix covers, holding no row's last
-        prompt token, is skipped: its K/V are in the shared pages.
-        Returns (first_tokens (n_slots,), cache)."""
+        chunk chain on ``_admission_rows`` rows (rows beyond len(pairs)
+        are dummies).  On the paged layout the group's page table takes the
+        admitted slots' rows, and a chunk that every row's shared prefix
+        covers, holding no row's last prompt token, is skipped: its K/V
+        are in the shared pages.  Returns (first_tokens (rows,), cache)."""
         prompts = [_eff_prompt(r) for r, _ in pairs]
-        toks, plens, grid = _pad_group(prompts, self.n_slots, self.chunk,
+        g = _admission_rows(self.cfg, len(pairs), self.n_slots)
+        toks, plens, grid = _pad_group(prompts, g, self.chunk,
                                        self.cache_len)
         skip: set = set()
         if self.paged:
@@ -1295,15 +1316,18 @@ class ServeEngine:
                         skip.add(p0)
                 self.prefill_chunks_skipped += len(skip)
         last, cache = _chunked_prefill(self.prefill_step, self.params,
-                                       self._group_cache, toks, plens, grid,
+                                       self._group_rows(g), toks, plens, grid,
                                        self.device, skip=skip)
-        self._group_cache = cache
+        if g == self.n_slots:
+            # ring layers return new tensors, which padding rows read at
+            # the next admission as the JAX engine's do
+            self._group_cache = cache
         self.prefill_finite &= bool(np.isfinite(last[:len(pairs)]).all())
         # the first token at logical position plen draws from the
         # (rid, plen) stream, like every later decode sample (the token
         # loop, _prefill_loop, keys its prompt otherwise, as the JAX
         # engine's)
-        rids = np.zeros(self.n_slots, np.int64)
+        rids = np.zeros(g, np.int64)
         for i, (r, _) in enumerate(pairs):
             rids[i] = r.rid
         with spans.span("engine.first_draw"):
@@ -1790,10 +1814,12 @@ def _warmup(eng: ServeEngine, trace: List[Request]) -> float:
                    max((len(r.prompt) + r.max_new - 1 for r in trace),
                        default=1))
     if eng.prefill_step is not None:
-        toks, plens, grid = _pad_group([np.zeros(pmax, np.int32)],
-                                       eng.n_slots, eng.chunk, eng.cache_len)
+        # at the rows a one-request admission takes
+        g = _admission_rows(eng.cfg, 1, eng.n_slots)
+        toks, plens, grid = _pad_group([np.zeros(pmax, np.int32)], g,
+                                       eng.chunk, eng.cache_len)
         warm_cache = M.init_cache(
-            eng.cfg, eng.n_slots, eng.cache_len, dtype=eng.kv_dtype,
+            eng.cfg, g, eng.cache_len, dtype=eng.kv_dtype,
             device=eng.device,
             paged=attn.PagedLayout(eng.page_size, 1) if eng.paged else None)
         _chunked_prefill(eng.prefill_step, eng.params, warm_cache, toks,

@@ -130,7 +130,8 @@ def test_engine_spans_nest_and_count_prefill_positions():
         assert all(parent[id(r)] is admit for r in by[name]), name
     chunks = by["engine.prefill_chunk"]
     assert [r.counts for r in chunks] == [
-        {"computed": N_SLOTS * CHUNK, "real": real} for real in (24, 19, 3)]
+        {"computed": len(PROMPTS) * CHUNK, "real": real}
+        for real in (24, 19, 3)]
     assert all(not r.counts for r in recs if r.name != "engine.prefill_chunk")
     decodes = by["engine.decode"]
     assert len(decodes) == 2 and all(parent[id(d)] is None for d in decodes)
