@@ -342,7 +342,9 @@ def make_verify_step(cfg: ModelConfig, shift: int, *, sample: bool = True):
 def make_prefill_step(cfg: ModelConfig):
     """Chunked prefill for the serve engine:
     ``prefill_step(params, cache, batch, pos0=0, true_len=None) ->
-    (logits (B, C, V) f32, cache)``.  None when the architecture's caches
+    (logits (B, C, V) in the compute dtype, cache)``: the engine takes the
+    rows it needs and widens those to f32 (the whole block in f32 would
+    be B C V x 4 bytes).  None when the architecture's caches
     cannot be block-written (recurrent states, zamba2's shared block, the
     encoder-decoder): the engine then admits through its token loop."""
     if not M.supports_chunked_prefill(cfg):
@@ -352,6 +354,6 @@ def make_prefill_step(cfg: ModelConfig):
         with spans.span("serve.model"):
             out, cache = M.prefill_step(cfg, params, cache, batch, pos0,
                                         true_len)
-        return out["logits"].float(), cache
+        return out["logits"], cache
 
     return prefill_step

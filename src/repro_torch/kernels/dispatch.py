@@ -94,7 +94,7 @@ _ROUTES = {"flash_verify": 0, "verify_paged": 0, "moe_ep": 0,
            "tp_ssm_heads": 0, "tp_lstm_heads": 0, "tp_feature_rows": 0,
            "tp_cross": 0, "tp_decode_heads": 0, "tp_experts_local": 0,
            "tp_seq": 0, "tp_decode_cols": 0, "tp_lstm_split": 0,
-           "tp_frames_pad": 0}
+           "tp_frames_pad": 0, "moe_dropless": 0}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -4,11 +4,14 @@ Counterpart of ``repro/launch/serve.py``: a slot table of ``n_slots``
 concurrent sequences fed by a queue of requests.
 
   * **admission** — freed slots take the oldest arrived requests; their
-    prompts run together through chunked flash prefill (``n_slots`` rows,
-    right-padded to one chunk grid, one append-attention call per layer
-    per chunk); a model whose caches cannot be block-written (recurrent
-    states, zamba2's shared block) admits each request through the token
-    loop instead, one decode step a prompt token on a single-row cache;
+    prompts run together through chunked flash prefill (the admitted rows,
+    ``n_slots`` under capacity-routed MoE, right-padded to one chunk grid,
+    one append-attention call per layer per chunk; a mamba2 layer's
+    chunked scan carries each row's state, which lands in its slot beside
+    the attention layers' KV); a model whose caches cannot be
+    block-written (xLSTM states, zamba2's shared block) admits each
+    request through the token loop instead, one decode step a prompt
+    token on a single-row cache;
   * **decode** — every slot steps together through one ``serve_step`` with
     per-slot positions ``pos (B,)``; the decode-attention kernel masks each
     row at its own depth.
@@ -356,11 +359,11 @@ def _pad_group(prompts: List[np.ndarray], n_rows: int, chunk: int,
 
 def _admission_rows(cfg, n_admitted: int, n_slots: int) -> int:
     """Rows an admission prefill runs: the admitted ones, since each row's
-    output depends on that row alone; ``n_slots`` under capacity-routed
-    MoE, whose expert capacity grows with the batch's tokens, so the
-    padding rows are part of what the real rows compute (the JAX engine
-    pads every group to ``n_slots``)."""
-    return n_slots if cfg.n_experts else n_admitted
+    output depends on that row alone (dropless experts too); ``n_slots``
+    under capacity-routed MoE, whose expert capacity grows with the
+    batch's tokens, so the padding rows are part of what the real rows
+    compute (the JAX engine pads every group to ``n_slots``)."""
+    return n_slots if cfg.capacity_routed else n_admitted
 
 
 def _chunked_prefill(prefill_step, params, cache, toks, plens, grid,
@@ -392,7 +395,8 @@ def _chunked_prefill(prefill_step, params, cache, toks, plens, grid,
             hit = (rel >= 0) & (rel < c)
             if hit.any():
                 idx = torch.as_tensor(np.clip(rel, 0, c - 1), device=device)
-                rows = logits[torch.arange(len(plens), device=device), idx]
+                rows = logits[torch.arange(len(plens), device=device),
+                              idx].float()
                 last = torch.where(
                     torch.as_tensor(hit, device=device)[:, None], rows, last)
     with spans.span("engine.logits_to_host"):
@@ -875,12 +879,12 @@ class ServeEngine:
         # stream ids and positions are and their hashes are cheap
         self.base_key = prng.key(seed)
         self.serve_step = llm_a3c.make_serve_step(cfg, sample=sample)
-        # None for recurrent, shared-attention and encoder-decoder caches,
+        # None for xLSTM, shared-attention and encoder-decoder caches,
         # or when the caller asks for it: those admit through the token
         # loop (_prefill_loop)
         self.prefill_step = llm_a3c.make_prefill_step(cfg) \
             if chunked_prefill else None
-        if spec != "off" and self.prefill_step is None:
+        if spec != "off" and not M.supports_verify(cfg):
             raise ValueError(
                 f"--spec {spec}: {cfg.name} has no chunked-append path — "
                 "recurrent caches can't score a k-token chunk in one "
@@ -983,9 +987,10 @@ class ServeEngine:
         """The persistent admission-prefill cache (batch n_slots; a group
         of fewer rows runs on its first rows), whole on every rank: stale
         rows beyond a new request's prompt are hidden by the kpos/pos
-        invariant, so it never needs re-zeroing.  Its paged
-        layers hold the engine's pools (never copies) behind its own page
-        table."""
+        invariant, and a mamba2 layer's chain starts from zeros, so it
+        never needs re-zeroing.  Its paged layers hold the engine's pools
+        (never copies) behind its own page table; its recurrent states
+        are its own."""
         if not self.paged:
             return M.init_cache(self.cfg, self.n_slots, self.cache_len,
                                 dtype=self.kv_dtype, device=self.device)
@@ -995,6 +1000,9 @@ class ServeEngine:
             if "kp" in big:
                 layers.append({**{n: big[n] for n in attn.pool_leaves(big)},
                                "pt": pt})
+            elif "k" not in big:
+                layers.append({n: torch.zeros_like(t)
+                               for n, t in big.items()})
             else:
                 layers.append(attn.init_kv_cache(
                     self.n_slots, big["k"].shape[1], self.cfg.n_kv_heads,

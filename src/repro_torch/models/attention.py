@@ -41,6 +41,7 @@ contiguous inside a paged model cache.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -305,8 +306,20 @@ def _update_kv_cache_cp(cache: dict, new: dict, slot: torch.Tensor,
 
 
 def _rope(cfg, positions: torch.Tensor):
-    """Plain RoPE tables (cos, sin) at ``positions``."""
+    """Plain RoPE tables (cos, sin) at ``positions``; (None, None) where
+    the config has no positional encoding (NoPE)."""
+    if not cfg.rope:
+        return None, None
     return cm.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+
+
+def _scale_q(q: torch.Tensor, cfg) -> torch.Tensor:
+    """The config's softmax scale (``attention_multiplier``) folded into q:
+    the kernels scale by 1/sqrt(head_dim), so q takes the ratio, one
+    multiplication (rounded once in q's dtype) before every call."""
+    if cfg.attention_multiplier is None:
+        return q
+    return q * (cfg.attention_multiplier * math.sqrt(cfg.hd))
 
 
 def _qkv(params: dict, x: torch.Tensor, cfg, cos: Optional[torch.Tensor],
@@ -325,7 +338,7 @@ def _qkv(params: dict, x: torch.Tensor, cfg, cos: Optional[torch.Tensor],
     if cos is not None:
         q = cm.apply_rope(q, cos, sin, rotary_dim=cfg.rotary_dim)
         k = cm.apply_rope(k, cos, sin, rotary_dim=cfg.rotary_dim)
-    return q, k, v
+    return _scale_q(q, cfg), k, v
 
 
 def _kv_heads_read(cfg, tp) -> Tuple[int, int]:
@@ -519,7 +532,7 @@ def _qkv_cols(params: dict, x: torch.Tensor, cfg, tp, cos, sin):
     if cos is not None:
         q = cm.apply_rope(q, cos, sin, rotary_dim=cfg.rotary_dim)
         k = cm.apply_rope(k, cos, sin, rotary_dim=cfg.rotary_dim)
-    return q.contiguous(), k.contiguous(), v.contiguous()
+    return _scale_q(q, cfg).contiguous(), k.contiguous(), v.contiguous()
 
 
 def attend_decode(params: dict, x: torch.Tensor, cache: dict,

@@ -75,16 +75,19 @@ def layernorm(p: Params, x: torch.Tensor, *,
     return y.to(x.dtype)
 
 
-def apply_norm(kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+def apply_norm(kind: str, p: Params, x: torch.Tensor, *,
+               rms_eps: float = 1e-6) -> torch.Tensor:
+    """The block's norm; ``rms_eps`` is RMSNorm's epsilon (the config's
+    ``rms_norm_eps``), a layernorm keeps its own."""
     if kind == "rmsnorm":
-        return rmsnorm(p, x)
+        return rmsnorm(p, x, eps=rms_eps)
     if kind == "layernorm":
         return layernorm(p, x)
     raise ValueError(f"unknown norm {kind}")
 
 
-def norm_rows(kind: str, p: Params, x: torch.Tensor, tp=None
-              ) -> torch.Tensor:
+def norm_rows(kind: str, p: Params, x: torch.Tensor, tp=None, *,
+              rms_eps: float = 1e-6) -> torch.Tensor:
     """A norm of the residual; under tensor and sequence parallelism
     (``tp``, ``fsdp.TPRule``) on this rank's sequence rows (the
     ``sp_rows`` route), its whole leaves' gradients summed over the model
@@ -92,7 +95,7 @@ def norm_rows(kind: str, p: Params, x: torch.Tensor, tp=None
     if tp is not None:
         dispatch.count_route("sp_rows")
         p = {k: collectives.sum_grads(t, tp.group) for k, t in p.items()}
-    return apply_norm(kind, p, x)
+    return apply_norm(kind, p, x, rms_eps=rms_eps)
 
 
 def on_sequence(fn, x: torch.Tensor, tp=None) -> torch.Tensor:
@@ -107,7 +110,8 @@ def on_sequence(fn, x: torch.Tensor, tp=None) -> torch.Tensor:
     return collectives.scatter_sum(fn(x), tp.group, 1)
 
 
-def rmsnorm_features(p: Params, y: torch.Tensor, tp=None) -> torch.Tensor:
+def rmsnorm_features(p: Params, y: torch.Tensor, tp=None, *,
+                     eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over a feature dim that tensor parallelism splits (mamba2's
     gated norm, the mLSTM's): under ``tp`` y holds this rank's d / tp
     columns and ``p["scale"]`` its slice of the scale.  The rows are
@@ -117,12 +121,13 @@ def rmsnorm_features(p: Params, y: torch.Tensor, tp=None) -> torch.Tensor:
     slice, the only columns its cotangent reaches), and this rank's
     columns are taken back (the ``tp_feature_rows`` route)."""
     if tp is None:
-        return rmsnorm(p, y)
+        return rmsnorm(p, y, eps=eps)
     dispatch.count_route("tp_feature_rows")
     n = y.shape[-1]
     whole = collectives.gather_sum(y, tp.group, y.dim() - 1)
     scale = collectives.gather_slice(p["scale"], tp.group, 0)
-    return rmsnorm({"scale": scale}, whole).narrow(-1, tp.rank * n, n)
+    return rmsnorm({"scale": scale}, whole, eps=eps).narrow(-1, tp.rank * n,
+                                                            n)
 
 
 def norm_shapes(kind: str, d: int) -> dict:

@@ -9,7 +9,7 @@ tiled over ``n_layers``), plus embeddings and heads.  Block kinds:
 
   attn        global causal self-attention + FFN (gated MLP or MoE)
   attn_local  sliding-window / chunked-local attention + FFN
-  mamba2      Mamba2 SSD block (no separate FFN)
+  mamba2      Mamba2 SSD block; + FFN unless zamba2's shared block is on
   mlstm       xLSTM matrix-memory block
   slstm       xLSTM scalar-memory block (true recurrence)
 
@@ -41,16 +41,28 @@ class ModelConfig:
     act: str = "silu"
     qkv_bias: bool = False
     rope_theta: float = 1e6
+    rope: bool = True                # False: no positional encoding (NoPE)
     rotary_dim: Optional[int] = None  # partial rotary (StableLM-2: 25%)
     tie_embeddings: bool = False
     sliding_window: Optional[int] = None   # window for attn_local blocks
+    rms_norm_eps: float = 1e-6
+
+    # Granite's multipliers: the embedding's rows, the softmax scale
+    # (None: 1/sqrt(head_dim)), each branch into the residual, the logits'
+    # divisor
+    embedding_multiplier: float = 1.0
+    attention_multiplier: Optional[float] = None
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
 
     # MoE
     n_experts: int = 0
     top_k: int = 0
     d_ff_expert: int = 0
-    capacity_factor: float = 1.25
+    capacity_factor: float = 1.25    # 0: dropless (no capacity)
     aux_loss_weight: float = 0.01
+    d_ff_shared: int = 0             # a shared expert's width (0: none)
+    experts_held: int = 0            # experts 0 .. held-1 here (0: all)
 
     # SSM / xLSTM
     ssm_state: int = 0
@@ -104,7 +116,9 @@ class ModelConfig:
             d_ff_expert=min(self.d_ff_expert, 128),
             # no-drop capacity in smoke: batched prefill and step decode
             # must route identically for the consistency tests
-            capacity_factor=8.0,
+            capacity_factor=8.0 if self.capacity_factor else 0.0,
+            d_ff_shared=min(self.d_ff_shared, 128),
+            experts_held=min(self.experts_held, 2),
             ssm_heads=min(self.ssm_heads, 4) if self.ssm_heads else 0,
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_chunk=16,
@@ -124,6 +138,24 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def capacity_routed(self) -> bool:
+        """Experts routed under a capacity, which couples a call's rows."""
+        return bool(self.n_experts) and self.capacity_factor > 0
+
+    @property
+    def n_held(self) -> int:
+        """The experts whose weights this model holds."""
+        return self.experts_held or self.n_experts
+
+    def has_ffn(self, kind: str) -> bool:
+        """Whether a block of ``kind`` ends in the FFN half: attention
+        blocks, and mamba2 blocks unless zamba2's shared block carries the
+        model's FFN."""
+        if kind in ("attn", "attn_local"):
+            return True
+        return kind == "mamba2" and not self.shared_attn_every
+
     def layer_kinds(self) -> Tuple[str, ...]:
         reps = -(-self.n_layers // len(self.block_cycle))
         return (self.block_cycle * reps)[: self.n_layers]
@@ -142,6 +174,6 @@ class ModelConfig:
             return total
         per_expert = (3 * self.d_model * self.d_ff_expert)
         layers_with_moe = sum(1 for k in self.layer_kinds()
-                              if k in ("attn", "attn_local"))
-        inactive = (self.n_experts - self.top_k) * per_expert * layers_with_moe
+                              if self.has_ffn(k))
+        inactive = (self.n_held - self.top_k) * per_expert * layers_with_moe
         return total - inactive

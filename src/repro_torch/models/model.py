@@ -5,7 +5,9 @@ stacks of ``attn`` and ``attn_local`` blocks with a gated MLP or a
 Mixture-of-Experts layer (yi-6b, stablelm-1.6b, qwen2-72b, minicpm-2b,
 granite-moe-1b-a400m, llama4-scout-17b-a16e; qwen2-vl-72b, whose training
 forward takes M-RoPE positions), the recurrent kinds ``mamba2``
-(``models/ssm.py``), ``mlstm`` and ``slstm`` (``models/xlstm.py``),
+(``models/ssm.py``; followed by the FFN half in a model without zamba2's
+shared block, as granite-4.0-h-small's), ``mlstm`` and ``slstm``
+(``models/xlstm.py``),
 zamba2's shared attention block applied after every
 ``shared_attn_every``-th layer (one set of weights, a KV cache for each
 application), and the encoder-decoder (``models/encdec.py``, where
@@ -25,17 +27,27 @@ takes the f32 masters and casts each block's matrices inside the step, as
 the JAX loss does, so gradients reach the f32 leaves.  For serving,
 parameters are cast to the compute dtype ONCE (``cast_params``) by whoever
 builds them: the JAX steps cast inside every call, which in eager PyTorch
-would copy every weight each step.  Chunked prefill and speculative verify
-need attention-only caches (``supports_chunked_prefill``), as in the
-reference: recurrent and encoder-decoder models prefill token by token.
+would copy every weight each step.  Chunked prefill takes attention and
+mamba2 layers (``supports_chunked_prefill``); speculative verify needs
+attention-only caches; the other recurrent models and the
+encoder-decoder prefill token by token, as in the reference.
+
+Granite's multipliers (``ModelConfig``): the embedding's rows times
+``embedding_multiplier``, each block's two branches times
+``residual_multiplier`` before they join the residual, the softmax scale
+``attention_multiplier`` (``attention._scale_q``) and the logits divided
+by ``logits_scaling``; each is skipped where it is 1, so the other
+configs run what they ran.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.core import prng
 from repro_torch.device import resolve
 from repro_torch.distributed import collectives, ctx, fsdp
@@ -90,26 +102,36 @@ def tree_map(fn, tree, *rest):
 
 
 
+def _ffn_shapes(cfg: ModelConfig) -> dict:
+    """The FFN half's layout: ln2, then the experts (and a shared expert
+    where the config has one) or the gated MLP."""
+    d = cfg.d_model
+    half = {"ln2": cm.norm_shapes(cfg.norm, d)}
+    if cfg.n_experts:
+        half["moe"] = moe_mod.moe_shapes(d, cfg.d_ff_expert, cfg.n_experts,
+                                         cfg.experts_held)
+        if cfg.d_ff_shared:
+            half["shared"] = mlp_mod.gated_mlp_shapes(d, cfg.d_ff_shared)
+    elif cfg.d_ff:
+        half["mlp"] = mlp_mod.gated_mlp_shapes(d, cfg.d_ff)
+    return half
+
+
 def _block_shapes(cfg: ModelConfig, kind: str) -> dict:
     """One block's layout, ``_init_block``'s."""
     d = cfg.d_model
     norm = cm.norm_shapes(cfg.norm, d)
     if kind in ATTN_KINDS:
-        layer = {"ln1": norm,
-                 "attn": attn.attention_shapes(d, cfg.n_heads, cfg.n_kv_heads,
-                                               cfg.hd, qkv_bias=cfg.qkv_bias),
-                 "ln2": norm}
-        if cfg.n_experts:
-            layer["moe"] = moe_mod.moe_shapes(d, cfg.d_ff_expert,
-                                              cfg.n_experts)
-        elif cfg.d_ff:
-            layer["mlp"] = mlp_mod.gated_mlp_shapes(d, cfg.d_ff)
-        return layer
+        return {"ln1": norm,
+                "attn": attn.attention_shapes(d, cfg.n_heads, cfg.n_kv_heads,
+                                              cfg.hd, qkv_bias=cfg.qkv_bias),
+                **_ffn_shapes(cfg)}
     if kind == "mamba2":
-        return {"ln1": norm, "mamba": ssm.mamba2_shapes(
+        layer = {"ln1": norm, "mamba": ssm.mamba2_shapes(
             d, d_state=cfg.ssm_state, n_heads=cfg.ssm_heads,
             head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
             conv_width=cfg.ssm_conv_width)}
+        return {**layer, **_ffn_shapes(cfg)} if cfg.has_ffn(kind) else layer
     if kind == "mlstm":
         return {"ln1": norm, "mlstm": xlstm.mlstm_shapes(
             d, n_heads=cfg.n_heads, expand=cfg.lstm_expand,
@@ -149,7 +171,9 @@ def _block_keys(cfg: ModelConfig, kind: str, key: torch.Tensor,
     """The keys of one block's random leaves, ``_init_block``'s tree: the
     block key split in four, the first for the attention (then four: wq,
     wk, wv, wo) or the recurrent layer, the second for the gated MLP
-    (three: gate, up, down) or the experts (``init_moe``'s four).  mamba2
+    (three: gate, up, down) or the experts (``init_moe``'s four), the
+    third for a shared expert (three); a mamba2 block with the FFN half
+    takes the second and third as an attention block does.  mamba2
     splits its key in four (in_proj, conv_w, dt_bias's uniform draw,
     out_proj); mLSTM in eight (up_x, up_z, conv_w, wq, wk, wv, w_i, w_f)
     and its ``down`` takes fold_in(key, 99); sLSTM in seven (w_in, r,
@@ -159,12 +183,15 @@ def _block_keys(cfg: ModelConfig, kind: str, key: torch.Tensor,
     def put(sub, names, keys):
         for name, k in zip(names, keys):
             out[f"{prefix}.{sub}.{name}"] = k
-    if kind in ATTN_KINDS:
-        put("attn", ("wq.w", "wk.w", "wv.w", "wo.w"), split(ks[0], 4))
+    if cfg.has_ffn(kind):
         if cfg.n_experts:
             put("moe", moe_mod.LEAVES, split(ks[1], 4))
+            if cfg.d_ff_shared:
+                put("shared", ("gate.w", "up.w", "down.w"), split(ks[2], 3))
         elif cfg.d_ff:
             put("mlp", ("gate.w", "up.w", "down.w"), split(ks[1], 3))
+    if kind in ATTN_KINDS:
+        put("attn", ("wq.w", "wk.w", "wv.w", "wo.w"), split(ks[0], 4))
     elif kind == "mamba2":
         put("mamba", ("in_proj.w", "conv_w", "dt_bias", "out_proj.w"),
             split(ks[0], 4))
@@ -387,13 +414,27 @@ def slot_layers(cache: dict) -> List[dict]:
 # ---------------------------------------------------------------------------
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
-    """Chunked prefill block-writes KV caches; recurrent states (SSM,
-    xLSTM), zamba2's shared block and the encoder-decoder would need
-    state-returning scans, so they prefill token by token (the engine's
+    """Chunked prefill block-writes KV caches and runs mamba2 layers by
+    the chunked scan from each row's carried state
+    (``ssm.mamba2_prefill``); xLSTM's states, zamba2's shared block and the
+    encoder-decoder prefill token by token (the engine's
     ``_prefill_loop``), as in the reference."""
     return (not cfg.is_encdec
             and not cfg.shared_attn_every
-            and all(k in ATTN_KINDS for k in cfg.layer_kinds()))
+            and all(k in ATTN_KINDS or k == "mamba2"
+                    for k in cfg.layer_kinds()))
+
+
+def supports_verify(cfg: ModelConfig) -> bool:
+    """Speculative verify scores a chunk without writing: attention-only
+    caches."""
+    return supports_chunked_prefill(cfg) and all(
+        k in ATTN_KINDS for k in cfg.layer_kinds())
+
+
+def _scaled(x: torch.Tensor, m: float) -> torch.Tensor:
+    """x times a config multiplier, untouched where it is 1."""
+    return x if m == 1.0 else x * m
 
 
 def _embed_inputs(cfg: ModelConfig, params: Params,
@@ -402,7 +443,7 @@ def _embed_inputs(cfg: ModelConfig, params: Params,
         x = batch["embeds"]
     else:
         x = cm.embed(params["embed"], batch["tokens"])
-    return x.to(compute_dtype(cfg))
+    return _scaled(x.to(compute_dtype(cfg)), cfg.embedding_multiplier)
 
 
 def _moe_rule(s: int) -> Optional[dict]:
@@ -413,11 +454,23 @@ def _moe_rule(s: int) -> Optional[dict]:
     return ep if ep is not None and s % ep["tp"] == 0 else None
 
 
+def _count_moe(counts: torch.Tensor, kept: torch.Tensor) -> None:
+    """The ``model.moe`` span's counts of a dropless block: the held
+    assignments, the busiest held expert's rows, the held experts hit and
+    the assignments dropped (none: there is no capacity).  One host sync,
+    made only while a profiler records."""
+    n, top, hit = torch.stack([kept.to(counts.dtype), counts.max(),
+                               (counts > 0).sum()]).tolist()
+    spans.count(assignments=n, rows_max=top, experts_hit=hit, dropped=0)
+
+
 def _ffn_half(cfg: ModelConfig, p: Params, x: torch.Tensor,
               ep: Optional[dict] = None, tp: Optional[fsdp.TPRule] = None):
     """The block's second residual half: (x + FFN(norm(x)), the experts'
     load-balance loss or None).  The FFN is the experts where the config
-    has them, the gated MLP otherwise.  The experts are expert-parallel
+    has them (dropless, ``moe.moe_apply_dropless``, where its capacity
+    factor is 0; plus the shared expert where it has one), the gated MLP
+    otherwise.  The capacity-routed experts are expert-parallel
     (``moe_ep.moe_apply_ep``) under the ``moe_ep`` rule ``ep``
     (``_moe_rule``, or the layout's ``fsdp.ep_rule`` under tensor
     parallelism), dense otherwise (``moe.moe_apply``: its capacity is
@@ -427,18 +480,26 @@ def _ffn_half(cfg: ModelConfig, p: Params, x: torch.Tensor,
     this rank's sequence rows: the experts route them as they are, the
     gated MLP runs on its d_ff columns over the gathered sequence and its
     partial sums are reduce-scattered back to the rows."""
-    y = cm.norm_rows(cfg.norm, p["ln2"], x, tp)
+    y = cm.norm_rows(cfg.norm, p["ln2"], x, tp, rms_eps=cfg.rms_norm_eps)
     if cfg.n_experts:
         kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                   act=cfg.act)
-        if ep is not None:
-            dispatch.count_route("moe_ep")
-            y, lb = moe_ep.moe_apply_ep(p["moe"], y, rule=ep,
-                                        sp=tp is not None, **kw)
-        else:
-            dispatch.count_route("moe_dense")
-            y, lb = moe_mod.moe_apply(p["moe"], y, **kw)
-        return x + y, lb
+        with spans.span("model.moe") as live:
+            if not cfg.capacity_routed:
+                dispatch.count_route("moe_dropless")
+                out, lb = moe_mod.moe_apply_dropless(
+                    p["moe"], y, top_k=cfg.top_k, act=cfg.act,
+                    on_counts=_count_moe if live else None)
+            elif ep is not None:
+                dispatch.count_route("moe_ep")
+                out, lb = moe_ep.moe_apply_ep(p["moe"], y, rule=ep,
+                                              sp=tp is not None, **kw)
+            else:
+                dispatch.count_route("moe_dense")
+                out, lb = moe_mod.moe_apply(p["moe"], y, **kw)
+            if "shared" in p:
+                out = out + mlp_mod.gated_mlp(p["shared"], y, act=cfg.act)
+        return x + _scaled(out, cfg.residual_multiplier), lb
     if tp is None:
         return x + mlp_mod.gated_mlp(p["mlp"], y, act=cfg.act), None
     y = collectives.gather_sum(y, tp.group, 1)
@@ -451,7 +512,9 @@ def _rope_tables(cfg: ModelConfig, batch: Dict[str, torch.Tensor], s: int,
     """(cos, sin) of the training forward, as the JAX ``_rope_tables``:
     M-RoPE from batch["positions"] (3, B, S) where the config has
     sections (``arange(S)`` on all three axes without them), plain RoPE
-    at 0 .. S-1 otherwise."""
+    at 0 .. S-1 otherwise; (None, None) under NoPE."""
+    if not cfg.rope:
+        return None, None
     if cfg.mrope_sections is not None:
         pos = batch.get("positions")
         if pos is None:
@@ -475,7 +538,8 @@ def _heads(cfg: ModelConfig, params: Params, x: torch.Tensor,
     backward sums the ranks' partial cotangents; with the vocab whole each
     rank computes every logit, whose cotangents are alike on the ranks, so
     the backward keeps this rank's rows."""
-    x = cm.norm_rows(cfg.norm, params["final_norm"], x, tp)
+    x = cm.norm_rows(cfg.norm, params["final_norm"], x, tp,
+                     rms_eps=cfg.rms_norm_eps)
     out = {}
     if cfg.value_head:
         vh = params["value_head"]
@@ -495,9 +559,17 @@ def _heads(cfg: ModelConfig, params: Params, x: torch.Tensor,
         out["logits"] = x @ table.T.to(x.dtype)
     else:
         out["logits"] = cm.linear(params["lm_head"], x, dtype=x.dtype)
+    out["logits"] = _scaled(out["logits"], 1.0 / cfg.logits_scaling)
     if tp is not None and tp.vocab:
         out["vocab_start"] = tp.rank * out["logits"].shape[-1]
     return out
+
+
+def _ssm_span(kind: str):
+    """The ``model.ssm`` span around a Mamba-2 mixer call (none around the
+    other recurrent kinds)."""
+    return spans.span("model.ssm") if kind == "mamba2" else \
+        contextlib.nullcontext()
 
 
 _TRAIN = {"mamba2": ("mamba", ssm.mamba2_train),
@@ -541,18 +613,21 @@ def _block_train(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         p = fsdp.gather(layout, prefix, p,
                         model="slice" if ep is None and tp is None else None,
                         model_sum=("attn",) if seq else ())
-    h = cm.norm_rows(cfg.norm, p["ln1"], x, tp)
+    h = cm.norm_rows(cfg.norm, p["ln1"], x, tp, rms_eps=cfg.rms_norm_eps)
     if kind in _TRAIN:
         name, fn = _TRAIN[kind]
-        return x + cm.on_sequence(lambda seq: fn(p[name], seq, cfg, tp), h,
-                                  tp), aux
-    if tp is not None and not seq:
-        h = collectives.gather_sum(h, tp.group, 1)
-    h = attn.attend_train(p["attn"], h, cos, sin, cfg,
-                          window=_window(cfg, kind), tp=tp)
-    if tp is not None and not seq:
-        h = collectives.scatter_sum(h, tp.group, 1)
-    x, lb = _ffn_half(cfg, p, x + h, ep, tp)
+        h = cm.on_sequence(lambda seq: fn(p[name], seq, cfg, tp), h, tp)
+    else:
+        if tp is not None and not seq:
+            h = collectives.gather_sum(h, tp.group, 1)
+        h = attn.attend_train(p["attn"], h, cos, sin, cfg,
+                              window=_window(cfg, kind), tp=tp)
+        if tp is not None and not seq:
+            h = collectives.scatter_sum(h, tp.group, 1)
+    x = x + _scaled(h, cfg.residual_multiplier)
+    if not cfg.has_ffn(kind):
+        return x, aux
+    x, lb = _ffn_half(cfg, p, x, ep, tp)
     return x, (aux if lb is None else aux + lb)
 
 
@@ -568,9 +643,10 @@ def _sp_inputs(cfg: ModelConfig, top: Params, batch: Dict[str, torch.Tensor],
                          "model ranks of the sequence-parallel residual")
     if tp.vocab and "embeds" not in batch:
         table = top["embed"]["table"]
-        return cm.embed_vocab_parallel(
+        return _scaled(cm.embed_vocab_parallel(
             top["embed"], batch["tokens"], start=tp.rank * table.shape[0],
-            group=tp.group, dtype=compute_dtype(cfg))
+            group=tp.group, dtype=compute_dtype(cfg)),
+            cfg.embedding_multiplier)
     return collectives.scatter_slice(_embed_inputs(cfg, top, batch),
                                      tp.group, 1)
 
@@ -649,7 +725,7 @@ def _ffn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     (``collectives.sum_partials``)."""
     if tp is None:
         return _ffn_half(cfg, p, x)[0]
-    y = cm.apply_norm(cfg.norm, p["ln2"], x)
+    y = cm.apply_norm(cfg.norm, p["ln2"], x, rms_eps=cfg.rms_norm_eps)
     if cfg.n_experts:
         dispatch.count_route("tp_experts_local")
         e_loc = p["moe"]["w_gate"].shape[0]
@@ -671,17 +747,22 @@ def _block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     Megatron-SP row split has one row to split), each half computes this
     rank's partial sum, and the halves are summed over the model group in
     f32 (``collectives.sum_partials``)."""
-    h = cm.apply_norm(cfg.norm, p["ln1"], x)
+    h = cm.apply_norm(cfg.norm, p["ln1"], x, rms_eps=cfg.rms_norm_eps)
     if kind in _DECODE:
         name, fn = _DECODE[kind]
-        y = fn(p[name], h, c, cfg, tp)[0]
-        return x + (y if tp is None else
-                    collectives.sum_partials(y, tp.group))
-    h, _ = attn.attend_decode(p["attn"], h, c, pos, cfg,
-                              window=_window(cfg, kind), paged=paged, tp=tp)
+        with _ssm_span(kind) as live:
+            if live:
+                spans.count(rows=x.shape[0], positions=x.shape[0],
+                            masked=0)
+            h = fn(p[name], h, c, cfg, tp)[0]
+    else:
+        h, _ = attn.attend_decode(p["attn"], h, c, pos, cfg,
+                                  window=_window(cfg, kind), paged=paged,
+                                  tp=tp)
     if tp is not None:
         h = collectives.sum_partials(h, tp.group)
-    return _ffn_decode(cfg, p, x + h, tp)
+    x = x + _scaled(h, cfg.residual_multiplier)
+    return _ffn_decode(cfg, p, x, tp) if cfg.has_ffn(kind) else x
 
 
 def _decode_inputs(cfg: ModelConfig, params: Params,
@@ -696,7 +777,8 @@ def _decode_inputs(cfg: ModelConfig, params: Params,
     table = params["embed"]["table"]
     part = cm.vocab_rows(params["embed"], batch["tokens"],
                          start=tp.rank * table.shape[0])
-    return collectives.all_reduce(part.to(compute_dtype(cfg)), tp.group)
+    return _scaled(collectives.all_reduce(part.to(compute_dtype(cfg)),
+                                          tp.group), cfg.embedding_multiplier)
 
 
 def decode_heads(cfg: ModelConfig, params: Params, x: torch.Tensor,
@@ -754,16 +836,31 @@ def prefill_step(cfg: ModelConfig, params: Params, cache: dict,
     ring writes past each row's real length)."""
     if not supports_chunked_prefill(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: chunked prefill needs attention-only caches")
+            f"{cfg.name}: chunked prefill needs attention-only caches "
+            "beside mamba2 states")
     x = _embed_inputs(cfg, params, batch)
-    paged = attn.model_paged_index(cache, pos0=pos0, c=x.shape[1],
-                                   true_len=true_len)
-    for kind, p, c in zip(cfg.layer_kinds(), params["layers"],
-                          cache["layers"]):
-        h, _ = attn.attend_prefill(
-            p["attn"], cm.apply_norm(cfg.norm, p["ln1"], x), c, pos0, cfg,
-            window=_window(cfg, kind), true_len=true_len, paged=paged)
-        x = _ffn_half(cfg, p, x + h)[0]
+    b, c = x.shape[:2]
+    paged = attn.model_paged_index(cache, pos0=pos0, c=c, true_len=true_len)
+    for kind, p, lc in zip(cfg.layer_kinds(), params["layers"],
+                           cache["layers"]):
+        h = cm.apply_norm(cfg.norm, p["ln1"], x, rms_eps=cfg.rms_norm_eps)
+        if kind == "mamba2":
+            with _ssm_span(kind) as live:
+                if live:
+                    real = b * c if true_len is None else int(
+                        (true_len.to(x.device).long() - pos0).clamp(0, c)
+                        .sum())
+                    spans.count(rows=b, positions=b * c,
+                                masked=b * c - real)
+                h = ssm.mamba2_prefill(p["mamba"], h, lc, cfg, pos0,
+                                       true_len)
+        else:
+            h, _ = attn.attend_prefill(p["attn"], h, lc, pos0, cfg,
+                                       window=_window(cfg, kind),
+                                       true_len=true_len, paged=paged)
+        x = x + _scaled(h, cfg.residual_multiplier)
+        if cfg.has_ffn(kind):
+            x = _ffn_half(cfg, p, x)[0]
     return _heads(cfg, params, x), cache
 
 
@@ -776,7 +873,7 @@ def verify_step(cfg: ModelConfig, params: Params, cache: dict,
     nothing: returns (out {"logits" (B, K, V)}, pendings), ``pendings``
     one dict of the chunk's K/V a layer, which ``commit_step`` writes for
     the accepted rows after the accept decision."""
-    if not supports_chunked_prefill(cfg):
+    if not supports_verify(cfg):
         raise NotImplementedError(
             f"{cfg.name}: speculative verify needs attention-only caches")
     x = _embed_inputs(cfg, params, batch)
@@ -786,10 +883,11 @@ def verify_step(cfg: ModelConfig, params: Params, cache: dict,
     for kind, p, c in zip(cfg.layer_kinds(), params["layers"],
                           cache["layers"]):
         h, pend = attn.attend_verify(
-            p["attn"], cm.apply_norm(cfg.norm, p["ln1"], x), c, pos, cfg,
-            shift=shift, window=_window(cfg, kind), paged=paged)
+            p["attn"], cm.apply_norm(cfg.norm, p["ln1"], x,
+                                     rms_eps=cfg.rms_norm_eps),
+            c, pos, cfg, shift=shift, window=_window(cfg, kind), paged=paged)
         pendings.append(pend)
-        x = _ffn_half(cfg, p, x + h)[0]
+        x = _ffn_half(cfg, p, x + _scaled(h, cfg.residual_multiplier))[0]
     out = _heads(cfg, params, x)
     return {"logits": out["logits"]}, pendings
 

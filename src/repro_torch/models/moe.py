@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer: top-k router and capacity-based dispatch, as
-``repro/models/moe.py``.
+``repro/models/moe.py``, and a dropless dispatch (``moe_apply_dropless``).
 
 Tokens are written into a fixed-capacity buffer of E experts x C slots,
 the experts run as three batched products over the stacked expert weights
@@ -32,6 +32,19 @@ scatter-adds them one by one in the compute dtype.  In f32 the two agree
 to summation order; in bf16 the port's sum may differ from a sequential
 bf16 scatter by up to (k - 1) / 2 bf16 ulps of the summed magnitude.  No
 atomics: the results repeat bit for bit.
+
+The dropless layer (Granite-4.0-H's) has no capacity: every assignment
+to an expert this model holds is computed.  Its router (``gate_logits``)
+takes each token's top k by a stable descending sort of the f32 logits,
+as the published router's top-k of logits (a sort of the probabilities
+would tie experts whose probabilities underflow), and gates them with the
+softmax over the k selected logits; the held assignments are sorted by
+expert (a stable
+sort, unheld ones last) and the held experts' gated MLPs run as grouped
+products over the stacked weights: ``torch._grouped_mm`` on the card,
+with the group offsets on the device (no host sync), a loop on the CPU.
+Each token's k outputs are gated and summed over k as in ``combine``.  A
+token's output depends on that token alone.
 """
 from __future__ import annotations
 
@@ -45,11 +58,15 @@ from repro_torch.models import common as cm
 ROUTER_STD = 0.02
 
 
-def moe_shapes(d_model: int, d_ff: int, n_experts: int) -> dict:
+def moe_shapes(d_model: int, d_ff: int, n_experts: int,
+               held: int = 0) -> dict:
+    """The router over all ``n_experts``; the stacked weights of the
+    ``held`` experts (all where 0)."""
+    e = held or n_experts
     return {"router": (d_model, n_experts),
-            "w_gate": (n_experts, d_model, d_ff),
-            "w_up": (n_experts, d_model, d_ff),
-            "w_down": (n_experts, d_ff, d_model)}
+            "w_gate": (e, d_model, d_ff),
+            "w_up": (e, d_model, d_ff),
+            "w_down": (e, d_ff, d_model)}
 
 
 # leaf order of ``init_moe``'s split of its key in four
@@ -104,6 +121,19 @@ def gate(router: torch.Tensor, xf: torch.Tensor, top_k: int):
     # load-balance loss on the full probabilities; f_e carries no gradient
     f_e = torch.nn.functional.one_hot(eidx[:, 0], e).float().mean(0)
     return gates, eidx, e * torch.sum(f_e * probs.mean(0))
+
+
+def gate_logits(router: torch.Tensor, xf: torch.Tensor, top_k: int):
+    """The dropless layer's routing of T tokens (T, d): (gates (T, k), the
+    softmax over the k largest logits, expert indices (T, k), the Switch
+    load-balance loss () f32 as ``gate``'s), the router in f32."""
+    e = router.shape[1]
+    logits = xf.float() @ router.float()                             # (T, E)
+    vals, eidx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates, eidx = torch.softmax(vals[:, :top_k], dim=-1), eidx[:, :top_k]
+    f_e = torch.nn.functional.one_hot(eidx[:, 0], e).float().mean(0)
+    lb = e * torch.sum(f_e * torch.softmax(logits, dim=-1).mean(0))
+    return gates, eidx, lb
 
 
 def dispatch(xf: torch.Tensor, e_flat: torch.Tensor, pos: torch.Tensor,
@@ -188,3 +218,70 @@ def moe_apply_local(p: dict, x: torch.Tensor, *, top_k: int,
     buf = dispatch(xf, local, pos, keep, e_loc, cap, top_k)
     out = experts(buf, p["w_gate"], p["w_up"], p["w_down"], act)
     return combine(out, local, pos, keep, gates, top_k).reshape(b, s, d)
+
+
+def _grouped(a: torch.Tensor, w: torch.Tensor, offs: torch.Tensor,
+             ends) -> torch.Tensor:
+    """Rows of ``a`` (M, K) sorted by group, group g's rows ending at
+    offs[g], each times w[g] (G, K, N) -> (M, N); the rows past the last
+    group are not computed (zeros on the CPU, unspecified on the card).
+    ``ends``: the offsets on the host, for the CPU's loop (None on the
+    card)."""
+    if a.is_cuda:
+        return torch._grouped_mm(a, w, offs=offs)
+    out = a.new_zeros((a.shape[0], w.shape[-1]))
+    lo = 0
+    for g, hi in enumerate(ends):
+        if hi > lo:
+            out[lo:hi] = a[lo:hi] @ w[g]
+        lo = hi
+    return out
+
+
+def held_experts(p: dict, xf: torch.Tensor, gates: torch.Tensor,
+                 eidx: torch.Tensor, act: str, first: int = 0,
+                 on_counts=None) -> torch.Tensor:
+    """Every assignment of the T tokens ``xf`` (T, d) to an expert held in
+    ``p`` (experts [first, first + E_held) of the router's), with no
+    capacity: (T, d) in xf's dtype, each token's held outputs gated and
+    summed over k.  ``on_counts``, where given, is called with (the held
+    assignments a held expert takes (E_held,), the held assignments in
+    all) as device tensors."""
+    t, d = xf.shape
+    k = eidx.shape[1]
+    e_held = p["w_gate"].shape[0]
+    local = eidx.reshape(-1) - first                              # (T*k,)
+    held = (local >= 0) & (local < e_held)
+    key = torch.where(held, local, e_held)
+    order = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key, minlength=e_held + 1)[:e_held]
+    offs = torch.cumsum(counts, 0, dtype=torch.int32)
+    ends = None if xf.is_cuda else offs.tolist()
+    if on_counts is not None:
+        on_counts(counts, offs[-1])
+    # rows past the held ones are zeroed, so no value (or gradient) of a
+    # row the grouped products leave unspecified reaches a token; in place,
+    # since a prefill chunk's T k rows are gigabytes
+    unheld = ~held[order][:, None]
+    rows = xf[order // k].masked_fill_(unheld, 0)
+    f = cm.ACTIVATIONS[act]
+    h = f(_grouped(rows, p["w_gate"], offs, ends)) * \
+        _grouped(rows, p["w_up"], offs, ends)
+    out = _grouped(h, p["w_down"], offs, ends).masked_fill_(unheld, 0)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    g = torch.where(held, gates.reshape(-1), 0).to(out.dtype)
+    return out[inv].mul_(g[:, None]).reshape(t, k, d).sum(1)
+
+
+def moe_apply_dropless(p: dict, x: torch.Tensor, *, top_k: int,
+                       act: str = "silu", first: int = 0, on_counts=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (y (B, S, d) in x's dtype, load-balance loss () f32):
+    the dropless layer over the experts ``p`` holds (``held_experts``),
+    routed over all of the router's."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    gates, eidx, lb_loss = gate_logits(p["router"], xf, top_k)
+    y = held_experts(p, xf, gates, eidx, act, first, on_counts)
+    return y.reshape(b, s, d), lb_loss

@@ -3,7 +3,9 @@
 Training takes the chunked SSD decomposition (Dao & Gu 2024, §6): within
 a chunk of Q steps the recurrence is a masked, decayed product of
 einsums; across chunks a short loop carries the chunk states (a Python
-loop here, ``lax.scan`` there).  Decode is the O(1) recurrence
+loop here, ``lax.scan`` there).  The serve engine's admission runs a
+prompt chunk through the same scan from each row's carried state
+(``mamba2_prefill``).  Decode is the O(1) recurrence
 ``h <- a h + dt B (x)  x;  y = C . h + D x``.  Everything is plain
 PyTorch: the reference has no kernel here, and its gated norm is
 ``common.rmsnorm``, kernel 1 on the card.
@@ -20,11 +22,18 @@ from __future__ import annotations
 
 from typing import Optional
 
+import math
+
 import torch
 
 from repro_torch.distributed import collectives
 from repro_torch.kernels import dispatch
 from repro_torch.models import common as cm
+
+# elements of the (rows, q, q, heads) f32 products a prefill chunk's scan
+# makes at once (512 MB): an admission of many rows runs its scan a block
+# of rows at a time, each row's scan being its own
+SCAN_ELEMS = 1 << 27
 
 
 def mamba2_shapes(d_model: int, *, d_state: int, n_heads: int,
@@ -60,10 +69,12 @@ def _split_in_proj(z_all, d_inner, gn):
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                state: Optional[torch.Tensor] = None):
+                state: Optional[torch.Tensor] = None,
+                ends: Optional[torch.Tensor] = None):
     """Depthwise causal conv.  x (B, S, C), w (W, C); ``state`` the last
     W-1 inputs before x (zeros without it).  Returns (y in x's dtype, the
-    new state: the last W-1 inputs)."""
+    new state: the last W-1 inputs; with ``ends`` (B,), each row's count
+    of real inputs in x, the W-1 inputs before row b's ends[b]-th)."""
     width = w.shape[0]
     if state is None:
         pad = torch.zeros((x.shape[0], width - 1, x.shape[2]),
@@ -76,7 +87,11 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     for i in range(width):
         y = y + xp[:, i:i + s] * w[i]
     y = y + b
-    new_state = xp[:, -(width - 1):] if width > 1 else pad
+    if ends is not None and width > 1:
+        at = ends[:, None] + torch.arange(width - 1, device=x.device)
+        new_state = xp.gather(1, at[:, :, None].expand(-1, -1, xp.shape[2]))
+    else:
+        new_state = xp[:, -(width - 1):] if width > 1 else pad
     return y.to(x.dtype), new_state
 
 
@@ -137,17 +152,18 @@ def ssd_chunked(x, log_a, b, c, *, chunk: int = 256,
     return y, hh
 
 
-def _conv_split(p: dict, xin: torch.Tensor, state=None):
+def _conv_split(p: dict, xin: torch.Tensor, state=None, ends=None):
     """in_proj, the causal conv and its silu; returns (z, xs, bb, cc, dt,
-    the conv state).  The widths are the leaves' own (this rank's parts
-    under tensor parallelism)."""
+    the conv state, taken at each row's ``ends`` where given).  The
+    widths are the leaves' own (this rank's parts under tensor
+    parallelism)."""
     d_inner = p["norm"]["scale"].shape[0]
     gn = (p["conv_w"].shape[1] - d_inner) // 2
     z, xs, bb, cc, dt = _split_in_proj(cm.linear(p["in_proj"], xin),
                                        d_inner, gn)
     conv_in = torch.cat([xs, bb, cc], dim=-1)
     conv_out, conv_state = causal_conv(conv_in, p["conv_w"], p["conv_b"],
-                                       state)
+                                       state, ends)
     conv_out = cm.silu(conv_out)
     return (z, conv_out[..., :d_inner],
             conv_out[..., d_inner:d_inner + gn],
@@ -161,7 +177,6 @@ def mamba2_train(p: dict, xin: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     rank's partial sums of ``out_proj`` (the ``tp_ssm_heads`` route)."""
     pd, n, g = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
     h = p["A_log"].shape[0]
-    d_inner = h * pd
     z, xs, bb, cc, dt, _ = _conv_split(p, xin)
     if tp is not None:
         dispatch.count_route("tp_ssm_heads")
@@ -183,10 +198,68 @@ def mamba2_train(p: dict, xin: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     x_dt = xs * dt[..., None].to(xs.dtype)
 
     y, _ = ssd_chunked(x_dt, log_decay, bb, cc, chunk=cfg.ssm_chunk)
-    y = y.to(xin.dtype) + xs * p["D"].to(xs.dtype)[None, None, :, None]
-    y = y.reshape(bsz, s, d_inner)
-    y = cm.rmsnorm_features(p["norm"], y * cm.silu(z), tp)
+    return _gated_out(p, y, xs, z, cfg, tp)
+
+
+def _gated_out(p: dict, y: torch.Tensor, xs: torch.Tensor, z: torch.Tensor,
+               cfg, tp=None) -> torch.Tensor:
+    """The scan's output (B, S, H, P) f32 plus the D skip, the gated norm
+    and ``out_proj``."""
+    bsz, s = y.shape[:2]
+    y = y.to(xs.dtype) + xs * p["D"].to(xs.dtype)[None, None, :, None]
+    y = y.reshape(bsz, s, -1)
+    y = cm.rmsnorm_features(p["norm"], y * cm.silu(z), tp,
+                            eps=cfg.rms_norm_eps)
     return cm.linear(p["out_proj"], y)
+
+
+def mamba2_prefill(p: dict, xin: torch.Tensor, state: dict, cfg,
+                   pos0: int, true_len: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+    """One prompt chunk of the serve engine's admission: xin (B, C,
+    d_model) at positions [pos0, pos0 + C) of right-padded prompts whose
+    real lengths are ``true_len`` (B,; None: every position real).  The scan starts from each row's
+    ``h`` and conv state in ``state`` (from zeros at pos0 0, whatever the
+    rows held before) and writes back each row's state after its own last
+    real position: a padded position takes dt = 0, so its decay is 1 and
+    its input 0 and ``h`` passes it unchanged, and the conv state is the
+    W-1 inputs before the row's end.  The scan's chunk is the config's,
+    or the largest that divides C; it runs over blocks of rows whose
+    (rows, q, q, H) products hold at most ``SCAN_ELEMS`` elements.
+    Returns the mixer's output (B, C, d_model); the padded positions' rows
+    are finite and meaningless."""
+    pd, n, g = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    h = p["A_log"].shape[0]
+    bsz, c = xin.shape[:2]
+    first = pos0 == 0
+    if true_len is None:
+        ends = torch.full((bsz,), c, device=xin.device)
+    else:
+        ends = (true_len.to(xin.device).long() - pos0).clamp(0, c)
+    z, xs, bb, cc, dt, conv = _conv_split(
+        p, xin, None if first else state["conv"], ends)
+    xs = xs.reshape(bsz, c, h, pd)
+    bb, cc = (t.reshape(bsz, c, g, n) for t in (bb, cc))
+    real = torch.arange(c, device=xin.device)[None, :] < ends[:, None]
+    dt = torch.where(real[..., None], softplus(dt.float() + p["dt_bias"]),
+                     0.0)                                        # (B,C,H)
+    x_dt, log_decay = xs * dt[..., None].to(xs.dtype), dt * -torch.exp(
+        p["A_log"])
+    q = math.gcd(c, cfg.ssm_chunk)
+    step = max(1, SCAN_ELEMS // (q * q * h))
+    ys = []
+    for r in range(0, bsz, step):
+        rows = slice(r, r + step)
+        y, hh = ssd_chunked(
+            x_dt[rows], log_decay[rows],
+            bb[rows].repeat_interleave(h // g, dim=2),
+            cc[rows].repeat_interleave(h // g, dim=2), chunk=q,
+            h0=None if first else state["h"][rows])
+        ys.append(y)
+        state["h"][rows] = hh
+    state["conv"].copy_(conv)
+    return _gated_out(p, torch.cat(ys) if len(ys) > 1 else ys[0], xs, z,
+                      cfg)
 
 
 def init_mamba2_state(batch: int, cfg, dtype=torch.float32,
@@ -232,7 +305,8 @@ def mamba2_decode(p: dict, xin: torch.Tensor, state: dict, cfg, tp=None):
     y = torch.einsum("bhn,bhnp->bhp", cc.float(), hh)
     y = y.to(xin.dtype) + xs * p["D"].to(xs.dtype)[None, :, None]
     y = y.reshape(bsz, 1, d_inner)
-    y = cm.rmsnorm_features(p["norm"], y * cm.silu(z), tp)
+    y = cm.rmsnorm_features(p["norm"], y * cm.silu(z), tp,
+                            eps=cfg.rms_norm_eps)
     state["h"].copy_(hh)
     state["conv"].copy_(conv_state)
     return cm.linear(p["out_proj"], y), state

@@ -60,12 +60,23 @@ def _jax_cache_layer(cache, i, cfg):
 # configs and parameters
 # ---------------------------------------------------------------------------
 
+def same_config(ct, cj) -> None:
+    """The port's config has every field of the JAX one, equal, and its
+    own further fields (Granite's multipliers, RMSNorm's epsilon, NoPE,
+    dropless and held experts, the shared expert) at their defaults, which
+    run what the JAX package runs."""
+    dt, dj = dataclasses.asdict(ct), dataclasses.asdict(cj)
+    assert {k: dt[k] for k in dj} == dj
+    own = {f.name: f.default for f in dataclasses.fields(ct)
+           if f.name not in dj}
+    assert {k: dt[k] for k in own} == own
+
+
 @pytest.mark.parametrize("arch", jax_configs.ARCH_IDS)
 def test_configs_equal_field_for_field(arch):
     cj, ct = jax_configs.get_config(arch), torch_configs.get_config(arch)
-    assert dataclasses.asdict(ct) == dataclasses.asdict(cj)
-    assert dataclasses.asdict(ct.reduced()) == dataclasses.asdict(
-        cj.reduced())
+    same_config(ct, cj)
+    same_config(ct.reduced(), cj.reduced())
     assert ct.hd == cj.hd and ct.layer_kinds() == cj.layer_kinds()
 
 
